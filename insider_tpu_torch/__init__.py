@@ -1,0 +1,44 @@
+"""insider_tpu_torch -- the masked INSIDER fit in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper.
+
+A port of the JAX package insider_tpu, which stays the reference.  The
+factorization is
+
+    X ~= (sum_v E_v V_v) F
+
+with per-level ridge row updates and a per-gene elastic-net column update
+solved by feature-sign search.  On CUDA tensors the four kernels of the fit
+(level grams, row Xty, fused FSS column solve, masked eval) are CUDA C++
+built at first use from insider_tpu_torch/csrc/; on CPU tensors their plain
+PyTorch versions run.
+
+    Insider(...)   - model object (splitter + interaction setup)
+    .fit(...)      - masked final fit (partition=1)
+    optimize(...)  - the ALS loop
+"""
+
+from insider_tpu_torch.api import FitResult, Insider
+from insider_tpu_torch.config import FitConfig
+from insider_tpu_torch.data.simulate import (simulate_insider_data,
+                                             simulate_scale)
+from insider_tpu_torch.data.splitter import SplitResult, ratio_splitter
+from insider_tpu_torch.model.state import (InsiderState, init_state,
+                                           state_from_numpy)
+from insider_tpu_torch.train.als import build_problem, optimize
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Insider",
+    "FitResult",
+    "FitConfig",
+    "ratio_splitter",
+    "SplitResult",
+    "simulate_insider_data",
+    "simulate_scale",
+    "InsiderState",
+    "init_state",
+    "state_from_numpy",
+    "build_problem",
+    "optimize",
+]

@@ -1,0 +1,120 @@
+"""User-facing object API.
+
+Counterpart of insider_tpu/api.py (R/insider.R:18-67,190-216): `Insider`
+owns the data, the seeded train/test element split and the confounder matrix
+with the interaction pseudo-confounder inserted; `.fit(partition=1)` runs the
+masked fit on the object's device.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from insider_tpu_torch.config import FitConfig
+from insider_tpu_torch.data.splitter import ratio_splitter
+from insider_tpu_torch.train import als
+
+
+def build_interaction_codes(confounder: np.ndarray,
+                            interaction_idx: Sequence[int]) -> np.ndarray:
+    """1-based level codes of the interaction of the selected confounder
+    columns, enumerated in first-appearance order (R/insider.R:34-39)."""
+    sub = np.asarray(confounder)[:, list(interaction_idx)]
+    _, first_idx, inv = np.unique(sub, axis=0, return_index=True,
+                                  return_inverse=True)
+    order = np.argsort(np.argsort(first_idx))
+    return (order[inv.reshape(-1)] + 1).astype(np.int64)
+
+
+class Insider:
+    """INSIDER model object (R/insider.R:18).
+
+    interaction_idx is 0-based.  The interaction pseudo-confounder is
+    inserted as column 2 of the confounder matrix (R/insider.R:40).  device:
+    where the problem and the factors live ("cpu" runs the plain versions of
+    the kernels, "cuda" the CUDA kernels).
+    """
+
+    def __init__(self, data: np.ndarray, confounder: np.ndarray,
+                 ctns_confounder: Optional[np.ndarray] = None,
+                 interaction_idx: Optional[Sequence[int]] = None,
+                 split_ratio: float = 0.1, global_tol: float = 1e-9,
+                 sub_tol: float = 1e-5, tuning_iter: int = 30,
+                 max_iter: int = 50000, rm_na_col: bool = True,
+                 split_seed: int = 123, seed: int = 0, device="cpu"):
+        data = np.asarray(data, np.float64)
+        confounder = np.asarray(confounder)
+        if confounder.ndim == 1:
+            confounder = confounder[:, None]
+        if confounder.shape[0] != data.shape[0]:
+            raise ValueError("confounder rows must match data rows")
+
+        split = ratio_splitter(data, ratio=split_ratio, rm_na_col=rm_na_col,
+                               seed=split_seed)
+        self.split = split
+        self.data = split.data
+
+        if interaction_idx is not None:
+            idx = list(interaction_idx)
+            if len(idx) < 2:
+                raise ValueError("interaction_idx must select at least 2 "
+                                 "confounders (R/insider.R:45)")
+            if max(idx) >= confounder.shape[1]:
+                raise ValueError("interaction_idx out of range of "
+                                 "confounder (R/insider.R:31)")
+            inter = build_interaction_codes(confounder, idx)
+            self.confounder = np.column_stack(
+                [confounder[:, 0], inter, confounder[:, 1:]])
+        else:
+            self.confounder = confounder.copy()
+
+        self.ctns_confounder = (None if ctns_confounder is None
+                                else np.asarray(ctns_confounder, np.float64))
+        self.train_indicator = split.train_indicator
+        self.test_indicator = split.test_indicator
+        self.na_indicator = split.na_indicator
+        self.params = dict(global_tol=global_tol, sub_tol=sub_tol,
+                           tuning_iter=tuning_iter, max_iter=max_iter)
+        self.seed = seed
+        self.device = device
+
+        # populated by fit()
+        self.cfd_matrices: Optional[List[np.ndarray]] = None
+        self.column_factor: Optional[np.ndarray] = None
+        self.test_rmse: Optional[float] = None
+        self.fit_result: Optional[als.OptimizeResult] = None
+
+    def fit(self, latent_dimension, lambda_, alpha, partition=0,
+            verbose=True, log_jsonl=None, col_solver="auto", max_iter=None,
+            state=None):
+        """Final fit (R/insider.R:190-216).  partition=1: the observed
+        (train + test) elements drive the updates and the NA cells form the
+        held-out "test" mask.  state: optional initial factors
+        (model.state.state_from_numpy)."""
+        if partition != 1:
+            raise NotImplementedError(
+                "partition=0 (the dense path) is not ported yet")
+        cfg = FitConfig(
+            latent_dim=int(latent_dimension), lambda1=float(lambda_),
+            lambda2=float(lambda_), alpha=float(alpha), masked=True,
+            global_tol=self.params["global_tol"],
+            sub_tol=self.params["sub_tol"],
+            max_iter=int(self.params["max_iter"] if max_iter is None
+                         else max_iter),
+            seed=self.seed, col_solver=col_solver)
+        indicator = self.train_indicator + self.test_indicator
+        problem = als.build_problem(self.data, self.confounder, indicator,
+                                    self.na_indicator, self.ctns_confounder,
+                                    masked=True, device=self.device)
+        result = als.optimize(problem, cfg, state=state, verbose=verbose,
+                              log_jsonl=log_jsonl)
+        self.cfd_matrices = result.row_matrices
+        self.column_factor = result.column_factor
+        self.test_rmse = result.test_rmse
+        self.fit_result = result
+        return self
+
+
+FitResult = als.OptimizeResult

@@ -1,0 +1,160 @@
+"""Build and load the port's CUDA kernels.
+
+The kernels under insider_tpu_torch/csrc/ have a plain C interface.  At
+first use they are compiled by nvcc, from the package's own sources, into
+one shared library under insider_tpu_torch/_build/<hash of the sources>/,
+and loaded with ctypes.  Nothing here runs when the module is imported:
+the CPU tests import every module of the package on machines with no CUDA
+toolkit.
+
+Every C entry point launches on the stream it is given, allocates nothing
+and returns cudaGetLastError(); `check` turns a nonzero code into an
+exception, so a launch that was refused never passes silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "libinsider_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_long
+_F = ctypes.c_float
+
+# C signatures: name -> (restype, argtypes).  Pointers and the stream are
+# c_void_p: a bare Python int would be passed as a 32-bit int.
+_SIGNATURES = {
+    "insider_error_string": (ctypes.c_char_p, [_I]),
+    "insider_level_gram_scratch": (_L, [_I, _I, _I]),
+    "insider_level_gram": (_I, [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
+    "insider_row_xty_scratch": (_L, [_I, _I, _I]),
+    "insider_row_xty": (_I, [_P, _P, _P, _P, _P, _P, _P, _L,
+                             _I, _I, _I, _I, _P]),
+    "insider_fss_fused": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
+                               _I, _I, _I, _I, _I, _P]),
+    "insider_masked_eval_scratch": (_L, [_I, _I]),
+    "insider_masked_eval": (_I, [_P, _P, _P, _P, _P, _P, _P, _L,
+                                 _I, _I, _I, _P]),
+}
+
+
+def sources():
+    """The kernel sources, in a fixed order."""
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of insider_tpu_torch "
+                       "need the CUDA toolkit (set CUDA_HOME or PATH)")
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+
+    Returns the library's path.  The library is written to a temporary name
+    and renamed into place, so a concurrent build never loads a half-written
+    file.  nvcc's output (including -Xptxas -v register and spill counts) is
+    kept beside it as build.log.
+    """
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = (f"$ {' '.join(cmd)}\n# {time.time() - t0:.1f} s, "
+           f"rc {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    (out_dir / "build.log").write_text(log)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed building insider_tpu_torch "
+                           f"kernels:\n{log}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+@functools.lru_cache(maxsize=None)
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    handle = ctypes.CDLL(str(build()))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return handle
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib().insider_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream(t: torch.Tensor):
+    """PyTorch's current stream on t's device, as a C pointer."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(what: str, *tensors: torch.Tensor,
+                 dtypes=(torch.float32,)) -> None:
+    """Validate kernel operands: one CUDA device, expected dtypes,
+    contiguous.  The kernels index row-major memory directly."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{what}: operands on {t.device} and {dev}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{what}: expected {dtypes}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+
+
+def on_cpu(what: str, *tensors: torch.Tensor) -> bool:
+    """True when every operand lies on the CPU (the plain version runs);
+    False when all lie on a CUDA device (the kernel runs).  Anything else
+    raises: no operand on a CUDA device ever reaches the plain version."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"{what}: operands on devices {sorted(kinds)}; "
+                     "expected all on the CPU or all on one CUDA device")

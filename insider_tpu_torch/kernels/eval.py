@@ -1,0 +1,50 @@
+"""The fused masked-evaluation kernel.
+
+Counterpart of insider_tpu/kernels/eval_pallas.py:masked_eval_pallas.  The
+wrapper runs the CUDA kernel (csrc/masked_eval.cu) on CUDA tensors and its
+plain version on CPU tensors; a CUDA tensor never reaches the plain version.
+`masked_eval.launches` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from insider_tpu_torch.kernels import _lib
+from insider_tpu_torch.ops.losses import EvalSums, evaluate_masked, predict
+
+
+def masked_eval_plain(data, train_mask, test_mask, R, F) -> EvalSums:
+    """Plain version of masked_eval: the (N, M) residual, then f64 sums."""
+    return evaluate_masked(data - predict(R, F), train_mask, test_mask)
+
+
+def masked_eval(data: torch.Tensor, train_mask: torch.Tensor,
+                test_mask: torch.Tensor, R: torch.Tensor,
+                F: torch.Tensor) -> EvalSums:
+    """Train/test SSE and counts of data - R F under the two masks, as f64
+    scalar tensors on the operands' device.  data and masks (N, M), R (N, K),
+    F (K, M), f32."""
+    if _lib.on_cpu("masked_eval", data, train_mask, test_mask, R, F):
+        return masked_eval_plain(data, train_mask, test_mask, R, F)
+    _lib.require_cuda("masked_eval", data, train_mask, test_mask, R, F)
+    N, K = R.shape
+    M = F.shape[1]
+    if (data.shape != (N, M) or train_mask.shape != (N, M)
+            or test_mask.shape != (N, M) or F.shape != (K, M)):
+        raise ValueError("masked_eval: shapes do not agree")
+    lib = _lib.lib()
+    out = torch.empty(4, dtype=torch.float64, device=data.device)
+    scratch = torch.empty(lib.insider_masked_eval_scratch(N, M),
+                          dtype=torch.float64, device=data.device)
+    with torch.cuda.device(data.device):
+        err = lib.insider_masked_eval(
+            data.data_ptr(), train_mask.data_ptr(), test_mask.data_ptr(),
+            R.data_ptr(), F.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), N, M, K, _lib.stream(data))
+    _lib.check(err, "masked_eval")
+    masked_eval.launches += 1
+    return EvalSums(out[0], out[1], out[2], out[3])
+
+
+masked_eval.launches = 0
