@@ -1,5 +1,5 @@
-"""insider_tpu_torch -- the masked INSIDER fit in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper.
+"""insider_tpu_torch -- the INSIDER fit in PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper.
 
 A port of the JAX package insider_tpu, which stays the reference.  The
 factorization is
@@ -7,13 +7,15 @@ factorization is
     X ~= (sum_v E_v V_v) F
 
 with per-level ridge row updates and a per-gene elastic-net column update
-solved by feature-sign search.  On CUDA tensors the four kernels of the fit
-(level grams, row Xty, fused FSS column solve, masked eval) are CUDA C++
-built at first use from insider_tpu_torch/csrc/; on CPU tensors their plain
-PyTorch versions run.
+solved by feature-sign search (ridge solves at alpha == 0).  On CUDA tensors
+the kernels of the fit (level grams, row Xty, the fused, streamed and
+shared-gram FSS column solves, the streamed column grams, masked eval) are
+CUDA C++ built at first use from insider_tpu_torch/csrc/; on CPU tensors
+their plain PyTorch versions run.
 
     Insider(...)   - model object (splitter + interaction setup)
-    .fit(...)      - masked final fit (partition=1)
+    .tune(...)     - two-stage rank / (lambda, alpha) search
+    .fit(...)      - final fit (partition=1 masked, partition=0 dense)
     optimize(...)  - the ALS loop
 """
 

@@ -2,8 +2,9 @@
 
 Counterpart of insider_tpu/api.py (R/insider.R:18-67,190-216): `Insider`
 owns the data, the seeded train/test element split and the confounder matrix
-with the interaction pseudo-confounder inserted; `.fit(partition=1)` runs the
-masked fit on the object's device.
+with the interaction pseudo-confounder inserted; `.tune()` runs the two-stage
+rank / (lambda, alpha) search and `.fit()` the final fit (partition=1 masked,
+partition=0 dense) on the object's device.
 """
 
 from __future__ import annotations
@@ -86,19 +87,25 @@ class Insider:
         self.test_rmse: Optional[float] = None
         self.fit_result: Optional[als.OptimizeResult] = None
 
+    def tune(self, latent_dimension, lambda_=0.1, alpha=0.0, out_dir="."):
+        """Two-stage rank / (lambda, alpha) search (R/insider.R:81-176)."""
+        from insider_tpu_torch.tune.grid import tune as _tune
+
+        return _tune(self, latent_dimension, lambda_, alpha, out_dir=out_dir)
+
     def fit(self, latent_dimension, lambda_, alpha, partition=0,
             verbose=True, log_jsonl=None, col_solver="auto", max_iter=None,
             state=None):
-        """Final fit (R/insider.R:190-216).  partition=1: the observed
+        """Final fit (R/insider.R:190-216).  partition=1: only the observed
         (train + test) elements drive the updates and the NA cells form the
-        held-out "test" mask.  state: optional initial factors
-        (model.state.state_from_numpy)."""
-        if partition != 1:
-            raise NotImplementedError(
-                "partition=0 (the dense path) is not ported yet")
+        held-out "test" mask.  partition=0: the dense whole-matrix fit.
+        (R/insider.R:207-209: train+test is passed as the train mask, NA as
+        the test mask, partition as `tuning`.)  state: optional initial
+        factors (model.state.state_from_numpy)."""
+        masked = bool(partition)
         cfg = FitConfig(
             latent_dim=int(latent_dimension), lambda1=float(lambda_),
-            lambda2=float(lambda_), alpha=float(alpha), masked=True,
+            lambda2=float(lambda_), alpha=float(alpha), masked=masked,
             global_tol=self.params["global_tol"],
             sub_tol=self.params["sub_tol"],
             max_iter=int(self.params["max_iter"] if max_iter is None
@@ -107,7 +114,7 @@ class Insider:
         indicator = self.train_indicator + self.test_indicator
         problem = als.build_problem(self.data, self.confounder, indicator,
                                     self.na_indicator, self.ctns_confounder,
-                                    masked=True, device=self.device)
+                                    masked=masked, device=self.device)
         result = als.optimize(problem, cfg, state=state, verbose=verbose,
                               log_jsonl=log_jsonl)
         self.cfd_matrices = result.row_matrices
@@ -115,6 +122,13 @@ class Insider:
         self.test_rmse = result.test_rmse
         self.fit_result = result
         return self
+
+    def tuning_problem(self) -> als.Problem:
+        """The masked problem used by tune(): train vs held-out test."""
+        return als.build_problem(self.data, self.confounder,
+                                 self.train_indicator, self.test_indicator,
+                                 self.ctns_confounder, masked=True,
+                                 device=self.device)
 
 
 FitResult = als.OptimizeResult

@@ -1,10 +1,11 @@
 """Fit configuration of the PyTorch port.
 
-Counterpart of insider_tpu/config.py.  The port runs one slice of the JAX
-package's settings: the masked fit with the feature-sign-search (FSS) column
-solver, every check boundary decided on the host.  Settings outside that
-slice raise NotImplementedError when the config is built, so a run never
-silently takes a path the port does not have.
+Counterpart of insider_tpu/config.py.  The port runs a slice of the JAX
+package's settings: the masked and the dense fit with the feature-sign-search
+(FSS) column solver (ridge solves at alpha == 0), every check boundary
+decided on the host.  Settings outside that slice raise NotImplementedError
+when the config is built, so a run never silently takes a path the port does
+not have.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ class FitConfig:
     lambda2: float = 1.0
     # Elastic-net mixing: alpha*L1 + (1-alpha)*L2 (src/utils.cpp:88-91).
     alpha: float = 0.1
-    # tuning==1: masked (train-only) updates.  Only the masked fit is ported.
+    # tuning==1: masked (train-only) updates; tuning==0: dense whole-matrix
+    # fast path (src/optimize.cpp:150,178 and R `partition`, R/insider.R:209).
+    # optimize() follows the problem's own flag (build_problem(masked=...)).
     masked: bool = True
     # Relative-loss stopping criterion, checked every `check_every` iterations
     # (src/optimize.cpp:381,405).
@@ -68,9 +71,6 @@ class FitConfig:
             raise NotImplementedError(
                 "the port decides every boundary on the host: "
                 "boundaries_per_dispatch must be 1")
-        if not self.masked:
-            raise NotImplementedError(
-                "the dense (masked=False, partition=0) path is not ported yet")
 
 
 def decay_from_delta_loss(delta_loss: float) -> float:

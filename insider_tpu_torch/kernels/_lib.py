@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The kernels under insider_tpu_torch/csrc/ have a plain C interface.  At
-first use they are compiled by nvcc, from the package's own sources, into
-one shared library under insider_tpu_torch/_build/<hash of the sources>/,
-and loaded with ctypes.  Nothing here runs when the module is imported:
+first use they are compiled by nvcc, from the package's own sources (one
+nvcc process per source file, all at once), and linked into one shared
+library under insider_tpu_torch/_build/<hash of the sources>/, which is
+loaded with ctypes.  Nothing here runs when the module is imported:
 the CPU tests import every module of the package on machines with no CUDA
 toolkit.
 
@@ -31,8 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libinsider_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +50,11 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _P]),
     "insider_fss_fused": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
                                _I, _I, _I, _I, _I, _P]),
+    "insider_col_gram_xty": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "insider_fss_streamed": (_I, [_P, _P, _P, _P, _F, _F, _F,
+                                  _I, _I, _I, _I, _P]),
+    "insider_fss_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
+                                _I, _I, _I, _I, _P]),
     "insider_masked_eval_scratch": (_L, [_I, _I]),
     "insider_masked_eval": (_I, [_P, _P, _P, _P, _P, _P, _P, _L,
                                  _I, _I, _I, _P]),
@@ -83,30 +88,45 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists.
 
-    Returns the library's path.  The library is written to a temporary name
-    and renamed into place, so a concurrent build never loads a half-written
-    file.  nvcc's output (including -Xptxas -v register and spill counts) is
-    kept beside it as build.log.
+    Returns the library's path.  Every source compiles to an object in its
+    own nvcc process, all started together; the objects link into a library
+    written to a temporary name and renamed into place, so a concurrent
+    build never loads a half-written file.  nvcc's output (including
+    -Xptxas -v register and spill counts) is kept beside it as build.log.
     """
     out_dir = BUILD_ROOT / source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    work = tempfile.mkdtemp(dir=out_dir)
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n# {time.time() - t0:.1f} s, "
-           f"rc {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+             os.path.join(work, src.stem + ".o")]
+            for src in sorted(CSRC.glob("*.cu"))]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = os.path.join(work, LIB_NAME)
+    link = [nvcc, "-shared", "-o", tmp, *[c[-1] for c in cmds]]
+    rcs = [p.returncode for p in procs]
+    if not any(rcs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        cmds.append(link)
+        outs.append(proc.stdout + proc.stderr)
+        rcs.append(proc.returncode)
+    log = f"# {time.time() - t0:.1f} s\n" + "".join(
+        f"$ {' '.join(c)}\n# rc {rc}\n{out}"
+        for c, rc, out in zip(cmds, rcs, outs))
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
+    if any(rcs):
+        shutil.rmtree(work, ignore_errors=True)
         raise RuntimeError(f"nvcc failed building insider_tpu_torch "
                            f"kernels:\n{log}")
     os.replace(tmp, lib_path)
+    shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 

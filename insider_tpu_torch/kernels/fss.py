@@ -1,9 +1,14 @@
-"""The gram-fused feature-sign-search column kernel.
+"""The feature-sign-search (FSS) column kernels.
 
-Counterpart of insider_tpu/kernels/fss_pallas.py:feature_sign_fused_pallas.
-The wrapper runs the CUDA kernel (csrc/fss.cu) on CUDA tensors and its plain
-version on CPU tensors; a CUDA tensor never reaches the plain version.
-`feature_sign_fused.launches` counts the kernel's launches.
+Counterparts of insider_tpu/kernels/fss_pallas.py:
+  feature_sign_fused   feature_sign_fused_pallas   grams built in the kernel
+  feature_sign         feature_sign_pallas         streamed (K, K, M) grams
+  feature_sign_shared  feature_sign_shared_pallas  one (K, K) gram (dense)
+Each wrapper runs its CUDA kernel (csrc/fss.cu, fss_streamed.cu,
+fss_shared.cu, all on the solver of csrc/fss_core.cuh) on CUDA tensors and
+its plain version (ops/fss.feature_sign_search) on CPU tensors; a CUDA
+tensor never reaches the plain version.  `<wrapper>.launches` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -14,8 +19,10 @@ import torch
 from insider_tpu_torch.kernels import _lib
 from insider_tpu_torch.ops.fss import feature_sign_search, penalties
 
-# The kernel keeps one coordinate per lane of a warp.
-MAX_K = 32
+# The fused kernel keeps one coordinate per lane of a warp; the streamed and
+# shared kernels keep up to two.
+FUSED_MAX_K = 32
+MAX_K = 64
 
 
 def feature_sign_fused_plain(mask, data, R, beta0, lam, alpha,
@@ -26,8 +33,9 @@ def feature_sign_fused_plain(mask, data, R, beta0, lam, alpha,
     from insider_tpu_torch.ops.col_update import col_gram_masked
 
     xty = torch.matmul(R.T, mask * data)
-    return feature_sign_search(col_gram_masked(R, mask), xty, beta0, lam,
-                               alpha, max_outer=max_outer,
+    G = col_gram_masked(R, mask).permute(1, 2, 0).contiguous()
+    return feature_sign_search(G, xty, beta0, lam, alpha,
+                               max_outer=max_outer,
                                polish_sweeps=polish_sweeps, tol=tol)
 
 
@@ -49,8 +57,8 @@ def feature_sign_fused(mask: torch.Tensor, data: torch.Tensor,
     M = mask.shape[1]
     if mask.shape != (N, M) or data.shape != (N, M) or beta0.shape != (K, M):
         raise ValueError("feature_sign_fused: shapes do not agree")
-    if K > MAX_K:
-        raise ValueError(f"feature_sign_fused: K={K} > {MAX_K} is not "
+    if K > FUSED_MAX_K:
+        raise ValueError(f"feature_sign_fused: K={K} > {FUSED_MAX_K} is not "
                          "supported by the CUDA kernel")
     l1, l2 = penalties(lam, alpha)
     lib = _lib.lib()
@@ -66,3 +74,89 @@ def feature_sign_fused(mask: torch.Tensor, data: torch.Tensor,
 
 
 feature_sign_fused.launches = 0
+
+
+def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
+                     lam, alpha, max_outer, polish_sweeps, tol):
+    """Check the operands of a gram-input FSS kernel and launch it."""
+    _lib.require_cuda(what, xtx, xty, beta0)
+    K, M = xty.shape
+    if xtx.shape != gram_shape or beta0.shape != (K, M):
+        raise ValueError(f"{what}: shapes do not agree")
+    if K > MAX_K:
+        raise ValueError(f"{what}: K={K} > {MAX_K} is not supported by the "
+                         "CUDA kernel")
+    l1, l2 = penalties(lam, alpha)
+    out = torch.empty((K, M), dtype=torch.float32, device=xty.device)
+    with torch.cuda.device(xty.device):
+        err = getattr(_lib.lib(), c_entry)(
+            xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),
+            l1, l2, float(np.float32(tol)), M, K, int(max_outer),
+            int(polish_sweeps), _lib.stream(xty))
+    _lib.check(err, what)
+    return out
+
+
+def feature_sign_plain(xtx, xty, beta0, lam, alpha, max_outer: int = 48,
+                       polish_sweeps: int = 0,
+                       tol: float = 0.0) -> torch.Tensor:
+    """Plain version of feature_sign: ops/fss.feature_sign_search."""
+    return feature_sign_search(xtx, xty, beta0, lam, alpha,
+                               max_outer=max_outer,
+                               polish_sweeps=polish_sweeps, tol=tol)
+
+
+def feature_sign(xtx: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
+                 lam, alpha, max_outer: int = 48, polish_sweeps: int = 0,
+                 tol: float = 0.0) -> torch.Tensor:
+    """Per-gene elastic net by FSS (+ plain-CD polish) on streamed grams.
+
+    xtx (K, K, M) per-gene grams, gene axis last (kernels/gram.col_gram_xty);
+    xty, beta0 (K, M); all f32.  Returns beta (K, M).
+    """
+    if _lib.on_cpu("feature_sign", xtx, xty, beta0):
+        return feature_sign_plain(xtx, xty, beta0, lam, alpha, max_outer,
+                                  polish_sweeps, tol)
+    K, M = xty.shape
+    out = _launch_on_grams("feature_sign", "insider_fss_streamed", xtx,
+                           (K, K, M), xty, beta0, lam, alpha, max_outer,
+                           polish_sweeps, tol)
+    feature_sign.launches += 1
+    return out
+
+
+feature_sign.launches = 0
+
+
+def feature_sign_shared_plain(xtx, xty, beta0, lam, alpha,
+                              max_outer: int = 48, polish_sweeps: int = 0,
+                              tol: float = 0.0) -> torch.Tensor:
+    """Plain version of feature_sign_shared: ops/fss.feature_sign_search on
+    the gram broadcast to every column (a view, not a copy)."""
+    K, M = xty.shape
+    return feature_sign_search(xtx[:, :, None].expand(K, K, M), xty, beta0,
+                               lam, alpha, max_outer=max_outer,
+                               polish_sweeps=polish_sweeps, tol=tol)
+
+
+def feature_sign_shared(xtx: torch.Tensor, xty: torch.Tensor,
+                        beta0: torch.Tensor, lam, alpha, max_outer: int = 48,
+                        polish_sweeps: int = 0,
+                        tol: float = 0.0) -> torch.Tensor:
+    """Per-gene elastic net by FSS (+ plain-CD polish) against ONE (K, K)
+    gram shared by every column: the dense column update.
+
+    xtx (K, K); xty, beta0 (K, M); all f32.  Returns beta (K, M).
+    """
+    if _lib.on_cpu("feature_sign_shared", xtx, xty, beta0):
+        return feature_sign_shared_plain(xtx, xty, beta0, lam, alpha,
+                                         max_outer, polish_sweeps, tol)
+    K = xty.shape[0]
+    out = _launch_on_grams("feature_sign_shared", "insider_fss_shared", xtx,
+                           (K, K), xty, beta0, lam, alpha, max_outer,
+                           polish_sweeps, tol)
+    feature_sign_shared.launches += 1
+    return out
+
+
+feature_sign_shared.launches = 0

@@ -1,0 +1,63 @@
+"""The streamed per-gene masked gram and Xty builder.
+
+Counterpart of insider_tpu/kernels/gram_pallas.py:col_gram_xty_pallas.  The
+wrapper runs the CUDA kernel (csrc/col_gram_xty.cu) on CUDA tensors and its
+plain version on CPU tensors; a CUDA tensor never reaches the plain version.
+`col_gram_xty.launches` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from insider_tpu_torch.kernels import _lib
+
+# The kernel stages up to 64 coordinates of each row of R.
+MAX_K = 64
+
+
+def col_gram_xty_plain(mask, data, R):
+    """Plain version of col_gram_xty: the masked grams as one matmul against
+    the outer-product table (ops/col_update.col_gram_masked), Xty as
+    R^T (mask .* data)."""
+    from insider_tpu_torch.ops.col_update import col_gram_masked
+
+    mask = mask.to(R.dtype)
+    XtXt = col_gram_masked(R, mask).permute(1, 2, 0).contiguous()
+    return XtXt, torch.matmul(R.T, mask * data)
+
+
+def col_gram_xty(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor):
+    """Per-gene masked grams and right-hand sides of the column update.
+
+    mask (N, M) 0/1, f32 or uint8; data (N, M) and R (N, K) f32.  Returns
+    (XtXt (K, K, M), Xty (K, M)) in the JAX package's layout, gene axis
+    last: XtXt[k, l, j] = sum_i mask_ij R_ik R_il and Xty[k, j] =
+    sum_i R_ik mask_ij data_ij.
+    """
+    if _lib.on_cpu("col_gram_xty", mask, data, R):
+        return col_gram_xty_plain(mask, data, R)
+    _lib.require_cuda("col_gram_xty", mask, dtypes=(torch.float32,
+                                                    torch.uint8))
+    _lib.require_cuda("col_gram_xty", data, R)
+    N, K = R.shape
+    M = mask.shape[1]
+    if mask.shape != (N, M) or data.shape != (N, M):
+        raise ValueError("col_gram_xty: shapes do not agree")
+    if K > MAX_K:
+        raise ValueError(f"col_gram_xty: K={K} > {MAX_K} is not supported "
+                         "by the CUDA kernel")
+    lib = _lib.lib()
+    gram = torch.empty((K, K, M), dtype=torch.float32, device=R.device)
+    xty = torch.empty((K, M), dtype=torch.float32, device=R.device)
+    with torch.cuda.device(R.device):
+        err = lib.insider_col_gram_xty(
+            mask.data_ptr(), int(mask.dtype == torch.uint8), data.data_ptr(),
+            R.data_ptr(), gram.data_ptr(), xty.data_ptr(), N, M, K,
+            _lib.stream(R))
+    _lib.check(err, "col_gram_xty")
+    col_gram_xty.launches += 1
+    return gram, xty
+
+
+col_gram_xty.launches = 0

@@ -83,17 +83,18 @@ def _first_max_pick(score, viol):
     return (idx == first_idx) & first, best
 
 
-def feature_sign_search(XtX: torch.Tensor, xty: torch.Tensor,
+def feature_sign_search(G: torch.Tensor, xty: torch.Tensor,
                         beta0: torch.Tensor, lam, alpha, max_outer: int = 48,
                         polish_sweeps: int = 0, tol: float = 0.0):
     """Exact batched elastic-net solve over all columns (alpha > 0).
 
-    XtX: (M, K, K) per-column grams; xty, beta0: (K, M).  Returns beta (K, M)
-    f32.  polish_sweeps > 0 appends plain-CD sweeps at tolerance `tol`.
+    G: (K, K, M) per-column grams, gene axis last as the kernels take them
+    (a broadcast view of one (K, K) gram is fine); xty, beta0: (K, M).
+    Returns beta (K, M) f32.  polish_sweeps > 0 appends plain-CD sweeps at
+    tolerance `tol`.
     """
     l1, l2 = penalties(lam, alpha)
     tol = float(np.float32(tol))
-    G = XtX.permute(1, 2, 0).contiguous()                # (K, K, M)
     K, M = xty.shape
     beta = beta0.clone()
     act = (beta != 0.0).to(beta.dtype)

@@ -44,6 +44,17 @@ def evaluate_masked(residual, train_mask, test_mask) -> EvalSums:
     )
 
 
+def evaluate_dense(residual) -> EvalSums:
+    """Whole-matrix SSE (src/utils.cpp:61-63): every element is a training
+    element, and there is no test set."""
+    zero = torch.zeros((), dtype=torch.float64, device=residual.device)
+    return EvalSums(_sum_squares(residual),
+                    zero,
+                    torch.tensor(float(residual.numel()), dtype=torch.float64,
+                                 device=residual.device),
+                    zero)
+
+
 class LossSums(NamedTuple):
     """Pieces of the global objective (src/utils.cpp:79-102), f64 scalars."""
     row_reg: torch.Tensor   # sum_v ||V_v||_F^2 (incl. continuous W)

@@ -1,16 +1,19 @@
-"""Row-side (confounder-level) batched ridge updates, masked fast path.
+"""Row-side (confounder-level) batched ridge updates, fast paths.
 
 Counterpart of insider_tpu/ops/row_update.py (`optimize_row`,
 src/optimize.cpp:139-198).  A whole confounder updates in a few batched
 ops:
 
-  XtX_l = sum_{i in level l} F diag(w_i) F^T
-        = (per-level mask counts Mw) @ (K^2, M) factor outer-product table
-  Xty_l = (D - E^T (mask .* (R_minus F))) F^T
-  solve: batched K x K SPD solve over all L levels at once.
+  masked:  XtX_l = sum_{i in level l} F diag(w_i) F^T
+                 = (per-level mask counts Mw) @ (K^2, M) outer-product table
+           Xty_l = (D - E^T (mask .* (R_minus F))) F^T
+  dense:   XtX_l = n_l F F^T,   Xty_l = (D - E^T (R_minus F)) F^T
+  solve:   batched K x K SPD solve over all L levels at once.
 
-These are the plain forms of the two row kernels (kernels/row.py); the fit
-composes the kernels and the solve in train/als.py:update_row_factor.
+The masked forms are the plain versions of the two row kernels
+(kernels/row.py); the fit composes the kernels and the solve in
+train/als.py:update_row_factor.  The dense update is plain PyTorch, as in
+the JAX package, which runs no kernel for it.
 """
 
 from __future__ import annotations
@@ -71,3 +74,20 @@ def masked_level_xty(E: torch.Tensor, R_minus: torch.Tensor,
     T = torch.matmul(E.T, mask * P)                  # (L, M)
     return torch.matmul(D - T, F.T)                  # (L, K)
 
+
+def update_row_factor_dense_fast(E: torch.Tensor, Ddense: torch.Tensor,
+                                 counts: torch.Tensor, R_minus: torch.Tensor,
+                                 F: torch.Tensor, gram: torch.Tensor,
+                                 lam: float) -> torch.Tensor:
+    """Dense per-level ridge with precomputed constants -> (L, K)
+    (src/optimize.cpp:178-191; insider_tpu/ops/row_update.py:130-145).
+
+    E (N, L) one-hot levels, Ddense (L, M) = E^T data, counts (L,) level
+    sizes, R_minus (N, K) the row factor without this confounder, gram
+    (K, K) = F F^T.
+    """
+    P = torch.matmul(R_minus, F)                     # (N, M)
+    S = Ddense - torch.matmul(E.T, P)                # (L, M)
+    XtX = counts[:, None, None] * gram               # (L, K, K)
+    Xty = torch.matmul(S, F.T)                       # (L, K)
+    return _ridge_solve_batched(XtX, Xty, lam)

@@ -7,9 +7,12 @@ imports JAX, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Small, ragged shapes: every kernel is checked where its blocks do not divide
-the problem.  Tolerances as in chip_smoke.py: level_gram 2e-5 and row_xty
-3e-5 of the output's max magnitude; masked_eval SSEs 1e-5 relative, counts
-exact; feature_sign_fused per-column objective excess <= 1e-6 relative.
+the problem.  Tolerances as in chip_smoke.py: level_gram 2e-5, row_xty and
+col_gram_xty 3e-5 of the output's max magnitude; masked_eval SSEs 1e-5
+relative, counts exact; the FSS kernels' per-column objective excess <= 1e-6
+relative, and feature_sign on col_gram_xty grams against
+feature_sign_fused rtol 2e-5 / atol 1e-5.  Every kernel is run twice and
+must agree with itself bit for bit.
 """
 
 import numpy as np
@@ -17,7 +20,7 @@ import pytest
 import torch
 
 from insider_tpu_torch.kernels import eval as ev
-from insider_tpu_torch.kernels import fss, row
+from insider_tpu_torch.kernels import fss, gram, row
 from insider_tpu_torch.ops.col_update import col_gram_masked
 
 pytestmark = pytest.mark.cuda
@@ -119,6 +122,113 @@ def test_feature_sign_fused(cuda, N, K, M):
     assert int((got == 0).sum()) > 0
     assert torch.equal(got, fss.feature_sign_fused(mask, data, R, beta0, lam,
                                                    alpha, **kw))
+
+
+def _masked_inputs(N, K, M, seed):
+    rng = np.random.default_rng(seed)
+    R = rng.standard_normal((N, K)).astype(np.float32)
+    mask = (rng.random((N, M)) > 0.1).astype(np.float32)
+    data = rng.standard_normal((N, M)).astype(np.float32)
+    beta0 = (0.01 * rng.standard_normal((K, M))).astype(np.float32)
+    return R, mask, data, beta0
+
+
+def _check_fss(got, ref, G, b, lam, alpha):
+    """Per-column objective excess of the kernel over the plain version
+    <= 1e-6 relative; >= 99% of the columns match; exact zeros exist.
+    G (K, K, M) and b (K, M), as the kernels take them."""
+    G, b = G.double(), b.double()
+
+    def objective(B):
+        B = B.double()
+        q = 0.5 * torch.einsum("km,klm,lm->m", B, G, B) - (b * B).sum(0)
+        return (q + lam * (1 - alpha) / 2 * (B * B).sum(0)
+                + lam * alpha * B.abs().sum(0))
+
+    assert bool(torch.isfinite(got).all())
+    fk, fp = objective(got), objective(ref)
+    assert float(((fk - fp) / fp.abs().clamp(min=1.0)).max()) <= 1e-6
+    match = torch.isclose(got, ref, rtol=2e-5, atol=1e-5).all(0)
+    assert float(match.double().mean()) >= 0.99
+    assert int((got == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("N,K,M,u8", [(45, 6, 333, False), (100, 24, 700, True),
+                                      (300, 50, 1031, False),
+                                      (70, 64, 257, True)])
+def test_col_gram_xty(cuda, N, K, M, u8):
+    R, mask, data, _ = _masked_inputs(N, K, M, seed=20 + K)
+    R, data = _t(R, cuda), _t(data, cuda)
+    mask = _t(mask.astype(np.uint8) if u8 else mask, cuda)
+    n0 = gram.col_gram_xty.launches
+    got = gram.col_gram_xty(mask, data, R)
+    assert gram.col_gram_xty.launches == n0 + 1
+    ref = gram.col_gram_xty_plain(mask, data, R)
+    for g, r in zip(got, ref):
+        assert _max_err_ok(g, r, 3e-5)
+    again = gram.col_gram_xty(mask, data, R)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
+                                   (100, 33, 300), (300, 50, 700),
+                                   (120, 64, 257)])
+def test_feature_sign(cuda, N, K, M):
+    R, mask, data, beta0 = _masked_inputs(N, K, M, seed=30 + K)
+    R, mask, data, beta0 = (_t(x, cuda) for x in (R, mask, data, beta0))
+    lam, alpha = 11.0, 0.4
+    kw = dict(max_outer=48, polish_sweeps=16, tol=1e-9)
+    G, b = gram.col_gram_xty_plain(mask, data, R)
+    n0 = fss.feature_sign.launches
+    got = fss.feature_sign(G, b, beta0, lam, alpha, **kw)
+    assert fss.feature_sign.launches == n0 + 1
+    _check_fss(got, fss.feature_sign_plain(G, b, beta0, lam, alpha, **kw), G,
+               b, lam, alpha)
+    assert torch.equal(got, fss.feature_sign(G, b, beta0, lam, alpha, **kw))
+    if K <= fss.FUSED_MAX_K:
+        # the streamed route against the fused kernel on the same problem
+        fused = fss.feature_sign_fused(mask, data, R, beta0, lam, alpha, **kw)
+        Gk, bk = gram.col_gram_xty(mask, data, R)
+        streamed = fss.feature_sign(Gk, bk, beta0, lam, alpha, **kw)
+        assert torch.allclose(streamed, fused, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
+                                   (300, 50, 700)])
+def test_feature_sign_shared(cuda, N, K, M):
+    R, _, data, beta0 = _masked_inputs(N, K, M, seed=40 + K)
+    R, data, beta0 = (_t(x, cuda) for x in (R, data, beta0))
+    lam, alpha = 30.0, 0.4
+    kw = dict(max_outer=48, polish_sweeps=16, tol=1e-9)
+    XtX, b = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+    n0 = fss.feature_sign_shared.launches
+    got = fss.feature_sign_shared(XtX, b, beta0, lam, alpha, **kw)
+    assert fss.feature_sign_shared.launches == n0 + 1
+    ref = fss.feature_sign_shared_plain(XtX, b, beta0, lam, alpha, **kw)
+    _check_fss(got, ref, XtX[:, :, None].expand(K, K, M), b, lam, alpha)
+    assert torch.equal(got, fss.feature_sign_shared(XtX, b, beta0, lam,
+                                                    alpha, **kw))
+
+
+def test_masked_k50_fit(cuda):
+    """The prediXcan shape (K=50, levels 12 and 25, partition=1) on fewer
+    genes: the fit runs on the card through the streamed route and never
+    launches the fused kernel, whose one coordinate per lane stops at 32."""
+    import insider_tpu_torch as itt
+
+    sim = itt.simulate_scale(300, 3000, 50, level_counts=(12, 25),
+                             noise_std=1.0, seed=0)
+    obj = itt.Insider(sim.data, sim.confounder, device="cuda")
+    wrappers = (fss.feature_sign_fused, fss.feature_sign, gram.col_gram_xty)
+    before = [w.launches for w in wrappers]
+    obj.fit(50, lambda_=1.0, alpha=0.5, partition=1, max_iter=20,
+            verbose=False)
+    fused, streamed, grams = (w.launches - b for w, b in zip(wrappers, before))
+    assert fused == 0 and streamed == 21 and grams == 21
+    losses = [h["loss"] for h in obj.fit_result.history]
+    assert np.all(np.isfinite(losses))
+    assert all(b <= a * (1 + 1e-6) for a, b in zip(losses, losses[1:]))
+    assert obj.column_factor.shape == (50, 3000)
 
 
 def test_mixed_devices_raise(cuda):

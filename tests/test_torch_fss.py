@@ -81,7 +81,7 @@ def test_plain_fss_matches_jnp_fss_objective(lam, alpha):
     bj, _ = feature_sign_batched(G_j, jnp.asarray(xty), jnp.asarray(beta0),
                                  lam, alpha, max_outer=48)
     G_t = col_gram_masked(torch.from_numpy(R), torch.from_numpy(mask))
-    bt = feature_sign_search(G_t, torch.from_numpy(xty),
+    bt = feature_sign_search(G_t.permute(1, 2, 0), torch.from_numpy(xty),
                              torch.from_numpy(beta0), lam, alpha,
                              max_outer=48)
     G = G_t.numpy()

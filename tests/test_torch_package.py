@@ -1,7 +1,7 @@
 """Package-level checks of the PyTorch port (insider_tpu_torch): it imports
 no JAX, its copied numpy modules match the JAX package's, the JAX factors
-carry across, unsupported settings raise, and chip_smoke.py refuses to run
-without a GPU."""
+carry across, the ported settings build and unsupported ones raise, and
+chip_smoke.py refuses to run without a GPU."""
 
 import os
 import shutil
@@ -19,7 +19,7 @@ import insider_tpu_torch as itt
 from insider_tpu.model.state import init_state as jax_init_state
 from insider_tpu_torch.config import FitConfig, decay_from_delta_loss
 from insider_tpu_torch.kernels import eval as ev
-from insider_tpu_torch.kernels import fss, row
+from insider_tpu_torch.kernels import fss, gram, row
 from insider_tpu_torch.model.state import init_state, state_from_numpy
 from insider_tpu_torch.ops import col_update
 from insider_tpu_torch.train import als
@@ -100,7 +100,7 @@ def test_decay_ladder_matches_jax():
 @pytest.mark.parametrize("kw", [dict(col_solver="cd"),
                                 dict(debug_checks=True),
                                 dict(boundaries_per_dispatch=5),
-                                dict(masked=False)])
+                                dict(masked=False, col_solver="cd")])
 def test_unsupported_config_raises(kw):
     with pytest.raises(NotImplementedError):
         FitConfig(**kw)
@@ -117,18 +117,39 @@ def test_unsupported_problem_and_fit_raise():
     data = rng.standard_normal((12, 20))
     conf = rng.integers(1, 3, (12, 2))
     ind = np.ones((12, 20), np.uint8)
+    ctns = rng.standard_normal((12, 1))
     with pytest.raises(NotImplementedError):
-        als.build_problem(data, conf, ind, 0 * ind,
-                          ctns_confounder=rng.standard_normal((12, 1)))
+        als.build_problem(data, conf, ind, 0 * ind, ctns_confounder=ctns)
     with pytest.raises(NotImplementedError):
-        als.build_problem(data, conf, ind, 0 * ind, masked=False)
+        als.build_problem(data, conf, ind, 0 * ind, masked=False,
+                          ctns_confounder=ctns)
     with pytest.raises(NotImplementedError):
-        itt.Insider(data, conf).fit(3, 1.0, 0.5, partition=0)
-    R = torch.zeros((12, 3))
+        itt.Insider(data, conf, ctns_confounder=ctns).fit(3, 1.0, 0.5,
+                                                          partition=0)
     with pytest.raises(NotImplementedError):
-        col_update.update_columns_masked(
-            torch.zeros((12, 20)), torch.ones((12, 20)), R,
-            torch.zeros((3, 20)), 1.0, 0.0, 1e-5)
+        itt.Insider(data, conf).fit(3, 1.0, 0.5, partition=0,
+                                    col_solver="cd")
+
+
+def test_dense_problem_and_ridge_update_build():
+    """partition=0 and alpha == 0, which raised before they were ported."""
+    assert not FitConfig(masked=False).masked
+    rng = np.random.default_rng(1)
+    data = rng.standard_normal((12, 20))
+    conf = rng.integers(1, 3, (12, 2))
+    ind = np.ones((12, 20), np.uint8)
+    prob = als.build_problem(data, conf, ind, 0 * ind, masked=False)
+    assert not prob.masked and prob.mw_cat is None
+    assert [c.tolist() for c in prob.counts] == [
+        np.bincount(np.unique(conf[:, v], return_inverse=True)[1]).tolist()
+        for v in range(2)]
+    R = torch.from_numpy(rng.standard_normal((12, 3)).astype(np.float32))
+    X = torch.from_numpy(data.astype(np.float32))
+    F = col_update.update_columns_masked(X, torch.ones((12, 20)), R,
+                                         torch.zeros((3, 20)), 1.0, 0.0, 1e-5)
+    Rd, Xd = R.double().numpy(), X.double().numpy()
+    want = np.linalg.solve(Rd.T @ Rd + np.eye(3), Rd.T @ Xd)
+    np.testing.assert_allclose(F.numpy(), want, rtol=1e-4, atol=1e-6)
 
 
 def test_non_cpu_operands_never_take_the_plain_path():
@@ -146,6 +167,13 @@ def test_non_cpu_operands_never_take_the_plain_path():
     with pytest.raises(ValueError):
         ev.masked_eval(meta(5, 10), meta(5, 10), meta(5, 10), meta(5, 4),
                        meta(4, 10))
+    with pytest.raises(ValueError):
+        gram.col_gram_xty(meta(5, 10), meta(5, 10), meta(5, 4))
+    with pytest.raises(ValueError):
+        fss.feature_sign(meta(4, 4, 10), meta(4, 10), meta(4, 10), 1.0, 0.5)
+    with pytest.raises(ValueError):
+        fss.feature_sign_shared(meta(4, 4), meta(4, 10), meta(4, 10), 1.0,
+                                0.5)
 
 
 def test_chip_smoke_fails_without_gpu():
