@@ -95,12 +95,14 @@ class Insider:
 
     def fit(self, latent_dimension, lambda_, alpha, partition=0,
             verbose=True, log_jsonl=None, col_solver="auto", max_iter=None,
-            state=None):
+            state=None, cd_warm_start=True):
         """Final fit (R/insider.R:190-216).  partition=1: only the observed
         (train + test) elements drive the updates and the NA cells form the
         held-out "test" mask.  partition=0: the dense whole-matrix fit.
         (R/insider.R:207-209: train+test is passed as the train mask, NA as
-        the test mask, partition as `tuning`.)  state: optional initial
+        the test mask, partition as `tuning`.)  col_solver: "auto" | "fss" |
+        "cd"; cd_warm_start=False makes "cd" the reference's cold
+        strong-rule CD (FitConfig.cd_warm_start).  state: optional initial
         factors (model.state.state_from_numpy)."""
         masked = bool(partition)
         cfg = FitConfig(
@@ -110,7 +112,8 @@ class Insider:
             sub_tol=self.params["sub_tol"],
             max_iter=int(self.params["max_iter"] if max_iter is None
                          else max_iter),
-            seed=self.seed, col_solver=col_solver)
+            seed=self.seed, col_solver=col_solver,
+            cd_warm_start=cd_warm_start)
         indicator = self.train_indicator + self.test_indicator
         problem = als.build_problem(self.data, self.confounder, indicator,
                                     self.na_indicator, self.ctns_confounder,

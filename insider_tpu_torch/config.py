@@ -2,10 +2,10 @@
 
 Counterpart of insider_tpu/config.py.  The port runs a slice of the JAX
 package's settings: the masked and the dense fit with the feature-sign-search
-(FSS) column solver (ridge solves at alpha == 0), every check boundary
-decided on the host.  Settings outside that slice raise NotImplementedError
-when the config is built, so a run never silently takes a path the port does
-not have.
+(FSS) column solver or the reference's strong-rule coordinate descent (CD),
+ridge solves at alpha == 0, every check boundary decided on the host.
+Settings outside that slice raise NotImplementedError when the config is
+built, so a run never silently takes a path the port does not have.
 """
 
 from __future__ import annotations
@@ -47,10 +47,25 @@ class FitConfig:
     # Init distribution N(0, init_std^2) (R/utils.R:40-43).
     init_std: float = 1e-3
     seed: int = 0
-    # Column sub-solver for alpha > 0.  The port has one: "auto", the
-    # feature-sign search with its polish (ops/fss.py).  "cd" (cold
-    # strong-rule CD) is not ported yet.
+    # Column sub-solver for alpha > 0: "fss" = the feature-sign search with
+    # its polish (ops/fss.py); "cd" = strong-rule coordinate descent, the
+    # reference's algorithm (coordinate_descent.cpp:57); "auto" = "fss".
     col_solver: str = "auto"
+    # Safety cap on CD sweeps inside one column update (the reference loops
+    # unboundedly, coordinate_descent.cpp:82-114).  KKT reactivation
+    # (coordinate_descent.cpp:118-124) is folded into the same sweep loop
+    # (ops/fss.elastic_net_cd), so this single cap bounds it too.
+    max_cd_sweeps: int = 200
+    # col_solver="cd" warm start: solve the sign pattern exactly with one
+    # FSS pass first, then plain CD sweeps from that point (the FSS polish,
+    # at most max_cd_sweeps) until the reference's stopping criterion
+    # (per-column sweep decrease <= tol, coordinate_descent.cpp:112-114)
+    # fires.  Same unique optimum, same stopping contract, far fewer sweeps
+    # than cold CD (the JAX package measured the MEDIAN flagship column at
+    # more than 200 cold sweeps).  False = the pure reference trajectory
+    # (cold strong-rule CD, in the coordinate order train/als.draw_perm
+    # draws for each column update).
+    cd_warm_start: bool = True
     # Outer-step cap for the FSS solver.
     max_fss_outer: int = 48
     # Plain-CD polish after FSS, at optimize()'s effective sub_tol.
@@ -60,10 +75,8 @@ class FitConfig:
     debug_checks: bool = False
 
     def __post_init__(self):
-        if self.col_solver == "cd":
-            raise NotImplementedError("col_solver='cd' is not ported yet")
-        if self.col_solver != "auto":
-            raise ValueError(f"col_solver must be 'auto', got "
+        if self.col_solver not in ("auto", "fss", "cd"):
+            raise ValueError(f"col_solver must be auto|cd|fss, got "
                              f"{self.col_solver!r}")
         if self.debug_checks:
             raise NotImplementedError("debug_checks is not ported yet")

@@ -10,7 +10,8 @@
 // accumulates the same sums in plain f32 FMA.
 //
 // Bound on the H100: f32 FMA, N K^2 M / 2 for the upper triangle (16.7 GFMA
-// at N=300, K=50, M=44477); the gram written is K^2 M f32 (445 MB there).
+// at N=300, K=50, M=44477); the gram written is K^2 M f32 (445 MB there,
+// 2.9 GB at K=128).
 //
 // Design: the gram is symmetric and R_ik R_il == R_il R_ik exactly, so only
 // the upper triangle of 4 x 4 pair tiles (k-block <= l-block) is computed,
@@ -18,7 +19,8 @@
 // tile for 128 consecutive columns, 4 per lane: 64 accumulators per lane,
 // each row costing 16 products and 64 FMAs.  Row chunks of R, mask and data
 // are staged through shared memory (mask as float4 per lane, R as warp
-// broadcasts); rows past N and columns past M are staged as zeros by a
+// broadcasts; 48 KB at K=128); rows past N and columns past M are staged
+// as zeros by a
 // select, never multiplied in (NaN * 0 is NaN, gram_pallas.py:82-91).  The
 // warps of a diagonal tile also accumulate Xty for their 4 coordinates.
 // The grid runs tile-groups fastest, so the blocks that share a column
@@ -29,7 +31,7 @@ namespace {
 
 using insider::ceil_div;
 
-constexpr int KMAX = 64;
+constexpr int KMAX = 128;
 constexpr int TP = 4;            // pair tile: TP x TP (k, l) entries
 constexpr int TJ = 4;            // columns per lane
 constexpr int WARPS = 8;         // one pair tile per warp
@@ -47,15 +49,17 @@ col_gram_xty_kernel(const MaskT* __restrict__ mask,
                     const float* __restrict__ data,
                     const float* __restrict__ R, float* __restrict__ gram,
                     float* __restrict__ xty, int N, int M, int K) {
-  __shared__ __align__(16) float Ms[RCH][CB];
-  __shared__ __align__(16) float Xs[RCH][CB];
-  __shared__ float Rs[RCH][KMAX];          // zero beyond K
+  const int nb = (K + TP - 1) / TP;
+  const int KS = nb * TP;                  // staged coordinates per row
+  extern __shared__ __align__(16) float smem[];
+  float(*Ms)[CB] = reinterpret_cast<float(*)[CB]>(smem);   // (RCH, CB)
+  float(*Xs)[CB] = Ms + RCH;                               // (RCH, CB)
+  float* Rs = smem + 2 * RCH * CB;         // (RCH, KS), zero beyond K
 
   const int tid = threadIdx.x;
   const int w = tid >> 5;
   const int lane = tid & 31;
   const int j0 = blockIdx.y * CB;
-  const int nb = (K + TP - 1) / TP;
   const int n_tiles = nb * (nb + 1) / 2;
 
   // pair tile of this warp: (kb, lb), kb <= lb, in row-major order
@@ -84,9 +88,9 @@ col_gram_xty_kernel(const MaskT* __restrict__ mask,
   for (int i0 = 0; i0 < N; i0 += RCH) {
     const int rows = min(RCH, N - i0);
     __syncthreads();                       // previous chunk consumed
-    for (int e = tid; e < RCH * KMAX; e += WARPS * 32) {
-      const int i = e / KMAX, k = e % KMAX;
-      Rs[i][k] = (i < rows && k < K) ? R[(size_t)(i0 + i) * K + k] : 0.f;
+    for (int e = tid; e < RCH * KS; e += WARPS * 32) {
+      const int i = e / KS, k = e % KS;
+      Rs[e] = (i < rows && k < K) ? R[(size_t)(i0 + i) * K + k] : 0.f;
     }
     for (int e = tid; e < RCH * CB; e += WARPS * 32) {
       const int i = e / CB, jj = e % CB, j = j0 + jj;
@@ -103,8 +107,8 @@ col_gram_xty_kernel(const MaskT* __restrict__ mask,
       float rk[TP], rl[TP];
 #pragma unroll
       for (int a = 0; a < TP; ++a) {
-        rk[a] = Rs[i][kb * TP + a];
-        rl[a] = Rs[i][lb * TP + a];
+        rk[a] = Rs[i * KS + kb * TP + a];
+        rl[a] = Rs[i * KS + lb * TP + a];
       }
 #pragma unroll
       for (int a = 0; a < TP; ++a)
@@ -159,8 +163,13 @@ cudaError_t launch(const void* mask, const float* data, const float* R,
                    float* gram, float* xty, int N, int M, int K,
                    cudaStream_t stream) {
   const int nb = (K + TP - 1) / TP;
+  const size_t smem = sizeof(float) * RCH * (2 * CB + nb * TP);
+  cudaError_t err = cudaFuncSetAttribute(
+      col_gram_xty_kernel<MaskT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(ceil_div(nb * (nb + 1) / 2, WARPS), ceil_div(M, CB));
-  col_gram_xty_kernel<MaskT><<<grid, WARPS * 32, 0, stream>>>(
+  col_gram_xty_kernel<MaskT><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const MaskT*>(mask), data, R, gram, xty, N, M, K);
   return cudaGetLastError();
 }
@@ -169,7 +178,7 @@ cudaError_t launch(const void* mask, const float* data, const float* R,
 
 // gram (K, K, M) and xty (K, M) of the masked column update.  mask (N, M)
 // f32 or uint8 (mask_is_u8 != 0) with 0/1 entries, data (N, M) and R (N, K)
-// f32, all row-major; 1 <= K <= 64.
+// f32, all row-major; 1 <= K <= 128.
 INSIDER_API int insider_col_gram_xty(const void* mask, int mask_is_u8,
                                      const float* data, const float* R,
                                      float* gram, float* xty, int N, int M,

@@ -1,8 +1,10 @@
-// The feature-sign-search (FSS) column solve of one gene by one warp,
-// shared by the fused (fss.cu), streamed (fss_streamed.cu) and shared-gram
-// (fss_shared.cu) kernels.
+// The column solves of one gene by one warp, shared by the fused (fss.cu),
+// streamed (fss_streamed.cu) and shared-gram (fss_shared.cu) kernels: the
+// feature-sign search (FSS) with its polish, and the cold strong-rule
+// coordinate descent (CD).  Each kernel is a template on the solver
+// (Solver<false> FSS, Solver<true> CD) and calls solve_column.
 //
-// Replaces the per-column iteration of
+// fss_column replaces the per-column iteration of
 // insider_tpu/kernels/fss_pallas.py:_fss_compute.  For column j, with gram
 // G_j and b_j = Xty[:, j], it minimizes
 //     1/2 b^T G_j b - b_j^T b + l2/2 |b|^2 + l1 |b|_1
@@ -14,20 +16,28 @@
 //     crossing, activate ONE KKT violator, the largest |grad| with the
 //     lowest index on ties, |grad| > l1 + 1e-5 (l1 + max|b_j|); the column
 //     converges when there is none; at most max_outer steps;
-//   * polish: CD sweeps in fixed order 0..K-1 with the cancellation-free
-//     decrease, until a sweep's decrease is <= tol (at most polish_sweeps).
+//   * polish: the CD sweeps of cd_sweeps with every coordinate active.
+//
+// cd_column replaces the per-column iteration of
+// insider_tpu/kernels/cd_pallas.py:_cd_compute (and of cd_packed.py's
+// _cd_core, the same iteration in a TPU sublane layout): strong screening
+// thr = alpha (2 lam - max|b_j|), the screened coordinates' warm start set
+// to zero, then cd_sweeps with KKT reactivation of every violator.
 //
 // Columns are independent: a converged column is frozen in the TPU block
-// (fss_pallas.py:173-177, :262), so one warp per column that exits on its
-// own computes what the TPU block computes.
+// (fss_pallas.py:173-177, :262; cd_pallas.py:127, :157-168), so one warp
+// per column that exits on its own computes what the TPU block computes.
 //
 // Layout: lane r holds coordinates r + 32 q for q < C (C = 1 covers K <= 32,
-// C = 2 covers K <= 64).  The elimination workspace U is a K x GS tile in
-// shared memory per warp (GS = K + 1 against bank conflicts); pivot rows are
-// read as shared-memory broadcasts, and column-wide min / max / first-index
-// use warp shuffles and ballots.  Loops over coordinates run half by half
-// (q = 0, then q = 1), so every register array is indexed by a constant.
+// C = 2 K <= 64, C = 3 K <= 96, C = 4 K <= 128).  The elimination workspace
+// U is a K x GS tile in shared memory per warp (GS = K + 1 against bank
+// conflicts); pivot rows are read as shared-memory broadcasts, and
+// column-wide min / max / first-index use warp shuffles and ballots.  Loops
+// over coordinates run group by group (q = 0, 1, ...), so every register
+// array is indexed by a constant.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -65,6 +75,88 @@ __device__ __forceinline__ void gram_times(const float* (&Gr)[C],
       const float bc = __shfl_sync(FULL, beta[qc], c & 31);
 #pragma unroll
       for (int q = 0; q < C; ++q) s[q] += Gr[q][c] * bc;
+    }
+  }
+}
+
+// CD sweeps of one column by one warp, coordinates in the fixed order
+// 0..K-1: the sweep loop of cd_pallas.py:_cd_compute (:111-175).  G: the
+// column's K x K gram, row stride GS; xty[q], beta[q], act[q]: coordinate
+// r + 32 q (zero / false where r + 32 q >= K).  Per sweep, every active
+// coordinate k takes the soft-threshold update, s = G beta is kept by
+// rank-1 updates (lane i reads G[k][i], row k, as the plain version does;
+// the grams are symmetric), and the sweep's loss decrease is summed in the
+// cancellation-free form.  A column whose decrease is <= tol is a
+// candidate: with STRONG every inactive coordinate with |s - xty| > l1 is
+// activated, and the candidate converges only when there is none; without
+// it (every coordinate active: the FSS polish) the candidate converges.
+// The active set changes only between sweeps.  At most max_sweeps sweeps.
+template <int C, bool STRONG>
+__device__ __forceinline__ void cd_sweeps(const float* __restrict__ G, int K,
+                                          int GS, const float (&xty)[C],
+                                          float (&beta)[C], bool (&act)[C],
+                                          float l1, float l2, float tol,
+                                          int max_sweeps) {
+  const int r = threadIdx.x & 31;
+  bool ok[C];
+  const float* Gr[C];
+  float d[C], s[C], inv_den[C], half_den[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int i = r + 32 * q;
+    ok[q] = i < K;
+    Gr[q] = G + (ok[q] ? i : 0) * GS;
+  }
+  gram_times<C>(Gr, beta, K, s);
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    d[q] = ok[q] ? Gr[q][r + 32 * q] : 0.f;
+    float den = d[q] + l2;
+    den = den > 0.f ? den : 1.f;
+    inv_den[q] = 1.f / den;
+    half_den[q] = 0.5f * den;
+  }
+  const float inv_l1 = 1.f / fmaxf(l1, 1e-30f);
+  bool conv = false;
+  for (int sweep = 0; sweep < max_sweeps && !conv; ++sweep) {
+    float dec = 0.f;
+#pragma unroll
+    for (int qk = 0; qk < C; ++qk) {
+      const int k_end = min(K, 32 * (qk + 1));
+      for (int k = 32 * qk; k < k_end; ++k) {
+        // every lane evaluates the update; lane k's is the one used
+        const float u = xty[qk] - s[qk] + beta[qk] * d[qk];
+        float w = sgn(u) * fmaxf(fabsf(u) - l1, 0.f) * inv_den[qk];
+        if (STRONG && !act[qk]) w = beta[qk];
+        const float delta = w - beta[qk];
+        const float xi = w != 0.f ? sgn(w)
+                                  : fminf(fmaxf(u * inv_l1, -1.f), 1.f);
+        const float term = half_den[qk] * delta * delta +
+                           l1 * (fabsf(beta[qk]) - xi * beta[qk]);
+        const float delta_k = __shfl_sync(FULL, delta, k & 31);
+        dec = dec + __shfl_sync(FULL, term, k & 31);
+        const float* Gk = G + k * GS;
+#pragma unroll
+        for (int q = 0; q < C; ++q)
+          if (ok[q]) s[q] = s[q] + Gk[r + 32 * q] * delta_k;
+        if (r == (k & 31)) beta[qk] = w;
+      }
+    }
+    const bool cand = fabsf(dec) <= tol;   // warp-uniform
+    if (STRONG) {
+      bool viol[C], any = false;
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        viol[q] = ok[q] && !act[q] && fabsf(s[q] - xty[q]) > l1;
+        any = any || viol[q];
+      }
+      const bool has_viol = __any_sync(FULL, any);
+      if (cand)
+#pragma unroll
+        for (int q = 0; q < C; ++q) act[q] = act[q] || viol[q];
+      conv = cand && !has_viol;
+    } else {
+      conv = cand;
     }
   }
 }
@@ -184,7 +276,8 @@ __device__ __forceinline__ void fss_column(const float* __restrict__ G, float* _
     }
 
     // Single-violator KKT activation on a solved column: the largest
-    // |grad|, the lowest index across both halves on ties.
+    // |grad|, the lowest index across all C groups on ties (groups are
+    // ballotted in order, so the first group holding a maximum wins).
     const bool solved = t >= 1.f;
     float s[C];
     gram_times<C>(Gr, beta, K, s);
@@ -216,43 +309,96 @@ __device__ __forceinline__ void fss_column(const float* __restrict__ G, float* _
   }
 
   if (polish_sweeps > 0) {
-    float d[C], s[C], inv_den[C], half_den[C];
-    gram_times<C>(Gr, beta, K, s);
+    bool all[C];
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
-      d[q] = ok[q] ? Gr[q][r + 32 * q] : 0.f;
-      float den = d[q] + l2;
-      den = den > 0.f ? den : 1.f;
-      inv_den[q] = 1.f / den;
-      half_den[q] = 0.5f * den;
-    }
-    const float inv_l1 = 1.f / fmaxf(l1, 1e-30f);
-    bool pconv = false;
-    for (int sweep = 0; sweep < polish_sweeps && !pconv; ++sweep) {
-      float dec = 0.f;
+    for (int q = 0; q < C; ++q) all[q] = true;
+    cd_sweeps<C, false>(G, K, GS, xty, beta, all, l1, l2, tol, polish_sweeps);
+  }
+}
+
+// Cold strong-rule CD of one column by one warp (cd_pallas.py:91-100, then
+// cd_sweeps).  lam and alpha as f32; the threshold is computed in the TPU
+// kernel's operation order, so a coordinate on the edge is screened alike.
+template <int C>
+__device__ __forceinline__ void cd_column(const float* __restrict__ G, int K,
+                                          int GS, const float (&xty)[C],
+                                          float (&beta)[C], float lam,
+                                          float alpha, float tol,
+                                          int max_sweeps) {
+  const int r = threadIdx.x & 31;
+  const float l1 = lam * alpha;
+  const float l2 = lam * (1.f - alpha);
+  float xmax = 0.f;                        // slots past K hold 0
 #pragma unroll
-      for (int qk = 0; qk < C; ++qk) {
-        const int k_end = min(K, 32 * (qk + 1));
-        for (int k = 32 * qk; k < k_end; ++k) {
-          // every lane evaluates the update; lane k's is the one used
-          const float u = xty[qk] - s[qk] + beta[qk] * d[qk];
-          const float w =
-              sgn(u) * fmaxf(fabsf(u) - l1, 0.f) * inv_den[qk];
-          const float delta = w - beta[qk];
-          const float xi = w != 0.f ? sgn(w)
-                                    : fminf(fmaxf(u * inv_l1, -1.f), 1.f);
-          const float term = half_den[qk] * delta * delta +
-                             l1 * (fabsf(beta[qk]) - xi * beta[qk]);
-          const float delta_k = __shfl_sync(FULL, delta, k & 31);
-          dec = dec + __shfl_sync(FULL, term, k & 31);
+  for (int q = 0; q < C; ++q) xmax = fmaxf(xmax, fabsf(xty[q]));
+  const float thr = alpha * (2.f * lam - warp_max(xmax));
+  bool act[C];
 #pragma unroll
-          for (int q = 0; q < C; ++q)   // G symmetric: G[k][i] == G[i][k]
-            s[q] = s[q] + Gr[q][k] * delta_k;
-          if (r == (k & 31)) beta[qk] = w;
-        }
-      }
-      pconv = fabsf(dec) <= tol;
-    }
+  for (int q = 0; q < C; ++q) {
+    act[q] = r + 32 * q < K && fabsf(xty[q]) >= thr;
+    beta[q] = beta[q] * (act[q] ? 1.f : 0.f);
+  }
+  cd_sweeps<C, true>(G, K, GS, xty, beta, act, l1, l2, tol, max_sweeps);
+}
+
+// The column solvers as the kernels take them, with their scalars.
+// WORKSPACE: the solve needs a K x GS elimination workspace per warp.
+template <bool CD>
+struct Solver;
+
+template <>
+struct Solver<false> {   // FSS + polish; l1 = lam*alpha, l2 = lam*(1-alpha)
+  static constexpr bool WORKSPACE = true;
+  float l1, l2, tol;
+  int max_outer, polish_sweeps;
+};
+
+template <>
+struct Solver<true> {    // cold strong-rule CD
+  static constexpr bool WORKSPACE = false;
+  float lam, alpha, tol;
+  int max_sweeps;
+};
+
+template <int C>
+__device__ __forceinline__ void solve_column(const Solver<false>& s,
+                                             const float* G, float* U, int K,
+                                             int GS, const float (&xty)[C],
+                                             float (&beta)[C]) {
+  fss_column<C>(G, U, K, GS, xty, beta, s.l1, s.l2, s.tol, s.max_outer,
+                s.polish_sweeps);
+}
+
+template <int C>
+__device__ __forceinline__ void solve_column(const Solver<true>& s,
+                                             const float* G, float*, int K,
+                                             int GS, const float (&xty)[C],
+                                             float (&beta)[C]) {
+  cd_column<C>(G, K, GS, xty, beta, s.lam, s.alpha, s.tol, s.max_sweeps);
+}
+
+// Calls f(std::integral_constant<int, C>()) with C = ceil(K / 32), the
+// coordinates per lane of the gram-input kernels, for 1 <= K <= 128.
+template <class F>
+inline cudaError_t by_lane_count(int K, F f) {
+  if (K <= 32) return f(std::integral_constant<int, 1>());
+  if (K <= 64) return f(std::integral_constant<int, 2>());
+  if (K <= 96) return f(std::integral_constant<int, 3>());
+  return f(std::integral_constant<int, 4>());
+}
+
+// Copies the grams of columns j0 .. j0 + CB - 1 of a gene-last (K, K, M)
+// tensor into shared memory as CB row-major K x GS tiles, CB consecutive
+// floats of each (k, l) row at a time, so the read is coalesced; columns
+// past M are staged as zeros.  The caller synchronizes the block after it.
+__device__ __forceinline__ void stage_grams(const float* __restrict__ xtx,
+                                            float* __restrict__ Gs, int K,
+                                            int GS, int M, int j0, int CB) {
+  const int KK = K * K;
+  for (int e = threadIdx.x; e < KK * CB; e += blockDim.x) {
+    const int kl = e / CB, jj = e % CB, j = j0 + jj;
+    const int k = kl / K, l = kl % K;
+    Gs[((size_t)jj * K + k) * GS + l] = j < M ? xtx[(size_t)kl * M + j] : 0.f;
   }
 }
 

@@ -1,54 +1,65 @@
-// feature_sign_shared: the dense column update.  Every gene column solves
-// its elastic net against ONE (K, K) gram, XtX = R^T R, with its own Xty
-// and warm start: feature-sign search (FSS) and the plain-CD polish of
-// fss_core.cuh.
+// feature_sign_shared and cd_shared: the dense column update.  Every gene
+// column solves its elastic net against ONE (K, K) gram, XtX = R^T R, with
+// its own Xty and warm start, by a solver of fss_core.cuh: the feature-sign
+// search (FSS) and its plain-CD polish, or cold strong-rule coordinate
+// descent (CD).
 //
 // Replaces insider_tpu/kernels/fss_pallas.py:feature_sign_shared_pallas
-// (body _fss_shared_kernel -> _fss_compute with shared_gram=True), the
-// column update of the dense fit (partition=0,
-// insider_tpu/ops/col_update.py:519-532).
+// (body _fss_shared_kernel -> _fss_compute with shared_gram=True) and
+// insider_tpu/kernels/cd_pallas.py:elastic_net_cd_shared_pallas (body
+// _cd_shared_kernel -> _cd_compute with shared_gram=True), the column
+// update of the dense fit (partition=0, insider_tpu/ops/col_update.py:
+// 519-532, :543-551).  For CD the caller permutes both axes of the gram,
+// and the rows of xty and beta0, to set the sweep order.
 //
-// Bound on the H100: the serial FSS of each column (K pivots, each a K-wide
-// row update), latency-bound; the inputs are only the (K, M) Xty and warm
-// start.
+// Bound on the H100: the serial solve of each column, latency-bound (FSS:
+// K pivots per outer step, each a K-wide row update; CD: up to max_sweeps
+// x K dependent coordinate updates); the inputs are only the (K, M) Xty
+// and warm start.
 //
 // Design: each block copies the one gram into shared memory once; its warps
-// share it and keep their own K x (K+1) elimination workspaces, because the
-// active sets differ per column (fss_pallas.py:82-88).  A warp solves
-// CPW columns in turn.  K <= 32 keeps one coordinate per lane (8 warps);
-// K <= 64 two (4 warps, 83 KB of shared memory at K=64).
+// share it, and a warp solves CPW columns in turn.  FSS keeps a K x (K+1)
+// elimination workspace per warp, because the active sets differ per
+// column (fss_pallas.py:82-88): K <= 32 one coordinate per lane (8 warps),
+// K <= 64 two (4 warps, 83 KB of shared memory at K=64), K <= 96 three and
+// K <= 128 four (one warp: 74 KB at K=96, 132 KB at K=128).  CD needs no
+// workspace and runs 8 warps at every K (66 KB at K=128).
 #include "fss_core.cuh"
 
 namespace {
 
+using insider::by_lane_count;
 using insider::ceil_div;
-using insider::fss_column;
 using insider::load_coords;
+using insider::Solver;
+using insider::solve_column;
 using insider::store_coords;
 
 constexpr int CPW = 4;   // columns per warp
 
-template <int C>
-struct Warps {
-  static constexpr int value = C == 1 ? 8 : 4;
+template <int C, bool CD>
+struct Shape {
+  static constexpr bool WS = Solver<CD>::WORKSPACE;
+  static constexpr int WARPS = !WS || C == 1 ? 8 : C == 2 ? 4 : 1;
+  static size_t smem_bytes(int K) {
+    return sizeof(float) * (size_t)(1 + (WS ? WARPS : 0)) * K * (K + 1);
+  }
 };
 
-template <int C>
-__global__ void __launch_bounds__(Warps<C>::value * 32)
-fss_shared_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
-                  const float* __restrict__ beta0, float* __restrict__ out,
-                  float l1, float l2, float tol, int M, int K, int max_outer,
-                  int polish_sweeps) {
-  constexpr int WARPS = Warps<C>::value;
-  constexpr int CB = WARPS * CPW;
+template <int C, bool CD>
+__global__ void __launch_bounds__(Shape<C, CD>::WARPS * 32)
+shared_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
+              const float* __restrict__ beta0, float* __restrict__ out, int M,
+              int K, Solver<CD> solver) {
+  constexpr int WARPS = Shape<C, CD>::WARPS;
   extern __shared__ __align__(16) float smem[];
   const int GS = K + 1;
   float* Gs = smem;                        // (K, GS) the shared gram
-  float* Us = Gs + (size_t)K * GS;         // (WARPS, K, GS) workspaces
+  float* Us = Gs + (size_t)K * GS;         // (WARPS, K, GS) FSS workspaces
 
   const int tid = threadIdx.x;
   const int w = tid >> 5;
-  const int j0 = blockIdx.x * CB;
+  const int j0 = blockIdx.x * WARPS * CPW;
   for (int e = tid; e < K * K; e += WARPS * 32)
     Gs[(e / K) * GS + e % K] = xtx[e];
   __syncthreads();
@@ -60,42 +71,57 @@ fss_shared_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
     float b[C], beta[C];
     load_coords<C>(xty, K, M, j, b);
     load_coords<C>(beta0, K, M, j, beta);
-    fss_column<C>(Gs, U, K, GS, b, beta, l1, l2, tol, max_outer,
-                  polish_sweeps);
+    solve_column<C>(solver, Gs, U, K, GS, b, beta);
     store_coords<C>(out, K, M, j, beta);
   }
 }
 
-template <int C>
+template <int C, bool CD>
 cudaError_t launch(const float* xtx, const float* xty, const float* beta0,
-                   float* out, float l1, float l2, float tol, int M, int K,
-                   int max_outer, int polish_sweeps, cudaStream_t stream) {
-  constexpr int WARPS = Warps<C>::value;
-  const size_t smem = sizeof(float) * (size_t)(1 + WARPS) * K * (K + 1);
+                   float* out, int M, int K, Solver<CD> solver,
+                   cudaStream_t stream) {
+  constexpr int WARPS = Shape<C, CD>::WARPS;
+  const size_t smem = Shape<C, CD>::smem_bytes(K);
   cudaError_t err = cudaFuncSetAttribute(
-      fss_shared_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      shared_kernel<C, CD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  fss_shared_kernel<C><<<ceil_div(M, WARPS * CPW), WARPS * 32, smem,
-                         stream>>>(xtx, xty, beta0, out, l1, l2, tol, M, K,
-                                   max_outer, polish_sweeps);
+  shared_kernel<C, CD><<<ceil_div(M, WARPS * CPW), WARPS * 32, smem,
+                         stream>>>(xtx, xty, beta0, out, M, K, solver);
   return cudaGetLastError();
+}
+
+template <bool CD>
+int shared(const float* xtx, const float* xty, const float* beta0,
+           float* out, int M, int K, Solver<CD> solver, cudaStream_t stream) {
+  if (M < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;
+  return (int)by_lane_count(K, [&](auto c) {
+    return launch<decltype(c)::value>(xtx, xty, beta0, out, M, K, solver,
+                                      stream);
+  });
 }
 
 }  // namespace
 
 // out (K, M) = the FSS + polish solution of every column against the one
 // gram xtx (K, K).  xty and beta0 (K, M): row-major f32.  l1 = lam*alpha
-// and l2 = lam*(1-alpha) as f32; 1 <= K <= 64.
+// and l2 = lam*(1-alpha) as f32; 1 <= K <= 128.
 INSIDER_API int insider_fss_shared(const float* xtx, const float* xty,
                                    const float* beta0, float* out, float l1,
                                    float l2, float tol, int M, int K,
                                    int max_outer, int polish_sweeps,
                                    cudaStream_t stream) {
-  if (M < 1 || K < 1 || K > 64) return (int)cudaErrorInvalidValue;
-  if (K <= 32)
-    return (int)launch<1>(xtx, xty, beta0, out, l1, l2, tol, M, K, max_outer,
-                          polish_sweeps, stream);
-  return (int)launch<2>(xtx, xty, beta0, out, l1, l2, tol, M, K, max_outer,
-                        polish_sweeps, stream);
+  return shared(xtx, xty, beta0, out, M, K,
+                Solver<false>{l1, l2, tol, max_outer, polish_sweeps}, stream);
+}
+
+// out (K, M) = the cold strong-rule CD solution of every column against the
+// one gram xtx (K, K), at most max_sweeps sweeps.  xty and beta0 (K, M):
+// row-major f32.  lam, alpha, tol as f32; 1 <= K <= 128.
+INSIDER_API int insider_cd_shared(const float* xtx, const float* xty,
+                                  const float* beta0, float* out, float lam,
+                                  float alpha, float tol, int M, int K,
+                                  int max_sweeps, cudaStream_t stream) {
+  return shared(xtx, xty, beta0, out, M, K,
+                Solver<true>{lam, alpha, tol, max_sweeps}, stream);
 }

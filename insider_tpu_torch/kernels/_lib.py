@@ -55,6 +55,12 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _P]),
     "insider_fss_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
                                 _I, _I, _I, _I, _P]),
+    "insider_cd_fused": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
+                              _I, _I, _I, _I, _P]),
+    "insider_cd_streamed": (_I, [_P, _P, _P, _P, _F, _F, _F,
+                                 _I, _I, _I, _P]),
+    "insider_cd_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
+                               _I, _I, _I, _P]),
     "insider_masked_eval_scratch": (_L, [_I, _I]),
     "insider_masked_eval": (_I, [_P, _P, _P, _P, _P, _P, _P, _L,
                                  _I, _I, _I, _P]),

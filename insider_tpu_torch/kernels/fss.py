@@ -20,9 +20,9 @@ from insider_tpu_torch.kernels import _lib
 from insider_tpu_torch.ops.fss import feature_sign_search, penalties
 
 # The fused kernel keeps one coordinate per lane of a warp; the streamed and
-# shared kernels keep up to two.
+# shared kernels keep up to four.
 FUSED_MAX_K = 32
-MAX_K = 64
+MAX_K = 128
 
 
 def feature_sign_fused_plain(mask, data, R, beta0, lam, alpha,

@@ -12,8 +12,8 @@ import torch
 
 from insider_tpu_torch.kernels import _lib
 
-# The kernel stages up to 64 coordinates of each row of R.
-MAX_K = 64
+# The kernel stages up to 128 coordinates of each row of R.
+MAX_K = 128
 
 
 def col_gram_xty_plain(mask, data, R):

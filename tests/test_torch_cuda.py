@@ -11,8 +11,12 @@ the problem.  Tolerances as in chip_smoke.py: level_gram 2e-5, row_xty and
 col_gram_xty 3e-5 of the output's max magnitude; masked_eval SSEs 1e-5
 relative, counts exact; the FSS kernels' per-column objective excess <= 1e-6
 relative, and feature_sign on col_gram_xty grams against
-feature_sign_fused rtol 2e-5 / atol 1e-5.  Every kernel is run twice and
-must agree with itself bit for bit.
+feature_sign_fused rtol 2e-5 / atol 1e-5.  The CD kernels run the plain
+version's iteration, compared at a short sweep cap (20): every column's
+objective excess <= 1e-6 relative and at least 99% of the columns match at
+rtol 2e-5 / atol 1e-5; cd_streamed on col_gram_xty grams equals cd_fused
+bit for bit.  Every kernel is run twice and must agree with itself bit for
+bit.
 """
 
 import numpy as np
@@ -20,7 +24,7 @@ import pytest
 import torch
 
 from insider_tpu_torch.kernels import eval as ev
-from insider_tpu_torch.kernels import fss, gram, row
+from insider_tpu_torch.kernels import cd, fss, gram, row
 from insider_tpu_torch.ops.col_update import col_gram_masked
 
 pytestmark = pytest.mark.cuda
@@ -155,7 +159,9 @@ def _check_fss(got, ref, G, b, lam, alpha):
 
 @pytest.mark.parametrize("N,K,M,u8", [(45, 6, 333, False), (100, 24, 700, True),
                                       (300, 50, 1031, False),
-                                      (70, 64, 257, True)])
+                                      (70, 64, 257, True),
+                                      (150, 96, 300, False),
+                                      (140, 128, 257, True)])
 def test_col_gram_xty(cuda, N, K, M, u8):
     R, mask, data, _ = _masked_inputs(N, K, M, seed=20 + K)
     R, data = _t(R, cuda), _t(data, cuda)
@@ -172,7 +178,8 @@ def test_col_gram_xty(cuda, N, K, M, u8):
 
 @pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
                                    (100, 33, 300), (300, 50, 700),
-                                   (120, 64, 257)])
+                                   (120, 64, 257), (150, 96, 130),
+                                   (200, 128, 70)])
 def test_feature_sign(cuda, N, K, M):
     R, mask, data, beta0 = _masked_inputs(N, K, M, seed=30 + K)
     R, mask, data, beta0 = (_t(x, cuda) for x in (R, mask, data, beta0))
@@ -194,7 +201,8 @@ def test_feature_sign(cuda, N, K, M):
 
 
 @pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
-                                   (300, 50, 700)])
+                                   (300, 50, 700), (300, 96, 130),
+                                   (300, 128, 70)])
 def test_feature_sign_shared(cuda, N, K, M):
     R, _, data, beta0 = _masked_inputs(N, K, M, seed=40 + K)
     R, data, beta0 = (_t(x, cuda) for x in (R, data, beta0))
@@ -208,6 +216,64 @@ def test_feature_sign_shared(cuda, N, K, M):
     _check_fss(got, ref, XtX[:, :, None].expand(K, K, M), b, lam, alpha)
     assert torch.equal(got, fss.feature_sign_shared(XtX, b, beta0, lam,
                                                     alpha, **kw))
+
+
+CD_KW = dict(lam=11.0, alpha=0.4, tol=1e-9, max_sweeps=20)
+
+
+def _check_cd(got, ref, G, b, lam):
+    """The checks of _check_fss (every column's objective excess <= 1e-6
+    relative, >= 99% of the columns match, finite, exact zeros) at
+    CD_KW's alpha."""
+    _check_fss(got, ref, G, b, lam, CD_KW["alpha"])
+
+
+@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
+                                   (60, 32, 257)])
+def test_cd_fused(cuda, N, K, M):
+    R, mask, data, beta0 = _masked_inputs(N, K, M, seed=50 + K)
+    R, mask, data, beta0 = (_t(x, cuda) for x in (R, mask, data, beta0))
+    n0 = cd.cd_fused.launches
+    got = cd.cd_fused(mask, data, R, beta0, **CD_KW)
+    assert cd.cd_fused.launches == n0 + 1
+    G, b = gram.col_gram_xty_plain(mask, data, R)
+    _check_cd(got, cd.cd_fused_plain(mask, data, R, beta0, **CD_KW), G, b,
+              CD_KW["lam"])
+    assert torch.equal(got, cd.cd_fused(mask, data, R, beta0, **CD_KW))
+    # the streamed route on col_gram_xty's grams: the same sums in the same
+    # order, the same CD loop
+    G, b = gram.col_gram_xty(mask, data, R)
+    assert torch.equal(got, cd.cd_streamed(G, b, beta0, **CD_KW))
+
+
+@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (300, 50, 700),
+                                   (100, 64, 257), (150, 96, 130),
+                                   (200, 128, 70)])
+def test_cd_streamed(cuda, N, K, M):
+    R, mask, data, beta0 = _masked_inputs(N, K, M, seed=60 + K)
+    R, mask, data, beta0 = (_t(x, cuda) for x in (R, mask, data, beta0))
+    G, b = gram.col_gram_xty_plain(mask, data, R)
+    n0 = cd.cd_streamed.launches
+    got = cd.cd_streamed(G, b, beta0, **CD_KW)
+    assert cd.cd_streamed.launches == n0 + 1
+    _check_cd(got, cd.cd_streamed_plain(G, b, beta0, **CD_KW), G, b,
+              CD_KW["lam"])
+    assert torch.equal(got, cd.cd_streamed(G, b, beta0, **CD_KW))
+
+
+@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
+                                   (300, 50, 700), (300, 128, 130)])
+def test_cd_shared(cuda, N, K, M):
+    R, _, data, beta0 = _masked_inputs(N, K, M, seed=70 + K)
+    R, data, beta0 = (_t(x, cuda) for x in (R, data, beta0))
+    kw = dict(CD_KW, lam=30.0)
+    XtX, b = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+    n0 = cd.cd_shared.launches
+    got = cd.cd_shared(XtX, b, beta0, **kw)
+    assert cd.cd_shared.launches == n0 + 1
+    _check_cd(got, cd.cd_shared_plain(XtX, b, beta0, **kw),
+              XtX[:, :, None].expand(K, K, M), b, kw["lam"])
+    assert torch.equal(got, cd.cd_shared(XtX, b, beta0, **kw))
 
 
 def test_masked_k50_fit(cuda):

@@ -1,7 +1,8 @@
 """The port's FSS kernels on precomputed grams (insider_tpu_torch/kernels/
 fss.py: feature_sign on streamed (K, K, M) grams, feature_sign_shared on one
-(K, K) gram) against the JAX package's Pallas kernels, and the masked
-column update's dispatch by K.
+(K, K) gram) against the JAX package's Pallas kernels, the masked column
+update's dispatch by K, and the column updates at K = 72 > 64 (which raised
+before the kernels held four coordinates per lane).
 
 On CPU tensors the wrappers run their plain version (ops/fss.py, which
 follows the TPU kernel's iteration); the Pallas kernels run in interpret
@@ -10,6 +11,7 @@ fused-vs-streamed and shared-vs-streamed kernel tests
 (tests/test_fss.py:293-317, :353-379).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +19,9 @@ import torch
 
 from insider_tpu.kernels.fss_pallas import (feature_sign_pallas,
                                             feature_sign_shared_pallas)
+from insider_tpu.ops import col_update as jax_col_update
 from insider_tpu_torch.kernels.fss import feature_sign, feature_sign_shared
+from insider_tpu_torch.kernels.gram import col_gram_xty
 from insider_tpu_torch.ops import col_update
 
 KW = dict(max_outer=48, polish_sweeps=16, tol=1e-8)
@@ -151,12 +155,75 @@ def test_dense_column_update_dispatch(monkeypatch):
 
 @pytest.mark.parametrize("update", ["masked", "dense"])
 def test_column_update_rejects_k_over_64(update):
-    K, N, M = 65, 70, 10
+    """The column kernels hold at most four coordinates per lane: K = 129
+    raises on every device (the test keeps its name from when the limit
+    was 64)."""
+    K, N, M = 129, 140, 10
     R, data = torch.zeros((N, K)), torch.zeros((N, M))
     F0 = torch.zeros((K, M))
-    with pytest.raises(ValueError, match="64"):
+    with pytest.raises(ValueError, match="128"):
         if update == "masked":
             col_update.update_columns_masked(data, torch.ones((N, M)), R, F0,
                                              1.0, 0.5, 1e-5)
         else:
             col_update.update_columns_dense(data, R, F0, 1.0, 0.5, 1e-5)
+
+
+def _inputs(N, K, M, seed):
+    rng = np.random.default_rng(seed)
+    R = rng.standard_normal((N, K)).astype(np.float32)
+    mask = (rng.random((N, M)) > 0.1).astype(np.float32)
+    data = rng.standard_normal((N, M)).astype(np.float32)
+    beta0 = (0.01 * rng.standard_normal((K, M))).astype(np.float32)
+    return R, mask, data, beta0
+
+
+T = torch.from_numpy
+LAM, ALPHA, TOL = 11.0, 0.4, dict(rtol=2e-5, atol=1e-5)
+
+
+def test_masked_update_k72_matches_pallas_kernel():
+    """K = 72 > 64: the streamed route (col_gram_xty, then feature_sign)
+    against the JAX streamed FSS kernel on the same grams."""
+    K, N, M = 72, 90, 40
+    R, mask, data, F0 = _inputs(N, K, M, seed=72)
+    got = col_update.update_columns_masked(T(data), T(mask), T(R), T(F0),
+                                           LAM, ALPHA, 1e-8,
+                                           max_fss_polish_sweeps=16)
+    G, xty = col_gram_xty(T(mask), T(data), T(R))
+    want = feature_sign_pallas(jnp.asarray(G.numpy()),
+                               jnp.asarray(xty.numpy()), jnp.asarray(F0),
+                               LAM, ALPHA, 48, polish_sweeps=16,
+                               tol=jnp.float32(1e-8), interpret=True,
+                               block=128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert int((got == 0).sum()) > 0
+
+
+def test_dense_update_k72_matches_jax():
+    """K = 72 > 64, dense: the port's update against the JAX package's jnp
+    update_columns_dense (FSS, then a randomly permuted plain-CD polish),
+    both polished to a tight tolerance, so they agree at the optimum."""
+    K, N, M = 72, 90, 40
+    R, _, data, F0 = _inputs(N, K, M, seed=73)
+    lam, alpha, tol = 30.0, 0.4, 1e-10
+    got = col_update.update_columns_dense(T(data), T(R), T(F0), lam, alpha,
+                                          tol, max_fss_polish_sweeps=200)
+    want, _, _ = jax_col_update.update_columns_dense(
+        jnp.asarray(data), jnp.asarray(R), jnp.asarray(F0), lam, alpha,
+        jnp.float32(tol), jax.random.PRNGKey(0), use_pallas=False,
+        solver="fss", max_fss_polish_sweeps=200)
+    want = np.asarray(want)
+    Rd, Xd = R.astype(np.float64), data.astype(np.float64)
+    G, b = Rd.T @ Rd, Rd.T @ Xd
+
+    def objective(B):
+        B = B.astype(np.float64)
+        return (0.5 * np.einsum("km,kl,lm->m", B, G, B) - (b * B).sum(0)
+                + lam * (1 - alpha) / 2 * (B * B).sum(0)
+                + lam * alpha * np.abs(B).sum(0))
+
+    np.testing.assert_allclose(objective(got.numpy()), objective(want),
+                               rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert int((got == 0).sum()) > 0

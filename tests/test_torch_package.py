@@ -19,7 +19,7 @@ import insider_tpu_torch as itt
 from insider_tpu.model.state import init_state as jax_init_state
 from insider_tpu_torch.config import FitConfig, decay_from_delta_loss
 from insider_tpu_torch.kernels import eval as ev
-from insider_tpu_torch.kernels import fss, gram, row
+from insider_tpu_torch.kernels import cd, fss, gram, row
 from insider_tpu_torch.model.state import init_state, state_from_numpy
 from insider_tpu_torch.ops import col_update
 from insider_tpu_torch.train import als
@@ -97,19 +97,28 @@ def test_decay_ladder_matches_jax():
         assert decay_from_delta_loss(d) == jax_decay(d)
 
 
-@pytest.mark.parametrize("kw", [dict(col_solver="cd"),
+@pytest.mark.parametrize("kw", [dict(col_solver="cd", debug_checks=True),
                                 dict(debug_checks=True),
                                 dict(boundaries_per_dispatch=5),
-                                dict(masked=False, col_solver="cd")])
+                                dict(masked=False, col_solver="cd",
+                                     cd_warm_start=False,
+                                     boundaries_per_dispatch=2)])
 def test_unsupported_config_raises(kw):
     with pytest.raises(NotImplementedError):
         FitConfig(**kw)
 
 
 def test_col_solver_accepts_only_the_ported_solver():
+    """The ported solvers are the JAX package's three names
+    (insider_tpu/train/als.py:122-126); anything else raises ValueError."""
     assert FitConfig().col_solver == "auto"
-    with pytest.raises(ValueError):
-        FitConfig(col_solver="fss")
+    cfg = FitConfig(col_solver="cd")
+    assert cfg.cd_warm_start and cfg.max_cd_sweeps == 200
+    for s in ("auto", "fss", "cd"):
+        assert FitConfig(col_solver=s, cd_warm_start=False).col_solver == s
+    for s in ("CD", "ista", ""):
+        with pytest.raises(ValueError):
+            FitConfig(col_solver=s)
 
 
 def test_unsupported_problem_and_fit_raise():
@@ -127,8 +136,8 @@ def test_unsupported_problem_and_fit_raise():
         itt.Insider(data, conf, ctns_confounder=ctns).fit(3, 1.0, 0.5,
                                                           partition=0)
     with pytest.raises(NotImplementedError):
-        itt.Insider(data, conf).fit(3, 1.0, 0.5, partition=0,
-                                    col_solver="cd")
+        itt.Insider(data, conf, ctns_confounder=ctns).fit(
+            3, 1.0, 0.5, partition=1, col_solver="cd", cd_warm_start=False)
 
 
 def test_dense_problem_and_ridge_update_build():
@@ -174,6 +183,14 @@ def test_non_cpu_operands_never_take_the_plain_path():
     with pytest.raises(ValueError):
         fss.feature_sign_shared(meta(4, 4), meta(4, 10), meta(4, 10), 1.0,
                                 0.5)
+    with pytest.raises(ValueError):
+        cd.cd_fused(meta(5, 10), meta(5, 10), meta(5, 4), meta(4, 10), 1.0,
+                    0.5, 1e-5)
+    with pytest.raises(ValueError):
+        cd.cd_streamed(meta(4, 4, 10), meta(4, 10), meta(4, 10), 1.0, 0.5,
+                       1e-5)
+    with pytest.raises(ValueError):
+        cd.cd_shared(meta(4, 4), meta(4, 10), meta(4, 10), 1.0, 0.5, 1e-5)
 
 
 def test_chip_smoke_fails_without_gpu():
