@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Time the port's row and fused column kernels and its six fits, for one
+package tree, on one NVIDIA GPU.
+
+    python3 chip_ab.py ROOT [--out FILE]
+
+ROOT is a directory that holds an insider_tpu_torch package: this checkout,
+or another commit unpacked into a gitignored directory (e.g. `git archive
+<commit> | tar -x -C _checkout/parent`), so that two trees are compared on
+one card in one call, in turns: parent, change, change, parent.  The
+package is imported from ROOT; the setup helpers come from this
+directory's chip_smoke.py, so both trees see the same inputs.  Measured:
+  * level_gram at the flagship shape (sum L = 133, K = 24) and at the K=50
+    shape (levels 12 and 25, N = 300), kernel and plain version, beside one
+    cuBLAS f32 GEMM on the prebuilt table (library_ms);
+  * the fused kernels' gram build alone (feature_sign_fused with
+    max_outer=0, polish_sweeps=0; cd_fused with max_sweeps=0) and
+    feature_sign_fused on chip_smoke's phase-3 input;
+  * the ms per iteration of the FSS and cold-CD fits, flagship masked and
+    dense and K=50 masked, from each fit's own boundary clock;
+  * torch.profiler over 10 iterations of the flagship masked FSS fit.
+Prints one JSON line (and writes it to FILE).  Exits non-zero without
+CUDA.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("root", help="directory holding insider_tpu_torch")
+    ap.add_argument("--out", help="also write the JSON line here")
+    a = ap.parse_args()
+    root = os.path.abspath(a.root)
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_setup", os.path.join(here, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import insider_tpu_torch as itt
+    from insider_tpu_torch.kernels import _lib, cd, eval as ev, fss, gram, row
+    from insider_tpu_torch.train import als
+
+    if not os.path.abspath(itt.__file__).startswith(root + os.sep):
+        cs.fail(f"insider_tpu_torch imported from {itt.__file__}, not {root}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(f"chip_ab: {root}: {smi}")
+    als.disable_tf32()
+    t0 = time.time()
+    _lib.lib()
+    res = dict(root=root, card=smi, build_s=time.time() - t0)
+
+    # kernels at the flagship shapes
+    x = cs.flagship_inputs(torch)
+    res["level_gram"] = cs.level_gram_times(torch, row, x["mw_cat"], x["F"])
+    res["build_alone"] = cs.build_alone_ms(torch, fss, cd, x)
+    kw = dict(max_outer=48, polish_sweeps=32, tol=cs.SUB_TOL)
+    args = (x["train"], x["data"], x["R"], x["beta0"], cs.LAM, cs.ALPHA)
+    res["feature_sign_fused_ms"] = cs.timed_ms(
+        torch, lambda: fss.feature_sign_fused(*args, **kw), 10)
+    del x, args
+
+    # level_gram at the K=50 shape
+    rng = np.random.default_rng(1)
+    mask = torch.from_numpy((rng.random((300, cs.M)) > 0.1)
+                            .astype(np.float32)).to("cuda")
+    mw = torch.cat([torch.nn.functional.one_hot(
+        torch.from_numpy(rng.integers(0, L, 300)).to("cuda"), L).float().T
+        @ mask for L in (12, 25)]).contiguous()
+    F50 = torch.from_numpy((0.3 * rng.standard_normal((50, cs.M)))
+                           .astype(np.float32)).to("cuda")
+    res["level_gram_k50"] = cs.level_gram_times(torch, row, mw, F50)
+    del mask, mw, F50
+    for name in ("level_gram", "level_gram_k50"):
+        r = res[name]
+        print(f"chip_ab: {name}: kernel {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
+              f"bound {r['bound_ms']:.4f} ms")
+    print(f"chip_ab: build alone {res['build_alone']}; feature_sign_fused "
+          f"{res['feature_sign_fused_ms']:.4f} ms")
+
+    # the six fits, and the profile
+    wrappers = {"level_gram": row.level_gram, "row_xty": row.row_xty,
+                "feature_sign_fused": fss.feature_sign_fused,
+                "masked_eval": ev.masked_eval,
+                "col_gram_xty": gram.col_gram_xty,
+                "feature_sign": fss.feature_sign,
+                "feature_sign_shared": fss.feature_sign_shared,
+                "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
+                "cd_shared": cd.cd_shared}
+    fits = {}
+    flag = cs.flagship_object(itt)
+    fits["FSS masked"] = cs.run_fit(torch, flag, wrappers, {}, "FSS masked",
+                                    partition=1, **cs.FLAG_FIT)[2]
+    state = flag.fit_result.state
+    fits["FSS dense"] = cs.run_fit(torch, flag, wrappers, {}, "FSS dense",
+                                   partition=0, **cs.FLAG_FIT)[2]
+    fits["CD masked"] = cs.run_fit(torch, flag, wrappers, {}, "CD masked",
+                                   monotone=False, partition=1, **cs.COLD,
+                                   **cs.FLAG_FIT)[2]
+    fits["CD dense"] = cs.run_fit(torch, flag, wrappers, {}, "CD dense",
+                                  monotone=False, partition=0, **cs.COLD,
+                                  **cs.FLAG_FIT)[2]
+    print("chip_ab: profile of the flagship masked fit (FSS), 10 iterations:")
+    res["profile"] = cs.profile_fit(torch, flag, wrappers, state, cs.K,
+                                    cs.LAM, cs.ALPHA)
+    del flag
+    p50 = cs.predixcan_object(itt)
+    fits["FSS K=50"] = cs.run_fit(torch, p50, wrappers, {}, "FSS K=50",
+                                  **cs.K50_FIT)[2]
+    fits["CD K=50"] = cs.run_fit(torch, p50, wrappers, {}, "CD K=50",
+                                 monotone=False, **cs.COLD, **cs.K50_FIT)[2]
+    res["fits_ms_per_iter"] = fits
+    print(f"chip_ab: fits ms/iter {fits}")
+    line = json.dumps(res)
+    if a.out:
+        os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
+        with open(a.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,15 +9,20 @@ Phases, each fatal on failure:
   2. build: compile the CUDA kernels from insider_tpu_torch/csrc/;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the flagship shapes (377 x 44477, K=24, levels 2/16/8/107), with max
-     error and median times (CUDA events);
+     error and median times (CUDA events); level_gram against its plain
+     version in f64 (max error <= 1e-6 of the largest magnitude, a gate
+     that must reject one bf16 plane of the table) and beside one cuBLAS
+     f32 GEMM on the prebuilt table (library_ms, a yardstick the port
+     never calls); the fused kernels' gram build alone (feature_sign_fused with
+     max_outer=0, polish_sweeps=0; cd_fused with max_sweeps=0);
   4. kernels of the dense and K > 32 paths, at full width (M=44477):
      col_gram_xty at K=24 (N=377) and K=50 (N=300); feature_sign at K=50
      on those grams; at K=24 feature_sign on col_gram_xty grams against
-     feature_sign_fused, bit for bit; feature_sign_shared at K=24 on R^T R,
-     R^T data;
+     feature_sign_fused (route check); feature_sign_shared at K=24 on
+     R^T R, R^T data;
   5. the cold-CD kernels at full width (M=44477): cd_fused at K=24
      (N=377), cd_streamed at K=50 on col_gram_xty grams (N=300) and at
-     K=24 against cd_fused (bit for bit), cd_shared at K=24; each against
+     K=24 against cd_fused (route check), cd_shared at K=24; each against
      its plain version at a short sweep cap and at the 200-sweep cap
      (every column's objective, and element-wise at the short cap);
   6. K = 96 and K = 128 at M=2048 (N=300): col_gram_xty, feature_sign,
@@ -33,7 +38,16 @@ Phases, each fatal on failure:
      fit(50, 1.0, 0.5, partition=1), 20 iterations;
  10. cold-CD fits (col_solver="cd", cd_warm_start=False) of the problems
      of phases 8-9: flagship masked and dense, K=50 masked; the final loss
-     is set against the FSS fit's.
+     is set against the FSS fit's;
+ 11. profile: torch.profiler over 10 iterations of the flagship masked FSS
+     fit, from the state its phase-8 fit ended in; each kernel's device ms
+     per iteration and per launch, and the device busy share; fails if a
+     kernel that launched shows no device time.
+The route checks (phases 4, 5): the fused kernels sum their grams in bf16
+planes on the tensor cores, col_gram_xty in f32 FMAs, in another order, so
+the streamed route on col_gram_xty grams is held to the fused kernel by
+every column's objective (within 1e-6 relative) and by >= 99% of the
+columns matching at rtol 2e-5 / atol 1e-5, not bit for bit.
 A fit phase sets every launch count to 0 just before the fit and reads
 them just after: each kernel of its path must have launched, and the
 kernels of the other solver or route never; losses finite, and
@@ -41,9 +55,13 @@ non-increasing for the FSS fits (a cold-CD fit screens its warm start, so
 its losses need not be monotone; whether they were is printed); ms per
 iteration from the fit's own boundary clock (each boundary copies its
 metrics to the host, so the clock reads a synchronized device).
-Then one JSON line with the kernels' numbers, and as the last line
-{"ok": true, "device": {...}}.  Without CUDA the script exits non-zero and
-prints no result.
+Then one JSON line with the kernels' numbers: each kernel's bound_ms is
+the larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its operations over the peak of their type (989
+TFLOP/s bf16 tensor, 67 TFLOP/s f32), from the shapes of the timed call;
+the solves' operations depend on the iterations, which the kernels do not
+count, and are left out.  As the last line {"ok": true, "device": {...}}.
+Without CUDA the script exits non-zero and prints no result.
 """
 
 import json
@@ -59,8 +77,40 @@ LEVELS = (2, 16, 8, 107)          # after the interaction is inserted
 LAM, ALPHA, SUB_TOL = 11.0, 0.4, 1e-5
 
 
+HBM_BPS = 3.35e12                 # H100 SXM: bytes/s
+TENSOR_BF16_FLOPS = 989e12        # dense bf16 tensor-core FLOP/s
+F32_FLOPS = 67e12                 # f32 outside the tensor cores
+
+
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def bound(nbytes, bf16_flop=0.0, f32_flop=0.0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = bf16_flop / TENSOR_BF16_FLOPS + f32_flop / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def pairs(k):
+    return k * (k + 1) // 2
+
+
+def fused_bound(n, k, m):
+    """The fused column kernels: mask and data read, R, beta0 read, beta
+    written; the gram in three bf16 planes on the tensor cores over the
+    K(K+1)/2 pairs, Xty in f32."""
+    return bound(4 * (2 * n * m + n * k + 2 * k * m),
+                 bf16_flop=2 * 3 * pairs(k) * n * m, f32_flop=2 * k * n * m)
+
+
+def gram_input_bound(k, m, shared):
+    """The FSS / CD kernels on given grams: the grams, xty and beta0 read,
+    beta written (the solve's operations are not counted)."""
+    return bound(4 * ((k * k if shared else k * k * m) + 3 * k * m))
 
 
 def timed_ms(torch, fn, reps):
@@ -79,12 +129,8 @@ def timed_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def phase_kernels(torch, row, fss, ev):
-    """Kernels against plain versions at the flagship shapes.  Returns
-    ({name: record} with max_abs_err, ms and plain_ms; FSS statistics)."""
-    from insider_tpu_torch.ops.col_update import col_gram_masked
-
-    dev = "cuda"
+def flagship_inputs(torch):
+    """The phase-3 inputs at the flagship shapes, on the card."""
     rng = np.random.default_rng(0)
     R_true = rng.standard_normal((N, K)).astype(np.float32)
     F_true = rng.standard_normal((K, M)).astype(np.float32)
@@ -98,29 +144,99 @@ def phase_kernels(torch, row, fss, ev):
                for _ in LEVELS]
     beta0 = (F_true + 0.01 * rng.standard_normal((K, M))).astype(np.float32)
 
-    t = lambda x: torch.from_numpy(x).to(dev)
-    data_t, train_t, test_t, F_t = t(data), t(train), t(test), t(F)
-    R_t, beta0_t = t(R_true), t(beta0)
-    codes_t = [t(c) for c in codes]
-    Rm_t = [t(r) for r in R_minus]
+    t = lambda x: torch.from_numpy(x).to("cuda")
+    x = dict(data=t(data), train=t(train), test=t(test), F=t(F),
+             R=t(R_true), beta0=t(beta0), codes=[t(c) for c in codes],
+             R_minus=[t(r) for r in R_minus])
     E_t = [torch.nn.functional.one_hot(c.long(), L).float().T.contiguous()
-           for c, L in zip(codes_t, LEVELS)]
-    mw_cat = torch.cat([E @ train_t for E in E_t]).contiguous()
-    D_t = [(E @ (train_t * data_t)).contiguous() for E in E_t]
+           for c, L in zip(x["codes"], LEVELS)]
+    x["mw_cat"] = torch.cat([E @ x["train"] for E in E_t]).contiguous()
+    x["D"] = [(E @ (x["train"] * x["data"])).contiguous() for E in E_t]
+    return x
+
+
+LEVEL_GRAM_RTOL = 1e-6
+
+
+def level_gram_gate(torch, row, mw, F, got):
+    """level_gram's output `got` against the plain version in f64: max
+    error <= LEVEL_GRAM_RTOL of the largest magnitude, f32 accuracy (the
+    plain f32 version's own error is printed beside it).  The gate must
+    reject a control, the same sums over one bf16 plane of the table
+    (exact in f64), which is what a lost plane of the kernel would give."""
+    from insider_tpu_torch.ops.planes import bf16_planes
+    from insider_tpu_torch.ops.row_update import factor_outer_table
+
+    exact = row.level_gram_plain(mw.double(), F.double())
+    limit = LEVEL_GRAM_RTOL * float(exact.abs().max())
+    hi = bf16_planes(factor_outer_table(F))[0].double()
+    errs = {name: float((x.double() - exact).abs().max()) for name, x in (
+        ("kernel", got), ("plain f32", row.level_gram_plain(mw, F)),
+        ("one-plane control", (mw.double() @ hi.T).reshape(exact.shape)))}
+    print("level_gram max err vs the f64 sum: " + "; ".join(
+        f"{k} {v:.4e}" for k, v in errs.items())
+        + f"; limit {limit:.4e} ({LEVEL_GRAM_RTOL:g} of max |ref|)")
+    if not errs["kernel"] <= limit:
+        fail(f"level_gram max err {errs['kernel']:.4e} > {limit:.4e}")
+    if errs["one-plane control"] <= limit:
+        fail("level_gram's gate does not reject one bf16 plane of the table")
+
+
+def level_gram_times(torch, row, mw, F, reps=20):
+    """level_gram's kernel, plain and library times on (mw, F): the library
+    yardstick is one cuBLAS f32 GEMM, mw @ table^T, with the (K^2, M)
+    outer-product table built before the timed region (TF32 off).  The
+    kernel's bf16 products: 3 table planes x 2 count planes per term of
+    the K(K+1)/2 pairs."""
+    k = F.shape[0]
+    table = (F[:, None, :] * F[None, :, :]).reshape(k * k, -1).contiguous()
+    L, m = mw.shape
+    b = bound(4 * (L * m + k * m + L * k * k),
+              bf16_flop=2 * 6 * L * pairs(k) * m)
+    return dict(
+        ms=timed_ms(torch, lambda: row.level_gram(mw, F), reps),
+        plain_ms=timed_ms(torch, lambda: row.level_gram_plain(mw, F), reps),
+        library_ms=timed_ms(torch, lambda: torch.matmul(mw, table.T), reps),
+        bound_ms=b[0], bound_by=b[1])
+
+
+def build_alone_ms(torch, fss, cd, x, reps=20):
+    """The fused kernels with no solve: feature_sign_fused with
+    max_outer=0 and polish_sweeps=0, cd_fused with max_sweeps=0 (screening
+    only), at the flagship shape: the gram and Xty build, and reading and
+    writing beta."""
+    args = (x["train"], x["data"], x["R"], x["beta0"], LAM, ALPHA)
+    return dict(
+        feature_sign_fused=timed_ms(torch, lambda: fss.feature_sign_fused(
+            *args, max_outer=0, polish_sweeps=0, tol=SUB_TOL), reps),
+        cd_fused=timed_ms(torch, lambda: cd.cd_fused(*args, SUB_TOL, 0), reps))
+
+
+def phase_kernels(torch, row, fss, cd, ev):
+    """Kernels against plain versions at the flagship shapes.  Returns
+    ({name: record} with max_abs_err, ms, plain_ms and the bound; FSS
+    statistics; the build-alone times)."""
+    from insider_tpu_torch.ops.col_update import col_gram_masked
+
+    x = flagship_inputs(torch)
+    data_t, train_t, test_t, F_t = x["data"], x["train"], x["test"], x["F"]
+    R_t, beta0_t, codes_t, Rm_t = x["R"], x["beta0"], x["codes"], x["R_minus"]
+    mw_cat, D_t = x["mw_cat"], x["D"]
     out = {}
 
-    # level_gram: rtol 2e-5 of the output's max magnitude
+    # level_gram: rtol 2e-5 of the f32 plain version's max magnitude, and
+    # against the f64 sum (level_gram_gate)
     got = row.level_gram(mw_cat, F_t)
     ref = row.level_gram_plain(mw_cat, F_t)
     err = float((got - ref).abs().max())
     if not err <= 2e-5 * float(ref.abs().max()):
         fail(f"level_gram max err {err:.3e} vs max |ref| "
              f"{float(ref.abs().max()):.3e}")
-    out["level_gram"] = dict(
-        max_abs_err=err,
-        ms=timed_ms(torch, lambda: row.level_gram(mw_cat, F_t), 20),
-        plain_ms=timed_ms(torch, lambda: row.level_gram_plain(mw_cat, F_t),
-                          20))
+    level_gram_gate(torch, row, mw_cat, F_t, got)
+    if not torch.equal(got, row.level_gram(mw_cat, F_t)):
+        fail("level_gram differs from itself")
+    out["level_gram"] = dict(max_abs_err=err,
+                             **level_gram_times(torch, row, mw_cat, F_t))
 
     # row_xty, every confounder's level count: rtol 3e-5 of max magnitude
     errs = []
@@ -134,10 +250,14 @@ def phase_kernels(torch, row, fss, ev):
         errs.append(err)
     all_xty = lambda fn: [fn(codes_t[v], Rm_t[v], train_t, D_t[v], F_t)
                           for v in range(len(LEVELS))]
+    b = bound(sum(4 * (N * M + L * M + K * M + N * K + N + L * K)
+                  for L in LEVELS),
+              f32_flop=sum(2 * (N * K * M + L * K * M) for L in LEVELS))
     out["row_xty"] = dict(
         max_abs_err=max(errs),
         ms=timed_ms(torch, lambda: all_xty(row.row_xty), 20),
-        plain_ms=timed_ms(torch, lambda: all_xty(row.row_xty_plain), 20))
+        plain_ms=timed_ms(torch, lambda: all_xty(row.row_xty_plain), 20),
+        bound_ms=b[0], bound_by=b[1])
 
     # masked_eval: SSE rel err <= 1e-5, counts exact
     got = ev.masked_eval(data_t, train_t, test_t, R_t, F_t)
@@ -148,12 +268,14 @@ def phase_kernels(torch, row, fss, ev):
             fail(f"masked_eval sse[{q}] {g[q]!r} vs {r[q]!r}")
     if g[2:] != r[2:]:
         fail(f"masked_eval counts {g[2:]} vs {r[2:]}")
+    b = bound(4 * (3 * N * M + N * K + K * M), f32_flop=2 * N * K * M)
     out["masked_eval"] = dict(
         max_abs_err=max(abs(a - b) for a, b in zip(g, r)),
         ms=timed_ms(torch, lambda: ev.masked_eval(
             data_t, train_t, test_t, R_t, F_t), 20),
         plain_ms=timed_ms(torch, lambda: ev.masked_eval_plain(
-            data_t, train_t, test_t, R_t, F_t), 20))
+            data_t, train_t, test_t, R_t, F_t), 20),
+        bound_ms=b[0], bound_by=b[1])
 
     # feature_sign_fused: per-column objective of the kernel may exceed the
     # plain version's by at most 1e-6 relative (an f32 rounding difference
@@ -177,15 +299,19 @@ def phase_kernels(torch, row, fss, ev):
         fail("feature_sign_fused returned non-finite values")
     if not float(excess.max()) <= 1e-6:
         fail(f"feature_sign_fused objective excess {float(excess.max()):.3e}")
+    if not torch.equal(got, fss.feature_sign_fused(*args, **kw)):
+        fail("feature_sign_fused differs from itself")
     match = torch.isclose(got, ref, rtol=2e-5, atol=1e-5).all(0)
     stats = {"match_share": float(match.double().mean()),
              "max_objective_excess": float(excess.max())}
+    bnd = fused_bound(N, K, M)
     out["feature_sign_fused"] = dict(
         max_abs_err=float((got - ref).abs().max()),
         ms=timed_ms(torch, lambda: fss.feature_sign_fused(*args, **kw), 10),
         plain_ms=timed_ms(torch, lambda: fss.feature_sign_fused_plain(
-            *args, **kw), 3))
-    return out, stats
+            *args, **kw), 3),
+        bound_ms=bnd[0], bound_by=bnd[1])
+    return out, stats, build_alone_ms(torch, fss, cd, x)
 
 
 def problem(torch, n, k, m, seed):
@@ -227,6 +353,29 @@ def fss_checks(torch, name, got, ref, G, b, lam, alpha):
     return float(match.double().mean()), excess
 
 
+def route_check(torch, name, fused, streamed, G, b, lam, alpha):
+    """A fused kernel against the streamed route on col_gram_xty grams of
+    the same problem.  The fused kernels sum their grams in bf16 planes on
+    the tensor cores, col_gram_xty in f32 FMAs, in another order, so an f32
+    rounding difference may move a column: every column's objective agrees
+    within 1e-6 relative, and >= 99% of the columns match at rtol 2e-5 /
+    atol 1e-5.  Returns (matching share, largest objective difference)."""
+    ff = objectives(torch, fused, G, b, lam, alpha)
+    fs = objectives(torch, streamed, G, b, lam, alpha)
+    diff = float(((ff - fs).abs() / fs.abs().clamp(min=1.0)).max())
+    share = float(torch.isclose(fused, streamed, rtol=2e-5, atol=1e-5)
+                  .all(0).double().mean())
+    print(f"{name} on col_gram_xty grams vs the fused kernel, K={K}: "
+          f"columns matching {share:.6f}; max objective difference "
+          f"{diff:.3e}; max abs diff "
+          f"{float((fused - streamed).abs().max()):.3e}")
+    if not diff <= 1e-6:
+        fail(f"{name} vs the fused kernel: objective difference {diff:.3e}")
+    if not share >= 0.99:
+        fail(f"{name} vs the fused kernel: {share:.6f} of the columns match")
+    return share, diff
+
+
 def phase_kernels_slice2(torch, gram, fss):
     """col_gram_xty, feature_sign and feature_sign_shared against their
     plain versions at full width.  Returns ({name: record}, statistics)."""
@@ -243,11 +392,13 @@ def phase_kernels_slice2(torch, gram, fss):
             if not e <= 3e-5 * float(r.abs().max()):
                 fail(f"col_gram_xty K={k} {what} max err {e:.3e} vs max "
                      f"|ref| {float(r.abs().max()):.3e}")
+        bnd = bound(4 * (2 * n * M + n * k + k * k * M + k * M),
+                    f32_flop=2 * (pairs(k) + k) * n * M)
         rec = dict(
             max_abs_err=err,
             ms=timed_ms(torch, lambda: gram.col_gram_xty(mask, data, R), 10),
             plain_ms=timed_ms(torch, lambda: gram.col_gram_xty_plain(
-                mask, data, R), 5))
+                mask, data, R), 5), bound_ms=bnd[0], bound_by=bnd[1])
         print(f"col_gram_xty K={k} N={n}: max_abs_err {err:.3e} kernel "
               f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms")
         grams[k] = (R, mask, data, beta0, got)
@@ -261,23 +412,22 @@ def phase_kernels_slice2(torch, gram, fss):
     share, excess = fss_checks(torch, "feature_sign", got, ref, G, b, lam,
                                alpha)
     stats["feature_sign"] = dict(match_share=share, max_objective_excess=excess)
+    bnd = gram_input_bound(50, M, shared=False)
     out["feature_sign"] = dict(
         max_abs_err=float((got - ref).abs().max()),
         ms=timed_ms(torch, lambda: fss.feature_sign(G, b, beta0, lam, alpha,
                                                     **kw), 5),
         plain_ms=timed_ms(torch, lambda: fss.feature_sign_plain(
-            G, b, beta0, lam, alpha, **kw), 2))
+            G, b, beta0, lam, alpha, **kw), 2),
+        bound_ms=bnd[0], bound_by=bnd[1])
 
     # K=24: the streamed route against the fused kernel, as
-    # tests/test_fss.py:293-317 holds the two TPU kernels; the same gram
-    # sums in the same order and the same FSS core: bit for bit
+    # tests/test_fss.py:293-317 holds the two TPU kernels (route_check)
     R, mask, data, beta0, (G, b) = grams[K]
     streamed = fss.feature_sign(G, b, beta0, LAM, ALPHA, **kw)
     fused = fss.feature_sign_fused(mask, data, R, beta0, LAM, ALPHA, **kw)
-    if not torch.equal(streamed, fused):
-        fail(f"feature_sign vs feature_sign_fused at K={K}: max diff "
-             f"{float((streamed - fused).abs().max()):.3e}")
-    stats["streamed_vs_fused"] = float((streamed - fused).abs().max())
+    stats["streamed_vs_fused"] = route_check(torch, "feature_sign", fused,
+                                             streamed, G, b, LAM, ALPHA)
 
     # feature_sign_shared at K=24 on R^T R, R^T data
     XtX = (R.T @ R).contiguous()
@@ -289,12 +439,14 @@ def phase_kernels_slice2(torch, gram, fss):
                                ALPHA)
     stats["feature_sign_shared"] = dict(match_share=share,
                                         max_objective_excess=excess)
+    bnd = gram_input_bound(K, M, shared=True)
     out["feature_sign_shared"] = dict(
         max_abs_err=float((got - ref).abs().max()),
         ms=timed_ms(torch, lambda: fss.feature_sign_shared(
             XtX, Xty, beta0, LAM, ALPHA, **kw), 10),
         plain_ms=timed_ms(torch, lambda: fss.feature_sign_shared_plain(
-            XtX, Xty, beta0, LAM, ALPHA, **kw), 3))
+            XtX, Xty, beta0, LAM, ALPHA, **kw), 3),
+        bound_ms=bnd[0], bound_by=bnd[1])
     return out, stats
 
 
@@ -339,26 +491,28 @@ def phase_kernels_cd(torch, gram, cd):
     out, stats = {}, {}
     S = 200
 
-    def record(name, fn, plain, args, reps):
+    def record(name, fn, plain, args, reps, bnd):
         return dict(
             max_abs_err=stats[name]["max_abs_err"],
             ms=timed_ms(torch, lambda: fn(*args, S), reps),
-            plain_ms=timed_ms(torch, lambda: plain(*args, S), 2))
+            plain_ms=timed_ms(torch, lambda: plain(*args, S), 2),
+            bound_ms=bnd[0], bound_by=bnd[1])
 
     # cd_fused at the flagship shape, and cd_streamed on col_gram_xty's
-    # grams of the same problem: the same sums, the same CD loop
+    # grams of the same problem: the same sums in another order, the same
+    # CD loop (route_check)
     R, mask, data, beta0 = problem(torch, N, K, M, 7)
     G, b = gram.col_gram_xty(mask, data, R)
     args = (mask, data, R, beta0, LAM, ALPHA, SUB_TOL)
     fused, stats["cd_fused"] = cd_checks(torch, "cd_fused", cd.cd_fused,
                                          cd.cd_fused_plain, args, G, b, LAM,
                                          ALPHA, S)
+    if not torch.equal(fused, cd.cd_fused(*args, S)):
+        fail("cd_fused differs from itself")
     streamed = cd.cd_streamed(G, b, beta0, LAM, ALPHA, SUB_TOL, S)
-    if not torch.equal(streamed, fused):
-        fail(f"cd_streamed vs cd_fused at K={K}: max diff "
-             f"{float((streamed - fused).abs().max()):.3e}")
+    route_check(torch, "cd_streamed", fused, streamed, G, b, LAM, ALPHA)
     out["cd_fused"] = record("cd_fused", cd.cd_fused, cd.cd_fused_plain,
-                             args, 5)
+                             args, 5, fused_bound(N, K, M))
 
     # cd_shared at K=24 on R^T R, R^T data
     XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
@@ -367,7 +521,7 @@ def phase_kernels_cd(torch, gram, cd):
         torch, "cd_shared", cd.cd_shared, cd.cd_shared_plain, args,
         XtX[:, :, None].expand(K, K, M), Xty, LAM, ALPHA, S)
     out["cd_shared"] = record("cd_shared", cd.cd_shared, cd.cd_shared_plain,
-                              args, 5)
+                              args, 5, gram_input_bound(K, M, shared=True))
     del G, b
 
     # cd_streamed at the prediXcan shape, K=50, N=300
@@ -378,7 +532,8 @@ def phase_kernels_cd(torch, gram, cd):
                                         cd.cd_streamed_plain, args, G, b, 1.0,
                                         0.5, S)
     out["cd_streamed"] = record("cd_streamed", cd.cd_streamed,
-                                cd.cd_streamed_plain, args, 3)
+                                cd.cd_streamed_plain, args, 3,
+                                gram_input_bound(50, M, shared=False))
     return out
 
 
@@ -464,12 +619,110 @@ def phase_small_fit(torch, itt, k=8, m=2000, partition=1, alpha=0.4,
     return float(np.max(np.abs(np.subtract(lc, lp)) / np.abs(lp)))
 
 
+def flagship_object(itt):
+    """The flagship problem (phases 8, 10, 11) as an Insider on the card."""
+    sim = itt.simulate_scale(N, M, K, level_counts=(2, 8, 107),
+                             noise_std=1.0, seed=0)
+    data = sim.data.astype(np.float64)
+    data[np.random.default_rng(0).random(data.shape) < 0.01] = np.nan
+    return itt.Insider(data, sim.confounder, interaction_idx=[0, 1],
+                       split_ratio=0.1, device="cuda")
+
+
+def predixcan_object(itt):
+    """The K=50 masked problem (phases 9, 10) as an Insider on the card."""
+    sim = itt.simulate_scale(300, M, 50, level_counts=(12, 25),
+                             noise_std=1.0, seed=1)
+    data = sim.data.astype(np.float64)
+    data[np.random.default_rng(1).random(data.shape) < 0.01] = np.nan
+    return itt.Insider(data, sim.confounder, device="cuda")
+
+
+FLAG_FIT = dict(latent_dimension=K, lambda_=LAM, alpha=ALPHA, max_iter=50)
+K50_FIT = dict(latent_dimension=50, lambda_=1.0, alpha=0.5, partition=1,
+               max_iter=20)
+COLD = dict(col_solver="cd", cd_warm_start=False)
+
+
+def device_kernel_times(torch, prof):
+    """{device kernel name: (total us, launches)} of a torch.profiler run,
+    from its device-side events (kernels and copies)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            tot, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (tot + us, n + 1)
+    return out
+
+
+# the device kernels of the profiled fit's wrappers, by a part of their names
+KERNEL_NAMES = {"level_gram": "level_gram", "row_xty": "row_xty",
+                "feature_sign_fused": "fused_kernel<",
+                "masked_eval": "masked_eval"}
+
+
+def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
+                alpha, iters=10):
+    """torch.profiler over `iters` iterations of the object's masked FSS
+    fit from `state` (where an earlier fit ended: in-fit inputs, kernels
+    built and warm), boundary evals included (three: before, after
+    iteration 0 and after the last).  The problem is staged before the
+    window, which holds train/als.optimize alone, as Insider.fit calls it.
+    Prints each device kernel's ms per iteration and per launch and the
+    device busy share (device kernel time over the host's window, which
+    ends in a synchronize); fails if a kernel that launched shows no
+    device time.  Returns {"busy_share", "kernels": {name: record}, ...}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.train import als
+
+    cfg = FitConfig(latent_dim=latent_dimension, lambda1=lambda_,
+                    lambda2=lambda_, alpha=alpha, masked=True,
+                    global_tol=obj.params["global_tol"],
+                    sub_tol=obj.params["sub_tol"], max_iter=iters - 1,
+                    seed=obj.seed)
+    problem = als.build_problem(obj.data, obj.confounder,
+                                obj.train_indicator + obj.test_indicator,
+                                obj.na_indicator, masked=True, device="cuda")
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        als.optimize(problem, cfg, state=state, verbose=False)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    launches = {n: w.launches for n, w in wrappers.items()}
+    times = device_kernel_times(torch, prof)
+    busy = sum(us for us, _ in times.values()) / wall_us
+    kernels = {}
+    for name, (us, n) in sorted(times.items(), key=lambda kv: -kv[1][0]):
+        kernels[name] = dict(ms_per_iter=us / 1e3 / iters,
+                             ms_per_launch=us / 1e3 / n, launches=n)
+        print(f"  profile: {us / 1e3 / iters:9.4f} ms/iter "
+              f"{us / 1e3 / n:9.4f} ms/launch x{n:4d}  {name[:90]}")
+    print(f"  profile: device busy {busy:.3f} of {wall_us / 1e3:.2f} ms "
+          f"({iters} iterations, 3 boundary evals); wrapper launches "
+          f"{launches}")
+    for wname, n in launches.items():
+        part = KERNEL_NAMES.get(wname)
+        if n and part and not any(part in k for k in times):
+            fail(f"profile: {wname} launched {n} times, no device time")
+    return dict(busy_share=busy, wall_ms=wall_us / 1e3, kernels=kernels,
+                launches=launches)
+
+
 def run_fit(torch, obj, wrappers, expect, name, monotone=True, **fit_kw):
     """Drive one fit through Insider.fit with every launch count set to 0
     just before it; check that the kernels in `expect` launched (and those
     mapped to 0 did not), that losses are finite and, with `monotone`,
     non-increasing; print its history and ms per iteration.  Returns the
-    launch counts and the final loss."""
+    launch counts, the final loss and the ms per iteration."""
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
@@ -504,7 +757,7 @@ def run_fit(torch, obj, wrappers, expect, name, monotone=True, **fit_kw):
           f"train_rmse {hist[-1]['train_rmse']!r} test_rmse "
           f"{obj.test_rmse!r}; {ms_fit:.3f} ms/iter over iterations "
           f"{first['iter'] + 1}-{last['iter']} (boundary evals included)")
-    return launches, losses[-1]
+    return launches, losses[-1], ms_fit
 
 
 def main():
@@ -542,13 +795,19 @@ def main():
             print("  ptxas:", line.strip())
 
     # 3. kernels against plain versions
-    kern, fss_stats = phase_kernels(torch, row, fss, ev)
+    kern, fss_stats, alone = phase_kernels(torch, row, fss, cd, ev)
     for name, rec in kern.items():
         print(f"kernel {name}: max_abs_err {rec['max_abs_err']:.3e} "
-              f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms")
+              f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    print(f"level_gram: library (cuBLAS f32 GEMM on the prebuilt table) "
+          f"{kern['level_gram']['library_ms']:.4f} ms")
     print(f"feature_sign_fused: columns matching plain (rtol 2e-5, atol "
           f"1e-5): {fss_stats['match_share']:.6f}; max objective excess "
           f"{fss_stats['max_objective_excess']:.3e}")
+    print(f"fused gram build alone (no solve): feature_sign_fused "
+          f"{alone['feature_sign_fused']:.4f} ms, cd_fused "
+          f"{alone['cd_fused']:.4f} ms")
 
     # 4. kernels of the dense and K > 32 paths
     kern2, stats2 = phase_kernels_slice2(torch, gram, fss)
@@ -560,8 +819,6 @@ def main():
         print(f"{name}: columns matching plain (rtol 2e-5, atol 1e-5): "
               f"{stats2[name]['match_share']:.6f}; max objective excess "
               f"{stats2[name]['max_objective_excess']:.3e}")
-    print(f"feature_sign on col_gram_xty grams vs feature_sign_fused, K={K}: "
-          f"max abs diff {stats2['streamed_vs_fused']:.3e}")
 
     # 5. the cold-CD kernels
     kern_cd = phase_kernels_cd(torch, gram, cd)
@@ -569,8 +826,6 @@ def main():
     for name, rec in kern_cd.items():
         print(f"kernel {name}: max_abs_err {rec['max_abs_err']:.3e} "
               f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms")
-    print(f"cd_streamed on col_gram_xty grams vs cd_fused, K={K}: equal bit "
-          "for bit")
 
     # 6. K = 96 and K = 128
     for name, rec in phase_kernels_wide(torch, gram, fss, cd).items():
@@ -578,14 +833,13 @@ def main():
               f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms")
 
     # 7. small fits, card against CPU
-    cold = dict(col_solver="cd", cd_warm_start=False)
     for label, kw in (("masked 120x2000 K=8", {}),
                       ("dense 120x2000 K=8", dict(partition=0)),
                       ("masked 120x500 K=40", dict(k=40, m=500)),
                       ("masked 120x2000 K=8 alpha=0", dict(alpha=0.0)),
-                      ("cold CD masked 120x2000 K=8", cold),
-                      ("cold CD dense 120x2000 K=8", dict(cold, partition=0)),
-                      ("cold CD masked 120x500 K=40", dict(cold, k=40, m=500)),
+                      ("cold CD masked 120x2000 K=8", COLD),
+                      ("cold CD dense 120x2000 K=8", dict(COLD, partition=0)),
+                      ("cold CD masked 120x500 K=40", dict(COLD, k=40, m=500)),
                       ("masked 120x300 K=96, 10 iterations",
                        dict(k=96, m=300, max_iter=10))):
         rel = phase_small_fit(torch, itt, **kw)
@@ -603,35 +857,24 @@ def main():
     no_fss = dict(feature_sign_fused=0, feature_sign=0, feature_sign_shared=0)
 
     # 8. flagship fits through the user entry point
-    sim = itt.simulate_scale(N, M, K, level_counts=(2, 8, 107),
-                             noise_std=1.0, seed=0)
-    data = sim.data.astype(np.float64)
-    data[np.random.default_rng(0).random(data.shape) < 0.01] = np.nan
-    flagship = itt.Insider(data, sim.confounder, interaction_idx=[0, 1],
-                           split_ratio=0.1, device="cuda")
+    flagship = flagship_object(itt)
     masked_path = dict(level_gram=1, row_xty=1, masked_eval=1)
-    flag = dict(latent_dimension=K, lambda_=LAM, alpha=ALPHA, max_iter=50)
-    launches, fss_masked = run_fit(
+    launches, fss_masked, _ = run_fit(
         torch, flagship, wrappers,
         dict(masked_path, feature_sign_fused=1, **no_cd), "flagship fit",
-        partition=1, **flag)
-    dense, fss_dense = run_fit(
+        partition=1, **FLAG_FIT)
+    flag_state = flagship.fit_result.state
+    dense, fss_dense, _ = run_fit(
         torch, flagship, wrappers, dict(feature_sign_shared=1, **no_cd),
-        "flagship dense fit", partition=0, **flag)
+        "flagship dense fit", partition=0, **FLAG_FIT)
     launches["feature_sign_shared"] = dense["feature_sign_shared"]
 
     # 9. K=50 masked fit at the prediXcan shape
-    sim = itt.simulate_scale(300, M, 50, level_counts=(12, 25),
-                             noise_std=1.0, seed=1)
-    data = sim.data.astype(np.float64)
-    data[np.random.default_rng(1).random(data.shape) < 0.01] = np.nan
-    predixcan = itt.Insider(data, sim.confounder, device="cuda")
-    k50_fit = dict(latent_dimension=50, lambda_=1.0, alpha=0.5, partition=1,
-                   max_iter=20)
-    k50, fss_k50 = run_fit(
+    predixcan = predixcan_object(itt)
+    k50, fss_k50, _ = run_fit(
         torch, predixcan, wrappers,
         dict(masked_path, feature_sign_fused=0, col_gram_xty=1,
-             feature_sign=1, **no_cd), "K=50 masked fit", **k50_fit)
+             feature_sign=1, **no_cd), "K=50 masked fit", **K50_FIT)
     launches["col_gram_xty"] = k50["col_gram_xty"]
     launches["feature_sign"] = k50["feature_sign"]
 
@@ -639,21 +882,27 @@ def main():
     for name, obj, expect, fit_kw, fss_loss in (
             ("cold CD flagship fit", flagship,
              dict(masked_path, cd_fused=1, cd_streamed=0, cd_shared=0),
-             dict(flag, partition=1), fss_masked),
+             dict(FLAG_FIT, partition=1), fss_masked),
             ("cold CD flagship dense fit", flagship,
              dict(cd_shared=1, cd_fused=0, cd_streamed=0),
-             dict(flag, partition=0), fss_dense),
+             dict(FLAG_FIT, partition=0), fss_dense),
             ("cold CD K=50 masked fit", predixcan,
              dict(masked_path, col_gram_xty=1, cd_streamed=1, cd_fused=0,
-                  cd_shared=0), k50_fit, fss_k50)):
-        counts, loss = run_fit(torch, obj, wrappers, dict(expect, **no_fss),
-                               name, monotone=False, **cold, **fit_kw)
+                  cd_shared=0), K50_FIT, fss_k50)):
+        counts, loss, _ = run_fit(torch, obj, wrappers,
+                                  dict(expect, **no_fss), name,
+                                  monotone=False, **COLD, **fit_kw)
         for n in ("cd_fused", "cd_streamed", "cd_shared"):
             if expect.get(n):
                 launches[n] = counts[n]
         print(f"{name}: final loss {loss!r} vs FSS fit {fss_loss!r} "
               f"(ratio {loss / fss_loss:.6f})")
-    del flagship, predixcan
+    del predixcan
+
+    # 11. in-fit profile of the flagship masked FSS fit
+    print("profile of the flagship masked fit (FSS), 10 iterations:")
+    profile_fit(torch, flagship, wrappers, flag_state, K, LAM, ALPHA)
+    del flagship
 
     # result
     tpu = "insider_tpu/kernels/"
@@ -681,7 +930,10 @@ def main():
          "replaces": sources[name][1],
          "launches": launches[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"]} for name in wrappers]}))
+         "plain_ms": kern[name]["plain_ms"],
+         "bound_ms": kern[name]["bound_ms"],
+         "bound_by": kern[name]["bound_by"],
+         "library_ms": kern[name].get("library_ms")} for name in wrappers]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,8 +34,9 @@ class Insider:
 
     interaction_idx is 0-based.  The interaction pseudo-confounder is
     inserted as column 2 of the confounder matrix (R/insider.R:40).  device:
-    where the problem and the factors live ("cpu" runs the plain versions of
-    the kernels, "cuda" the CUDA kernels).
+    where the problem and the factors live: "cuda" (the default) runs the
+    CUDA kernels and raises without a card, "cpu" runs their plain PyTorch
+    versions.
     """
 
     def __init__(self, data: np.ndarray, confounder: np.ndarray,
@@ -44,7 +45,8 @@ class Insider:
                  split_ratio: float = 0.1, global_tol: float = 1e-9,
                  sub_tol: float = 1e-5, tuning_iter: int = 30,
                  max_iter: int = 50000, rm_na_col: bool = True,
-                 split_seed: int = 123, seed: int = 0, device="cpu"):
+                 split_seed: int = 123, seed: int = 0, device="cuda"):
+        self.device = als.resolve_device(device)
         data = np.asarray(data, np.float64)
         confounder = np.asarray(confounder)
         if confounder.ndim == 1:
@@ -79,7 +81,6 @@ class Insider:
         self.params = dict(global_tol=global_tol, sub_tol=sub_tol,
                            tuning_iter=tuning_iter, max_iter=max_iter)
         self.seed = seed
-        self.device = device
 
         # populated by fit()
         self.cfd_matrices: Optional[List[np.ndarray]] = None

@@ -53,6 +53,10 @@ def cd_fused(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor,
     mask, data (N, M); R (N, K), its columns in the sweep order; beta0
     (K, M) warm start in the same order; all f32.  Each column's gram and
     Xty are built inside the kernel.  Returns beta (K, M).
+
+    The mask must hold only 0 and 1, as for fss.feature_sign_fused: the
+    kernel's bf16 gram build is exact for 0/1 only, and other values give
+    wrong grams without an error.
     """
     if _lib.on_cpu("cd_fused", mask, data, R, beta0):
         return cd_fused_plain(mask, data, R, beta0, lam, alpha, tol,

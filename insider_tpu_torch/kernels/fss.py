@@ -48,6 +48,11 @@ def feature_sign_fused(mask: torch.Tensor, data: torch.Tensor,
     mask, data (N, M); R (N, K); beta0 (K, M) warm start; all f32.  Each
     column's gram sum_i mask_ij r_i r_i^T and Xty sum_i r_i mask_ij data_ij
     are built inside the kernel.  Returns beta (K, M).
+
+    The mask must hold only 0 and 1: the kernel takes it into the bf16
+    tensor-core gram build as it is (exact for 0/1 only; other values are
+    truncated to bf16 and give wrong grams without an error).  The plain
+    version computes the general weighted sums.
     """
     if _lib.on_cpu("feature_sign_fused", mask, data, R, beta0):
         return feature_sign_fused_plain(mask, data, R, beta0, lam, alpha,

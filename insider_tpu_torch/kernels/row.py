@@ -24,7 +24,10 @@ def level_gram_plain(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
 
 def level_gram(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     """Per-level masked grams Mw @ outer_table(F)^T: (L, M), (K, M) ->
-    (L, K, K).  Counterpart of row_pallas.level_gram_pallas."""
+    (L, K, K).  Counterpart of row_pallas.level_gram_pallas.  Mw holds
+    integer counts below 65536: the kernel splits them into two exact bf16
+    planes (train/als.build_problem refuses masked problems on the card
+    whose counts could reach that)."""
     if _lib.on_cpu("level_gram", mw, F):
         return level_gram_plain(mw, F)
     _lib.require_cuda("level_gram", mw, F)

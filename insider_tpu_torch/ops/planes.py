@@ -1,0 +1,76 @@
+"""The exact bf16 splits of the tensor-core gram builds, in plain PyTorch.
+
+The CUDA kernels csrc/level_gram.cu and csrc/fss.cu run f32 sums on the
+bf16 tensor cores (csrc/mma.cuh).  A bf16 x bf16 product is exact in f32,
+so a sum of products of exact bf16 planes, accumulated in f32, is the f32
+sum of the unsplit values up to the order of summation:
+
+  bf16_planes   an f32 value as hi + mid + lo, each plane rounded to nearest
+                even from the remainder of the one before: the TPU kernels'
+                insider_tpu/kernels/fss_pallas.py:_bf16_planes;
+  count_planes  an integer count in [0, 65536) as hi = 256 floor(c / 256)
+                plus lo = c - hi, both exact in bf16;
+  a 0/1 mask is exact in bf16 as it is.
+
+planes_level_gram and planes_masked_gram compute what the two kernels
+compute, plane product by plane product, with the plain f32 matmul as the
+accumulator; they document the kernels' arithmetic and let the CPU tests
+hold it against the f32 plain versions and against the JAX package.  The
+fit never calls them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from insider_tpu_torch.ops.row_update import factor_outer_table
+
+
+def bf16_planes(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Exact three-way bf16 split of an f32 tensor: hi + mid + lo == x.
+    Every plane is a multiple of x's f32 ulp, so for |x| >= 2**-103 all
+    three are normal numbers."""
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def count_planes(c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact two-way bf16 split of integer counts in [0, 65536) held in
+    f32: hi = 256 floor(c / 256), lo = c - hi."""
+    hi = torch.floor(c * (1.0 / 256.0)) * 256.0
+    return hi.to(torch.bfloat16), (c - hi).to(torch.bfloat16)
+
+
+def planes_dot(lhs, rhs) -> torch.Tensor:
+    """sum_a sum_b lhs[a] @ rhs[b] over bf16 planes, each product of two
+    bf16 values exact in f32, accumulated in f32."""
+    out = None
+    for a in lhs:
+        for b in rhs:
+            term = torch.matmul(a.float(), b.float())
+            out = term if out is None else out + term
+    return out
+
+
+def planes_level_gram(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+    """level_gram as csrc/level_gram.cu computes it: the 2 x 3 products of
+    the count planes of Mw (L, M) and the planes of F's outer-product table,
+    summed in f32 -> (L, K, K)."""
+    K = F.shape[0]
+    table = factor_outer_table(F).T.contiguous()                 # (M, K^2)
+    return planes_dot(count_planes(mw), bf16_planes(table)).reshape(-1, K, K)
+
+
+def planes_masked_gram(R: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The per-column masked grams as csrc/fss.cu computes them: the three
+    planes of R's (K^2, N) outer-product table against the bf16 mask (N, M),
+    summed in f32 -> (M, K, K), the layout of ops/col_update.col_gram_masked."""
+    K = R.shape[1]
+    table = factor_outer_table(R.T.contiguous())                 # (K^2, N)
+    g = planes_dot(bf16_planes(table), [mask.to(torch.bfloat16)])
+    return g.T.reshape(-1, K, K)

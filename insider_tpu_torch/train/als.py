@@ -83,10 +83,28 @@ class Problem:
         return self.data.device
 
 
+# level_gram splits the per-level mask counts into two exact bf16 planes,
+# which hold every integer below 2**16 (csrc/mma.cuh: split_count).
+MAX_LEVEL_COUNT = 1 << 16
+
+
+def resolve_device(device) -> torch.device:
+    """The device a problem lives on.  "cuda" (the default of the entry
+    points) runs the CUDA kernels and needs a card; "cpu" runs their plain
+    PyTorch versions.  Nothing falls back from one to the other."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} (the default) needs an NVIDIA GPU and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to run "
+            "the plain PyTorch versions of the kernels on the CPU")
+    return device
+
+
 def build_problem(data: np.ndarray, confounder: np.ndarray,
                   train_indicator: np.ndarray, test_indicator: np.ndarray,
                   ctns_confounder: Optional[np.ndarray] = None,
-                  masked: bool = True, device="cpu",
+                  masked: bool = True, device="cuda",
                   sharding=None) -> Problem:
     """Stage host arrays on `device` and precompute the row constants.
 
@@ -94,7 +112,7 @@ def build_problem(data: np.ndarray, confounder: np.ndarray,
     labels; densified per column as the reference's `unique()` indexing,
     src/optimize.cpp:296-313).  Masks are stored as f32.  masked=False
     builds the dense (partition=0) problem, whose updates read every
-    element.
+    element.  device: "cuda" (default; raises without a card) or "cpu".
     """
     if ctns_confounder is not None:
         raise NotImplementedError(
@@ -102,7 +120,12 @@ def build_problem(data: np.ndarray, confounder: np.ndarray,
     if sharding is not None:
         raise NotImplementedError("sharding is not ported yet")
     disable_tf32()
-    device = torch.device(device)
+    device = resolve_device(device)
+    if masked and device.type == "cuda" and len(data) >= MAX_LEVEL_COUNT:
+        raise ValueError(
+            f"masked problems on the card take N < {MAX_LEVEL_COUNT} rows "
+            f"(got {len(data)}): level_gram holds the per-level mask counts "
+            "exactly in two bf16 planes only below that")
     confounder = np.asarray(confounder)
     codes_np, n_levels = [], []
     for c in range(confounder.shape[1]):

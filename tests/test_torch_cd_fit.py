@@ -37,7 +37,7 @@ def _obj(seed=7):
                                    latent_dim=3, seed=seed,
                                    with_interaction=True)
     return itt.Insider(sim.data, sim.confounder, interaction_idx=(0, 1),
-                       split_ratio=0.1)
+                       split_ratio=0.1, device="cpu")
 
 
 def _fit_and_oracle(prob, cfg):
@@ -83,7 +83,7 @@ def _cfg(**kw):
 def test_masked_cold_cd_fit_matches_f64_oracle():
     obj = _obj()
     prob = als.build_problem(obj.data, obj.confounder, obj.train_indicator,
-                             obj.test_indicator)
+                             obj.test_indicator, device="cpu")
     hist, ohist = _fit_and_oracle(prob, _cfg(max_iter=50,
                                              cd_warm_start=False))
     _compare(hist, ohist, rtol=2e-5)
@@ -96,7 +96,7 @@ def test_dense_cold_cd_fit_matches_f64_oracle():
     obj = _obj()
     indicator = obj.train_indicator + obj.test_indicator
     prob = als.build_problem(obj.data, obj.confounder, indicator,
-                             obj.na_indicator, masked=False)
+                             obj.na_indicator, masked=False, device="cpu")
     hist, ohist = _fit_and_oracle(prob, _cfg(max_iter=40, masked=False,
                                              cd_warm_start=False))
     _compare(hist, ohist, rtol=5e-5)
@@ -110,7 +110,7 @@ def test_masked_warm_cd_fit_not_worse_than_oracle():
     (x(1 + 2e-5), tests/test_driver_oracle.py:171-194)."""
     obj = _obj()
     prob = als.build_problem(obj.data, obj.confounder, obj.train_indicator,
-                             obj.test_indicator)
+                             obj.test_indicator, device="cpu")
     hist, ohist = _fit_and_oracle(prob, _cfg(max_iter=50))
     o_by_iter = {h["iter"]: h for h in ohist}
     checked = 0
@@ -126,7 +126,7 @@ def test_masked_warm_cd_fit_not_worse_than_oracle():
 def test_fss_solver_equals_auto():
     obj = _obj()
     prob = als.build_problem(obj.data, obj.confounder, obj.train_indicator,
-                             obj.test_indicator)
+                             obj.test_indicator, device="cpu")
     runs = [als.optimize(prob, FitConfig(latent_dim=3, lambda1=2.0,
                                          lambda2=2.0, alpha=0.4, max_iter=20,
                                          col_solver=s), verbose=False)

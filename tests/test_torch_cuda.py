@@ -7,16 +7,21 @@ imports JAX, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Small, ragged shapes: every kernel is checked where its blocks do not divide
-the problem.  Tolerances as in chip_smoke.py: level_gram 2e-5, row_xty and
-col_gram_xty 3e-5 of the output's max magnitude; masked_eval SSEs 1e-5
+the problem.  Tolerances as in chip_smoke.py: level_gram 2e-5 of the f32
+plain version's max magnitude (and 1e-6 of the f64 sum's, below), row_xty
+and col_gram_xty 3e-5 of the output's max magnitude; masked_eval SSEs 1e-5
 relative, counts exact; the FSS kernels' per-column objective excess <= 1e-6
-relative, and feature_sign on col_gram_xty grams against
-feature_sign_fused rtol 2e-5 / atol 1e-5.  The CD kernels run the plain
-version's iteration, compared at a short sweep cap (20): every column's
-objective excess <= 1e-6 relative and at least 99% of the columns match at
-rtol 2e-5 / atol 1e-5; cd_streamed on col_gram_xty grams equals cd_fused
-bit for bit.  Every kernel is run twice and must agree with itself bit for
-bit.
+relative.  The CD kernels run the plain version's iteration, compared at a
+short sweep cap (20): every column's objective excess <= 1e-6 relative and
+at least 99% of the columns match at rtol 2e-5 / atol 1e-5.  The fused
+kernels (feature_sign_fused, cd_fused) sum their grams on the tensor cores
+in another order than col_gram_xty's f32 FMAs, so the streamed route on
+col_gram_xty grams is held to them by the route check (_check_routes), not
+bit for bit; the FSS routes also agree element-wise (rtol 2e-5 / atol
+1e-5).  level_gram is held to the f64 sum: max error <= 1e-6 of its
+largest magnitude (LEVEL_GRAM_RTOL), a bound that one bf16 plane of the
+table would not meet.  Every kernel is run twice and must agree with itself
+bit for bit.
 """
 
 import numpy as np
@@ -26,8 +31,12 @@ import torch
 from insider_tpu_torch.kernels import eval as ev
 from insider_tpu_torch.kernels import cd, fss, gram, row
 from insider_tpu_torch.ops.col_update import col_gram_masked
+from insider_tpu_torch.ops.planes import bf16_planes
+from insider_tpu_torch.ops.row_update import factor_outer_table
 
 pytestmark = pytest.mark.cuda
+
+LEVEL_GRAM_RTOL = 1e-6          # of the f64 sum's max magnitude
 
 
 @pytest.fixture()
@@ -48,15 +57,28 @@ def _max_err_ok(got, ref, rtol):
     return float((got - ref).abs().max()) <= rtol * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("L,K,M", [(9, 5, 1031), (133, 24, 3001)])
-def test_level_gram(cuda, L, K, M):
+# counts up to 1000, above 256, where one bf16 plane no longer holds them,
+# and below 256 (a zero high count plane, as at the flagship shape); ragged
+# level counts (L = 150 spans two level tiles of the kernel)
+@pytest.mark.parametrize("L,K,M,cmax", [(9, 5, 1031, 1000),
+                                        (133, 24, 3001, 1000),
+                                        (133, 24, 3001, 255),
+                                        (37, 50, 2000, 1000),
+                                        (150, 24, 777, 1000)])
+def test_level_gram(cuda, L, K, M, cmax):
     rng = np.random.default_rng(0)
-    mw = _t(rng.integers(0, 200, (L, M)).astype(np.float32), cuda)
+    mw = _t(rng.integers(0, cmax + 1, (L, M)).astype(np.float32), cuda)
     F = _t(rng.standard_normal((K, M)).astype(np.float32), cuda)
     n0 = row.level_gram.launches
     got = row.level_gram(mw, F)
     assert row.level_gram.launches == n0 + 1
     assert _max_err_ok(got, row.level_gram_plain(mw, F), 2e-5)
+    # against the f64 sum; the gate rejects one bf16 plane of the table
+    exact = row.level_gram_plain(mw.double(), F.double())
+    assert _max_err_ok(got.double(), exact, LEVEL_GRAM_RTOL)
+    hi = bf16_planes(factor_outer_table(F))[0].double()
+    one_plane = (mw.double() @ hi.T).reshape(exact.shape)
+    assert not _max_err_ok(one_plane, exact, LEVEL_GRAM_RTOL)
     assert torch.equal(got, row.level_gram(mw, F))        # bit for bit
 
 
@@ -96,7 +118,9 @@ def test_masked_eval(cuda, N, M, K):
     assert again == got
 
 
-@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (100, 13, 700),
+# every KMAX instance of the kernel (8, 16, 24, 32) at ragged N and M
+@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (77, 8, 301),
+                                   (100, 13, 700), (129, 16, 515),
                                    (377, 24, 1000), (60, 32, 257)])
 def test_feature_sign_fused(cuda, N, K, M):
     rng = np.random.default_rng(3 + K)
@@ -137,10 +161,8 @@ def _masked_inputs(N, K, M, seed):
     return R, mask, data, beta0
 
 
-def _check_fss(got, ref, G, b, lam, alpha):
-    """Per-column objective excess of the kernel over the plain version
-    <= 1e-6 relative; >= 99% of the columns match; exact zeros exist.
-    G (K, K, M) and b (K, M), as the kernels take them."""
+def _objective(G, b, lam, alpha):
+    """Every column's elastic-net objective in f64.  G (K, K, M), b (K, M)."""
     G, b = G.double(), b.double()
 
     def objective(B):
@@ -149,12 +171,33 @@ def _check_fss(got, ref, G, b, lam, alpha):
         return (q + lam * (1 - alpha) / 2 * (B * B).sum(0)
                 + lam * alpha * B.abs().sum(0))
 
+    return objective
+
+
+def _check_fss(got, ref, G, b, lam, alpha):
+    """Per-column objective excess of the kernel over the plain version
+    <= 1e-6 relative; >= 99% of the columns match; exact zeros exist.
+    G (K, K, M) and b (K, M), as the kernels take them."""
+    objective = _objective(G, b, lam, alpha)
     assert bool(torch.isfinite(got).all())
     fk, fp = objective(got), objective(ref)
     assert float(((fk - fp) / fp.abs().clamp(min=1.0)).max()) <= 1e-6
     match = torch.isclose(got, ref, rtol=2e-5, atol=1e-5).all(0)
     assert float(match.double().mean()) >= 0.99
     assert int((got == 0).sum()) > 0
+
+
+def _check_routes(fused, streamed, G, b, lam, alpha):
+    """A fused kernel against the streamed route on col_gram_xty grams: the
+    two sum the grams in different orders (bf16 planes on the tensor cores
+    against f32 FMAs), so an f32 rounding difference may move a column.
+    Every column's objective agrees within 1e-6 relative, and >= 99% of
+    the columns match at rtol 2e-5 / atol 1e-5."""
+    objective = _objective(G, b, lam, alpha)
+    ff, fs = objective(fused), objective(streamed)
+    assert float(((ff - fs).abs() / fs.abs().clamp(min=1.0)).max()) <= 1e-6
+    match = torch.isclose(fused, streamed, rtol=2e-5, atol=1e-5).all(0)
+    assert float(match.double().mean()) >= 0.99
 
 
 @pytest.mark.parametrize("N,K,M,u8", [(45, 6, 333, False), (100, 24, 700, True),
@@ -198,6 +241,7 @@ def test_feature_sign(cuda, N, K, M):
         Gk, bk = gram.col_gram_xty(mask, data, R)
         streamed = fss.feature_sign(Gk, bk, beta0, lam, alpha, **kw)
         assert torch.allclose(streamed, fused, rtol=2e-5, atol=1e-5)
+        _check_routes(fused, streamed, G, b, lam, alpha)
 
 
 @pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
@@ -228,7 +272,8 @@ def _check_cd(got, ref, G, b, lam):
     _check_fss(got, ref, G, b, lam, CD_KW["alpha"])
 
 
-@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
+@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (77, 8, 301),
+                                   (129, 16, 515), (377, 24, 1000),
                                    (60, 32, 257)])
 def test_cd_fused(cuda, N, K, M):
     R, mask, data, beta0 = _masked_inputs(N, K, M, seed=50 + K)
@@ -240,10 +285,11 @@ def test_cd_fused(cuda, N, K, M):
     _check_cd(got, cd.cd_fused_plain(mask, data, R, beta0, **CD_KW), G, b,
               CD_KW["lam"])
     assert torch.equal(got, cd.cd_fused(mask, data, R, beta0, **CD_KW))
-    # the streamed route on col_gram_xty's grams: the same sums in the same
+    # the streamed route on col_gram_xty's grams: the same sums in another
     # order, the same CD loop
-    G, b = gram.col_gram_xty(mask, data, R)
-    assert torch.equal(got, cd.cd_streamed(G, b, beta0, **CD_KW))
+    Gk, bk = gram.col_gram_xty(mask, data, R)
+    _check_routes(got, cd.cd_streamed(Gk, bk, beta0, **CD_KW), G, b,
+                  CD_KW["lam"], CD_KW["alpha"])
 
 
 @pytest.mark.parametrize("N,K,M", [(45, 5, 333), (300, 50, 700),

@@ -94,7 +94,7 @@ def _fit_both(partition, alpha):
     jobj.fit(K, LAM, alpha, partition=partition, verbose=False,
              use_pallas=True)
     tobj = itt.Insider(data, confounder, interaction_idx=[0, 1],
-                       max_iter=MAX_ITER)
+                       max_iter=MAX_ITER, device="cpu")
     n_levels = [np.unique(c).size for c in tobj.confounder.T]
     st = jax_init_state(jax.random.PRNGKey(tobj.seed), tuple(n_levels),
                         tobj.data.shape[1], K)
@@ -144,9 +144,9 @@ def test_masked_k40_fit_matches_f64_oracle(monkeypatch):
                                    latent_dim=3, seed=7,
                                    with_interaction=True)
     obj = itt.Insider(sim.data, sim.confounder, interaction_idx=(0, 1),
-                      split_ratio=0.1)
+                      split_ratio=0.1, device="cpu")
     prob = als.build_problem(obj.data, obj.confounder, obj.train_indicator,
-                             obj.test_indicator)
+                             obj.test_indicator, device="cpu")
     cfg = FitConfig(latent_dim=k, lambda1=8.0, lambda2=8.0, alpha=0.4,
                     max_iter=50, global_tol=0.0)
     st = jax_init_state(jax.random.PRNGKey(0), prob.n_levels,

@@ -128,15 +128,16 @@ def test_unsupported_problem_and_fit_raise():
     ind = np.ones((12, 20), np.uint8)
     ctns = rng.standard_normal((12, 1))
     with pytest.raises(NotImplementedError):
-        als.build_problem(data, conf, ind, 0 * ind, ctns_confounder=ctns)
+        als.build_problem(data, conf, ind, 0 * ind, ctns_confounder=ctns,
+                          device="cpu")
     with pytest.raises(NotImplementedError):
         als.build_problem(data, conf, ind, 0 * ind, masked=False,
-                          ctns_confounder=ctns)
+                          ctns_confounder=ctns, device="cpu")
     with pytest.raises(NotImplementedError):
-        itt.Insider(data, conf, ctns_confounder=ctns).fit(3, 1.0, 0.5,
-                                                          partition=0)
+        itt.Insider(data, conf, ctns_confounder=ctns, device="cpu").fit(
+            3, 1.0, 0.5, partition=0)
     with pytest.raises(NotImplementedError):
-        itt.Insider(data, conf, ctns_confounder=ctns).fit(
+        itt.Insider(data, conf, ctns_confounder=ctns, device="cpu").fit(
             3, 1.0, 0.5, partition=1, col_solver="cd", cd_warm_start=False)
 
 
@@ -147,7 +148,8 @@ def test_dense_problem_and_ridge_update_build():
     data = rng.standard_normal((12, 20))
     conf = rng.integers(1, 3, (12, 2))
     ind = np.ones((12, 20), np.uint8)
-    prob = als.build_problem(data, conf, ind, 0 * ind, masked=False)
+    prob = als.build_problem(data, conf, ind, 0 * ind, masked=False,
+                             device="cpu")
     assert not prob.masked and prob.mw_cat is None
     assert [c.tolist() for c in prob.counts] == [
         np.bincount(np.unique(conf[:, v], return_inverse=True)[1]).tolist()

@@ -98,7 +98,8 @@ def test_optimize_matches_jax_kernel_path(interpret_kernels):
     jst = jax_init_state(jax.random.PRNGKey(0), jprob.n_levels, M, K)
     jres = jax_als.optimize(jprob, jcfg, state=jst, verbose=False)
 
-    prob = als.build_problem(obj.data, obj.confounder, train, test)
+    prob = als.build_problem(obj.data, obj.confounder, train, test,
+                             device="cpu")
     assert prob.n_levels == tuple(jprob.n_levels)
     cfg = FitConfig(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
                     max_iter=MAX_ITER, global_tol=1e-12)
@@ -120,7 +121,7 @@ def test_insider_fit_matches_jax(interpret_kernels):
     jobj.fit(K, LAM, ALPHA, partition=1, verbose=False, use_pallas=True)
 
     tobj = itt.Insider(data, confounder, interaction_idx=[0, 1],
-                       max_iter=MAX_ITER)
+                       max_iter=MAX_ITER, device="cpu")
     np.testing.assert_array_equal(tobj.confounder, jobj.confounder)
     n_levels = [np.unique(c).size for c in tobj.confounder.T]
     cfd0, F0 = _jax_state(n_levels, seed=tobj.seed)
@@ -146,9 +147,9 @@ def test_optimize_matches_f64_oracle():
                                    latent_dim=3, seed=7,
                                    with_interaction=True)
     obj = itt.Insider(sim.data, sim.confounder, interaction_idx=(0, 1),
-                      split_ratio=0.1)
+                      split_ratio=0.1, device="cpu")
     prob = als.build_problem(obj.data, obj.confounder, obj.train_indicator,
-                             obj.test_indicator)
+                             obj.test_indicator, device="cpu")
     cfg = FitConfig(latent_dim=3, lambda1=2.0, lambda2=2.0, alpha=0.4,
                     max_iter=50, global_tol=0.0)
     st = jax_init_state(jax.random.PRNGKey(0), prob.n_levels,

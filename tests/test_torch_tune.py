@@ -88,7 +88,7 @@ def test_tune_matches_jax(same_trials, tmp_path):
     tdir.mkdir()
     jres = jax_grid.tune(it.Insider(data, sim.confounder, **kw), RANKS,
                          LAMBDAS, ALPHAS, out_dir=str(jdir), batch_grid=False)
-    tres = itt.Insider(data, sim.confounder, **kw).tune(
+    tres = itt.Insider(data, sim.confounder, device="cpu", **kw).tune(
         RANKS, LAMBDAS, ALPHAS, out_dir=str(tdir))
 
     assert tres["latent_rank"] == jres["latent_rank"]
@@ -111,4 +111,4 @@ def test_tune_matches_jax(same_trials, tmp_path):
 def test_tune_rejects_scalar_grid():
     sim = it.simulate_scale(12, 20, 2, level_counts=(2, 3), seed=0)
     with pytest.raises(ValueError, match="length > 1"):
-        itt.Insider(sim.data, sim.confounder).tune(4, 1.0, 0.5)
+        itt.Insider(sim.data, sim.confounder, device="cpu").tune(4, 1.0, 0.5)
