@@ -13,12 +13,17 @@ directory's chip_smoke.py, so both trees see the same inputs.  Measured:
   * level_gram at the flagship shape (sum L = 133, K = 24) and at the K=50
     shape (levels 12 and 25, N = 300), kernel and plain version, beside one
     cuBLAS f32 GEMM on the prebuilt table (library_ms);
+  * row_xty for the four flagship confounders in one timed call and for the
+    two K=50 confounders, and masked_eval at both shapes, kernel and plain
+    version, beside their bounds;
   * the fused kernels' gram build alone (feature_sign_fused with
     max_outer=0, polish_sweeps=0; cd_fused with max_sweeps=0) and
     feature_sign_fused on chip_smoke's phase-3 input;
   * the ms per iteration of the FSS and cold-CD fits, flagship masked and
     dense and K=50 masked, from each fit's own boundary clock;
-  * torch.profiler over 10 iterations of the flagship masked FSS fit.
+  * torch.profiler over 10 iterations of the flagship masked FSS fit: each
+    kernel's device time, each wrapper's in-fit ms per launch, the device
+    busy share.
 Prints one JSON line (and writes it to FILE).  Exits non-zero without
 CUDA.
 """
@@ -30,8 +35,6 @@ import os
 import subprocess
 import sys
 import time
-
-import numpy as np
 
 
 def main():
@@ -77,24 +80,30 @@ def main():
     args = (x["train"], x["data"], x["R"], x["beta0"], cs.LAM, cs.ALPHA)
     res["feature_sign_fused_ms"] = cs.timed_ms(
         torch, lambda: fss.feature_sign_fused(*args, **kw), 10)
+    res["row_xty"] = cs.row_xty_times(
+        torch, row, list(zip(x["codes"], x["R_minus"], x["D"])), x["train"],
+        x["F"])
+    res["masked_eval"] = cs.masked_eval_times(
+        torch, ev, x["data"], x["train"], x["test"], x["R"], x["F"])
     del x, args
 
-    # level_gram at the K=50 shape
-    rng = np.random.default_rng(1)
-    mask = torch.from_numpy((rng.random((300, cs.M)) > 0.1)
-                            .astype(np.float32)).to("cuda")
-    mw = torch.cat([torch.nn.functional.one_hot(
-        torch.from_numpy(rng.integers(0, L, 300)).to("cuda"), L).float().T
-        @ mask for L in (12, 25)]).contiguous()
-    F50 = torch.from_numpy((0.3 * rng.standard_normal((50, cs.M)))
-                           .astype(np.float32)).to("cuda")
-    res["level_gram_k50"] = cs.level_gram_times(torch, row, mw, F50)
-    del mask, mw, F50
-    for name in ("level_gram", "level_gram_k50"):
+    # the K=50 shape
+    k50 = cs.k50_inputs(torch)
+    res["level_gram_k50"] = cs.level_gram_times(torch, row, k50["mw"],
+                                                k50["F"])
+    res["row_xty_k50"] = cs.row_xty_times(
+        torch, row, list(zip(k50["codes"], k50["R_minus"], k50["D"])),
+        k50["mask"], k50["F"])
+    res["masked_eval_k50"] = cs.masked_eval_times(
+        torch, ev, k50["data"], k50["mask"], k50["test"], k50["R"],
+        k50["F"])
+    del k50
+    for name in ("level_gram", "level_gram_k50", "row_xty", "row_xty_k50",
+                 "masked_eval", "masked_eval_k50"):
         r = res[name]
         print(f"chip_ab: {name}: kernel {r['ms']:.4f} ms plain "
-              f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
-              f"bound {r['bound_ms']:.4f} ms")
+              f"{r['plain_ms']:.4f} ms library {r.get('library_ms')} ms "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     print(f"chip_ab: build alone {res['build_alone']}; feature_sign_fused "
           f"{res['feature_sign_fused_ms']:.4f} ms")
 

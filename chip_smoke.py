@@ -9,12 +9,17 @@ Phases, each fatal on failure:
   2. build: compile the CUDA kernels from insider_tpu_torch/csrc/;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the flagship shapes (377 x 44477, K=24, levels 2/16/8/107), with max
-     error and median times (CUDA events); level_gram against its plain
-     version in f64 (max error <= 1e-6 of the largest magnitude, a gate
-     that must reject one bf16 plane of the table) and beside one cuBLAS
-     f32 GEMM on the prebuilt table (library_ms, a yardstick the port
-     never calls); the fused kernels' gram build alone (feature_sign_fused with
-     max_outer=0, polish_sweeps=0; cd_fused with max_sweeps=0);
+     error and median times (CUDA events), and again, bit for bit;
+     level_gram against its plain version in f64 (max error <= 1e-6 of the
+     largest magnitude, a gate that must reject one bf16 plane of the
+     table) and beside one cuBLAS f32 GEMM on the prebuilt table
+     (library_ms, a yardstick the port never calls); row_xty against its
+     plain version in f64 on inputs where D and T nearly cancel (max error
+     <= 1e-4 of the largest magnitude, a gate that must reject the
+     cancellation-prone f32 form D F^T - T F^T); row_xty and masked_eval at
+     the K=50 shape (300 x 44477, levels 12/25); the fused kernels' gram
+     build alone (feature_sign_fused with max_outer=0, polish_sweeps=0;
+     cd_fused with max_sweeps=0);
   4. kernels of the dense and K > 32 paths, at full width (M=44477):
      col_gram_xty at K=24 (N=377) and K=50 (N=300); feature_sign at K=50
      on those grams; at K=24 feature_sign on col_gram_xty grams against
@@ -41,7 +46,8 @@ Phases, each fatal on failure:
      is set against the FSS fit's;
  11. profile: torch.profiler over 10 iterations of the flagship masked FSS
      fit, from the state its phase-8 fit ended in; each kernel's device ms
-     per iteration and per launch, and the device busy share; fails if a
+     per iteration and per launch, each wrapper's in-fit device ms per
+     launch (its kernels together), and the device busy share; fails if a
      kernel that launched shows no device time.
 The route checks (phases 4, 5): the fused kernels sum their grams in bf16
 planes on the tensor cores, col_gram_xty in f32 FMAs, in another order, so
@@ -155,6 +161,153 @@ def flagship_inputs(torch):
     return x
 
 
+def k50_inputs(torch):
+    """The row kernels' inputs at the K=50 shape (prediXcan: 300 x 44477,
+    levels 12 and 25), on the card."""
+    n, k, levels = 300, 50, (12, 25)
+    rng = np.random.default_rng(1)
+    mask = torch.from_numpy((rng.random((n, M)) > 0.1)
+                            .astype(np.float32)).to("cuda")
+    codes = [torch.from_numpy(rng.integers(0, L, n).astype(np.int32))
+             .to("cuda") for L in levels]
+    E_t = [torch.nn.functional.one_hot(c.long(), L).float().T.contiguous()
+           for c, L in zip(codes, levels)]
+    F = torch.from_numpy((0.3 * rng.standard_normal((k, M)))
+                         .astype(np.float32)).to("cuda")
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to("cuda")
+    R_minus = [t(0.5 * rng.standard_normal((n, k))) for _ in levels]
+    R = t(rng.standard_normal((n, k)))
+    data = t(rng.standard_normal((n, M)))
+    test = (1.0 - mask) * t(rng.random((n, M)) > 0.5)
+    return dict(mask=mask, codes=codes, F=F, R_minus=R_minus, R=R,
+                data=data, test=test.contiguous(),
+                mw=torch.cat([E @ mask for E in E_t]).contiguous(),
+                D=[(E @ (mask * data)).contiguous() for E in E_t])
+
+
+def row_order(row, codes, L):
+    """row_xty's keyword for the per-problem row order that the package's
+    kernel reads, as a fit passes it (computed once per problem); none for
+    a package whose row_xty takes none."""
+    return ({"levels": row.level_order(codes, L)}
+            if hasattr(row, "level_order") else {})
+
+
+def row_xty_times(torch, row, cases, mask, F, reps=20):
+    """row_xty over every (codes, R_minus, D) of `cases` in one timed call,
+    kernel and plain version, beside the bound: per case the mask, D, F, R
+    and the row order read once, the (L, K) output written; the prediction's
+    and the contraction's FMAs in f32."""
+    n = mask.shape[0]
+    k, m = F.shape
+    orders = [row_order(row, c, D.shape[0]) for c, _, D in cases]
+    b = bound(sum(4 * (n * m + L * m + k * m + n * k + 2 * n + L + 1 + L * k)
+                  for L in (D.shape[0] for _, _, D in cases)),
+              f32_flop=sum(2 * (n * k * m + D.shape[0] * k * m)
+                           for _, _, D in cases))
+    return dict(
+        ms=timed_ms(torch, lambda: [row.row_xty(c, r, mask, D, F, **o)
+                                    for (c, r, D), o in zip(cases, orders)],
+                    reps),
+        plain_ms=timed_ms(torch, lambda: [row.row_xty_plain(c, r, mask, D, F)
+                                          for c, r, D in cases], reps),
+        bound_ms=b[0], bound_by=b[1])
+
+
+def masked_eval_times(torch, ev, data, train, test, R, F, reps=20):
+    """masked_eval's kernel and plain times beside its bound: data and the
+    two masks (N, M), R and F read once; the prediction's FMAs in f32."""
+    n, k = R.shape
+    m = F.shape[1]
+    b = bound(4 * (3 * n * m + n * k + k * m) + 32, f32_flop=2 * n * k * m)
+    return dict(
+        ms=timed_ms(torch, lambda: ev.masked_eval(data, train, test, R, F),
+                    reps),
+        plain_ms=timed_ms(torch, lambda: ev.masked_eval_plain(
+            data, train, test, R, F), reps),
+        bound_ms=b[0], bound_by=b[1])
+
+
+def masked_eval_check(torch, ev, name, data, train, test, R, F):
+    """masked_eval against its plain version: SSEs within 1e-5 relative,
+    counts exact, and a second run equal bit for bit.  Returns the largest
+    absolute difference."""
+    got = ev.masked_eval(data, train, test, R, F)
+    ref = ev.masked_eval_plain(data, train, test, R, F)
+    g, r = [float(x) for x in got], [float(x) for x in ref]
+    for q in (0, 1):
+        if not abs(g[q] - r[q]) <= 1e-5 * abs(r[q]):
+            fail(f"{name} sse[{q}] {g[q]!r} vs {r[q]!r}")
+    if g[2:] != r[2:]:
+        fail(f"{name} counts {g[2:]} vs {r[2:]}")
+    if [float(x) for x in ev.masked_eval(data, train, test, R, F)] != g:
+        fail(f"{name} differs from itself")
+    return max(abs(a - b) for a, b in zip(g, r))
+
+
+def row_xty_check(torch, row, name, codes, R_minus, mask, D, F):
+    """row_xty against its f32 plain version (max error <= 3e-5 of the
+    largest magnitude), given the row order and deriving it (the two equal
+    bit for bit, which also repeats the kernel).  Returns the max error."""
+    args = (codes, R_minus, mask, D, F)
+    got = row.row_xty(*args, **row_order(row, codes, D.shape[0]))
+    ref = row.row_xty_plain(*args)
+    err = float((got - ref).abs().max())
+    if not err <= 3e-5 * float(ref.abs().max()):
+        fail(f"{name} max err {err:.3e} vs max |ref| "
+             f"{float(ref.abs().max()):.3e}")
+    if not torch.equal(got, row.row_xty(*args)):
+        fail(f"{name} differs from itself (with and without the row order)")
+    return err
+
+
+ROW_XTY_RTOL = 1e-4
+
+
+def row_xty_gate(torch, row, x):
+    """row_xty against its plain version in f64 on inputs near a fit's end,
+    where D and T nearly cancel: per flagship confounder, data = R_minus F
+    + 0.01 noise, so S = D - T is about 1e-3 of D.  Max error <=
+    ROW_XTY_RTOL of the largest magnitude of the f64 result; the gate must
+    reject a control, the cancellation-prone f32 form D F^T - T F^T (T =
+    E^T (mask .* R_minus F) in f32), which a kernel that contracted D and T
+    with F apart would give.  At phase 3's other inputs (R_minus and F
+    unrelated to the data) the two forms both pass, hence these inputs."""
+    rng = np.random.default_rng(11)
+    mask, F = x["train"], x["F"]
+    worst = {"kernel": 0.0, "plain f32": 0.0, "f32 control": 0.0}
+    for codes, Rm, L in zip(x["codes"], x["R_minus"], LEVELS):
+        noise = torch.from_numpy(rng.standard_normal(mask.shape)).to("cuda")
+        data = Rm.double() @ F.double() + 0.01 * noise
+        E_t = torch.nn.functional.one_hot(codes.long(), L).double().T
+        D = (E_t @ (mask.double() * data)).float().contiguous()
+        exact = row.row_xty_plain(codes, Rm.double(), mask.double(),
+                                  D.double(), F.double())
+        T = E_t.float() @ (mask * (Rm @ F))
+        scale = float(exact.abs().max())
+        for name, got in (
+                ("kernel", row.row_xty(codes, Rm, mask, D, F,
+                                       **row_order(row, codes, L))),
+                ("plain f32", row.row_xty_plain(codes, Rm, mask, D, F)),
+                ("f32 control", D @ F.T - T @ F.T)):
+            worst[name] = max(worst[name],
+                              float((got.double() - exact).abs().max())
+                              / scale)
+        del noise, data, E_t, D, exact, T
+    print("row_xty max err vs the f64 sum, near-cancelling inputs, over "
+          "the four confounders, as a fraction of max |ref|: " + "; ".join(
+              f"{k} {v:.4e}" for k, v in worst.items())
+          + f"; limit {ROW_XTY_RTOL:g}; control "
+          + ("rejected" if worst["f32 control"] > ROW_XTY_RTOL
+             else "NOT rejected"))
+    if not worst["kernel"] <= ROW_XTY_RTOL:
+        fail(f"row_xty max err {worst['kernel']:.4e} of max |ref| > "
+             f"{ROW_XTY_RTOL:g}")
+    if worst["f32 control"] <= ROW_XTY_RTOL:
+        fail("row_xty's gate does not reject the f32 form D F^T - T F^T")
+    return worst
+
+
 LEVEL_GRAM_RTOL = 1e-6
 
 
@@ -239,43 +392,28 @@ def phase_kernels(torch, row, fss, cd, ev):
                              **level_gram_times(torch, row, mw_cat, F_t))
 
     # row_xty, every confounder's level count: rtol 3e-5 of max magnitude
-    errs = []
-    for v, L in enumerate(LEVELS):
-        args = (codes_t[v], Rm_t[v], train_t, D_t[v], F_t)
-        got, ref = row.row_xty(*args), row.row_xty_plain(*args)
-        err = float((got - ref).abs().max())
-        if not err <= 3e-5 * float(ref.abs().max()):
-            fail(f"row_xty (L={L}) max err {err:.3e} vs max |ref| "
-                 f"{float(ref.abs().max()):.3e}")
-        errs.append(err)
-    all_xty = lambda fn: [fn(codes_t[v], Rm_t[v], train_t, D_t[v], F_t)
-                          for v in range(len(LEVELS))]
-    b = bound(sum(4 * (N * M + L * M + K * M + N * K + N + L * K)
-                  for L in LEVELS),
-              f32_flop=sum(2 * (N * K * M + L * K * M) for L in LEVELS))
-    out["row_xty"] = dict(
-        max_abs_err=max(errs),
-        ms=timed_ms(torch, lambda: all_xty(row.row_xty), 20),
-        plain_ms=timed_ms(torch, lambda: all_xty(row.row_xty_plain), 20),
-        bound_ms=b[0], bound_by=b[1])
+    # against the f32 plain version, bit for bit again; the f64 gate
+    cases = list(zip(codes_t, Rm_t, D_t))
+    errs = [row_xty_check(torch, row, f"row_xty (L={D.shape[0]})", c, r,
+                          train_t, D, F_t) for c, r, D in cases]
+    gate = row_xty_gate(torch, row, x)
+    out["row_xty"] = dict(max_abs_err=max(errs), f64_gate=gate,
+                          **row_xty_times(torch, row, cases, train_t, F_t))
 
-    # masked_eval: SSE rel err <= 1e-5, counts exact
-    got = ev.masked_eval(data_t, train_t, test_t, R_t, F_t)
-    ref = ev.masked_eval_plain(data_t, train_t, test_t, R_t, F_t)
-    g, r = [float(x) for x in got], [float(x) for x in ref]
-    for q in (0, 1):
-        if not abs(g[q] - r[q]) <= 1e-5 * abs(r[q]):
-            fail(f"masked_eval sse[{q}] {g[q]!r} vs {r[q]!r}")
-    if g[2:] != r[2:]:
-        fail(f"masked_eval counts {g[2:]} vs {r[2:]}")
-    b = bound(4 * (3 * N * M + N * K + K * M), f32_flop=2 * N * K * M)
+    # masked_eval: SSE rel err <= 1e-5, counts exact, bit for bit again
     out["masked_eval"] = dict(
-        max_abs_err=max(abs(a - b) for a, b in zip(g, r)),
-        ms=timed_ms(torch, lambda: ev.masked_eval(
-            data_t, train_t, test_t, R_t, F_t), 20),
-        plain_ms=timed_ms(torch, lambda: ev.masked_eval_plain(
-            data_t, train_t, test_t, R_t, F_t), 20),
-        bound_ms=b[0], bound_by=b[1])
+        max_abs_err=masked_eval_check(torch, ev, "masked_eval", data_t,
+                                      train_t, test_t, R_t, F_t),
+        **masked_eval_times(torch, ev, data_t, train_t, test_t, R_t, F_t))
+
+    # both at the K=50 shape (checks only; chip_ab.py times them)
+    k50 = k50_inputs(torch)
+    for c, r, D in zip(k50["codes"], k50["R_minus"], k50["D"]):
+        row_xty_check(torch, row, f"row_xty K=50 (L={D.shape[0]})", c, r,
+                      k50["mask"], D, k50["F"])
+    masked_eval_check(torch, ev, "masked_eval K=50", k50["data"],
+                      k50["mask"], k50["test"], k50["R"], k50["F"])
+    del k50
 
     # feature_sign_fused: per-column objective of the kernel may exceed the
     # plain version's by at most 1e-6 relative (an f32 rounding difference
@@ -709,12 +847,20 @@ def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
     print(f"  profile: device busy {busy:.3f} of {wall_us / 1e3:.2f} ms "
           f"({iters} iterations, 3 boundary evals); wrapper launches "
           f"{launches}")
+    in_fit = {}
     for wname, n in launches.items():
         part = KERNEL_NAMES.get(wname)
-        if n and part and not any(part in k for k in times):
+        if not (n and part):
+            continue
+        us = sum(t for k, (t, _) in times.items() if part in k)
+        if not us:
             fail(f"profile: {wname} launched {n} times, no device time")
+        in_fit[wname] = dict(ms_per_launch=us / 1e3 / n,
+                             ms_per_iter=us / 1e3 / iters, launches=n)
+        print(f"  in fit: {wname} {us / 1e3 / n:.4f} ms per launch "
+              f"(its kernels together), {n / iters:g} launches/iter")
     return dict(busy_share=busy, wall_ms=wall_us / 1e3, kernels=kernels,
-                launches=launches)
+                launches=launches, in_fit=in_fit)
 
 
 def run_fit(torch, obj, wrappers, expect, name, monotone=True, **fit_kw):

@@ -12,111 +12,205 @@
 // counts round (eval_pallas.py:194-195).
 //
 // Bound on the H100: reading data and the two masks, 3 x N x M f32 (200 MB
-// at the flagship shape), plus N*M*K FMAs for the prediction.
+// at the flagship shape, 0.060 ms at 3.35 TB/s); the prediction's N*M*K
+// FMAs (0.012 ms at 67 TFLOP/s f32) come second.  The first version read
+// both R and F from shared memory for every FMA, which bound it on shared
+// loads, not on HBM.
 //
-// Design: one thread per column, a block of CW columns x RB rows.  The
-// block stages its R rows and its F columns in shared memory, walks its rows
-// with coalesced loads, and reduces its four f64 sums in shared memory in a
-// fixed tree order.  Each block writes its four partials; a second pass adds
-// them in block order (no atomics, so repeated runs agree bit for bit).  The
-// ragged edges are guarded in the kernel, not padded.
+// Design: a block of CT threads x C columns a thread, x RB rows.  The
+// thread's columns of F live in registers, the block's rows of R are staged
+// in shared memory and read as broadcast 16-byte loads (each feeding 4 C
+// FMAs, common.cuh:dot_row), and two register sets of U rows' three loads
+// go in turn, one set in flight while the other computes.  The squares
+// accumulate in f64; the counts of a batch (U C mask values) are added in
+// f32, exact for 0/1 masks, and then once into their f64 sums.  The four
+// f64 sums of a block are added by a fixed xor-shuffle tree in each warp
+// and then across the warps in order; each block writes its four partials,
+// and a second pass adds them in a fixed order (no atomics, so repeated
+// runs agree bit for bit).  Global loads are scalar and coalesced (rows
+// start at any 4-byte offset); the ragged edges are guarded, not padded.
+// What bounds it now (PERF.md, PR 5): the column tiles x row blocks access
+// pattern alone reads the three arrays below the card's rate, and the
+// arithmetic alone (FMAs, the shared loads of R, the f32 -> f64
+// conversions of the squares) takes about as long as the reads.
 #include "common.cuh"
 
 namespace {
 
-constexpr int CW = 128;   // columns per block, one per thread
-constexpr int RB = 64;    // rows per block
+using insider::ceil_div;
 
-size_t smem_bytes(int K) {
-  return sizeof(float) * ((size_t)RB * K + (size_t)K * CW) +
-         sizeof(double) * 4 * CW;
+constexpr int CT = 128;   // threads per block
+constexpr int RB = 64;    // rows per block
+constexpr int U = 4;      // rows a batch
+
+// Columns a thread at padded rank KP (a block's tile: CT of them a
+// thread); 3 U C loads a thread a batch, two batches in flight.
+__host__ __device__ constexpr int cols_per_thread(int KP) {
+  return KP <= 64 ? 2 : 1;
 }
 
-__global__ void __launch_bounds__(CW)
+template <int KP>
+__global__ void __launch_bounds__(CT)
 masked_eval_partial(const float* __restrict__ data,
                     const float* __restrict__ train,
                     const float* __restrict__ test,
                     const float* __restrict__ R, const float* __restrict__ F,
                     double* __restrict__ partial, int N, int M, int K) {
+  constexpr int C = cols_per_thread(KP);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* red = reinterpret_cast<double*>(smem_raw);          // (4, CW)
-  float* Rs = reinterpret_cast<float*>(red + 4 * CW);          // (RB, K)
-  float* Fs = Rs + (size_t)RB * K;                             // (K, CW)
+  float* Rs = reinterpret_cast<float*>(smem_raw);             // (RB, KP)
+  __shared__ double red[CT / 32][4];
 
   const int tid = threadIdx.x;
-  const int j = blockIdx.x * CW + tid;
+  const int j0 = blockIdx.x * (CT * C) + tid;   // columns j0 + c * CT
   const int i0 = blockIdx.y * RB;
   const int rows = min(RB, N - i0);
-  const bool valid = j < M;
-
-  for (int e = tid; e < rows * K; e += CW) Rs[e] = R[(size_t)i0 * K + e];
-  for (int k = 0; k < K; ++k) Fs[k * CW + tid] = valid ? F[(size_t)k * M + j] : 0.f;
+  int jc[C];                                  // in-bounds loads; results unused
+  bool valid[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    valid[c] = j0 + c * CT < M;
+    jc[c] = min(j0 + c * CT, M - 1);
+  }
+  float f[C][KP];
+  insider::load_columns<KP, C, CT>(F, M, K, j0, f);
+  for (int r0 = 0; r0 < rows; r0 += RB / 2) {
+    insider::RowStage<KP, RB / 2, CT> stage;
+    stage.load(R, K, rows - r0, [&](int r) { return i0 + r0 + r; });
+    stage.store(Rs + r0 * KP, rows - r0);
+  }
   __syncthreads();
 
-  double sse_tr = 0.0, sse_te = 0.0, n_tr = 0.0, n_te = 0.0;
-  if (valid) {
-    for (int i = 0; i < rows; ++i) {
-      const size_t at = (size_t)(i0 + i) * M + j;
-      float p = 0.f;
-      for (int k = 0; k < K; ++k) p = fmaf(Rs[i * K + k], Fs[k * CW + tid], p);
-      const float res = data[at] - p;
-      const float tm = train[at], em = test[at];
-      const double rt = (double)(res * tm), re = (double)(res * em);
-      sse_tr += rt * rt;
-      sse_te += re * re;
-      n_tr += (double)tm;
-      n_te += (double)em;
+  // two register sets of U rows' loads in turn: one set's loads are in
+  // flight while the other set's rows compute
+  double s[4] = {0.0, 0.0, 0.0, 0.0};     // train_sse, test_sse, n_tr, n_te
+  float x0[U][C], a0[U][C], b0[U][C], x1[U][C], a1[U][C], b1[U][C];
+  auto fetch = [&](int u0, float (&xs)[U][C], float (&as)[U][C],
+                   float (&bs)[U][C]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const size_t row = (size_t)(i0 + min(u0 + u, rows - 1)) * M;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        xs[u][c] = data[row + jc[c]];
+        as[u][c] = train[row + jc[c]];
+        bs[u][c] = test[row + jc[c]];
+      }
     }
+  };
+  // The counts of a batch (at most U C mask values, integers below 2^24
+  // for 0/1 masks, so exact in f32) are added in f32 and then once into
+  // their f64 sums: one conversion a batch instead of one an element.
+  auto consume = [&](int u0, const float (&xs)[U][C], const float (&as)[U][C],
+                     const float (&bs)[U][C]) {
+    float p[U][C];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      insider::dot_row<KP, C>(Rs + min(u0 + u, rows - 1) * KP, f, p[u]);
+    float n_tr = 0.f, n_te = 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (valid[c] && u0 + u < rows) {
+          const float res = xs[u][c] - p[u][c];
+          const double rt = (double)(res * as[u][c]);
+          const double re = (double)(res * bs[u][c]);
+          s[0] += rt * rt;
+          s[1] += re * re;
+          n_tr += as[u][c];
+          n_te += bs[u][c];
+        }
+      }
+    s[2] += (double)n_tr;
+    s[3] += (double)n_te;
+  };
+  fetch(0, x0, a0, b0);
+  for (int u0 = 0; u0 < rows; u0 += 2 * U) {
+    fetch(u0 + U, x1, a1, b1);
+    consume(u0, x0, a0, b0);
+    fetch(u0 + 2 * U, x0, a0, b0);
+    consume(u0 + U, x1, a1, b1);
   }
-  red[0 * CW + tid] = sse_tr;
-  red[1 * CW + tid] = sse_te;
-  red[2 * CW + tid] = n_tr;
-  red[3 * CW + tid] = n_te;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    for (int off = 16; off > 0; off >>= 1)
+      s[q] += __shfl_xor_sync(0xffffffffu, s[q], off);
+  if (tid % 32 == 0)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) red[tid / 32][q] = s[q];
   __syncthreads();
-  for (int h = CW / 2; h > 0; h >>= 1) {
-    if (tid < h)
-      for (int q = 0; q < 4; ++q) red[q * CW + tid] += red[q * CW + tid + h];
-    __syncthreads();
-  }
   if (tid < 4) {
-    const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    partial[blk * 4 + tid] = red[tid * CW];
+    double t = 0.0;
+    for (int w = 0; w < CT / 32; ++w) t += red[w][tid];
+    partial[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 4 + tid] = t;
   }
 }
 
-dim3 grid_for(int N, int M) {
-  return dim3(insider::ceil_div(M, CW), insider::ceil_div(N, RB));
+__global__ void __launch_bounds__(insider::SPLIT_THREADS)
+masked_eval_reduce(const double* __restrict__ part, double* __restrict__ out,
+                   int n_parts) {
+  insider::reduce_split<double>(part, out, n_parts, 4, 4);
+}
+
+dim3 grid_for(int N, int M, int K) {
+  const int C = cols_per_thread(insider::padded_rank(K));
+  return dim3(ceil_div(M, CT * C), ceil_div(N, RB));
+}
+
+template <int KP>
+cudaError_t launch(const float* data, const float* train, const float* test,
+                   const float* R, const float* F, double* scratch, int N,
+                   int M, int K, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * RB * KP;
+  cudaError_t err = cudaFuncSetAttribute(
+      masked_eval_partial<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  masked_eval_partial<KP><<<grid_for(N, M, K), CT, smem, stream>>>(
+      data, train, test, R, F, scratch, N, M, K);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Elements of f64 scratch that insider_masked_eval needs.
-INSIDER_API long insider_masked_eval_scratch(int N, int M) {
-  const dim3 g = grid_for(N, M);
+INSIDER_API long insider_masked_eval_scratch(int N, int M, int K) {
+  const dim3 g = grid_for(N, M, K);
   return 4L * g.x * g.y;
 }
 
 // out[0..3] = (train_sse, test_sse, n_train, n_test) as f64.  data, train,
-// test (N, M), R (N, K), F (K, M): row-major f32.
+// test (N, M), R (N, K), F (K, M): row-major f32.  1 <= K <= 128.
 INSIDER_API int insider_masked_eval(const float* data, const float* train,
                                     const float* test, const float* R,
                                     const float* F, double* out,
                                     double* scratch, long scratch_len, int N,
                                     int M, int K, cudaStream_t stream) {
-  if (N < 1 || M < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid = grid_for(N, M);
+  const int KP = insider::padded_rank(K);
+  if (KP == 0 || N < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid = grid_for(N, M, K);
   const long blocks = (long)grid.x * grid.y;
   if (scratch_len < 4 * blocks) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(K);
-  cudaError_t err = cudaFuncSetAttribute(
-      masked_eval_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  masked_eval_partial<<<grid, CW, smem, stream>>>(data, train, test, R, F,
-                                                  scratch, N, M, K);
-  err = cudaGetLastError();
+  cudaError_t err;
+  switch (KP) {
+#define INSIDER_EVAL_CASE(P)                                                \
+  case P:                                                                   \
+    err = launch<P>(data, train, test, R, F, scratch, N, M, K, stream);     \
+    break;
+    INSIDER_EVAL_CASE(8) INSIDER_EVAL_CASE(16) INSIDER_EVAL_CASE(24)
+    INSIDER_EVAL_CASE(32) INSIDER_EVAL_CASE(40) INSIDER_EVAL_CASE(48)
+    INSIDER_EVAL_CASE(56) INSIDER_EVAL_CASE(64) INSIDER_EVAL_CASE(72)
+    INSIDER_EVAL_CASE(80) INSIDER_EVAL_CASE(88) INSIDER_EVAL_CASE(96)
+    INSIDER_EVAL_CASE(104) INSIDER_EVAL_CASE(112) INSIDER_EVAL_CASE(120)
+    INSIDER_EVAL_CASE(128)
+#undef INSIDER_EVAL_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
   // partial is (blocks, 4): output q sums elements q, q + 4, ... in order
-  return (int)insider::launch_reduce<double>(scratch, out, (int)blocks, 4,
-                                             stream);
+  masked_eval_reduce<<<1, insider::SPLIT_THREADS, 0, stream>>>(
+      scratch, out, (int)blocks);
+  return (int)cudaGetLastError();
 }

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "insider_level_gram_scratch": (_L, [_I, _I, _I]),
     "insider_level_gram": (_I, [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "insider_row_xty_scratch": (_L, [_I, _I, _I]),
-    "insider_row_xty": (_I, [_P, _P, _P, _P, _P, _P, _P, _L,
+    "insider_row_xty": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                              _I, _I, _I, _I, _P]),
     "insider_fss_fused": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
                                _I, _I, _I, _I, _I, _P]),
@@ -61,7 +61,7 @@ _SIGNATURES = {
                                  _I, _I, _I, _P]),
     "insider_cd_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
                                _I, _I, _I, _P]),
-    "insider_masked_eval_scratch": (_L, [_I, _I]),
+    "insider_masked_eval_scratch": (_L, [_I, _I, _I]),
     "insider_masked_eval": (_I, [_P, _P, _P, _P, _P, _P, _P, _L,
                                  _I, _I, _I, _P]),
 }

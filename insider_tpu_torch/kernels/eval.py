@@ -13,6 +13,9 @@ import torch
 from insider_tpu_torch.kernels import _lib
 from insider_tpu_torch.ops.losses import EvalSums, evaluate_masked, predict
 
+# The kernel keeps a column of F in registers, at most 128 coordinates.
+MAX_K = 128
+
 
 def masked_eval_plain(data, train_mask, test_mask, R, F) -> EvalSums:
     """Plain version of masked_eval: the (N, M) residual, then f64 sums."""
@@ -24,7 +27,10 @@ def masked_eval(data: torch.Tensor, train_mask: torch.Tensor,
                 F: torch.Tensor) -> EvalSums:
     """Train/test SSE and counts of data - R F under the two masks, as f64
     scalar tensors on the operands' device.  data and masks (N, M), R (N, K),
-    F (K, M), f32."""
+    F (K, M), f32; 1 <= K <= 128 on the card.  The kernel's counts are exact
+    for 0/1 masks, as the fit's train and test indicators are (it adds a
+    few mask values in f32 before their f64 sum); the plain version adds
+    every value in f64."""
     if _lib.on_cpu("masked_eval", data, train_mask, test_mask, R, F):
         return masked_eval_plain(data, train_mask, test_mask, R, F)
     _lib.require_cuda("masked_eval", data, train_mask, test_mask, R, F)
@@ -33,9 +39,12 @@ def masked_eval(data: torch.Tensor, train_mask: torch.Tensor,
     if (data.shape != (N, M) or train_mask.shape != (N, M)
             or test_mask.shape != (N, M) or F.shape != (K, M)):
         raise ValueError("masked_eval: shapes do not agree")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"masked_eval: K={K} is outside the CUDA kernel's "
+                         f"1..{MAX_K}")
     lib = _lib.lib()
     out = torch.empty(4, dtype=torch.float64, device=data.device)
-    scratch = torch.empty(lib.insider_masked_eval_scratch(N, M),
+    scratch = torch.empty(lib.insider_masked_eval_scratch(N, M, K),
                           dtype=torch.float64, device=data.device)
     with torch.cuda.device(data.device):
         err = lib.insider_masked_eval(

@@ -16,6 +16,9 @@ from insider_tpu_torch.ops.row_update import (level_gram_masked,
                                               masked_level_xty,
                                               one_hot_levels)
 
+# row_xty keeps a column of F in registers, at most 128 coordinates.
+MAX_K = 128
+
 
 def level_gram_plain(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     """Plain version of level_gram."""
@@ -52,19 +55,43 @@ def level_gram(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
 level_gram.launches = 0
 
 
+def level_order(codes: torch.Tensor, n_levels: int):
+    """The rows sorted by level, for row_xty: (order (N,), offsets (L+1,),
+    ends (N,)), int32 on codes' device.  order is a stable sort of the row
+    indices by code; the rows of level l are order[offsets[l]:offsets[l+1]],
+    so offsets[l] is the number of codes below l (rows whose code lies
+    outside [0, L) fall outside every level); ends[p] is l where sorted
+    position p is the last row of level l, else -1."""
+    codes = codes.long()
+    order = torch.argsort(codes, stable=True)
+    ranked = codes[order]
+    offsets = torch.searchsorted(
+        ranked, torch.arange(n_levels + 1, device=codes.device))
+    last = torch.ones_like(ranked, dtype=torch.bool)
+    last[:-1] = ranked[1:] != ranked[:-1]
+    inside = (ranked >= 0) & (ranked < n_levels)
+    ends = torch.where(last & inside, ranked, torch.full_like(ranked, -1))
+    return order.to(torch.int32), offsets.to(torch.int32), ends.to(torch.int32)
+
+
 def row_xty_plain(codes, R_minus, mask, D, F) -> torch.Tensor:
-    """Plain version of row_xty."""
-    return masked_level_xty(one_hot_levels(codes, D.shape[0]), R_minus,
-                            mask, D, F)
+    """Plain version of row_xty, in the operands' dtype (f32 as the
+    kernel; f64 for an accuracy reference)."""
+    return masked_level_xty(one_hot_levels(codes, D.shape[0], R_minus.dtype),
+                            R_minus, mask, D, F)
 
 
 def row_xty(codes: torch.Tensor, R_minus: torch.Tensor, mask: torch.Tensor,
-            D: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+            D: torch.Tensor, F: torch.Tensor, levels=None) -> torch.Tensor:
     """(D - E^T (mask .* (R_minus F))) F^T -> (L, K), E = one_hot(codes).
 
     Counterpart of row_pallas.row_xty_auto (row_xty_pallas and its
     row-chunked variant).  codes: (N,) int32 level codes in [0, L), L =
-    D.shape[0]; R_minus (N, K), mask (N, M), D (L, M), F (K, M), f32.
+    D.shape[0]; R_minus (N, K), mask (N, M), D (L, M), F (K, M), f32;
+    any L, and 1 <= K <= 128 on the card.  levels: the rows sorted by level,
+    level_order(codes, L), which the kernel reads in place of the codes; a
+    fit computes them once per problem (train/als.build_problem), and they
+    are derived here when not given.
     """
     if _lib.on_cpu("row_xty", codes, R_minus, mask, D, F):
         return row_xty_plain(codes, R_minus, mask, D, F)
@@ -75,18 +102,26 @@ def row_xty(codes: torch.Tensor, R_minus: torch.Tensor, mask: torch.Tensor,
     if (codes.shape != (N,) or mask.shape != (N, M)
             or F.shape != (K, M)):
         raise ValueError("row_xty: shapes do not agree")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"row_xty: K={K} is outside the CUDA kernel's "
+                         f"1..{MAX_K}")
+    order, offsets, ends = (level_order(codes, L) if levels is None
+                            else levels)
+    _lib.require_cuda("row_xty", codes, order, offsets, ends,
+                      dtypes=(torch.int32,))
+    if (order.shape != (N,) or offsets.shape != (L + 1,)
+            or ends.shape != (N,)):
+        raise ValueError("row_xty: levels must be (N,), (L + 1,), (N,)")
     lib = _lib.lib()
-    n_scratch = lib.insider_row_xty_scratch(M, L, K)
-    if n_scratch == 0:
-        raise ValueError(f"row_xty: L={L} levels at K={K} exceed the "
-                         "kernel's shared memory")
     out = torch.empty((L, K), dtype=torch.float32, device=D.device)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=D.device)
+    scratch = torch.empty(lib.insider_row_xty_scratch(M, L, K),
+                          dtype=torch.float32, device=D.device)
     with torch.cuda.device(D.device):
         err = lib.insider_row_xty(
-            codes.data_ptr(), R_minus.data_ptr(), mask.data_ptr(),
-            D.data_ptr(), F.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), N, M, L, K, _lib.stream(D))
+            order.data_ptr(), offsets.data_ptr(), ends.data_ptr(),
+            R_minus.data_ptr(), mask.data_ptr(), D.data_ptr(), F.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), scratch.numel(), N, M, L, K,
+            _lib.stream(D))
     _lib.check(err, "row_xty")
     row_xty.launches += 1
     return out

@@ -20,9 +20,10 @@ arguments.  Cold CD sweeps coordinates in a fixed order, so the caller's
 the dense gram) with one random order per update and un-permutes the
 solution (insider_tpu/ops/col_update.py:436-446, :545-551).
 
-The column update takes K <= 128 (the kernels hold at most four
-coordinates per lane of a warp); larger K raises ValueError on every
-device.
+On the card the column update takes K <= 128 (the kernels hold at most
+four coordinates per lane of a warp) and larger K raises ValueError
+(check_rank; train/als.optimize checks it before the first iteration).  On
+the CPU the plain versions take any K, as the JAX package's CPU path does.
 """
 
 from __future__ import annotations
@@ -49,10 +50,12 @@ def col_gram_masked(R: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.matmul(mask.T, PR).reshape(-1, K, K)
 
 
-def _check_rank(K: int) -> None:
-    if K > MAX_K:
-        raise ValueError(f"the column update takes latent_dim <= {MAX_K} "
-                         f"(the column kernels' limit), got {K}")
+def check_rank(K: int, device) -> None:
+    """Raise ValueError when a rank-K column update on `device` would
+    exceed the CUDA column kernels' K <= 128; the CPU takes any K."""
+    if torch.device(device).type == "cuda" and K > MAX_K:
+        raise ValueError(f"on the card the column update takes latent_dim "
+                         f"<= {MAX_K} (the column kernels' limit), got {K}")
 
 
 def _order(perm, device):
@@ -85,10 +88,11 @@ def update_columns_masked(
     polish (:345-390).  The JAX package takes its fused kernels when the
     TPU's VMEM holds them and its streamed route otherwise; the port picks
     by K, on every device: the fused kernel for K <= 32, the streamed route
-    (col_gram_xty, then the solver on its grams) for 32 < K <= 128.
+    (col_gram_xty, then the solver on its grams) for K > 32 (at most 128 on
+    the card).
     """
     K = R.shape[1]
-    _check_rank(K)
+    check_rank(K, R.device)
     if alpha == 0.0:
         XtXt, Xty = col_gram_xty(mask, data, R)
         F = _ridge_solve_batched(XtXt.permute(2, 0, 1), Xty.T, lam)
@@ -130,7 +134,7 @@ def update_columns_dense(
     are plain matmuls there too (:512-513).  Solvers as
     update_columns_masked; cold CD permutes both axes of the gram."""
     K = R.shape[1]
-    _check_rank(K)
+    check_rank(K, R.device)
     XtX = torch.matmul(R.T, R)                           # (K, K) shared
     Xty = torch.matmul(R.T, data)                        # (K, M)
     if alpha == 0.0:

@@ -34,7 +34,7 @@ import torch
 
 from insider_tpu_torch.config import FitConfig, decay_from_delta_loss
 from insider_tpu_torch.kernels.eval import masked_eval
-from insider_tpu_torch.kernels.row import level_gram, row_xty
+from insider_tpu_torch.kernels.row import level_gram, level_order, row_xty
 from insider_tpu_torch.model.state import InsiderState, init_state
 from insider_tpu_torch.ops import col_update, losses
 from insider_tpu_torch.ops.row_update import (_ridge_solve_batched,
@@ -60,7 +60,9 @@ class Problem:
     level membership (insider_tpu/train/als.py:343-402).  Masked: d[v] =
     E_v^T (mask .* data) (L_v, M), and mw_cat stacks every confounder's
     E_v^T mask into one (sum L, M) matrix, which the level-gram kernel reads
-    in one launch.  Dense: d[v] = E_v^T data and counts[v] (L_v,) the level
+    in one launch, and row_order[v] holds confounder v's rows sorted by level
+    (kernels/row.level_order), which the row_xty kernel reads in place of
+    the codes.  Dense: d[v] = E_v^T data and counts[v] (L_v,) the level
     sizes.
     """
 
@@ -72,6 +74,7 @@ class Problem:
     masked: bool
     d: List[torch.Tensor]
     mw_cat: Optional[torch.Tensor] = None       # masked only
+    row_order: Optional[List[Tuple[torch.Tensor, ...]]] = None
     counts: Optional[List[torch.Tensor]] = None  # dense only
 
     @property
@@ -151,7 +154,9 @@ def build_problem(data: np.ndarray, confounder: np.ndarray,
     wx = train_t * data_t
     return Problem(**common, d=[torch.matmul(E_t, wx) for E_t in E_ts],
                    mw_cat=torch.cat([torch.matmul(E_t, train_t)
-                                     for E_t in E_ts], dim=0))
+                                     for E_t in E_ts], dim=0),
+                   row_order=[level_order(c, L)
+                              for c, L in zip(codes, n_levels)])
 
 
 def _row_factor(problem: Problem, state: InsiderState) -> torch.Tensor:
@@ -165,15 +170,16 @@ def _row_factor(problem: Problem, state: InsiderState) -> torch.Tensor:
 def update_row_factor(xtx: torch.Tensor, codes: torch.Tensor,
                       R_minus: torch.Tensor, mask: torch.Tensor,
                       D: torch.Tensor, F: torch.Tensor,
-                      lam: float) -> torch.Tensor:
+                      lam: float, row_order=None) -> torch.Tensor:
     """One confounder's masked per-level ridge update -> (L, K).
 
     Counterpart of insider_tpu/ops/row_update.update_row_factor_masked_fast
     with its level grams `xtx` (L, K, K) precomputed (kernels/row.level_gram
     runs once for every confounder): Xty from the row_xty kernel, then the
-    batched SPD solve.
+    batched SPD solve.  row_order: these codes' rows sorted by level
+    (Problem.row_order), or None to derive them.
     """
-    xty = row_xty(codes, R_minus, mask, D, F)
+    xty = row_xty(codes, R_minus, mask, D, F, row_order)
     return _ridge_solve_batched(xtx, xty, lam)
 
 
@@ -222,7 +228,8 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
     for v, codes in enumerate(problem.codes):
         R_minus = R - cfd_new[v][codes]
         V = update_row_factor(level_xtx[v], codes, R_minus, mask,
-                              problem.d[v], F, config.lambda1)
+                              problem.d[v], F, config.lambda1,
+                              problem.row_order[v])
         cfd_new[v] = V
         R = R_minus + V[codes]
 
@@ -306,9 +313,13 @@ def optimize(problem: Problem, config: FitConfig,
     device seeded with config.seed.  The problem decides masked or dense
     (build_problem(masked=...)), as in the JAX package.  Cold CD draws one
     coordinate order per iteration (draw_perm) from a CPU generator seeded
-    with config.seed.
+    with config.seed.  On the card the rank is checked against the column
+    kernels' limit before anything runs (ops/col_update.check_rank).
     """
     disable_tf32()
+    col_update.check_rank(
+        config.latent_dim if state is None else state.latent_dim,
+        problem.device)
     cold_cd = (config.col_solver == "cd" and not config.cd_warm_start
                and config.alpha != 0.0)
     perm_gen = torch.Generator().manual_seed(config.seed) if cold_cd else None

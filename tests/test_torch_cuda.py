@@ -13,7 +13,10 @@ and col_gram_xty 3e-5 of the output's max magnitude; masked_eval SSEs 1e-5
 relative, counts exact; the FSS kernels' per-column objective excess <= 1e-6
 relative.  The CD kernels run the plain version's iteration, compared at a
 short sweep cap (20): every column's objective excess <= 1e-6 relative and
-at least 99% of the columns match at rtol 2e-5 / atol 1e-5.  The fused
+at least 99% of the columns match at rtol 2e-5 / atol 1e-5.  row_xty is
+also held to the f64 result: max error <= 1e-4 of its largest magnitude
+(ROW_XTY_RTOL), a bound that the cancellation-prone f32 form D F^T - T F^T
+does not meet where D and T nearly cancel.  The fused
 kernels (feature_sign_fused, cd_fused) sum their grams on the tensor cores
 in another order than col_gram_xty's f32 FMAs, so the streamed route on
 col_gram_xty grams is held to them by the route check (_check_routes), not
@@ -82,38 +85,95 @@ def test_level_gram(cuda, L, K, M, cmax):
     assert torch.equal(got, row.level_gram(mw, F))        # bit for bit
 
 
-@pytest.mark.parametrize("N,L,K,M", [(37, 3, 6, 1031), (150, 107, 24, 2000)])
-def test_row_xty(cuda, N, L, K, M):
-    rng = np.random.default_rng(1)
-    codes = _t(rng.integers(0, L, N).astype(np.int32), cuda)
-    R = _t(rng.standard_normal((N, K)).astype(np.float32), cuda)
-    mask = _t((rng.random((N, M)) > 0.1).astype(np.float32), cuda)
-    data = _t(rng.standard_normal((N, M)).astype(np.float32), cuda)
-    F = _t(rng.standard_normal((K, M)).astype(np.float32), cuda)
-    E = torch.nn.functional.one_hot(codes.long(), L).float()
-    D = (E.T @ (mask * data)).contiguous()
+ROW_XTY_RTOL = 1e-4             # of the f64 result's max magnitude
+
+
+def _row_xty_case(N, L, K, M, layout, seed):
+    """Level codes, R_minus, mask, D and F for row_xty, as numpy.  layout:
+    "random" codes; "empty": level 1 has no row; "big": all rows but 40 in
+    level 0, more than a level group's 64 rows; "cancel": data = R_minus F +
+    0.005 noise, so D and T nearly cancel, as near a fit's end."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, L, N).astype(np.int32)
+    if layout == "empty":
+        codes[codes == 1] = 0
+    if layout == "big":
+        codes = np.where(np.arange(N) < N - 40, 0, L - 1).astype(np.int32)
+    R = (0.5 * rng.standard_normal((N, K))).astype(np.float32)
+    mask = (rng.random((N, M)) > 0.1).astype(np.float32)
+    F = (0.3 * rng.standard_normal((K, M))).astype(np.float32)
+    data = rng.standard_normal((N, M))
+    if layout == "cancel":
+        data = R.astype(np.float64) @ F + 0.005 * data
+    E = np.eye(L)[codes]
+    D = (E.T @ (mask * data)).astype(np.float32)
+    return codes, R, mask, D, F
+
+
+def _row_xty_errors(codes, R, mask, D, F, got):
+    """Max errors of `got` and of the cancellation-prone f32 form D F^T -
+    T F^T against the f64 result, as fractions of its max magnitude."""
+    L = D.shape[0]
+    exact = row.row_xty_plain(codes, R.double(), mask.double(), D.double(),
+                              F.double())
+    E_t = torch.nn.functional.one_hot(codes.long(), L).float().T
+    control = D @ F.T - (E_t @ (mask * (R @ F))) @ F.T
+    scale = float(exact.abs().max())
+    return [float((x.double() - exact).abs().max()) / scale
+            for x in (got, control)]
+
+
+# L = 1; a level with no row; L = 2000 (above the first kernel's ~1,500
+# at K = 24); one level larger than a level group; K = 8, 24, 50, 96, 128
+# and odd ranks; M ragged and not a multiple of 4; N = 1; D and T nearly
+# cancelling, where the f64 gate must reject the f32 form D F^T - T F^T;
+# N = 65535, the most rows a masked problem takes on the card
+@pytest.mark.parametrize("N,L,K,M,layout", [
+    (37, 3, 6, 1031, "random"), (150, 107, 24, 2000, "empty"),
+    (40, 1, 8, 257, "random"), (300, 2000, 24, 513, "random"),
+    (300, 2, 24, 1031, "big"), (200, 12, 50, 777, "empty"),
+    (120, 25, 96, 301, "random"), (90, 9, 128, 130, "empty"),
+    (70, 5, 13, 99, "big"), (1, 1, 24, 333, "random"),
+    (1, 4, 8, 65, "random"), (65535, 3, 8, 37, "random"),
+    (200, 8, 24, 8191, "cancel")])
+def test_row_xty(cuda, N, L, K, M, layout):
+    codes, R, mask, D, F = (_t(x, cuda) for x in _row_xty_case(
+        N, L, K, M, layout, seed=N + L + K))
+    levels = row.level_order(codes, L)
     n0 = row.row_xty.launches
-    got = row.row_xty(codes, R, mask, D, F)
+    got = row.row_xty(codes, R, mask, D, F, levels)
     assert row.row_xty.launches == n0 + 1
-    assert _max_err_ok(got, row.row_xty_plain(codes, R, mask, D, F), 3e-5)
+    if layout != "cancel":
+        assert _max_err_ok(got, row.row_xty_plain(codes, R, mask, D, F), 3e-5)
+    # the same without the row order (derived), bit for bit
     assert torch.equal(got, row.row_xty(codes, R, mask, D, F))
+    err, control = _row_xty_errors(codes, R, mask, D, F, got)
+    assert err <= ROW_XTY_RTOL
+    if layout == "cancel":
+        assert control > ROW_XTY_RTOL
 
 
-@pytest.mark.parametrize("N,M,K", [(64, 256, 8), (377, 1111, 24)])
-def test_masked_eval(cuda, N, M, K):
+@pytest.mark.parametrize("N,M,K,no_test", [
+    (64, 256, 8, False), (377, 1111, 24, False), (300, 777, 50, False),
+    (120, 301, 96, True), (90, 130, 128, False), (1, 33, 24, True)])
+def test_masked_eval(cuda, N, M, K, no_test):
     rng = np.random.default_rng(2)
     data = _t(rng.standard_normal((N, M)).astype(np.float32), cuda)
     train_np = (rng.random((N, M)) < 0.85).astype(np.float32)
     train = _t(train_np, cuda)
-    test = _t(((rng.random((N, M)) < 0.5) * (1 - train_np)
+    test = _t(((rng.random((N, M)) < 0.5) * (1 - train_np) * (not no_test)
                ).astype(np.float32), cuda)
     R = _t((0.3 * rng.standard_normal((N, K))).astype(np.float32), cuda)
     F = _t((0.3 * rng.standard_normal((K, M))).astype(np.float32), cuda)
+    n0 = ev.masked_eval.launches
     got = [float(x) for x in ev.masked_eval(data, train, test, R, F)]
+    assert ev.masked_eval.launches == n0 + 1
     ref = [float(x) for x in ev.masked_eval_plain(data, train, test, R, F)]
     for q in (0, 1):
         assert abs(got[q] - ref[q]) <= 1e-5 * abs(ref[q])
     assert got[2:] == ref[2:]
+    if no_test:
+        assert got[1] == 0.0 and got[3] == 0.0
     again = [float(x) for x in ev.masked_eval(data, train, test, R, F)]
     assert again == got
 

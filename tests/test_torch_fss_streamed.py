@@ -1,8 +1,10 @@
 """The port's FSS kernels on precomputed grams (insider_tpu_torch/kernels/
 fss.py: feature_sign on streamed (K, K, M) grams, feature_sign_shared on one
 (K, K) gram) against the JAX package's Pallas kernels, the masked column
-update's dispatch by K, and the column updates at K = 72 > 64 (which raised
-before the kernels held four coordinates per lane).
+update's dispatch by K, the column updates at K = 72 > 64 (which raised
+before the kernels held four coordinates per lane), and at K = 136 > 128 on
+the CPU, where the plain versions take any K (the CUDA kernels stop at 128,
+and a fit on the card says so before its first iteration).
 
 On CPU tensors the wrappers run their plain version (ops/fss.py, which
 follows the TPU kernel's iteration); the Pallas kernels run in interpret
@@ -155,18 +157,23 @@ def test_dense_column_update_dispatch(monkeypatch):
 
 @pytest.mark.parametrize("update", ["masked", "dense"])
 def test_column_update_rejects_k_over_64(update):
-    """The column kernels hold at most four coordinates per lane: K = 129
-    raises on every device (the test keeps its name from when the limit
-    was 64)."""
+    """The CUDA column kernels hold at most four coordinates per lane: on
+    the card K = 129 raises (check_rank, which both updates call first);
+    on the CPU the plain versions take it, as the JAX package's CPU path
+    does.  The test keeps its name from when the limit was 64, on every
+    device."""
     K, N, M = 129, 140, 10
-    R, data = torch.zeros((N, K)), torch.zeros((N, M))
-    F0 = torch.zeros((K, M))
+    R, mask, data, F0 = (T(x) for x in _inputs(N, K, M, seed=129))
     with pytest.raises(ValueError, match="128"):
-        if update == "masked":
-            col_update.update_columns_masked(data, torch.ones((N, M)), R, F0,
-                                             1.0, 0.5, 1e-5)
-        else:
-            col_update.update_columns_dense(data, R, F0, 1.0, 0.5, 1e-5)
+        col_update.check_rank(K, "cuda")
+    col_update.check_rank(128, "cuda")
+    col_update.check_rank(K, "cpu")
+    if update == "masked":
+        F = col_update.update_columns_masked(data, mask, R, F0, 30.0, 0.5,
+                                             1e-5)
+    else:
+        F = col_update.update_columns_dense(data, R, F0, 30.0, 0.5, 1e-5)
+    assert F.shape == (K, M) and bool(torch.isfinite(F).all())
 
 
 def _inputs(N, K, M, seed):
@@ -227,3 +234,85 @@ def test_dense_update_k72_matches_jax():
                                rtol=1e-6)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert int((got == 0).sum()) > 0
+
+
+def _objective_np(B, G, b, lam, alpha):
+    """Every column's elastic-net objective in f64; G (K, K) shared or
+    (M, K, K) per column, b (K, M)."""
+    B = B.astype(np.float64)
+    GB = (np.einsum("kl,lm->km", G, B) if G.ndim == 2
+          else np.einsum("mkl,lm->km", G, B))
+    return (0.5 * (B * GB).sum(0) - (b * B).sum(0)
+            + lam * (1 - alpha) / 2 * (B * B).sum(0)
+            + lam * alpha * np.abs(B).sum(0))
+
+
+@pytest.mark.parametrize("update", ["masked", "dense"])
+def test_column_update_k136_on_cpu_matches_jax(update):
+    """K = 136 > 128 on the CPU: the port's masked and dense column updates
+    (plain versions) against the JAX package's update_columns_masked /
+    update_columns_dense on its CPU path (use_pallas=False: FSS, then a
+    randomly permuted plain-CD polish), both polished to a tight tolerance.
+    The two solve the same strictly convex problem by different iterations,
+    so they are held to each column's objective, within 1e-6 relative."""
+    K, N, M = 136, 120, 40
+    R, mask, data, F0 = _inputs(N, K, M, seed=136)
+    lam, alpha, tol = 30.0, 0.4, 1e-10
+    kw = dict(use_pallas=False, solver="fss", max_fss_polish_sweeps=400)
+    Rd = R.astype(np.float64)
+    if update == "masked":
+        got = col_update.update_columns_masked(
+            T(data), T(mask), T(R), T(F0), lam, alpha, tol,
+            max_fss_polish_sweeps=400)
+        want = jax_col_update.update_columns_masked(
+            jnp.asarray(data), jnp.asarray(mask), jnp.asarray(R),
+            jnp.asarray(F0), lam, alpha, jnp.float32(tol),
+            jax.random.PRNGKey(0), **kw)[0]
+        G = np.einsum("im,ik,il->mkl", mask.astype(np.float64), Rd, Rd)
+        b = Rd.T @ (mask * data).astype(np.float64)
+    else:
+        got = col_update.update_columns_dense(T(data), T(R), T(F0), lam,
+                                              alpha, tol,
+                                              max_fss_polish_sweeps=400)
+        want = jax_col_update.update_columns_dense(
+            jnp.asarray(data), jnp.asarray(R), jnp.asarray(F0), lam, alpha,
+            jnp.float32(tol), jax.random.PRNGKey(0), **kw)[0]
+        G, b = Rd.T @ Rd, Rd.T @ data.astype(np.float64)
+    assert got.shape == (K, M)
+    np.testing.assert_allclose(_objective_np(got.numpy(), G, b, lam, alpha),
+                               _objective_np(np.asarray(want), G, b, lam,
+                                             alpha), rtol=1e-6)
+    assert int((got == 0).sum()) > 0
+
+
+def test_fit_on_the_card_checks_the_rank_before_its_first_iteration(
+        monkeypatch):
+    """optimize() on a problem that lies on a CUDA device raises ValueError
+    for K = 129 before it evaluates, draws or iterates anything.  Runs
+    without a card: the problem (on the CPU) reports a CUDA device, and
+    every step a fit would take first is replaced by one that fails."""
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.train import als
+
+    rng = np.random.default_rng(0)
+    N, M = 30, 12
+    problem = als.build_problem(
+        rng.standard_normal((N, M)), rng.integers(0, 3, (N, 2)),
+        np.ones((N, M)), np.zeros((N, M)), masked=True, device="cpu")
+
+    def ran(*args, **kw):
+        raise AssertionError("the fit ran before checking the rank")
+
+    monkeypatch.setattr(als.Problem, "device",
+                        property(lambda self: torch.device("cuda")))
+    for name in ("init_state", "_evaluate", "_als_iteration"):
+        monkeypatch.setattr(als, name, ran)
+    for K in (129, 200):
+        with pytest.raises(ValueError, match="128"):
+            als.optimize(problem, FitConfig(latent_dim=K, lambda1=1.0,
+                                            lambda2=1.0, alpha=0.5),
+                         verbose=False)
+    with pytest.raises(AssertionError, match="before checking"):
+        als.optimize(problem, FitConfig(latent_dim=128, lambda1=1.0,
+                                        lambda2=1.0, alpha=0.5),
+                     generator=torch.Generator(), verbose=False)

@@ -86,6 +86,55 @@ def test_level_gram_matches_pallas(L, K, M):
     _close(got, want, 2e-5)
 
 
+# L = 1600 levels at K = 4, above the ~1,580 levels that the first CUDA
+# row_xty kernel's shared-memory plan held at that rank (the redesigned
+# kernel takes any L); most levels have no row
+def test_row_xty_many_levels_matches_chunked_pallas():
+    codes, E, R, mask, D, F = _row_inputs(96, 1600, 4, 130, seed=6)
+    want = row_xty_chunked_pallas(jnp.asarray(E), jnp.asarray(R),
+                                  jnp.asarray(mask), jnp.asarray(D),
+                                  jnp.asarray(F), interpret=True)
+    t = torch.from_numpy
+    got = row.row_xty(t(codes), t(R), t(mask), t(D), t(F))
+    assert got.shape == (1600, 4)
+    _close(got, want, 3e-5)
+    levels = row.level_order(t(codes), 1600)
+    assert torch.equal(row.row_xty(t(codes), t(R), t(mask), t(D), t(F),
+                                   levels), got)
+
+
+@pytest.mark.parametrize("N,L", [(1, 1), (37, 1), (50, 7), (200, 40),
+                                 (9, 30)])
+def test_level_order_matches_numpy(N, L):
+    """The rows sorted by level (a stable sort), each level's first
+    position and each level's last position, against numpy; levels without
+    rows have equal offsets."""
+    codes = np.random.default_rng(N + L).integers(0, L, N).astype(np.int32)
+    order, offsets, ends = row.level_order(torch.from_numpy(codes), L)
+    assert order.dtype == offsets.dtype == ends.dtype == torch.int32
+    want_order = np.argsort(codes, kind="stable")
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    np.testing.assert_array_equal(
+        offsets.numpy(), np.searchsorted(codes[want_order], np.arange(L + 1)))
+    counts = np.bincount(codes, minlength=L)
+    np.testing.assert_array_equal(np.diff(offsets.numpy()), counts)
+    want_ends = np.full(N, -1)
+    for lv in range(L):
+        rows = order.numpy()[offsets[lv]:offsets[lv + 1]]
+        np.testing.assert_array_equal(rows, np.flatnonzero(codes == lv))
+        if rows.size:
+            want_ends[offsets[lv + 1] - 1] = lv
+    np.testing.assert_array_equal(ends.numpy(), want_ends)
+
+
+def test_level_order_leaves_out_codes_outside_the_levels():
+    codes = torch.tensor([2, -1, 0, 3, 0, 5, 2], dtype=torch.int32)
+    order, offsets, ends = row.level_order(codes, 4)
+    assert offsets.tolist() == [1, 3, 3, 5, 6]
+    assert order[offsets[0]:offsets[4]].tolist() == [2, 4, 0, 6, 3]
+    assert ends.tolist() == [-1, -1, 0, -1, 2, 3, -1]
+
+
 def test_cpu_wrappers_do_not_count_launches():
     """On CPU tensors the plain version runs and no kernel launch is
     counted."""
