@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's row and fused column kernels and its six fits, for one
-package tree, on one NVIDIA GPU.
+"""Time the port's main-path kernels, its FSS kernels and its six fits, for
+one package tree, on one NVIDIA GPU.
 
     python3 chip_ab.py ROOT [--out FILE]
 
@@ -12,16 +12,24 @@ package is imported from ROOT; the setup helpers come from this
 directory's chip_smoke.py, so both trees see the same inputs.  Measured:
   * level_gram at the flagship shape (sum L = 133, K = 24) and at the K=50
     shape (levels 12 and 25, N = 300), kernel and plain version, beside one
-    cuBLAS f32 GEMM on the prebuilt table (library_ms);
+    cuBLAS f32 GEMM on the prebuilt table (library_ms), and a checksum of
+    its output;
   * row_xty for the four flagship confounders in one timed call and for the
     two K=50 confounders, and masked_eval at both shapes, kernel and plain
     version, beside their bounds;
   * the fused kernels' gram build alone (feature_sign_fused with
-    max_outer=0, polish_sweeps=0; cd_fused with max_sweeps=0) and
-    feature_sign_fused on chip_smoke's phase-3 input;
+    max_outer=0, polish_sweeps=0; cd_fused with max_sweeps=0);
+  * the FSS kernels on chip_smoke's fixed inputs, each with a checksum of
+    its output (sha256 of the bytes, -0 read as +0), so that two trees
+    whose arithmetic is the same agree bit for bit: feature_sign_fused on
+    phase 3's input, feature_sign at K=50 on phase 4's (col_gram_xty
+    grams) and at K=96, 128 on phase 6's (M=2048), feature_sign_shared at
+    K=24 on phase 4's R^T R;
   * the ms per iteration of the FSS and cold-CD fits, flagship masked and
-    dense and K=50 masked, from each fit's own boundary clock;
-  * torch.profiler over 10 iterations of the flagship masked FSS fit: each
+    dense and K=50 masked, from each fit's own boundary clock, and their
+    final losses;
+  * torch.profiler over 10 iterations of the flagship masked FSS fit and
+    of the K=50 masked FSS fit, each from where its fit ended: each
     kernel's device time, each wrapper's in-fit ms per launch, the device
     busy share.
 Prints one JSON line (and writes it to FILE).  Exits non-zero without
@@ -29,12 +37,51 @@ CUDA.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
 import subprocess
 import sys
 import time
+
+
+def checksum(x):
+    """The first 16 hex digits of the sha256 of a tensor's bytes, -0 read
+    as +0."""
+    return hashlib.sha256((x + 0.0).contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def fss_kernels(torch, cs, gram, fss):
+    """{name: {"ms", "checksum"}} of the FSS kernels on chip_smoke's fixed
+    inputs (phases 3, 4 and 6), at the fit's max_outer and polish."""
+    kw = dict(max_outer=48, polish_sweeps=32, tol=cs.SUB_TOL)
+    out = {}
+
+    def rec(name, fn, reps):
+        out[name] = dict(ms=cs.timed_ms(torch, fn, reps),
+                         checksum=checksum(fn()))
+        print(f"chip_ab: {name}: {out[name]['ms']:.4f} ms, checksum "
+              f"{out[name]['checksum']}")
+
+    x = cs.flagship_inputs(torch)
+    args = (x["train"], x["data"], x["R"], x["beta0"], cs.LAM, cs.ALPHA)
+    rec("feature_sign_fused K=24",
+        lambda: fss.feature_sign_fused(*args, **kw), 10)
+    del x, args
+    R, mask, data, beta0 = cs.problem(torch, cs.N, cs.K, cs.M, 5)
+    XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+    rec("feature_sign_shared K=24", lambda: fss.feature_sign_shared(
+        XtX, Xty, beta0, cs.LAM, cs.ALPHA, **kw), 10)
+    for n, k, m, seed, reps in ((300, 50, cs.M, 6, 5), (300, 96, 2048, 96, 3),
+                                (300, 128, 2048, 128, 3)):
+        R, mask, data, beta0 = cs.problem(torch, n, k, m, seed)
+        G, b = gram.col_gram_xty(mask, data, R)
+        rec(f"feature_sign K={k}", lambda: fss.feature_sign(
+            G, b, beta0, 1.0, 0.5, **kw), reps)
+        del G, b
+    return out
 
 
 def main():
@@ -75,22 +122,22 @@ def main():
     # kernels at the flagship shapes
     x = cs.flagship_inputs(torch)
     res["level_gram"] = cs.level_gram_times(torch, row, x["mw_cat"], x["F"])
+    res["level_gram"]["checksum"] = checksum(row.level_gram(x["mw_cat"],
+                                                            x["F"]))
     res["build_alone"] = cs.build_alone_ms(torch, fss, cd, x)
-    kw = dict(max_outer=48, polish_sweeps=32, tol=cs.SUB_TOL)
-    args = (x["train"], x["data"], x["R"], x["beta0"], cs.LAM, cs.ALPHA)
-    res["feature_sign_fused_ms"] = cs.timed_ms(
-        torch, lambda: fss.feature_sign_fused(*args, **kw), 10)
     res["row_xty"] = cs.row_xty_times(
         torch, row, list(zip(x["codes"], x["R_minus"], x["D"])), x["train"],
         x["F"])
     res["masked_eval"] = cs.masked_eval_times(
         torch, ev, x["data"], x["train"], x["test"], x["R"], x["F"])
-    del x, args
+    del x
 
     # the K=50 shape
     k50 = cs.k50_inputs(torch)
     res["level_gram_k50"] = cs.level_gram_times(torch, row, k50["mw"],
                                                 k50["F"])
+    res["level_gram_k50"]["checksum"] = checksum(row.level_gram(k50["mw"],
+                                                                k50["F"]))
     res["row_xty_k50"] = cs.row_xty_times(
         torch, row, list(zip(k50["codes"], k50["R_minus"], k50["D"])),
         k50["mask"], k50["F"])
@@ -98,14 +145,14 @@ def main():
         torch, ev, k50["data"], k50["mask"], k50["test"], k50["R"],
         k50["F"])
     del k50
+    res["fss"] = fss_kernels(torch, cs, gram, fss)
     for name in ("level_gram", "level_gram_k50", "row_xty", "row_xty_k50",
                  "masked_eval", "masked_eval_k50"):
         r = res[name]
         print(f"chip_ab: {name}: kernel {r['ms']:.4f} ms plain "
               f"{r['plain_ms']:.4f} ms library {r.get('library_ms')} ms "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    print(f"chip_ab: build alone {res['build_alone']}; feature_sign_fused "
-          f"{res['feature_sign_fused_ms']:.4f} ms")
+    print(f"chip_ab: build alone {res['build_alone']}")
 
     # the six fits, and the profile
     wrappers = {"level_gram": row.level_gram, "row_xty": row.row_xty,
@@ -116,30 +163,34 @@ def main():
                 "feature_sign_shared": fss.feature_sign_shared,
                 "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
                 "cd_shared": cd.cd_shared}
-    fits = {}
+    fits, losses = {}, {}
+
+    def fit(name, obj, **kw):
+        _, losses[name], fits[name] = cs.run_fit(torch, obj, wrappers, {},
+                                                 name, **kw)
+
     flag = cs.flagship_object(itt)
-    fits["FSS masked"] = cs.run_fit(torch, flag, wrappers, {}, "FSS masked",
-                                    partition=1, **cs.FLAG_FIT)[2]
+    fit("FSS masked", flag, partition=1, **cs.FLAG_FIT)
     state = flag.fit_result.state
-    fits["FSS dense"] = cs.run_fit(torch, flag, wrappers, {}, "FSS dense",
-                                   partition=0, **cs.FLAG_FIT)[2]
-    fits["CD masked"] = cs.run_fit(torch, flag, wrappers, {}, "CD masked",
-                                   monotone=False, partition=1, **cs.COLD,
-                                   **cs.FLAG_FIT)[2]
-    fits["CD dense"] = cs.run_fit(torch, flag, wrappers, {}, "CD dense",
-                                  monotone=False, partition=0, **cs.COLD,
-                                  **cs.FLAG_FIT)[2]
+    fit("FSS dense", flag, partition=0, **cs.FLAG_FIT)
+    fit("CD masked", flag, monotone=False, partition=1, **cs.COLD,
+        **cs.FLAG_FIT)
+    fit("CD dense", flag, monotone=False, partition=0, **cs.COLD,
+        **cs.FLAG_FIT)
     print("chip_ab: profile of the flagship masked fit (FSS), 10 iterations:")
     res["profile"] = cs.profile_fit(torch, flag, wrappers, state, cs.K,
                                     cs.LAM, cs.ALPHA)
     del flag
     p50 = cs.predixcan_object(itt)
-    fits["FSS K=50"] = cs.run_fit(torch, p50, wrappers, {}, "FSS K=50",
-                                  **cs.K50_FIT)[2]
-    fits["CD K=50"] = cs.run_fit(torch, p50, wrappers, {}, "CD K=50",
-                                 monotone=False, **cs.COLD, **cs.K50_FIT)[2]
+    fit("FSS K=50", p50, **cs.K50_FIT)
+    print("chip_ab: profile of the K=50 masked fit (FSS), 10 iterations:")
+    res["profile_k50"] = cs.profile_fit(
+        torch, p50, wrappers, p50.fit_result.state, 50,
+        cs.K50_FIT["lambda_"], cs.K50_FIT["alpha"])
+    fit("CD K=50", p50, monotone=False, **cs.COLD, **cs.K50_FIT)
     res["fits_ms_per_iter"] = fits
-    print(f"chip_ab: fits ms/iter {fits}")
+    res["fits_final_loss"] = losses
+    print(f"chip_ab: fits ms/iter {fits}; final losses {losses}")
     line = json.dumps(res)
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)

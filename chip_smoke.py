@@ -12,8 +12,9 @@ Phases, each fatal on failure:
      error and median times (CUDA events), and again, bit for bit;
      level_gram against its plain version in f64 (max error <= 1e-6 of the
      largest magnitude, a gate that must reject one bf16 plane of the
-     table) and beside one cuBLAS f32 GEMM on the prebuilt table
-     (library_ms, a yardstick the port never calls); row_xty against its
+     table; also with a level of 80000 rows, counts above 2**16) and beside
+     one cuBLAS f32 GEMM on the prebuilt table (library_ms, a yardstick the
+     port never calls); row_xty against its
      plain version in f64 on inputs where D and T nearly cancel (max error
      <= 1e-4 of the largest magnitude, a gate that must reject the
      cancellation-prone f32 form D F^T - T F^T); row_xty and masked_eval at
@@ -21,7 +22,9 @@ Phases, each fatal on failure:
      build alone (feature_sign_fused with max_outer=0, polish_sweeps=0;
      cd_fused with max_sweeps=0);
   4. kernels of the dense and K > 32 paths, at full width (M=44477):
-     col_gram_xty at K=24 (N=377) and K=50 (N=300); feature_sign at K=50
+     col_gram_xty at K=24 (N=377) and K=50 (N=300), beside one cuBLAS f32
+     GEMM of the prebuilt (K^2, N) table against the mask (library_ms);
+     feature_sign at K=50
      on those grams; at K=24 feature_sign on col_gram_xty grams against
      feature_sign_fused (route check); feature_sign_shared at K=24 on
      R^T R, R^T data;
@@ -70,6 +73,7 @@ count, and are left out.  As the last line {"ok": true, "device": {...}}.
 Without CUDA the script exits non-zero and prints no result.
 """
 
+import inspect
 import json
 import statistics
 import subprocess
@@ -339,18 +343,34 @@ def level_gram_times(torch, row, mw, F, reps=20):
     """level_gram's kernel, plain and library times on (mw, F): the library
     yardstick is one cuBLAS f32 GEMM, mw @ table^T, with the (K^2, M)
     outer-product table built before the timed region (TF32 off).  The
-    kernel's bf16 products: 3 table planes x 2 count planes per term of
-    the K(K+1)/2 pairs."""
+    kernel's bf16 products: 3 table planes x 2 count planes (3 where a
+    count reaches 65536) per term of the K(K+1)/2 pairs."""
     k = F.shape[0]
     table = (F[:, None, :] * F[None, :, :]).reshape(k * k, -1).contiguous()
     L, m = mw.shape
+    largest = float(mw.max())
+    count_planes = 2 if largest < 65536 else 3
     b = bound(4 * (L * m + k * m + L * k * k),
-              bf16_flop=2 * 6 * L * pairs(k) * m)
+              bf16_flop=2 * 3 * count_planes * L * pairs(k) * m)
+    # the largest count as a fit passes it (computed once per problem), in
+    # a package whose level_gram takes it
+    kw = ({"max_count": largest} if "max_count" in
+          inspect.signature(row.level_gram).parameters else {})
     return dict(
-        ms=timed_ms(torch, lambda: row.level_gram(mw, F), reps),
+        ms=timed_ms(torch, lambda: row.level_gram(mw, F, **kw), reps),
         plain_ms=timed_ms(torch, lambda: row.level_gram_plain(mw, F), reps),
         library_ms=timed_ms(torch, lambda: torch.matmul(mw, table.T), reps),
         bound_ms=b[0], bound_by=b[1])
+
+
+def col_gram_library_ms(torch, R, mask, reps=10):
+    """col_gram_xty's library yardstick: one cuBLAS f32 GEMM (TF32 off) of
+    the prebuilt (K^2, N) outer-product table of R against the mask, the
+    grams in the kernel's (K^2, M) layout (Xty left out).  The port never
+    calls it."""
+    n, k = R.shape
+    table = (R.T[:, None, :] * R.T[None, :, :]).reshape(k * k, n).contiguous()
+    return timed_ms(torch, lambda: torch.matmul(table, mask), reps)
 
 
 def build_alone_ms(torch, fss, cd, x, reps=20):
@@ -388,6 +408,17 @@ def phase_kernels(torch, row, fss, cd, ev):
     level_gram_gate(torch, row, mw_cat, F_t, got)
     if not torch.equal(got, row.level_gram(mw_cat, F_t)):
         fail("level_gram differs from itself")
+    # a level of 80000 rows beside the flagship's: counts above 2**16, where
+    # all three count planes are nonzero, held by the same gate
+    big = torch.from_numpy(np.random.default_rng(12).binomial(
+        80000, 0.9, (1, M)).astype(np.float32)).to("cuda")
+    if not float(big.min()) >= 65536:
+        fail("the large level's counts are not all >= 65536")
+    mw_big = torch.cat([mw_cat, big]).contiguous()
+    print("level_gram with a level of 80000 rows (counts "
+          f"{float(big.min()):.0f}-{float(big.max()):.0f}):")
+    level_gram_gate(torch, row, mw_big, F_t, row.level_gram(mw_big, F_t))
+    del big, mw_big
     out["level_gram"] = dict(max_abs_err=err,
                              **level_gram_times(torch, row, mw_cat, F_t))
 
@@ -536,9 +567,12 @@ def phase_kernels_slice2(torch, gram, fss):
             max_abs_err=err,
             ms=timed_ms(torch, lambda: gram.col_gram_xty(mask, data, R), 10),
             plain_ms=timed_ms(torch, lambda: gram.col_gram_xty_plain(
-                mask, data, R), 5), bound_ms=bnd[0], bound_by=bnd[1])
+                mask, data, R), 5),
+            library_ms=col_gram_library_ms(torch, R, mask),
+            bound_ms=bnd[0], bound_by=bnd[1])
         print(f"col_gram_xty K={k} N={n}: max_abs_err {err:.3e} kernel "
-              f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms")
+              f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms library "
+              f"{rec['library_ms']:.4f} ms")
         grams[k] = (R, mask, data, beta0, got)
         out["col_gram_xty"] = rec                  # the K=50 record is kept
 
@@ -695,7 +729,8 @@ def phase_kernels_wide(torch, gram, fss, cd):
                             for g, r in zip((G, b), ref)),
             ms=timed_ms(torch, lambda: gram.col_gram_xty(mask, data, R), 5),
             plain_ms=timed_ms(torch, lambda: gram.col_gram_xty_plain(
-                mask, data, R), 3))
+                mask, data, R), 3),
+            library_ms=col_gram_library_ms(torch, R, mask))
         XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
         Gd = XtX[:, :, None].expand(k, k, m)
         lam, alpha = 1.0, 0.5
@@ -799,7 +834,8 @@ def device_kernel_times(torch, prof):
 # the device kernels of the profiled fit's wrappers, by a part of their names
 KERNEL_NAMES = {"level_gram": "level_gram", "row_xty": "row_xty",
                 "feature_sign_fused": "fused_kernel<",
-                "masked_eval": "masked_eval"}
+                "masked_eval": "masked_eval", "col_gram_xty": "col_gram_xty",
+                "feature_sign": "streamed_kernel<"}
 
 
 def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
@@ -861,6 +897,201 @@ def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
               f"(its kernels together), {n / iters:g} launches/iter")
     return dict(busy_share=busy, wall_ms=wall_us / 1e3, kernels=kernels,
                 launches=launches, in_fit=in_fit)
+
+
+def fss_counts(torch, G, xty, beta0, lam, alpha, max_outer=48,
+               polish_sweeps=32, tol=SUB_TOL):
+    """A counting replay of the FSS kernels' iteration on one input: the
+    loop of the plain version (ops/fss.feature_sign_search, then its polish,
+    ops/fss.elastic_net_cd without the strong rule), step by step, with
+    counters per column.  G (K, K, M), xty and beta0 (K, M).  Returns the
+    solution (the plain version's) and per-column tensors: outer steps
+    taken, the largest active set solved, the sum over steps of the
+    active-set size cubed (the work of an elimination over the active
+    coordinates only), whether the column stopped at the max_outer cap,
+    polish sweeps; and the active-set size of every (column, step) solve.
+    The plain functions are not changed."""
+    from insider_tpu_torch.ops import fss as plain
+
+    l1, l2 = plain.penalties(lam, alpha)
+    K, M = xty.shape
+    dev = xty.device
+    beta = beta0.clone()
+    act = (beta != 0.0).to(beta.dtype)
+    theta = torch.sign(beta)
+    conv = torch.zeros((1, M), dtype=torch.bool, device=dev)
+    thresh = l1 + plain.KKT_RTOL * (l1 + xty.abs().max(dim=0,
+                                                       keepdim=True).values)
+    steps = torch.zeros(M, dtype=torch.long, device=dev)
+    max_act = torch.zeros(M, dtype=torch.long, device=dev)
+    cubes = torch.zeros(M, dtype=torch.float64, device=dev)
+    sizes = []
+    for _ in range(max_outer):
+        if bool(conv.all()):
+            break
+        live = ~conv[0]
+        a = (act > 0.5).sum(0)
+        steps += live
+        max_act = torch.maximum(max_act, torch.where(live, a, 0))
+        cubes += torch.where(live, a.double() ** 3, 0.0)
+        sizes.append(a[live])
+        beta_star = plain._active_solve(G, act, xty - l1 * theta, l2)
+        flip = (act > 0.5) & (torch.sign(beta_star) != theta) & (beta != 0.0)
+        denom = beta - beta_star
+        safe = torch.where(flip & (denom != 0.0), denom, 1.0)
+        t_k = torch.where(flip, beta / safe, 1.0).clamp(0.0, 1.0)
+        t = t_k.min(dim=0, keepdim=True).values
+        live = ~conv
+        beta = torch.where((act > 0.5) & live, beta + t * (beta_star - beta),
+                           beta)
+        beta = torch.where(flip & (t_k <= t) & (t < 1.0) & live, 0.0, beta)
+        act = (beta != 0.0).to(beta.dtype)
+        theta = torch.sign(beta)
+        solved = (t >= 1.0) & live
+        grad = plain._gram_times(G, beta) + l2 * beta - xty
+        viol = (act < 0.5) & (grad.abs() > thresh) & solved
+        pick, best = plain._first_max_pick(torch.where(viol, grad.abs(), -1.0),
+                                           viol)
+        act = torch.where(pick, 1.0, act)
+        theta = torch.where(pick, -torch.sign(grad), theta)
+        conv = conv | (solved & ~(best > 0.0))
+    capped = ~conv[0]
+
+    # the polish: plain CD sweeps, every coordinate active
+    idx = torch.arange(K, device=dev)
+    d = G[idx, idx]
+    s = plain._gram_times(G, beta)
+    den = d + l2
+    den = torch.where(den > 0.0, den, 1.0)
+    inv_den, half_den = 1.0 / den, 0.5 * den
+    inv_l1 = float(np.float32(1.0) / np.float32(max(l1, 1e-30)))
+    tol32 = float(np.float32(tol))
+    pconv = torch.zeros((1, M), dtype=torch.bool, device=dev)
+    sweeps = torch.zeros(M, dtype=torch.long, device=dev)
+    for _ in range(polish_sweeps):
+        if bool(pconv.all()):
+            break
+        sweeps += ~pconv[0]
+        dec = torch.zeros((1, M), dtype=beta.dtype, device=dev)
+        for k in range(K):
+            b_k = beta[k:k + 1]
+            u = xty[k:k + 1] - s[k:k + 1] + b_k * d[k:k + 1]
+            w = (torch.sign(u) * torch.clamp(u.abs() - l1, min=0.0)
+                 * inv_den[k:k + 1])
+            w = torch.where(pconv, b_k, w)
+            delta = w - b_k
+            xi = torch.where(w != 0.0, torch.sign(w),
+                             torch.clamp(u * inv_l1, -1.0, 1.0))
+            dec = dec + (half_den[k:k + 1] * delta * delta
+                         + l1 * (b_k.abs() - xi * b_k))
+            s = s + G[k] * delta
+            beta[k:k + 1] = w
+        pconv = pconv | (dec.abs() <= tol32)
+    return dict(beta=beta, steps=steps, max_active=max_act, cubes=cubes,
+                capped=capped, polish_sweeps=sweeps,
+                sizes=torch.cat(sizes) if sizes else steps[:0])
+
+
+def count_summary(torch, name, K, c):
+    """One line of fss_counts' distributions: median, p90 and max of the
+    outer steps, the largest active set and the polish sweeps per column;
+    the share of columns at the max_outer cap; the active-set size over all
+    (column, step) solves; and the elimination work over the active
+    coordinates against the K^3 per step of a full-width elimination."""
+    def dist(x):
+        x = x.double()
+        return dict(median=float(x.median()), p90=float(x.quantile(0.9)),
+                    max=float(x.max()), mean=float(x.mean()))
+
+    out = dict(K=K, columns=int(c["steps"].numel()),
+               steps=dist(c["steps"]), max_active=dist(c["max_active"]),
+               polish_sweeps=dist(c["polish_sweeps"]),
+               capped_share=float(c["capped"].double().mean()),
+               active_per_step=(dist(c["sizes"]) if c["sizes"].numel()
+                                else None),
+               active_work_share=float(c["cubes"].sum())
+               / max(float(c["steps"].double().sum()) * K ** 3, 1.0))
+    print(f"FSS counts, {name}: " + json.dumps(out))
+    return out
+
+
+def captured_call(torch, name, at, run):
+    """The arguments of the `at`-th call (1-based) of
+    ops/col_update.<name> (a column-update kernel wrapper) while run()
+    runs, as (args, kwargs); the wrapper is restored after."""
+    from insider_tpu_torch.ops import col_update
+
+    orig = getattr(col_update, name)
+    seen = {"n": 0}
+
+    def spy(*args, **kw):
+        seen["n"] += 1
+        if seen["n"] == at:
+            seen["call"] = (args, kw)
+        return orig(*args, **kw)
+
+    setattr(col_update, name, spy)
+    try:
+        run()
+    finally:
+        setattr(col_update, name, orig)
+    if "call" not in seen:
+        fail(f"{name} was called {seen['n']} times, not {at}")
+    return seen["call"]
+
+
+def phase_counts(torch, itt, gram, flagship, flag_state, predixcan):
+    """Phase 12: what the FSS columns cost, by a counting replay
+    (fss_counts) at four states: phase 3's and phase 4's synthetic inputs,
+    the flagship masked fit's warm state (the column update of one
+    iteration from the state its phase-8 fit ended in, phase 11's start)
+    and the K=50 masked fit's fifth column update from a cold start."""
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.ops.col_update import col_gram_masked
+    from insider_tpu_torch.train import als
+
+    out = {}
+    kw = dict(max_outer=48, polish_sweeps=32, tol=SUB_TOL)
+    x = flagship_inputs(torch)
+    G = col_gram_masked(x["R"], x["train"]).permute(1, 2, 0).contiguous()
+    xty = x["R"].T @ (x["train"] * x["data"])
+    out["phase 3 input, K=24"] = count_summary(torch, "phase 3 input", K,
+                                               fss_counts(torch, G, xty,
+                                                          x["beta0"], LAM,
+                                                          ALPHA, **kw))
+    del x, G, xty
+    R, mask, data, beta0 = problem(torch, 300, 50, M, 6)
+    G, b = gram.col_gram_xty(mask, data, R)
+    out["phase 4 input, K=50"] = count_summary(
+        torch, "phase 4 input", 50, fss_counts(torch, G, b, beta0, 1.0, 0.5,
+                                               **kw))
+    del G, b
+
+    cfg = FitConfig(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
+                    masked=True, global_tol=flagship.params["global_tol"],
+                    sub_tol=flagship.params["sub_tol"], max_iter=0,
+                    seed=flagship.seed)
+    prob = als.build_problem(flagship.data, flagship.confounder,
+                             flagship.train_indicator
+                             + flagship.test_indicator,
+                             flagship.na_indicator, masked=True,
+                             device="cuda")
+    (mask, data, R, beta0, lam, alpha), ckw = captured_call(
+        torch, "feature_sign_fused", 1,
+        lambda: als.optimize(prob, cfg, state=flag_state, verbose=False))
+    G = col_gram_masked(R, mask).permute(1, 2, 0).contiguous()
+    out["flagship fit, warm"] = count_summary(
+        torch, "flagship masked fit's warm state", K,
+        fss_counts(torch, G, R.T @ (mask * data), beta0, lam, alpha, **ckw))
+    del prob, G
+
+    (G, b, beta0, lam, alpha), ckw = captured_call(
+        torch, "feature_sign", 5,
+        lambda: predixcan.fit(verbose=False, **dict(K50_FIT, max_iter=4)))
+    out["K=50 fit, 5th update"] = count_summary(
+        torch, "K=50 masked fit's fifth column update", 50,
+        fss_counts(torch, G, b, beta0, lam, alpha, **ckw))
+    return out
 
 
 def run_fit(torch, obj, wrappers, expect, name, monotone=True, **fit_kw):
@@ -976,7 +1207,9 @@ def main():
     # 6. K = 96 and K = 128
     for name, rec in phase_kernels_wide(torch, gram, fss, cd).items():
         print(f"kernel {name} M=2048: max_abs_err {rec['max_abs_err']:.3e} "
-              f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms")
+              f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
+              + (f" library {rec['library_ms']:.4f} ms"
+                 if "library_ms" in rec else ""))
 
     # 7. small fits, card against CPU
     for label, kw in (("masked 120x2000 K=8", {}),
@@ -1043,12 +1276,14 @@ def main():
                 launches[n] = counts[n]
         print(f"{name}: final loss {loss!r} vs FSS fit {fss_loss!r} "
               f"(ratio {loss / fss_loss:.6f})")
-    del predixcan
 
     # 11. in-fit profile of the flagship masked FSS fit
     print("profile of the flagship masked fit (FSS), 10 iterations:")
     profile_fit(torch, flagship, wrappers, flag_state, K, LAM, ALPHA)
-    del flagship
+
+    # 12. what the FSS columns cost: a counting replay at four states
+    phase_counts(torch, itt, gram, flagship, flag_state, predixcan)
+    del flagship, predixcan
 
     # result
     tpu = "insider_tpu/kernels/"

@@ -20,8 +20,9 @@
 // N=377, M=44477), level with the gram build on the tensor cores: N K(K+1)/2
 // products per column in three bf16 planes, 15.1 G bf16 FMA (0.031 ms),
 // plus Xty's N K f32 FMAs per column (0.012 ms).  The solve is serial per
-// column and latency-bound: FSS takes K pivots per outer step, each a
-// K-wide row update; CD up to max_sweeps x K dependent coordinate updates.
+// column and latency-bound: FSS eliminates a pivots per outer step (a the
+// active coordinates), each an a-wide row update; CD up to max_sweeps x K
+// dependent coordinate updates.
 //
 // Design: a block of 8 warps owns 32 consecutive columns.  Row chunks of R
 // (transposed), mask and data are staged with 4-byte cp.async in a ring of
@@ -40,9 +41,11 @@
 // accumulates coordinates w * K/8 .. for the 32 columns, lane = column, in
 // row order.  The accumulators are scattered into the grams (CB, K, K + 1),
 // both triangles, in the shared memory that held the staging ring.  The
-// solver then runs one warp per column (fss_core.cuh), FSS with its own
-// K x (K+1) elimination workspace.  The ragged column tail (M = 44477) is
-// masked in the kernel, not padded.
+// solver then runs one warp per column (fss_core.cuh; FSS keeps its
+// compacted active system in registers, a row a lane, with a pivot-row
+// buffer in shared memory), the warps taking the block's columns one at a
+// time from a shared counter.  The ragged column tail
+// (M = 44477) is masked in the kernel, not padded.
 #include "fss_core.cuh"
 #include "mma.cuh"
 
@@ -55,6 +58,7 @@ using insider::cp_async_wait;
 using insider::load_coords;
 using insider::mma_bf16;
 using insider::mma_bf16_zero;
+using insider::next_column;
 using insider::pack_exact;
 using insider::pair_of;
 using insider::Solver;
@@ -63,8 +67,7 @@ using insider::split3;
 using insider::store_coords;
 
 constexpr int CB = 32;         // columns per block: 4 n-tiles of 8
-constexpr int WARPS = 8;       // warp w solves columns w, w + 8, w + 16, w + 24
-constexpr int CPW = CB / WARPS;
+constexpr int WARPS = 8;       // the solve takes the CB columns one at a time
 constexpr int NT = CB / 8;
 constexpr int RCH = 64;        // rows per staged chunk: four k-steps of 16
 constexpr int RS = RCH + 8;    // row stride of the transposed R chunk
@@ -81,14 +84,14 @@ struct Build {
 };
 constexpr int RING = 3;        // staging steps in flight
 
-// Shared-memory floats: the grams (CB, K, K + 1), Xty (CB, K) and, for
-// FSS, the workspaces (WARPS, K, K + 1), in that order; the staging ring
-// of the build lies over them while they are not yet written.
+// Shared-memory floats: the grams (CB, K, K + 1), Xty (CB, K) and the
+// solver's workspaces (WARPS of them), in that order; the staging ring of
+// the build lies over them while they are not yet written.
 template <int KMAX, bool CD>
 size_t smem_floats(int K) {
   const int GS = K + 1;
   const size_t solve = (size_t)CB * K * GS + (size_t)CB * K +
-                       (Solver<CD>::WORKSPACE ? (size_t)WARPS * K * GS : 0);
+                       (size_t)WARPS * Solver<CD>::workspace_floats(1, K);
   const size_t ring = RING * (size_t)Build<KMAX>::STAGE;
   return solve > ring ? solve : ring;
 }
@@ -106,7 +109,8 @@ fused_kernel(const float* __restrict__ mask, const float* __restrict__ data,
   const int GS = K + 1;
   float* Gs = smem;                       // (CB, K, GS) grams
   float* Bs = Gs + (size_t)CB * K * GS;   // (CB, K) Xty
-  float* Us = Bs + (size_t)CB * K;        // (WARPS, K, GS) FSS workspaces
+  float* Ws = Bs + (size_t)CB * K;        // (WARPS, workspace) the solver's
+  __shared__ int next;                    // the solve's column counter
 
   const int tid = threadIdx.x;
   const int w = tid >> 5;
@@ -266,18 +270,20 @@ fused_kernel(const float* __restrict__ mask, const float* __restrict__ data,
     const int k = w * B::XW + u;
     if (k < K) Bs[lane * K + k] = xty[u];
   }
+  if (tid == 0) next = 0;
   __syncthreads();
 
   // 2. the solve, one warp per column
-  float* U = Us + (size_t)w * K * GS;
-  for (int q = 0; q < CPW; ++q) {
-    const int cl = w + WARPS * q;
+  float* W = Ws + (size_t)w * Solver<CD>::workspace_floats(1, K);
+  for (;;) {
+    const int cl = next_column(&next);
     const int j = j0 + cl;
-    if (j >= M) continue;                 // warp-uniform
+    if (cl >= CB || j >= M) break;        // warp-uniform
     const float xq[1] = {lane < K ? Bs[cl * K + lane] : 0.f};
     float beta[1];
     load_coords<1>(beta0, K, M, j, beta);
-    solve_column<1>(solver, Gs + (size_t)cl * K * GS, U, K, GS, xq, beta);
+    solve_column<KMAX, 1>(solver, Gs + (size_t)cl * K * GS, W, K, GS, xq,
+                          beta);
     store_coords<1>(out, K, M, j, beta);
   }
 }

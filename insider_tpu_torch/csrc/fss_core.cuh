@@ -10,12 +10,14 @@
 //     1/2 b^T G_j b - b_j^T b + l2/2 |b|^2 + l1 |b|_1
 // from the warm start beta0[:, j], with the TPU kernel's iteration:
 //   * outer step: solve the active subsystem by forward elimination without
-//     pivoting + back substitution; step to the first sign crossing, whose
-//     coordinates become exact zeros (a coordinate that is active with
-//     beta == 0 was just picked and is exempt: the livelock guard); when no
-//     crossing, activate ONE KKT violator, the largest |grad| with the
-//     lowest index on ties, |grad| > l1 + 1e-5 (l1 + max|b_j|); the column
-//     converges when there is none; at most max_outer steps;
+//     pivoting + back substitution, over the active coordinates only
+//     (active_solve_regs, active_solve_shared); step to the first sign
+//     crossing, whose coordinates become exact zeros (a coordinate that is
+//     active with beta == 0 was just picked and is exempt: the livelock
+//     guard); when no crossing, activate ONE KKT violator, the largest
+//     |grad| with the lowest index on ties, |grad| > l1 + 1e-5 (l1 +
+//     max|b_j|); the column converges when there is none; at most max_outer
+//     steps;
 //   * polish: the CD sweeps of cd_sweeps with every coordinate active.
 //
 // cd_column replaces the per-column iteration of
@@ -29,12 +31,13 @@
 // per column that exits on its own computes what the TPU block computes.
 //
 // Layout: lane r holds coordinates r + 32 q for q < C (C = 1 covers K <= 32,
-// C = 2 K <= 64, C = 3 K <= 96, C = 4 K <= 128).  The elimination workspace
-// U is a K x GS tile in shared memory per warp (GS = K + 1 against bank
-// conflicts); pivot rows are read as shared-memory broadcasts, and
-// column-wide min / max / first-index use warp shuffles and ballots.  Loops
-// over coordinates run group by group (q = 0, 1, ...), so every register
-// array is indexed by a constant.
+// C = 2 K <= 64, C = 3 K <= 96, C = 4 K <= 128).  The grams are K x GS
+// tiles in shared memory (GS = K + 1 against bank conflicts).  FSS compacts
+// each outer step's active set; up to 32 active coordinates are eliminated
+// with one compact row per lane in registers, more (K > 32 only) in a
+// per-warp shared workspace.  Column-wide min / max / first-index use warp
+// shuffles and ballots.  Loops over coordinates run group by group (q = 0,
+// 1, ...), so every register array is indexed by a constant.
 #pragma once
 
 #include <type_traits>
@@ -161,15 +164,351 @@ __device__ __forceinline__ void cd_sweeps(const float* __restrict__ G, int K,
   }
 }
 
-// FSS + polish of one column by one warp.  G: the column's K x K gram, row
-// stride GS; U: this warp's K x GS workspace; xty[q], beta[q]: coordinate
-// r + 32 q (zero where r + 32 q >= K; those slots take part only in
-// shuffles).  beta is updated in place.
+// Position of the (k+1)-th set bit of m, k < popc(m): a binary search on
+// the popcounts of the low halves.
+__device__ __forceinline__ int nth_set_bit(unsigned m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) {
+    const int lo = __popc(m & ((1u << w) - 1u));
+    if (k >= lo) {
+      k -= lo;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// Row stride of the shared elimination workspace: >= K, 4 (mod 8) floats,
+// so rows are 16-byte aligned and the 16-byte loads of eight lanes from
+// eight rows fall in distinct banks.
+__host__ __device__ constexpr int ws_stride(int K) {
+  return ((K + 3) & ~7) + 4;
+}
+
+// Floats of one warp's shared workspace for active sets above 32
+// coordinates: the compacted system (K x ws_stride), the active list and
+// its right-hand side, rounded up to keep what follows 16-byte aligned.
+__host__ __device__ constexpr int wide_workspace_floats(int K) {
+  return K * ws_stride(K) + ((2 * K + 3) & ~3);
+}
+
+// Floats of one pivot-row buffer of active_solve_regs (32 entries and the
+// right-hand side's), two of which lead every warp's FSS workspace.
+constexpr int PIVOT_ROW = 36;
+
+// The active subsystem of fss_column,
+//     (G + l2 I)[A, A] x = rhs[A],
+// solved over the compacted active coordinates A (a = |A| of them, in
+// ascending order) by forward elimination without pivoting + back
+// substitution.  rhs[q] holds coordinate r + 32 q (lane r) on entry and its
+// solution on return, 0 where inactive.  bal[q]: the ballot of active
+// coordinates of group q; base[q]: the active coordinates in groups < q.
+//
+// The TPU kernel (fss_pallas.py:120-160) eliminates all K pivots, inactive
+// ones as identity rows; an inactive pivot or row only ever subtracts exact
+// zeros (x - 0 * y == x), so skipping them computes the same values with a^3
+// work in place of K^3.  Every update keeps the form x - colk * y of the
+// full-width elimination, so nvcc contracts it into the same FMA.
+//
+// Here a <= 32: compact row r sits in lane r, in registers (u[c], column c
+// of the compact system; AMAX >= a is the register width, a multiple of
+// 4).  The pivot lane normalizes its row in registers and writes it to a
+// pivot-row buffer in shared memory (P: two of PIVOT_ROW floats, used in
+// turn, so one barrier a pivot suffices); each lane below reads it as
+// 16-byte broadcasts and updates its own row in registers, independent
+// FMAs.
+template <int AMAX, int C>
+__device__ __forceinline__ void active_solve_regs(const float* __restrict__ G,
+                                                  int GS,
+                                                  const unsigned (&bal)[C],
+                                                  const int (&base)[C], int a,
+                                                  float l2, float (&rhs)[C],
+                                                  float* __restrict__ P) {
+  static_assert(AMAX % 4 == 0 && AMAX <= 32, "AMAX: a multiple of 4, <= 32");
+  const int r = threadIdx.x & 31;
+  int ci = 0;                    // the coordinate of compact row r
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int k = r - base[q];
+    if (k >= 0 && k < __popc(bal[q])) ci = 32 * q + nth_set_bit(bal[q], k);
+  }
+  float b = 0.f;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const float v = __shfl_sync(FULL, rhs[q], ci & 31);
+    if ((ci >> 5) == q) b = v;
+  }
+  const float* Gi = G + ci * GS;
+  float u[AMAX];
+#pragma unroll
+  for (int c = 0; c < AMAX; ++c) {
+    const int cc = __shfl_sync(FULL, ci, c);
+    const float g = c < a ? Gi[cc] : 0.f;
+    u[c] = c == r ? g + l2 : g;
+  }
+
+  // forward elimination: rows below the pivot take x - colk * (pivot row
+  // entry / pivot); the pivot lane keeps its normalized row
+#pragma unroll
+  for (int p = 0; p < AMAX; ++p) {
+    if (p >= a) break;                       // warp-uniform
+    float* Pp = P + (p & 1) * PIVOT_ROW;
+    if (r == p) {
+      const float inv = 1.f / u[p];
+      b = b * inv;
+#pragma unroll
+      for (int c = p + 1; c < AMAX; ++c) u[c] = u[c] * inv;
+#pragma unroll
+      for (int c0 = (p + 1) & ~3; c0 < AMAX; c0 += 4)
+        if (c0 < a)
+          *reinterpret_cast<float4*>(Pp + c0) =
+              make_float4(u[c0], u[c0 + 1], u[c0 + 2], u[c0 + 3]);
+      Pp[32] = b;
+    }
+    __syncwarp();
+    if (r > p) {
+      const float colk = u[p];
+#pragma unroll
+      for (int c0 = (p + 1) & ~3; c0 < AMAX; c0 += 4) {
+        if (c0 < a) {
+          const float4 v = *reinterpret_cast<const float4*>(Pp + c0);
+          if (c0 > p) u[c0] = u[c0] - colk * v.x;
+          if (c0 + 1 > p) u[c0 + 1] = u[c0 + 1] - colk * v.y;
+          if (c0 + 2 > p) u[c0 + 2] = u[c0 + 2] - colk * v.z;
+          u[c0 + 3] = u[c0 + 3] - colk * v.w;
+        }
+      }
+      b = b - colk * Pp[32];
+    }
+  }
+  __syncwarp();
+  // back substitution
+#pragma unroll
+  for (int k = AMAX - 1; k >= 1; --k) {
+    if (k < a) {                             // warp-uniform
+      const float xk = __shfl_sync(FULL, b, k);
+      if (r < k) b = b - u[k] * xk;
+    }
+  }
+  // back to the coordinates' lanes
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int pos = base[q] + __popc(bal[q] & ((1u << r) - 1u));
+    const float v = __shfl_sync(FULL, b, pos & 31);
+    rhs[q] = (bal[q] >> r) & 1u ? v : 0.f;
+  }
+}
+
+// The same solve for a > 32 (K > 32), in the shared workspace W
+// (wide_workspace_floats(K)): the compacted system U (a x WS), the active
+// list and its right-hand side.  Lane r holds compact rows r + 32 q.  The
+// pivots go in pairs (p, p + 1): the lanes normalize row p's entries (one
+// each, as in the full-width kernel), bring row p + 1 and each row's entry
+// in column p + 1 through pivot p, normalize row p + 1, and then update
+// every row below p + 1 with both pivots in one pass, eight columns at a
+// time: each entry takes x - colk_p y_p, then - colk_{p+1} y_{p+1}, the
+// full-width kernel's two updates in its order, for one load and one store
+// of the trailing rows a pair.  A chunk's loads are issued together, ahead
+// of its stores; it starts at the 16-byte boundary at or below the first
+// trailing column, and the columns left of it that it also writes are
+// never read again.
 template <int C>
-__device__ __forceinline__ void fss_column(const float* __restrict__ G, float* __restrict__ U,
-                           int K, int GS, const float (&xty)[C],
-                           float (&beta)[C], float l1, float l2, float tol,
-                           int max_outer, int polish_sweeps) {
+__device__ __forceinline__ void active_solve_shared(
+    const float* __restrict__ G, int GS, float* __restrict__ W, int K,
+    const unsigned (&bal)[C], const int (&base)[C], int a, float l2,
+    float (&rhs)[C]) {
+  const int r = threadIdx.x & 31;
+  const int WS = ws_stride(K);
+  float* U = W;
+  int* idx = reinterpret_cast<int*>(W + K * WS);
+  float* vec = W + K * WS + K;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    if ((bal[q] >> r) & 1u) {
+      const int pos = base[q] + __popc(bal[q] & ((1u << r) - 1u));
+      idx[pos] = r + 32 * q;
+      vec[pos] = rhs[q];
+    }
+  }
+  __syncwarp();
+  float b[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int cr = r + 32 * q;
+    b[q] = 0.f;
+    if (cr < a) {
+      const float* Gi = G + idx[cr] * GS;
+      float* Ui = U + cr * WS;
+      for (int c = 0; c < a; c += 4) {
+        int cc[4];
+        float g[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) cc[h] = c + h < a ? idx[c + h] : 0;
+#pragma unroll
+        for (int h = 0; h < 4; ++h) g[h] = Gi[cc[h]];
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          if (c + h < a) Ui[c + h] = c + h == cr ? g[h] + l2 : g[h];
+      }
+      b[q] = vec[cr];
+    }
+  }
+  __syncwarp();
+
+  // b of compact row i (a shuffle from its lane; C is a constant)
+  auto b_of = [&](int i) {
+    float v = b[0];
+#pragma unroll
+    for (int q = 1; q < C; ++q)
+      if ((i >> 5) == q) v = b[q];
+    return __shfl_sync(FULL, v, i & 31);
+  };
+  // the pivot row's entries past it over the pivot, one a lane; the
+  // pivot's right-hand side too (in its lane)
+  auto normalize = [&](float* Up, int p) {
+    const float inv = 1.f / Up[p];
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const int c = r + 32 * q;
+      if (c > p && c < a) Up[c] = Up[c] * inv;
+      if (c == p) b[q] = b[q] * inv;
+    }
+  };
+  for (int p = 0; p < a;) {
+    const bool two = p + 1 < a;              // warp-uniform
+    const int p2 = two ? p + 1 : p;          // the last pivot of this pass
+    float* Up = U + p * WS;
+    float* Uq = Up + WS;
+    normalize(Up, p);
+    __syncwarp();
+    const float b_p = b_of(p);
+    float colk[C], colk1[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const int i = r + 32 * q;
+      const bool live = i > p && i < a;
+      colk[q] = live ? U[i * WS + p] : 0.f;
+      if (live) b[q] = b[q] - colk[q] * b_p;
+      colk1[q] = 0.f;
+    }
+    if (two) {
+      const float l = Uq[p];
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const int c = r + 32 * q;
+        if (c > p && c < a) Uq[c] = Uq[c] - l * Up[c];
+      }
+      __syncwarp();
+      normalize(Uq, p2);
+      __syncwarp();
+      const float b_p2 = b_of(p2);
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const int i = r + 32 * q;
+        if (i > p2 && i < a) {
+          colk1[q] = U[i * WS + p2] - colk[q] * Up[p2];
+          b[q] = b[q] - colk1[q] * b_p2;
+        }
+      }
+    }
+    bool live[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q) live[q] = r + 32 * q > p2 && r + 32 * q < a;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c0 = (p2 + 1) & ~3; c0 < a; c0 += 8) {
+      const bool hi = c0 + 4 < a;
+      const float4 y0 = *reinterpret_cast<const float4*>(Up + c0);
+      const float4 y1 = hi ? *reinterpret_cast<const float4*>(Up + c0 + 4)
+                           : zero;
+      const float4 z0 = two ? *reinterpret_cast<const float4*>(Uq + c0)
+                            : zero;
+      const float4 z1 = two && hi
+                            ? *reinterpret_cast<const float4*>(Uq + c0 + 4)
+                            : zero;
+      float4 x0[C], x1[C];
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const float* Ui = U + (r + 32 * q) * WS + c0;
+        if (live[q]) {
+          x0[q] = *reinterpret_cast<const float4*>(Ui);
+          if (hi) x1[q] = *reinterpret_cast<const float4*>(Ui + 4);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        float* Ui = U + (r + 32 * q) * WS + c0;
+        if (live[q]) {
+          const float k = colk[q], k1 = colk1[q];
+          x0[q].x = x0[q].x - k * y0.x;
+          x0[q].y = x0[q].y - k * y0.y;
+          x0[q].z = x0[q].z - k * y0.z;
+          x0[q].w = x0[q].w - k * y0.w;
+          if (two) {
+            x0[q].x = x0[q].x - k1 * z0.x;
+            x0[q].y = x0[q].y - k1 * z0.y;
+            x0[q].z = x0[q].z - k1 * z0.z;
+            x0[q].w = x0[q].w - k1 * z0.w;
+          }
+          *reinterpret_cast<float4*>(Ui) = x0[q];
+          if (hi) {
+            x1[q].x = x1[q].x - k * y1.x;
+            x1[q].y = x1[q].y - k * y1.y;
+            x1[q].z = x1[q].z - k * y1.z;
+            x1[q].w = x1[q].w - k * y1.w;
+            if (two) {
+              x1[q].x = x1[q].x - k1 * z1.x;
+              x1[q].y = x1[q].y - k1 * z1.y;
+              x1[q].z = x1[q].z - k1 * z1.z;
+              x1[q].w = x1[q].w - k1 * z1.w;
+            }
+            *reinterpret_cast<float4*>(Ui + 4) = x1[q];
+          }
+        }
+      }
+    }
+    __syncwarp();
+    p = p2 + 1;
+  }
+#pragma unroll
+  for (int qk = C - 1; qk >= 0; --qk) {
+    const int k_top = min(a, 32 * (qk + 1)) - 1;
+    for (int k = k_top; k >= max(1, 32 * qk); --k) {
+      const float xk = __shfl_sync(FULL, b[qk], k & 31);
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const int i = r + 32 * q;
+        if (i < k) b[q] = b[q] - U[i * WS + k] * xk;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < C; ++q)
+    if (r + 32 * q < a) vec[r + 32 * q] = b[q];
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int pos = base[q] + __popc(bal[q] & ((1u << r) - 1u));
+    rhs[q] = (bal[q] >> r) & 1u ? vec[pos] : 0.f;
+  }
+  __syncwarp();
+}
+
+// FSS + polish of one column by one warp.  G: the column's K x K gram, row
+// stride GS; W: this warp's shared workspace, 16-byte aligned
+// (Solver<false>::workspace_floats(C, K): two pivot-row buffers, then for
+// C > 1 the wide solve's); xty[q], beta[q]: coordinate r + 32 q (zero where
+// r + 32 q >= K; those slots take part only in shuffles).  beta is updated
+// in place.  AMAX >= min(K, 32), a multiple of 4: the register width of the
+// active solve.
+template <int AMAX, int C>
+__device__ __forceinline__ void fss_column(const float* __restrict__ G,
+                                           float* __restrict__ W, int K,
+                                           int GS, const float (&xty)[C],
+                                           float (&beta)[C], float l1,
+                                           float l2, float tol,
+                                           int max_outer, int polish_sweeps) {
   const int r = threadIdx.x & 31;
   bool ok[C];
   const float* Gr[C];
@@ -188,69 +527,22 @@ __device__ __forceinline__ void fss_column(const float* __restrict__ G, float* _
 
   bool conv = false;
   for (int outer = 0; outer < max_outer && !conv; ++outer) {
-    // U = G restricted to the active set, + l2 on active diagonals,
-    // identity on inactive ones.
+    // the active set, compacted in ascending order, and its right-hand side
+    unsigned bal[C];
+    int base[C], a = 0;
     float rhs[C];
 #pragma unroll
-    for (int q = 0; q < C; ++q) rhs[q] = (xty[q] - l1 * theta[q]) * act[q];
-#pragma unroll
-    for (int qc = 0; qc < C; ++qc) {
-      const int c_end = min(K, 32 * (qc + 1));
-      for (int c = 32 * qc; c < c_end; ++c) {
-        const float ac = __shfl_sync(FULL, act[qc], c & 31);
-#pragma unroll
-        for (int q = 0; q < C; ++q)
-          if (ok[q]) U[(r + 32 * q) * GS + c] = Gr[q][c] * act[q] * ac;
-      }
-    }
-#pragma unroll
     for (int q = 0; q < C; ++q) {
-      const int i = r + 32 * q;
-      if (ok[q]) U[i * GS + i] = U[i * GS + i] + l2 * act[q] + (1.f - act[q]);
+      bal[q] = __ballot_sync(FULL, ok[q] && act[q] > 0.5f);
+      base[q] = a;
+      a += __popc(bal[q]);
+      rhs[q] = xty[q] - l1 * theta[q];
     }
-    __syncwarp();
-
-    // Forward elimination: the lane of row i > p normalizes entry i of
-    // pivot row p, then updates row i.  Columns <= p of the rows below are
-    // never read again, so they are not updated.
-#pragma unroll
-    for (int qp = 0; qp < C; ++qp) {
-      const int p_end = min(K, 32 * (qp + 1));
-      for (int p = 32 * qp; p < p_end; ++p) {
-        const float inv = 1.f / U[p * GS + p];
-        if (r == (p & 31)) rhs[qp] = rhs[qp] * inv;
-#pragma unroll
-        for (int q = 0; q < C; ++q) {
-          const int i = r + 32 * q;
-          if (ok[q] && i > p) U[p * GS + i] = U[p * GS + i] * inv;
-        }
-        __syncwarp();
-        const float rhs_p = __shfl_sync(FULL, rhs[qp], p & 31);
-#pragma unroll
-        for (int q = 0; q < C; ++q) {
-          const int i = r + 32 * q;
-          if (ok[q] && i > p) {
-            const float colk = U[i * GS + p];
-            for (int c = p + 1; c < K; ++c)
-              U[i * GS + c] = U[i * GS + c] - colk * U[p * GS + c];
-            rhs[q] = rhs[q] - colk * rhs_p;
-          }
-        }
-        __syncwarp();
-      }
-    }
-#pragma unroll
-    for (int qk = C - 1; qk >= 0; --qk) {
-      const int k_top = min(K, 32 * (qk + 1)) - 1;
-      for (int k = k_top; k >= max(1, 32 * qk); --k) {
-        const float xk = __shfl_sync(FULL, rhs[qk], k & 31);
-#pragma unroll
-        for (int q = 0; q < C; ++q) {
-          const int i = r + 32 * q;
-          if (i < k) rhs[q] = rhs[q] - U[i * GS + k] * xk;
-        }
-      }
-    }
+    if (C == 1 || a <= 32)                   // warp-uniform
+      active_solve_regs<AMAX, C>(G, GS, bal, base, a, l2, rhs, W);
+    else
+      active_solve_shared<C>(G, GS, W + 2 * PIVOT_ROW, K, bal, base, a, l2,
+                             rhs);
 
     // Line search to the first sign crossing.
     bool flip[C];
@@ -342,39 +634,57 @@ __device__ __forceinline__ void cd_column(const float* __restrict__ G, int K,
 }
 
 // The column solvers as the kernels take them, with their scalars.
-// WORKSPACE: the solve needs a K x GS elimination workspace per warp.
+// workspace_floats(C, K): the shared floats a warp needs (FSS: the pivot
+// rows, and for C > 1 the solve of more than 32 active coordinates), a
+// multiple of 4.
 template <bool CD>
 struct Solver;
 
 template <>
 struct Solver<false> {   // FSS + polish; l1 = lam*alpha, l2 = lam*(1-alpha)
-  static constexpr bool WORKSPACE = true;
   float l1, l2, tol;
   int max_outer, polish_sweeps;
+  __host__ __device__ static constexpr int workspace_floats(int C, int K) {
+    return 2 * PIVOT_ROW + (C > 1 ? wide_workspace_floats(K) : 0);
+  }
 };
 
 template <>
 struct Solver<true> {    // cold strong-rule CD
-  static constexpr bool WORKSPACE = false;
   float lam, alpha, tol;
   int max_sweeps;
+  __host__ __device__ static constexpr int workspace_floats(int, int) {
+    return 0;
+  }
 };
 
-template <int C>
+// AMAX: fss_column's register width, >= min(K, 32).
+template <int AMAX, int C>
 __device__ __forceinline__ void solve_column(const Solver<false>& s,
-                                             const float* G, float* U, int K,
+                                             const float* G, float* W, int K,
                                              int GS, const float (&xty)[C],
                                              float (&beta)[C]) {
-  fss_column<C>(G, U, K, GS, xty, beta, s.l1, s.l2, s.tol, s.max_outer,
-                s.polish_sweeps);
+  fss_column<AMAX, C>(G, W, K, GS, xty, beta, s.l1, s.l2, s.tol,
+                      s.max_outer, s.polish_sweeps);
 }
 
-template <int C>
+template <int AMAX, int C>
 __device__ __forceinline__ void solve_column(const Solver<true>& s,
                                              const float* G, float*, int K,
                                              int GS, const float (&xty)[C],
                                              float (&beta)[C]) {
   cd_column<C>(G, K, GS, xty, beta, s.lam, s.alpha, s.tol, s.max_sweeps);
+}
+
+// Hands out columns to warps one at a time from the counter `next` (shared
+// or device memory, zeroed before the solve): a warp that finishes early
+// takes the next column, so the work ends with the last column, not with
+// the slowest warp's share.  Each column's arithmetic does not depend on
+// the warp that runs it.
+__device__ __forceinline__ int next_column(int* next) {
+  int c = 0;
+  if ((threadIdx.x & 31) == 0) c = atomicAdd(next, 1);
+  return __shfl_sync(FULL, c, 0);
 }
 
 // Calls f(std::integral_constant<int, C>()) with C = ceil(K / 32), the
@@ -387,19 +697,20 @@ inline cudaError_t by_lane_count(int K, F f) {
   return f(std::integral_constant<int, 4>());
 }
 
-// Copies the grams of columns j0 .. j0 + CB - 1 of a gene-last (K, K, M)
-// tensor into shared memory as CB row-major K x GS tiles, CB consecutive
-// floats of each (k, l) row at a time, so the read is coalesced; columns
-// past M are staged as zeros.  The caller synchronizes the block after it.
-__device__ __forceinline__ void stage_grams(const float* __restrict__ xtx,
-                                            float* __restrict__ Gs, int K,
-                                            int GS, int M, int j0, int CB) {
-  const int KK = K * K;
-  for (int e = threadIdx.x; e < KK * CB; e += blockDim.x) {
-    const int kl = e / CB, jj = e % CB, j = j0 + jj;
-    const int k = kl / K, l = kl % K;
-    Gs[((size_t)jj * K + k) * GS + l] = j < M ? xtx[(size_t)kl * M + j] : 0.f;
-  }
+// Calls f(std::integral_constant<int, C>(), std::integral_constant<int,
+// AMAX>()) with C = ceil(K / 32) and AMAX, fss_column's register width: K
+// rounded up to a multiple of 8 for K <= 32, else 32.
+template <class F>
+inline cudaError_t by_width(int K, F f) {
+  using std::integral_constant;
+  if (K <= 8)
+    return f(integral_constant<int, 1>(), integral_constant<int, 8>());
+  if (K <= 16)
+    return f(integral_constant<int, 1>(), integral_constant<int, 16>());
+  if (K <= 24)
+    return f(integral_constant<int, 1>(), integral_constant<int, 24>());
+  return by_lane_count(
+      K, [&](auto c) { return f(c, integral_constant<int, 32>()); });
 }
 
 // Reads coordinates r + 32 q of column j of a row-major (K, M) matrix.

@@ -13,40 +13,51 @@
 // and the rows of xty and beta0, to set the sweep order.
 //
 // Bound on the H100: the serial solve of each column, latency-bound (FSS:
-// K pivots per outer step, each a K-wide row update; CD: up to max_sweeps
-// x K dependent coordinate updates); the inputs are only the (K, M) Xty
-// and warm start.
+// a pivots per outer step, a the active coordinates, each an a-wide row
+// update; CD: up to max_sweeps x K dependent coordinate updates); the
+// inputs are only the (K, M) Xty and warm start.
 //
 // Design: each block copies the one gram into shared memory once; its warps
-// share it, and a warp solves CPW columns in turn.  FSS keeps a K x (K+1)
-// elimination workspace per warp, because the active sets differ per
+// share it and take the block's WARPS x CPW columns one at a time from a
+// shared counter.  FSS solves an active set of up to 32 coordinates in
+// registers (with two pivot-row buffers a warp) and a larger one (K > 32
+// only) in a shared workspace per warp, because the active sets differ per
 // column (fss_pallas.py:82-88): K <= 32 one coordinate per lane (8 warps),
-// K <= 64 two (4 warps, 83 KB of shared memory at K=64), K <= 96 three and
-// K <= 128 four (one warp: 74 KB at K=96, 132 KB at K=128).  CD needs no
+// K <= 64 two (4 warps, 89 KB of shared memory at K=64), K <= 96 three and
+// K <= 128 four (one warp: 77 KB at K=96, 135 KB at K=128).  CD needs no
 // workspace and runs 8 warps at every K (66 KB at K=128).
 #include "fss_core.cuh"
 
 namespace {
 
 using insider::by_lane_count;
+using insider::by_width;
 using insider::ceil_div;
 using insider::load_coords;
+using insider::next_column;
 using insider::Solver;
 using insider::solve_column;
 using insider::store_coords;
 
-constexpr int CPW = 4;   // columns per warp
+constexpr int CPW = 4;   // columns per warp, on average
 
+// Warps per block; shared memory: the gram (K, K + 1), padded to 16 bytes,
+// then each warp's solver workspace.
 template <int C, bool CD>
 struct Shape {
-  static constexpr bool WS = Solver<CD>::WORKSPACE;
-  static constexpr int WARPS = !WS || C == 1 ? 8 : C == 2 ? 4 : 1;
+  static constexpr bool WS = Solver<CD>::workspace_floats(C, 1) > 0;
+  static constexpr int WARPS = !WS ? 8 : C == 2 ? 4 : 1;
+  __host__ __device__ static size_t gram_floats(int K) {
+    return ((size_t)K * (K + 1) + 3) & ~(size_t)3;
+  }
   static size_t smem_bytes(int K) {
-    return sizeof(float) * (size_t)(1 + (WS ? WARPS : 0)) * K * (K + 1);
+    return sizeof(float) *
+           (gram_floats(K) +
+            (size_t)WARPS * Solver<CD>::workspace_floats(C, K));
   }
 };
 
-template <int C, bool CD>
+template <int AMAX, int C, bool CD>
 __global__ void __launch_bounds__(Shape<C, CD>::WARPS * 32)
 shared_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
               const float* __restrict__ beta0, float* __restrict__ out, int M,
@@ -55,39 +66,42 @@ shared_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
   extern __shared__ __align__(16) float smem[];
   const int GS = K + 1;
   float* Gs = smem;                        // (K, GS) the shared gram
-  float* Us = Gs + (size_t)K * GS;         // (WARPS, K, GS) FSS workspaces
+  __shared__ int next;                     // the solve's column counter
 
   const int tid = threadIdx.x;
   const int w = tid >> 5;
   const int j0 = blockIdx.x * WARPS * CPW;
   for (int e = tid; e < K * K; e += WARPS * 32)
     Gs[(e / K) * GS + e % K] = xtx[e];
+  if (tid == 0) next = 0;
   __syncthreads();
 
-  float* U = Us + (size_t)w * K * GS;
-  for (int q = 0; q < CPW; ++q) {
-    const int j = j0 + w + WARPS * q;
-    if (j >= M) continue;                  // warp-uniform
+  float* W = smem + Shape<C, CD>::gram_floats(K) +
+             (size_t)w * Solver<CD>::workspace_floats(C, K);
+  for (;;) {
+    const int cl = next_column(&next);
+    const int j = j0 + cl;
+    if (cl >= WARPS * CPW || j >= M) break;   // warp-uniform
     float b[C], beta[C];
     load_coords<C>(xty, K, M, j, b);
     load_coords<C>(beta0, K, M, j, beta);
-    solve_column<C>(solver, Gs, U, K, GS, b, beta);
+    solve_column<AMAX, C>(solver, Gs, W, K, GS, b, beta);
     store_coords<C>(out, K, M, j, beta);
   }
 }
 
-template <int C, bool CD>
+template <int AMAX, int C, bool CD>
 cudaError_t launch(const float* xtx, const float* xty, const float* beta0,
                    float* out, int M, int K, Solver<CD> solver,
                    cudaStream_t stream) {
   constexpr int WARPS = Shape<C, CD>::WARPS;
   const size_t smem = Shape<C, CD>::smem_bytes(K);
   cudaError_t err = cudaFuncSetAttribute(
-      shared_kernel<C, CD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      shared_kernel<AMAX, C, CD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  shared_kernel<C, CD><<<ceil_div(M, WARPS * CPW), WARPS * 32, smem,
-                         stream>>>(xtx, xty, beta0, out, M, K, solver);
+  shared_kernel<AMAX, C, CD><<<ceil_div(M, WARPS * CPW), WARPS * 32, smem,
+                               stream>>>(xtx, xty, beta0, out, M, K, solver);
   return cudaGetLastError();
 }
 
@@ -95,10 +109,15 @@ template <bool CD>
 int shared(const float* xtx, const float* xty, const float* beta0,
            float* out, int M, int K, Solver<CD> solver, cudaStream_t stream) {
   if (M < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;
-  return (int)by_lane_count(K, [&](auto c) {
-    return launch<decltype(c)::value>(xtx, xty, beta0, out, M, K, solver,
-                                      stream);
-  });
+  auto go = [&](auto c, auto amax) {
+    return launch<decltype(amax)::value, decltype(c)::value>(
+        xtx, xty, beta0, out, M, K, solver, stream);
+  };
+  if constexpr (CD)
+    return (int)by_lane_count(
+        K, [&](auto c) { return go(c, std::integral_constant<int, 32>()); });
+  else
+    return (int)by_width(K, go);
 }
 
 }  // namespace

@@ -17,123 +17,149 @@
 // order.
 //
 // Bound on the H100: the (K, K, M) gram read, K^2 M f32 (445 MB at K=50,
-// M=44477), and the serial solve of each column, latency-bound: FSS takes
-// K pivots per outer step, each a K-wide row update; CD up to max_sweeps x
-// K dependent coordinate updates (two warp shuffles and a K-wide
-// shared-memory row read each).
+// M=44477), and the serial solve of each column, latency-bound: FSS
+// eliminates a pivots per outer step (a the active coordinates), each an
+// a-wide row update; CD up to max_sweeps x K dependent coordinate updates
+// (two warp shuffles and a K-wide shared-memory row read each).
 //
-// Design: a block owns CB consecutive columns.  It first copies their grams
-// into shared memory (fss_core.cuh: stage_grams, coalesced); then one warp
-// per column runs the solver, FSS with its own K x (K+1) elimination
-// workspace.  K <= 32 keeps one coordinate per lane (8 warps, 32 columns);
-// K <= 64 two, K <= 96 three and K <= 128 four, with one column per warp.
-// FSS there runs 4, 1 and 1 warps (82 KB of shared memory at K=50, so two
-// blocks share an SM; 74 KB at K=96, 132 KB at K=128); CD, which needs no
-// workspace, 8, 4 and 2 (82 KB at K=50, 149 KB at K=96, 132 KB at K=128).
+// Design: persistent one-warp blocks, as many as the card holds at once.
+// A warp takes the next column from a grid-wide counter (an atomic add on
+// `next`, which the entry point zeroes), copies that column's gram into its
+// own slice of shared memory, runs the solver, writes the column and takes
+// the next: a column that needs many steps holds up no other, and no block
+// waits for its slowest warp.  Which warp takes a column differs from run
+// to run; a column's arithmetic does not depend on it, so repeated runs
+// agree bit for bit.  A gram's K^2 entries lie M floats apart, so
+// a warp's copy reads one 32-byte sector per entry; the warps hold
+// neighbouring columns at about the same time (the counter hands them out
+// in order), so the sectors are read from device memory about once and
+// from L2 up to eight times.  FSS solves an active set of up to 32
+// coordinates in registers, a larger one (K > 32 only) in its slice
+// (fss_core.cuh: Solver<false>::workspace_floats).  A slice is 21 KB at
+// K=50 (ten warps an SM), 77 KB at K=96, 135 KB at K=128 for FSS; 10 KB,
+// 37 KB and 66 KB for CD.
 #include "fss_core.cuh"
 
 namespace {
 
 using insider::by_lane_count;
-using insider::ceil_div;
+using insider::by_width;
 using insider::load_coords;
+using insider::next_column;
 using insider::Solver;
 using insider::solve_column;
-using insider::stage_grams;
 using insider::store_coords;
 
+// Floats of one warp's slice of shared memory: its column's gram (K, K + 1),
+// padded to 16 bytes, then the solver's workspace.
 template <int C, bool CD>
-struct Shape {
-  static constexpr bool WS = Solver<CD>::WORKSPACE;
-  static constexpr int WARPS = C == 1   ? 8
-                               : WS     ? (C == 2 ? 4 : 1)
-                               : C == 2 ? 8
-                               : C == 3 ? 4
-                                        : 2;
-  static constexpr int CPW = C == 1 ? 4 : 1;   // columns per warp
-  static constexpr int CB = WARPS * CPW;       // columns per block
-  static size_t smem_bytes(int K) {
-    return sizeof(float) * (size_t)(CB + (WS ? WARPS : 0)) * K * (K + 1);
-  }
-};
+__host__ __device__ int slice_floats(int K) {
+  return ((K * (K + 1) + 3) & ~3) + Solver<CD>::workspace_floats(C, K);
+}
 
-template <int C, bool CD>
-__global__ void __launch_bounds__(Shape<C, CD>::WARPS * 32)
+template <int AMAX, int C, bool CD>
+__global__ void __launch_bounds__(32)
 streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
                 const float* __restrict__ beta0, float* __restrict__ out,
-                int M, int K, Solver<CD> solver) {
-  using S = Shape<C, CD>;
+                int* __restrict__ next, int M, int K, Solver<CD> solver) {
   extern __shared__ __align__(16) float smem[];
   const int GS = K + 1;
-  float* Gs = smem;                        // (CB, K, GS) grams
-  float* Us = Gs + (size_t)S::CB * K * GS; // (WARPS, K, GS) FSS workspaces
-
-  const int w = threadIdx.x >> 5;
-  const int j0 = blockIdx.x * S::CB;
-  stage_grams(xtx, Gs, K, GS, M, j0, S::CB);
-  __syncthreads();
-
-  float* U = Us + (size_t)w * K * GS;
-  for (int q = 0; q < S::CPW; ++q) {
-    const int cl = w + S::WARPS * q;
-    const int j = j0 + cl;
-    if (j >= M) continue;                  // warp-uniform
+  const int lane = threadIdx.x;
+  float* Gs = smem;                                  // (K, GS) the gram
+  float* W = smem + ((K * GS + 3) & ~3);             // the solver's
+  for (;;) {
+    const int j = next_column(next);
+    if (j >= M) break;                               // warp-uniform
+#pragma unroll 4
+    for (int k = 0; k < K; ++k)
+      for (int l = lane; l < K; l += 32)
+        Gs[k * GS + l] = xtx[((size_t)k * K + l) * M + j];
+    __syncwarp();
     float b[C], beta[C];
     load_coords<C>(xty, K, M, j, b);
     load_coords<C>(beta0, K, M, j, beta);
-    solve_column<C>(solver, Gs + (size_t)cl * K * GS, U, K, GS, b, beta);
+    solve_column<AMAX, C>(solver, Gs, W, K, GS, b, beta);
     store_coords<C>(out, K, M, j, beta);
+    __syncwarp();                                    // Gs is read no more
   }
 }
 
-template <int C, bool CD>
+// Launches as many one-warp blocks as the card holds at once at this
+// shared-memory size (remembered for the last device and size asked).
+template <int AMAX, int C, bool CD>
 cudaError_t launch(const float* xtx, const float* xty, const float* beta0,
-                   float* out, int M, int K, Solver<CD> solver,
+                   float* out, int* next, int M, int K, Solver<CD> solver,
                    cudaStream_t stream) {
-  using S = Shape<C, CD>;
-  const size_t smem = S::smem_bytes(K);
-  cudaError_t err = cudaFuncSetAttribute(
-      streamed_kernel<C, CD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static int last_dev = -1, last_blocks = 0;
+  static size_t last_smem = 0;
+  const size_t smem = sizeof(float) * slice_floats<C, CD>(K);
+  const auto kernel = streamed_kernel<AMAX, C, CD>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  streamed_kernel<C, CD><<<ceil_div(M, S::CB), S::WARPS * 32, smem,
-                           stream>>>(xtx, xty, beta0, out, M, K, solver);
+  if (dev != last_dev || smem != last_smem) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, 32, smem)) != cudaSuccess)
+      return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    last_dev = dev;
+    last_smem = smem;
+    last_blocks = per_sm * sms;
+  }
+  if ((err = cudaMemsetAsync(next, 0, sizeof(int), stream)) != cudaSuccess)
+    return err;
+  kernel<<<M < last_blocks ? M : last_blocks, 32, smem, stream>>>(
+      xtx, xty, beta0, out, next, M, K, solver);
   return cudaGetLastError();
 }
 
 template <bool CD>
 int streamed(const float* xtx, const float* xty, const float* beta0,
-             float* out, int M, int K, Solver<CD> solver,
+             float* out, int* next, int M, int K, Solver<CD> solver,
              cudaStream_t stream) {
   if (M < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;
-  return (int)by_lane_count(K, [&](auto c) {
-    return launch<decltype(c)::value>(xtx, xty, beta0, out, M, K, solver,
-                                      stream);
-  });
+  auto go = [&](auto c, auto amax) {
+    return launch<decltype(amax)::value, decltype(c)::value>(
+        xtx, xty, beta0, out, next, M, K, solver, stream);
+  };
+  if constexpr (CD)
+    return (int)by_lane_count(
+        K, [&](auto c) { return go(c, std::integral_constant<int, 32>()); });
+  else
+    return (int)by_width(K, go);
 }
 
 }  // namespace
 
 // out (K, M) = the FSS + polish solution of every column.  xtx (K, K, M),
-// xty and beta0 (K, M): row-major f32.  l1 = lam*alpha and l2 =
-// lam*(1-alpha) as f32; 1 <= K <= 128.
+// xty and beta0 (K, M): row-major f32; next: one int of device scratch (the
+// column counter).  l1 = lam*alpha and l2 = lam*(1-alpha) as f32;
+// 1 <= K <= 128.
 INSIDER_API int insider_fss_streamed(const float* xtx, const float* xty,
-                                     const float* beta0, float* out, float l1,
-                                     float l2, float tol, int M, int K,
-                                     int max_outer, int polish_sweeps,
-                                     cudaStream_t stream) {
-  return streamed(xtx, xty, beta0, out, M, K,
+                                     const float* beta0, float* out,
+                                     int* next, float l1, float l2,
+                                     float tol, int M, int K, int max_outer,
+                                     int polish_sweeps, cudaStream_t stream) {
+  return streamed(xtx, xty, beta0, out, next, M, K,
                   Solver<false>{l1, l2, tol, max_outer, polish_sweeps},
                   stream);
 }
 
 // out (K, M) = the cold strong-rule CD solution of every column, at most
-// max_sweeps sweeps.  xtx (K, K, M), xty and beta0 (K, M): row-major f32.
-// lam, alpha, tol as f32; 1 <= K <= 128.
+// max_sweeps sweeps.  xtx (K, K, M), xty and beta0 (K, M): row-major f32;
+// next: one int of device scratch (the column counter).  lam, alpha, tol
+// as f32; 1 <= K <= 128.
 INSIDER_API int insider_cd_streamed(const float* xtx, const float* xty,
-                                    const float* beta0, float* out, float lam,
-                                    float alpha, float tol, int M, int K,
-                                    int max_sweeps, cudaStream_t stream) {
-  return streamed(xtx, xty, beta0, out, M, K,
+                                    const float* beta0, float* out, int* next,
+                                    float lam, float alpha, float tol, int M,
+                                    int K, int max_sweeps,
+                                    cudaStream_t stream) {
+  return streamed(xtx, xty, beta0, out, next, M, K,
                   Solver<true>{lam, alpha, tol, max_sweeps}, stream);
 }

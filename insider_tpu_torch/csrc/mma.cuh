@@ -10,8 +10,10 @@
 //     nearest even from the remainder of the one before -- the TPU kernels'
 //     _bf16_planes (insider_tpu/kernels/fss_pallas.py:297-303); the plain
 //     version is ops/planes.py:bf16_planes;
-//   * split_count: an integer count c in [0, 65536) is
-//     hi = 256 floor(c / 256) plus lo = c - hi, both exact in bf16;
+//   * split_count: an integer count c in [0, 2^24), f32's exact integer
+//     range, is hi = 65536 floor(c / 65536), mid = 256 floor((c - hi) /
+//     256) and lo = c - hi - mid, each exact in bf16 (8 significant bits);
+//     below 65536 hi is 0 and split_count2 gives mid and lo alone;
 //   * a 0/1 mask is exact in bf16 as it is.
 #pragma once
 
@@ -71,6 +73,17 @@ __device__ __forceinline__ void mma_bf16_zero(float (&d)[4],
         "f"(0.f));
 }
 
+// Two 8 x 8 bf16 matrices from shared memory; lanes 8m .. 8m + 7 (m < 2)
+// give the 16-byte row addresses of matrix m, which lands in r[m].
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            const __nv_bfloat16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(s));
+}
+
 // Four 8 x 8 bf16 matrices from shared memory; lanes 8m .. 8m + 7 give the
 // 16-byte row addresses of matrix m, which lands in r[m].
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
@@ -126,13 +139,28 @@ __device__ __forceinline__ int pair_of(int q, int K) {
   return k1 | ((k1 + q - (k1 * K - k1 * (k1 - 1) / 2)) << 16);
 }
 
-// The exact two-plane split of integer counts in [0, 65536).
-__device__ __forceinline__ void split_count(float c0, float c1, uint32_t& hi,
-                                            uint32_t& lo) {
+// The exact two-plane split of integer counts in [0, 65536): hi = 256
+// floor(c / 256) and lo = c - hi.
+__device__ __forceinline__ void split_count2(float c0, float c1, uint32_t& hi,
+                                             uint32_t& lo) {
   const float h0 = floorf(c0 * (1.f / 256.f)) * 256.f;
   const float h1 = floorf(c1 * (1.f / 256.f)) * 256.f;
   hi = pack_exact(h0, h1);
   lo = pack_exact(c0 - h0, c1 - h1);
+}
+
+// The exact three-plane split of integer counts in [0, 2^24): every step
+// (a power-of-two scale, floor, difference) is exact in f32.
+__device__ __forceinline__ void split_count(float c0, float c1, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  const float h0 = floorf(c0 * (1.f / 65536.f)) * 65536.f;
+  const float h1 = floorf(c1 * (1.f / 65536.f)) * 65536.f;
+  const float r0 = c0 - h0, r1 = c1 - h1;
+  const float m0 = floorf(r0 * (1.f / 256.f)) * 256.f;
+  const float m1 = floorf(r1 * (1.f / 256.f)) * 256.f;
+  hi = pack_exact(h0, h1);
+  mid = pack_exact(m0, m1);
+  lo = pack_exact(r0 - m0, r1 - m1);
 }
 
 }  // namespace

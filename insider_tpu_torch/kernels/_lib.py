@@ -43,21 +43,21 @@ _F = ctypes.c_float
 # c_void_p: a bare Python int would be passed as a 32-bit int.
 _SIGNATURES = {
     "insider_error_string": (ctypes.c_char_p, [_I]),
-    "insider_level_gram_scratch": (_L, [_I, _I, _I]),
-    "insider_level_gram": (_I, [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
+    "insider_level_gram_scratch": (_L, [_I, _I, _I, _I]),
+    "insider_level_gram": (_I, [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
     "insider_row_xty_scratch": (_L, [_I, _I, _I]),
     "insider_row_xty": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                              _I, _I, _I, _I, _P]),
     "insider_fss_fused": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
                                _I, _I, _I, _I, _I, _P]),
     "insider_col_gram_xty": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "insider_fss_streamed": (_I, [_P, _P, _P, _P, _F, _F, _F,
+    "insider_fss_streamed": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
                                   _I, _I, _I, _I, _P]),
     "insider_fss_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
                                 _I, _I, _I, _I, _P]),
     "insider_cd_fused": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
                               _I, _I, _I, _I, _P]),
-    "insider_cd_streamed": (_I, [_P, _P, _P, _P, _F, _F, _F,
+    "insider_cd_streamed": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
                                  _I, _I, _I, _P]),
     "insider_cd_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
                                _I, _I, _I, _P]),
@@ -145,6 +145,12 @@ def lib() -> ctypes.CDLL:
         fn.restype = restype
         fn.argtypes = argtypes
     return handle
+
+
+def column_counter(t: torch.Tensor) -> torch.Tensor:
+    """One int32 of scratch on t's device for a kernel's column counter
+    (the kernel's entry point zeroes it on the stream)."""
+    return torch.empty(1, dtype=torch.int32, device=t.device)
 
 
 def check(err: int, what: str) -> None:

@@ -85,7 +85,8 @@ cd_fused.launches = 0
 
 def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
                      lam, alpha, tol, max_sweeps):
-    """Check the operands of a gram-input CD kernel and launch it."""
+    """Check the operands of a gram-input CD kernel and launch it (the
+    streamed kernel also takes a column counter)."""
     _lib.require_cuda(what, xtx, xty, beta0)
     K, M = xty.shape
     if xtx.shape != gram_shape or beta0.shape != (K, M):
@@ -94,11 +95,13 @@ def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
         raise ValueError(f"{what}: K={K} > {MAX_K} is not supported by the "
                          "CUDA kernel")
     out = torch.empty((K, M), dtype=torch.float32, device=xty.device)
+    counter = ([_lib.column_counter(xty)]
+               if c_entry == "insider_cd_streamed" else [])
     with torch.cuda.device(xty.device):
         err = getattr(_lib.lib(), c_entry)(
             xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),
-            *_scalars(lam, alpha, tol), M, K, int(max_sweeps),
-            _lib.stream(xty))
+            *[c.data_ptr() for c in counter], *_scalars(lam, alpha, tol), M,
+            K, int(max_sweeps), _lib.stream(xty))
     _lib.check(err, what)
     return out
 

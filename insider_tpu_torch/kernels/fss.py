@@ -83,7 +83,8 @@ feature_sign_fused.launches = 0
 
 def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
                      lam, alpha, max_outer, polish_sweeps, tol):
-    """Check the operands of a gram-input FSS kernel and launch it."""
+    """Check the operands of a gram-input FSS kernel and launch it (the
+    streamed kernel also takes a column counter)."""
     _lib.require_cuda(what, xtx, xty, beta0)
     K, M = xty.shape
     if xtx.shape != gram_shape or beta0.shape != (K, M):
@@ -93,10 +94,13 @@ def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
                          "CUDA kernel")
     l1, l2 = penalties(lam, alpha)
     out = torch.empty((K, M), dtype=torch.float32, device=xty.device)
+    counter = ([_lib.column_counter(xty)]
+               if c_entry == "insider_fss_streamed" else [])
     with torch.cuda.device(xty.device):
         err = getattr(_lib.lib(), c_entry)(
             xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),
-            l1, l2, float(np.float32(tol)), M, K, int(max_outer),
+            *[c.data_ptr() for c in counter], l1, l2,
+            float(np.float32(tol)), M, K, int(max_outer),
             int(polish_sweeps), _lib.stream(xty))
     _lib.check(err, what)
     return out

@@ -25,12 +25,24 @@ def level_gram_plain(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     return level_gram_masked(mw, F)
 
 
-def level_gram(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+# The largest per-level count the kernel holds exactly (f32's exact
+# integer range), and the one below which two count planes do.
+MAX_COUNT = 1 << 24
+TWO_PLANE_COUNT = 1 << 16
+
+
+def level_gram(mw: torch.Tensor, F: torch.Tensor,
+               max_count=None) -> torch.Tensor:
     """Per-level masked grams Mw @ outer_table(F)^T: (L, M), (K, M) ->
-    (L, K, K).  Counterpart of row_pallas.level_gram_pallas.  Mw holds
-    integer counts below 65536: the kernel splits them into two exact bf16
-    planes (train/als.build_problem refuses masked problems on the card
-    whose counts could reach that)."""
+    (L, K, K).  Counterpart of row_pallas.level_gram_pallas.
+
+    Mw holds integer counts.  The kernel splits them into exact bf16 planes
+    (csrc/mma.cuh): two when every count is below 65536, three below 2**24,
+    so a level may hold any number of rows.  max_count: the largest count
+    in Mw, which a fit computes once per problem (train/als.build_problem);
+    taken from Mw (a device-to-host read) when not given.  A max_count
+    outside [0, 2**24) raises ValueError; one below Mw's largest count
+    gives wrong grams."""
     if _lib.on_cpu("level_gram", mw, F):
         return level_gram_plain(mw, F)
     _lib.require_cuda("level_gram", mw, F)
@@ -39,14 +51,20 @@ def level_gram(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     if F.shape[1] != M:
         raise ValueError(f"level_gram: Mw {tuple(mw.shape)} vs F "
                          f"{tuple(F.shape)}")
+    if max_count is None:
+        max_count = float(mw.max())
+    if not 0 <= max_count < MAX_COUNT:
+        raise ValueError(f"level_gram: counts must lie in [0, {MAX_COUNT}), "
+                         f"got a largest count of {max_count}")
+    planes = 2 if max_count < TWO_PLANE_COUNT else 3
     lib = _lib.lib()
     out = torch.empty((L, K, K), dtype=torch.float32, device=mw.device)
-    scratch = torch.empty(lib.insider_level_gram_scratch(L, M, K),
+    scratch = torch.empty(lib.insider_level_gram_scratch(L, M, K, planes),
                           dtype=torch.float32, device=mw.device)
     with torch.cuda.device(mw.device):
         err = lib.insider_level_gram(
             mw.data_ptr(), F.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), L, M, K, _lib.stream(mw))
+            scratch.numel(), L, M, K, planes, _lib.stream(mw))
     _lib.check(err, "level_gram")
     level_gram.launches += 1
     return out

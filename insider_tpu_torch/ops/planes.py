@@ -8,8 +8,10 @@ sum of the unsplit values up to the order of summation:
   bf16_planes   an f32 value as hi + mid + lo, each plane rounded to nearest
                 even from the remainder of the one before: the TPU kernels'
                 insider_tpu/kernels/fss_pallas.py:_bf16_planes;
-  count_planes  an integer count in [0, 65536) as hi = 256 floor(c / 256)
-                plus lo = c - hi, both exact in bf16;
+  count_planes  an integer count in [0, 2**24), f32's exact integer range,
+                as hi = 65536 floor(c / 65536), mid = 256 floor((c - hi) /
+                256) and lo = c - hi - mid, each exact in bf16; below 65536
+                the kernel takes mid and lo alone (hi is 0);
   a 0/1 mask is exact in bf16 as it is.
 
 planes_level_gram and planes_masked_gram compute what the two kernels
@@ -39,11 +41,16 @@ def bf16_planes(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return hi, mid, lo
 
 
-def count_planes(c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact two-way bf16 split of integer counts in [0, 65536) held in
-    f32: hi = 256 floor(c / 256), lo = c - hi."""
-    hi = torch.floor(c * (1.0 / 256.0)) * 256.0
-    return hi.to(torch.bfloat16), (c - hi).to(torch.bfloat16)
+def count_planes(c: torch.Tensor, n: int = 3) -> Tuple[torch.Tensor, ...]:
+    """Exact bf16 split of integer counts held in f32: n = 3 for counts in
+    [0, 2**24), hi = 65536 floor(c / 65536), mid = 256 floor((c - hi) /
+    256), lo = c - hi - mid; n = 2 for counts below 65536, (mid, lo).  Each
+    step is exact in f32."""
+    hi = torch.floor(c * (1.0 / 65536.0)) * 65536.0
+    rest = c - hi
+    mid = torch.floor(rest * (1.0 / 256.0)) * 256.0
+    planes = (hi, mid, rest - mid)[3 - n:]
+    return tuple(x.to(torch.bfloat16) for x in planes)
 
 
 def planes_dot(lhs, rhs) -> torch.Tensor:
@@ -58,12 +65,14 @@ def planes_dot(lhs, rhs) -> torch.Tensor:
 
 
 def planes_level_gram(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
-    """level_gram as csrc/level_gram.cu computes it: the 2 x 3 products of
-    the count planes of Mw (L, M) and the planes of F's outer-product table,
-    summed in f32 -> (L, K, K)."""
+    """level_gram as csrc/level_gram.cu computes it: the products of the
+    count planes of Mw (L, M), two below 65536 and three above, and the
+    three planes of F's outer-product table, summed in f32 -> (L, K, K)."""
     K = F.shape[0]
     table = factor_outer_table(F).T.contiguous()                 # (M, K^2)
-    return planes_dot(count_planes(mw), bf16_planes(table)).reshape(-1, K, K)
+    n = 2 if float(mw.max()) < 65536 else 3
+    return planes_dot(count_planes(mw, n),
+                      bf16_planes(table)).reshape(-1, K, K)
 
 
 def planes_masked_gram(R: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -60,7 +60,8 @@ class Problem:
     level membership (insider_tpu/train/als.py:343-402).  Masked: d[v] =
     E_v^T (mask .* data) (L_v, M), and mw_cat stacks every confounder's
     E_v^T mask into one (sum L, M) matrix, which the level-gram kernel reads
-    in one launch, and row_order[v] holds confounder v's rows sorted by level
+    in one launch (max_level_count, its largest count, sets the kernel's
+    count planes), and row_order[v] holds confounder v's rows sorted by level
     (kernels/row.level_order), which the row_xty kernel reads in place of
     the codes.  Dense: d[v] = E_v^T data and counts[v] (L_v,) the level
     sizes.
@@ -74,6 +75,7 @@ class Problem:
     masked: bool
     d: List[torch.Tensor]
     mw_cat: Optional[torch.Tensor] = None       # masked only
+    max_level_count: Optional[float] = None     # masked only: mw_cat.max()
     row_order: Optional[List[Tuple[torch.Tensor, ...]]] = None
     counts: Optional[List[torch.Tensor]] = None  # dense only
 
@@ -84,11 +86,6 @@ class Problem:
     @property
     def device(self):
         return self.data.device
-
-
-# level_gram splits the per-level mask counts into two exact bf16 planes,
-# which hold every integer below 2**16 (csrc/mma.cuh: split_count).
-MAX_LEVEL_COUNT = 1 << 16
 
 
 def resolve_device(device) -> torch.device:
@@ -124,11 +121,6 @@ def build_problem(data: np.ndarray, confounder: np.ndarray,
         raise NotImplementedError("sharding is not ported yet")
     disable_tf32()
     device = resolve_device(device)
-    if masked and device.type == "cuda" and len(data) >= MAX_LEVEL_COUNT:
-        raise ValueError(
-            f"masked problems on the card take N < {MAX_LEVEL_COUNT} rows "
-            f"(got {len(data)}): level_gram holds the per-level mask counts "
-            "exactly in two bf16 planes only below that")
     confounder = np.asarray(confounder)
     codes_np, n_levels = [], []
     for c in range(confounder.shape[1]):
@@ -152,9 +144,9 @@ def build_problem(data: np.ndarray, confounder: np.ndarray,
                                     for E_t in E_ts],
                        counts=[E_t.sum(dim=1) for E_t in E_ts])
     wx = train_t * data_t
+    mw_cat = torch.cat([torch.matmul(E_t, train_t) for E_t in E_ts], dim=0)
     return Problem(**common, d=[torch.matmul(E_t, wx) for E_t in E_ts],
-                   mw_cat=torch.cat([torch.matmul(E_t, train_t)
-                                     for E_t in E_ts], dim=0),
+                   mw_cat=mw_cat, max_level_count=float(mw_cat.max()),
                    row_order=[level_order(c, L)
                               for c, L in zip(codes, n_levels)])
 
@@ -221,7 +213,7 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
     R = _row_factor(problem, state)
 
     # every confounder's level grams use the same F: one launch for all
-    xtx_cat = level_gram(problem.mw_cat, F)
+    xtx_cat = level_gram(problem.mw_cat, F, problem.max_level_count)
     level_xtx = torch.split(xtx_cat, list(problem.n_levels), dim=0)
 
     cfd_new = list(state.cfd_factors)

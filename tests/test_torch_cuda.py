@@ -61,13 +61,17 @@ def _max_err_ok(got, ref, rtol):
 
 
 # counts up to 1000, above 256, where one bf16 plane no longer holds them,
-# and below 256 (a zero high count plane, as at the flagship shape); ragged
-# level counts (L = 150 spans two level tiles of the kernel)
+# and below 256 (zero high count planes, as at the flagship shape); ragged
+# level counts (L = 150 spans two level tiles of the kernel); counts up to
+# 70000 and 2**24 - 1, levels of more than 65536 rows, where all three
+# count planes are nonzero
 @pytest.mark.parametrize("L,K,M,cmax", [(9, 5, 1031, 1000),
                                         (133, 24, 3001, 1000),
                                         (133, 24, 3001, 255),
                                         (37, 50, 2000, 1000),
-                                        (150, 24, 777, 1000)])
+                                        (150, 24, 777, 1000),
+                                        (6, 24, 1031, 70000),
+                                        (4, 13, 300, (1 << 24) - 1)])
 def test_level_gram(cuda, L, K, M, cmax):
     rng = np.random.default_rng(0)
     mw = _t(rng.integers(0, cmax + 1, (L, M)).astype(np.float32), cuda)
@@ -83,6 +87,16 @@ def test_level_gram(cuda, L, K, M, cmax):
     one_plane = (mw.double() @ hi.T).reshape(exact.shape)
     assert not _max_err_ok(one_plane, exact, LEVEL_GRAM_RTOL)
     assert torch.equal(got, row.level_gram(mw, F))        # bit for bit
+    # the largest count given, as a fit gives it: the same planes
+    assert torch.equal(got, row.level_gram(mw, F, float(mw.max())))
+
+
+def test_level_gram_rejects_counts_past_2_24(cuda):
+    mw = torch.ones((3, 40), device=cuda)
+    F = torch.ones((4, 40), device=cuda)
+    for bad in (-1.0, float(1 << 24)):
+        with pytest.raises(ValueError, match="counts"):
+            row.level_gram(mw, F, bad)
 
 
 ROW_XTY_RTOL = 1e-4             # of the f64 result's max magnitude
@@ -127,7 +141,7 @@ def _row_xty_errors(codes, R, mask, D, F, got):
 # at K = 24); one level larger than a level group; K = 8, 24, 50, 96, 128
 # and odd ranks; M ragged and not a multiple of 4; N = 1; D and T nearly
 # cancelling, where the f64 gate must reject the f32 form D F^T - T F^T;
-# N = 65535, the most rows a masked problem takes on the card
+# N = 65535
 @pytest.mark.parametrize("N,L,K,M,layout", [
     (37, 3, 6, 1031, "random"), (150, 107, 24, 2000, "empty"),
     (40, 1, 8, 257, "random"), (300, 2000, 24, 513, "random"),
@@ -178,18 +192,34 @@ def test_masked_eval(cuda, N, M, K, no_test):
     assert again == got
 
 
-# every KMAX instance of the kernel (8, 16, 24, 32) at ragged N and M
-@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (77, 8, 301),
+# Warm starts of the FSS kernels: every coordinate zero (the active sets
+# grow one coordinate a step), every coordinate nonzero and near the
+# solution, and every coordinate nonzero and far from it with max_outer = 2,
+# where the columns stop at the cap.
+WARM_STARTS = ("zero", "nonzero", "cap")
+
+
+def _warm(rng, K, M, warm):
+    """A warm start (K, M) and the FSS keywords for it."""
+    scale = {"zero": 0.0, "nonzero": 0.01, "cap": 1.0}[warm]
+    beta0 = (scale * rng.standard_normal((K, M))).astype(np.float32)
+    return beta0, dict(max_outer=2 if warm == "cap" else 48,
+                       polish_sweeps=16, tol=1e-9)
+
+
+# every KMAX instance of the kernel (8, 16, 24, 32) at ragged N and M, K = 1
+@pytest.mark.parametrize("warm", WARM_STARTS)
+@pytest.mark.parametrize("N,K,M", [(40, 1, 129), (45, 5, 333), (77, 8, 301),
                                    (100, 13, 700), (129, 16, 515),
                                    (377, 24, 1000), (60, 32, 257)])
-def test_feature_sign_fused(cuda, N, K, M):
+def test_feature_sign_fused(cuda, N, K, M, warm):
     rng = np.random.default_rng(3 + K)
     R = _t(rng.standard_normal((N, K)).astype(np.float32), cuda)
     mask = _t((rng.random((N, M)) > 0.1).astype(np.float32), cuda)
     data = _t(rng.standard_normal((N, M)).astype(np.float32), cuda)
-    beta0 = _t((0.01 * rng.standard_normal((K, M))).astype(np.float32), cuda)
+    beta0, kw = _warm(rng, K, M, warm)
+    beta0 = _t(beta0, cuda)
     lam, alpha = 11.0, 0.4
-    kw = dict(max_outer=48, polish_sweeps=16, tol=1e-9)
     n0 = fss.feature_sign_fused.launches
     got = fss.feature_sign_fused(mask, data, R, beta0, lam, alpha, **kw)
     assert fss.feature_sign_fused.launches == n0 + 1
@@ -279,15 +309,18 @@ def test_col_gram_xty(cuda, N, K, M, u8):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# one, two, three and four coordinates a lane; active sets above 32 (the
+# kernels' shared-memory solve) from K = 33
+@pytest.mark.parametrize("warm", WARM_STARTS)
 @pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
                                    (100, 33, 300), (300, 50, 700),
-                                   (120, 64, 257), (150, 96, 130),
-                                   (200, 128, 70)])
-def test_feature_sign(cuda, N, K, M):
-    R, mask, data, beta0 = _masked_inputs(N, K, M, seed=30 + K)
+                                   (120, 64, 257), (130, 65, 200),
+                                   (150, 96, 130), (200, 128, 70)])
+def test_feature_sign(cuda, N, K, M, warm):
+    R, mask, data, _ = _masked_inputs(N, K, M, seed=30 + K)
+    beta0, kw = _warm(np.random.default_rng(K), K, M, warm)
     R, mask, data, beta0 = (_t(x, cuda) for x in (R, mask, data, beta0))
     lam, alpha = 11.0, 0.4
-    kw = dict(max_outer=48, polish_sweeps=16, tol=1e-9)
     G, b = gram.col_gram_xty_plain(mask, data, R)
     n0 = fss.feature_sign.launches
     got = fss.feature_sign(G, b, beta0, lam, alpha, **kw)
@@ -295,7 +328,7 @@ def test_feature_sign(cuda, N, K, M):
     _check_fss(got, fss.feature_sign_plain(G, b, beta0, lam, alpha, **kw), G,
                b, lam, alpha)
     assert torch.equal(got, fss.feature_sign(G, b, beta0, lam, alpha, **kw))
-    if K <= fss.FUSED_MAX_K:
+    if K <= fss.FUSED_MAX_K and warm == "nonzero":
         # the streamed route against the fused kernel on the same problem
         fused = fss.feature_sign_fused(mask, data, R, beta0, lam, alpha, **kw)
         Gk, bk = gram.col_gram_xty(mask, data, R)
@@ -380,6 +413,33 @@ def test_cd_shared(cuda, N, K, M):
     _check_cd(got, cd.cd_shared_plain(XtX, b, beta0, **kw),
               XtX[:, :, None].expand(K, K, M), b, kw["lam"])
     assert torch.equal(got, cd.cd_shared(XtX, b, beta0, **kw))
+
+
+def test_masked_problem_past_65536_rows(cuda):
+    """A masked problem whose one level holds 70000 rows builds on the card,
+    its level grams (three count planes) hold to the f64 sum, and a short
+    fit runs with finite, non-increasing losses."""
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.train import als
+
+    rng = np.random.default_rng(70)
+    n, m, k = 70000, 6, 3
+    data = rng.standard_normal((n, m))
+    conf = np.stack([np.zeros(n, np.int64), rng.integers(0, 3, n)], 1)
+    train = (rng.random((n, m)) > 0.05).astype(np.float64)
+    problem = als.build_problem(data, conf, train, np.zeros_like(data),
+                                device="cuda")
+    assert problem.max_level_count >= 65536
+    F = _t(rng.standard_normal((k, m)).astype(np.float32), cuda)
+    got = row.level_gram(problem.mw_cat, F, problem.max_level_count)
+    exact = row.level_gram_plain(problem.mw_cat.double(), F.double())
+    assert _max_err_ok(got.double(), exact, LEVEL_GRAM_RTOL)
+    res = als.optimize(problem, FitConfig(latent_dim=k, lambda1=1.0,
+                                          lambda2=1.0, alpha=0.5, max_iter=3),
+                       verbose=False)
+    losses = [h["loss"] for h in res.history]
+    assert np.all(np.isfinite(losses))
+    assert all(b <= a * (1 + 1e-6) for a, b in zip(losses, losses[1:]))
 
 
 def test_masked_k50_fit(cuda):

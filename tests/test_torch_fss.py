@@ -21,7 +21,7 @@ from insider_tpu.ops.col_update import col_gram_masked as jax_col_gram
 from insider_tpu.ops.fss import feature_sign_batched
 from insider_tpu_torch.kernels.fss import feature_sign_fused
 from insider_tpu_torch.ops.col_update import col_gram_masked
-from insider_tpu_torch.ops.fss import feature_sign_search
+from insider_tpu_torch.ops.fss import _active_solve, feature_sign_search
 
 HI = jax.lax.Precision.HIGHEST
 
@@ -97,3 +97,59 @@ def test_col_gram_matches_jax():
     got = col_gram_masked(torch.from_numpy(R), torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-5)
+
+
+def _compact_solve(G, act, rhs, l2):
+    """The CUDA kernels' active solve (csrc/fss_core.cuh: active_solve_regs,
+    active_solve_shared) emulated in torch, one column at a time: the
+    forward elimination and back substitution of _active_solve over the
+    active coordinates only, in ascending order, with the same operations
+    (x - colk * y) in the same order.  Inactive coordinates solve to 0."""
+    K, M = rhs.shape
+    out = torch.zeros_like(rhs)
+    for j in range(M):
+        A = torch.nonzero(act[:, j] > 0.5).flatten()
+        a = A.numel()
+        U = G[:, :, j][A][:, A].clone()
+        ii = torch.arange(a)
+        U[ii, ii] = U[ii, ii] + l2
+        x = rhs[A, j].clone()
+        for p in range(a):
+            inv = 1.0 / U[p, p]
+            rowp = U[p] * inv
+            xp = x[p] * inv
+            U[p] = rowp
+            x[p] = xp
+            colk = U[p + 1:, p].clone()
+            U[p + 1:] = U[p + 1:] - colk[:, None] * rowp[None, :]
+            x[p + 1:] = x[p + 1:] - colk * xp
+        for k in range(a - 1, 0, -1):
+            x[:k] = x[:k] - U[:k, k] * x[k]
+        out[A, j] = x
+    return out
+
+
+# random SPD grams; per column an active set that is empty, one coordinate,
+# all of them, or scattered; K up to 70 (the kernels' shared-memory path
+# takes active sets above 32)
+@pytest.mark.parametrize("K,M,l2", [(1, 4, 0.5), (6, 40, 0.0), (24, 60, 6.6),
+                                    (50, 24, 0.5), (70, 12, 1.0)])
+def test_compacted_elimination_is_bit_for_bit(K, M, l2):
+    """Skipping the inactive pivots and rows, as the kernels do, computes
+    the full-width elimination's values bit for bit: an inactive pivot or
+    row only ever subtracts exact zeros."""
+    rng = np.random.default_rng(K * 100 + M)
+    X = rng.standard_normal((3 * K + 5, K, M)).astype(np.float32)
+    G = torch.from_numpy(np.einsum("nkm,nlm->klm", X, X))
+    act = (rng.random((K, M)) < rng.random(M)).astype(np.float32)
+    act[:, 0] = 0.0
+    act[:, 1 % M] = 1.0
+    act[:, 2 % M] = 0.0
+    act[rng.integers(K), 2 % M] = 1.0
+    act = torch.from_numpy(act)
+    rhs = torch.from_numpy(rng.standard_normal((K, M)).astype(np.float32))
+    want = _active_solve(G, act, rhs, l2)
+    got = _compact_solve(G, act, rhs, l2)
+    assert torch.equal(got[act > 0.5], want[act > 0.5])
+    assert not bool(want[act < 0.5].any())
+    assert bool(torch.isfinite(got).all())

@@ -4,8 +4,9 @@ and csrc/fss.cu compute) against the JAX package, and the port's default
 device.
 
 The three-plane split must equal fss_pallas._bf16_planes plane for plane
-and sum back to its input exactly; the two-plane count split must be exact
-for every count below 2**16.  Summed in f32, the plane products must agree
+and sum back to its input exactly; the three-plane count split must be
+exact for every count below 2**24, f32's exact integer range (so a level
+may hold any number of rows).  Summed in f32, the plane products must agree
 with the f32 plain versions at the kernels' tolerances (level_gram 2e-5,
 the column grams 3e-5 of the output's largest magnitude) and with the JAX
 kernels' own arithmetic.  The entry points run on the card unless the
@@ -57,11 +58,35 @@ def test_bf16_planes_match_jax(lo_exp, hi_exp):
 
 def test_count_planes_exact_below_65536():
     c = torch.arange(1 << 16, dtype=torch.float32)
-    hi, lo = planes.count_planes(c)
-    assert hi.dtype == lo.dtype == torch.bfloat16
-    assert torch.equal(hi.float() + lo.float(), c)
-    assert torch.equal(hi.float(), torch.floor(c / 256) * 256)
+    hi, mid, lo = planes.count_planes(c)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert not bool(hi.float().any())
+    assert torch.equal(mid.float() + lo.float(), c)
+    assert torch.equal(mid.float(), torch.floor(c / 256) * 256)
     assert float(lo.float().max()) == 255.0
+    # the two planes the kernel takes below 65536
+    two = planes.count_planes(c, 2)
+    assert len(two) == 2
+    assert torch.equal(two[0], mid) and torch.equal(two[1], lo)
+
+
+def test_count_planes_exact_below_2_24():
+    """Every integer below 2**24 splits exactly: the edges of each plane
+    and random counts spread over the whole range; a two-plane split
+    (256 floor(c / 256) and the rest) is not exact there."""
+    rng = np.random.default_rng(24)
+    edges = [(1 << e) + d for e in (8, 16, 23) for d in (-1, 0, 1)]
+    c = torch.from_numpy(np.concatenate([
+        edges, [0, 65535, 65536, 70000, (1 << 24) - 1],
+        rng.integers(0, 1 << 24, 50000)]).astype(np.float32))
+    assert float(c.max()) == float((1 << 24) - 1)
+    hi, mid, lo = (p.float() for p in planes.count_planes(c))
+    assert torch.equal(hi + mid + lo, c)
+    assert torch.equal(hi, torch.floor(c / 65536) * 65536)
+    assert float(mid.max()) <= 255 * 256 and float(lo.max()) <= 255
+    two_hi = torch.floor(c / 256) * 256
+    assert not torch.equal(two_hi.to(torch.bfloat16).float()
+                           + (c - two_hi).to(torch.bfloat16).float(), c)
 
 
 # counts up to 1000, above 256 where one bf16 plane stops being exact
@@ -76,6 +101,36 @@ def test_planes_level_gram(L, K, M, cmax):
                                      torch.from_numpy(F)), 2e-5)
     _close(got, level_gram_pallas(jnp.asarray(mw), jnp.asarray(F),
                                   interpret=True), 2e-5)
+
+
+# counts of levels above 2**16 rows, where the old two count planes fail
+@pytest.mark.parametrize("L,K,M,cmin,cmax", [(4, 6, 300, 60000, 70000),
+                                             (9, 13, 200, 0, 1 << 20)])
+def test_planes_level_gram_large_counts(L, K, M, cmin, cmax):
+    rng = np.random.default_rng(L + K)
+    mw = rng.integers(cmin, cmax + 1, (L, M)).astype(np.float32)
+    F = rng.standard_normal((K, M)).astype(np.float32)
+    got = planes.planes_level_gram(torch.from_numpy(mw), torch.from_numpy(F))
+    exact = row.level_gram_plain(torch.from_numpy(mw).double(),
+                                 torch.from_numpy(F).double())
+    _close(got, exact, 2e-5)
+    _close(got, level_gram_pallas(jnp.asarray(mw), jnp.asarray(F),
+                                  interpret=True), 2e-5)
+
+
+def test_masked_problem_records_its_largest_level_count():
+    """build_problem keeps the largest per-level count, which sets
+    level_gram's count planes: a level of 70000 rows needs the third."""
+    n = 70000
+    data = np.zeros((n, 2), np.float32)
+    conf = np.zeros((n, 1), np.int64)
+    train = np.ones_like(data)
+    train[:5, 1] = 0.0
+    problem = als.build_problem(data, conf, train, np.zeros_like(data),
+                                device="cpu")
+    assert problem.max_level_count == float(n)
+    assert torch.equal(problem.mw_cat, torch.tensor([[n, n - 5]],
+                                                    dtype=torch.float32))
 
 
 @pytest.mark.parametrize("N,K,M", [(45, 5, 130), (100, 24, 70)])
@@ -130,16 +185,3 @@ def test_insider_default_device():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             itt.Insider(data, conf)
     assert itt.Insider(data, conf, device="cpu").device.type == "cpu"
-
-
-def test_masked_card_problem_rejects_65536_rows(monkeypatch):
-    """level_gram's count planes hold counts below 2**16 exactly: a masked
-    problem on the card with N >= 65536 rows is refused before anything is
-    staged (the card is pretended; nothing reaches it)."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    n = 1 << 16
-    data = np.zeros((n, 2), np.float32)
-    conf = np.zeros((n, 1), np.int64)
-    with pytest.raises(ValueError, match="65536"):
-        als.build_problem(data, conf, np.ones_like(data), np.zeros_like(data),
-                          device="cuda")
