@@ -19,12 +19,18 @@ directory's chip_smoke.py, so both trees see the same inputs.  Measured:
     version, beside their bounds;
   * the fused kernels' gram build alone (feature_sign_fused with
     max_outer=0, polish_sweeps=0; cd_fused with max_sweeps=0);
+  * col_gram_xty alone on chip_smoke's phase-4 input at K=50 and its
+    phase-6 inputs at K=96 and K=128 (M=2048), beside one cuBLAS f32 GEMM
+    on the prebuilt table (library_ms) and its bound, with a checksum of
+    the grams and of Xty;
   * the FSS kernels on chip_smoke's fixed inputs, each with a checksum of
     its output (sha256 of the bytes, -0 read as +0), so that two trees
     whose arithmetic is the same agree bit for bit: feature_sign_fused on
     phase 3's input, feature_sign at K=50 on phase 4's (col_gram_xty
     grams) and at K=96, 128 on phase 6's (M=2048), feature_sign_shared at
-    K=24 on phase 4's R^T R;
+    K=24 on phase 4's R^T R; feature_sign's records also hold the sum of
+    its columns' objectives on the f64 grams, which two trees whose grams
+    round differently are compared by;
   * the ms per iteration of the FSS and cold-CD fits, flagship masked and
     dense and K=50 masked, from each fit's own boundary clock, and their
     final losses;
@@ -78,8 +84,39 @@ def fss_kernels(torch, cs, gram, fss):
                                 (300, 128, 2048, 128, 3)):
         R, mask, data, beta0 = cs.problem(torch, n, k, m, seed)
         G, b = gram.col_gram_xty(mask, data, R)
-        rec(f"feature_sign K={k}", lambda: fss.feature_sign(
-            G, b, beta0, 1.0, 0.5, **kw), reps)
+        name = f"feature_sign K={k}"
+        rec(name, lambda: fss.feature_sign(G, b, beta0, 1.0, 0.5, **kw),
+            reps)
+        G, b = gram.col_gram_xty_plain(mask.double(), data.double(),
+                                       R.double())
+        out[name]["objective"] = float(cs.objectives(
+            torch, fss.feature_sign(*gram.col_gram_xty(mask, data, R),
+                                    beta0, 1.0, 0.5, **kw),
+            G, b, 1.0, 0.5).sum())
+        del G, b
+    return out
+
+
+def col_gram_times(torch, cs, gram):
+    """{name: record} of col_gram_xty alone on chip_smoke's phase-4 (K=50)
+    and phase-6 (K=96, 128) inputs: kernel time, library_ms, bound and
+    checksums of the grams and of Xty."""
+    out = {}
+    for n, k, m, seed, reps in ((300, 50, cs.M, 6, 10),
+                                (300, 96, 2048, 96, 10),
+                                (300, 128, 2048, 128, 10)):
+        R, mask, data, _ = cs.problem(torch, n, k, m, seed)
+        G, b = gram.col_gram_xty(mask, data, R)
+        bnd = cs.col_gram_bound(n, k, m)
+        r = out[f"col_gram_xty K={k}"] = dict(
+            ms=cs.timed_ms(torch, lambda: gram.col_gram_xty(mask, data, R),
+                           reps),
+            library_ms=cs.col_gram_library_ms(torch, R, mask),
+            bound_ms=bnd[0], bound_by=bnd[1], checksum=checksum(G),
+            xty_checksum=checksum(b))
+        print(f"chip_ab: col_gram_xty K={k}: kernel {r['ms']:.4f} ms "
+              f"library {r['library_ms']:.4f} ms bound {bnd[0]:.4f} ms; "
+              f"checksums {r['checksum']} {r['xty_checksum']}")
         del G, b
     return out
 
@@ -145,6 +182,7 @@ def main():
         torch, ev, k50["data"], k50["mask"], k50["test"], k50["R"],
         k50["F"])
     del k50
+    res["col_gram"] = col_gram_times(torch, cs, gram)
     res["fss"] = fss_kernels(torch, cs, gram, fss)
     for name in ("level_gram", "level_gram_k50", "row_xty", "row_xty_k50",
                  "masked_eval", "masked_eval_k50"):

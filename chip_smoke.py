@@ -22,24 +22,31 @@ Phases, each fatal on failure:
      build alone (feature_sign_fused with max_outer=0, polish_sweeps=0;
      cd_fused with max_sweeps=0);
   4. kernels of the dense and K > 32 paths, at full width (M=44477):
-     col_gram_xty at K=24 (N=377) and K=50 (N=300), beside one cuBLAS f32
+     col_gram_xty at K=24 (N=377) and K=50 (N=300), against its plain
+     version in f32 and in f64 (grams and Xty within 1e-6 of the largest
+     magnitude, and every entry within 1e-6 of its own sum of |terms|, a
+     gate that must reject the grams over one bf16 plane of the table; the
+     grams symmetric bit for bit), beside one cuBLAS f32
      GEMM of the prebuilt (K^2, N) table against the mask (library_ms);
-     feature_sign at K=50
-     on those grams; at K=24 feature_sign on col_gram_xty grams against
-     feature_sign_fused (route check); feature_sign_shared at K=24 on
-     R^T R, R^T data;
+     feature_sign at K=50 on those grams; at K=24 feature_sign on
+     col_gram_xty's output against feature_sign_fused (route check);
+     feature_sign_shared at K=24 on R^T R, R^T data;
   5. the cold-CD kernels at full width (M=44477): cd_fused at K=24
      (N=377), cd_streamed at K=50 on col_gram_xty grams (N=300) and at
      K=24 against cd_fused (route check), cd_shared at K=24; each against
      its plain version at a short sweep cap and at the 200-sweep cap
      (every column's objective, and element-wise at the short cap);
-  6. K = 96 and K = 128 at M=2048 (N=300): col_gram_xty, feature_sign,
+  6. K = 96 and K = 128 at M=2048 (N=300): col_gram_xty (with the f64
+     gate of phase 4 and its library_ms), feature_sign,
      feature_sign_shared, cd_streamed and cd_shared against their plain
      versions;
   7. small fits: the same fit on the card (kernels) and on the CPU (plain
-     versions) from one numpy initial state, per-boundary losses agree:
-     masked K=8, dense K=8, masked K=40, masked alpha=0 (FSS); masked K=8,
-     dense K=8, masked K=40 (cold CD); masked K=96 (FSS);
+     versions) from one numpy initial state, per-boundary losses agree to
+     rtol 1e-5: masked K=8, dense K=8, masked K=40, masked alpha=0 at K=8
+     and at tests/test_torch_dense.py's ridge shape (40 x 300, K=6) (FSS
+     and Cholesky); masked K=8, dense K=8, masked K=40 with R of full rank
+     (cold CD; beside it the CPU fit on exact column grams, printed: how
+     far the fit moves with their last bit); masked K=96 (FSS);
   8. flagship fit: Insider(...).fit(24, 11, 0.4, partition=1) at
      377 x 44477 on the card, then the same with partition=0;
   9. K=50 masked fit: the prediXcan shape, 300 x 44477, levels (12, 25),
@@ -48,15 +55,23 @@ Phases, each fatal on failure:
      of phases 8-9: flagship masked and dense, K=50 masked; the final loss
      is set against the FSS fit's;
  11. profile: torch.profiler over 10 iterations of the flagship masked FSS
-     fit, from the state its phase-8 fit ended in; each kernel's device ms
-     per iteration and per launch, each wrapper's in-fit device ms per
-     launch (its kernels together), and the device busy share; fails if a
-     kernel that launched shows no device time.
-The route checks (phases 4, 5): the fused kernels sum their grams in bf16
-planes on the tensor cores, col_gram_xty in f32 FMAs, in another order, so
-the streamed route on col_gram_xty grams is held to the fused kernel by
-every column's objective (within 1e-6 relative) and by >= 99% of the
-columns matching at rtol 2e-5 / atol 1e-5, not bit for bit.
+     fit, of the cold-CD flagship masked fit and of the cold-CD K=50 masked
+     fit, each from the state its fit (phase 8 or 10) ended in; each
+     kernel's device ms per iteration and per launch, each wrapper's in-fit
+     device ms per launch (its kernels together), and the device busy
+     share; fails if a kernel that launched shows no device time;
+ 12. what the columns cost, by counting replays of the plain iterations
+     (printed, not gated): the FSS columns' outer steps, active sets and
+     polish sweeps at four states; the cold-CD columns' sweeps in one
+     column update at K=24 (the flagship cold-CD fit's end state) and K=50
+     (the cold-CD K=50 fit's fifth update).
+The route checks (phases 4, 5): the fused kernels and col_gram_xty sum the
+exact bf16 planes of the f32 table on the tensor cores in the same k-steps
+of 16 rows, but the fused kernels sum Xty row by row and col_gram_xty each
+k-step from zero, so the streamed route on col_gram_xty's output is held
+to the fused kernel by every column's objective (within 1e-6
+relative) and by >= 99% of the columns matching at rtol 2e-5 / atol 1e-5;
+the share of columns equal bit for bit is printed.
 A fit phase sets every launch count to 0 just before the fit and reads
 them just after: each kernel of its path must have launched, and the
 kernels of the other solver or route never; losses finite, and
@@ -114,6 +129,14 @@ def fused_bound(n, k, m):
     written; the gram in three bf16 planes on the tensor cores over the
     K(K+1)/2 pairs, Xty in f32."""
     return bound(4 * (2 * n * m + n * k + 2 * k * m),
+                 bf16_flop=2 * 3 * pairs(k) * n * m, f32_flop=2 * k * n * m)
+
+
+def col_gram_bound(n, k, m):
+    """col_gram_xty: mask, data and R read, the (K, K, M) grams and Xty
+    written; the pair sums in three bf16 planes on the tensor cores, Xty in
+    f32."""
+    return bound(4 * (2 * n * m + n * k + k * k * m + k * m),
                  bf16_flop=2 * 3 * pairs(k) * n * m, f32_flop=2 * k * n * m)
 
 
@@ -363,6 +386,67 @@ def level_gram_times(torch, row, mw, F, reps=20):
         bound_ms=b[0], bound_by=b[1])
 
 
+COL_GRAM_RTOL = 1e-6
+
+
+def col_gram_gate(torch, gram, name, mask, data, R, got):
+    """col_gram_xty's output `got` (grams, Xty) against its plain version
+    in f64, two ways, each <= COL_GRAM_RTOL: the max error as a fraction of
+    the largest magnitude, and every entry's error as a fraction of its own
+    sum of |terms| (sum_i mask_ij |R_ik R_il|, sum_i |R_ik mask_ij data_ij|),
+    which a pair's small sums cannot hide behind the large ones.  The plain
+    f32 version's errors are printed beside.  The gate must reject a
+    control, the grams summed over the hi bf16 plane of the table alone
+    (exact in f64), both ways; the grams must be symmetric bit for bit.
+    Returns the errors."""
+    from insider_tpu_torch.ops.planes import bf16_planes
+
+    k = R.shape[1]
+    m64, d64, r64 = mask.double(), data.double(), R.double()
+    exact = gram.col_gram_xty_plain(m64, d64, r64)
+    scale = (torch.einsum("im,ik,il->klm", m64, r64.abs(), r64.abs()),
+             r64.abs().T @ (m64 * d64).abs())
+    plain = gram.col_gram_xty_plain(mask, data, R)
+    k1, k2 = torch.triu_indices(k, k, device=R.device)
+    hi = bf16_planes((R[:, k1] * R[:, k2]).T.contiguous())[0].double()
+    control = torch.empty_like(exact[0])
+    control[k1, k2] = control[k2, k1] = hi @ m64
+
+    def rel(x, i):
+        e = exact[i]
+        return float((x.double() - e).abs().max()) / float(e.abs().max())
+
+    def entry(x, i):
+        d = (x.double() - exact[i]).abs() / scale[i].clamp(min=1e-300)
+        return float(d.max())
+
+    errs = {}
+    for what, x, i in (("kernel grams", got[0], 0), ("kernel xty", got[1], 1),
+                       ("plain f32 grams", plain[0], 0),
+                       ("plain f32 xty", plain[1], 1),
+                       ("one-plane control", control, 0)):
+        errs[what] = rel(x, i)
+        errs[what + " per entry"] = entry(x, i)
+    symmetric = torch.equal(got[0], got[0].transpose(0, 1))
+    rejected = min(errs["one-plane control"],
+                   errs["one-plane control per entry"]) > COL_GRAM_RTOL
+    print(f"{name} err vs the f64 sums (max as a fraction of max |ref|; per "
+          "entry, the largest fraction of its own sum of |terms|): "
+          + "; ".join(f"{key} {v:.4e}" for key, v in errs.items())
+          + f"; limit {COL_GRAM_RTOL:g}; control "
+          + ("rejected" if rejected else "NOT rejected")
+          + f"; symmetric bit for bit: {symmetric}")
+    for key in ("kernel grams", "kernel xty", "kernel grams per entry",
+                "kernel xty per entry"):
+        if not errs[key] <= COL_GRAM_RTOL:
+            fail(f"{name} {key} err {errs[key]:.4e} > {COL_GRAM_RTOL:g}")
+    if not rejected:
+        fail(f"{name}: the gate does not reject one bf16 plane of the table")
+    if not symmetric:
+        fail(f"{name}: the grams are not symmetric bit for bit")
+    return errs
+
+
 def col_gram_library_ms(torch, R, mask, reps=10):
     """col_gram_xty's library yardstick: one cuBLAS f32 GEMM (TF32 off) of
     the prebuilt (K^2, N) outer-product table of R against the mask, the
@@ -523,26 +607,28 @@ def fss_checks(torch, name, got, ref, G, b, lam, alpha):
 
 
 def route_check(torch, name, fused, streamed, G, b, lam, alpha):
-    """A fused kernel against the streamed route on col_gram_xty grams of
-    the same problem.  The fused kernels sum their grams in bf16 planes on
-    the tensor cores, col_gram_xty in f32 FMAs, in another order, so an f32
-    rounding difference may move a column: every column's objective agrees
-    within 1e-6 relative, and >= 99% of the columns match at rtol 2e-5 /
-    atol 1e-5.  Returns (matching share, largest objective difference)."""
+    """A fused kernel against the streamed route on col_gram_xty's output
+    for the same problem.  The two round the grams and Xty differently
+    (module docstring), so an f32 rounding difference may move a column:
+    every column's objective agrees within 1e-6
+    relative, and >= 99% of the columns match at rtol 2e-5 / atol 1e-5; the
+    share of columns equal bit for bit is printed.  Returns (matching
+    share, largest objective difference, share equal bit for bit)."""
     ff = objectives(torch, fused, G, b, lam, alpha)
     fs = objectives(torch, streamed, G, b, lam, alpha)
     diff = float(((ff - fs).abs() / fs.abs().clamp(min=1.0)).max())
     share = float(torch.isclose(fused, streamed, rtol=2e-5, atol=1e-5)
                   .all(0).double().mean())
-    print(f"{name} on col_gram_xty grams vs the fused kernel, K={K}: "
-          f"columns matching {share:.6f}; max objective difference "
-          f"{diff:.3e}; max abs diff "
+    bits = float((fused == streamed).all(0).double().mean())
+    print(f"{name} on col_gram_xty's output vs the fused kernel, K={K}: "
+          f"columns matching {share:.6f}, equal bit for bit {bits:.6f}; "
+          f"max objective difference {diff:.3e}; max abs diff "
           f"{float((fused - streamed).abs().max()):.3e}")
     if not diff <= 1e-6:
         fail(f"{name} vs the fused kernel: objective difference {diff:.3e}")
     if not share >= 0.99:
         fail(f"{name} vs the fused kernel: {share:.6f} of the columns match")
-    return share, diff
+    return share, diff, bits
 
 
 def phase_kernels_slice2(torch, gram, fss):
@@ -561,10 +647,11 @@ def phase_kernels_slice2(torch, gram, fss):
             if not e <= 3e-5 * float(r.abs().max()):
                 fail(f"col_gram_xty K={k} {what} max err {e:.3e} vs max "
                      f"|ref| {float(r.abs().max()):.3e}")
-        bnd = bound(4 * (2 * n * M + n * k + k * k * M + k * M),
-                    f32_flop=2 * (pairs(k) + k) * n * M)
+        gate = col_gram_gate(torch, gram, f"col_gram_xty K={k}", mask, data,
+                             R, got)
+        bnd = col_gram_bound(n, k, M)
         rec = dict(
-            max_abs_err=err,
+            max_abs_err=err, f64_gate=gate,
             ms=timed_ms(torch, lambda: gram.col_gram_xty(mask, data, R), 10),
             plain_ms=timed_ms(torch, lambda: gram.col_gram_xty_plain(
                 mask, data, R), 5),
@@ -572,7 +659,8 @@ def phase_kernels_slice2(torch, gram, fss):
             bound_ms=bnd[0], bound_by=bnd[1])
         print(f"col_gram_xty K={k} N={n}: max_abs_err {err:.3e} kernel "
               f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms library "
-              f"{rec['library_ms']:.4f} ms")
+              f"{rec['library_ms']:.4f} ms bound {bnd[0]:.4f} ms "
+              f"({bnd[1]})")
         grams[k] = (R, mask, data, beta0, got)
         out["col_gram_xty"] = rec                  # the K=50 record is kept
 
@@ -724,13 +812,17 @@ def phase_kernels_wide(torch, gram, fss, cd):
             e = float((g - r).abs().max())
             if not e <= 3e-5 * float(r.abs().max()):
                 fail(f"col_gram_xty K={k} {what} max err {e:.3e}")
+        bnd = col_gram_bound(n, k, m)
         out[f"col_gram_xty K={k}"] = dict(
             max_abs_err=max(float((g - r).abs().max())
                             for g, r in zip((G, b), ref)),
+            f64_gate=col_gram_gate(torch, gram, f"col_gram_xty K={k}", mask,
+                                   data, R, (G, b)),
             ms=timed_ms(torch, lambda: gram.col_gram_xty(mask, data, R), 5),
             plain_ms=timed_ms(torch, lambda: gram.col_gram_xty_plain(
                 mask, data, R), 3),
-            library_ms=col_gram_library_ms(torch, R, mask))
+            library_ms=col_gram_library_ms(torch, R, mask),
+            bound_ms=bnd[0], bound_by=bnd[1])
         XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
         Gd = XtX[:, :, None].expand(k, k, m)
         lam, alpha = 1.0, 0.5
@@ -762,34 +854,72 @@ def phase_kernels_wide(torch, gram, fss, cd):
 
 
 def phase_small_fit(torch, itt, k=8, m=2000, partition=1, alpha=0.4,
-                    max_iter=20, **solver):
-    """Card (kernels) against CPU (plain versions) on one small fit."""
-    from insider_tpu_torch.model.state import state_from_numpy
+                    max_iter=20, n=120, levels=(2, 4, 9), seeds=(2, 3),
+                    lam=5.0, true_k=8, witness=False, init="small",
+                    **solver):
+    """Card (kernels) against CPU (plain versions) on one small fit: data
+    from simulate_scale(n, m, true_k, levels, seed=seeds[0]) with 1% NaNs
+    (seeds[1]); from one initial state carried to both devices: numpy
+    draws of 1e-3 scale (init "small"), or the package's own draw as
+    Insider.fit makes it on the CPU (init "package": model/state.init_state
+    from a CPU generator seeded with the object's seed).
+    With `witness`, the CPU fit is also run with the column grams and Xty
+    summed in f64 and rounded once (the exact inputs in f32), and its
+    distance from the CPU fit is printed: how far the fit itself moves
+    with the last bit of those inputs, the scale against which the card's
+    distance is read.  Returns the card's largest relative distance and
+    None, or a failure message."""
+    from insider_tpu_torch.kernels.gram import col_gram_xty_plain
+    from insider_tpu_torch.model.state import init_state, state_from_numpy
+    from insider_tpu_torch.ops import col_update
 
-    n = 120
-    sim = itt.simulate_scale(n, m, 8, level_counts=(2, 4, 9), noise_std=0.5,
-                             seed=2)
+    sim = itt.simulate_scale(n, m, true_k, level_counts=levels, noise_std=0.5,
+                             seed=seeds[0])
     data = sim.data.astype(np.float64)
-    data[np.random.default_rng(3).random(data.shape) < 0.01] = np.nan
+    data[np.random.default_rng(seeds[1]).random(data.shape) < 0.01] = np.nan
+
+    def exact_col_gram_xty(mask, data, R):
+        g, x = col_gram_xty_plain(mask.double(), data.double(), R.double())
+        return g.float(), x.float()
+
     histories = {}
-    for dev in ("cuda", "cpu"):
+    for dev in ("cuda", "cpu") + (("exact",) if witness else ()):
+        run_on = "cpu" if dev == "exact" else dev
         obj = itt.Insider(data, sim.confounder, interaction_idx=[0, 1],
-                          max_iter=max_iter, device=dev)
-        rng = np.random.default_rng(4)
-        levels = [np.unique(c).size for c in obj.confounder.T]
-        cfd0 = [(1e-3 * rng.standard_normal((L, k))).astype(np.float32)
-                for L in levels]
-        F0 = (1e-3 * rng.standard_normal((k, obj.data.shape[1]))
-              ).astype(np.float32)
-        obj.fit(k, 5.0, alpha, partition=partition, verbose=False,
-                state=state_from_numpy(cfd0, None, F0, dev), **solver)
+                          max_iter=max_iter, device=run_on)
+        counts = [np.unique(c).size for c in obj.confounder.T]
+        if init == "small":
+            rng = np.random.default_rng(4)
+            cfd0 = [(1e-3 * rng.standard_normal((L, k))).astype(np.float32)
+                    for L in counts]
+            F0 = (1e-3 * rng.standard_normal((k, obj.data.shape[1]))
+                  ).astype(np.float32)
+        else:
+            st = init_state(torch.Generator().manual_seed(obj.seed), counts,
+                            obj.data.shape[1], k)
+            cfd0 = [f.numpy() for f in st.cfd_factors]
+            F0 = st.column_factor.numpy()
+        state = state_from_numpy(cfd0, None, F0, run_on)
+        orig = col_update.col_gram_xty
+        if dev == "exact":
+            col_update.col_gram_xty = exact_col_gram_xty
+        try:
+            obj.fit(k, lam, alpha, partition=partition, verbose=False,
+                    state=state, **solver)
+        finally:
+            col_update.col_gram_xty = orig
         histories[dev] = obj.fit_result.history
     lc = [h["loss"] for h in histories["cuda"]]
     lp = [h["loss"] for h in histories["cpu"]]
+    if witness:
+        le = [h["loss"] for h in histories["exact"]]
+        print(f"small fit (K={k}, {solver}): CPU with exact column grams vs "
+              "CPU, max loss rel diff "
+              f"{float(np.max(np.abs(np.subtract(le, lp)) / np.abs(lp))):.3e}")
     if len(lc) != len(lp) or not np.allclose(lc, lp, rtol=1e-5, atol=0):
-        fail(f"small fit (K={k}, partition={partition}, alpha={alpha}, "
-             f"{solver}) losses card {lc} vs cpu {lp}")
-    return float(np.max(np.abs(np.subtract(lc, lp)) / np.abs(lp)))
+        return None, (f"small fit (K={k}, partition={partition}, alpha="
+                      f"{alpha}, {solver}) losses card {lc} vs cpu {lp}")
+    return float(np.max(np.abs(np.subtract(lc, lp)) / np.abs(lp))), None
 
 
 def flagship_object(itt):
@@ -835,16 +965,18 @@ def device_kernel_times(torch, prof):
 KERNEL_NAMES = {"level_gram": "level_gram", "row_xty": "row_xty",
                 "feature_sign_fused": "fused_kernel<",
                 "masked_eval": "masked_eval", "col_gram_xty": "col_gram_xty",
-                "feature_sign": "streamed_kernel<"}
+                "feature_sign": "streamed_kernel<",
+                "cd_fused": "fused_kernel<", "cd_streamed": "streamed_kernel<"}
 
 
 def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
-                alpha, iters=10):
-    """torch.profiler over `iters` iterations of the object's masked FSS
-    fit from `state` (where an earlier fit ended: in-fit inputs, kernels
-    built and warm), boundary evals included (three: before, after
-    iteration 0 and after the last).  The problem is staged before the
-    window, which holds train/als.optimize alone, as Insider.fit calls it.
+                alpha, iters=10, **solver):
+    """torch.profiler over `iters` iterations of the object's masked fit
+    (FSS, or the FitConfig solver settings in `solver`) from `state` (where
+    an earlier fit ended: in-fit inputs, kernels built and warm), boundary
+    evals included (three: before, after iteration 0 and after the last).
+    The problem is staged before the window, which holds train/als.optimize
+    alone, as Insider.fit calls it.
     Prints each device kernel's ms per iteration and per launch and the
     device busy share (device kernel time over the host's window, which
     ends in a synchronize); fails if a kernel that launched shows no
@@ -858,7 +990,7 @@ def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
                     lambda2=lambda_, alpha=alpha, masked=True,
                     global_tol=obj.params["global_tol"],
                     sub_tol=obj.params["sub_tol"], max_iter=iters - 1,
-                    seed=obj.seed)
+                    seed=obj.seed, **solver)
     problem = als.build_problem(obj.data, obj.confounder,
                                 obj.train_indicator + obj.test_indicator,
                                 obj.na_indicator, masked=True, device="cuda")
@@ -1015,6 +1147,77 @@ def count_summary(torch, name, K, c):
     return out
 
 
+def cd_counts(torch, G, xty, beta0, lam, alpha, tol, max_sweeps):
+    """A counting replay of the cold-CD kernels' iteration on one input: the
+    loop of the plain version (ops/fss.elastic_net_cd with the strong rule),
+    sweep by sweep, with a counter per column.  G (K, K, M), xty and beta0
+    (K, M), coordinates in the sweep order.  Returns the solution (the plain
+    version's) and per column: sweeps taken, whether the column stopped at
+    the max_sweeps cap, and its active (unscreened) coordinates at the
+    end.  The plain function is not changed."""
+    from insider_tpu_torch.ops import fss as plain
+
+    l1, l2 = plain.penalties(lam, alpha)
+    tol = float(np.float32(tol))
+    K, M = xty.shape
+    dev = xty.device
+    lam32, alpha32 = np.float32(lam), np.float32(alpha)
+    mx = xty.abs().max(dim=0, keepdim=True).values
+    thr = float(alpha32) * (float(np.float32(2.0) * lam32) - mx)
+    active = xty.abs() >= thr
+    beta = beta0 * active.to(beta0.dtype)
+    idx = torch.arange(K, device=dev)
+    d = G[idx, idx]
+    s = plain._gram_times(G, beta)
+    den = d + l2
+    den = torch.where(den > 0.0, den, 1.0)
+    inv_den, half_den = 1.0 / den, 0.5 * den
+    inv_l1 = float(np.float32(1.0) / np.float32(max(l1, 1e-30)))
+    conv = torch.zeros((1, M), dtype=torch.bool, device=dev)
+    sweeps = torch.zeros(M, dtype=torch.long, device=dev)
+    for _ in range(max_sweeps):
+        if bool(conv.all()):
+            break
+        sweeps += ~conv[0]
+        upd = active & ~conv
+        dec = torch.zeros((1, M), dtype=beta.dtype, device=dev)
+        for k in range(K):
+            b_k = beta[k:k + 1]
+            u = xty[k:k + 1] - s[k:k + 1] + b_k * d[k:k + 1]
+            w = (torch.sign(u) * torch.clamp(u.abs() - l1, min=0.0)
+                 * inv_den[k:k + 1])
+            w = torch.where(upd[k:k + 1], w, b_k)
+            delta = w - b_k
+            xi = torch.where(w != 0.0, torch.sign(w),
+                             torch.clamp(u * inv_l1, -1.0, 1.0))
+            dec = dec + (half_den[k:k + 1] * delta * delta
+                         + l1 * (b_k.abs() - xi * b_k))
+            s = s + G[k] * delta
+            beta[k:k + 1] = w
+        cand = ~conv & (dec.abs() <= tol)
+        viol = ~active & ((s - xty).abs() > l1)
+        active = active | (viol & cand)
+        conv = conv | (cand & ~viol.any(dim=0, keepdim=True))
+    return dict(beta=beta, sweeps=sweeps, capped=~conv[0],
+                active=active.sum(0))
+
+
+def cd_count_summary(torch, name, K, c):
+    """One line of cd_counts' distributions: median, p90, max and mean of
+    the sweeps and of the active coordinates per column, and the share of
+    columns at the sweep cap."""
+    def dist(x):
+        x = x.double()
+        return dict(median=float(x.median()), p90=float(x.quantile(0.9)),
+                    max=float(x.max()), mean=float(x.mean()))
+
+    out = dict(K=K, columns=int(c["sweeps"].numel()),
+               sweeps=dist(c["sweeps"]), active=dist(c["active"]),
+               capped_share=float(c["capped"].double().mean()))
+    print(f"CD counts, {name}: " + json.dumps(out))
+    return out
+
+
 def captured_call(torch, name, at, run):
     """The arguments of the `at`-th call (1-based) of
     ops/col_update.<name> (a column-update kernel wrapper) while run()
@@ -1040,12 +1243,17 @@ def captured_call(torch, name, at, run):
     return seen["call"]
 
 
-def phase_counts(torch, itt, gram, flagship, flag_state, predixcan):
+def phase_counts(torch, itt, gram, flagship, flag_state, cd_flag_state,
+                 predixcan):
     """Phase 12: what the FSS columns cost, by a counting replay
     (fss_counts) at four states: phase 3's and phase 4's synthetic inputs,
     the flagship masked fit's warm state (the column update of one
     iteration from the state its phase-8 fit ended in, phase 11's start)
-    and the K=50 masked fit's fifth column update from a cold start."""
+    and the K=50 masked fit's fifth column update from a cold start; and
+    the cold-CD columns' sweeps (cd_counts) in the column update of one
+    iteration of the cold-CD flagship masked fit from the state its
+    phase-10 fit ended in (K=24, cd_fused's input) and in the cold-CD K=50
+    masked fit's fifth column update from a cold start (cd_streamed's)."""
     from insider_tpu_torch.config import FitConfig
     from insider_tpu_torch.ops.col_update import col_gram_masked
     from insider_tpu_torch.train import als
@@ -1091,6 +1299,33 @@ def phase_counts(torch, itt, gram, flagship, flag_state, predixcan):
     out["K=50 fit, 5th update"] = count_summary(
         torch, "K=50 masked fit's fifth column update", 50,
         fss_counts(torch, G, b, beta0, lam, alpha, **ckw))
+    del G, b
+
+    cfg = FitConfig(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
+                    masked=True, global_tol=flagship.params["global_tol"],
+                    sub_tol=flagship.params["sub_tol"], max_iter=0,
+                    seed=flagship.seed, **COLD)
+    prob = als.build_problem(flagship.data, flagship.confounder,
+                             flagship.train_indicator
+                             + flagship.test_indicator,
+                             flagship.na_indicator, masked=True,
+                             device="cuda")
+    (mask, data, R, beta0, lam, alpha, tol, sweeps), _ = captured_call(
+        torch, "cd_fused", 1,
+        lambda: als.optimize(prob, cfg, state=cd_flag_state, verbose=False))
+    G = col_gram_masked(R, mask).permute(1, 2, 0).contiguous()
+    out["cold CD flagship fit, warm"] = cd_count_summary(
+        torch, "cold-CD flagship masked fit's end state", K,
+        cd_counts(torch, G, R.T @ (mask * data), beta0, lam, alpha, tol,
+                  sweeps))
+    del prob, G
+    (G, b, beta0, lam, alpha, tol, sweeps), _ = captured_call(
+        torch, "cd_streamed", 5,
+        lambda: predixcan.fit(verbose=False, **dict(K50_FIT, max_iter=4),
+                              **COLD))
+    out["cold CD K=50 fit, 5th update"] = cd_count_summary(
+        torch, "cold-CD K=50 masked fit's fifth column update", 50,
+        cd_counts(torch, G, b, beta0, lam, alpha, tol, sweeps))
     return out
 
 
@@ -1208,21 +1443,42 @@ def main():
     for name, rec in phase_kernels_wide(torch, gram, fss, cd).items():
         print(f"kernel {name} M=2048: max_abs_err {rec['max_abs_err']:.3e} "
               f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
-              + (f" library {rec['library_ms']:.4f} ms"
+              + (f" library {rec['library_ms']:.4f} ms bound "
+                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                  if "library_ms" in rec else ""))
 
-    # 7. small fits, card against CPU
+    # 7. small fits, card against CPU (every fit runs; then fatal if any
+    # disagreed)
+    failures = []
     for label, kw in (("masked 120x2000 K=8", {}),
                       ("dense 120x2000 K=8", dict(partition=0)),
                       ("masked 120x500 K=40", dict(k=40, m=500)),
                       ("masked 120x2000 K=8 alpha=0", dict(alpha=0.0)),
+                      # tests/test_torch_dense.py's ridge fit (partition=1):
+                      # col_gram_xty at K=6, then Cholesky
+                      ("masked 40x300 K=6 alpha=0", dict(
+                          k=6, m=300, n=40, levels=(2, 4, 7), seeds=(1, 5),
+                          lam=2.0, alpha=0.0, true_k=6, init="package",
+                          witness=True)),
                       ("cold CD masked 120x2000 K=8", COLD),
                       ("cold CD dense 120x2000 K=8", dict(COLD, partition=0)),
-                      ("cold CD masked 120x500 K=40", dict(COLD, k=40, m=500)),
+                      # levels (4, 8, 30): R of full rank at K=40 (with (2,
+                      # 4, 9) its rank is at most 23, and the cold-CD fit
+                      # moves by ~1e-5 with the last bit of its grams)
+                      ("cold CD masked 120x500 K=40, levels (4, 8, 30)",
+                       dict(COLD, k=40, m=500, levels=(4, 8, 30),
+                            witness=True)),
                       ("masked 120x300 K=96, 10 iterations",
-                       dict(k=96, m=300, max_iter=10))):
-        rel = phase_small_fit(torch, itt, **kw)
-        print(f"small fit {label}: card vs cpu max loss rel diff {rel:.3e}")
+                       dict(k=96, m=300, max_iter=10, witness=True))):
+        rel, failed = phase_small_fit(torch, itt, **kw)
+        if failed:
+            failures.append(failed)
+            print(f"small fit {label}: FAILED")
+        else:
+            print(f"small fit {label}: card vs cpu max loss rel diff "
+                  f"{rel:.3e}")
+    if failures:
+        fail("; ".join(failures))
 
     wrappers = {"level_gram": row.level_gram, "row_xty": row.row_xty,
                 "feature_sign_fused": fss.feature_sign_fused,
@@ -1258,6 +1514,7 @@ def main():
     launches["feature_sign"] = k50["feature_sign"]
 
     # 10. cold-CD fits of the same problems
+    cd_states = {}
     for name, obj, expect, fit_kw, fss_loss in (
             ("cold CD flagship fit", flagship,
              dict(masked_path, cd_fused=1, cd_streamed=0, cd_shared=0),
@@ -1271,18 +1528,29 @@ def main():
         counts, loss, _ = run_fit(torch, obj, wrappers,
                                   dict(expect, **no_fss), name,
                                   monotone=False, **COLD, **fit_kw)
+        cd_states[name] = obj.fit_result.state
         for n in ("cd_fused", "cd_streamed", "cd_shared"):
             if expect.get(n):
                 launches[n] = counts[n]
         print(f"{name}: final loss {loss!r} vs FSS fit {fss_loss!r} "
               f"(ratio {loss / fss_loss:.6f})")
 
-    # 11. in-fit profile of the flagship masked FSS fit
+    # 11. in-fit profiles: the flagship masked FSS fit, the cold-CD
+    # flagship masked and K=50 masked fits
     print("profile of the flagship masked fit (FSS), 10 iterations:")
     profile_fit(torch, flagship, wrappers, flag_state, K, LAM, ALPHA)
+    for name, obj, k, lam, alpha in (
+            ("cold CD flagship fit", flagship, K, LAM, ALPHA),
+            ("cold CD K=50 masked fit", predixcan, 50, K50_FIT["lambda_"],
+             K50_FIT["alpha"])):
+        print(f"profile of the {name}, 10 iterations:")
+        profile_fit(torch, obj, wrappers, cd_states[name], k, lam, alpha,
+                    **COLD)
 
-    # 12. what the FSS columns cost: a counting replay at four states
-    phase_counts(torch, itt, gram, flagship, flag_state, predixcan)
+    # 12. what the columns cost: counting replays of the FSS and cold-CD
+    # iterations
+    phase_counts(torch, itt, gram, flagship, flag_state,
+                 cd_states["cold CD flagship fit"], predixcan)
     del flagship, predixcan
 
     # result

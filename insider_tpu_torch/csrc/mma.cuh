@@ -1,5 +1,6 @@
-// Tensor-core helpers of the gram builds (level_gram.cu, fss.cu): 4-byte
-// cp.async staging, the bf16 m16n8k16 mma.sync with f32 accumulation, the
+// Tensor-core helpers of the gram builds (level_gram.cu, fss.cu,
+// col_gram_xty.cu): 4- and 16-byte cp.async staging, the bf16 m16n8k16
+// mma.sync with f32 accumulation and its ldmatrix fragment loads, the
 // numbering of a gram's upper-triangle pairs, and the exact bf16 splits
 // that let f32 sums run on bf16 tensor cores.
 //
@@ -30,6 +31,16 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 4 : 0));
+}
+
+// 16-byte asynchronous copy global -> shared (through L2 only) of the
+// first n (0 <= n <= 16) bytes of the 16-byte aligned chunk at src; the
+// rest of the shared chunk is zeroed, and with n = 0 nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -91,6 +102,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// The same four matrices transposed: with matrix m stored row by row (8
+// rows of 8 bf16), lane l receives its elements (2 (l % 4), l / 4) and
+// (2 (l % 4) + 1, l / 4) -- an mma B fragment from a row-major (k x n) tile.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const __nv_bfloat16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(s));
 }

@@ -1,9 +1,10 @@
 """The exact bf16 splits of the tensor-core gram builds, in plain PyTorch.
 
-The CUDA kernels csrc/level_gram.cu and csrc/fss.cu run f32 sums on the
-bf16 tensor cores (csrc/mma.cuh).  A bf16 x bf16 product is exact in f32,
-so a sum of products of exact bf16 planes, accumulated in f32, is the f32
-sum of the unsplit values up to the order of summation:
+The CUDA kernels csrc/level_gram.cu, csrc/fss.cu and csrc/col_gram_xty.cu
+run f32 sums on the bf16 tensor cores (csrc/mma.cuh).  A bf16 x bf16
+product is exact in f32, so a sum of products of exact bf16 planes,
+accumulated in f32, is the f32 sum of the unsplit values up to the order of
+summation:
 
   bf16_planes   an f32 value as hi + mid + lo, each plane rounded to nearest
                 even from the remainder of the one before: the TPU kernels'
@@ -14,11 +15,12 @@ sum of the unsplit values up to the order of summation:
                 the kernel takes mid and lo alone (hi is 0);
   a 0/1 mask is exact in bf16 as it is.
 
-planes_level_gram and planes_masked_gram compute what the two kernels
-compute, plane product by plane product, with the plain f32 matmul as the
-accumulator; they document the kernels' arithmetic and let the CPU tests
-hold it against the f32 plain versions and against the JAX package.  The
-fit never calls them.
+planes_level_gram, planes_masked_gram and planes_col_gram_xty compute what
+the kernels compute, plane product by plane product, with the plain f32
+matmul as the accumulator (not bit for bit: the tensor cores round
+otherwise).  They document the kernels' arithmetic and let the tests hold it
+against the f32 plain versions, the f64 sums and the JAX package.  The fit
+never calls them.
 """
 
 from __future__ import annotations
@@ -73,6 +75,51 @@ def planes_level_gram(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     n = 2 if float(mw.max()) < 65536 else 3
     return planes_dot(count_planes(mw, n),
                       bf16_planes(table)).reshape(-1, K, K)
+
+
+# col_gram_xty's k-step: the rows of one mma.sync m16n8k16 product.
+K_STEP = 16
+
+
+def planes_col_gram_xty(mask: torch.Tensor, data: torch.Tensor,
+                        R: torch.Tensor):
+    """col_gram_xty as csrc/col_gram_xty.cu computes it: the three planes of
+    R's outer-product table over the K(K+1)/2 pairs k1 <= k2 against the
+    bf16 mask, each k-step of K_STEP rows summed from zero in f32 (lo, then
+    mid, then hi plane) and added into the running f32 sums, each pair's
+    sums written to (k1, k2) and (k2, k1) -> (K, K, M), symmetric bit for
+    bit; Xty (K, M) in f32, each k-step from zero and then added."""
+    N, K = R.shape
+    k1, k2 = torch.triu_indices(K, K, device=R.device)
+    pad = (-N) % K_STEP
+
+    def steps(x):                                    # (steps, K_STEP, cols)
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        return x.reshape(-1, K_STEP, x.shape[1])
+
+    m = steps(mask.to(torch.float32))
+    lo_mid_hi = [steps(p.float()).transpose(1, 2)
+                 for p in reversed(bf16_planes(R[:, k1] * R[:, k2]))]
+    step = None
+    for p in lo_mid_hi:
+        term = torch.bmm(p, m)
+        step = term if step is None else step + term
+    gram = torch.empty((K, K, mask.shape[1]), dtype=torch.float32,
+                       device=R.device)
+    sums = _running_sum(step)
+    gram[k1, k2] = sums
+    gram[k2, k1] = sums
+    xty = _running_sum(torch.bmm(steps(R).transpose(1, 2),
+                                 m * steps(data.to(torch.float32))))
+    return gram, xty
+
+
+def _running_sum(steps: torch.Tensor) -> torch.Tensor:
+    """steps[0] + steps[1] + ... in f32, in order."""
+    out = steps[0].clone()
+    for s in steps[1:]:
+        out += s
+    return out
 
 
 def planes_masked_gram(R: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,9 @@ imports JAX, hence --noconftest):
 Small, ragged shapes: every kernel is checked where its blocks do not divide
 the problem.  Tolerances as in chip_smoke.py: level_gram 2e-5 of the f32
 plain version's max magnitude (and 1e-6 of the f64 sum's, below), row_xty
-and col_gram_xty 3e-5 of the output's max magnitude; masked_eval SSEs 1e-5
+and col_gram_xty 3e-5 of the output's max magnitude (col_gram_xty also
+within 2e-6 of ops/planes.planes_col_gram_xty, the plain form of its
+arithmetic, and within 1e-6 of the f64 sums', below); masked_eval SSEs 1e-5
 relative, counts exact; the FSS kernels' per-column objective excess <= 1e-6
 relative.  The CD kernels run the plain version's iteration, compared at a
 short sweep cap (20): every column's objective excess <= 1e-6 relative and
@@ -17,14 +19,17 @@ at least 99% of the columns match at rtol 2e-5 / atol 1e-5.  row_xty is
 also held to the f64 result: max error <= 1e-4 of its largest magnitude
 (ROW_XTY_RTOL), a bound that the cancellation-prone f32 form D F^T - T F^T
 does not meet where D and T nearly cancel.  The fused
-kernels (feature_sign_fused, cd_fused) sum their grams on the tensor cores
-in another order than col_gram_xty's f32 FMAs, so the streamed route on
-col_gram_xty grams is held to them by the route check (_check_routes), not
-bit for bit; the FSS routes also agree element-wise (rtol 2e-5 / atol
-1e-5).  level_gram is held to the f64 sum: max error <= 1e-6 of its
-largest magnitude (LEVEL_GRAM_RTOL), a bound that one bf16 plane of the
-table would not meet.  Every kernel is run twice and must agree with itself
-bit for bit.
+kernels (feature_sign_fused, cd_fused) and col_gram_xty sum the same exact
+bf16 planes of the f32 table on the tensor cores, but Xty in other orders
+(row by row; each k-step from zero), so the streamed route on
+col_gram_xty's output is held to them by the route check (_check_routes),
+not bit for bit; the FSS routes also agree element-wise (rtol 2e-5 / atol
+1e-5).  level_gram and col_gram_xty are held to the f64 sums: max error <=
+1e-6 of the largest magnitude (LEVEL_GRAM_RTOL, COL_GRAM_RTOL; for
+col_gram_xty also every entry's error <= 1e-6 of its own sum of |terms|), a
+bound that one bf16 plane of the table would not meet; col_gram_xty's grams
+are symmetric bit for bit.  Every kernel is run twice
+and must agree with itself bit for bit.
 """
 
 import numpy as np
@@ -34,12 +39,14 @@ import torch
 from insider_tpu_torch.kernels import eval as ev
 from insider_tpu_torch.kernels import cd, fss, gram, row
 from insider_tpu_torch.ops.col_update import col_gram_masked
-from insider_tpu_torch.ops.planes import bf16_planes
+from insider_tpu_torch.ops.planes import bf16_planes, planes_col_gram_xty
 from insider_tpu_torch.ops.row_update import factor_outer_table
 
 pytestmark = pytest.mark.cuda
 
 LEVEL_GRAM_RTOL = 1e-6          # of the f64 sum's max magnitude
+COL_GRAM_RTOL = 1e-6            # of the f64 sums' max magnitude, and of
+                                # each entry's sum of |terms|
 
 
 @pytest.fixture()
@@ -278,9 +285,9 @@ def _check_fss(got, ref, G, b, lam, alpha):
 
 
 def _check_routes(fused, streamed, G, b, lam, alpha):
-    """A fused kernel against the streamed route on col_gram_xty grams: the
-    two sum the grams in different orders (bf16 planes on the tensor cores
-    against f32 FMAs), so an f32 rounding difference may move a column.
+    """A fused kernel against the streamed route on col_gram_xty's output:
+    the two round the grams and Xty differently, so an f32 rounding
+    difference may move a column.
     Every column's objective agrees within 1e-6 relative, and >= 99% of
     the columns match at rtol 2e-5 / atol 1e-5."""
     objective = _objective(G, b, lam, alpha)
@@ -290,11 +297,19 @@ def _check_routes(fused, streamed, G, b, lam, alpha):
     assert float(match.double().mean()) >= 0.99
 
 
+# ragged N and odd M (uint8 rows then start at every byte of a word, and the
+# array's last word is partial); N = 70001, past 65536 rows, where the f32
+# sums run over 4376 k-steps and are held to the f64 sums at LONG_SUM_RTOL
+LONG_SUM_RTOL = 1e-5
+
+
 @pytest.mark.parametrize("N,K,M,u8", [(45, 6, 333, False), (100, 24, 700, True),
                                       (300, 50, 1031, False),
+                                      (77, 50, 1001, True),
                                       (70, 64, 257, True),
                                       (150, 96, 300, False),
-                                      (140, 128, 257, True)])
+                                      (140, 128, 257, True),
+                                      (70001, 8, 37, False)])
 def test_col_gram_xty(cuda, N, K, M, u8):
     R, mask, data, _ = _masked_inputs(N, K, M, seed=20 + K)
     R, data = _t(R, cuda), _t(data, cuda)
@@ -305,8 +320,46 @@ def test_col_gram_xty(cuda, N, K, M, u8):
     ref = gram.col_gram_xty_plain(mask, data, R)
     for g, r in zip(got, ref):
         assert _max_err_ok(g, r, 3e-5)
+    # against the f64 sums and the planes form of the kernel's arithmetic
+    rtol = COL_GRAM_RTOL if N < 65536 else LONG_SUM_RTOL
+    m64, d64, r64 = mask.double(), data.double(), R.double()
+    exact = gram.col_gram_xty_plain(m64, d64, r64)
+    planes = planes_col_gram_xty(mask, data, R)
+    for g, e, p in zip(got, exact, planes):
+        assert _max_err_ok(g.double(), e, rtol)
+        assert _max_err_ok(g, p, 2 * rtol)
+    # every entry within rtol of its own sum of |terms|; the gate rejects
+    # one bf16 plane of the table (whose relative error falls as
+    # 1 / sqrt(N): not at N = 70001)
+    if N < 65536:
+        scale = (torch.einsum("im,ik,il->klm", m64, r64.abs(), r64.abs()),
+                 r64.abs().T @ (m64 * d64).abs())
+        for g, e, sc in zip(got, exact, scale):
+            assert float(((g.double() - e).abs() / sc.clamp(min=1e-300))
+                         .max()) <= rtol
+        k1, k2 = torch.triu_indices(K, K, device=cuda)
+        hi = bf16_planes((R[:, k1] * R[:, k2]).T.contiguous())[0].double()
+        assert not _max_err_ok(hi @ m64, exact[0][k1, k2], rtol)
+    assert torch.equal(got[0], got[0].transpose(0, 1))
     again = gram.col_gram_xty(mask, data, R)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("u8", [False, True])
+def test_col_gram_xty_views_off_a_chunk(cuda, u8):
+    """Mask and data views that start off a 16-byte chunk (copied by the
+    wrapper) give the grams of the same inputs in their own allocations."""
+    R, mask, data, _ = _masked_inputs(51, 40, 333, seed=5)
+    R = _t(R, cuda)
+    big_mask = _t(np.concatenate([np.ones((1, 333)), mask]).astype(
+        np.uint8 if u8 else np.float32), cuda)
+    big_data = _t(np.concatenate([np.ones((1, 333)), data]).astype(
+        np.float32), cuda)
+    views = big_mask[1:], big_data[1:]
+    assert all(v.data_ptr() % 16 and v.is_contiguous() for v in views)
+    got = gram.col_gram_xty(*views, R)
+    want = gram.col_gram_xty(*(v.clone() for v in views), R)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # one, two, three and four coordinates a lane; active sets above 32 (the
