@@ -31,18 +31,28 @@ directory's chip_smoke.py, so both trees see the same inputs.  Measured:
     K=24 on phase 4's R^T R; feature_sign's records also hold the sum of
     its columns' objectives on the f64 grams, which two trees whose grams
     round differently are compared by;
+  * the cold-CD kernels at the 200-sweep cap on chip_smoke's fixed inputs,
+    each with a checksum of its output: cd_fused and cd_shared on phase
+    5's K=24 input, cd_streamed on phase 5's K=50 input and phase 6's K=96
+    and K=128 (M=2048); where the tree's cd_streamed takes a group width,
+    also at each width it has an instance of, and every width at K = 16 to
+    128 on columns that all run to the cap (tol 0, M=8192), with the
+    columns an SM holds of each: the times its fixed choice of width
+    rests on;
   * the ms per iteration of the FSS and cold-CD fits, flagship masked and
     dense and K=50 masked, from each fit's own boundary clock, and their
     final losses;
-  * torch.profiler over 10 iterations of the flagship masked FSS fit and
-    of the K=50 masked FSS fit, each from where its fit ended: each
-    kernel's device time, each wrapper's in-fit ms per launch, the device
-    busy share.
+  * torch.profiler over 10 iterations of the flagship masked FSS fit, of
+    the K=50 masked FSS fit and of the cold-CD K=50 masked fit (with group
+    widths, also at each width cd_streamed has at K=50), each from where
+    its fit ended: each kernel's device time, each wrapper's in-fit ms per
+    launch, the device busy share.
 Prints one JSON line (and writes it to FILE).  Exits non-zero without
 CUDA.
 """
 
 import argparse
+import functools
 import hashlib
 import importlib.util
 import json
@@ -93,6 +103,55 @@ def fss_kernels(torch, cs, gram, fss):
             torch, fss.feature_sign(*gram.col_gram_xty(mask, data, R),
                                     beta0, 1.0, 0.5, **kw),
             G, b, 1.0, 0.5).sum())
+        del G, b
+    return out
+
+
+def cd_kernels(torch, cs, gram, cd):
+    """{name: {"ms", "checksum"}} of the cold-CD kernels at the 200-sweep
+    cap on chip_smoke's fixed inputs (phases 5 and 6); with group widths,
+    cd_streamed at each width, and the widths' times on columns that all
+    run to the cap (module docstring)."""
+    S = 200
+    out = {}
+    widths = getattr(cd, "cd_streamed_widths", None)
+
+    def rec(name, fn, reps):
+        out[name] = dict(ms=cs.timed_ms(torch, fn, reps),
+                         checksum=checksum(fn()))
+        print(f"chip_ab: {name}: {out[name]['ms']:.4f} ms, checksum "
+              f"{out[name]['checksum']}")
+
+    R, mask, data, beta0 = cs.problem(torch, cs.N, cs.K, cs.M, 7)
+    rec("cd_fused K=24", lambda: cd.cd_fused(mask, data, R, beta0, cs.LAM,
+                                             cs.ALPHA, cs.SUB_TOL, S), 5)
+    XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+    rec("cd_shared K=24", lambda: cd.cd_shared(XtX, Xty, beta0, cs.LAM,
+                                               cs.ALPHA, cs.SUB_TOL, S), 5)
+    for n, k, m, seed in ((300, 50, cs.M, 8), (300, 96, 2048, 96),
+                          (300, 128, 2048, 128)):
+        R, mask, data, beta0 = cs.problem(torch, n, k, m, seed)
+        G, b = gram.col_gram_xty(mask, data, R)
+        args = (G, b, beta0, 1.0, 0.5, cs.SUB_TOL, S)
+        rec(f"cd_streamed K={k}", lambda: cd.cd_streamed(*args), 3)
+        if widths:
+            for lanes, _ in widths(k):
+                rec(f"cd_streamed K={k} L={lanes}",
+                    lambda: cd.cd_streamed(*args, lanes=lanes), 3)
+        del G, b
+    # every column to the cap: the sweeps alone, per width
+    m = 8192
+    for k in (16, 24, 33, 40, 48, 50, 57, 64, 72, 80, 96, 103, 113, 128):
+        R, mask, data, beta0 = cs.problem(torch, 300, k, m, 200 + k)
+        G, b = gram.col_gram_xty(mask, data, R)
+        for lanes, cols in widths(k) if widths else ((0, None),):
+            kw = dict(lanes=lanes) if widths else {}
+            ms = cs.timed_ms(torch, lambda: cd.cd_streamed(
+                G, b, beta0, 1.0, 0.5, 0.0, S, **kw), 3)
+            out[f"capped K={k} L={lanes}"] = dict(ms=ms, columns_per_sm=cols)
+            print(f"chip_ab: cd_streamed K={k} M={m}, every column to the "
+                  f"cap, L={lanes or 'its own'}: {ms:.4f} ms"
+                  + (f" ({cols} columns an SM)" if widths else ""))
         del G, b
     return out
 
@@ -184,6 +243,7 @@ def main():
     del k50
     res["col_gram"] = col_gram_times(torch, cs, gram)
     res["fss"] = fss_kernels(torch, cs, gram, fss)
+    res["cd"] = cd_kernels(torch, cs, gram, cd)
     for name in ("level_gram", "level_gram_k50", "row_xty", "row_xty_k50",
                  "masked_eval", "masked_eval_k50"):
         r = res[name]
@@ -226,6 +286,25 @@ def main():
         torch, p50, wrappers, p50.fit_result.state, 50,
         cs.K50_FIT["lambda_"], cs.K50_FIT["alpha"])
     fit("CD K=50", p50, monotone=False, **cs.COLD, **cs.K50_FIT)
+    print("chip_ab: profile of the cold-CD K=50 masked fit, 10 iterations:")
+    res["profile_cd_k50"] = cs.profile_fit(
+        torch, p50, wrappers, p50.fit_result.state, 50,
+        cs.K50_FIT["lambda_"], cs.K50_FIT["alpha"], **cs.COLD)
+    if hasattr(cd, "cd_streamed_widths"):
+        # the same profile at each group width the kernel has at K=50
+        from insider_tpu_torch.ops import col_update
+
+        for lanes, _ in cd.cd_streamed_widths(50):
+            print(f"chip_ab: profile of the cold-CD K=50 masked fit, "
+                  f"L={lanes}:")
+            col_update.cd_streamed = functools.partial(cd.cd_streamed,
+                                                       lanes=lanes)
+            try:
+                res[f"profile_cd_k50 L={lanes}"] = cs.profile_fit(
+                    torch, p50, wrappers, p50.fit_result.state, 50,
+                    cs.K50_FIT["lambda_"], cs.K50_FIT["alpha"], **cs.COLD)
+            finally:
+                col_update.cd_streamed = cd.cd_streamed
     res["fits_ms_per_iter"] = fits
     res["fits_final_loss"] = losses
     print(f"chip_ab: fits ms/iter {fits}; final losses {losses}")

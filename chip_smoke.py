@@ -32,10 +32,11 @@ Phases, each fatal on failure:
      col_gram_xty's output against feature_sign_fused (route check);
      feature_sign_shared at K=24 on R^T R, R^T data;
   5. the cold-CD kernels at full width (M=44477): cd_fused at K=24
-     (N=377), cd_streamed at K=50 on col_gram_xty grams (N=300) and at
-     K=24 against cd_fused (route check), cd_shared at K=24; each against
-     its plain version at a short sweep cap and at the 200-sweep cap
-     (every column's objective, and element-wise at the short cap);
+     (N=377), cd_streamed at K=50 on col_gram_xty grams (N=300; its group
+     width printed) and at K=24 against cd_fused (route check), cd_shared
+     at K=24; each against its plain version at a short sweep cap and at
+     the 200-sweep cap (every column's objective, and element-wise at the
+     short cap);
   6. K = 96 and K = 128 at M=2048 (N=300): col_gram_xty (with the f64
      gate of phase 4 and its library_ms), feature_sign,
      feature_sign_shared, cd_streamed and cd_shared against their plain
@@ -63,8 +64,10 @@ Phases, each fatal on failure:
  12. what the columns cost, by counting replays of the plain iterations
      (printed, not gated): the FSS columns' outer steps, active sets and
      polish sweeps at four states; the cold-CD columns' sweeps in one
-     column update at K=24 (the flagship cold-CD fit's end state) and K=50
-     (the cold-CD K=50 fit's fifth update).
+     column update at K=24 (the flagship cold-CD masked and dense fits'
+     end states) and K=50 (the cold-CD K=50 fit's end state and its fifth
+     update), with the bound of that launch, its sweeps counted, and the
+     sweeps that columns swept in lockstep, 2 or 4 to a warp, take.
 The route checks (phases 4, 5): the fused kernels and col_gram_xty sum the
 exact bf16 planes of the f32 table on the tensor cores in the same k-steps
 of 16 rows, but the fused kernels sum Xty row by row and col_gram_xty each
@@ -83,8 +86,12 @@ Then one JSON line with the kernels' numbers: each kernel's bound_ms is
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over the peak of their type (989
 TFLOP/s bf16 tensor, 67 TFLOP/s f32), from the shapes of the timed call;
-the solves' operations depend on the iterations, which the kernels do not
-count, and are left out.  As the last line {"ok": true, "device": {...}}.
+the CD kernels' operations count the sweeps their columns take on the
+timed input (2 K^2 flops a column-sweep, the sweeps from a replay of the
+plain iteration, cd_counts; phase 12 prints the same bound of one
+column update in the cold-CD fits); the FSS solves' operations depend on
+the iterations, which the kernels do not count, and are left out.  As the
+last line {"ok": true, "device": {...}}.
 Without CUDA the script exits non-zero and prints no result.
 """
 
@@ -124,12 +131,15 @@ def pairs(k):
     return k * (k + 1) // 2
 
 
-def fused_bound(n, k, m):
+def fused_bound(n, k, m, sweeps=None):
     """The fused column kernels: mask and data read, R, beta0 read, beta
     written; the gram in three bf16 planes on the tensor cores over the
-    K(K+1)/2 pairs, Xty in f32."""
+    K(K+1)/2 pairs, Xty in f32; for CD with `sweeps`, also cd_flops (the
+    FSS solve's operations are not counted)."""
     return bound(4 * (2 * n * m + n * k + 2 * k * m),
-                 bf16_flop=2 * 3 * pairs(k) * n * m, f32_flop=2 * k * n * m)
+                 bf16_flop=2 * 3 * pairs(k) * n * m,
+                 f32_flop=2 * k * n * m + (0.0 if sweeps is None
+                                           else cd_flops(k, sweeps)))
 
 
 def col_gram_bound(n, k, m):
@@ -140,10 +150,24 @@ def col_gram_bound(n, k, m):
                  bf16_flop=2 * 3 * pairs(k) * n * m, f32_flop=2 * k * n * m)
 
 
-def gram_input_bound(k, m, shared):
+def gram_input_bound(k, m, shared, sweeps=None):
     """The FSS / CD kernels on given grams: the grams, xty and beta0 read,
-    beta written (the solve's operations are not counted)."""
-    return bound(4 * ((k * k if shared else k * k * m) + 3 * k * m))
+    beta written; for CD with `sweeps`, also cd_flops (the FSS solve's
+    operations are not counted)."""
+    return bound(4 * ((k * k if shared else k * k * m) + 3 * k * m),
+                 f32_flop=0.0 if sweeps is None else cd_flops(k, sweeps))
+
+
+def cd_flops(k, sweeps):
+    """The f32 operations of the CD sweeps that the columns took (`sweeps`,
+    per column, from cd_counts' replay of this input): each sweep updates K
+    coordinates, each a K-wide rank-1 update of s = G beta, 2 K flops."""
+    return 2.0 * k * k * float(sweeps.double().sum())
+
+
+def sweep_bound(k, sweeps):
+    """(bound_ms, bound_by) of the CD sweeps alone, at the f32 peak."""
+    return bound(0.0, f32_flop=cd_flops(k, sweeps))
 
 
 def timed_ms(torch, fn, reps):
@@ -747,7 +771,10 @@ def cd_checks(torch, name, fn, plain, args, G, b, lam, alpha, sweeps):
 
 def phase_kernels_cd(torch, gram, cd):
     """The cold-CD kernels against their plain versions at full width.
-    Returns {name: record}."""
+    Returns {name: record}; each bound counts the sweeps that the plain
+    replay (cd_counts) takes on the same input, at the 200 cap."""
+    from insider_tpu_torch.ops.col_update import col_gram_masked
+
     out, stats = {}, {}
     S = 200
 
@@ -771,8 +798,12 @@ def phase_kernels_cd(torch, gram, cd):
         fail("cd_fused differs from itself")
     streamed = cd.cd_streamed(G, b, beta0, LAM, ALPHA, SUB_TOL, S)
     route_check(torch, "cd_streamed", fused, streamed, G, b, LAM, ALPHA)
+    Gp = col_gram_masked(R, mask).permute(1, 2, 0).contiguous()
+    sw = cd_counts(torch, Gp, R.T @ (mask * data), beta0, LAM, ALPHA,
+                   SUB_TOL, S)["sweeps"]
+    del Gp
     out["cd_fused"] = record("cd_fused", cd.cd_fused, cd.cd_fused_plain,
-                             args, 5, fused_bound(N, K, M))
+                             args, 5, fused_bound(N, K, M, sweeps=sw))
 
     # cd_shared at K=24 on R^T R, R^T data
     XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
@@ -780,8 +811,11 @@ def phase_kernels_cd(torch, gram, cd):
     _, stats["cd_shared"] = cd_checks(
         torch, "cd_shared", cd.cd_shared, cd.cd_shared_plain, args,
         XtX[:, :, None].expand(K, K, M), Xty, LAM, ALPHA, S)
+    sw = cd_counts(torch, XtX[:, :, None].expand(K, K, M), Xty, beta0, LAM,
+                   ALPHA, SUB_TOL, S)["sweeps"]
     out["cd_shared"] = record("cd_shared", cd.cd_shared, cd.cd_shared_plain,
-                              args, 5, gram_input_bound(K, M, shared=True))
+                              args, 5,
+                              gram_input_bound(K, M, shared=True, sweeps=sw))
     del G, b
 
     # cd_streamed at the prediXcan shape, K=50, N=300
@@ -791,9 +825,19 @@ def phase_kernels_cd(torch, gram, cd):
     _, stats["cd_streamed"] = cd_checks(torch, "cd_streamed", cd.cd_streamed,
                                         cd.cd_streamed_plain, args, G, b, 1.0,
                                         0.5, S)
+    sw = cd_counts(torch, G, b, beta0, 1.0, 0.5, SUB_TOL, S)["sweeps"]
     out["cd_streamed"] = record("cd_streamed", cd.cd_streamed,
                                 cd.cd_streamed_plain, args, 3,
-                                gram_input_bound(50, M, shared=False))
+                                gram_input_bound(50, M, shared=False,
+                                                 sweeps=sw))
+    out["cd_streamed"]["lanes"], columns = cd.cd_streamed_widths(50)[0]
+    for name in ("cd_fused", "cd_shared", "cd_streamed"):
+        r = out[name]
+        print(f"{name}: kernel {r['ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; the sweeps of the plain replay counted)")
+    print(f"cd_streamed at K=50: group width L={out['cd_streamed']['lanes']}"
+          f", {32 // out['cd_streamed']['lanes']} columns a warp, {columns} "
+          "an SM")
     return out
 
 
@@ -847,9 +891,15 @@ def phase_kernels_wide(torch, gram, fss, cd):
                  (XtX, Xty, beta0, lam, alpha, SUB_TOL), Gd, Xty)):
             _, st = cd_checks(torch, f"{name} K={k}", fn, plain, args, GG,
                               bb, lam, alpha, 200)
+            sw = cd_counts(torch, GG, bb, beta0, lam, alpha, SUB_TOL,
+                           200)["sweeps"]
+            bnd = gram_input_bound(k, m, shared=name == "cd_shared",
+                                   sweeps=sw)
             out[f"{name} K={k}"] = dict(
                 st, ms=timed_ms(torch, lambda: fn(*args, 200), 2),
-                plain_ms=timed_ms(torch, lambda: plain(*args, 200), 1))
+                plain_ms=timed_ms(torch, lambda: plain(*args, 200), 1),
+                bound_ms=bnd[0], bound_by=bnd[1])
+        out[f"cd_streamed K={k}"]["lanes"] = cd.cd_streamed_widths(k)[0][0]
     return out
 
 
@@ -1202,18 +1252,32 @@ def cd_counts(torch, G, xty, beta0, lam, alpha, tol, max_sweeps):
                 active=active.sum(0))
 
 
-def cd_count_summary(torch, name, K, c):
+def cd_count_summary(torch, name, K, c, bnd=None):
     """One line of cd_counts' distributions: median, p90, max and mean of
-    the sweeps and of the active coordinates per column, and the share of
-    columns at the sweep cap."""
+    the sweeps and of the active coordinates per column, the share of
+    columns at the sweep cap, and for P = 2 and 4 the sweeps that P
+    neighbouring columns swept in lockstep take (P times the most of the
+    P; cd_streamed's groups, fss_streamed.cu) over the columns' own; with
+    `bnd`, the kernel's bound on this input (bound_ms, bound_by), its
+    sweeps counted."""
     def dist(x):
         x = x.double()
         return dict(median=float(x.median()), p90=float(x.quantile(0.9)),
                     max=float(x.max()), mean=float(x.mean()))
 
+    sw = c["sweeps"].double()
+    lockstep = {}
+    for p in (2, 4):
+        padded = torch.nn.functional.pad(sw, (0, -sw.numel() % p))
+        lockstep[p] = float(p * padded.view(-1, p).max(1).values.sum()
+                            / sw.sum())
     out = dict(K=K, columns=int(c["sweeps"].numel()),
                sweeps=dist(c["sweeps"]), active=dist(c["active"]),
-               capped_share=float(c["capped"].double().mean()))
+               capped_share=float(c["capped"].double().mean()),
+               lockstep_sweeps=lockstep)
+    if bnd is not None:
+        out.update(bound_ms=bnd[0], bound_by=bnd[1],
+                   sweeps_bound_ms=sweep_bound(K, c["sweeps"])[0])
     print(f"CD counts, {name}: " + json.dumps(out))
     return out
 
@@ -1244,16 +1308,18 @@ def captured_call(torch, name, at, run):
 
 
 def phase_counts(torch, itt, gram, flagship, flag_state, cd_flag_state,
-                 predixcan):
+                 cd_dense_state, predixcan, cd_k50_state):
     """Phase 12: what the FSS columns cost, by a counting replay
     (fss_counts) at four states: phase 3's and phase 4's synthetic inputs,
     the flagship masked fit's warm state (the column update of one
     iteration from the state its phase-8 fit ended in, phase 11's start)
     and the K=50 masked fit's fifth column update from a cold start; and
     the cold-CD columns' sweeps (cd_counts) in the column update of one
-    iteration of the cold-CD flagship masked fit from the state its
-    phase-10 fit ended in (K=24, cd_fused's input) and in the cold-CD K=50
-    masked fit's fifth column update from a cold start (cd_streamed's)."""
+    iteration of the cold-CD flagship masked and dense fits from the states
+    their phase-10 fits ended in (K=24, cd_fused's and cd_shared's inputs)
+    and in the cold-CD K=50 masked fit's column update from its phase-10
+    end state and its fifth from a cold start (cd_streamed's), each with
+    its kernel's in-fit bound, the sweeps counted."""
     from insider_tpu_torch.config import FitConfig
     from insider_tpu_torch.ops.col_update import col_gram_masked
     from insider_tpu_torch.train import als
@@ -1314,18 +1380,62 @@ def phase_counts(torch, itt, gram, flagship, flag_state, cd_flag_state,
         torch, "cd_fused", 1,
         lambda: als.optimize(prob, cfg, state=cd_flag_state, verbose=False))
     G = col_gram_masked(R, mask).permute(1, 2, 0).contiguous()
+    c = cd_counts(torch, G, R.T @ (mask * data), beta0, lam, alpha, tol,
+                  sweeps)
+    n, m = mask.shape
     out["cold CD flagship fit, warm"] = cd_count_summary(
-        torch, "cold-CD flagship masked fit's end state", K,
-        cd_counts(torch, G, R.T @ (mask * data), beta0, lam, alpha, tol,
-                  sweeps))
+        torch, "cold-CD flagship masked fit's end state", K, c,
+        fused_bound(n, K, m, sweeps=c["sweeps"]))
     del prob, G
+
+    cfg = FitConfig(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
+                    masked=False, global_tol=flagship.params["global_tol"],
+                    sub_tol=flagship.params["sub_tol"], max_iter=0,
+                    seed=flagship.seed, **COLD)
+    prob = als.build_problem(flagship.data, flagship.confounder,
+                             flagship.train_indicator
+                             + flagship.test_indicator,
+                             flagship.na_indicator, masked=False,
+                             device="cuda")
+    (XtX, b, beta0, lam, alpha, tol, sweeps), _ = captured_call(
+        torch, "cd_shared", 1,
+        lambda: als.optimize(prob, cfg, state=cd_dense_state, verbose=False))
+    m = b.shape[1]
+    c = cd_counts(torch, XtX[:, :, None].expand(K, K, m), b, beta0, lam,
+                  alpha, tol, sweeps)
+    out["cold CD flagship dense fit, warm"] = cd_count_summary(
+        torch, "cold-CD flagship dense fit's end state", K, c,
+        gram_input_bound(K, m, shared=True, sweeps=c["sweeps"]))
+    del prob
+
+    # the cold-CD K=50 fit's end state (phase 11's profile starts there)
+    cfg = FitConfig(latent_dim=50, lambda1=K50_FIT["lambda_"],
+                    lambda2=K50_FIT["lambda_"], alpha=K50_FIT["alpha"],
+                    masked=True, global_tol=predixcan.params["global_tol"],
+                    sub_tol=predixcan.params["sub_tol"], max_iter=0,
+                    seed=predixcan.seed, **COLD)
+    prob = als.build_problem(predixcan.data, predixcan.confounder,
+                             predixcan.train_indicator
+                             + predixcan.test_indicator,
+                             predixcan.na_indicator, masked=True,
+                             device="cuda")
+    (G, b, beta0, lam, alpha, tol, sweeps), _ = captured_call(
+        torch, "cd_streamed", 1,
+        lambda: als.optimize(prob, cfg, state=cd_k50_state, verbose=False))
+    c = cd_counts(torch, G, b, beta0, lam, alpha, tol, sweeps)
+    out["cold CD K=50 fit, warm"] = cd_count_summary(
+        torch, "cold-CD K=50 masked fit's end state", 50, c,
+        gram_input_bound(50, b.shape[1], shared=False, sweeps=c["sweeps"]))
+    del prob, G, b
+
     (G, b, beta0, lam, alpha, tol, sweeps), _ = captured_call(
         torch, "cd_streamed", 5,
         lambda: predixcan.fit(verbose=False, **dict(K50_FIT, max_iter=4),
                               **COLD))
+    c = cd_counts(torch, G, b, beta0, lam, alpha, tol, sweeps)
     out["cold CD K=50 fit, 5th update"] = cd_count_summary(
-        torch, "cold-CD K=50 masked fit's fifth column update", 50,
-        cd_counts(torch, G, b, beta0, lam, alpha, tol, sweeps))
+        torch, "cold-CD K=50 masked fit's fifth column update", 50, c,
+        gram_input_bound(50, b.shape[1], shared=False, sweeps=c["sweeps"]))
     return out
 
 
@@ -1443,9 +1553,11 @@ def main():
     for name, rec in phase_kernels_wide(torch, gram, fss, cd).items():
         print(f"kernel {name} M=2048: max_abs_err {rec['max_abs_err']:.3e} "
               f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
-              + (f" library {rec['library_ms']:.4f} ms bound "
-                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
-                 if "library_ms" in rec else ""))
+              + (f" library {rec['library_ms']:.4f} ms"
+                 if "library_ms" in rec else "")
+              + (f" bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                 if "bound_ms" in rec else "")
+              + (f" group width L={rec['lanes']}" if "lanes" in rec else ""))
 
     # 7. small fits, card against CPU (every fit runs; then fatal if any
     # disagreed)
@@ -1550,7 +1662,9 @@ def main():
     # 12. what the columns cost: counting replays of the FSS and cold-CD
     # iterations
     phase_counts(torch, itt, gram, flagship, flag_state,
-                 cd_states["cold CD flagship fit"], predixcan)
+                 cd_states["cold CD flagship fit"],
+                 cd_states["cold CD flagship dense fit"], predixcan,
+                 cd_states["cold CD K=50 masked fit"])
     del flagship, predixcan
 
     # result

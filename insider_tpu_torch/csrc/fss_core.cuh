@@ -38,6 +38,12 @@
 // per-warp shared workspace.  Column-wide min / max / first-index use warp
 // shuffles and ballots.  Loops over coordinates run group by group (q = 0,
 // 1, ...), so every register array is indexed by a constant.
+//
+// cd_group_column runs cd_column's iteration for P = 32 / L columns on one
+// warp (L = 8 or 16; fss_streamed.cu builds L = 16), one column to each
+// group of L lanes, on grams packed to their upper triangle: an SM then
+// holds 2 P times the columns, and one issue of the per-coordinate scalar
+// chain serves P columns.  A column's bits are cd_column's.
 #pragma once
 
 #include <type_traits>
@@ -61,6 +67,14 @@ __device__ __forceinline__ float warp_min(float v) {
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// The max over each group of L lanes.
+template <int L>
+__device__ __forceinline__ float group_max(float v) {
+  for (int o = L / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, o, L));
   return v;
 }
 
@@ -633,6 +647,169 @@ __device__ __forceinline__ void cd_column(const float* __restrict__ G, int K,
   cd_sweeps<C, true>(G, K, GS, xty, beta, act, l1, l2, tol, max_sweeps);
 }
 
+// A gram packed to its upper triangle for a group of L lanes: row a holds
+// G[a][a..K-1] from offset R[a], so G[i][c] lies at R[min(i, c)] + |i - c|.
+// R[a] - a takes distinct values mod L over each block of L rows (the
+// rows of one slot of a group's lanes, coordinates r + L q): the L lanes
+// of a group then read one row (R[k] - k + i) or one column (R[i] - i + k)
+// of their gram in distinct banks, and the P groups of a warp, whose grams
+// lie L (mod 32) floats apart, in distinct ones too.  The rows of a block
+// are laid out one after the other, each time the first row of the block
+// not yet placed whose residue is free at the next offset, else the
+// offset moves on by one float: K (K + 1) / 2 floats and a few more (57 at
+// K=50, L=16; in row order 315).  Writes R[0..K-1] where R is given;
+// returns the floats of the packed gram.
+template <int L>
+__host__ __device__ int packed_rows(int K, int* R = nullptr) {
+  int v = 0;
+  for (int b = 0; b < K; b += L) {
+    const int n = K - b < L ? K - b : L;
+    unsigned used = 0, left = (1u << n) - 1u;
+    while (left != 0u) {
+      int a = -1;
+      for (int t = 0; t < n && a < 0; ++t)
+        if (((left >> t) & 1u) && !((used >> ((v - b - t) & (L - 1))) & 1u))
+          a = b + t;
+      if (a < 0) {
+        ++v;
+        continue;
+      }
+      used |= 1u << ((v - a) & (L - 1));
+      left &= ~(1u << (a - b));
+      if (R != nullptr) R[a] = v;
+      v += K - a;
+    }
+  }
+  return v;
+}
+
+// Cold strong-rule CD (cd_column) of P = 32 / L columns by one warp, one
+// column to each group of L lanes: lane g L + r holds coordinates r + L q,
+// q < C, of column g, whose gram G is packed (packed_rows; R: its row
+// starts).  Shuffles and ballots stay inside the group.  The groups sweep
+// in lockstep while any is unconverged; a converged group (`done`: also a
+// group with no column) keeps w = beta, so its column no longer moves, as
+// the TPU block freezes its converged columns (cd_pallas.py:127) and the
+// plain version its (ops/fss.py:138).  A column's arithmetic is cd_column's
+// in the same order, its roundings written out as nvcc contracts
+// cd_column's for C > 1 (s = fma(G, beta, s) in order c; u = fma(beta, d,
+// xty - s); den = d + l2; term = fma(delta, half_den delta, l1 fma(-xi,
+// beta, |beta|)); s = fma(G, delta, s)), so that its bits depend neither on
+// L nor on the columns beside it.  Two changes of form keep the bits: the
+// sign by selects (no integer-to-float conversion on the chain), and each
+// coordinate's decrease term kept in its lane and summed after the sweep,
+// in order k, off the chain from one coordinate to the next.
+template <int C, int L>
+__device__ __forceinline__ void cd_group_column(
+    const float* __restrict__ G, const int* __restrict__ R, int K,
+    const float (&xty)[C], float (&beta)[C], float lam, float alpha,
+    float tol, int max_sweeps, bool done) {
+  static_assert(L == 8 || L == 16, "L: 8 or 16");
+  const int r = threadIdx.x & (L - 1);
+  const unsigned group = (FULL >> (32 - L)) << (threadIdx.x & 31 & ~(L - 1));
+  const float l1 = lam * alpha;
+  const float l2 = __fmul_rn(lam, __fsub_rn(1.f, alpha));
+  float xmax = 0.f;                        // slots past K hold 0
+#pragma unroll
+  for (int q = 0; q < C; ++q) xmax = fmaxf(xmax, fabsf(xty[q]));
+  const float thr =
+      __fmul_rn(alpha, __fsub_rn(2.f * lam, group_max<L>(xmax)));
+  bool ok[C], act[C];
+  int below[C];                            // R[i] - i: G[i][c] for c >= i
+  float d[C], s[C], inv_den[C], half_den[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int i = r + L * q;
+    ok[q] = i < K;
+    act[q] = ok[q] && fabsf(xty[q]) >= thr;
+    beta[q] = beta[q] * (act[q] ? 1.f : 0.f);
+    below[q] = ok[q] ? R[i] - i : 0;
+  }
+  // G[i_q][c]: column c of rows above it (slots past qc), row i_q at and
+  // past the diagonal (slots before qc), either in slot qc
+  auto at = [&](int q, int qc, int c, int above) {
+    const int i = r + L * q;
+    return q > qc   ? above + i
+           : q < qc ? below[q] + c
+                    : (c <= i ? above + i : below[q] + c);
+  };
+#pragma unroll
+  for (int q = 0; q < C; ++q) s[q] = 0.f;
+#pragma unroll
+  for (int qc = 0; qc < C; ++qc) {
+    const int c_end = min(K, L * (qc + 1));
+    for (int c = L * qc; c < c_end; ++c) {
+      const float bc = __shfl_sync(FULL, beta[qc], c & (L - 1), L);
+      const int above = R[c] - c;
+#pragma unroll
+      for (int q = 0; q < C; ++q)
+        if (ok[q]) s[q] = __fmaf_rn(G[at(q, qc, c, above)], bc, s[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    d[q] = ok[q] ? G[below[q] + r + L * q] : 0.f;
+    float den = __fadd_rn(d[q], l2);
+    den = den > 0.f ? den : 1.f;
+    inv_den[q] = 1.f / den;
+    half_den[q] = 0.5f * den;
+  }
+  const float inv_l1 = 1.f / fmaxf(l1, 1e-30f);
+  auto sign = [](float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f); };
+  for (int sweep = 0; sweep < max_sweeps && __any_sync(FULL, !done);
+       ++sweep) {
+    float terms[C] = {};                   // coordinate r + L q's term
+#pragma unroll
+    for (int qk = 0; qk < C; ++qk) {
+      const int k_end = min(K, L * (qk + 1));
+      for (int k = L * qk; k < k_end; ++k) {
+        // every lane evaluates the update; lane k % L's is the one used
+        const float b = beta[qk];
+        const float u = __fmaf_rn(b, d[qk], __fsub_rn(xty[qk], s[qk]));
+        float w = __fmul_rn(
+            __fmul_rn(sign(u), fmaxf(__fsub_rn(fabsf(u), l1), 0.f)),
+            inv_den[qk]);
+        if (!act[qk] || done) w = b;
+        const float delta = __fsub_rn(w, b);
+        const float xi = w != 0.f
+                             ? sign(w)
+                             : fminf(fmaxf(__fmul_rn(u, inv_l1), -1.f), 1.f);
+        const float term =
+            __fmaf_rn(delta, __fmul_rn(half_den[qk], delta),
+                      __fmul_rn(l1, __fmaf_rn(-xi, b, fabsf(b))));
+        const float delta_k = __shfl_sync(FULL, delta, k & (L - 1), L);
+        const int above = R[k] - k;
+#pragma unroll
+        for (int q = 0; q < C; ++q)
+          if (ok[q]) s[q] = __fmaf_rn(G[at(q, qk, k, above)], delta_k, s[q]);
+        if (r == (k & (L - 1))) {
+          beta[qk] = w;
+          terms[qk] = term;
+        }
+      }
+    }
+    float dec = 0.f;
+#pragma unroll
+    for (int qk = 0; qk < C; ++qk) {
+      const int k_end = min(K, L * (qk + 1));
+      for (int k = L * qk; k < k_end; ++k)
+        dec = __fadd_rn(dec, __shfl_sync(FULL, terms[qk], k & (L - 1), L));
+    }
+    bool viol[C], any = false;
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      viol[q] = ok[q] && !act[q] && fabsf(__fsub_rn(s[q], xty[q])) > l1;
+      any = any || viol[q];
+    }
+    const bool has_viol = (__ballot_sync(FULL, any) & group) != 0u;
+    const bool cand = fabsf(dec) <= tol;   // uniform over the group
+    if (cand)
+#pragma unroll
+      for (int q = 0; q < C; ++q) act[q] = act[q] || viol[q];
+    done = done || (cand && !has_viol);
+  }
+}
+
 // The column solvers as the kernels take them, with their scalars.
 // workspace_floats(C, K): the shared floats a warp needs (FSS: the pivot
 // rows, and for C > 1 the solve of more than 32 active coordinates), a
@@ -713,27 +890,28 @@ inline cudaError_t by_width(int K, F f) {
       K, [&](auto c) { return f(c, integral_constant<int, 32>()); });
 }
 
-// Reads coordinates r + 32 q of column j of a row-major (K, M) matrix.
-template <int C>
+// Reads coordinates r + L q of column j of a row-major (K, M) matrix (r:
+// the lane in its group of L; L = 32: the warp).
+template <int C, int L = 32>
 __device__ __forceinline__ void load_coords(const float* __restrict__ X,
                                             int K, int M, int j,
                                             float (&v)[C]) {
-  const int r = threadIdx.x & 31;
+  const int r = threadIdx.x & (L - 1);
 #pragma unroll
   for (int q = 0; q < C; ++q) {
-    const int i = r + 32 * q;
+    const int i = r + L * q;
     v[q] = i < K ? X[(size_t)i * M + j] : 0.f;
   }
 }
 
-template <int C>
+template <int C, int L = 32>
 __device__ __forceinline__ void store_coords(float* __restrict__ X, int K,
                                              int M, int j,
                                              const float (&v)[C]) {
-  const int r = threadIdx.x & 31;
+  const int r = threadIdx.x & (L - 1);
 #pragma unroll
   for (int q = 0; q < C; ++q) {
-    const int i = r + 32 * q;
+    const int i = r + L * q;
     if (i < K) X[(size_t)i * M + j] = v[q];
   }
 }

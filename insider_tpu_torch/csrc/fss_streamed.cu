@@ -1,8 +1,8 @@
 // feature_sign and cd_streamed: the column update on streamed per-gene
-// grams.  Per gene column j one warp solves the elastic net on the gram
-// xtx[:, :, j] and Xty xty[:, j] with a solver of fss_core.cuh: the
-// feature-sign search (FSS) and its plain-CD polish, or cold strong-rule
-// coordinate descent (CD).
+// grams.  Per gene column j one warp (CD: one group of L lanes) solves the
+// elastic net on the gram xtx[:, :, j] and Xty xty[:, j] with a solver of
+// fss_core.cuh: the feature-sign search (FSS) and its plain-CD polish, or
+// cold strong-rule coordinate descent (CD).
 //
 // Replaces insider_tpu/kernels/fss_pallas.py:feature_sign_pallas (body
 // _fss_kernel -> _fss_compute), insider_tpu/kernels/cd_pallas.py:
@@ -23,116 +23,272 @@
 // (two warp shuffles and a K-wide shared-memory row read each).
 //
 // Design: persistent one-warp blocks, as many as the card holds at once.
-// A warp takes the next column from a grid-wide counter (an atomic add on
-// `next`, which the entry point zeroes), copies that column's gram into its
-// own slice of shared memory, runs the solver, writes the column and takes
-// the next: a column that needs many steps holds up no other, and no block
-// waits for its slowest warp.  Which warp takes a column differs from run
-// to run; a column's arithmetic does not depend on it, so repeated runs
-// agree bit for bit.  A gram's K^2 entries lie M floats apart, so
-// a warp's copy reads one 32-byte sector per entry; the warps hold
-// neighbouring columns at about the same time (the counter hands them out
-// in order), so the sectors are read from device memory about once and
-// from L2 up to eight times.  FSS solves an active set of up to 32
+// A warp takes the next columns from a grid-wide counter (an atomic add on
+// `next`, which the entry point zeroes), copies those columns' grams into
+// its own slice of shared memory, runs the solver, writes the columns and
+// takes the next: a column that needs many steps holds up no other, and no
+// block waits for its slowest warp.  Which warp takes a column differs from
+// run to run; a column's arithmetic does not depend on it, so repeated runs
+// agree bit for bit.  A gram's K^2 entries lie M floats apart; the warps
+// hold neighbouring columns at about the same time (the counter hands them
+// out in order), so each 32-byte sector is read from device memory about
+// once and from L2 the rest.  FSS solves an active set of up to 32
 // coordinates in registers, a larger one (K > 32 only) in its slice
-// (fss_core.cuh: Solver<false>::workspace_floats).  A slice is 21 KB at
-// K=50 (ten warps an SM), 77 KB at K=96, 135 KB at K=128 for FSS; 10 KB,
-// 37 KB and 66 KB for CD.
+// (fss_core.cuh: Solver<false>::workspace_floats).  FSS: one column a warp,
+// a slice of 21 KB at K=50 (ten warps an SM), 77 KB at K=96, 135 KB at
+// K=128.
+//
+// CD, K <= 32: one column a warp (cd_column), as FSS.  K > 32: two columns
+// a warp, L = 16 lanes to a column (fss_core.cuh: cd_group_column), the
+// counter handing out two neighbouring columns at a time.  With one column
+// a warp, each coordinate update issues its whole scalar chain (soft
+// threshold, decrease term, two shuffles) for the one lane that uses it,
+// and the card holds as many columns as K x (K + 1) slices fit (20 an SM
+// at K=50, 6 at K=96, 3 at K=128): with few warps a scheduler, each waits
+// on its own chain.  A group of L lanes issues the chain once for P = 32 /
+// L columns, and keeps its gram packed to the upper triangle, so an SM
+// holds about twice the columns (38 at K=50, 12 at K=96, 6 at K=128).  The
+// packed rows start where the L lanes of a group, and the P groups of a
+// warp, read a row or a column of their grams in distinct banks
+// (fss_core.cuh: packed_rows); the copy moves each entry with cp.async,
+// many in flight a lane.  Every column's bits are those of one column a
+// warp (cd_column): checked at K = 17-128 on the card
+// (tests/test_torch_cuda.py, chip_ab.py).
+// K <= 32 keeps one column a warp: the C = 1 instance contracts den = d +
+// lam (1 - alpha) into one FMA, which a grouped instance would not, and
+// cd_fused, not this kernel, runs there in a fit.
+//
+// The width is fixed by K (cd_instances: the first instance listed), from
+// times on an NVIDIA H100 80GB HBM3 at 700 W (chip_ab.py).  With every
+// column at the 200-sweep cap (M=8192), L = 16 takes 0.62-0.91 of L = 32's
+// time at K = 33-128.  Four columns a warp (L = 8) took 0.81-1.27 of L =
+// 16's at K = 33-64, less only at K = 33, 50 and 57; in the cold-CD K=50
+// fit, where columns stop at different sweeps and the groups of a warp
+// wait for its slowest, L = 16 took 14.7 ms a launch, L = 8 15.6 and L =
+// 32 17.9; so L = 8 is not built.  The L = 32 instances at K > 32 (the
+// one-column loop) are no fit's choice: they are the tests' reference for
+// the bits (lanes = 32).  Instances (L, C): K <= 32 (32, 1); K <= 64 (16,
+// 4), (32, 2); K <= 96 (16, 6), (32, 3); K <= 128 (16, 8), (32, 4).
+//
+// The groups of a warp sweep in lockstep, so a column that converges early
+// waits for the other of its warp; handing it a new column in mid-flight
+// is not done.  In the cold-CD K=50 fit's steady state 30% of the columns
+// stop before the cap, and two neighbouring columns swept together take
+// 1.26 times the sweeps of each alone (chip_smoke.py phase 12).
+#include <mutex>
+
 #include "fss_core.cuh"
 
 namespace {
 
-using insider::by_lane_count;
 using insider::by_width;
+using insider::ceil_div;
 using insider::load_coords;
+using insider::cd_group_column;
 using insider::next_column;
+using insider::packed_rows;
 using insider::Solver;
 using insider::solve_column;
 using insider::store_coords;
 
-// Floats of one warp's slice of shared memory: its column's gram (K, K + 1),
-// padded to 16 bytes, then the solver's workspace.
-template <int C, bool CD>
-__host__ __device__ int slice_floats(int K) {
-  return ((K * (K + 1) + 3) & ~3) + Solver<CD>::workspace_floats(C, K);
+// Floats of one column's packed gram in a warp's slice (L < 32), rounded
+// up to L (mod 32): the P grams of a warp lie that far apart.
+template <int L>
+__host__ __device__ int packed_stride(int K) {
+  const int n = packed_rows<L>(K);
+  return n + ((L - n) & 31);
 }
 
-template <int AMAX, int C, bool CD>
+// Floats of one warp's slice of shared memory.  L = 32: its column's gram
+// (K, K + 1), padded to 16 bytes, then the solver's workspace.  L < 32 (CD
+// only): the packed grams' row starts (K ints, padded to 32), then P
+// packed grams (fss_core.cuh: packed_rows).
+template <int C, int L, bool CD>
+__host__ __device__ int slice_floats(int K) {
+  if (L == 32)
+    return ((K * (K + 1) + 3) & ~3) + Solver<CD>::workspace_floats(C, K);
+  return ((K + 31) & ~31) + 32 / L * packed_stride<L>(K);
+}
+
+// Copies 4 bytes from device to shared memory without a register
+// (cp.async), so that a lane keeps many loads in flight.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+// The row starts of a packed gram (fss_core.cuh: packed_rows) and
+// packed_stride, from the host, for L < 32.
+struct Rows {
+  int start[128];
+  int stride;
+};
+
+template <int AMAX, int C, int L, bool CD>
 __global__ void __launch_bounds__(32)
 streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
                 const float* __restrict__ beta0, float* __restrict__ out,
-                int* __restrict__ next, int M, int K, Solver<CD> solver) {
+                int* __restrict__ next, int M, int K, Solver<CD> solver,
+                Rows rows) {
   extern __shared__ __align__(16) float smem[];
-  const int GS = K + 1;
   const int lane = threadIdx.x;
-  float* Gs = smem;                                  // (K, GS) the gram
-  float* W = smem + ((K * GS + 3) & ~3);             // the solver's
-  for (;;) {
-    const int j = next_column(next);
-    if (j >= M) break;                               // warp-uniform
+  if constexpr (L == 32) {
+    const int GS = K + 1;
+    float* Gs = smem;                                // (K, GS) the gram
+    float* W = smem + ((K * GS + 3) & ~3);           // the solver's
+    for (;;) {
+      const int j = next_column(next);
+      if (j >= M) break;                             // warp-uniform
 #pragma unroll 4
-    for (int k = 0; k < K; ++k)
-      for (int l = lane; l < K; l += 32)
-        Gs[k * GS + l] = xtx[((size_t)k * K + l) * M + j];
+      for (int k = 0; k < K; ++k)
+        for (int l = lane; l < K; l += 32)
+          Gs[k * GS + l] = xtx[((size_t)k * K + l) * M + j];
+      __syncwarp();
+      float b[C], beta[C];
+      load_coords<C>(xty, K, M, j, b);
+      load_coords<C>(beta0, K, M, j, beta);
+      solve_column<AMAX, C>(solver, Gs, W, K, GS, b, beta);
+      store_coords<C>(out, K, M, j, beta);
+      __syncwarp();                                  // Gs is read no more
+    }
+  } else {
+    static_assert(CD, "several columns to a warp: CD only");
+    constexpr int P = 32 / L;
+    int* R = reinterpret_cast<int*>(smem);           // the row starts
+    for (int a = lane; a < K; a += 32) R[a] = rows.start[a];
     __syncwarp();
-    float b[C], beta[C];
-    load_coords<C>(xty, K, M, j, b);
-    load_coords<C>(beta0, K, M, j, beta);
-    solve_column<AMAX, C>(solver, Gs, W, K, GS, b, beta);
-    store_coords<C>(out, K, M, j, beta);
-    __syncwarp();                                    // Gs is read no more
+    float* grams = smem + ((K + 31) & ~31);
+    const int S = rows.stride;                       // one column's gram
+    const int g = lane / L;                          // this lane's column
+    const int h = lane & (P - 1);                    // the column it copies
+    const int n = K * (K + 1) / 2;
+    for (;;) {
+      const int j0 = next_column(next) * P;
+      if (j0 >= M) break;                            // warp-uniform
+      // lane h + P t copies entries t, t + 32 / P, ... of the upper
+      // triangle of column j0 + h in row order, (k, l >= k) from
+      // xtx[k][l]; a group past the last column gets zeros
+      float* Gh = grams + h * S;
+      if (j0 + h < M) {
+        const float* src = xtx + j0 + h;
+        int k = 0, l = lane / P;
+#pragma unroll 8
+        for (int e = lane / P; e < n; e += 32 / P, l += 32 / P) {
+          while (l >= K) l -= K - ++k;               // next row: l from k
+          copy_async(Gh + R[k] + l - k, src + ((size_t)k * K + l) * M);
+        }
+        asm volatile("cp.async.wait_all;\n" ::);
+      } else {
+        for (int e = lane / P; e < S; e += 32 / P) Gh[e] = 0.f;
+      }
+      __syncwarp();
+      const int j = j0 + g;
+      const bool done = j >= M;                      // uniform in the group
+      float b[C], beta[C];
+      load_coords<C, L>(xty, K, M, done ? M - 1 : j, b);
+      load_coords<C, L>(beta0, K, M, done ? M - 1 : j, beta);
+      cd_group_column<C, L>(grams + g * S, R, K, b, beta, solver.lam,
+                            solver.alpha, solver.tol, solver.max_sweeps,
+                            done);
+      if (!done) store_coords<C, L>(out, K, M, j, beta);
+      __syncwarp();                                  // the grams are read
+    }                                                // no more
   }
 }
 
-// Launches as many one-warp blocks as the card holds at once at this
-// shared-memory size (remembered for the last device and size asked).
-template <int AMAX, int C, bool CD>
+// Blocks an SM holds at once of one instance at K's shared-memory size,
+// and the card's SMs (remembered for the last device and size asked, under
+// a lock: host threads may launch at once).  The instance's largest
+// dynamic shared memory is set to the card's opt-in maximum, so that no
+// launch is refused for a size that another thread set.
+struct Residency {
+  int per_sm = 0, sms = 0;
+};
+
+template <int AMAX, int C, int L, bool CD>
+cudaError_t residency(int K, Residency& out) {
+  static std::mutex lock;
+  static int last_dev = -1;
+  static size_t last_smem = 0;
+  static Residency last;
+  const size_t smem = sizeof(float) * slice_floats<C, L, CD>(K);
+  const auto kernel = streamed_kernel<AMAX, C, L, CD>;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> held(lock);
+  if (dev != last_dev || smem != last_smem) {
+    Residency r;
+    if ((err = cudaDeviceGetAttribute(
+             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &r.per_sm, kernel, 32, smem)) != cudaSuccess)
+      return err;
+    last_dev = dev;
+    last_smem = smem;
+    last = r;
+  }
+  out = last;
+  return cudaSuccess;
+}
+
+// Launches as many one-warp blocks as the card holds at once (no more than
+// there are groups of P columns).
+template <int AMAX, int C, int L, bool CD>
 cudaError_t launch(const float* xtx, const float* xty, const float* beta0,
                    float* out, int* next, int M, int K, Solver<CD> solver,
                    cudaStream_t stream) {
-  static int last_dev = -1, last_blocks = 0;
-  static size_t last_smem = 0;
-  const size_t smem = sizeof(float) * slice_floats<C, CD>(K);
-  const auto kernel = streamed_kernel<AMAX, C, CD>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  Residency res;
+  cudaError_t err = residency<AMAX, C, L, CD>(K, res);
   if (err != cudaSuccess) return err;
-  if (dev != last_dev || smem != last_smem) {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)smem)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, 32, smem)) != cudaSuccess)
-      return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    last_dev = dev;
-    last_smem = smem;
-    last_blocks = per_sm * sms;
+  if (res.per_sm < 1) return cudaErrorInvalidConfiguration;
+  Rows rows{};                            // the packed grams' row starts
+  if (L < 32) {
+    packed_rows<L>(K, rows.start);
+    rows.stride = packed_stride<L>(K);
   }
+  const int blocks = res.per_sm * res.sms, groups = ceil_div(M, 32 / L);
   if ((err = cudaMemsetAsync(next, 0, sizeof(int), stream)) != cudaSuccess)
     return err;
-  kernel<<<M < last_blocks ? M : last_blocks, 32, smem, stream>>>(
-      xtx, xty, beta0, out, next, M, K, solver);
+  streamed_kernel<AMAX, C, L, CD>
+      <<<groups < blocks ? groups : blocks, 32,
+         sizeof(float) * slice_floats<C, L, CD>(K), stream>>>(
+          xtx, xty, beta0, out, next, M, K, solver, rows);
   return cudaGetLastError();
 }
 
-template <bool CD>
-int streamed(const float* xtx, const float* xty, const float* beta0,
-             float* out, int* next, int M, int K, Solver<CD> solver,
-             cudaStream_t stream) {
+// A CD instance: C coordinates a lane in groups of L lanes.
+template <int C_, int L_>
+struct Group {
+  static constexpr int C = C_, L = L_;
+};
+
+// Calls f with the CD instances that cover K, the one the kernel runs
+// first (header).
+template <class F>
+cudaError_t cd_instances(int K, F&& f) {
+  if (K <= 32) return f(Group<1, 32>());
+  if (K <= 64) return f(Group<4, 16>(), Group<2, 32>());
+  if (K <= 96) return f(Group<6, 16>(), Group<3, 32>());
+  return f(Group<8, 16>(), Group<4, 32>());
+}
+
+int fss_streamed(const float* xtx, const float* xty, const float* beta0,
+                 float* out, int* next, int M, int K, Solver<false> solver,
+                 cudaStream_t stream) {
   if (M < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;
-  auto go = [&](auto c, auto amax) {
-    return launch<decltype(amax)::value, decltype(c)::value>(
-        xtx, xty, beta0, out, next, M, K, solver, stream);
-  };
-  if constexpr (CD)
-    return (int)by_lane_count(
-        K, [&](auto c) { return go(c, std::integral_constant<int, 32>()); });
-  else
-    return (int)by_width(K, go);
+  return (int)by_width(K, [&](auto c, auto amax) {
+    constexpr int AMAX = decltype(amax)::value, C = decltype(c)::value;
+    return launch<AMAX, C, 32, false>(xtx, xty, beta0, out, next, M, K,
+                                      solver, stream);
+  });
 }
 
 }  // namespace
@@ -146,20 +302,61 @@ INSIDER_API int insider_fss_streamed(const float* xtx, const float* xty,
                                      int* next, float l1, float l2,
                                      float tol, int M, int K, int max_outer,
                                      int polish_sweeps, cudaStream_t stream) {
-  return streamed(xtx, xty, beta0, out, next, M, K,
-                  Solver<false>{l1, l2, tol, max_outer, polish_sweeps},
-                  stream);
+  return fss_streamed(xtx, xty, beta0, out, next, M, K,
+                      Solver<false>{l1, l2, tol, max_outer, polish_sweeps},
+                      stream);
 }
 
 // out (K, M) = the cold strong-rule CD solution of every column, at most
 // max_sweeps sweeps.  xtx (K, K, M), xty and beta0 (K, M): row-major f32;
 // next: one int of device scratch (the column counter).  lam, alpha, tol
-// as f32; 1 <= K <= 128.
+// as f32; 1 <= K <= 128.  lanes: the group width L, 0 for the instance
+// the kernel runs at this K (header), else that of an instance covering K
+// (insider_cd_streamed_widths; cudaErrorInvalidValue where none does).
 INSIDER_API int insider_cd_streamed(const float* xtx, const float* xty,
                                     const float* beta0, float* out, int* next,
                                     float lam, float alpha, float tol, int M,
-                                    int K, int max_sweeps,
+                                    int K, int max_sweeps, int lanes,
                                     cudaStream_t stream) {
-  return streamed(xtx, xty, beta0, out, next, M, K,
-                  Solver<true>{lam, alpha, tol, max_sweeps}, stream);
+  if (M < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;
+  const Solver<true> solver{lam, alpha, tol, max_sweeps};
+  return (int)cd_instances(K, [&](auto... gs) {
+    cudaError_t err = cudaErrorInvalidValue;
+    bool found = false;
+    (
+        [&](auto g) {
+          using G = decltype(g);
+          if (found || (lanes != 0 && lanes != G::L)) return;
+          found = true;
+          err = launch<32, G::C, G::L, true>(xtx, xty, beta0, out, next, M,
+                                             K, solver, stream);
+        }(gs),
+        ...);
+    return err;
+  });
+}
+
+// The CD instances of insider_cd_streamed that cover K, the one it runs
+// first: *n of them (at most 2), their group widths L into widths[], and
+// where `columns` is given, the columns an SM of the current device holds
+// of each into columns[].
+INSIDER_API int insider_cd_streamed_widths(int K, int* n, int* widths,
+                                           int* columns) {
+  if (K < 1 || K > 128) return (int)cudaErrorInvalidValue;
+  *n = 0;
+  return (int)cd_instances(K, [&](auto... gs) {
+    cudaError_t err = cudaSuccess;
+    (
+        [&](auto g) {
+          using G = decltype(g);
+          if (err != cudaSuccess) return;
+          Residency res;
+          if (columns != nullptr &&
+              (err = residency<32, G::C, G::L, true>(K, res)) == cudaSuccess)
+            columns[*n] = res.per_sm * (32 / G::L);
+          widths[(*n)++] = G::L;
+        }(gs),
+        ...);
+    return err;
+  });
 }

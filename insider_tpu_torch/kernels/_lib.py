@@ -58,7 +58,10 @@ _SIGNATURES = {
     "insider_cd_fused": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
                               _I, _I, _I, _I, _P]),
     "insider_cd_streamed": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
-                                 _I, _I, _I, _P]),
+                                 _I, _I, _I, _I, _P]),
+    "insider_cd_streamed_widths": (_I, [_I, ctypes.POINTER(_I),
+                                        ctypes.POINTER(_I),
+                                        ctypes.POINTER(_I)]),
     "insider_cd_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
                                _I, _I, _I, _P]),
     "insider_masked_eval_scratch": (_L, [_I, _I, _I]),

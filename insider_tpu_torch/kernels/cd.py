@@ -17,9 +17,17 @@ reaches the plain version.
 
 Every kernel sweeps coordinates in the fixed order 0..K-1: the caller
 permutes the problem to randomize it (ops/col_update.py).
+
+cd_streamed runs two columns on one warp, in groups of L = 16 lanes that
+sweep in lockstep (a converged column frozen), at K > 32; at K <= 32 one
+column a warp (csrc/fss_streamed.cu, header: the instances and why).
+Each column's arithmetic, and so its bits, do not depend on L or on the
+column that shares its warp.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -84,9 +92,10 @@ cd_fused.launches = 0
 
 
 def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
-                     lam, alpha, tol, max_sweeps):
+                     lam, alpha, tol, max_sweeps, *streamed):
     """Check the operands of a gram-input CD kernel and launch it (the
-    streamed kernel also takes a column counter)."""
+    streamed kernel also takes a column counter; `streamed`: its group
+    width)."""
     _lib.require_cuda(what, xtx, xty, beta0)
     K, M = xty.shape
     if xtx.shape != gram_shape or beta0.shape != (K, M):
@@ -95,13 +104,12 @@ def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
         raise ValueError(f"{what}: K={K} > {MAX_K} is not supported by the "
                          "CUDA kernel")
     out = torch.empty((K, M), dtype=torch.float32, device=xty.device)
-    counter = ([_lib.column_counter(xty)]
-               if c_entry == "insider_cd_streamed" else [])
+    counter = [_lib.column_counter(xty).data_ptr()] if streamed else []
     with torch.cuda.device(xty.device):
         err = getattr(_lib.lib(), c_entry)(
             xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),
-            *[c.data_ptr() for c in counter], *_scalars(lam, alpha, tol), M,
-            K, int(max_sweeps), _lib.stream(xty))
+            *counter, *_scalars(lam, alpha, tol), M, K, int(max_sweeps),
+            *streamed, _lib.stream(xty))
     _lib.check(err, what)
     return out
 
@@ -113,23 +121,40 @@ def cd_streamed_plain(xtx, xty, beta0, lam, alpha, tol,
 
 
 def cd_streamed(xtx: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
-                lam, alpha, tol, max_sweeps: int = 200) -> torch.Tensor:
+                lam, alpha, tol, max_sweeps: int = 200,
+                lanes: int = 0) -> torch.Tensor:
     """Per-gene elastic net by cold strong-rule CD on streamed grams.
 
     xtx (K, K, M) per-gene grams, gene axis last (kernels/gram.col_gram_xty);
     xty, beta0 (K, M); all f32, coordinates in the sweep order.  Returns
-    beta (K, M).
+    beta (K, M).  lanes: the kernel's group width L, 0 for the one it runs
+    at this K, else one of cd_streamed_widths(K) (it raises where not): a
+    hook for tests and timings, as every width gives the same bits.  The
+    plain version has no lanes.
     """
     if _lib.on_cpu("cd_streamed", xtx, xty, beta0):
         return cd_streamed_plain(xtx, xty, beta0, lam, alpha, tol, max_sweeps)
     K, M = xty.shape
     out = _launch_on_grams("cd_streamed", "insider_cd_streamed", xtx,
-                           (K, K, M), xty, beta0, lam, alpha, tol, max_sweeps)
+                           (K, K, M), xty, beta0, lam, alpha, tol, max_sweeps,
+                           int(lanes))
     cd_streamed.launches += 1
     return out
 
 
 cd_streamed.launches = 0
+
+
+def cd_streamed_widths(K: int, device=None) -> list:
+    """[(L, columns an SM holds)] of cd_streamed's instances at this K on
+    the CUDA device (the current one by default), the one it runs first."""
+    n, widths, columns = ctypes.c_int(0), (ctypes.c_int * 4)(), \
+        (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = _lib.lib().insider_cd_streamed_widths(int(K), ctypes.byref(n),
+                                                    widths, columns)
+    _lib.check(err, "cd_streamed_widths")
+    return [(widths[i], columns[i]) for i in range(n.value)]
 
 
 def cd_shared_plain(xtx, xty, beta0, lam, alpha, tol,

@@ -92,6 +92,51 @@ def test_cd_streamed_matches_pallas_kernel(K, packed):
     assert int((got == 0).sum()) > 0
 
 
+def _staggered(K, M, seed):
+    """Per-gene grams (f32, summed in f64), Xty and a warm start in which
+    neighbouring columns stop at very different sweeps: every even column
+    has Xty = 0 (every coordinate screened: it converges after one sweep),
+    every odd one strongly correlated coordinates, on which CD at tol 0 is
+    still moving at the cap."""
+    rng = np.random.default_rng(seed)
+    N = 3 * K
+    R = rng.standard_normal((N, 1)) + 0.1 * rng.standard_normal((N, K))
+    mask = rng.random((N, M)) > 0.1
+    G = np.einsum("ij,ik,il->klj", mask, R, R).astype(np.float32)
+    xty = (R.T @ (mask * rng.standard_normal((N, M)))).astype(np.float32)
+    xty[:, ::2] = 0.0
+    beta0 = (0.01 * rng.standard_normal((K, M))).astype(np.float32)
+    return G, xty, beta0
+
+
+@pytest.mark.parametrize("K", [6, 40])
+def test_cd_streamed_columns_are_independent(K):
+    """Each column of a batch comes out as it does solved alone, at the JAX
+    tolerance (the card kernel runs several columns on one warp in lockstep
+    and is held to the same bits; tests/test_torch_cuda.py; the plain
+    version's first s = G beta sums in an order torch picks by M, so its
+    bits may differ), and the batch agrees with the JAX kernel."""
+    M, lam, alpha, tol = 9, 0.05, 0.5, 0.0
+    G, xty, beta0 = _staggered(K, M, seed=30 + K)
+    got = cd.cd_streamed(T(G), T(xty), T(beta0), lam, alpha, tol, SWEEPS)
+    fewer = cd.cd_streamed(T(G), T(xty), T(beta0), lam, alpha, tol,
+                           SWEEPS - 1)
+    assert float(got[:, ::2].abs().max()) == 0.0
+    assert not any(torch.equal(got[:, j], fewer[:, j])
+                   for j in range(1, M, 2))          # at the cap
+    for j in range(M):
+        alone = cd.cd_streamed(T(G[:, :, j:j + 1].copy()),
+                               T(xty[:, j:j + 1].copy()),
+                               T(beta0[:, j:j + 1].copy()), lam, alpha, tol,
+                               SWEEPS)
+        np.testing.assert_allclose(alone[:, 0].numpy(), got[:, j].numpy(),
+                                   **TOL, err_msg=str(j))
+    want = cdp.elastic_net_cd_pallas(jnp.asarray(G), jnp.asarray(xty),
+                                     jnp.asarray(beta0), lam, alpha,
+                                     jnp.float32(tol), **_jax_kw())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_cd_shared_matches_pallas_kernel():
     rng = np.random.default_rng(3)
     N, K, M = 60, 8, 200

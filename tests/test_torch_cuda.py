@@ -438,9 +438,13 @@ def test_cd_fused(cuda, N, K, M):
                   CD_KW["lam"], CD_KW["alpha"])
 
 
-@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (300, 50, 700),
-                                   (100, 64, 257), (150, 96, 130),
-                                   (200, 128, 70)])
+# each group boundary of the instances (L = 16: C steps at 16, 32, ...;
+# L = 32: at 32, 64, 96), M odd, down to one column
+@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (40, 8, 3), (60, 16, 333),
+                                   (60, 17, 1), (80, 33, 333),
+                                   (300, 50, 700), (100, 64, 257),
+                                   (100, 65, 333), (150, 96, 130),
+                                   (150, 97, 3), (200, 128, 70)])
 def test_cd_streamed(cuda, N, K, M):
     R, mask, data, beta0 = _masked_inputs(N, K, M, seed=60 + K)
     R, mask, data, beta0 = (_t(x, cuda) for x in (R, mask, data, beta0))
@@ -451,6 +455,61 @@ def test_cd_streamed(cuda, N, K, M):
     _check_cd(got, cd.cd_streamed_plain(G, b, beta0, **CD_KW), G, b,
               CD_KW["lam"])
     assert torch.equal(got, cd.cd_streamed(G, b, beta0, **CD_KW))
+    # every group width gives the same bits; a width with no instance at
+    # this K raises.  The kernel runs two columns a warp at K > 32.
+    widths = dict(cd.cd_streamed_widths(K))
+    assert next(iter(widths)) == (32 if K <= 32 else 16)
+    for lanes in (8, 16, 32):
+        if lanes in widths:
+            assert widths[lanes] >= 32 // lanes
+            assert torch.equal(got, cd.cd_streamed(G, b, beta0, **CD_KW,
+                                                   lanes=lanes)), lanes
+        else:
+            with pytest.raises(RuntimeError):
+                cd.cd_streamed(G, b, beta0, **CD_KW, lanes=lanes)
+
+
+def _staggered(K, M, seed, dev):
+    """Per-gene grams, Xty and a warm start in which neighbouring columns
+    stop at very different sweeps: every even column has Xty = 0 (every
+    coordinate screened: it converges after one sweep), every odd one
+    strongly correlated coordinates, on which CD at tol 0 (and lam 0.05) is
+    still moving at the cap.  As tests/test_torch_cd.py:_staggered."""
+    rng = np.random.default_rng(seed)
+    N = 3 * K
+    R = rng.standard_normal((N, 1)) + 0.1 * rng.standard_normal((N, K))
+    mask = rng.random((N, M)) > 0.1
+    G = np.einsum("ij,ik,il->klj", mask, R, R).astype(np.float32)
+    xty = (R.T @ (mask * rng.standard_normal((N, M)))).astype(np.float32)
+    xty[:, ::2] = 0.0
+    beta0 = (0.01 * rng.standard_normal((K, M))).astype(np.float32)
+    return _t(G, dev), _t(xty, dev), _t(beta0, dev)
+
+
+@pytest.mark.parametrize("K", [17, 33, 50, 64, 96, 128])
+def test_cd_streamed_columns_are_independent(cuda, K):
+    """Each column of one batched call equals, bit for bit, the kernel's
+    output on that column alone (M = 1), at every group width, where
+    neighbouring columns of a warp stop at very different sweeps: no
+    cross-talk between the groups of a warp.  M = 37 leaves the last warp
+    with one column."""
+    M = 37
+    G, b, beta0 = _staggered(K, M, K, cuda)
+    kw = dict(lam=0.05, alpha=0.5, tol=0.0, max_sweeps=40)
+    got = cd.cd_streamed(G, b, beta0, **kw)
+    fewer = cd.cd_streamed(G, b, beta0, **dict(kw, max_sweeps=39))
+    assert float(got[:, ::2].abs().max()) == 0.0
+    assert not any(torch.equal(got[:, j], fewer[:, j])
+                   for j in range(1, M, 2))          # at the cap
+    for lanes, _ in cd.cd_streamed_widths(K):
+        assert torch.equal(got, cd.cd_streamed(G, b, beta0, **kw,
+                                               lanes=lanes)), lanes
+        for j in range(M):
+            alone = cd.cd_streamed(G[:, :, j:j + 1].contiguous(),
+                                   b[:, j:j + 1].contiguous(),
+                                   beta0[:, j:j + 1].contiguous(), **kw,
+                                   lanes=lanes)
+            assert torch.equal(alone[:, 0], got[:, j]), (lanes, j)
 
 
 @pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
