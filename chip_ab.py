@@ -3,6 +3,7 @@
 one package tree, on one NVIDIA GPU.
 
     python3 chip_ab.py ROOT [--out FILE]
+    python3 chip_ab.py --share FILE.npz FILE.npz
 
 ROOT is a directory that holds an insider_tpu_torch package: this checkout,
 or another commit unpacked into a gitignored directory (e.g. `git archive
@@ -16,7 +17,7 @@ directory's chip_smoke.py, so both trees see the same inputs.  Measured:
     its output;
   * row_xty for the four flagship confounders in one timed call and for the
     two K=50 confounders, and masked_eval at both shapes, kernel and plain
-    version, beside their bounds;
+    version, beside their bounds, with a checksum of each one's outputs;
   * the fused kernels' gram build alone (feature_sign_fused with
     max_outer=0, polish_sweeps=0; cd_fused with max_sweeps=0);
   * col_gram_xty alone on chip_smoke's phase-4 input at K=50 and its
@@ -34,19 +35,25 @@ directory's chip_smoke.py, so both trees see the same inputs.  Measured:
   * the cold-CD kernels at the 200-sweep cap on chip_smoke's fixed inputs,
     each with a checksum of its output: cd_fused and cd_shared on phase
     5's K=24 input, cd_streamed on phase 5's K=50 input and phase 6's K=96
-    and K=128 (M=2048); where the tree's cd_streamed takes a group width,
-    also at each width it has an instance of, and every width at K = 16 to
-    128 on columns that all run to the cap (tol 0, M=8192), with the
-    columns an SM holds of each: the times its fixed choice of width
-    rests on;
+    and K=128 (M=2048), cd_shared also on R^T R of those three problems;
+    where the tree's cd_fused or cd_streamed takes a group width, also at
+    each width it has an instance of (with the columns an SM sweeps at
+    once), and cd_streamed at every width at K = 16 to 128 on columns that
+    all run to the cap (tol 0, M=8192): the times their fixed choices of
+    width rest on; with --out, the K=24
+    outputs of cd_fused and cd_shared are saved beside FILE (FILE.npz),
+    and --share prints the share of the columns of two such files that
+    are equal bit for bit;
   * the ms per iteration of the FSS and cold-CD fits, flagship masked and
     dense and K=50 masked, from each fit's own boundary clock, and their
     final losses;
   * torch.profiler over 10 iterations of the flagship masked FSS fit, of
-    the K=50 masked FSS fit and of the cold-CD K=50 masked fit (with group
-    widths, also at each width cd_streamed has at K=50), each from where
-    its fit ended: each kernel's device time, each wrapper's in-fit ms per
-    launch, the device busy share.
+    the cold-CD flagship masked fit (with group widths, also at each width
+    cd_fused has at K=24), of the cold-CD flagship dense fit, of the K=50
+    masked FSS fit and of the cold-CD
+    K=50 masked fit (with group widths, also at each width cd_streamed has
+    at K=50), each from where its fit ended: each kernel's device time,
+    each wrapper's in-fit ms per launch, the device busy share.
 Prints one JSON line (and writes it to FILE).  Exits non-zero without
 CUDA.
 """
@@ -60,6 +67,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 
 def checksum(x):
@@ -107,14 +116,16 @@ def fss_kernels(torch, cs, gram, fss):
     return out
 
 
-def cd_kernels(torch, cs, gram, cd):
+def cd_kernels(torch, cs, gram, cd, saved):
     """{name: {"ms", "checksum"}} of the cold-CD kernels at the 200-sweep
     cap on chip_smoke's fixed inputs (phases 5 and 6); with group widths,
-    cd_streamed at each width, and the widths' times on columns that all
-    run to the cap (module docstring)."""
+    cd_fused and cd_streamed at each width, and cd_streamed's widths' times
+    on columns that all run to the cap (module docstring).  The K=24
+    outputs of cd_fused and cd_shared go into `saved`."""
     S = 200
     out = {}
     widths = getattr(cd, "cd_streamed_widths", None)
+    fused_widths = getattr(cd, "cd_fused_widths", None)
 
     def rec(name, fn, reps):
         out[name] = dict(ms=cs.timed_ms(torch, fn, reps),
@@ -123,17 +134,32 @@ def cd_kernels(torch, cs, gram, cd):
               f"{out[name]['checksum']}")
 
     R, mask, data, beta0 = cs.problem(torch, cs.N, cs.K, cs.M, 7)
-    rec("cd_fused K=24", lambda: cd.cd_fused(mask, data, R, beta0, cs.LAM,
-                                             cs.ALPHA, cs.SUB_TOL, S), 5)
+
+    def fused(**kw):
+        return cd.cd_fused(mask, data, R, beta0, cs.LAM, cs.ALPHA,
+                           cs.SUB_TOL, S, **kw)
+
+    rec("cd_fused K=24", fused, 5)
+    saved["cd_fused K=24"] = fused().cpu().numpy()
+    if fused_widths:
+        for lanes, cols in fused_widths(cs.K):
+            rec(f"cd_fused K=24 L={lanes}", lambda: fused(lanes=lanes), 5)
+            out[f"cd_fused K=24 L={lanes}"]["columns_per_sm"] = cols
     XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
     rec("cd_shared K=24", lambda: cd.cd_shared(XtX, Xty, beta0, cs.LAM,
                                                cs.ALPHA, cs.SUB_TOL, S), 5)
+    saved["cd_shared K=24"] = cd.cd_shared(XtX, Xty, beta0, cs.LAM, cs.ALPHA,
+                                           cs.SUB_TOL, S).cpu().numpy()
+    # cd_streamed, and cd_shared on R^T R, R^T data of the same problems
     for n, k, m, seed in ((300, 50, cs.M, 8), (300, 96, 2048, 96),
                           (300, 128, 2048, 128)):
         R, mask, data, beta0 = cs.problem(torch, n, k, m, seed)
         G, b = gram.col_gram_xty(mask, data, R)
         args = (G, b, beta0, 1.0, 0.5, cs.SUB_TOL, S)
         rec(f"cd_streamed K={k}", lambda: cd.cd_streamed(*args), 3)
+        XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+        rec(f"cd_shared K={k}", lambda: cd.cd_shared(
+            XtX, Xty, beta0, 1.0, 0.5, cs.SUB_TOL, S), 3)
         if widths:
             for lanes, _ in widths(k):
                 rec(f"cd_streamed K={k} L={lanes}",
@@ -180,11 +206,43 @@ def col_gram_times(torch, cs, gram):
     return out
 
 
+def residual_checksums(torch, cs, row, ev, res, suffix, codes, R_minus, D,
+                       mask, data, test, R, F):
+    """Checksums of row_xty's outputs (every confounder's, as a fit calls
+    it) and of masked_eval's four sums, into res["row_xty" + suffix] and
+    res["masked_eval" + suffix]."""
+    res["row_xty" + suffix]["checksum"] = checksum(torch.cat([
+        row.row_xty(c, r, mask, d, F, **cs.row_order(row, c, d.shape[0]))
+        for c, r, d in zip(codes, R_minus, D)]))
+    res["masked_eval" + suffix]["checksum"] = checksum(torch.stack(list(
+        ev.masked_eval(data, mask, test, R, F))))
+
+
+def share_equal(a_path, b_path):
+    """Prints, for each array of two files that --out saved, the share of
+    its columns that are equal bit for bit (-0 read as +0)."""
+    a, b = np.load(a_path), np.load(b_path)
+    for name in sorted(set(a.files) & set(b.files)):
+        x, y = a[name] + 0.0, b[name] + 0.0
+        same = (x.view(np.uint32) == y.view(np.uint32)).all(axis=0)
+        print(f"chip_ab: {name}: {same.mean():.6f} of {same.size} columns "
+              f"equal bit for bit; max abs difference "
+              f"{float(np.abs(x - y).max()):.3e}")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("root", help="directory holding insider_tpu_torch")
+    ap.add_argument("root", nargs="?",
+                    help="directory holding insider_tpu_torch")
     ap.add_argument("--out", help="also write the JSON line here")
+    ap.add_argument("--share", nargs=2, metavar="NPZ",
+                    help="compare two saved output files and exit")
     a = ap.parse_args()
+    if a.share:
+        return share_equal(*a.share)
+    if a.root is None:
+        ap.error("ROOT is required")
     root = os.path.abspath(a.root)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -226,6 +284,9 @@ def main():
         x["F"])
     res["masked_eval"] = cs.masked_eval_times(
         torch, ev, x["data"], x["train"], x["test"], x["R"], x["F"])
+    residual_checksums(torch, cs, row, ev, res, "", x["codes"],
+                       x["R_minus"], x["D"], x["train"], x["data"],
+                       x["test"], x["R"], x["F"])
     del x
 
     # the K=50 shape
@@ -240,10 +301,16 @@ def main():
     res["masked_eval_k50"] = cs.masked_eval_times(
         torch, ev, k50["data"], k50["mask"], k50["test"], k50["R"],
         k50["F"])
+    residual_checksums(torch, cs, row, ev, res, "_k50", k50["codes"],
+                       k50["R_minus"], k50["D"], k50["mask"], k50["data"],
+                       k50["test"], k50["R"], k50["F"])
     del k50
     res["col_gram"] = col_gram_times(torch, cs, gram)
     res["fss"] = fss_kernels(torch, cs, gram, fss)
-    res["cd"] = cd_kernels(torch, cs, gram, cd)
+    saved = {}
+    res["cd"] = cd_kernels(torch, cs, gram, cd, saved)
+    if a.out:
+        np.savez(os.path.abspath(a.out) + ".npz", **saved)
     for name in ("level_gram", "level_gram_k50", "row_xty", "row_xty_k50",
                  "masked_eval", "masked_eval_k50"):
         r = res[name]
@@ -273,11 +340,36 @@ def main():
     fit("FSS dense", flag, partition=0, **cs.FLAG_FIT)
     fit("CD masked", flag, monotone=False, partition=1, **cs.COLD,
         **cs.FLAG_FIT)
+    cd_state = flag.fit_result.state
     fit("CD dense", flag, monotone=False, partition=0, **cs.COLD,
         **cs.FLAG_FIT)
+    cd_dense_state = flag.fit_result.state
     print("chip_ab: profile of the flagship masked fit (FSS), 10 iterations:")
     res["profile"] = cs.profile_fit(torch, flag, wrappers, state, cs.K,
                                     cs.LAM, cs.ALPHA)
+    print("chip_ab: profile of the cold-CD flagship masked fit, 10 "
+          "iterations:")
+    res["profile_cd"] = cs.profile_fit(torch, flag, wrappers, cd_state, cs.K,
+                                       cs.LAM, cs.ALPHA, **cs.COLD)
+    print("chip_ab: profile of the cold-CD flagship dense fit, 10 "
+          "iterations:")
+    res["profile_cd_dense"] = cs.profile_fit(
+        torch, flag, wrappers, cd_dense_state, cs.K, cs.LAM, cs.ALPHA,
+        masked=False, **cs.COLD)
+    if hasattr(cd, "cd_fused_widths"):
+        # the same profile at each group width cd_fused has at K=24
+        from insider_tpu_torch.ops import col_update
+
+        for lanes, _ in cd.cd_fused_widths(cs.K):
+            print(f"chip_ab: profile of the cold-CD flagship masked fit, "
+                  f"L={lanes}:")
+            col_update.cd_fused = functools.partial(cd.cd_fused, lanes=lanes)
+            try:
+                res[f"profile_cd L={lanes}"] = cs.profile_fit(
+                    torch, flag, wrappers, cd_state, cs.K, cs.LAM, cs.ALPHA,
+                    **cs.COLD)
+            finally:
+                col_update.cd_fused = cd.cd_fused
     del flag
     p50 = cs.predixcan_object(itt)
     fit("FSS K=50", p50, **cs.K50_FIT)

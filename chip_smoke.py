@@ -32,11 +32,12 @@ Phases, each fatal on failure:
      col_gram_xty's output against feature_sign_fused (route check);
      feature_sign_shared at K=24 on R^T R, R^T data;
   5. the cold-CD kernels at full width (M=44477): cd_fused at K=24
-     (N=377), cd_streamed at K=50 on col_gram_xty grams (N=300; its group
-     width printed) and at K=24 against cd_fused (route check), cd_shared
-     at K=24; each against its plain version at a short sweep cap and at
-     the 200-sweep cap (every column's objective, and element-wise at the
-     short cap);
+     (N=377; its group width and the columns an SM sweeps at once printed,
+     and a bit-for-bit repeat), cd_streamed at K=50 on col_gram_xty grams
+     (N=300; its group width printed) and at K=24 against cd_fused (route
+     check), cd_shared at K=24; each against its plain version at a short
+     sweep cap and at the 200-sweep cap (every column's objective, and
+     element-wise at the short cap);
   6. K = 96 and K = 128 at M=2048 (N=300): col_gram_xty (with the f64
      gate of phase 4 and its library_ms), feature_sign,
      feature_sign_shared, cd_streamed and cd_shared against their plain
@@ -55,9 +56,10 @@ Phases, each fatal on failure:
  10. cold-CD fits (col_solver="cd", cd_warm_start=False) of the problems
      of phases 8-9: flagship masked and dense, K=50 masked; the final loss
      is set against the FSS fit's;
- 11. profile: torch.profiler over 10 iterations of the flagship masked FSS
-     fit, of the cold-CD flagship masked fit and of the cold-CD K=50 masked
-     fit, each from the state its fit (phase 8 or 10) ended in; each
+ 11. profile: torch.profiler over 10 iterations of the flagship masked and
+     dense FSS fits, of the cold-CD flagship masked and dense fits and of
+     the cold-CD K=50 masked fit, each from the state its fit (phase 8 or
+     10) ended in; each
      kernel's device ms per iteration and per launch, each wrapper's in-fit
      device ms per launch (its kernels together), and the device busy
      share; fails if a kernel that launched shows no device time;
@@ -67,7 +69,11 @@ Phases, each fatal on failure:
      column update at K=24 (the flagship cold-CD masked and dense fits'
      end states) and K=50 (the cold-CD K=50 fit's end state and its fifth
      update), with the bound of that launch, its sweeps counted, and the
-     sweeps that columns swept in lockstep, 2 or 4 to a warp, take.
+     sweeps that columns swept in lockstep, 2 or 4 to a warp, take; at the
+     cold-CD flagship masked fit's end state also a replay of cd_fused's
+     refill schedule (refill_replay): the sweeps its warps take when each
+     group of a warp is fed the block's next column as its last
+     converges.
 The route checks (phases 4, 5): the fused kernels and col_gram_xty sum the
 exact bf16 planes of the f32 table on the tensor cores in the same k-steps
 of 16 rows, but the fused kernels sum Xty row by row and col_gram_xty each
@@ -831,6 +837,9 @@ def phase_kernels_cd(torch, gram, cd):
                                 gram_input_bound(50, M, shared=False,
                                                  sweeps=sw))
     out["cd_streamed"]["lanes"], columns = cd.cd_streamed_widths(50)[0]
+    lanes, fused_columns = cd.cd_fused_widths(K)[0]
+    print(f"cd_fused at K={K}: group width L={lanes}, {32 // lanes} columns a "
+          f"warp, {fused_columns} columns an SM sweeps at once")
     for name in ("cd_fused", "cd_shared", "cd_streamed"):
         r = out[name]
         print(f"{name}: kernel {r['ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
@@ -1016,13 +1025,16 @@ KERNEL_NAMES = {"level_gram": "level_gram", "row_xty": "row_xty",
                 "feature_sign_fused": "fused_kernel<",
                 "masked_eval": "masked_eval", "col_gram_xty": "col_gram_xty",
                 "feature_sign": "streamed_kernel<",
-                "cd_fused": "fused_kernel<", "cd_streamed": "streamed_kernel<"}
+                "feature_sign_shared": "shared_kernel<",
+                "cd_fused": "fused_kernel<", "cd_streamed": "streamed_kernel<",
+                "cd_shared": "shared_kernel<"}
 
 
 def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
-                alpha, iters=10, **solver):
-    """torch.profiler over `iters` iterations of the object's masked fit
-    (FSS, or the FitConfig solver settings in `solver`) from `state` (where
+                alpha, iters=10, masked=True, **solver):
+    """torch.profiler over `iters` iterations of the object's masked (or,
+    with masked=False, dense) fit (FSS, or the FitConfig solver settings in
+    `solver`) from `state` (where
     an earlier fit ended: in-fit inputs, kernels built and warm), boundary
     evals included (three: before, after iteration 0 and after the last).
     The problem is staged before the window, which holds train/als.optimize
@@ -1037,13 +1049,14 @@ def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
     from insider_tpu_torch.train import als
 
     cfg = FitConfig(latent_dim=latent_dimension, lambda1=lambda_,
-                    lambda2=lambda_, alpha=alpha, masked=True,
+                    lambda2=lambda_, alpha=alpha, masked=masked,
                     global_tol=obj.params["global_tol"],
                     sub_tol=obj.params["sub_tol"], max_iter=iters - 1,
                     seed=obj.seed, **solver)
     problem = als.build_problem(obj.data, obj.confounder,
                                 obj.train_indicator + obj.test_indicator,
-                                obj.na_indicator, masked=True, device="cuda")
+                                obj.na_indicator, masked=masked,
+                                device="cuda")
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
@@ -1252,14 +1265,46 @@ def cd_counts(torch, G, xty, beta0, lam, alpha, tol, max_sweeps):
                 active=active.sum(0))
 
 
-def cd_count_summary(torch, name, K, c, bnd=None):
+def refill_replay(sweeps, P, CB=64, warps=8):
+    """A replay of cd_fused's refill schedule (csrc/fss.cu) on the sweeps
+    that each column takes (cd_counts): each block of CB consecutive
+    columns is solved by `warps` warps of P groups; group g of each warp
+    takes the block's columns c = g (mod P) in order, the next one as its
+    last converges, so a group's columns run back to back, and a warp
+    sweeps while any of its groups holds a column (the refill prologue is
+    not counted).  Returns (the warps' sweeps, P at a time, over the
+    columns' own: what lockstep with refill costs; the mean over blocks of
+    the block's slowest warp over its mean warp: how long a block holds
+    its shared memory beyond its warps' average)."""
+    import heapq
+
+    sw = [int(x) for x in sweeps.cpu().tolist()]
+    warp_sweeps, tail = 0, []
+    for j0 in range(0, len(sw), CB):
+        cols = sw[j0:j0 + CB]
+        ends = [[0] * P for _ in range(warps)]
+        for g in range(P):
+            free = [(0, w) for w in range(warps)]
+            for s in cols[g::P]:
+                t, w = heapq.heappop(free)
+                ends[w][g] = t + s
+                heapq.heappush(free, (t + s, w))
+        per_warp = [max(e) for e in ends]
+        warp_sweeps += sum(per_warp)
+        mean = sum(per_warp) / warps
+        tail.append(max(per_warp) / mean if mean else 1.0)
+    return P * warp_sweeps / max(sum(sw), 1), sum(tail) / len(tail)
+
+
+def cd_count_summary(torch, name, K, c, bnd=None, refill=False):
     """One line of cd_counts' distributions: median, p90, max and mean of
     the sweeps and of the active coordinates per column, the share of
     columns at the sweep cap, and for P = 2 and 4 the sweeps that P
     neighbouring columns swept in lockstep take (P times the most of the
     P; cd_streamed's groups, fss_streamed.cu) over the columns' own; with
-    `bnd`, the kernel's bound on this input (bound_ms, bound_by), its
-    sweeps counted."""
+    `refill`, refill_replay's two ratios for P = 1, 2 and 4 (cd_fused at L
+    = 32, 16 and 8); with `bnd`, the kernel's bound on this input
+    (bound_ms, bound_by), its sweeps counted."""
     def dist(x):
         x = x.double()
         return dict(median=float(x.median()), p90=float(x.quantile(0.9)),
@@ -1275,6 +1320,10 @@ def cd_count_summary(torch, name, K, c, bnd=None):
                sweeps=dist(c["sweeps"]), active=dist(c["active"]),
                capped_share=float(c["capped"].double().mean()),
                lockstep_sweeps=lockstep)
+    if refill:
+        replay = {p: refill_replay(c["sweeps"], p) for p in (1, 2, 4)}
+        out.update(refill_sweeps={p: r[0] for p, r in replay.items()},
+                   refill_block_tail={p: r[1] for p, r in replay.items()})
     if bnd is not None:
         out.update(bound_ms=bnd[0], bound_by=bnd[1],
                    sweeps_bound_ms=sweep_bound(K, c["sweeps"])[0])
@@ -1385,7 +1434,7 @@ def phase_counts(torch, itt, gram, flagship, flag_state, cd_flag_state,
     n, m = mask.shape
     out["cold CD flagship fit, warm"] = cd_count_summary(
         torch, "cold-CD flagship masked fit's end state", K, c,
-        fused_bound(n, K, m, sweeps=c["sweeps"]))
+        fused_bound(n, K, m, sweeps=c["sweeps"]), refill=True)
     del prob, G
 
     cfg = FitConfig(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
@@ -1614,6 +1663,7 @@ def main():
     dense, fss_dense, _ = run_fit(
         torch, flagship, wrappers, dict(feature_sign_shared=1, **no_cd),
         "flagship dense fit", partition=0, **FLAG_FIT)
+    dense_state = flagship.fit_result.state
     launches["feature_sign_shared"] = dense["feature_sign_shared"]
 
     # 9. K=50 masked fit at the prediXcan shape
@@ -1647,17 +1697,21 @@ def main():
         print(f"{name}: final loss {loss!r} vs FSS fit {fss_loss!r} "
               f"(ratio {loss / fss_loss:.6f})")
 
-    # 11. in-fit profiles: the flagship masked FSS fit, the cold-CD
-    # flagship masked and K=50 masked fits
+    # 11. in-fit profiles: the flagship masked and dense FSS fits, the
+    # cold-CD flagship masked and dense fits and the cold-CD K=50 masked fit
     print("profile of the flagship masked fit (FSS), 10 iterations:")
     profile_fit(torch, flagship, wrappers, flag_state, K, LAM, ALPHA)
-    for name, obj, k, lam, alpha in (
-            ("cold CD flagship fit", flagship, K, LAM, ALPHA),
+    print("profile of the flagship dense fit (FSS), 10 iterations:")
+    profile_fit(torch, flagship, wrappers, dense_state, K, LAM, ALPHA,
+                masked=False)
+    for name, obj, k, lam, alpha, masked in (
+            ("cold CD flagship fit", flagship, K, LAM, ALPHA, True),
+            ("cold CD flagship dense fit", flagship, K, LAM, ALPHA, False),
             ("cold CD K=50 masked fit", predixcan, 50, K50_FIT["lambda_"],
-             K50_FIT["alpha"])):
+             K50_FIT["alpha"], True)):
         print(f"profile of the {name}, 10 iterations:")
         profile_fit(torch, obj, wrappers, cd_states[name], k, lam, alpha,
-                    **COLD)
+                    masked=masked, **COLD)
 
     # 12. what the columns cost: counting replays of the FSS and cold-CD
     # iterations

@@ -24,101 +24,191 @@
 // active coordinates), each an a-wide row update; CD up to max_sweeps x K
 // dependent coordinate updates.
 //
-// Design: a block of 8 warps owns 32 consecutive columns.  Row chunks of R
-// (transposed), mask and data are staged with 4-byte cp.async in a ring of
-// three, two steps ahead (rows of the (N, M) inputs are not 16-byte aligned
-// at odd M), so one kernel covers any N.  The grams are the TPU kernel's arithmetic
+// Design: a block of 8 warps owns CB consecutive columns (FSS 32, CD 64)
+// and builds them in batches of 32.  Row chunks of R (transposed), mask and
+// data are staged with 4-byte cp.async in a ring of three, two steps ahead
+// (rows of the (N, M) inputs are not 16-byte aligned at odd M), so one
+// kernel covers any N.  The grams are the TPU kernel's arithmetic
 // (fss_pallas.py:_build_gram_table, _planes_dot): a GEMM
 //     G (pairs x columns) = table (pairs x rows) . mask (rows x columns)
 // on mma.sync m16n8k16, bf16 in and f32 out, over the K(K+1)/2 pairs
-// k1 <= k2 (m-tiles of 16) and the block's 32 columns (4 n-tiles of 8).
+// k1 <= k2 (m-tiles of 16) and a batch's 32 columns (4 n-tiles of 8).
 // The table is never stored: each warp builds the A fragments of its own
 // m-tiles (tile w, w + 8, ...) from the staged R chunk, one product per
 // entry split into three exact bf16 planes (csrc/mma.cuh: split3); the 0/1
 // mask is exact in bf16.  Each k-step's three plane products start from
 // zero and are added into the running sums in f32 (mma_bf16_zero): the f32
-// sum up to its order.  Xty is f32 FMA as in the TPU kernel (precision HIGHEST): warp w
-// accumulates coordinates w * K/8 .. for the 32 columns, lane = column, in
-// row order.  The accumulators are scattered into the grams (CB, K, K + 1),
-// both triangles, in the shared memory that held the staging ring.  The
-// solver then runs one warp per column (fss_core.cuh; FSS keeps its
-// compacted active system in registers, a row a lane, with a pivot-row
-// buffer in shared memory), the warps taking the block's columns one at a
-// time from a shared counter.  The ragged column tail
-// (M = 44477) is masked in the kernel, not padded.
+// sum up to its order.  Xty is f32 FMA as in the TPU kernel (precision
+// HIGHEST): warp w accumulates coordinates w * K/8 .. for the 32 columns,
+// lane = column, in row order.  The ragged column tail (M = 44477) is
+// masked in the kernel, not padded.
+//
+// FSS: the accumulators are scattered into the grams (CB, K, K + 1), both
+// triangles, in the shared memory that held the staging ring, and one warp
+// solves a column at a time (fss_core.cuh: fss_column, its compacted
+// active system in registers, a row a lane, with a pivot-row buffer in
+// shared memory), the warps taking the block's columns from a shared
+// counter.
+//
+// CD: each column's upper triangle is scattered packed (fss_core.cuh:
+// packed_rows, 300 floats at K=24 where the full form takes 600), so a
+// block holds 64 columns in about the room that 32 full ones took; the ring,
+// whose steps hold 32 rows, lies over the second batch's grams.  The solve
+// is cd_group_columns: P = 32 / L columns a warp, one to each group of L
+// lanes, so one issue of the per-coordinate scalar chain serves P columns,
+// and a block's 8 warps sweep 8 P columns at once, two blocks an SM at K
+// <= 24.  The columns stop at very different sweeps (the cold-CD flagship
+// fit's: 63 at the median, 120 at most; chip_smoke.py phase 12), so a
+// group whose column converges takes the block's next at the next sweep
+// boundary (refill) while the other groups of its warp wait there; group
+// g of every warp takes the columns c = g (mod P) from its own counter, so
+// the P grams a warp reads lie L (mod 32) floats apart, in distinct banks.
+// Every width L gives the same bits.  The width is fixed by K
+// (cd_instances: the first listed runs), from times on an NVIDIA H100 80GB
+// HBM3 at 700 W (chip_ab.py): in the cold-CD flagship fit (K=24) L = 8
+// took 3.04-3.10 ms a launch, L = 16 4.14-4.15 and L = 32 7.25-7.27; a
+// replay of the refill schedule on that fit's sweep counts (chip_smoke.py
+// phase 12) puts the warps' sweeps at 1.30 times the columns' own at L =
+// 8, against 1.53 in lockstep without refill.
 #include "fss_core.cuh"
 #include "mma.cuh"
 
 namespace {
 
+using insider::cd_group_columns;
 using insider::ceil_div;
 using insider::cp_async4;
 using insider::cp_async_commit;
 using insider::cp_async_wait;
+using insider::group_take;
 using insider::load_coords;
 using insider::mma_bf16;
 using insider::mma_bf16_zero;
 using insider::next_column;
 using insider::pack_exact;
+using insider::packed_rows;
+using insider::packed_stride;
 using insider::pair_of;
+using insider::Rows;
 using insider::Solver;
 using insider::solve_column;
 using insider::split3;
 using insider::store_coords;
 
-constexpr int CB = 32;         // columns per block: 4 n-tiles of 8
-constexpr int WARPS = 8;       // the solve takes the CB columns one at a time
-constexpr int NT = CB / 8;
-constexpr int RCH = 64;        // rows per staged chunk: four k-steps of 16
-constexpr int RS = RCH + 8;    // row stride of the transposed R chunk
-constexpr int MS = CB + 4;     // row stride of the mask and data tiles
+constexpr int WARPS = 8;       // FSS: the solve takes the columns one at a time
+constexpr int BW = 32;         // columns of one build batch: 4 n-tiles of 8
+constexpr int NT = BW / 8;
+constexpr int MS = BW + 4;     // row stride of the mask and data tiles
+constexpr int RING = 3;        // staging steps in flight
+
+// The columns a block owns, in batches of BW, and the rows of a staging
+// step (four k-steps of 16 for FSS, two for CD, whose ring lies beside the
+// first batch's grams).
+template <bool CD>
+struct Block {
+  static constexpr int BATCHES = CD ? 2 : 1;
+  static constexpr int CB = BW * BATCHES;
+  static constexpr int RCH = CD ? 32 : 64;
+  static constexpr int RS = RCH + 8;    // row stride of the transposed R chunk
+};
 
 // Shapes of the build at a KMAX: pairs, m-tiles per warp, Xty coordinates
 // per warp, and the f32 words of one staging step (R^T, mask, data).
-template <int KMAX>
+template <int KMAX, bool CD>
 struct Build {
   static constexpr int MTILES = (KMAX * (KMAX + 1) / 2 + 15) / 16;
   static constexpr int MTW = (MTILES + WARPS - 1) / WARPS;
   static constexpr int XW = KMAX / WARPS;
-  static constexpr int STAGE = KMAX * RS + 2 * RCH * MS;
+  static constexpr int STAGE =
+      KMAX * Block<CD>::RS + 2 * Block<CD>::RCH * MS;
 };
-constexpr int RING = 3;        // staging steps in flight
 
-// Shared-memory floats: the grams (CB, K, K + 1), Xty (CB, K) and the
-// solver's workspaces (WARPS of them), in that order; the staging ring of
-// the build lies over them while they are not yet written.
+// Shared-memory layout, in floats.  FSS: the grams (CB, K, K + 1), Xty
+// (CB, K) and the solver's workspaces (WARPS of them), in that order, the
+// staging ring over them while they are not yet written.  CD: the packed
+// grams' row starts (K ints), Xty (CB, K), then the CB packed grams, one
+// every S = packed_stride<L>(K) floats, the ring over the last batch's.
 template <int KMAX, bool CD>
-size_t smem_floats(int K) {
-  const int GS = K + 1;
-  const size_t solve = (size_t)CB * K * GS + (size_t)CB * K +
-                       (size_t)WARPS * Solver<CD>::workspace_floats(1, K);
-  const size_t ring = RING * (size_t)Build<KMAX>::STAGE;
-  return solve > ring ? solve : ring;
-}
+struct Layout {
+  size_t xty, grams, ring, total;
+  __host__ __device__ Layout(int K, int S) {
+    const size_t ring_floats = RING * (size_t)Build<KMAX, CD>::STAGE;
+    constexpr int CB = Block<CD>::CB;
+    if (CD) {
+      xty = (K + 3) & ~3;
+      grams = xty + (((size_t)CB * K + 3) & ~(size_t)3);
+      ring = grams + (size_t)(CB - BW) * S;
+      const size_t last = (size_t)BW * S;
+      total = ring + (last > ring_floats ? last : ring_floats);
+    } else {
+      const size_t solve =
+          (size_t)CB * K * (K + 1) + (size_t)CB * K +
+          (size_t)WARPS * Solver<false>::workspace_floats(1, K);
+      grams = ring = 0;
+      xty = (size_t)CB * K * (K + 1);
+      total = solve > ring_floats ? solve : ring_floats;
+    }
+  }
+};
+
+// The CD solve's columns (cd_group_columns' feed): group g of each warp
+// takes the block's columns c = g (mod P) from counter g, the packed gram
+// of column c at grams + c S and its Xty at Bs + c K.
+template <int L>
+struct FusedColumns {
+  static constexpr int P = 32 / L;
+  static constexpr bool REFILL = true;
+  int* counters;
+  const float* grams;
+  const float* Bs;
+  const float* beta0_;
+  float* out;
+  int S, K, M, j0;
+  __device__ int next(unsigned mask) {
+    const int g = (threadIdx.x & 31) / L;
+    const int t = group_take<L>(counters + g, mask);
+    const int c = g + P * t;
+    return t < Block<true>::CB / P && j0 + c < M ? c : -1;
+  }
+  __device__ const float* gram(int c) const { return grams + (size_t)c * S; }
+  __device__ float xty(int c, int i) const { return Bs[c * K + i]; }
+  __device__ float beta0(int c, int i) const {
+    return beta0_[(size_t)i * M + j0 + c];
+  }
+  __device__ void store(int c, int i, float v) const {
+    out[(size_t)i * M + j0 + c] = v;
+  }
+};
 
 // Two blocks per SM where the shared memory allows it (K <= 24): the solve
-// is latency-bound, and a second block's warps hide it.
-template <int KMAX, bool CD>
+// is latency-bound, and a second block's warps hide it.  L: the CD solve's
+// group width (FSS: 32, unused).
+template <int KMAX, bool CD, int L>
 __global__ void __launch_bounds__(WARPS * 32, KMAX <= 24 ? 2 : 1)
 fused_kernel(const float* __restrict__ mask, const float* __restrict__ data,
              const float* __restrict__ R, const float* __restrict__ beta0,
              float* __restrict__ out, int N, int M, int K,
-             Solver<CD> solver) {
-  using B = Build<KMAX>;
+             Solver<CD> solver, Rows rows) {
+  using B = Build<KMAX, CD>;
+  using Bk = Block<CD>;
   extern __shared__ __align__(16) float smem[];
-  const int GS = K + 1;
-  float* Gs = smem;                       // (CB, K, GS) grams
-  float* Bs = Gs + (size_t)CB * K * GS;   // (CB, K) Xty
-  float* Ws = Bs + (size_t)CB * K;        // (WARPS, workspace) the solver's
-  __shared__ int next;                    // the solve's column counter
+  const int GS = K + 1;                   // FSS: the grams' row stride
+  const int S = rows.stride;              // CD: one packed gram
+  const Layout<KMAX, CD> lay(K, S);
+  int* Rs = reinterpret_cast<int*>(smem);  // CD: the packed grams' rows
+  float* Bs = smem + lay.xty;             // (CB, K) Xty
+  float* ring = smem + lay.ring;
+  __shared__ int next[4];                 // the solve's column counters
 
   const int tid = threadIdx.x;
   const int w = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int j0 = blockIdx.x * CB;
+  const int j0 = blockIdx.x * Bk::CB;
+  if (CD)
+    for (int a = tid; a < K; a += WARPS * 32) Rs[a] = rows.start[a];
 
-  // 1. grams and Xty of this block's columns
+  // 1. grams and Xty of this block's columns, a batch of BW at a time
   // this lane's A-fragment rows: pairs mt * 16 + g and + 8 of each m-tile
   int pa[B::MTW], pb[B::MTW];
 #pragma unroll
@@ -127,195 +217,239 @@ fused_kernel(const float* __restrict__ mask, const float* __restrict__ data,
     pa[u] = pair_of(q, K);
     pb[u] = pair_of(q + 8, K);
   }
-  float acc[B::MTW][NT][4];
-  float xty[B::XW];
+  const int nchunks = (N + Bk::RCH - 1) / Bk::RCH;
+#pragma unroll 1
+  for (int bt = 0; bt < Bk::BATCHES; ++bt) {
+    const int jb = j0 + bt * BW;
+    float acc[B::MTW][NT][4];
+    float xty[B::XW];
 #pragma unroll
-  for (int u = 0; u < B::MTW; ++u)
+    for (int u = 0; u < B::MTW; ++u)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[u][n][r] = 0.f;
+        for (int r = 0; r < 4; ++r) acc[u][n][r] = 0.f;
 #pragma unroll
-  for (int u = 0; u < B::XW; ++u) xty[u] = 0.f;
+    for (int u = 0; u < B::XW; ++u) xty[u] = 0.f;
 
-  // staging step c: R^T (KMAX, RS), mask and data (RCH, MS), zeros past
-  // the edges (a NaN left in shared memory would survive a zero mask)
-  const int nchunks = (N + RCH - 1) / RCH;
-  auto stage = [&](int c) {
-    if (c >= nchunks) {                   // an empty group keeps the count
-      cp_async_commit();
-      return;
-    }
-    float* Rt = smem + (c % RING) * B::STAGE;
-    float* Ms = Rt + KMAX * RS;
-    float* Xs = Ms + RCH * MS;
-    const int i0 = c * RCH;
-    for (int e = tid; e < RCH * K; e += WARPS * 32) {
-      const int i = e / K, k = e % K;
-      const bool ok = i0 + i < N;
-      cp_async4(Rt + k * RS + i, ok ? R + (size_t)(i0 + i) * K + k : R, ok);
-    }
-    for (int e = tid; e < RCH * CB; e += WARPS * 32) {
-      const int i = e / CB, jj = e % CB, j = j0 + jj;
-      const bool ok = i0 + i < N && j < M;
-      const size_t at = (size_t)(i0 + i) * M + j;
-      cp_async4(Ms + i * MS + jj, ok ? mask + at : mask, ok);
-      cp_async4(Xs + i * MS + jj, ok ? data + at : data, ok);
-    }
-    cp_async_commit();
-  };
-
-  stage(0);
-  stage(1);
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<1>();
-    // step c has landed for every thread, and step c - 1 is consumed: its
-    // slot, (c + 2) % RING, takes step c + 2
-    __syncthreads();
-    stage(c + 2);
-    const float* Rt = smem + (c % RING) * B::STAGE;
-    const float* Ms = Rt + KMAX * RS;
-    const float* Xs = Ms + RCH * MS;
-
-#pragma unroll
-    for (int ks = 0; ks < RCH; ks += 16) {
-      // B fragments: mask rows ks + 2t, +1, +8, +9 of column n * 8 + g
-      uint32_t bf[NT][2];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float* m = Ms + (ks + 2 * t) * MS + n * 8 + g;
-        bf[n][0] = pack_exact(m[0], m[MS]);
-        bf[n][1] = pack_exact(m[8 * MS], m[9 * MS]);
+    // staging step c: R^T (KMAX, RS), mask and data (RCH, MS), zeros past
+    // the edges (a NaN left in shared memory would survive a zero mask)
+    auto stage = [&](int c) {
+      if (c >= nchunks) {                 // an empty group keeps the count
+        cp_async_commit();
+        return;
       }
+      float* Rt = ring + (c % RING) * B::STAGE;
+      float* Ms = Rt + KMAX * Bk::RS;
+      float* Xs = Ms + Bk::RCH * MS;
+      const int i0 = c * Bk::RCH;
+      for (int e = tid; e < Bk::RCH * K; e += WARPS * 32) {
+        const int i = e / K, k = e % K;
+        const bool ok = i0 + i < N;
+        cp_async4(Rt + k * Bk::RS + i, ok ? R + (size_t)(i0 + i) * K + k : R,
+                  ok);
+      }
+      for (int e = tid; e < Bk::RCH * BW; e += WARPS * 32) {
+        const int i = e / BW, jj = e % BW, j = jb + jj;
+        const bool ok = i0 + i < N && j < M;
+        const size_t at = (size_t)(i0 + i) * M + j;
+        cp_async4(Ms + i * MS + jj, ok ? mask + at : mask, ok);
+        cp_async4(Xs + i * MS + jj, ok ? data + at : data, ok);
+      }
+      cp_async_commit();
+    };
+
+    stage(0);
+    stage(1);
+    for (int c = 0; c < nchunks; ++c) {
+      cp_async_wait<1>();
+      // step c has landed for every thread, and step c - 1 is consumed: its
+      // slot, (c + 2) % RING, takes step c + 2
+      __syncthreads();
+      stage(c + 2);
+      const float* Rt = ring + (c % RING) * B::STAGE;
+      const float* Ms = Rt + KMAX * Bk::RS;
+      const float* Xs = Ms + Bk::RCH * MS;
+
 #pragma unroll
-      for (int u = 0; u < B::MTW; ++u) {
-        if ((w + WARPS * u) * 16 >= K * (K + 1) / 2) break;  // warp-uniform
-        // A fragments: table rows (pairs) pa, pb at rows ks + 2t, +1, +8, +9
-        float xa[4], xb[4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = ks + 2 * t + 8 * h;
-          float2 a1 = make_float2(0.f, 0.f), a2 = a1, b1 = a1, b2 = a1;
-          if (pa[u] >= 0) {
-            a1 = *reinterpret_cast<const float2*>(Rt + (pa[u] & 0xffff) * RS + i);
-            a2 = *reinterpret_cast<const float2*>(Rt + (pa[u] >> 16) * RS + i);
-          }
-          if (pb[u] >= 0) {
-            b1 = *reinterpret_cast<const float2*>(Rt + (pb[u] & 0xffff) * RS + i);
-            b2 = *reinterpret_cast<const float2*>(Rt + (pb[u] >> 16) * RS + i);
-          }
-          xa[2 * h] = a1.x * a2.x;
-          xa[2 * h + 1] = a1.y * a2.y;
-          xb[2 * h] = b1.x * b2.x;
-          xb[2 * h + 1] = b1.y * b2.y;
-        }
-        uint32_t a[3][4];
-        split3(xa[0], xa[1], a[0][0], a[1][0], a[2][0]);
-        split3(xb[0], xb[1], a[0][1], a[1][1], a[2][1]);
-        split3(xa[2], xa[3], a[0][2], a[1][2], a[2][2]);
-        split3(xb[2], xb[3], a[0][3], a[1][3], a[2][3]);
-        // this k-step's three products from zero, smallest plane first
+      for (int ks = 0; ks < Bk::RCH; ks += 16) {
+        // B fragments: mask rows ks + 2t, +1, +8, +9 of column n * 8 + g
+        uint32_t bf[NT][2];
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          float d[4];
-          mma_bf16_zero(d, a[2], bf[n][0], bf[n][1]);
-          mma_bf16(d, a[1], bf[n][0], bf[n][1]);
-          mma_bf16(d, a[0], bf[n][0], bf[n][1]);
+          const float* m = Ms + (ks + 2 * t) * MS + n * 8 + g;
+          bf[n][0] = pack_exact(m[0], m[MS]);
+          bf[n][1] = pack_exact(m[8 * MS], m[9 * MS]);
+        }
 #pragma unroll
-          for (int r = 0; r < 4; ++r) acc[u][n][r] += d[r];
+        for (int u = 0; u < B::MTW; ++u) {
+          if ((w + WARPS * u) * 16 >= K * (K + 1) / 2) break;  // warp-uniform
+          // A fragments: table rows (pairs) pa, pb at rows ks + 2t, +1, +8,
+          // +9
+          float xa[4], xb[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = ks + 2 * t + 8 * h;
+            float2 a1 = make_float2(0.f, 0.f), a2 = a1, b1 = a1, b2 = a1;
+            if (pa[u] >= 0) {
+              a1 = *reinterpret_cast<const float2*>(
+                  Rt + (pa[u] & 0xffff) * Bk::RS + i);
+              a2 = *reinterpret_cast<const float2*>(
+                  Rt + (pa[u] >> 16) * Bk::RS + i);
+            }
+            if (pb[u] >= 0) {
+              b1 = *reinterpret_cast<const float2*>(
+                  Rt + (pb[u] & 0xffff) * Bk::RS + i);
+              b2 = *reinterpret_cast<const float2*>(
+                  Rt + (pb[u] >> 16) * Bk::RS + i);
+            }
+            xa[2 * h] = a1.x * a2.x;
+            xa[2 * h + 1] = a1.y * a2.y;
+            xb[2 * h] = b1.x * b2.x;
+            xb[2 * h + 1] = b1.y * b2.y;
+          }
+          uint32_t a[3][4];
+          split3(xa[0], xa[1], a[0][0], a[1][0], a[2][0]);
+          split3(xb[0], xb[1], a[0][1], a[1][1], a[2][1]);
+          split3(xa[2], xa[3], a[0][2], a[1][2], a[2][2]);
+          split3(xb[2], xb[3], a[0][3], a[1][3], a[2][3]);
+          // this k-step's three products from zero, smallest plane first
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            float d[4];
+            mma_bf16_zero(d, a[2], bf[n][0], bf[n][1]);
+            mma_bf16(d, a[1], bf[n][0], bf[n][1]);
+            mma_bf16(d, a[0], bf[n][0], bf[n][1]);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[u][n][r] += d[r];
+          }
+        }
+      }
+
+      // Xty: coordinates w * XW + u of column lane, rows in order (the rows
+      // past N are zeros and add nothing); R four rows at a time
+#pragma unroll 2
+      for (int i = 0; i < Bk::RCH; i += 4) {
+        float md[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          md[h] = Ms[(i + h) * MS + lane] * Xs[(i + h) * MS + lane];
+#pragma unroll
+        for (int u = 0; u < B::XW; ++u) {
+          const float4 r = *reinterpret_cast<const float4*>(
+              Rt + (w * B::XW + u) * Bk::RS + i);
+          xty[u] = fmaf(r.x, md[0], xty[u]);
+          xty[u] = fmaf(r.y, md[1], xty[u]);
+          xty[u] = fmaf(r.z, md[2], xty[u]);
+          xty[u] = fmaf(r.w, md[3], xty[u]);
         }
       }
     }
+    cp_async_wait<0>();
+    __syncthreads();                      // every step is consumed
 
-    // Xty: coordinates w * XW + u of column lane, rows in order (the rows
-    // past N are zeros and add nothing); R four rows at a time
-#pragma unroll 2
-    for (int i = 0; i < RCH; i += 4) {
-      float md[4];
+    // scatter into the grams over the drained ring: FSS both triangles,
+    // CD the upper one packed
 #pragma unroll
-      for (int h = 0; h < 4; ++h)
-        md[h] = Ms[(i + h) * MS + lane] * Xs[(i + h) * MS + lane];
+    for (int u = 0; u < B::MTW; ++u) {
 #pragma unroll
-      for (int u = 0; u < B::XW; ++u) {
-        const float4 r =
-            *reinterpret_cast<const float4*>(Rt + (w * B::XW + u) * RS + i);
-        xty[u] = fmaf(r.x, md[0], xty[u]);
-        xty[u] = fmaf(r.y, md[1], xty[u]);
-        xty[u] = fmaf(r.z, md[2], xty[u]);
-        xty[u] = fmaf(r.w, md[3], xty[u]);
+      for (int r = 0; r < 4; ++r) {
+        const int v = (r < 2) ? pa[u] : pb[u];
+        if (v < 0) continue;
+        const int k1 = v & 0xffff, k2 = v >> 16;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int cl = bt * BW + n * 8 + 2 * t + (r & 1);
+          if (CD) {
+            smem[lay.grams + (size_t)cl * S + Rs[k1] + k2 - k1] =
+                acc[u][n][r];
+          } else {
+            smem[((size_t)cl * K + k1) * GS + k2] = acc[u][n][r];
+            smem[((size_t)cl * K + k2) * GS + k1] = acc[u][n][r];
+          }
+        }
       }
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();                        // every step is consumed
-
-  // scatter into the grams, both triangles, over the drained ring
 #pragma unroll
-  for (int u = 0; u < B::MTW; ++u) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int v = (r < 2) ? pa[u] : pb[u];
-      if (v < 0) continue;
-      const int k1 = v & 0xffff, k2 = v >> 16;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int cl = n * 8 + 2 * t + (r & 1);
-        Gs[((size_t)cl * K + k1) * GS + k2] = acc[u][n][r];
-        Gs[((size_t)cl * K + k2) * GS + k1] = acc[u][n][r];
-      }
+    for (int u = 0; u < B::XW; ++u) {
+      const int k = w * B::XW + u;
+      if (k < K) Bs[(bt * BW + lane) * K + k] = xty[u];
     }
+    __syncthreads();          // the batch is written; the ring is free
   }
-#pragma unroll
-  for (int u = 0; u < B::XW; ++u) {
-    const int k = w * B::XW + u;
-    if (k < K) Bs[lane * K + k] = xty[u];
-  }
-  if (tid == 0) next = 0;
+  if (tid < 4) next[tid] = 0;
   __syncthreads();
 
-  // 2. the solve, one warp per column
-  float* W = Ws + (size_t)w * Solver<CD>::workspace_floats(1, K);
-  for (;;) {
-    const int cl = next_column(&next);
-    const int j = j0 + cl;
-    if (cl >= CB || j >= M) break;        // warp-uniform
-    const float xq[1] = {lane < K ? Bs[cl * K + lane] : 0.f};
-    float beta[1];
-    load_coords<1>(beta0, K, M, j, beta);
-    solve_column<KMAX, 1>(solver, Gs + (size_t)cl * K * GS, W, K, GS, xq,
-                          beta);
-    store_coords<1>(out, K, M, j, beta);
+  // 2. the solve
+  if constexpr (CD) {
+    FusedColumns<L> cols{next, smem + lay.grams, Bs, beta0, out, S, K, M,
+                         j0};
+    cd_group_columns<(KMAX + L - 1) / L, L>(cols, Rs, K, solver.lam,
+                                            solver.alpha, solver.tol,
+                                            solver.max_sweeps);
+  } else {
+    // one warp per column
+    float* W = smem + lay.xty + (size_t)Bk::CB * K +
+               (size_t)w * Solver<false>::workspace_floats(1, K);
+    for (;;) {
+      const int cl = next_column(next);
+      const int j = j0 + cl;
+      if (cl >= Bk::CB || j >= M) break;  // warp-uniform
+      const float xq[1] = {lane < K ? Bs[cl * K + lane] : 0.f};
+      float beta[1];
+      load_coords<1>(beta0, K, M, j, beta);
+      solve_column<KMAX, 1>(solver, smem + (size_t)cl * K * GS, W, K, GS,
+                            xq, beta);
+      store_coords<1>(out, K, M, j, beta);
+    }
   }
 }
 
-template <int KMAX, bool CD>
+template <int KMAX, bool CD, int L>
+size_t smem_bytes(int K) {
+  return sizeof(float) * Layout<KMAX, CD>(K, packed_stride<L>(K)).total;
+}
+
+template <int KMAX, bool CD, int L>
 cudaError_t launch(const float* mask, const float* data, const float* R,
                    const float* beta0, float* out, int N, int M, int K,
                    Solver<CD> solver, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<KMAX, CD>(K);
+  const size_t smem = smem_bytes<KMAX, CD, L>(K);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_kernel<KMAX, CD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_kernel<KMAX, CD, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  fused_kernel<KMAX, CD><<<ceil_div(M, CB), WARPS * 32, smem, stream>>>(
-      mask, data, R, beta0, out, N, M, K, solver);
+  Rows rows{};                            // CD: the packed grams' rows
+  if (CD) {
+    packed_rows<L>(K, rows.start);
+    rows.stride = packed_stride<L>(K);
+  }
+  fused_kernel<KMAX, CD, L>
+      <<<ceil_div(M, Block<CD>::CB), WARPS * 32, smem, stream>>>(
+          mask, data, R, beta0, out, N, M, K, solver, rows);
   return cudaGetLastError();
 }
 
-template <bool CD>
-int fused(const float* mask, const float* data, const float* R,
-          const float* beta0, float* out, int N, int M, int K,
-          Solver<CD> solver, cudaStream_t stream) {
-  if (N < 1 || M < 1 || K < 1 || K > 32) return (int)cudaErrorInvalidValue;
-  if (K <= 8)
-    return (int)launch<8>(mask, data, R, beta0, out, N, M, K, solver, stream);
-  if (K <= 16)
-    return (int)launch<16>(mask, data, R, beta0, out, N, M, K, solver,
-                           stream);
-  if (K <= 24)
-    return (int)launch<24>(mask, data, R, beta0, out, N, M, K, solver,
-                           stream);
-  return (int)launch<32>(mask, data, R, beta0, out, N, M, K, solver, stream);
+// Calls f(std::integral_constant<int, KMAX>()) with K rounded up to a
+// multiple of 8, 1 <= K <= 32.
+template <class F>
+cudaError_t by_kmax(int K, F&& f) {
+  using std::integral_constant;
+  if (K <= 8) return f(integral_constant<int, 8>());
+  if (K <= 16) return f(integral_constant<int, 16>());
+  if (K <= 24) return f(integral_constant<int, 24>());
+  return f(integral_constant<int, 32>());
+}
+
+// Calls f(kmax, widths...) with the CD instances' group widths L at K's
+// KMAX, the one the kernel runs first (header) listed first.
+template <class F>
+cudaError_t cd_instances(int K, F&& f) {
+  using std::integral_constant;
+  return by_kmax(K, [&](auto kmax) {
+    return f(kmax, integral_constant<int, 8>(), integral_constant<int, 16>(),
+             integral_constant<int, 32>());
+  });
 }
 
 }  // namespace
@@ -328,18 +462,76 @@ INSIDER_API int insider_fss_fused(const float* mask, const float* data,
                                   float* out, float l1, float l2, float tol,
                                   int N, int M, int K, int max_outer,
                                   int polish_sweeps, cudaStream_t stream) {
-  return fused(mask, data, R, beta0, out, N, M, K,
-               Solver<false>{l1, l2, tol, max_outer, polish_sweeps}, stream);
+  if (N < 1 || M < 1 || K < 1 || K > 32) return (int)cudaErrorInvalidValue;
+  const Solver<false> solver{l1, l2, tol, max_outer, polish_sweeps};
+  return (int)by_kmax(K, [&](auto kmax) {
+    return launch<decltype(kmax)::value, false, 32>(mask, data, R, beta0,
+                                                    out, N, M, K, solver,
+                                                    stream);
+  });
 }
 
 // out (K, M) = the cold strong-rule CD solution of every column, at most
 // max_sweeps sweeps.  mask, data (N, M), R (N, K), beta0 (K, M): row-major
-// f32.  lam, alpha, tol as f32; 1 <= K <= 32.
+// f32.  lam, alpha, tol as f32; 1 <= K <= 32.  lanes: the group width L, 0
+// for the instance the kernel runs at this K (header), else that of an
+// instance covering K (insider_cd_fused_widths; cudaErrorInvalidValue
+// where none does).
 INSIDER_API int insider_cd_fused(const float* mask, const float* data,
                                  const float* R, const float* beta0,
                                  float* out, float lam, float alpha, float tol,
                                  int N, int M, int K, int max_sweeps,
-                                 cudaStream_t stream) {
-  return fused(mask, data, R, beta0, out, N, M, K,
-               Solver<true>{lam, alpha, tol, max_sweeps}, stream);
+                                 int lanes, cudaStream_t stream) {
+  if (N < 1 || M < 1 || K < 1 || K > 32) return (int)cudaErrorInvalidValue;
+  const Solver<true> solver{lam, alpha, tol, max_sweeps};
+  return (int)cd_instances(K, [&](auto kmax, auto... ls) {
+    constexpr int KMAX = decltype(kmax)::value;
+    cudaError_t err = cudaErrorInvalidValue;
+    bool found = false;
+    (
+        [&](auto l) {
+          constexpr int L = decltype(l)::value;
+          if (found || (lanes != 0 && lanes != L)) return;
+          found = true;
+          err = launch<KMAX, true, L>(mask, data, R, beta0, out, N, M, K,
+                                      solver, stream);
+        }(ls),
+        ...);
+    return err;
+  });
+}
+
+// The CD instances of insider_cd_fused that cover K, the one it runs
+// first: *n of them (at most 3), their group widths L into widths[], and
+// where `columns` is given, the columns an SM of the current device
+// sweeps at once with each (blocks an SM x 8 warps x 32 / L) into
+// columns[].
+INSIDER_API int insider_cd_fused_widths(int K, int* n, int* widths,
+                                        int* columns) {
+  if (K < 1 || K > 32) return (int)cudaErrorInvalidValue;
+  *n = 0;
+  return (int)cd_instances(K, [&](auto kmax, auto... ls) {
+    constexpr int KMAX = decltype(kmax)::value;
+    cudaError_t err = cudaSuccess;
+    (
+        [&](auto l) {
+          constexpr int L = decltype(l)::value;
+          if (err != cudaSuccess) return;
+          if (columns != nullptr) {
+            const size_t smem = smem_bytes<KMAX, true, L>(K);
+            const auto kernel = fused_kernel<KMAX, true, L>;
+            int per_sm = 0;
+            if ((err = cudaFuncSetAttribute(
+                     kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                     (int)smem)) != cudaSuccess ||
+                (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &per_sm, kernel, WARPS * 32, smem)) != cudaSuccess)
+              return;
+            columns[*n] = per_sm * WARPS * (32 / L);
+          }
+          widths[(*n)++] = L;
+        }(ls),
+        ...);
+    return err;
+  });
 }

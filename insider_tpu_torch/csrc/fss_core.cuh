@@ -1,8 +1,9 @@
-// The column solves of one gene by one warp, shared by the fused (fss.cu),
-// streamed (fss_streamed.cu) and shared-gram (fss_shared.cu) kernels: the
-// feature-sign search (FSS) with its polish, and the cold strong-rule
-// coordinate descent (CD).  Each kernel is a template on the solver
-// (Solver<false> FSS, Solver<true> CD) and calls solve_column.
+// The column solves of the fused (fss.cu), streamed (fss_streamed.cu) and
+// shared-gram (fss_shared.cu) kernels: the feature-sign search (FSS) with
+// its polish, one gene by one warp, and the cold strong-rule coordinate
+// descent (CD), one gene by a group of L lanes.  Each kernel is a template
+// on the solver (Solver<false> FSS, Solver<true> CD) and calls
+// solve_column (FSS) or cd_group_columns (CD).
 //
 // fss_column replaces the per-column iteration of
 // insider_tpu/kernels/fss_pallas.py:_fss_compute.  For column j, with gram
@@ -20,30 +21,33 @@
 //     steps;
 //   * polish: the CD sweeps of cd_sweeps with every coordinate active.
 //
-// cd_column replaces the per-column iteration of
+// cd_group_columns replaces the per-column iteration of
 // insider_tpu/kernels/cd_pallas.py:_cd_compute (and of cd_packed.py's
 // _cd_core, the same iteration in a TPU sublane layout): strong screening
 // thr = alpha (2 lam - max|b_j|), the screened coordinates' warm start set
-// to zero, then cd_sweeps with KKT reactivation of every violator.
+// to zero, then CD sweeps with KKT reactivation of every violator.  It is
+// the one cold-CD loop of every CD kernel.
 //
 // Columns are independent: a converged column is frozen in the TPU block
-// (fss_pallas.py:173-177, :262; cd_pallas.py:127, :157-168), so one warp
-// per column that exits on its own computes what the TPU block computes.
+// (fss_pallas.py:173-177, :262; cd_pallas.py:127, :157-168), so a warp or
+// group per column that stops on its own computes what the TPU block
+// computes.
 //
-// Layout: lane r holds coordinates r + 32 q for q < C (C = 1 covers K <= 32,
-// C = 2 K <= 64, C = 3 K <= 96, C = 4 K <= 128).  The grams are K x GS
-// tiles in shared memory (GS = K + 1 against bank conflicts).  FSS compacts
+// FSS layout: lane r holds coordinates r + 32 q for q < C (C = 1 covers K
+// <= 32, C = 2 K <= 64, C = 3 K <= 96, C = 4 K <= 128).  The grams are K x
+// GS tiles in shared memory (GS = K + 1 against bank conflicts).  FSS compacts
 // each outer step's active set; up to 32 active coordinates are eliminated
 // with one compact row per lane in registers, more (K > 32 only) in a
 // per-warp shared workspace.  Column-wide min / max / first-index use warp
 // shuffles and ballots.  Loops over coordinates run group by group (q = 0,
 // 1, ...), so every register array is indexed by a constant.
 //
-// cd_group_column runs cd_column's iteration for P = 32 / L columns on one
-// warp (L = 8 or 16; fss_streamed.cu builds L = 16), one column to each
-// group of L lanes, on grams packed to their upper triangle: an SM then
-// holds 2 P times the columns, and one issue of the per-coordinate scalar
-// chain serves P columns.  A column's bits are cd_column's.
+// cd_group_columns runs P = 32 / L columns on one warp (L = 8, 16 or 32),
+// one column to each group of L lanes, on grams packed to their upper
+// triangle: one issue of the per-coordinate scalar chain serves P columns,
+// and a group whose column converges stores it and takes the next at a
+// sweep boundary, where the kernel has one to give.  A column's bits
+// depend neither on L nor on the columns beside it or before it.
 #pragma once
 
 #include <type_traits>
@@ -70,11 +74,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The max over each group of L lanes.
+// The max over each group of L lanes (mask: the lanes taking part, whole
+// groups).
 template <int L>
-__device__ __forceinline__ float group_max(float v) {
+__device__ __forceinline__ float group_max(float v, unsigned mask) {
   for (int o = L / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL, v, o, L));
+    v = fmaxf(v, __shfl_xor_sync(mask, v, o, L));
   return v;
 }
 
@@ -96,24 +101,20 @@ __device__ __forceinline__ void gram_times(const float* (&Gr)[C],
   }
 }
 
-// CD sweeps of one column by one warp, coordinates in the fixed order
-// 0..K-1: the sweep loop of cd_pallas.py:_cd_compute (:111-175).  G: the
-// column's K x K gram, row stride GS; xty[q], beta[q], act[q]: coordinate
-// r + 32 q (zero / false where r + 32 q >= K).  Per sweep, every active
-// coordinate k takes the soft-threshold update, s = G beta is kept by
+// CD sweeps of one column by one warp with every coordinate active, the
+// FSS polish: the sweep loop of cd_pallas.py:_cd_compute (:111-175) in the
+// fixed order 0..K-1.  G: the column's K x K gram, row stride GS; xty[q],
+// beta[q]: coordinate r + 32 q (zero where r + 32 q >= K).  Per sweep,
+// every coordinate k takes the soft-threshold update, s = G beta is kept by
 // rank-1 updates (lane i reads G[k][i], row k, as the plain version does;
 // the grams are symmetric), and the sweep's loss decrease is summed in the
-// cancellation-free form.  A column whose decrease is <= tol is a
-// candidate: with STRONG every inactive coordinate with |s - xty| > l1 is
-// activated, and the candidate converges only when there is none; without
-// it (every coordinate active: the FSS polish) the candidate converges.
-// The active set changes only between sweeps.  At most max_sweeps sweeps.
-template <int C, bool STRONG>
+// cancellation-free form; the column converges when the decrease is <=
+// tol.  At most max_sweeps sweeps.
+template <int C>
 __device__ __forceinline__ void cd_sweeps(const float* __restrict__ G, int K,
                                           int GS, const float (&xty)[C],
-                                          float (&beta)[C], bool (&act)[C],
-                                          float l1, float l2, float tol,
-                                          int max_sweeps) {
+                                          float (&beta)[C], float l1, float l2,
+                                          float tol, int max_sweeps) {
   const int r = threadIdx.x & 31;
   bool ok[C];
   const float* Gr[C];
@@ -143,8 +144,7 @@ __device__ __forceinline__ void cd_sweeps(const float* __restrict__ G, int K,
       for (int k = 32 * qk; k < k_end; ++k) {
         // every lane evaluates the update; lane k's is the one used
         const float u = xty[qk] - s[qk] + beta[qk] * d[qk];
-        float w = sgn(u) * fmaxf(fabsf(u) - l1, 0.f) * inv_den[qk];
-        if (STRONG && !act[qk]) w = beta[qk];
+        const float w = sgn(u) * fmaxf(fabsf(u) - l1, 0.f) * inv_den[qk];
         const float delta = w - beta[qk];
         const float xi = w != 0.f ? sgn(w)
                                   : fminf(fmaxf(u * inv_l1, -1.f), 1.f);
@@ -159,22 +159,7 @@ __device__ __forceinline__ void cd_sweeps(const float* __restrict__ G, int K,
         if (r == (k & 31)) beta[qk] = w;
       }
     }
-    const bool cand = fabsf(dec) <= tol;   // warp-uniform
-    if (STRONG) {
-      bool viol[C], any = false;
-#pragma unroll
-      for (int q = 0; q < C; ++q) {
-        viol[q] = ok[q] && !act[q] && fabsf(s[q] - xty[q]) > l1;
-        any = any || viol[q];
-      }
-      const bool has_viol = __any_sync(FULL, any);
-      if (cand)
-#pragma unroll
-        for (int q = 0; q < C; ++q) act[q] = act[q] || viol[q];
-      conv = cand && !has_viol;
-    } else {
-      conv = cand;
-    }
+    conv = fabsf(dec) <= tol;   // warp-uniform
   }
 }
 
@@ -615,36 +600,8 @@ __device__ __forceinline__ void fss_column(const float* __restrict__ G,
   }
 
   if (polish_sweeps > 0) {
-    bool all[C];
-#pragma unroll
-    for (int q = 0; q < C; ++q) all[q] = true;
-    cd_sweeps<C, false>(G, K, GS, xty, beta, all, l1, l2, tol, polish_sweeps);
+    cd_sweeps<C>(G, K, GS, xty, beta, l1, l2, tol, polish_sweeps);
   }
-}
-
-// Cold strong-rule CD of one column by one warp (cd_pallas.py:91-100, then
-// cd_sweeps).  lam and alpha as f32; the threshold is computed in the TPU
-// kernel's operation order, so a coordinate on the edge is screened alike.
-template <int C>
-__device__ __forceinline__ void cd_column(const float* __restrict__ G, int K,
-                                          int GS, const float (&xty)[C],
-                                          float (&beta)[C], float lam,
-                                          float alpha, float tol,
-                                          int max_sweeps) {
-  const int r = threadIdx.x & 31;
-  const float l1 = lam * alpha;
-  const float l2 = lam * (1.f - alpha);
-  float xmax = 0.f;                        // slots past K hold 0
-#pragma unroll
-  for (int q = 0; q < C; ++q) xmax = fmaxf(xmax, fabsf(xty[q]));
-  const float thr = alpha * (2.f * lam - warp_max(xmax));
-  bool act[C];
-#pragma unroll
-  for (int q = 0; q < C; ++q) {
-    act[q] = r + 32 * q < K && fabsf(xty[q]) >= thr;
-    beta[q] = beta[q] * (act[q] ? 1.f : 0.f);
-  }
-  cd_sweeps<C, true>(G, K, GS, xty, beta, act, l1, l2, tol, max_sweeps);
 }
 
 // A gram packed to its upper triangle for a group of L lanes: row a holds
@@ -664,7 +621,7 @@ __host__ __device__ int packed_rows(int K, int* R = nullptr) {
   int v = 0;
   for (int b = 0; b < K; b += L) {
     const int n = K - b < L ? K - b : L;
-    unsigned used = 0, left = (1u << n) - 1u;
+    unsigned used = 0, left = n == 32 ? FULL : (1u << n) - 1u;
     while (left != 0u) {
       int a = -1;
       for (int t = 0; t < n && a < 0; ++t)
@@ -683,46 +640,94 @@ __host__ __device__ int packed_rows(int K, int* R = nullptr) {
   return v;
 }
 
-// Cold strong-rule CD (cd_column) of P = 32 / L columns by one warp, one
-// column to each group of L lanes: lane g L + r holds coordinates r + L q,
-// q < C, of column g, whose gram G is packed (packed_rows; R: its row
-// starts).  Shuffles and ballots stay inside the group.  The groups sweep
-// in lockstep while any is unconverged; a converged group (`done`: also a
-// group with no column) keeps w = beta, so its column no longer moves, as
-// the TPU block freezes its converged columns (cd_pallas.py:127) and the
-// plain version its (ops/fss.py:138).  A column's arithmetic is cd_column's
-// in the same order, its roundings written out as nvcc contracts
-// cd_column's for C > 1 (s = fma(G, beta, s) in order c; u = fma(beta, d,
-// xty - s); den = d + l2; term = fma(delta, half_den delta, l1 fma(-xi,
-// beta, |beta|)); s = fma(G, delta, s)), so that its bits depend neither on
-// L nor on the columns beside it.  Two changes of form keep the bits: the
-// sign by selects (no integer-to-float conversion on the chain), and each
-// coordinate's decrease term kept in its lane and summed after the sweep,
-// in order k, off the chain from one coordinate to the next.
-template <int C, int L>
-__device__ __forceinline__ void cd_group_column(
-    const float* __restrict__ G, const int* __restrict__ R, int K,
-    const float (&xty)[C], float (&beta)[C], float lam, float alpha,
-    float tol, int max_sweeps, bool done) {
-  static_assert(L == 8 || L == 16, "L: 8 or 16");
+// Floats from one packed gram to the next where several lie side by side:
+// packed_rows rounded up to L (mod 32), so that column c's gram starts c L
+// floats (mod 32) from column 0's.
+template <int L>
+__host__ __device__ int packed_stride(int K) {
+  const int n = packed_rows<L>(K);
+  return n + ((L - n) & 31);
+}
+
+// The row starts of a packed gram and packed_stride, as the host computes
+// them for a launch (kernel parameters; the kernel copies them to shared
+// memory).
+struct Rows {
+  int start[128];
+  int stride;
+};
+
+// The next value of a counter in shared or device memory for a group of L
+// lanes: its first lane adds one; mask: the lanes calling, whole groups.
+template <int L>
+__device__ __forceinline__ int group_take(int* counter, unsigned mask) {
+  int t = 0;
+  if ((threadIdx.x & (L - 1)) == 0) t = atomicAdd(counter, 1);
+  return __shfl_sync(mask, t, 0, L);
+}
+
+// Cold strong-rule CD, the one loop of every CD kernel: P = 32 / L columns
+// on one warp, one to each group of L lanes.  Lane g L + r holds
+// coordinates r + L q, q < C, of group g's column, whose gram is packed
+// (packed_rows; R: its row starts, shared by every column).  The columns
+// come from `feed`:
+//   int next(unsigned mask)   the group's next column, -1 when none is
+//                             left (called by the lanes of mask, whole
+//                             groups; the same value across a group);
+//   static bool REFILL        whether next is asked again at the sweep
+//                             boundaries (else only before the first);
+//   const float* gram(int c)  column c's packed gram (gram(0) is readable
+//                             by every group);
+//   float xty(int c, int i), float beta0(int c, int i)
+//                             coordinate i of column c's Xty and warm start;
+//   void store(int c, int i, float v)
+//                             coordinate i of column c's solution.
+// A group takes a column, runs its prologue (cd_pallas.py:91-100: the
+// screening threshold in the TPU kernel's operation order, the screened
+// coordinates' warm start set to zero, s = G beta, the diagonal and the
+// denominators) and sweeps it, coordinates in the fixed order 0..K-1 (the
+// sweep loop of cd_pallas.py:_cd_compute, :111-175).  The groups of a warp
+// sweep in lockstep while any holds a column.  With REFILL a group whose
+// column converged or ran max_sweeps sweeps stores it and takes the next
+// at the sweep boundary, while the others wait there; without, each group
+// sweeps one column, frozen once converged, until every group of the warp
+// has converged or max_sweeps sweeps have run.  A group with no column, or
+// frozen, keeps w = beta, so nothing of it moves.  Per sweep, every active
+// coordinate k takes the soft-threshold update, s = G beta is kept by
+// rank-1 updates (lane i reads G[i][k], the plain version's row k; the
+// grams are symmetric), and the sweep's loss decrease is summed in the
+// cancellation-free form.  A column whose decrease is <= tol is a
+// candidate: every inactive coordinate with |s - xty| > l1 is activated,
+// and it converges when there is none.  The active set changes only
+// between sweeps.
+//
+// Every rounding is written out (s = fma(G, beta, s) in order c; l2 = lam
+// (1 - alpha), den = d + l2, each rounded, as the JAX kernel and the plain
+// version compute them; u = fma(beta, d, xty - s); term = fma(delta,
+// half_den delta, l1 fma(-xi, beta, |beta|)); s = fma(G, delta, s)), the
+// sign is taken by selects, and each coordinate's decrease term is kept in
+// its lane and summed after the sweep in order k, off the chain from one
+// coordinate to the next.  Shuffles and ballots stay inside the group.  So
+// a column's bits depend neither on L nor on the columns beside it, nor on
+// when or where it was taken.
+template <int C, int L, class Feed>
+__device__ __forceinline__ void cd_group_columns(Feed& feed,
+                                                 const int* __restrict__ R,
+                                                 int K, float lam,
+                                                 float alpha, float tol,
+                                                 int max_sweeps) {
+  static_assert(L == 8 || L == 16 || L == 32, "L: 8, 16 or 32");
   const int r = threadIdx.x & (L - 1);
   const unsigned group = (FULL >> (32 - L)) << (threadIdx.x & 31 & ~(L - 1));
   const float l1 = lam * alpha;
   const float l2 = __fmul_rn(lam, __fsub_rn(1.f, alpha));
-  float xmax = 0.f;                        // slots past K hold 0
-#pragma unroll
-  for (int q = 0; q < C; ++q) xmax = fmaxf(xmax, fabsf(xty[q]));
-  const float thr =
-      __fmul_rn(alpha, __fsub_rn(2.f * lam, group_max<L>(xmax)));
-  bool ok[C], act[C];
+  const float inv_l1 = 1.f / fmaxf(l1, 1e-30f);
+  bool ok[C];
   int below[C];                            // R[i] - i: G[i][c] for c >= i
-  float d[C], s[C], inv_den[C], half_den[C];
 #pragma unroll
   for (int q = 0; q < C; ++q) {
     const int i = r + L * q;
     ok[q] = i < K;
-    act[q] = ok[q] && fabsf(xty[q]) >= thr;
-    beta[q] = beta[q] * (act[q] ? 1.f : 0.f);
     below[q] = ok[q] ? R[i] - i : 0;
   }
   // G[i_q][c]: column c of rows above it (slots past qc), row i_q at and
@@ -733,31 +738,86 @@ __device__ __forceinline__ void cd_group_column(
            : q < qc ? below[q] + c
                     : (c <= i ? above + i : below[q] + c);
   };
+  auto sign = [](float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f); };
+  auto store = [&](int c, const float (&beta)[C]) {
 #pragma unroll
-  for (int q = 0; q < C; ++q) s[q] = 0.f;
-#pragma unroll
-  for (int qc = 0; qc < C; ++qc) {
-    const int c_end = min(K, L * (qc + 1));
-    for (int c = L * qc; c < c_end; ++c) {
-      const float bc = __shfl_sync(FULL, beta[qc], c & (L - 1), L);
-      const int above = R[c] - c;
-#pragma unroll
-      for (int q = 0; q < C; ++q)
-        if (ok[q]) s[q] = __fmaf_rn(G[at(q, qc, c, above)], bc, s[q]);
-    }
-  }
+    for (int q = 0; q < C; ++q)
+      if (ok[q]) feed.store(c, r + L * q, beta[q]);
+  };
+
+  // the group's column (-1: none) and its state
+  int c = -1, sweep = 0;
+  bool left = true;                        // the feed may have more
+  const float* G = feed.gram(0);
+  float xty[C], beta[C], d[C], s[C], inv_den[C], half_den[C];
+  bool act[C];
 #pragma unroll
   for (int q = 0; q < C; ++q) {
-    d[q] = ok[q] ? G[below[q] + r + L * q] : 0.f;
-    float den = __fadd_rn(d[q], l2);
-    den = den > 0.f ? den : 1.f;
-    inv_den[q] = 1.f / den;
-    half_den[q] = 0.5f * den;
+    xty[q] = beta[q] = d[q] = s[q] = inv_den[q] = half_den[q] = 0.f;
+    act[q] = false;
   }
-  const float inv_l1 = 1.f / fmaxf(l1, 1e-30f);
-  auto sign = [](float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f); };
-  for (int sweep = 0; sweep < max_sweeps && __any_sync(FULL, !done);
-       ++sweep) {
+  // a group without a column takes the feed's next and runs its prologue
+  // (mask: the groups taking, whole)
+  auto take = [&](unsigned mask) {
+    c = feed.next(mask);
+    left = c >= 0;
+    const unsigned got = __ballot_sync(mask, left);
+    if (!left) return;
+    G = feed.gram(c);
+    float xmax = 0.f;                      // slots past K hold 0
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const int i = r + L * q;
+      xty[q] = ok[q] ? feed.xty(c, i) : 0.f;
+      beta[q] = ok[q] ? feed.beta0(c, i) : 0.f;
+      xmax = fmaxf(xmax, fabsf(xty[q]));
+    }
+    const float thr =
+        __fmul_rn(alpha, __fsub_rn(2.f * lam, group_max<L>(xmax, got)));
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      act[q] = ok[q] && fabsf(xty[q]) >= thr;
+      beta[q] = beta[q] * (act[q] ? 1.f : 0.f);
+      s[q] = 0.f;
+    }
+#pragma unroll
+    for (int qc = 0; qc < C; ++qc) {
+      const int c_end = min(K, L * (qc + 1));
+      for (int cc = L * qc; cc < c_end; ++cc) {
+        const float bc = __shfl_sync(got, beta[qc], cc & (L - 1), L);
+        const int above = R[cc] - cc;
+#pragma unroll
+        for (int q = 0; q < C; ++q)
+          if (ok[q]) s[q] = __fmaf_rn(G[at(q, qc, cc, above)], bc, s[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      d[q] = ok[q] ? G[below[q] + r + L * q] : 0.f;
+      float den = __fadd_rn(d[q], l2);
+      den = den > 0.f ? den : 1.f;
+      inv_den[q] = 1.f / den;
+      half_den[q] = 0.5f * den;
+    }
+    sweep = 0;
+    if (max_sweeps <= 0) {
+      store(c, beta);
+      c = -1;
+    }
+  };
+  // refill: each group without a column takes the next, until it holds
+  // one that still sweeps or none is left
+  auto refill = [&]() {
+    for (;;) {
+      const bool want = c < 0 && left;     // uniform over the group
+      const unsigned mask = __ballot_sync(FULL, want);
+      if (mask == 0u) break;
+      if (want) take(mask);
+    }
+  };
+  // one sweep of every group; a frozen group (converged, or with no
+  // column) keeps w = beta.  Returns whether the group's column converged
+  auto sweep_once = [&](bool frozen) {
     float terms[C] = {};                   // coordinate r + L q's term
 #pragma unroll
     for (int qk = 0; qk < C; ++qk) {
@@ -769,7 +829,7 @@ __device__ __forceinline__ void cd_group_column(
         float w = __fmul_rn(
             __fmul_rn(sign(u), fmaxf(__fsub_rn(fabsf(u), l1), 0.f)),
             inv_den[qk]);
-        if (!act[qk] || done) w = b;
+        if (!act[qk] || frozen) w = b;
         const float delta = __fsub_rn(w, b);
         const float xi = w != 0.f
                              ? sign(w)
@@ -806,14 +866,35 @@ __device__ __forceinline__ void cd_group_column(
     if (cand)
 #pragma unroll
       for (int q = 0; q < C; ++q) act[q] = act[q] || viol[q];
-    done = done || (cand && !has_viol);
+    return cand && !has_viol;
+  };
+
+  if (Feed::REFILL) {
+    // a group stores its column as it finishes and takes the next
+    for (;;) {
+      refill();
+      if (!__any_sync(FULL, c >= 0)) break;
+      const bool conv = sweep_once(c < 0);
+      if (c >= 0 && (conv || ++sweep >= max_sweeps)) {
+        store(c, beta);
+        c = -1;
+      }
+    }
+  } else {
+    // one column a group: a converged group is frozen until every group
+    // of the warp has converged or max_sweeps sweeps have run
+    refill();
+    bool done = c < 0;
+    for (int sw = 0; sw < max_sweeps && __any_sync(FULL, !done); ++sw)
+      done = sweep_once(done) || done;
+    if (c >= 0) store(c, beta);
   }
 }
 
 // The column solvers as the kernels take them, with their scalars.
-// workspace_floats(C, K): the shared floats a warp needs (FSS: the pivot
-// rows, and for C > 1 the solve of more than 32 active coordinates), a
-// multiple of 4.
+// workspace_floats(C, K): the shared floats a warp of the FSS solve needs
+// (the pivot rows, and for C > 1 the solve of more than 32 active
+// coordinates), a multiple of 4.
 template <bool CD>
 struct Solver;
 
@@ -827,12 +908,9 @@ struct Solver<false> {   // FSS + polish; l1 = lam*alpha, l2 = lam*(1-alpha)
 };
 
 template <>
-struct Solver<true> {    // cold strong-rule CD
+struct Solver<true> {    // cold strong-rule CD (cd_group_columns)
   float lam, alpha, tol;
   int max_sweeps;
-  __host__ __device__ static constexpr int workspace_floats(int, int) {
-    return 0;
-  }
 };
 
 // AMAX: fss_column's register width, >= min(K, 32).
@@ -843,14 +921,6 @@ __device__ __forceinline__ void solve_column(const Solver<false>& s,
                                              float (&beta)[C]) {
   fss_column<AMAX, C>(G, W, K, GS, xty, beta, s.l1, s.l2, s.tol,
                       s.max_outer, s.polish_sweeps);
-}
-
-template <int AMAX, int C>
-__device__ __forceinline__ void solve_column(const Solver<true>& s,
-                                             const float* G, float*, int K,
-                                             int GS, const float (&xty)[C],
-                                             float (&beta)[C]) {
-  cd_column<C>(G, K, GS, xty, beta, s.lam, s.alpha, s.tol, s.max_sweeps);
 }
 
 // Hands out columns to warps one at a time from the counter `next` (shared
@@ -890,28 +960,28 @@ inline cudaError_t by_width(int K, F f) {
       K, [&](auto c) { return f(c, integral_constant<int, 32>()); });
 }
 
-// Reads coordinates r + L q of column j of a row-major (K, M) matrix (r:
-// the lane in its group of L; L = 32: the warp).
-template <int C, int L = 32>
+// Reads coordinates r + 32 q of column j of a row-major (K, M) matrix (r:
+// the lane).
+template <int C>
 __device__ __forceinline__ void load_coords(const float* __restrict__ X,
                                             int K, int M, int j,
                                             float (&v)[C]) {
-  const int r = threadIdx.x & (L - 1);
+  const int r = threadIdx.x & 31;
 #pragma unroll
   for (int q = 0; q < C; ++q) {
-    const int i = r + L * q;
+    const int i = r + 32 * q;
     v[q] = i < K ? X[(size_t)i * M + j] : 0.f;
   }
 }
 
-template <int C, int L = 32>
+template <int C>
 __device__ __forceinline__ void store_coords(float* __restrict__ X, int K,
                                              int M, int j,
                                              const float (&v)[C]) {
-  const int r = threadIdx.x & (L - 1);
+  const int r = threadIdx.x & 31;
 #pragma unroll
   for (int q = 0; q < C; ++q) {
-    const int i = r + L * q;
+    const int i = r + 32 * q;
     if (i < K) X[(size_t)i * M + j] = v[q];
   }
 }

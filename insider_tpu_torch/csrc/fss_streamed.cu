@@ -38,43 +38,45 @@
 // a slice of 21 KB at K=50 (ten warps an SM), 77 KB at K=96, 135 KB at
 // K=128.
 //
-// CD, K <= 32: one column a warp (cd_column), as FSS.  K > 32: two columns
-// a warp, L = 16 lanes to a column (fss_core.cuh: cd_group_column), the
-// counter handing out two neighbouring columns at a time.  With one column
-// a warp, each coordinate update issues its whole scalar chain (soft
-// threshold, decrease term, two shuffles) for the one lane that uses it,
-// and the card holds as many columns as K x (K + 1) slices fit (20 an SM
-// at K=50, 6 at K=96, 3 at K=128): with few warps a scheduler, each waits
-// on its own chain.  A group of L lanes issues the chain once for P = 32 /
-// L columns, and keeps its gram packed to the upper triangle, so an SM
-// holds about twice the columns (38 at K=50, 12 at K=96, 6 at K=128).  The
-// packed rows start where the L lanes of a group, and the P groups of a
-// warp, read a row or a column of their grams in distinct banks
-// (fss_core.cuh: packed_rows); the copy moves each entry with cp.async,
-// many in flight a lane.  Every column's bits are those of one column a
-// warp (cd_column): checked at K = 17-128 on the card
-// (tests/test_torch_cuda.py, chip_ab.py).
-// K <= 32 keeps one column a warp: the C = 1 instance contracts den = d +
-// lam (1 - alpha) into one FMA, which a grouped instance would not, and
-// cd_fused, not this kernel, runs there in a fit.
+// CD: the one cold-CD loop (fss_core.cuh: cd_group_columns), P = 32 / L
+// columns a warp, one to each group of L lanes, on grams packed to their
+// upper triangle; the counter hands out P neighbouring columns at a time.
+// With one column a warp, each coordinate update issues its whole scalar
+// chain (soft threshold, decrease term, two shuffles) for the one lane
+// that uses it, and the card holds as many columns as slices fit (20 an
+// SM at K=50 with K x (K + 1) slices, 6 at K=96, 3 at K=128): with few
+// warps a scheduler, each waits on its own chain.  A group of L lanes
+// issues the chain once for P columns, and a packed gram takes half the
+// floats, so an SM holds about twice the columns (38 at K=50, 12 at K=96,
+// 6 at K=128 for L = 16).  The packed rows start where the L lanes of a
+// group, and the P groups of a warp, read a row or a column of their
+// grams in distinct banks (fss_core.cuh: packed_rows); the copy moves each
+// entry with cp.async, many in flight a lane.  Every width gives the same
+// bits (tests/test_torch_cuda.py, chip_ab.py).
 //
 // The width is fixed by K (cd_instances: the first instance listed), from
 // times on an NVIDIA H100 80GB HBM3 at 700 W (chip_ab.py).  With every
-// column at the 200-sweep cap (M=8192), L = 16 takes 0.62-0.91 of L = 32's
-// time at K = 33-128.  Four columns a warp (L = 8) took 0.81-1.27 of L =
-// 16's at K = 33-64, less only at K = 33, 50 and 57; in the cold-CD K=50
-// fit, where columns stop at different sweeps and the groups of a warp
-// wait for its slowest, L = 16 took 14.7 ms a launch, L = 8 15.6 and L =
-// 32 17.9; so L = 8 is not built.  The L = 32 instances at K > 32 (the
-// one-column loop) are no fit's choice: they are the tests' reference for
-// the bits (lanes = 32).  Instances (L, C): K <= 32 (32, 1); K <= 64 (16,
-// 4), (32, 2); K <= 96 (16, 6), (32, 3); K <= 128 (16, 8), (32, 4).
+// column at the 200-sweep cap (M=8192), L = 16 takes 0.57-0.85 of one
+// column a warp's time at K = 33-80, 0.94-0.95 at K = 103 and 1.03-1.10 at
+// K = 96, 113 and 128, where packed grams leave room for twice the
+// one-column warps (PERF.md).  Four columns a warp (L = 8) took
+// 0.81-1.27 of L = 16's at K = 33-64, less only at K = 33, 50 and 57; in
+// the cold-CD K=50 fit, where columns stop at different sweeps and the
+// groups of a warp wait for its slowest, L = 16 took 14.7 ms a launch, L
+// = 8 15.6 and one column a warp 17.9; so L = 8 is not built.  The L = 32
+// instances at K > 32 are no fit's choice: the tests and timings run them
+// through the lanes hook.  At K <= 32 (where cd_fused, not this kernel,
+// runs in a fit) L = 16 took 0.99-1.02 ms at K=16 and 1.40-1.42 at K=24
+// with every column at the cap, L = 32 1.62-1.69 and 2.58-2.68.  Instances
+// (L, C): K <= 32 (16, 2), (32, 1); K <= 64 (16, 4), (32, 2); K <= 96 (16,
+// 6), (32, 3); K <= 128 (16, 8), (32, 4).
 //
 // The groups of a warp sweep in lockstep, so a column that converges early
 // waits for the other of its warp; handing it a new column in mid-flight
-// is not done.  In the cold-CD K=50 fit's steady state 30% of the columns
-// stop before the cap, and two neighbouring columns swept together take
-// 1.26 times the sweeps of each alone (chip_smoke.py phase 12).
+// (as cd_fused does) is not done here.  In the cold-CD K=50 fit's steady
+// state 30% of the columns stop before the cap, and two neighbouring
+// columns swept together take 1.26 times the sweeps of each alone
+// (chip_smoke.py phase 12).
 #include <mutex>
 
 #include "fss_core.cuh"
@@ -82,31 +84,25 @@
 namespace {
 
 using insider::by_width;
+using insider::cd_group_columns;
 using insider::ceil_div;
 using insider::load_coords;
-using insider::cd_group_column;
 using insider::next_column;
 using insider::packed_rows;
+using insider::packed_stride;
+using insider::Rows;
 using insider::Solver;
 using insider::solve_column;
 using insider::store_coords;
 
-// Floats of one column's packed gram in a warp's slice (L < 32), rounded
-// up to L (mod 32): the P grams of a warp lie that far apart.
-template <int L>
-__host__ __device__ int packed_stride(int K) {
-  const int n = packed_rows<L>(K);
-  return n + ((L - n) & 31);
-}
-
-// Floats of one warp's slice of shared memory.  L = 32: its column's gram
-// (K, K + 1), padded to 16 bytes, then the solver's workspace.  L < 32 (CD
-// only): the packed grams' row starts (K ints, padded to 32), then P
-// packed grams (fss_core.cuh: packed_rows).
+// Floats of one warp's slice of shared memory.  FSS (L = 32): its column's
+// gram (K, K + 1), padded to 16 bytes, then the solver's workspace.  CD:
+// the packed grams' row starts (K ints, padded to 32), then P = 32 / L
+// packed grams (fss_core.cuh: packed_rows, packed_stride).
 template <int C, int L, bool CD>
 __host__ __device__ int slice_floats(int K) {
-  if (L == 32)
-    return ((K * (K + 1) + 3) & ~3) + Solver<CD>::workspace_floats(C, K);
+  if (!CD)
+    return ((K * (K + 1) + 3) & ~3) + Solver<false>::workspace_floats(C, K);
   return ((K + 31) & ~31) + 32 / L * packed_stride<L>(K);
 }
 
@@ -118,11 +114,33 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
                "l"(src));
 }
 
-// The row starts of a packed gram (fss_core.cuh: packed_rows) and
-// packed_stride, from the host, for L < 32.
-struct Rows {
-  int start[128];
-  int stride;
+// The CD solve's columns (cd_group_columns' feed): group g of the warp
+// takes column j0 + g once, its gram packed in slot g of the slice.
+template <int L>
+struct StreamedColumns {
+  static constexpr bool REFILL = false;
+  const float* grams;
+  const float* xty_;
+  const float* beta0_;
+  float* out;
+  int S, M, j0;
+  bool given;
+  __device__ int next(unsigned) {
+    const int g = (threadIdx.x & 31) / L;
+    const bool first = !given;
+    given = true;
+    return first && j0 + g < M ? g : -1;
+  }
+  __device__ const float* gram(int c) const { return grams + c * S; }
+  __device__ float xty(int c, int i) const {
+    return xty_[(size_t)i * M + j0 + c];
+  }
+  __device__ float beta0(int c, int i) const {
+    return beta0_[(size_t)i * M + j0 + c];
+  }
+  __device__ void store(int c, int i, float v) const {
+    out[(size_t)i * M + j0 + c] = v;
+  }
 };
 
 template <int AMAX, int C, int L, bool CD>
@@ -133,7 +151,8 @@ streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
                 Rows rows) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x;
-  if constexpr (L == 32) {
+  if constexpr (!CD) {
+    static_assert(L == 32, "FSS: one column a warp");
     const int GS = K + 1;
     float* Gs = smem;                                // (K, GS) the gram
     float* W = smem + ((K * GS + 3) & ~3);           // the solver's
@@ -153,14 +172,12 @@ streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
       __syncwarp();                                  // Gs is read no more
     }
   } else {
-    static_assert(CD, "several columns to a warp: CD only");
     constexpr int P = 32 / L;
     int* R = reinterpret_cast<int*>(smem);           // the row starts
     for (int a = lane; a < K; a += 32) R[a] = rows.start[a];
     __syncwarp();
     float* grams = smem + ((K + 31) & ~31);
     const int S = rows.stride;                       // one column's gram
-    const int g = lane / L;                          // this lane's column
     const int h = lane & (P - 1);                    // the column it copies
     const int n = K * (K + 1) / 2;
     for (;;) {
@@ -168,9 +185,9 @@ streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
       if (j0 >= M) break;                            // warp-uniform
       // lane h + P t copies entries t, t + 32 / P, ... of the upper
       // triangle of column j0 + h in row order, (k, l >= k) from
-      // xtx[k][l]; a group past the last column gets zeros
-      float* Gh = grams + h * S;
+      // xtx[k][l] (a group past the last column takes none)
       if (j0 + h < M) {
+        float* Gh = grams + h * S;
         const float* src = xtx + j0 + h;
         int k = 0, l = lane / P;
 #pragma unroll 8
@@ -179,19 +196,11 @@ streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
           copy_async(Gh + R[k] + l - k, src + ((size_t)k * K + l) * M);
         }
         asm volatile("cp.async.wait_all;\n" ::);
-      } else {
-        for (int e = lane / P; e < S; e += 32 / P) Gh[e] = 0.f;
       }
       __syncwarp();
-      const int j = j0 + g;
-      const bool done = j >= M;                      // uniform in the group
-      float b[C], beta[C];
-      load_coords<C, L>(xty, K, M, done ? M - 1 : j, b);
-      load_coords<C, L>(beta0, K, M, done ? M - 1 : j, beta);
-      cd_group_column<C, L>(grams + g * S, R, K, b, beta, solver.lam,
-                            solver.alpha, solver.tol, solver.max_sweeps,
-                            done);
-      if (!done) store_coords<C, L>(out, K, M, j, beta);
+      StreamedColumns<L> cols{grams, xty, beta0, out, S, M, j0, false};
+      cd_group_columns<C, L>(cols, R, K, solver.lam, solver.alpha,
+                             solver.tol, solver.max_sweeps);
       __syncwarp();                                  // the grams are read
     }                                                // no more
   }
@@ -240,7 +249,7 @@ cudaError_t residency(int K, Residency& out) {
 }
 
 // Launches as many one-warp blocks as the card holds at once (no more than
-// there are groups of P columns).
+// there are groups of P = 32 / L columns).
 template <int AMAX, int C, int L, bool CD>
 cudaError_t launch(const float* xtx, const float* xty, const float* beta0,
                    float* out, int* next, int M, int K, Solver<CD> solver,
@@ -249,8 +258,8 @@ cudaError_t launch(const float* xtx, const float* xty, const float* beta0,
   cudaError_t err = residency<AMAX, C, L, CD>(K, res);
   if (err != cudaSuccess) return err;
   if (res.per_sm < 1) return cudaErrorInvalidConfiguration;
-  Rows rows{};                            // the packed grams' row starts
-  if (L < 32) {
+  Rows rows{};                            // CD: the packed grams' rows
+  if (CD) {
     packed_rows<L>(K, rows.start);
     rows.stride = packed_stride<L>(K);
   }
@@ -274,7 +283,7 @@ struct Group {
 // first (header).
 template <class F>
 cudaError_t cd_instances(int K, F&& f) {
-  if (K <= 32) return f(Group<1, 32>());
+  if (K <= 32) return f(Group<2, 16>(), Group<1, 32>());
   if (K <= 64) return f(Group<4, 16>(), Group<2, 32>());
   if (K <= 96) return f(Group<6, 16>(), Group<3, 32>());
   return f(Group<8, 16>(), Group<4, 32>());

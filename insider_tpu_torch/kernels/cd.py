@@ -10,19 +10,24 @@ The packed TPU kernels run the iteration of the unpacked ones in a sublane
 layout; on the GPU that layout question does not arise, so each pair maps
 onto one kernel.  Each wrapper runs its CUDA kernel on CUDA tensors: the
 CD instances of the FSS kernels' templates (csrc/fss.cu, fss_streamed.cu,
-fss_shared.cu), on the CD loop of csrc/fss_core.cuh.  On CPU tensors it
-runs its plain version (ops/fss.elastic_net_cd); a CUDA tensor never
-reaches the plain version.
+fss_shared.cu), all on the one cold-CD loop of csrc/fss_core.cuh
+(cd_group_columns).  On CPU tensors it runs its plain version
+(ops/fss.elastic_net_cd); a CUDA tensor never reaches the plain version.
 `<wrapper>.launches` counts the kernel's launches.
 
 Every kernel sweeps coordinates in the fixed order 0..K-1: the caller
 permutes the problem to randomize it (ops/col_update.py).
 
-cd_streamed runs two columns on one warp, in groups of L = 16 lanes that
-sweep in lockstep (a converged column frozen), at K > 32; at K <= 32 one
-column a warp (csrc/fss_streamed.cu, header: the instances and why).
-Each column's arithmetic, and so its bits, do not depend on L or on the
-column that shares its warp.
+The loop runs P = 32 / L columns on one warp, one to each group of L
+lanes, the groups sweeping in lockstep.  cd_fused runs four columns a warp
+(L = 8) and hands a group whose column converged the block's next column
+at the next sweep boundary (csrc/fss.cu, header), as cd_shared does with
+L = 8, 16 or 32 by K (csrc/fss_shared.cu); cd_streamed runs two columns a
+warp (L = 16), with no refill (csrc/fss_streamed.cu, header).  The widths
+cd_fused and cd_streamed have at a K are cd_fused_widths and
+cd_streamed_widths; their `lanes` argument forces one, a hook for tests
+and timings.  Each column's arithmetic, and so its bits, do not depend on
+L, on the columns that share its warp or on when it was taken.
 """
 
 from __future__ import annotations
@@ -55,12 +60,16 @@ def cd_fused_plain(mask, data, R, beta0, lam, alpha, tol,
 
 def cd_fused(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor,
              beta0: torch.Tensor, lam, alpha, tol,
-             max_sweeps: int = 200) -> torch.Tensor:
+             max_sweeps: int = 200, lanes: int = 0) -> torch.Tensor:
     """Per-gene masked elastic net by cold strong-rule CD.
 
     mask, data (N, M); R (N, K), its columns in the sweep order; beta0
     (K, M) warm start in the same order; all f32.  Each column's gram and
-    Xty are built inside the kernel.  Returns beta (K, M).
+    Xty are built inside the kernel.  Returns beta (K, M).  lanes: the
+    kernel's group width L, 0 for the one it runs at this K, else one of
+    cd_fused_widths(K) (it raises where not): a hook for tests and
+    timings, as every width gives the same bits.  The plain version has no
+    lanes.
 
     The mask must hold only 0 and 1, as for fss.feature_sign_fused: the
     kernel's bf16 gram build is exact for 0/1 only, and other values give
@@ -82,13 +91,31 @@ def cd_fused(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor,
         err = _lib.lib().insider_cd_fused(
             mask.data_ptr(), data.data_ptr(), R.data_ptr(), beta0.data_ptr(),
             out.data_ptr(), *_scalars(lam, alpha, tol), N, M, K,
-            int(max_sweeps), _lib.stream(R))
+            int(max_sweeps), int(lanes), _lib.stream(R))
     _lib.check(err, "cd_fused")
     cd_fused.launches += 1
     return out
 
 
 cd_fused.launches = 0
+
+
+def _widths(entry: str, K: int, device) -> list:
+    """[(L, columns an SM holds)] of a CD kernel's instances at this K on
+    the CUDA device (the current one by default), the one it runs first."""
+    n, widths, columns = ctypes.c_int(0), (ctypes.c_int * 4)(), \
+        (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = getattr(_lib.lib(), entry)(int(K), ctypes.byref(n), widths,
+                                         columns)
+    _lib.check(err, entry)
+    return [(widths[i], columns[i]) for i in range(n.value)]
+
+
+def cd_fused_widths(K: int, device=None) -> list:
+    """[(L, columns an SM sweeps at once)] of cd_fused's instances at this
+    K, the one it runs first."""
+    return _widths("insider_cd_fused_widths", K, device)
 
 
 def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
@@ -146,15 +173,9 @@ cd_streamed.launches = 0
 
 
 def cd_streamed_widths(K: int, device=None) -> list:
-    """[(L, columns an SM holds)] of cd_streamed's instances at this K on
-    the CUDA device (the current one by default), the one it runs first."""
-    n, widths, columns = ctypes.c_int(0), (ctypes.c_int * 4)(), \
-        (ctypes.c_int * 4)()
-    with torch.cuda.device(device):
-        err = _lib.lib().insider_cd_streamed_widths(int(K), ctypes.byref(n),
-                                                    widths, columns)
-    _lib.check(err, "cd_streamed_widths")
-    return [(widths[i], columns[i]) for i in range(n.value)]
+    """[(L, columns an SM holds)] of cd_streamed's instances at this K, the
+    one it runs first."""
+    return _widths("insider_cd_streamed_widths", K, device)
 
 
 def cd_shared_plain(xtx, xty, beta0, lam, alpha, tol,

@@ -62,20 +62,74 @@ def _jax_kw():
 T = torch.from_numpy
 
 
-@pytest.mark.parametrize("packed", [True, False])
-def test_cd_fused_matches_pallas_kernel(packed):
-    R, mask, data, beta0 = _inputs(50, 6, 300, seed=1)
+def _fused_pallas(packed, R, mask, data, beta0, lam, alpha, tol):
     fn = (cdpk.elastic_net_cd_fused_packed_pallas if packed
           else cdp.elastic_net_cd_fused_pallas)
-    want = fn(jnp.asarray(mask), jnp.asarray(mask * data), jnp.asarray(R),
-              jnp.asarray(beta0), LAM, ALPHA, jnp.float32(CD_TOL),
-              **_jax_kw())
+    return np.asarray(fn(jnp.asarray(mask), jnp.asarray(mask * data),
+                         jnp.asarray(R), jnp.asarray(beta0), lam, alpha,
+                         jnp.float32(tol), **_jax_kw()))
+
+
+# K = 1, 8, 17, 24, 32: every width of the card kernel's coordinates a lane
+# (tests/test_torch_cuda.py: test_cd_fused)
+@pytest.mark.parametrize("K", [1, 8, 17, 24, 32])
+@pytest.mark.parametrize("packed", [True, False])
+def test_cd_fused_matches_pallas_kernel(K, packed):
+    R, mask, data, beta0 = _inputs(80, K, 300, seed=K)
+    want = _fused_pallas(packed, R, mask, data, beta0, LAM, ALPHA, CD_TOL)
     n0 = cd.cd_fused.launches
     got = cd.cd_fused(T(mask), T(data), T(R), T(beta0), LAM, ALPHA, CD_TOL,
                       SWEEPS)
     assert cd.cd_fused.launches == n0          # CPU: the plain version
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert int((got == 0).sum()) > 0           # lasso zeros are exact
+
+
+def _staggered_masked(N, K, M, seed):
+    """R, mask, data and a warm start in which neighbouring columns stop at
+    very different sweeps: every even column has data = 0 (Xty = 0, every
+    coordinate screened: it converges after one sweep), every odd one
+    correlated coordinates, on which CD at tol 0 is still moving at the
+    cap.  The card kernel hands a converged group the next column in
+    mid-flight (refill): this is the case it schedules.  The plain
+    version's matmuls round by M in the last bits, which a nearly singular
+    gram would amplify past the tolerance over the sweeps; the coordinates'
+    own parts (0.5) keep the grams far from singular."""
+    rng = np.random.default_rng(seed)
+    R = (rng.standard_normal((N, 1))
+         + 0.5 * rng.standard_normal((N, K))).astype(np.float32)
+    mask = (rng.random((N, M)) > 0.1).astype(np.float32)
+    data = rng.standard_normal((N, M)).astype(np.float32)
+    data[:, ::2] = 0.0
+    beta0 = (0.01 * rng.standard_normal((K, M))).astype(np.float32)
+    return R, mask, data, beta0
+
+
+@pytest.mark.parametrize("K", [5, 24])
+def test_cd_fused_columns_are_independent(K):
+    """Each column of a batch comes out as it does solved alone, at the JAX
+    tolerance (the card kernel runs several columns on one warp and refills
+    converged groups, and is held to the same bits on the card,
+    tests/test_torch_cuda.py), and the batch agrees with the JAX fused
+    kernel."""
+    M, lam, alpha, tol = 9, 0.05, 0.5, 0.0
+    R, mask, data, beta0 = _staggered_masked(3 * K + 20, K, M, seed=40 + K)
+    got = cd.cd_fused(T(mask), T(data), T(R), T(beta0), lam, alpha, tol,
+                      SWEEPS)
+    fewer = cd.cd_fused(T(mask), T(data), T(R), T(beta0), lam, alpha, tol,
+                        SWEEPS - 1)
+    assert float(got[:, ::2].abs().max()) == 0.0
+    assert not any(torch.equal(got[:, j], fewer[:, j])
+                   for j in range(1, M, 2))          # at the cap
+    for j in range(M):
+        alone = cd.cd_fused(T(mask[:, j:j + 1].copy()),
+                            T(data[:, j:j + 1].copy()), T(R),
+                            T(beta0[:, j:j + 1].copy()), lam, alpha, tol,
+                            SWEEPS)
+        np.testing.assert_allclose(alone[:, 0].numpy(), got[:, j].numpy(),
+                                   **TOL, err_msg=str(j))
+    want = _fused_pallas(False, R, mask, data, beta0, lam, alpha, tol)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize("K", [6, 40])

@@ -431,11 +431,64 @@ def test_cd_fused(cuda, N, K, M):
     _check_cd(got, cd.cd_fused_plain(mask, data, R, beta0, **CD_KW), G, b,
               CD_KW["lam"])
     assert torch.equal(got, cd.cd_fused(mask, data, R, beta0, **CD_KW))
+    # every group width gives the same bits; a width with no instance
+    # raises
+    widths = dict(cd.cd_fused_widths(K))
+    assert sorted(widths) == [8, 16, 32]
+    for lanes, columns in widths.items():
+        assert columns >= 8 * 32 // lanes
+        assert torch.equal(got, cd.cd_fused(mask, data, R, beta0, **CD_KW,
+                                            lanes=lanes)), lanes
+    with pytest.raises(RuntimeError):
+        cd.cd_fused(mask, data, R, beta0, **CD_KW, lanes=4)
     # the streamed route on col_gram_xty's grams: the same sums in another
     # order, the same CD loop
     Gk, bk = gram.col_gram_xty(mask, data, R)
     _check_routes(got, cd.cd_streamed(Gk, bk, beta0, **CD_KW), G, b,
                   CD_KW["lam"], CD_KW["alpha"])
+
+
+def _staggered_masked(N, K, M, seed, dev):
+    """R, mask, data and a warm start in which the columns stop at very
+    different sweeps: every even column has data = 0 (Xty = 0, every
+    coordinate screened: it converges after one sweep), every odd one
+    correlated coordinates, on which CD at tol 0 (and lam 0.05) is still
+    moving at the cap.  As tests/test_torch_cd.py:_staggered_masked."""
+    rng = np.random.default_rng(seed)
+    R = (rng.standard_normal((N, 1))
+         + 0.5 * rng.standard_normal((N, K))).astype(np.float32)
+    mask = (rng.random((N, M)) > 0.1).astype(np.float32)
+    data = rng.standard_normal((N, M)).astype(np.float32)
+    data[:, ::2] = 0.0
+    beta0 = (0.01 * rng.standard_normal((K, M))).astype(np.float32)
+    return tuple(_t(x, dev) for x in (R, mask, data, beta0))
+
+
+@pytest.mark.parametrize("K", [5, 17, 24, 32])
+def test_cd_fused_columns_are_independent(cuda, K):
+    """Each column of one batched call equals, bit for bit, the kernel's
+    output on that column alone (M = 1), at every group width, where the
+    columns of a block stop at very different sweeps and converged groups
+    take new columns in mid-flight: a refilled group keeps nothing of its
+    last column.  M = 150 spans three blocks of 64 columns, the last
+    ragged."""
+    N, M = 3 * K + 20, 150
+    R, mask, data, beta0 = _staggered_masked(N, K, M, 90 + K, cuda)
+    kw = dict(lam=0.05, alpha=0.5, tol=0.0, max_sweeps=40)
+    got = cd.cd_fused(mask, data, R, beta0, **kw)
+    fewer = cd.cd_fused(mask, data, R, beta0, **dict(kw, max_sweeps=39))
+    assert float(got[:, ::2].abs().max()) == 0.0
+    assert not any(torch.equal(got[:, j], fewer[:, j])
+                   for j in range(1, M, 2))          # at the cap
+    for lanes, _ in cd.cd_fused_widths(K):
+        assert torch.equal(got, cd.cd_fused(mask, data, R, beta0, **kw,
+                                            lanes=lanes)), lanes
+        for j in range(M):
+            alone = cd.cd_fused(mask[:, j:j + 1].contiguous(),
+                                data[:, j:j + 1].contiguous(), R,
+                                beta0[:, j:j + 1].contiguous(), **kw,
+                                lanes=lanes)
+            assert torch.equal(alone[:, 0], got[:, j]), (lanes, j)
 
 
 # each group boundary of the instances (L = 16: C steps at 16, 32, ...;
@@ -456,9 +509,9 @@ def test_cd_streamed(cuda, N, K, M):
               CD_KW["lam"])
     assert torch.equal(got, cd.cd_streamed(G, b, beta0, **CD_KW))
     # every group width gives the same bits; a width with no instance at
-    # this K raises.  The kernel runs two columns a warp at K > 32.
+    # this K raises.  The kernel runs two columns a warp.
     widths = dict(cd.cd_streamed_widths(K))
-    assert next(iter(widths)) == (32 if K <= 32 else 16)
+    assert next(iter(widths)) == 16
     for lanes in (8, 16, 32):
         if lanes in widths:
             assert widths[lanes] >= 32 // lanes
@@ -512,7 +565,8 @@ def test_cd_streamed_columns_are_independent(cuda, K):
             assert torch.equal(alone[:, 0], got[:, j]), (lanes, j)
 
 
-@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
+@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (100, 17, 301),
+                                   (377, 24, 1000), (120, 32, 257),
                                    (300, 50, 700), (300, 128, 130)])
 def test_cd_shared(cuda, N, K, M):
     R, _, data, beta0 = _masked_inputs(N, K, M, seed=70 + K)
