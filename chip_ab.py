@@ -116,6 +116,85 @@ def fss_kernels(torch, cs, gram, fss):
     return out
 
 
+def fss_shared_kernels(torch, cs, fss, saved):
+    """{name: record} of feature_sign_shared alone on chip_smoke's
+    SHARED_CASES inputs (R^T R), at the fit's max_outer and polish: ms and
+    a checksum of its output, and where the tree's kernel takes a group
+    width, the same at each width it has (with the columns an SM solves at
+    once), and every width's time at K = 5 to 32.  The outputs, and those
+    without the polish (polish_sweeps=0), go into `saved`."""
+    kw = dict(max_outer=48, polish_sweeps=32, tol=cs.SUB_TOL)
+    widths = getattr(fss, "feature_sign_shared_widths", None)
+    out = {}
+    for k in sorted(cs.SHARED_CASES):
+        XtX, Xty, beta0, lam, alpha = cs.shared_inputs(torch, k)
+
+        def run(**w):
+            return fss.feature_sign_shared(XtX, Xty, beta0, lam, alpha,
+                                           **dict(kw, **w))
+
+        name = f"fss_shared K={k}"
+        got = run()
+        saved[name] = got.cpu().numpy()
+        saved[name + " no polish"] = run(polish_sweeps=0).cpu().numpy()
+        for lanes, cols in widths(k) if widths else ((None, None),):
+            key = name if lanes is None else f"{name} L={lanes}"
+            w = {} if lanes is None else dict(lanes=lanes)
+            out[key] = dict(ms=cs.timed_ms(torch, lambda: run(**w), 5),
+                            checksum=checksum(run(**w)),
+                            columns_per_sm=cols)
+            print(f"chip_ab: {key}: {out[key]['ms']:.4f} ms, checksum "
+                  f"{out[key]['checksum']}"
+                  + (f" ({cols} columns an SM)" if cols else ""))
+        if widths:
+            out[name] = dict(out[f"{name} L={widths(k)[0][0]}"])
+        del XtX, Xty, beta0
+    if widths:
+        # every width at more K: R^T R of problem() at the flagship's
+        # lambda and alpha, the times the fixed choice of width rests on
+        for k in (5, 8, 12, 16, 20, 28, 32):
+            R, _, data, beta0 = cs.problem(torch, cs.N, k, cs.M, 300 + k)
+            XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+            for lanes, cols in widths(k):
+                ms = cs.timed_ms(torch, lambda: fss.feature_sign_shared(
+                    XtX, Xty, beta0, cs.LAM, cs.ALPHA, **kw, lanes=lanes), 5)
+                out[f"widths K={k} L={lanes}"] = dict(ms=ms,
+                                                      columns_per_sm=cols)
+                print(f"chip_ab: fss_shared K={k} L={lanes}: {ms:.4f} ms "
+                      f"({cols} columns an SM)")
+    return out
+
+
+def dense_fit(torch, cs, itt, fss, wrappers, res):
+    """The FSS flagship dense fit (ms/iter, final loss) and the profile of
+    10 iterations from its end state, into res; where the tree's
+    feature_sign_shared takes a group width, the profile at each width."""
+    from insider_tpu_torch.ops import col_update
+
+    flag = cs.flagship_object(itt)
+    _, loss, ms = cs.run_fit(torch, flag, wrappers, {}, "FSS dense",
+                             partition=0, **cs.FLAG_FIT)
+    res["dense_fit"] = dict(ms_per_iter=ms, final_loss=loss)
+    state = flag.fit_result.state
+    print("chip_ab: profile of the flagship dense fit (FSS), 10 "
+          "iterations:")
+    res["profile_dense"] = cs.profile_fit(torch, flag, wrappers, state, cs.K,
+                                          cs.LAM, cs.ALPHA, masked=False)
+    if hasattr(fss, "feature_sign_shared_widths"):
+        for lanes, _ in fss.feature_sign_shared_widths(cs.K):
+            print(f"chip_ab: profile of the flagship dense fit (FSS), "
+                  f"L={lanes}:")
+            col_update.feature_sign_shared = functools.partial(
+                fss.feature_sign_shared, lanes=lanes)
+            try:
+                res[f"profile_dense L={lanes}"] = cs.profile_fit(
+                    torch, flag, wrappers, state, cs.K, cs.LAM, cs.ALPHA,
+                    masked=False)
+            finally:
+                col_update.feature_sign_shared = fss.feature_sign_shared
+    return flag
+
+
 def cd_kernels(torch, cs, gram, cd, saved):
     """{name: {"ms", "checksum"}} of the cold-CD kernels at the 200-sweep
     cap on chip_smoke's fixed inputs (phases 5 and 6); with group widths,
@@ -238,6 +317,9 @@ def main():
     ap.add_argument("--out", help="also write the JSON line here")
     ap.add_argument("--share", nargs=2, metavar="NPZ",
                     help="compare two saved output files and exit")
+    ap.add_argument("--shared-only", action="store_true",
+                    help="only feature_sign_shared alone and the FSS "
+                         "dense fit")
     a = ap.parse_args()
     if a.share:
         return share_equal(*a.share)
@@ -272,6 +354,19 @@ def main():
     t0 = time.time()
     _lib.lib()
     res = dict(root=root, card=smi, build_s=time.time() - t0)
+    wrappers = {"level_gram": row.level_gram, "row_xty": row.row_xty,
+                "feature_sign_fused": fss.feature_sign_fused,
+                "masked_eval": ev.masked_eval,
+                "col_gram_xty": gram.col_gram_xty,
+                "feature_sign": fss.feature_sign,
+                "feature_sign_shared": fss.feature_sign_shared,
+                "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
+                "cd_shared": cd.cd_shared}
+    saved = {}
+    res["fss_shared"] = fss_shared_kernels(torch, cs, fss, saved)
+    if a.shared_only:
+        dense_fit(torch, cs, itt, fss, wrappers, res)
+        return finish(a, res, saved)
 
     # kernels at the flagship shapes
     x = cs.flagship_inputs(torch)
@@ -307,10 +402,7 @@ def main():
     del k50
     res["col_gram"] = col_gram_times(torch, cs, gram)
     res["fss"] = fss_kernels(torch, cs, gram, fss)
-    saved = {}
     res["cd"] = cd_kernels(torch, cs, gram, cd, saved)
-    if a.out:
-        np.savez(os.path.abspath(a.out) + ".npz", **saved)
     for name in ("level_gram", "level_gram_k50", "row_xty", "row_xty_k50",
                  "masked_eval", "masked_eval_k50"):
         r = res[name]
@@ -320,24 +412,17 @@ def main():
     print(f"chip_ab: build alone {res['build_alone']}")
 
     # the six fits, and the profile
-    wrappers = {"level_gram": row.level_gram, "row_xty": row.row_xty,
-                "feature_sign_fused": fss.feature_sign_fused,
-                "masked_eval": ev.masked_eval,
-                "col_gram_xty": gram.col_gram_xty,
-                "feature_sign": fss.feature_sign,
-                "feature_sign_shared": fss.feature_sign_shared,
-                "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
-                "cd_shared": cd.cd_shared}
     fits, losses = {}, {}
 
     def fit(name, obj, **kw):
         _, losses[name], fits[name] = cs.run_fit(torch, obj, wrappers, {},
                                                  name, **kw)
 
-    flag = cs.flagship_object(itt)
+    flag = dense_fit(torch, cs, itt, fss, wrappers, res)
+    fits["FSS dense"] = res["dense_fit"]["ms_per_iter"]
+    losses["FSS dense"] = res["dense_fit"]["final_loss"]
     fit("FSS masked", flag, partition=1, **cs.FLAG_FIT)
     state = flag.fit_result.state
-    fit("FSS dense", flag, partition=0, **cs.FLAG_FIT)
     fit("CD masked", flag, monotone=False, partition=1, **cs.COLD,
         **cs.FLAG_FIT)
     cd_state = flag.fit_result.state
@@ -400,9 +485,16 @@ def main():
     res["fits_ms_per_iter"] = fits
     res["fits_final_loss"] = losses
     print(f"chip_ab: fits ms/iter {fits}; final losses {losses}")
+    return finish(a, res, saved)
+
+
+def finish(a, res, saved):
+    """Writes the saved outputs (FILE.npz) and the JSON line (FILE) where
+    --out is given, and prints the line."""
     line = json.dumps(res)
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
+        np.savez(os.path.abspath(a.out) + ".npz", **saved)
         with open(a.out, "w") as f:
             f.write(line + "\n")
     print(line)

@@ -30,7 +30,11 @@ Phases, each fatal on failure:
      GEMM of the prebuilt (K^2, N) table against the mask (library_ms);
      feature_sign at K=50 on those grams; at K=24 feature_sign on
      col_gram_xty's output against feature_sign_fused (route check);
-     feature_sign_shared at K=24 on R^T R, R^T data;
+     feature_sign_shared on R^T R, R^T data at K=24, at K=3 (PsychENCODE's
+     lambda and alpha) and at K=25 (BrainSpan's), each with its match
+     share, objective excess, group width and a bound that counts its
+     solves' operations (fss_flops, from the fss_counts replay of the
+     input);
   5. the cold-CD kernels at full width (M=44477): cd_fused at K=24
      (N=377; its group width and the columns an SM sweeps at once printed,
      and a bit-for-bit repeat), cd_streamed at K=50 on col_gram_xty grams
@@ -65,7 +69,10 @@ Phases, each fatal on failure:
      share; fails if a kernel that launched shows no device time;
  12. what the columns cost, by counting replays of the plain iterations
      (printed, not gated): the FSS columns' outer steps, active sets and
-     polish sweeps at four states; the cold-CD columns' sweeps in one
+     polish sweeps at five states, at the FSS flagship dense fit's end
+     state with feature_sign_shared's in-fit bound (its solves' operations,
+     fss_flops) beside its in-fit time from phase 11; the cold-CD columns'
+     sweeps in one
      column update at K=24 (the flagship cold-CD masked and dense fits'
      end states) and K=50 (the cold-CD K=50 fit's end state and its fifth
      update), with the bound of that launch, its sweeps counted, and the
@@ -95,9 +102,12 @@ TFLOP/s bf16 tensor, 67 TFLOP/s f32), from the shapes of the timed call;
 the CD kernels' operations count the sweeps their columns take on the
 timed input (2 K^2 flops a column-sweep, the sweeps from a replay of the
 plain iteration, cd_counts; phase 12 prints the same bound of one
-column update in the cold-CD fits); the FSS solves' operations depend on
-the iterations, which the kernels do not count, and are left out.  As the
-last line {"ok": true, "device": {...}}.
+column update in the cold-CD fits); feature_sign_shared's count its
+solves' operations (fss_flops: each outer step's elimination, a^3 / 3
+multiply-adds over its a active coordinates, and its gradient, K^2; each
+polish sweep, K^2; from fss_counts' replay of the timed input); the other
+FSS kernels' leave their solves out.  As the last line {"ok": true,
+"device": {...}}.
 Without CUDA the script exits non-zero and prints no result.
 """
 
@@ -156,12 +166,26 @@ def col_gram_bound(n, k, m):
                  bf16_flop=2 * 3 * pairs(k) * n * m, f32_flop=2 * k * n * m)
 
 
-def gram_input_bound(k, m, shared, sweeps=None):
+def gram_input_bound(k, m, shared, sweeps=None, fss=None):
     """The FSS / CD kernels on given grams: the grams, xty and beta0 read,
-    beta written; for CD with `sweeps`, also cd_flops (the FSS solve's
-    operations are not counted)."""
+    beta written; for CD with `sweeps`, also cd_flops; for FSS with `fss`
+    (fss_counts' replay of the input), also fss_flops (without, the FSS
+    solve's operations are not counted)."""
     return bound(4 * ((k * k if shared else k * k * m) + 3 * k * m),
-                 f32_flop=0.0 if sweeps is None else cd_flops(k, sweeps))
+                 f32_flop=(cd_flops(k, sweeps) if sweeps is not None
+                           else fss_flops(k, fss) if fss is not None
+                           else 0.0))
+
+
+def fss_flops(k, c):
+    """The f32 operations of the FSS solves that the columns took (`c`:
+    fss_counts' replay of this input): each outer step's elimination over
+    its a active coordinates, a^3 / 3 multiply-adds, and its gradient G
+    beta, K^2; each polish sweep's K rank-1 updates of s = G beta, K^2; 2
+    flops a multiply-add."""
+    return (2.0 / 3.0 * float(c["cubes"].sum())
+            + 2.0 * k * k * float(c["steps"].double().sum()
+                                  + c["polish_sweeps"].double().sum()))
 
 
 def cd_flops(k, sweeps):
@@ -610,6 +634,25 @@ def problem(torch, n, k, m, seed):
     return [torch.from_numpy(x).to("cuda") for x in (R, mask, data, beta0)]
 
 
+# feature_sign_shared's inputs by K, R^T R and R^T data of problem(): (N,
+# M, seed, lam, alpha).  K=3 at PsychENCODE's lambda and alpha
+# (workloads/psyencode.py), K=25 at BrainSpan's (workloads/brainspan.py),
+# K=24 at the flagship's; K = 24, 50 are phase 4's problems, K = 96, 128
+# phase 6's.
+SHARED_CASES = {3: (N, M, 3, 120.0, 0.9), 24: (N, M, 5, LAM, ALPHA),
+                25: (N, M, 25, 6.0, 0.4), 50: (300, M, 6, 1.0, 0.5),
+                96: (300, 2048, 96, 1.0, 0.5),
+                128: (300, 2048, 128, 1.0, 0.5)}
+
+
+def shared_inputs(torch, k):
+    """(XtX, Xty, beta0, lam, alpha) of SHARED_CASES[k] on the card."""
+    n, m, seed, lam, alpha = SHARED_CASES[k]
+    R, _, data, beta0 = problem(torch, n, k, m, seed)
+    return ((R.T @ R).contiguous(), (R.T @ data).contiguous(), beta0, lam,
+            alpha)
+
+
 def objectives(torch, B, G, b, lam, alpha):
     """Per-column elastic-net objective in f64.  G (K, K, M), b (K, M)."""
     l1, l2 = lam * alpha, lam * (1 - alpha)
@@ -719,24 +762,30 @@ def phase_kernels_slice2(torch, gram, fss):
     stats["streamed_vs_fused"] = route_check(torch, "feature_sign", fused,
                                              streamed, G, b, LAM, ALPHA)
 
-    # feature_sign_shared at K=24 on R^T R, R^T data
-    XtX = (R.T @ R).contiguous()
-    Xty = (R.T @ data).contiguous()
-    got = fss.feature_sign_shared(XtX, Xty, beta0, LAM, ALPHA, **kw)
-    ref = fss.feature_sign_shared_plain(XtX, Xty, beta0, LAM, ALPHA, **kw)
-    share, excess = fss_checks(torch, "feature_sign_shared", got, ref,
-                               XtX[:, :, None].expand(K, K, M), Xty, LAM,
-                               ALPHA)
-    stats["feature_sign_shared"] = dict(match_share=share,
-                                        max_objective_excess=excess)
-    bnd = gram_input_bound(K, M, shared=True)
-    out["feature_sign_shared"] = dict(
-        max_abs_err=float((got - ref).abs().max()),
-        ms=timed_ms(torch, lambda: fss.feature_sign_shared(
-            XtX, Xty, beta0, LAM, ALPHA, **kw), 10),
-        plain_ms=timed_ms(torch, lambda: fss.feature_sign_shared_plain(
-            XtX, Xty, beta0, LAM, ALPHA, **kw), 3),
-        bound_ms=bnd[0], bound_by=bnd[1])
+    # feature_sign_shared on R^T R, R^T data: K=24 (the record of the
+    # kernels line), PsychENCODE's K=3 and BrainSpan's K=25 (SHARED_CASES);
+    # the bound counts the solves' operations (fss_counts' replay)
+    for k in (K, 3, 25):
+        XtX, Xty, beta0, lam, alpha = shared_inputs(torch, k)
+        name = ("feature_sign_shared" if k == K
+                else f"feature_sign_shared K={k}")
+        got = fss.feature_sign_shared(XtX, Xty, beta0, lam, alpha, **kw)
+        ref = fss.feature_sign_shared_plain(XtX, Xty, beta0, lam, alpha,
+                                            **kw)
+        Gd = XtX[:, :, None].expand(k, k, M)
+        share, excess = fss_checks(torch, name, got, ref, Gd, Xty, lam,
+                                   alpha)
+        stats[name] = dict(match_share=share, max_objective_excess=excess)
+        bnd = gram_input_bound(k, M, shared=True, fss=fss_counts(
+            torch, Gd, Xty, beta0, lam, alpha, **kw))
+        out[name] = dict(
+            max_abs_err=float((got - ref).abs().max()),
+            ms=timed_ms(torch, lambda: fss.feature_sign_shared(
+                XtX, Xty, beta0, lam, alpha, **kw), 10),
+            plain_ms=timed_ms(torch, lambda: fss.feature_sign_shared_plain(
+                XtX, Xty, beta0, lam, alpha, **kw), 3),
+            bound_ms=bnd[0], bound_by=bnd[1],
+            lanes=fss.feature_sign_shared_widths(k)[0][0])
     return out, stats
 
 
@@ -1025,9 +1074,9 @@ KERNEL_NAMES = {"level_gram": "level_gram", "row_xty": "row_xty",
                 "feature_sign_fused": "fused_kernel<",
                 "masked_eval": "masked_eval", "col_gram_xty": "col_gram_xty",
                 "feature_sign": "streamed_kernel<",
-                "feature_sign_shared": "shared_kernel<",
+                "feature_sign_shared": "shared_kernel",
                 "cd_fused": "fused_kernel<", "cd_streamed": "streamed_kernel<",
-                "cd_shared": "shared_kernel<"}
+                "cd_shared": "shared_kernel"}
 
 
 def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
@@ -1356,13 +1405,17 @@ def captured_call(torch, name, at, run):
     return seen["call"]
 
 
-def phase_counts(torch, itt, gram, flagship, flag_state, cd_flag_state,
-                 cd_dense_state, predixcan, cd_k50_state):
+def phase_counts(torch, itt, gram, flagship, flag_state, dense_state,
+                 dense_ms, cd_flag_state, cd_dense_state, predixcan,
+                 cd_k50_state):
     """Phase 12: what the FSS columns cost, by a counting replay
-    (fss_counts) at four states: phase 3's and phase 4's synthetic inputs,
-    the flagship masked fit's warm state (the column update of one
-    iteration from the state its phase-8 fit ended in, phase 11's start)
-    and the K=50 masked fit's fifth column update from a cold start; and
+    (fss_counts) at five states: phase 3's and phase 4's synthetic inputs,
+    the flagship masked and dense fits' warm states (the column update of
+    one iteration from the state its phase-8 fit ended in, phase 11's
+    start; for the dense fit also feature_sign_shared's in-fit bound, the
+    solves' operations counted, beside its in-fit time `dense_ms` from
+    phase 11) and the K=50 masked fit's fifth column update from a cold
+    start; and
     the cold-CD columns' sweeps (cd_counts) in the column update of one
     iteration of the cold-CD flagship masked and dense fits from the states
     their phase-10 fits ended in (K=24, cd_fused's and cd_shared's inputs)
@@ -1407,6 +1460,34 @@ def phase_counts(torch, itt, gram, flagship, flag_state, cd_flag_state,
         torch, "flagship masked fit's warm state", K,
         fss_counts(torch, G, R.T @ (mask * data), beta0, lam, alpha, **ckw))
     del prob, G
+
+    cfg = FitConfig(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
+                    masked=False, global_tol=flagship.params["global_tol"],
+                    sub_tol=flagship.params["sub_tol"], max_iter=0,
+                    seed=flagship.seed)
+    prob = als.build_problem(flagship.data, flagship.confounder,
+                             flagship.train_indicator
+                             + flagship.test_indicator,
+                             flagship.na_indicator, masked=False,
+                             device="cuda")
+    (XtX, b, beta0, lam, alpha), ckw = captured_call(
+        torch, "feature_sign_shared", 1,
+        lambda: als.optimize(prob, cfg, state=dense_state, verbose=False))
+    m = b.shape[1]
+    c = fss_counts(torch, XtX[:, :, None].expand(K, K, m), b, beta0, lam,
+                   alpha, **ckw)
+    bnd = gram_input_bound(K, m, shared=True, fss=c)
+    out["flagship dense fit, warm"] = dict(
+        count_summary(torch, "flagship dense fit's warm state", K, c),
+        bound_ms=bnd[0], bound_by=bnd[1], flops=fss_flops(K, c),
+        in_fit_ms=dense_ms)
+    print(f"feature_sign_shared in the flagship dense fit: {dense_ms:.4f} ms "
+          f"a launch (phase 11) against an in-fit bound of {bnd[0]:.4f} ms "
+          f"({bnd[1]}: {fss_flops(K, c):.4g} f32 flops at 67 TFLOP/s; "
+          f"elimination {2.0 / 3.0 * float(c['cubes'].sum()):.4g}, "
+          f"gradients {2.0 * K * K * float(c['steps'].sum()):.4g}, polish "
+          f"{2.0 * K * K * float(c['polish_sweeps'].sum()):.4g})")
+    del prob
 
     (G, b, beta0, lam, alpha), ckw = captured_call(
         torch, "feature_sign", 5,
@@ -1586,10 +1667,15 @@ def main():
     for name, rec in kern2.items():
         print(f"kernel {name}: max_abs_err {rec['max_abs_err']:.3e} "
               f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms")
-    for name in ("feature_sign", "feature_sign_shared"):
+    for name in ("feature_sign", "feature_sign_shared",
+                 "feature_sign_shared K=3", "feature_sign_shared K=25"):
         print(f"{name}: columns matching plain (rtol 2e-5, atol 1e-5): "
               f"{stats2[name]['match_share']:.6f}; max objective excess "
-              f"{stats2[name]['max_objective_excess']:.3e}")
+              f"{stats2[name]['max_objective_excess']:.3e}"
+              + (f"; bound {kern2[name]['bound_ms']:.4f} ms "
+                 f"({kern2[name]['bound_by']}), group width L="
+                 f"{kern2[name]['lanes']}" if "lanes" in kern2[name]
+                 else ""))
 
     # 5. the cold-CD kernels
     kern_cd = phase_kernels_cd(torch, gram, cd)
@@ -1702,8 +1788,8 @@ def main():
     print("profile of the flagship masked fit (FSS), 10 iterations:")
     profile_fit(torch, flagship, wrappers, flag_state, K, LAM, ALPHA)
     print("profile of the flagship dense fit (FSS), 10 iterations:")
-    profile_fit(torch, flagship, wrappers, dense_state, K, LAM, ALPHA,
-                masked=False)
+    dense_prof = profile_fit(torch, flagship, wrappers, dense_state, K, LAM,
+                             ALPHA, masked=False)
     for name, obj, k, lam, alpha, masked in (
             ("cold CD flagship fit", flagship, K, LAM, ALPHA, True),
             ("cold CD flagship dense fit", flagship, K, LAM, ALPHA, False),
@@ -1715,7 +1801,8 @@ def main():
 
     # 12. what the columns cost: counting replays of the FSS and cold-CD
     # iterations
-    phase_counts(torch, itt, gram, flagship, flag_state,
+    phase_counts(torch, itt, gram, flagship, flag_state, dense_state,
+                 dense_prof["in_fit"]["feature_sign_shared"]["ms_per_launch"],
                  cd_states["cold CD flagship fit"],
                  cd_states["cold CD flagship dense fit"], predixcan,
                  cd_states["cold CD K=50 masked fit"])

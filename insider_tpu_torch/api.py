@@ -33,10 +33,11 @@ class Insider:
     """INSIDER model object (R/insider.R:18).
 
     interaction_idx is 0-based.  The interaction pseudo-confounder is
-    inserted as column 2 of the confounder matrix (R/insider.R:40).  device:
-    where the problem and the factors live: "cuda" (the default) runs the
-    CUDA kernels and raises without a card, "cpu" runs their plain PyTorch
-    versions.
+    inserted as column 2 of the confounder matrix (R/insider.R:40).  The
+    positional parameters are the JAX package's, in its order; sharding is
+    not ported (only None).  device (keyword-only): where the problem and
+    the factors live: "cuda" (the default) runs the CUDA kernels and raises
+    without a card, "cpu" runs their plain PyTorch versions.
     """
 
     def __init__(self, data: np.ndarray, confounder: np.ndarray,
@@ -45,7 +46,9 @@ class Insider:
                  split_ratio: float = 0.1, global_tol: float = 1e-9,
                  sub_tol: float = 1e-5, tuning_iter: int = 30,
                  max_iter: int = 50000, rm_na_col: bool = True,
-                 split_seed: int = 123, seed: int = 0, device="cuda"):
+                 split_seed: int = 123, seed: int = 0, sharding=None, *,
+                 device="cuda"):
+        als.check_unported(sharding=sharding)
         self.device = als.resolve_device(device)
         data = np.asarray(data, np.float64)
         confounder = np.asarray(confounder)
@@ -95,16 +98,31 @@ class Insider:
         return _tune(self, latent_dimension, lambda_, alpha, out_dir=out_dir)
 
     def fit(self, latent_dimension, lambda_, alpha, partition=0,
-            verbose=True, log_jsonl=None, col_solver="auto", max_iter=None,
-            state=None, cd_warm_start=True):
+            verbose=True, log_jsonl=None, col_solver="auto", use_pallas=None,
+            checkpoint_path=None, resume=False, mask_dtype=None,
+            precompute=True, max_iter=None, *, state=None,
+            cd_warm_start=True):
         """Final fit (R/insider.R:190-216).  partition=1: only the observed
         (train + test) elements drive the updates and the NA cells form the
         held-out "test" mask.  partition=0: the dense whole-matrix fit.
         (R/insider.R:207-209: train+test is passed as the train mask, NA as
         the test mask, partition as `tuning`.)  col_solver: "auto" | "fss" |
-        "cd"; cd_warm_start=False makes "cd" the reference's cold
-        strong-rule CD (FitConfig.cd_warm_start).  state: optional initial
-        factors (model.state.state_from_numpy)."""
+        "cd".  The positional parameters are the JAX package's, in its
+        order.  use_pallas has no counterpart (the port runs the kernels on
+        a CUDA device and their plain versions on the CPU) and must be None;
+        checkpoint_path, resume, mask_dtype and precompute are not ported
+        yet and take only their defaults (train/als.check_unported).
+        Keyword-only, the port's own: cd_warm_start=False makes "cd" the
+        reference's cold strong-rule CD (FitConfig.cd_warm_start); state:
+        optional initial factors (model.state.state_from_numpy)."""
+        if use_pallas is not None:
+            raise ValueError(
+                f"use_pallas={use_pallas!r}: the port has no such switch; it "
+                "runs the CUDA kernels on a CUDA device and their plain "
+                "versions on the CPU (ROADMAP, Port constraints); pass "
+                "use_pallas=None")
+        als.check_unported(checkpoint_path=checkpoint_path, resume=resume,
+                           mask_dtype=mask_dtype, precompute=precompute)
         masked = bool(partition)
         cfg = FitConfig(
             latent_dim=int(latent_dimension), lambda1=float(lambda_),

@@ -1,9 +1,11 @@
 // The column solves of the fused (fss.cu), streamed (fss_streamed.cu) and
 // shared-gram (fss_shared.cu) kernels: the feature-sign search (FSS) with
-// its polish, one gene by one warp, and the cold strong-rule coordinate
-// descent (CD), one gene by a group of L lanes.  Each kernel is a template
-// on the solver (Solver<false> FSS, Solver<true> CD) and calls
-// solve_column (FSS) or cd_group_columns (CD).
+// its polish, one gene by one warp (fss_column) or, in the shared-gram
+// kernel at K <= 32, by a group of L lanes (fss_group_columns and
+// polish_group_columns), and the cold strong-rule coordinate descent (CD),
+// one gene by a group of L lanes.  Each kernel is a template on the
+// solver (Solver<false> FSS, Solver<true> CD) and calls solve_column (FSS),
+// the grouped FSS loops or cd_group_columns (CD).
 //
 // fss_column replaces the per-column iteration of
 // insider_tpu/kernels/fss_pallas.py:_fss_compute.  For column j, with gram
@@ -48,8 +50,17 @@
 // and a group whose column converges stores it and takes the next at a
 // sweep boundary, where the kernel has one to give.  A column's bits
 // depend neither on L nor on the columns beside it or before it.
+// fss_group_columns does the same for FSS's outer steps (L = 4 to 32, lane
+// r of a group holding coordinates r + L q and compact rows r + L q'), and
+// polish_group_columns for the polish (polish_sweep); their bits are
+// fss_column's.  fss_column keeps its own polish, cd_sweeps: run through
+// polish_sweep at L = 32 it gave the same bits and cost the streamed
+// kernel about 3% at K=128 (chip_ab.py, NVIDIA H100 80GB HBM3 at 700 W).
+// The fused and streamed kernels could move onto the grouped FSS loops as
+// the CD kernels did onto cd_group_columns; they have not.
 #pragma once
 
+#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
@@ -83,22 +94,121 @@ __device__ __forceinline__ float group_max(float v, unsigned mask) {
   return v;
 }
 
-// s[q] = sum_c G[i_q][c] * beta_c, summed in order c = 0..K-1.
-template <int C>
+// The min over each group of L lanes (mask: the lanes taking part, whole
+// groups).
+template <int L>
+__device__ __forceinline__ float group_min(float v, unsigned mask) {
+  for (int o = L / 2; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(mask, v, o, L));
+  return v;
+}
+
+// s[q] = sum_c G[i_q][c] * beta_c for the coordinates i_q = r + L q of a
+// group of L lanes (Gr[q]: row i_q), summed as fma(G, beta, s) in order c =
+// 0..K-1 from zero.  mask: the lanes calling, whole groups.
+template <int C, int L = 32>
 __device__ __forceinline__ void gram_times(const float* (&Gr)[C],
                                            const float (&beta)[C], int K,
-                                           float (&s)[C]) {
+                                           float (&s)[C],
+                                           unsigned mask = FULL) {
 #pragma unroll
   for (int q = 0; q < C; ++q) s[q] = 0.f;
 #pragma unroll
   for (int qc = 0; qc < C; ++qc) {
-    const int c_end = min(K, 32 * (qc + 1));
-    for (int c = 32 * qc; c < c_end; ++c) {
-      const float bc = __shfl_sync(FULL, beta[qc], c & 31);
+    const int c_end = min(K, L * (qc + 1));
+    for (int c = L * qc; c < c_end; ++c) {
+      const float bc = __shfl_sync(mask, beta[qc], c & (L - 1), L);
 #pragma unroll
-      for (int q = 0; q < C; ++q) s[q] += Gr[q][c] * bc;
+      for (int q = 0; q < C; ++q) s[q] = __fmaf_rn(Gr[q][c], bc, s[q]);
     }
   }
+}
+
+// The state of the FSS polish of one column on a group of L lanes
+// (coordinates r + L q): s = G beta, the diagonal d and the denominators.
+template <int C>
+struct Polish {
+  float s[C], d[C], inv_den[C], half_den[C];
+};
+
+// The polish's prologue: s = G beta (gram_times), d = G[i][i], den = d +
+// l2 (1 where not positive), inv_den = 1 / den, half_den = den / 2.  G: the
+// column's K x K gram, row stride GS; mask: the lanes calling, whole groups.
+template <int C, int L>
+__device__ __forceinline__ void polish_start(const float* __restrict__ G,
+                                             int GS, int K,
+                                             const float (&beta)[C], float l2,
+                                             Polish<C>& p,
+                                             unsigned mask = FULL) {
+  const int r = threadIdx.x & (L - 1);
+  const float* Gr[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int i = r + L * q;
+    Gr[q] = G + (i < K ? i : 0) * GS;
+  }
+  gram_times<C, L>(Gr, beta, K, p.s, mask);
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int i = r + L * q;
+    p.d[q] = i < K ? Gr[q][i] : 0.f;
+    float den = __fadd_rn(p.d[q], l2);
+    den = den > 0.f ? den : 1.f;
+    p.inv_den[q] = 1.f / den;
+    p.half_den[q] = 0.5f * den;
+  }
+}
+
+// One polish sweep of a group's column with every coordinate active: the
+// sweep loop of cd_pallas.py:_cd_compute (:111-175) in the fixed order
+// 0..K-1.  Every coordinate k takes the soft-threshold update, s = G beta
+// is kept by rank-1 updates (lane i reads G[k][i], row k, as the plain
+// version does), and the sweep's loss decrease is summed in the
+// cancellation-free form, in order k.  A frozen group (no column) keeps w
+// = beta, so nothing of it moves.  Every rounding is written out (u =
+// fma(beta, d, xty - s); term = fma(delta, half_den delta, l1 fma(-xi,
+// beta, |beta|)); s = fma(G, delta, s)), so a column's bits depend neither
+// on L nor on the columns beside it.  Every lane of the warp calls it;
+// returns the group's decrease.
+template <int C, int L>
+__device__ __forceinline__ float polish_sweep(const float* __restrict__ G,
+                                              int GS, int K,
+                                              const float (&xty)[C],
+                                              float (&beta)[C], Polish<C>& p,
+                                              float l1, float inv_l1,
+                                              bool frozen) {
+  const int r = threadIdx.x & (L - 1);
+  auto sign = [](float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f); };
+  float dec = 0.f;
+#pragma unroll
+  for (int qk = 0; qk < C; ++qk) {
+    const int k_end = min(K, L * (qk + 1));
+    for (int k = L * qk; k < k_end; ++k) {
+      // every lane evaluates the update; lane k % L's is the one used
+      const float b = beta[qk];
+      const float u = __fmaf_rn(b, p.d[qk], __fsub_rn(xty[qk], p.s[qk]));
+      float w = __fmul_rn(
+          __fmul_rn(sign(u), fmaxf(__fsub_rn(fabsf(u), l1), 0.f)),
+          p.inv_den[qk]);
+      if (frozen) w = b;
+      const float delta = __fsub_rn(w, b);
+      const float xi = w != 0.f
+                           ? sign(w)
+                           : fminf(fmaxf(__fmul_rn(u, inv_l1), -1.f), 1.f);
+      const float term =
+          __fmaf_rn(delta, __fmul_rn(p.half_den[qk], delta),
+                    __fmul_rn(l1, __fmaf_rn(-xi, b, fabsf(b))));
+      const float delta_k = __shfl_sync(FULL, delta, k & (L - 1), L);
+      dec = __fadd_rn(dec, __shfl_sync(FULL, term, k & (L - 1), L));
+      const float* Gk = G + k * GS;
+#pragma unroll
+      for (int q = 0; q < C; ++q)
+        if (r + L * q < K)
+          p.s[q] = __fmaf_rn(Gk[r + L * q], delta_k, p.s[q]);
+      if (r == (k & (L - 1))) beta[qk] = w;
+    }
+  }
+  return dec;
 }
 
 // CD sweeps of one column by one warp with every coordinate active, the
@@ -891,6 +1001,343 @@ __device__ __forceinline__ void cd_group_columns(Feed& feed,
   }
 }
 
+// The active subsystem of an FSS step for a group of L lanes (K <= 32):
+// active_solve_regs' elimination with compact row r + L q' in lane r's
+// slot q' (u[q'][c], column c of the compact system; AMAX >= a, a
+// multiple of 4, at most L C).  bal[q]: the group's ballot of active
+// coordinates r + L q (bit r); base[q]: the active coordinates in slots <
+// q; a: the group's active count, amax: the largest of the warp's groups.
+// P: the group's two pivot-row buffers (PIVOT_ROW floats each), used in
+// turn, so one barrier a pivot suffices.  rhs[q] holds coordinate r + L q
+// on entry and its solution on return, 0 where inactive.  Every update
+// keeps active_solve_regs' form and order (x - colk y as one fma, the
+// pivot row times the pivot's reciprocal), so a column's values do not
+// depend on L.  Every lane of the warp calls it.
+template <int AMAX, int C, int L>
+__device__ __forceinline__ void group_active_solve(
+    const float* __restrict__ G, int GS, const unsigned (&bal)[C],
+    const int (&base)[C], int a, int amax, float l2, float (&rhs)[C],
+    float* __restrict__ P) {
+  static_assert(AMAX % 4 == 0 && AMAX <= 32 && AMAX <= L * C,
+                "AMAX: a multiple of 4, <= 32, <= L C");
+  const int r = threadIdx.x & (L - 1);
+  int ci[C];                               // the coordinate of row r + L q'
+#pragma unroll
+  for (int q2 = 0; q2 < C; ++q2) {
+    ci[q2] = 0;
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const int t = r + L * q2 - base[q];
+      if (t >= 0 && t < __popc(bal[q]))
+        ci[q2] = L * q + nth_set_bit(bal[q], t);
+    }
+  }
+  float b[C];
+#pragma unroll
+  for (int q2 = 0; q2 < C; ++q2) {
+    b[q2] = 0.f;
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const float v = __shfl_sync(FULL, rhs[q], ci[q2] & (L - 1), L);
+      if (ci[q2] / L == q) b[q2] = v;
+    }
+  }
+  float u[C][AMAX];
+#pragma unroll
+  for (int c = 0; c < AMAX; ++c) {
+    const int cc = __shfl_sync(FULL, ci[c / L], c & (L - 1), L);
+#pragma unroll
+    for (int q2 = 0; q2 < C; ++q2) {
+      const float g = c < a ? G[ci[q2] * GS + cc] : 0.f;
+      u[q2][c] = c == r + L * q2 ? __fadd_rn(g, l2) : g;
+    }
+  }
+
+  // forward elimination: rows below the pivot take x - colk * (pivot row
+  // entry / pivot); the pivot's lane keeps its normalized row
+#pragma unroll
+  for (int p = 0; p < AMAX; ++p) {
+    if (p >= amax) break;                    // warp-uniform
+    const int qp = p / L;                    // constants: p is unrolled
+    float* Pp = P + (p & 1) * PIVOT_ROW;
+    const bool live = p < a;                 // uniform over the group
+    if (live && r == (p & (L - 1))) {
+      const float inv = 1.f / u[qp][p];
+      b[qp] = __fmul_rn(b[qp], inv);
+#pragma unroll
+      for (int c = p + 1; c < AMAX; ++c) u[qp][c] = __fmul_rn(u[qp][c], inv);
+#pragma unroll
+      for (int c0 = (p + 1) & ~3; c0 < AMAX; c0 += 4)
+        if (c0 < a)
+          *reinterpret_cast<float4*>(Pp + c0) =
+              make_float4(u[qp][c0], u[qp][c0 + 1], u[qp][c0 + 2],
+                          u[qp][c0 + 3]);
+      Pp[32] = b[qp];
+    }
+    __syncwarp();
+    if (live) {
+#pragma unroll
+      for (int q2 = 0; q2 < C; ++q2) {
+        if (r + L * q2 <= p) continue;
+        const float colk = u[q2][p];
+#pragma unroll
+        for (int c0 = (p + 1) & ~3; c0 < AMAX; c0 += 4) {
+          if (c0 < a) {
+            const float4 v = *reinterpret_cast<const float4*>(Pp + c0);
+            float(&x)[AMAX] = u[q2];
+            if (c0 > p) x[c0] = __fmaf_rn(-colk, v.x, x[c0]);
+            if (c0 + 1 > p) x[c0 + 1] = __fmaf_rn(-colk, v.y, x[c0 + 1]);
+            if (c0 + 2 > p) x[c0 + 2] = __fmaf_rn(-colk, v.z, x[c0 + 2]);
+            x[c0 + 3] = __fmaf_rn(-colk, v.w, x[c0 + 3]);
+          }
+        }
+        b[q2] = __fmaf_rn(-colk, Pp[32], b[q2]);
+      }
+    }
+  }
+  __syncwarp();
+  // back substitution
+#pragma unroll
+  for (int k = AMAX - 1; k >= 1; --k) {
+    if (k < amax) {                          // warp-uniform
+      const float xk = __shfl_sync(FULL, b[k / L], k & (L - 1), L);
+      if (k < a) {
+#pragma unroll
+        for (int q2 = 0; q2 < C; ++q2)
+          if (r + L * q2 < k) b[q2] = __fmaf_rn(-u[q2][k], xk, b[q2]);
+      }
+    }
+  }
+  // back to the coordinates' lanes
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int pos = base[q] + __popc(bal[q] & ((1u << r) - 1u));
+    float v = 0.f;
+#pragma unroll
+    for (int q2 = 0; q2 < C; ++q2) {
+      const float x = __shfl_sync(FULL, b[q2], pos & (L - 1), L);
+      if (pos / L == q2) v = x;
+    }
+    rhs[q] = (bal[q] >> r) & 1u ? v : 0.f;
+  }
+}
+
+// FSS of P = 32 / L columns on one warp (K <= 32), one to each group of L
+// lanes: fss_column's outer steps (its header) with lane g L + r holding
+// coordinates r + L q, q < C, of group g's column.  All columns read the
+// one gram G (K x K, row stride GS); P: the group's two pivot-row buffers.
+// The columns come from `feed` (cd_group_columns' interface; REFILL is not
+// read: a group always refills): a group takes a column (its Xty, its warm
+// start beta0, and thresh = l1 + 1e-5 (l1 + max|Xty|)) and steps it; the
+// groups of a warp step in lockstep while any holds a column, and a group
+// whose column converged or ran max_outer steps stores the FSS result and
+// takes the next at the step boundary.  Every rounding is written out
+// (fss_column's, as nvcc contracts them: thresh = fma(1e-5, l1 + xmax,
+// l1); rhs = fma(-l1, theta, xty); beta + t (rhs - beta) as one fma; grad
+// = fma(l2, beta, s) - xty), the min, max and first-index picks do not
+// depend on their order, and shuffles and ballots stay inside the group:
+// a column's bits depend neither on L nor on the columns beside it.
+template <int AMAX, int C, int L, class Feed>
+__device__ __forceinline__ void fss_group_columns(Feed& feed,
+                                                  const float* __restrict__ G,
+                                                  int GS, float* P, int K,
+                                                  float l1, float l2,
+                                                  int max_outer) {
+  static_assert(L == 4 || L == 8 || L == 16 || L == 32, "L: 4 to 32");
+  const int r = threadIdx.x & (L - 1);
+  const int g0 = threadIdx.x & 31 & ~(L - 1);   // the group's first lane
+  const unsigned low = L == 32 ? FULL : (1u << L) - 1u;
+  auto sign = [](float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f); };
+  bool ok[C];
+  const float* Gr[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int i = r + L * q;
+    ok[q] = i < K;
+    Gr[q] = G + (ok[q] ? i : 0) * GS;
+  }
+  int c = -1, outer = 0;
+  bool left = true;                        // the feed may have more
+  float xty[C], beta[C], theta[C], thresh = 0.f;
+  bool act[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    xty[q] = beta[q] = theta[q] = 0.f;
+    act[q] = false;
+  }
+  auto store = [&]() {
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+      if (ok[q]) feed.store(c, r + L * q, beta[q]);
+    c = -1;
+  };
+  // a group without a column takes the feed's next (mask: the groups
+  // taking, whole)
+  auto take = [&](unsigned mask) {
+    c = feed.next(mask);
+    left = c >= 0;
+    const unsigned got = __ballot_sync(mask, left);
+    if (!left) return;
+    float xmax = 0.f;                      // slots past K hold 0
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const int i = r + L * q;
+      xty[q] = ok[q] ? feed.xty(c, i) : 0.f;
+      beta[q] = ok[q] ? feed.beta0(c, i) : 0.f;
+      act[q] = beta[q] != 0.f;
+      theta[q] = sign(beta[q]);
+      xmax = fmaxf(xmax, fabsf(xty[q]));
+    }
+    thresh = __fmaf_rn(KKT_RTOL, __fadd_rn(l1, group_max<L>(xmax, got)), l1);
+    outer = 0;
+    if (max_outer <= 0) store();
+  };
+  // one outer step of every group (live: the group holds a column).
+  // Returns whether the group's column converged
+  auto step = [&](bool live) {
+    unsigned bal[C];
+    int base[C], a = 0;
+    float rhs[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      bal[q] = (__ballot_sync(FULL, live && ok[q] && act[q]) >> g0) & low;
+      base[q] = a;
+      a += __popc(bal[q]);
+      rhs[q] = __fmaf_rn(-l1, theta[q], xty[q]);
+    }
+    int amax = a;
+    for (int o = 16; o >= L; o >>= 1)
+      amax = max(amax, __shfl_xor_sync(FULL, amax, o));
+    group_active_solve<AMAX, C, L>(G, GS, bal, base, a, amax, l2, rhs, P);
+
+    // line search to the first sign crossing
+    bool flip[C];
+    float tk[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      flip[q] = live && ok[q] && act[q] && sign(rhs[q]) != theta[q] &&
+                beta[q] != 0.f;
+      const float denom = __fsub_rn(beta[q], rhs[q]);
+      const float safe = (flip[q] && denom != 0.f) ? denom : 1.f;
+      tk[q] = fminf(fmaxf(flip[q] ? beta[q] / safe : 1.f, 0.f), 1.f);
+    }
+    float tl = tk[0];
+#pragma unroll
+    for (int q = 1; q < C; ++q) tl = fminf(tl, tk[q]);
+    const float t = group_min<L>(tl, FULL);
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      if (live && act[q])
+        beta[q] = __fmaf_rn(t, __fsub_rn(rhs[q], beta[q]), beta[q]);
+      if (flip[q] && tk[q] <= t && t < 1.f) beta[q] = 0.f;
+      act[q] = beta[q] != 0.f;
+      theta[q] = sign(beta[q]);
+    }
+
+    // single-violator KKT activation on a solved column: the largest
+    // |grad|, the lowest index on ties (slots are ballotted in order, so
+    // the first slot holding a maximum wins)
+    const bool solved = t >= 1.f;
+    float s[C];
+    gram_times<C, L>(Gr, beta, K, s);
+    float grad[C], score[C];
+    bool viol[C];
+    float smax = -1.f;
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      grad[q] = __fsub_rn(__fmaf_rn(l2, beta[q], s[q]), xty[q]);
+      viol[q] = live && ok[q] && !act[q] && fabsf(grad[q]) > thresh && solved;
+      score[q] = viol[q] ? fabsf(grad[q]) : -1.f;
+      smax = fmaxf(smax, score[q]);
+    }
+    const float best = group_max<L>(smax, FULL);
+    bool picked = false;
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const unsigned first =
+          (__ballot_sync(FULL, viol[q] && score[q] >= best) >> g0) & low;
+      if (!picked && first != 0u) {
+        if (r == __ffs(first) - 1) {
+          act[q] = true;
+          theta[q] = -sign(grad[q]);
+        }
+        picked = true;
+      }
+    }
+    return solved && !(best > 0.f);
+  };
+
+  for (;;) {
+    // refill: each group without a column takes the next, until it holds
+    // one that still steps or none is left
+    for (;;) {
+      const bool want = c < 0 && left;     // uniform over the group
+      const unsigned mask = __ballot_sync(FULL, want);
+      if (mask == 0u) break;
+      if (want) take(mask);
+    }
+    if (!__any_sync(FULL, c >= 0)) break;
+    const bool live = c >= 0;
+    const bool conv = step(live);
+    if (live && (conv || ++outer >= max_outer)) store();
+  }
+}
+
+// The FSS polish of the columns of `feed` (cd_group_columns' interface;
+// beta0: the FSS result) on groups of L lanes, P = 32 / L columns a warp:
+// polish_start, then polish_sweep until a sweep's decrease is <= tol or
+// max_sweeps sweeps have run.  The groups of a warp sweep in lockstep
+// while any holds a column; a group whose column is done stores it and
+// takes the next at the sweep boundary.
+template <int C, int L, class Feed>
+__device__ __forceinline__ void polish_group_columns(
+    Feed& feed, const float* __restrict__ G, int GS, int K, float l1,
+    float l2, float tol, int max_sweeps) {
+  const int r = threadIdx.x & (L - 1);
+  const float inv_l1 = 1.f / fmaxf(l1, 1e-30f);
+  int c = -1, sweep = 0;
+  bool left = true;
+  float xty[C], beta[C];
+  Polish<C> p;
+#pragma unroll
+  for (int q = 0; q < C; ++q)
+    xty[q] = beta[q] = p.s[q] = p.d[q] = p.inv_den[q] = p.half_den[q] = 0.f;
+  auto store = [&]() {
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+      if (r + L * q < K) feed.store(c, r + L * q, beta[q]);
+    c = -1;
+  };
+  for (;;) {
+    for (;;) {
+      const bool want = c < 0 && left;
+      const unsigned mask = __ballot_sync(FULL, want);
+      if (mask == 0u) break;
+      if (want) {
+        c = feed.next(mask);
+        left = c >= 0;
+        const unsigned got = __ballot_sync(mask, left);
+        if (left) {
+#pragma unroll
+          for (int q = 0; q < C; ++q) {
+            const int i = r + L * q;
+            xty[q] = i < K ? feed.xty(c, i) : 0.f;
+            beta[q] = i < K ? feed.beta0(c, i) : 0.f;
+          }
+          polish_start<C, L>(G, GS, K, beta, l2, p, got);
+          sweep = 0;
+          if (max_sweeps <= 0) store();
+        }
+      }
+    }
+    if (!__any_sync(FULL, c >= 0)) break;
+    const bool live = c >= 0;
+    const float dec =
+        polish_sweep<C, L>(G, GS, K, xty, beta, p, l1, inv_l1, !live);
+    if (live && (fabsf(dec) <= tol || ++sweep >= max_sweeps)) store();
+  }
+}
+
 // The column solvers as the kernels take them, with their scalars.
 // workspace_floats(C, K): the shared floats a warp of the FSS solve needs
 // (the pivot rows, and for C > 1 the solve of more than 32 active
@@ -932,6 +1379,62 @@ __device__ __forceinline__ int next_column(int* next) {
   int c = 0;
   if ((threadIdx.x & 31) == 0) c = atomicAdd(next, 1);
   return __shfl_sync(FULL, c, 0);
+}
+
+// The dynamic shared memory a block of `kernel` may take on the current
+// device: the card's opt-in maximum less the kernel's static shared
+// memory.
+template <auto kernel>
+cudaError_t max_dynamic_smem(int& bytes) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  bytes = err == cudaSuccess ? optin - (int)attr.sharedSizeBytes : 0;
+  return err;
+}
+
+// Blocks an SM holds at once of `kernel` with `threads` threads and `smem`
+// bytes of dynamic shared memory, and the card's SMs (remembered for the
+// last device, threads and size asked, under a lock: host threads may
+// launch at once).  The kernel's largest dynamic shared memory is set to
+// the most it may take (max_dynamic_smem), so that no launch is refused
+// for a size that another thread set.
+struct Residency {
+  int per_sm = 0, sms = 0;
+};
+
+template <auto kernel>
+cudaError_t residency(int threads, size_t smem, Residency& out) {
+  static std::mutex lock;
+  static int last_dev = -1, last_threads = 0;
+  static size_t last_smem = 0;
+  static Residency last;
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> held(lock);
+  if (dev != last_dev || threads != last_threads || smem != last_smem) {
+    Residency r;
+    if ((err = max_dynamic_smem<kernel>(most)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most)) !=
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &r.per_sm, kernel, threads, smem)) != cudaSuccess)
+      return err;
+    last_dev = dev;
+    last_threads = threads;
+    last_smem = smem;
+    last = r;
+  }
+  out = last;
+  return cudaSuccess;
 }
 
 // Calls f(std::integral_constant<int, C>()) with C = ceil(K / 32), the

@@ -77,8 +77,6 @@
 // state 30% of the columns stop before the cap, and two neighbouring
 // columns swept together take 1.26 times the sweeps of each alone
 // (chip_smoke.py phase 12).
-#include <mutex>
-
 #include "fss_core.cuh"
 
 namespace {
@@ -90,6 +88,8 @@ using insider::load_coords;
 using insider::next_column;
 using insider::packed_rows;
 using insider::packed_stride;
+using insider::residency;
+using insider::Residency;
 using insider::Rows;
 using insider::Solver;
 using insider::solve_column;
@@ -206,48 +206,6 @@ streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
   }
 }
 
-// Blocks an SM holds at once of one instance at K's shared-memory size,
-// and the card's SMs (remembered for the last device and size asked, under
-// a lock: host threads may launch at once).  The instance's largest
-// dynamic shared memory is set to the card's opt-in maximum, so that no
-// launch is refused for a size that another thread set.
-struct Residency {
-  int per_sm = 0, sms = 0;
-};
-
-template <int AMAX, int C, int L, bool CD>
-cudaError_t residency(int K, Residency& out) {
-  static std::mutex lock;
-  static int last_dev = -1;
-  static size_t last_smem = 0;
-  static Residency last;
-  const size_t smem = sizeof(float) * slice_floats<C, L, CD>(K);
-  const auto kernel = streamed_kernel<AMAX, C, L, CD>;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const std::lock_guard<std::mutex> held(lock);
-  if (dev != last_dev || smem != last_smem) {
-    Residency r;
-    if ((err = cudaDeviceGetAttribute(
-             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-            cudaSuccess ||
-        (err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
-            cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &r.per_sm, kernel, 32, smem)) != cudaSuccess)
-      return err;
-    last_dev = dev;
-    last_smem = smem;
-    last = r;
-  }
-  out = last;
-  return cudaSuccess;
-}
-
 // Launches as many one-warp blocks as the card holds at once (no more than
 // there are groups of P = 32 / L columns).
 template <int AMAX, int C, int L, bool CD>
@@ -255,7 +213,8 @@ cudaError_t launch(const float* xtx, const float* xty, const float* beta0,
                    float* out, int* next, int M, int K, Solver<CD> solver,
                    cudaStream_t stream) {
   Residency res;
-  cudaError_t err = residency<AMAX, C, L, CD>(K, res);
+  cudaError_t err = residency<streamed_kernel<AMAX, C, L, CD>>(
+      32, sizeof(float) * slice_floats<C, L, CD>(K), res);
   if (err != cudaSuccess) return err;
   if (res.per_sm < 1) return cudaErrorInvalidConfiguration;
   Rows rows{};                            // CD: the packed grams' rows
@@ -361,7 +320,9 @@ INSIDER_API int insider_cd_streamed_widths(int K, int* n, int* widths,
           if (err != cudaSuccess) return;
           Residency res;
           if (columns != nullptr &&
-              (err = residency<32, G::C, G::L, true>(K, res)) == cudaSuccess)
+              (err = residency<streamed_kernel<32, G::C, G::L, true>>(
+                   32, sizeof(float) * slice_floats<G::C, G::L, true>(K),
+                   res)) == cudaSuccess)
             columns[*n] = res.per_sm * (32 / G::L);
           widths[(*n)++] = G::L;
         }(gs),

@@ -54,7 +54,10 @@ _SIGNATURES = {
     "insider_fss_streamed": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
                                   _I, _I, _I, _I, _P]),
     "insider_fss_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
-                                _I, _I, _I, _I, _P]),
+                                _I, _I, _I, _I, _I, _P]),
+    "insider_fss_shared_widths": (_I, [_I, ctypes.POINTER(_I),
+                                       ctypes.POINTER(_I),
+                                       ctypes.POINTER(_I)]),
     "insider_cd_fused": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
                               _I, _I, _I, _I, _I, _P]),
     "insider_cd_fused_widths": (_I, [_I, ctypes.POINTER(_I),
@@ -156,6 +159,18 @@ def column_counter(t: torch.Tensor) -> torch.Tensor:
     """One int32 of scratch on t's device for a kernel's column counter
     (the kernel's entry point zeroes it on the stream)."""
     return torch.empty(1, dtype=torch.int32, device=t.device)
+
+
+def widths(entry: str, K: int, device) -> list:
+    """[(L, columns an SM holds)] of a column kernel's instances at this K
+    on the CUDA device (the current one by default), the one it runs first,
+    from its C entry point `entry`."""
+    n, ls, columns = ctypes.c_int(0), (ctypes.c_int * 4)(), \
+        (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = getattr(lib(), entry)(int(K), ctypes.byref(n), ls, columns)
+    check(err, entry)
+    return [(ls[i], columns[i]) for i in range(n.value)]
 
 
 def check(err: int, what: str) -> None:

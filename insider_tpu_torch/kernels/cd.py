@@ -32,8 +32,6 @@ L, on the columns that share its warp or on when it was taken.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -100,22 +98,10 @@ def cd_fused(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor,
 cd_fused.launches = 0
 
 
-def _widths(entry: str, K: int, device) -> list:
-    """[(L, columns an SM holds)] of a CD kernel's instances at this K on
-    the CUDA device (the current one by default), the one it runs first."""
-    n, widths, columns = ctypes.c_int(0), (ctypes.c_int * 4)(), \
-        (ctypes.c_int * 4)()
-    with torch.cuda.device(device):
-        err = getattr(_lib.lib(), entry)(int(K), ctypes.byref(n), widths,
-                                         columns)
-    _lib.check(err, entry)
-    return [(widths[i], columns[i]) for i in range(n.value)]
-
-
 def cd_fused_widths(K: int, device=None) -> list:
     """[(L, columns an SM sweeps at once)] of cd_fused's instances at this
     K, the one it runs first."""
-    return _widths("insider_cd_fused_widths", K, device)
+    return _lib.widths("insider_cd_fused_widths", K, device)
 
 
 def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
@@ -175,7 +161,7 @@ cd_streamed.launches = 0
 def cd_streamed_widths(K: int, device=None) -> list:
     """[(L, columns an SM holds)] of cd_streamed's instances at this K, the
     one it runs first."""
-    return _widths("insider_cd_streamed_widths", K, device)
+    return _lib.widths("insider_cd_streamed_widths", K, device)
 
 
 def cd_shared_plain(xtx, xty, beta0, lam, alpha, tol,

@@ -82,9 +82,10 @@ feature_sign_fused.launches = 0
 
 
 def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
-                     lam, alpha, max_outer, polish_sweeps, tol):
+                     lam, alpha, max_outer, polish_sweeps, tol, *shared):
     """Check the operands of a gram-input FSS kernel and launch it (the
-    streamed kernel also takes a column counter)."""
+    streamed kernel also takes a column counter; `shared`: the shared-gram
+    kernel's group width)."""
     _lib.require_cuda(what, xtx, xty, beta0)
     K, M = xty.shape
     if xtx.shape != gram_shape or beta0.shape != (K, M):
@@ -101,7 +102,7 @@ def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
             xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),
             *[c.data_ptr() for c in counter], l1, l2,
             float(np.float32(tol)), M, K, int(max_outer),
-            int(polish_sweeps), _lib.stream(xty))
+            int(polish_sweeps), *shared, _lib.stream(xty))
     _lib.check(err, what)
     return out
 
@@ -150,12 +151,17 @@ def feature_sign_shared_plain(xtx, xty, beta0, lam, alpha,
 
 def feature_sign_shared(xtx: torch.Tensor, xty: torch.Tensor,
                         beta0: torch.Tensor, lam, alpha, max_outer: int = 48,
-                        polish_sweeps: int = 0,
-                        tol: float = 0.0) -> torch.Tensor:
+                        polish_sweeps: int = 0, tol: float = 0.0,
+                        lanes: int = 0) -> torch.Tensor:
     """Per-gene elastic net by FSS (+ plain-CD polish) against ONE (K, K)
     gram shared by every column: the dense column update.
 
-    xtx (K, K); xty, beta0 (K, M); all f32.  Returns beta (K, M).
+    xtx (K, K); xty, beta0 (K, M); all f32.  Returns beta (K, M).  lanes:
+    the kernel's group width L (K <= 32: P = 32 / L columns a warp; above,
+    32, one column a warp), 0 for the one it runs at this K, else one of
+    feature_sign_shared_widths(K) (it raises where not): a hook for tests
+    and timings, as every width gives the same bits.  The plain version has
+    no lanes.
     """
     if _lib.on_cpu("feature_sign_shared", xtx, xty, beta0):
         return feature_sign_shared_plain(xtx, xty, beta0, lam, alpha,
@@ -163,9 +169,16 @@ def feature_sign_shared(xtx: torch.Tensor, xty: torch.Tensor,
     K = xty.shape[0]
     out = _launch_on_grams("feature_sign_shared", "insider_fss_shared", xtx,
                            (K, K), xty, beta0, lam, alpha, max_outer,
-                           polish_sweeps, tol)
+                           polish_sweeps, tol, int(lanes))
     feature_sign_shared.launches += 1
     return out
 
 
 feature_sign_shared.launches = 0
+
+
+def feature_sign_shared_widths(K: int, device=None) -> list:
+    """[(L, columns an SM solves at once)] of feature_sign_shared's
+    instances at this K on the CUDA device (the current one by default),
+    the one it runs first."""
+    return _lib.widths("insider_fss_shared_widths", K, device)

@@ -101,24 +101,69 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+# Reference parameters that the port takes at their positions but does not
+# implement yet: the value that does what the reference's default does,
+# and the ROADMAP item that will port the others.
+UNPORTED = {"sharding": (None, "Queue 1 item 9"),
+            "checkpoint_path": (None, "Queue 1 item 5"),
+            "resume": (False, "Queue 1 item 5"),
+            "mask_dtype": (None, "Queue 1 item 6"),
+            "precompute": (True, "Queue 1 item 6"),
+            "profile_dir": (None, "Queue 1 item 6")}
+
+
+def check_unported(**given) -> None:
+    """Raise NotImplementedError, naming the parameter and its ROADMAP
+    item, for each parameter of UNPORTED given another value than its
+    default."""
+    for name, value in given.items():
+        default, item = UNPORTED[name]
+        if value is default or (default is not None and value == default):
+            continue
+        raise NotImplementedError(
+            f"{name}={value!r} is not ported yet (ROADMAP {item}); only "
+            f"{name}={default!r} is taken")
+
+
+def check_dtype(dtype) -> None:
+    """The reference's build_problem dtype: the port computes in f32 and
+    takes it as numpy's, torch's or None; anything else raises."""
+    if dtype is None or dtype is torch.float32:
+        return
+    try:
+        if np.dtype(dtype) == np.float32:
+            return
+    except TypeError:
+        pass
+    raise NotImplementedError(
+        f"dtype={dtype!r}: the port computes in float32 only (numpy's or "
+        "torch's float32, or None)")
+
+
 def build_problem(data: np.ndarray, confounder: np.ndarray,
                   train_indicator: np.ndarray, test_indicator: np.ndarray,
                   ctns_confounder: Optional[np.ndarray] = None,
-                  masked: bool = True, device="cuda",
-                  sharding=None) -> Problem:
+                  masked: bool = True, dtype=torch.float32, sharding=None,
+                  mask_dtype=None, precompute: bool = True, *,
+                  device="cuda") -> Problem:
     """Stage host arrays on `device` and precompute the row constants.
 
     confounder: (N, C) integer level codes per discrete confounder (any
     labels; densified per column as the reference's `unique()` indexing,
     src/optimize.cpp:296-313).  Masks are stored as f32.  masked=False
     builds the dense (partition=0) problem, whose updates read every
-    element.  device: "cuda" (default; raises without a card) or "cpu".
+    element.  The positional parameters are the JAX package's, in its
+    order: dtype takes f32 only (check_dtype); sharding, mask_dtype and
+    precompute are not ported and take only their defaults
+    (check_unported).  device (keyword-only): "cuda" (default; raises
+    without a card) or "cpu".
     """
     if ctns_confounder is not None:
         raise NotImplementedError(
             "continuous covariates are not ported yet")
-    if sharding is not None:
-        raise NotImplementedError("sharding is not ported yet")
+    check_dtype(dtype)
+    check_unported(sharding=sharding, mask_dtype=mask_dtype,
+                   precompute=precompute)
     disable_tf32()
     device = resolve_device(device)
     confounder = np.asarray(confounder)
@@ -290,9 +335,11 @@ class OptimizeResult:
 
 def optimize(problem: Problem, config: FitConfig,
              state: Optional[InsiderState] = None,
-             generator: Optional[torch.Generator] = None,
              log_jsonl: Optional[str] = None, verbose: bool = True,
-             progress_callback: Optional[Callable[[dict], None]] = None
+             progress_callback: Optional[Callable[[dict], None]] = None,
+             checkpoint_path: Optional[str] = None, resume: bool = False,
+             profile_dir: Optional[str] = None, *,
+             generator: Optional[torch.Generator] = None
              ) -> OptimizeResult:
     """Run ALS to convergence with the reference's protocol
     (src/optimize.cpp:256-422): initial loss before the loop (:320-323); a
@@ -306,8 +353,13 @@ def optimize(problem: Problem, config: FitConfig,
     (build_problem(masked=...)), as in the JAX package.  Cold CD draws one
     coordinate order per iteration (draw_perm) from a CPU generator seeded
     with config.seed.  On the card the rank is checked against the column
-    kernels' limit before anything runs (ops/col_update.check_rank).
+    kernels' limit before anything runs (ops/col_update.check_rank).  The
+    positional parameters are the JAX package's, in its order;
+    checkpoint_path, resume and profile_dir are not ported and take only
+    their defaults (check_unported).  generator is keyword-only.
     """
+    check_unported(checkpoint_path=checkpoint_path, resume=resume,
+                   profile_dir=profile_dir)
     disable_tf32()
     col_update.check_rank(
         config.latent_dim if state is None else state.latent_dim,

@@ -390,7 +390,8 @@ def test_feature_sign(cuda, N, K, M, warm):
         _check_routes(fused, streamed, G, b, lam, alpha)
 
 
-@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
+@pytest.mark.parametrize("N,K,M", [(45, 3, 333), (45, 5, 333),
+                                   (377, 24, 1000), (377, 25, 1000),
                                    (300, 50, 700), (300, 96, 130),
                                    (300, 128, 70)])
 def test_feature_sign_shared(cuda, N, K, M):
@@ -406,6 +407,49 @@ def test_feature_sign_shared(cuda, N, K, M):
     _check_fss(got, ref, XtX[:, :, None].expand(K, K, M), b, lam, alpha)
     assert torch.equal(got, fss.feature_sign_shared(XtX, b, beta0, lam,
                                                     alpha, **kw))
+    # every width the build has gives the same bits; a width it lacks
+    # raises
+    for lanes, _ in fss.feature_sign_shared_widths(K):
+        assert torch.equal(got, fss.feature_sign_shared(
+            XtX, b, beta0, lam, alpha, **kw, lanes=lanes)), lanes
+    with pytest.raises(RuntimeError):
+        fss.feature_sign_shared(XtX, b, beta0, lam, alpha, **kw, lanes=2)
+
+
+@pytest.mark.parametrize("K", [3, 5, 17, 24, 32, 50])
+def test_fss_shared_columns_are_independent(cuda, K):
+    """Each column of one batched feature_sign_shared call equals, bit for
+    bit, the kernel's output on that column alone (M = 1), at every width
+    the build has, where the columns of a block stop at very different
+    steps and groups take new columns in mid-flight: every even column has
+    data = 0 and a zero warm start (it converges at its first outer step
+    and its first polish sweep), every odd one correlated coordinates, a
+    small lambda and tol 0 (it runs to max_outer steps, most of them, and
+    to the polish cap).  M = 150 spans several blocks, the last ragged."""
+    N, M = 3 * K + 20, 150
+    rng = np.random.default_rng(110 + K)
+    R = (rng.standard_normal((N, 1))
+         + 0.5 * rng.standard_normal((N, K))).astype(np.float32)
+    data = rng.standard_normal((N, M)).astype(np.float32)
+    data[:, ::2] = 0.0
+    beta0 = (0.01 * rng.standard_normal((K, M))).astype(np.float32)
+    beta0[:, ::2] = 0.0
+    R, data, beta0 = (_t(x, cuda) for x in (R, data, beta0))
+    XtX, b = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+    kw = dict(lam=0.05, alpha=0.5, max_outer=4, polish_sweeps=8, tol=0.0)
+    got = fss.feature_sign_shared(XtX, b, beta0, **kw)
+    fewer = fss.feature_sign_shared(XtX, b, beta0, **dict(kw, max_outer=3))
+    assert float(got[:, ::2].abs().max()) == 0.0
+    assert not all(torch.equal(got[:, j], fewer[:, j])
+                   for j in range(1, M, 2))          # some at the cap
+    for lanes, _ in fss.feature_sign_shared_widths(K):
+        assert torch.equal(got, fss.feature_sign_shared(XtX, b, beta0, **kw,
+                                                        lanes=lanes)), lanes
+        for j in range(M):
+            alone = fss.feature_sign_shared(
+                XtX, b[:, j:j + 1].contiguous(),
+                beta0[:, j:j + 1].contiguous(), **kw, lanes=lanes)
+            assert torch.equal(alone[:, 0], got[:, j]), (lanes, j)
 
 
 CD_KW = dict(lam=11.0, alpha=0.4, tol=1e-9, max_sweeps=20)

@@ -1,0 +1,159 @@
+"""The port's entry points take the JAX package's positional parameters.
+
+Insider.__init__, Insider.fit, Insider.tune, train/als.build_problem and
+train/als.optimize of insider_tpu_torch bind every positional argument of
+the reference's signature to the same name at the same position, with the
+reference's defaults; the port's own parameters are keyword-only; a
+reference parameter the port does not implement takes only the value that
+does what the reference's default does and raises on any other, naming
+itself and the ROADMAP item that will port it; use_pallas has no
+counterpart and must be None.
+"""
+
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import insider_tpu_torch as itt
+from insider_tpu import api as japi
+from insider_tpu.train import als as jals
+from insider_tpu_torch.config import FitConfig
+from insider_tpu_torch.train import als
+
+ENTRIES = {
+    "Insider.__init__": (japi.Insider.__init__, itt.Insider.__init__),
+    "Insider.fit": (japi.Insider.fit, itt.Insider.fit),
+    "Insider.tune": (japi.Insider.tune, itt.Insider.tune),
+    "build_problem": (jals.build_problem, als.build_problem),
+    "optimize": (jals.optimize, als.optimize),
+}
+POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
+              inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+def _positional(fn):
+    return [p for p in inspect.signature(fn).parameters.values()
+            if p.kind in POSITIONAL and p.name != "self"]
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_positional_parameters_bind_alike(entry):
+    ref, port = (_positional(f) for f in ENTRIES[entry])
+    assert [p.name for p in port] == [p.name for p in ref]
+    for r, p in zip(ref, port):
+        if r.name == "dtype":            # jnp.float32 -> torch.float32
+            assert np.dtype(r.default) == np.float32
+            assert p.default is torch.float32
+        else:
+            assert p.default == r.default, r.name
+
+
+@pytest.mark.parametrize("entry,name", [
+    ("Insider.__init__", "device"), ("Insider.fit", "state"),
+    ("Insider.fit", "cd_warm_start"), ("build_problem", "device"),
+    ("optimize", "generator")])
+def test_port_only_parameters_are_keyword_only(entry, name):
+    ref, port = (inspect.signature(f).parameters for f in ENTRIES[entry])
+    assert name not in ref
+    assert port[name].kind == inspect.Parameter.KEYWORD_ONLY
+    extra = {n for n, p in port.items() if n not in ref}
+    assert all(port[n].kind == inspect.Parameter.KEYWORD_ONLY for n in extra)
+
+
+def _data(seed=0, n=24, m=30):
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n, m))
+    confounder = np.column_stack([rng.integers(0, 2, n),
+                                  rng.integers(0, 3, n)])
+    return data, confounder
+
+
+def _obj():
+    data, confounder = _data()
+    return itt.Insider(data, confounder, device="cpu")
+
+
+def _problem():
+    obj = _obj()
+    return als.build_problem(obj.data, obj.confounder, obj.train_indicator,
+                             obj.test_indicator, device="cpu")
+
+
+def _config():
+    return FitConfig(latent_dim=2, lambda1=1.0, lambda2=1.0, alpha=0.4,
+                     max_iter=2)
+
+
+CALLS = {
+    "Insider.__init__": lambda **kw: itt.Insider(*_data(), device="cpu",
+                                                 **kw),
+    "Insider.fit": lambda **kw: _obj().fit(2, 1.0, 0.4, verbose=False,
+                                           max_iter=2, **kw),
+    "build_problem": lambda **kw: als.build_problem(
+        *_data(), np.ones((24, 30)), np.zeros((24, 30)), device="cpu", **kw),
+    "optimize": lambda **kw: als.optimize(_problem(), _config(),
+                                          verbose=False, **kw),
+}
+
+
+@pytest.mark.parametrize("entry,name,value,item", [
+    ("Insider.__init__", "sharding", object(), "Queue 1 item 9"),
+    ("Insider.fit", "checkpoint_path", "ckpt.npz", "Queue 1 item 5"),
+    ("Insider.fit", "resume", True, "Queue 1 item 5"),
+    ("Insider.fit", "mask_dtype", np.uint8, "Queue 1 item 6"),
+    ("Insider.fit", "precompute", False, "Queue 1 item 6"),
+    ("build_problem", "sharding", object(), "Queue 1 item 9"),
+    ("build_problem", "mask_dtype", np.uint8, "Queue 1 item 6"),
+    ("build_problem", "precompute", False, "Queue 1 item 6"),
+    ("optimize", "checkpoint_path", "ckpt.npz", "Queue 1 item 5"),
+    ("optimize", "resume", True, "Queue 1 item 5"),
+    ("optimize", "profile_dir", "trace", "Queue 1 item 6")])
+def test_unported_values_raise(entry, name, value, item):
+    with pytest.raises(NotImplementedError, match=item) as err:
+        CALLS[entry](**{name: value})
+    assert name in str(err.value)
+
+
+@pytest.mark.parametrize("value", [True, False])
+def test_use_pallas_raises(value):
+    with pytest.raises(ValueError, match="use_pallas"):
+        CALLS["Insider.fit"](use_pallas=value)
+
+
+def test_use_pallas_by_position_raises():
+    """fit's eighth positional argument is the reference's use_pallas: the
+    call below used to run the port with max_iter=0 and raise nothing."""
+    obj = _obj()
+    with pytest.raises(ValueError, match="use_pallas"):
+        obj.fit(24, 11.0, 0.4, 1, True, None, "auto", False)
+    assert obj.fit_result is None
+
+
+@pytest.mark.parametrize("dtype", [None, np.float32, torch.float32,
+                                   jnp.float32, "float32"])
+def test_build_problem_takes_f32(dtype):
+    ref, got = CALLS["build_problem"](), CALLS["build_problem"](dtype=dtype)
+    assert torch.equal(got.data, ref.data)
+    assert got.data.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [np.float64, torch.float64, jnp.bfloat16,
+                                   "int8"])
+def test_build_problem_rejects_other_dtypes(dtype):
+    with pytest.raises(NotImplementedError, match="dtype"):
+        CALLS["build_problem"](dtype=dtype)
+
+
+def test_defaults_given_by_position_fit_alike():
+    """Every reference parameter given its default by position computes
+    what the call that leaves them out computes."""
+    a, b = _obj(), _obj()
+    a.fit(2, 1.0, 0.4, 1, False, max_iter=3)
+    b.fit(2, 1.0, 0.4, 1, False, None, "auto", None, None, False, None,
+          True, 3)
+    assert b.fit_result.n_iter == a.fit_result.n_iter
+    np.testing.assert_array_equal(b.column_factor, a.column_factor)
+    assert b.fit_result.loss == a.fit_result.loss
