@@ -80,7 +80,24 @@ Phases, each fatal on failure:
      cold-CD flagship masked fit's end state also a replay of cd_fused's
      refill schedule (refill_replay): the sweeps its warps take when each
      group of a warp is fed the block's next column as its last
-     converges.
+     converges;
+ 13. continuous covariates, checkpoint, glm: the flagship problem with P=3
+     continuous covariates planted as tools/parity_run.py:129-139 plants
+     them, fit(24, 11, 0.4, partition=1) and partition=0, 50 iterations
+     (ctns_cd launched exactly 3 times an iteration in the masked fit, never
+     in the dense one, whose covariate update is the closed form; losses
+     non-increasing; ms/iter beside phase 8's); ctns_cd against its plain
+     version on the masked fit's last inputs (K=24) and at K=128, both stop
+     criteria (bit for bit, equal sweep counts; kernel, plain and bound
+     times); small fits with P=2 covariates, masked and dense K=8, card
+     against CPU (rtol 1e-5); one covariate update under
+     torch.cuda.set_sync_debug_mode("error") (no host sync); the masked fit
+     stopped at iteration 20 with a checkpoint and resumed to 50 equals the
+     uninterrupted fit bit for bit; glm_interaction on the fit's residual
+     and the 16-level interaction codes, card against CPU (coefficients
+     rtol 1e-4), timed; torch.profiler over 10 iterations of the masked
+     covariate fit, and over 10 covariate updates alone (their device ms
+     per iteration).
 The route checks (phases 4, 5): the fused kernels and col_gram_xty sum the
 exact bf16 planes of the f32 table on the tensor cores in the same k-steps
 of 16 rows, but the fused kernels sum Xty row by row and col_gram_xty each
@@ -99,8 +116,9 @@ Then one JSON line with the kernels' numbers: each kernel's bound_ms is
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over the peak of their type (989
 TFLOP/s bf16 tensor, 67 TFLOP/s f32), from the shapes of the timed call;
-the CD kernels' operations count the sweeps their columns take on the
-timed input (2 K^2 flops a column-sweep, the sweeps from a replay of the
+ctns_cd's count 2 K^2 flops a sweep over the sweeps it took on the timed
+input; the CD kernels' operations count the sweeps their columns take on
+the timed input (2 K^2 flops a column-sweep, the sweeps from a replay of the
 plain iteration, cd_counts; phase 12 prints the same bound of one
 column update in the cold-CD fits); feature_sign_shared's count its
 solves' operations (fss_flops: each outer step's elimination, a^3 / 3
@@ -113,6 +131,7 @@ Without CUDA the script exits non-zero and prints no result.
 
 import inspect
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -964,7 +983,7 @@ def phase_kernels_wide(torch, gram, fss, cd):
 def phase_small_fit(torch, itt, k=8, m=2000, partition=1, alpha=0.4,
                     max_iter=20, n=120, levels=(2, 4, 9), seeds=(2, 3),
                     lam=5.0, true_k=8, witness=False, init="small",
-                    **solver):
+                    n_ctns=0, **solver):
     """Card (kernels) against CPU (plain versions) on one small fit: data
     from simulate_scale(n, m, true_k, levels, seed=seeds[0]) with 1% NaNs
     (seeds[1]); from one initial state carried to both devices: numpy
@@ -975,8 +994,10 @@ def phase_small_fit(torch, itt, k=8, m=2000, partition=1, alpha=0.4,
     summed in f64 and rounded once (the exact inputs in f32), and its
     distance from the CPU fit is printed: how far the fit itself moves
     with the last bit of those inputs, the scale against which the card's
-    distance is read.  Returns the card's largest relative distance and
-    None, or a failure message."""
+    distance is read.  With n_ctns, that many continuous covariates C
+    (numpy, seed 7) are planted in the data as C W_true F_true and fitted,
+    W starting from the same numpy draw on both devices.  Returns the
+    card's largest relative distance and None, or a failure message."""
     from insider_tpu_torch.kernels.gram import col_gram_xty_plain
     from insider_tpu_torch.model.state import init_state, state_from_numpy
     from insider_tpu_torch.ops import col_update
@@ -984,6 +1005,12 @@ def phase_small_fit(torch, itt, k=8, m=2000, partition=1, alpha=0.4,
     sim = itt.simulate_scale(n, m, true_k, level_counts=levels, noise_std=0.5,
                              seed=seeds[0])
     data = sim.data.astype(np.float64)
+    ctns = None
+    if n_ctns:
+        crng = np.random.default_rng(7)
+        ctns = crng.standard_normal((n, n_ctns))
+        data = data + (ctns @ crng.standard_normal((n_ctns, true_k))
+                       ) @ sim.gene_factor
     data[np.random.default_rng(seeds[1]).random(data.shape) < 0.01] = np.nan
 
     def exact_col_gram_xty(mask, data, R):
@@ -993,21 +1020,25 @@ def phase_small_fit(torch, itt, k=8, m=2000, partition=1, alpha=0.4,
     histories = {}
     for dev in ("cuda", "cpu") + (("exact",) if witness else ()):
         run_on = "cpu" if dev == "exact" else dev
-        obj = itt.Insider(data, sim.confounder, interaction_idx=[0, 1],
+        obj = itt.Insider(data, sim.confounder, ctns, interaction_idx=[0, 1],
                           max_iter=max_iter, device=run_on)
         counts = [np.unique(c).size for c in obj.confounder.T]
+        W0 = None
         if init == "small":
             rng = np.random.default_rng(4)
             cfd0 = [(1e-3 * rng.standard_normal((L, k))).astype(np.float32)
                     for L in counts]
             F0 = (1e-3 * rng.standard_normal((k, obj.data.shape[1]))
                   ).astype(np.float32)
+            if n_ctns:
+                W0 = (1e-3 * rng.standard_normal((n_ctns, k))
+                      ).astype(np.float32)
         else:
             st = init_state(torch.Generator().manual_seed(obj.seed), counts,
                             obj.data.shape[1], k)
             cfd0 = [f.numpy() for f in st.cfd_factors]
             F0 = st.column_factor.numpy()
-        state = state_from_numpy(cfd0, None, F0, run_on)
+        state = state_from_numpy(cfd0, W0, F0, run_on)
         orig = col_update.col_gram_xty
         if dev == "exact":
             col_update.col_gram_xty = exact_col_gram_xty
@@ -1026,7 +1057,8 @@ def phase_small_fit(torch, itt, k=8, m=2000, partition=1, alpha=0.4,
               f"{float(np.max(np.abs(np.subtract(le, lp)) / np.abs(lp))):.3e}")
     if len(lc) != len(lp) or not np.allclose(lc, lp, rtol=1e-5, atol=0):
         return None, (f"small fit (K={k}, partition={partition}, alpha="
-                      f"{alpha}, {solver}) losses card {lc} vs cpu {lp}")
+                      f"{alpha}, P={n_ctns}, {solver}) losses card {lc} vs "
+                      f"cpu {lp}")
     return float(np.max(np.abs(np.subtract(lc, lp)) / np.abs(lp))), None
 
 
@@ -1037,6 +1069,22 @@ def flagship_object(itt):
     data = sim.data.astype(np.float64)
     data[np.random.default_rng(0).random(data.shape) < 0.01] = np.nan
     return itt.Insider(data, sim.confounder, interaction_idx=[0, 1],
+                       split_ratio=0.1, device="cuda")
+
+
+def covariate_object(itt):
+    """The flagship problem with P=3 continuous covariates (phase 13),
+    planted as tools/parity_run.py:129-139 plants them (its Protocol C
+    problem): C (N, 3) and W_true (3, K) from default_rng(7), the data
+    plus C W_true F_true; the 1% NaNs and the split of flagship_object."""
+    sim = itt.simulate_scale(N, M, K, level_counts=(2, 8, 107),
+                             noise_std=1.0, seed=0)
+    rng = np.random.default_rng(7)
+    ctns = rng.standard_normal((N, 3)).astype(np.float32)
+    w_true = rng.standard_normal((3, K)).astype(np.float32)
+    data = (sim.data + (ctns @ w_true) @ sim.gene_factor).astype(np.float64)
+    data[np.random.default_rng(0).random(data.shape) < 0.01] = np.nan
+    return itt.Insider(data, sim.confounder, ctns, interaction_idx=[0, 1],
                        split_ratio=0.1, device="cuda")
 
 
@@ -1076,7 +1124,7 @@ KERNEL_NAMES = {"level_gram": "level_gram", "row_xty": "row_xty",
                 "feature_sign": "streamed_kernel<",
                 "feature_sign_shared": "shared_kernel",
                 "cd_fused": "fused_kernel<", "cd_streamed": "streamed_kernel<",
-                "cd_shared": "shared_kernel"}
+                "cd_shared": "shared_kernel", "ctns_cd": "ctns_cd_kernel"}
 
 
 def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
@@ -1104,8 +1152,8 @@ def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
                     seed=obj.seed, **solver)
     problem = als.build_problem(obj.data, obj.confounder,
                                 obj.train_indicator + obj.test_indicator,
-                                obj.na_indicator, masked=masked,
-                                device="cuda")
+                                obj.na_indicator, obj.ctns_confounder,
+                                masked=masked, device="cuda")
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
@@ -1380,13 +1428,14 @@ def cd_count_summary(torch, name, K, c, bnd=None, refill=False):
     return out
 
 
-def captured_call(torch, name, at, run):
-    """The arguments of the `at`-th call (1-based) of
-    ops/col_update.<name> (a column-update kernel wrapper) while run()
-    runs, as (args, kwargs); the wrapper is restored after."""
-    from insider_tpu_torch.ops import col_update
+def captured_call(torch, name, at, run, module=None):
+    """The arguments of the `at`-th call (1-based) of <module>.<name> (by
+    default ops/col_update, whose column-update kernel wrappers it names)
+    while run() runs, as (args, kwargs); the wrapper is restored after."""
+    if module is None:
+        from insider_tpu_torch.ops import col_update as module
 
-    orig = getattr(col_update, name)
+    orig = getattr(module, name)
     seen = {"n": 0}
 
     def spy(*args, **kw):
@@ -1395,11 +1444,11 @@ def captured_call(torch, name, at, run):
             seen["call"] = (args, kw)
         return orig(*args, **kw)
 
-    setattr(col_update, name, spy)
+    setattr(module, name, spy)
     try:
         run()
     finally:
-        setattr(col_update, name, orig)
+        setattr(module, name, orig)
     if "call" not in seen:
         fail(f"{name} was called {seen['n']} times, not {at}")
     return seen["call"]
@@ -1612,6 +1661,198 @@ def run_fit(torch, obj, wrappers, expect, name, monotone=True, **fit_kw):
     return launches, losses[-1], ms_fit
 
 
+def ctns_cd_record(torch, ctns, name, XtX, b, w0, loss_criterion, tol,
+                   reps=20, plain_reps=3):
+    """ctns_cd against its plain version on the card: w bit for bit and
+    the same sweep count (the kernel rounds every operation on its own, in
+    the plain version's order); the kernel's and the plain version's
+    median times beside the bound: XtX, b and w0 read and w written, and
+    2 K^2 flops a sweep over the sweeps taken, in f32."""
+    args = (XtX, b, w0, LAM, tol, 100, loss_criterion)
+    w, sweeps = ctns.ctns_cd(*args, with_sweeps=True)
+    w_ref, sweeps_ref = ctns.ctns_cd_plain(*args)
+    n, n_ref = int(sweeps), int(sweeps_ref)
+    err = float((w - w_ref).abs().max())
+    k = b.shape[0]
+    bnd = bound(4 * (k * k + 3 * k) + 4, f32_flop=2.0 * k * k * n)
+    rec = dict(max_abs_err=err, sweeps=n,
+               ms=timed_ms(torch, lambda: ctns.ctns_cd(*args), reps),
+               plain_ms=timed_ms(torch, lambda: ctns.ctns_cd_plain(*args),
+                                 plain_reps),
+               bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+    print(f"kernel {name}: max_abs_err {err:.3e} sweeps kernel {n} plain "
+          f"{n_ref}; kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} "
+          f"ms bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    if n != n_ref or not torch.equal(w, w_ref):
+        fail(f"{name}: kernel and plain version differ (sweeps {n} vs "
+             f"{n_ref}, max err {err:.3e})")
+    if not torch.equal(w, ctns.ctns_cd(*args)):
+        fail(f"{name} differs from itself")
+    return rec
+
+
+def phase_covariates(torch, itt, wrappers, masked_path, flag_ms):
+    """Phase 13: continuous covariates, checkpoint and glm_interaction on
+    the card.  Returns ctns_cd's record for the kernels line (launches from
+    the masked covariate fit)."""
+    import tempfile
+
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.kernels import ctns
+    from insider_tpu_torch.ops import continuous
+    from insider_tpu_torch.train import als
+
+    obj = covariate_object(itt)
+    fit_kw = dict(FLAG_FIT, partition=1)
+    n_iter = FLAG_FIT["max_iter"] + 1
+    no_cd = dict(cd_fused=0, cd_streamed=0, cd_shared=0)
+    inputs = {}
+
+    def masked_fit():
+        return run_fit(torch, obj, wrappers,
+                       dict(masked_path, feature_sign_fused=1, ctns_cd=1,
+                            **no_cd), "covariate flagship fit", **fit_kw)
+
+    # the masked fit's last covariate update's inputs to ctns_cd
+    args, _ = captured_call(torch, "ctns_cd", 3 * n_iter,
+                            lambda: inputs.update(fit=masked_fit()),
+                            module=continuous)
+    launches, loss, ms = inputs["fit"]
+    if launches["ctns_cd"] != 3 * n_iter:
+        fail(f"covariate flagship fit: ctns_cd launched "
+             f"{launches['ctns_cd']} times, not 3 x {n_iter}")
+    print(f"covariate flagship fit (P=3): {ms:.3f} ms/iter against "
+          f"{flag_ms['masked']:.3f} without covariates (phase 8); ctns_cd "
+          f"{launches['ctns_cd']} launches in {n_iter} iterations")
+    full = obj.fit_result
+    state = full.state
+    _, _, dense_ms = run_fit(
+        torch, obj, wrappers, dict(feature_sign_shared=1, ctns_cd=0, **no_cd),
+        "covariate flagship dense fit", **dict(FLAG_FIT, partition=0))
+    print(f"covariate flagship dense fit (P=3): {dense_ms:.3f} ms/iter "
+          f"against {flag_ms['dense']:.3f} without covariates (phase 8)")
+
+    # ctns_cd against its plain version: the masked fit's last covariate
+    # inputs (K=24), and a random SPD system at K=128
+    XtX, b, w0 = args[:3]
+    rec = ctns_cd_record(torch, ctns, "ctns_cd K=24 (flagship fit)", XtX,
+                         b, w0, False, 1e-1)
+    ctns_cd_record(torch, ctns, "ctns_cd K=24 loss criterion", XtX, b, w0,
+                   True, 1e-3)
+    rng = np.random.default_rng(13)
+    A = torch.from_numpy(rng.standard_normal((300, 128)).astype(
+        np.float32)).to("cuda")
+    XtX128 = (A.T @ A).contiguous()
+    b128 = torch.from_numpy(rng.standard_normal(128).astype(
+        np.float32)).to("cuda")
+    w128 = torch.zeros(128, device="cuda")
+    for crit, tol in ((False, 1e-1), (True, 1e-3)):
+        ctns_cd_record(torch, ctns, f"ctns_cd K=128 "
+                       f"{'loss criterion' if crit else 'sum |dw|'}",
+                       XtX128, b128, w128, crit, tol, plain_reps=1)
+
+    # small fits with covariates, card against CPU
+    for label, kw in (("masked 120x2000 K=8 P=2", dict(n_ctns=2)),
+                      ("dense 120x2000 K=8 P=2", dict(n_ctns=2,
+                                                      partition=0))):
+        rel, failed = phase_small_fit(torch, itt, **kw)
+        if failed:
+            fail(failed)
+        print(f"small fit {label}: card vs cpu max loss rel diff {rel:.3e}")
+
+    # one covariate update with any host sync an error
+    problem = als.build_problem(obj.data, obj.confounder,
+                                obj.train_indicator + obj.test_indicator,
+                                obj.na_indicator, obj.ctns_confounder,
+                                device="cuda")
+    cfg = FitConfig(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA)
+    R = als._row_factor(problem, state)
+    F = state.column_factor
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        W = als._update_covariates(problem, cfg, state.ctns_factor, R, F,
+                                   None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not bool(torch.isfinite(W).all()):
+        fail("covariate update under the sync debug mode: non-finite W")
+    print("covariate update: no host sync (sync debug mode \"error\")")
+
+    # checkpoint at iteration 20, resumed to 50: the uninterrupted fit bit
+    # for bit
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        path = f"{tmp}/covariates.npz"
+        obj.fit(verbose=False, checkpoint_path=path,
+                **dict(fit_kw, max_iter=20))
+        obj.fit(verbose=False, checkpoint_path=path, resume=True, **fit_kw)
+    resumed = obj.fit_result
+    by_iter = {h["iter"]: h["loss"] for h in full.history}
+    tail = [(h["iter"], h["loss"], by_iter.get(h["iter"]))
+            for h in resumed.history[1:]]
+    same = (bool(tail) and all(a == b for _, a, b in tail)
+            and resumed.history[0]["loss"] == by_iter[20]
+            and all(np.array_equal(a, b) for a, b in zip(
+                resumed.row_matrices + [resumed.ctns_factor,
+                                        resumed.column_factor],
+                full.row_matrices + [full.ctns_factor,
+                                     full.column_factor])))
+    print(f"checkpoint at iteration 20, resumed to 50: boundaries {tail}; "
+          f"equal to the uninterrupted fit bit for bit: {same}")
+    if not same:
+        fail("the resumed covariate fit differs from the uninterrupted one")
+
+    # glm_interaction on the fit's residual, card against CPU
+    residual = (problem.data - als._row_factor(problem, state) @ F
+                ).cpu().numpy()
+    codes = obj.confounder[:, 1]
+    F_h = F.cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    coef, pval = itt.glm_interaction(residual, None, codes, F_h)
+    glm_s = time.time() - t0
+    coef_c, pval_c = itt.glm_interaction(residual, None, codes, F_h,
+                                         device="cpu")
+    if not (np.allclose(coef, coef_c, rtol=1e-4, atol=1e-6)
+            and np.all(np.isfinite(pval)) and coef.shape == (16, K)):
+        fail(f"glm_interaction card vs cpu: max coefficient diff "
+             f"{np.abs(coef - coef_c).max():.3e}")
+    print(f"glm_interaction ({coef.shape[0]} levels, K={K}, dof "
+          f"{int(np.unique(codes, return_counts=True)[1].min()) * M - K}-"
+          f"{int(np.unique(codes, return_counts=True)[1].max()) * M - K}): "
+          f"{glm_s * 1e3:.1f} ms on the card (p-values on the host), "
+          f"coefficients vs cpu max diff {np.abs(coef - coef_c).max():.3e}, "
+          f"p-values vs cpu max diff {np.abs(pval - pval_c).max():.3e}")
+
+    # profiles: 10 iterations of the masked covariate fit, and 10 covariate
+    # updates alone
+    print("profile of the covariate flagship fit (FSS, P=3), 10 iterations:")
+    prof = profile_fit(torch, obj, wrappers, state, K, LAM, ALPHA)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.time()
+        for _ in range(10):
+            als._update_covariates(problem, cfg, state.ctns_factor, R, F,
+                                   None)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    upd = device_kernel_times(torch, p)
+    dev_ms = sum(us for us, _ in upd.values()) / 1e3
+    print(f"covariate update (P=3): {dev_ms / 10:.4f} device ms per "
+          f"iteration ({sum(n for _, n in upd.values()) / 10:g} kernels), "
+          f"{wall_ms / 10:.4f} ms host wall per iteration; in the fit, "
+          f"busy {prof['busy_share']:.3f}")
+    for kname, (us, n) in sorted(upd.items(), key=lambda kv: -kv[1][0]):
+        print(f"  update: {us / 1e3 / 10:9.4f} ms/iter x{n / 10:g}  "
+              f"{kname[:80]}")
+    rec["launches"] = launches["ctns_cd"]
+    return rec
+
+
 def main():
     import torch
 
@@ -1621,7 +1862,8 @@ def main():
         return 2
 
     import insider_tpu_torch as itt
-    from insider_tpu_torch.kernels import _lib, cd, eval as ev, fss, gram, row
+    from insider_tpu_torch.kernels import (_lib, cd, ctns, eval as ev, fss,
+                                           gram, row)
     from insider_tpu_torch.train import als
 
     # 1. device
@@ -1734,19 +1976,21 @@ def main():
                 "feature_sign": fss.feature_sign,
                 "feature_sign_shared": fss.feature_sign_shared,
                 "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
-                "cd_shared": cd.cd_shared}
-    no_cd = dict(cd_fused=0, cd_streamed=0, cd_shared=0)
-    no_fss = dict(feature_sign_fused=0, feature_sign=0, feature_sign_shared=0)
+                "cd_shared": cd.cd_shared, "ctns_cd": ctns.ctns_cd}
+    no_cd = dict(cd_fused=0, cd_streamed=0, cd_shared=0, ctns_cd=0)
+    no_fss = dict(feature_sign_fused=0, feature_sign=0, feature_sign_shared=0,
+                  ctns_cd=0)
 
     # 8. flagship fits through the user entry point
     flagship = flagship_object(itt)
     masked_path = dict(level_gram=1, row_xty=1, masked_eval=1)
-    launches, fss_masked, _ = run_fit(
+    flag_ms = {}
+    launches, fss_masked, flag_ms["masked"] = run_fit(
         torch, flagship, wrappers,
         dict(masked_path, feature_sign_fused=1, **no_cd), "flagship fit",
         partition=1, **FLAG_FIT)
     flag_state = flagship.fit_result.state
-    dense, fss_dense, _ = run_fit(
+    dense, fss_dense, flag_ms["dense"] = run_fit(
         torch, flagship, wrappers, dict(feature_sign_shared=1, **no_cd),
         "flagship dense fit", partition=0, **FLAG_FIT)
     dense_state = flagship.fit_result.state
@@ -1808,6 +2052,11 @@ def main():
                  cd_states["cold CD K=50 masked fit"])
     del flagship, predixcan
 
+    # 13. continuous covariates, checkpoint, glm
+    kern["ctns_cd"] = phase_covariates(torch, itt, wrappers, masked_path,
+                                       flag_ms)
+    launches["ctns_cd"] = kern["ctns_cd"]["launches"]
+
     # result
     tpu = "insider_tpu/kernels/"
     # the CD kernels are the CD instances of the FSS kernels' templates
@@ -1827,7 +2076,9 @@ def main():
                             + tpu + "cd_packed.py:325"),
                "cd_streamed": ("fss_streamed.cu", tpu + "cd_pallas.py:358, "
                                + tpu + "cd_packed.py:256"),
-               "cd_shared": ("fss_shared.cu", tpu + "cd_pallas.py:289")}
+               "cd_shared": ("fss_shared.cu", tpu + "cd_pallas.py:289"),
+               # no Pallas kernel: the XLA while_loop of _ctns_cd
+               "ctns_cd": ("ctns_cd.cu", "insider_tpu/ops/continuous.py:101")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "insider_tpu_torch/csrc/" + sources[name][0],

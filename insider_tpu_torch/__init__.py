@@ -4,22 +4,29 @@ kernels for NVIDIA Hopper.
 A port of the JAX package insider_tpu, which stays the reference.  The
 factorization is
 
-    X ~= (sum_v E_v V_v) F
+    X ~= (sum_v E_v V_v + C W) F
 
-with per-level ridge row updates and a per-gene elastic-net column update
-solved by feature-sign search (ridge solves at alpha == 0).  On CUDA tensors
-the kernels of the fit (level grams, row Xty, the fused, streamed and
-shared-gram FSS column solves, the streamed column grams, masked eval) are
-CUDA C++ built at first use from insider_tpu_torch/csrc/; on CPU tensors
-their plain PyTorch versions run.
+with per-level ridge row updates, ridge updates of the continuous
+covariates' coefficients W, and a per-gene elastic-net column update solved
+by feature-sign search or coordinate descent (ridge solves at alpha == 0).
+On CUDA tensors the kernels of the fit (level grams, row Xty, the
+covariates' K-space CD, the fused, streamed and shared-gram FSS and CD
+column solves, the streamed column grams, masked eval) are CUDA C++ built
+at first use from insider_tpu_torch/csrc/; on CPU tensors their plain
+PyTorch versions run.
 
-    Insider(...)   - model object (splitter + interaction setup)
-    .tune(...)     - two-stage rank / (lambda, alpha) search
-    .fit(...)      - final fit (partition=1 masked, partition=0 dense)
-    optimize(...)  - the ALS loop
+    Insider(...)            - model object (splitter + interaction setup)
+    .tune(...)              - two-stage rank / (lambda, alpha) search
+    .fit(...)               - final fit (partition=1 masked, partition=0 dense)
+    optimize(...)           - the ALS loop
+    tune(...)               - the search of .tune, on an Insider
+    glm_interaction(...)    - per-level GLM inference after the fit
+    save_checkpoint(...), load_checkpoint(...) - the fit state on disk
 """
 
+from insider_tpu_torch.analysis.glm import glm_interaction
 from insider_tpu_torch.api import FitResult, Insider
+from insider_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from insider_tpu_torch.config import FitConfig
 from insider_tpu_torch.data.simulate import (simulate_insider_data,
                                              simulate_scale)
@@ -27,6 +34,7 @@ from insider_tpu_torch.data.splitter import SplitResult, ratio_splitter
 from insider_tpu_torch.model.state import (InsiderState, init_state,
                                            state_from_numpy)
 from insider_tpu_torch.train.als import build_problem, optimize
+from insider_tpu_torch.tune.grid import tune
 
 __version__ = "0.1.0"
 
@@ -43,4 +51,8 @@ __all__ = [
     "state_from_numpy",
     "build_problem",
     "optimize",
+    "tune",
+    "glm_interaction",
+    "save_checkpoint",
+    "load_checkpoint",
 ]

@@ -33,11 +33,13 @@ class Insider:
     """INSIDER model object (R/insider.R:18).
 
     interaction_idx is 0-based.  The interaction pseudo-confounder is
-    inserted as column 2 of the confounder matrix (R/insider.R:40).  The
-    positional parameters are the JAX package's, in its order; sharding is
-    not ported (only None).  device (keyword-only): where the problem and
-    the factors live: "cuda" (the default) runs the CUDA kernels and raises
-    without a card, "cpu" runs their plain PyTorch versions.
+    inserted as column 2 of the confounder matrix (R/insider.R:40).
+    ctns_confounder: (N, P) continuous covariates, the C of C W (a 1-D
+    array is one column), or None.  The positional parameters are the JAX
+    package's, in its order; sharding is not ported (only None).  device
+    (keyword-only): where the problem and the factors live: "cuda" (the
+    default) runs the CUDA kernels and raises without a card, "cpu" runs
+    their plain PyTorch versions.
     """
 
     def __init__(self, data: np.ndarray, confounder: np.ndarray,
@@ -76,8 +78,11 @@ class Insider:
         else:
             self.confounder = confounder.copy()
 
-        self.ctns_confounder = (None if ctns_confounder is None
-                                else np.asarray(ctns_confounder, np.float64))
+        if ctns_confounder is not None:
+            ctns = np.asarray(ctns_confounder, np.float64)
+            self.ctns_confounder = ctns[:, None] if ctns.ndim == 1 else ctns
+        else:
+            self.ctns_confounder = None
         self.train_indicator = split.train_indicator
         self.test_indicator = split.test_indicator
         self.na_indicator = split.na_indicator
@@ -107,11 +112,14 @@ class Insider:
         held-out "test" mask.  partition=0: the dense whole-matrix fit.
         (R/insider.R:207-209: train+test is passed as the train mask, NA as
         the test mask, partition as `tuning`.)  col_solver: "auto" | "fss" |
-        "cd".  The positional parameters are the JAX package's, in its
-        order.  use_pallas has no counterpart (the port runs the kernels on
-        a CUDA device and their plain versions on the CPU) and must be None;
-        checkpoint_path, resume, mask_dtype and precompute are not ported
-        yet and take only their defaults (train/als.check_unported).
+        "cd".  checkpoint_path (+ resume): boundary snapshots and resume
+        from the last (train/als.optimize).  With continuous covariates,
+        cfd_matrices ends with W (P, K), as in the JAX package.  The
+        positional parameters are the JAX package's, in its order.
+        use_pallas has no counterpart (the port runs the kernels on a CUDA
+        device and their plain versions on the CPU) and must be None;
+        mask_dtype and precompute are not ported yet and take only their
+        defaults (train/als.check_unported).
         Keyword-only, the port's own: cd_warm_start=False makes "cd" the
         reference's cold strong-rule CD (FitConfig.cd_warm_start); state:
         optional initial factors (model.state.state_from_numpy)."""
@@ -121,8 +129,7 @@ class Insider:
                 "runs the CUDA kernels on a CUDA device and their plain "
                 "versions on the CPU (ROADMAP, Port constraints); pass "
                 "use_pallas=None")
-        als.check_unported(checkpoint_path=checkpoint_path, resume=resume,
-                           mask_dtype=mask_dtype, precompute=precompute)
+        als.check_unported(mask_dtype=mask_dtype, precompute=precompute)
         masked = bool(partition)
         cfg = FitConfig(
             latent_dim=int(latent_dimension), lambda1=float(lambda_),
@@ -138,8 +145,11 @@ class Insider:
                                     self.na_indicator, self.ctns_confounder,
                                     masked=masked, device=self.device)
         result = als.optimize(problem, cfg, state=state, verbose=verbose,
-                              log_jsonl=log_jsonl)
+                              log_jsonl=log_jsonl,
+                              checkpoint_path=checkpoint_path, resume=resume)
         self.cfd_matrices = result.row_matrices
+        if result.ctns_factor is not None:
+            self.cfd_matrices = self.cfd_matrices + [result.ctns_factor]
         self.column_factor = result.column_factor
         self.test_rmse = result.test_rmse
         self.fit_result = result

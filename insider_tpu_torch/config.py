@@ -71,6 +71,10 @@ class FitConfig:
     # Plain-CD polish after FSS, at optimize()'s effective sub_tol.
     fss_polish: bool = True
     max_fss_polish_sweeps: int = 32
+    # Continuous-covariate CD stop: sum|delta w| < ctns_tol
+    # (src/optimize.cpp:122), with a cap on its sweeps.
+    ctns_tol: float = 1e-1
+    max_ctns_sweeps: int = 100
     # The finiteness sanitizer of the JAX package is not ported yet.
     debug_checks: bool = False
 

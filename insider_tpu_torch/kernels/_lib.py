@@ -69,6 +69,7 @@ _SIGNATURES = {
                                         ctypes.POINTER(_I)]),
     "insider_cd_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
                                _I, _I, _I, _P]),
+    "insider_ctns_cd": (_I, [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P]),
     "insider_masked_eval_scratch": (_L, [_I, _I, _I]),
     "insider_masked_eval": (_I, [_P, _P, _P, _P, _P, _P, _P, _L,
                                  _I, _I, _I, _P]),

@@ -35,17 +35,20 @@ class InsiderState:
 
 
 def init_state(generator: torch.Generator, n_levels: Sequence[int],
-               n_cols: int, latent_dim: int,
+               n_cols: int, latent_dim: int, n_ctns: int = 0,
                init_std: float = 1e-3) -> InsiderState:
     """Fresh N(0, init_std^2) factors (R/utils.R:40-43), drawn from
-    `generator` on its own device in f32."""
+    `generator` on its own device in f32: the confounder factors, then W
+    (n_ctns, latent_dim) when n_ctns > 0, then F -- the JAX package's
+    order (insider_tpu/model/state.py:58-84)."""
     def draw(*shape):
         return init_std * torch.randn(*shape, generator=generator,
                                       device=generator.device,
                                       dtype=torch.float32)
 
     cfd = [draw(lv, latent_dim) for lv in n_levels]
-    return InsiderState(cfd, None, draw(latent_dim, n_cols))
+    ctns = draw(n_ctns, latent_dim) if n_ctns else None
+    return InsiderState(cfd, ctns, draw(latent_dim, n_cols))
 
 
 def state_from_numpy(cfd_factors: Sequence[np.ndarray],

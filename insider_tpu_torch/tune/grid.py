@@ -40,12 +40,14 @@ def _as_list(x):
 
 def draw_state(problem: als.Problem, rank: int, seed: int,
                init_std: float) -> InsiderState:
-    """A trial's initial factors, drawn from a generator on the problem's
-    device seeded with `seed`."""
+    """A trial's initial factors, W included where the problem has
+    continuous covariates, drawn from a generator on the problem's device
+    seeded with `seed`."""
     generator = torch.Generator(device=problem.device)
     generator.manual_seed(seed)
     return init_state(generator, problem.n_levels, problem.shape[1], rank,
-                      init_std=init_std)
+                      n_ctns=0 if problem.ctns is None
+                      else problem.ctns.shape[1], init_std=init_std)
 
 
 def _run_trial(problem, obj, rank, lam, alpha, trial_seed, tuning_iter):

@@ -37,7 +37,7 @@ import pytest
 import torch
 
 from insider_tpu_torch.kernels import eval as ev
-from insider_tpu_torch.kernels import cd, fss, gram, row
+from insider_tpu_torch.kernels import cd, ctns, fss, gram, row
 from insider_tpu_torch.ops.col_update import col_gram_masked
 from insider_tpu_torch.ops.planes import bf16_planes, planes_col_gram_xty
 from insider_tpu_torch.ops.row_update import factor_outer_table
@@ -671,6 +671,98 @@ def test_masked_k50_fit(cuda):
     assert np.all(np.isfinite(losses))
     assert all(b <= a * (1 + 1e-6) for a, b in zip(losses, losses[1:]))
     assert obj.column_factor.shape == (50, 3000)
+
+
+# K = 109 is the largest whose padded XtX fits 48 KB of shared memory, 110
+# the first past it; 33 and 128 fill a lane's second and fourth slot
+@pytest.mark.parametrize("K", [1, 5, 24, 33, 64, 109, 110, 128])
+@pytest.mark.parametrize("loss_criterion,tol", [(False, 1e-1), (True, 1e-3),
+                                                (False, 1e-7)])
+def test_ctns_cd(cuda, K, loss_criterion, tol):
+    """The covariate CD kernel follows its plain version bit for bit, sweep
+    counts included: every operation rounded on its own, in the same
+    order (the plain version on the card, from the same inputs)."""
+    rng = np.random.default_rng(K)
+    A = rng.standard_normal((2 * K + 3, K)).astype(np.float32)
+    XtX = _t(A.T @ A, cuda)
+    b = _t(rng.standard_normal(K).astype(np.float32), cuda)
+    w0 = _t((0.1 * rng.standard_normal(K)).astype(np.float32), cuda)
+    args = (XtX, b, w0, 0.7, tol, 100, loss_criterion)
+    n0 = ctns.ctns_cd.launches
+    w, sweeps = ctns.ctns_cd(*args, with_sweeps=True)
+    assert ctns.ctns_cd.launches == n0 + 1
+    w_ref, sweeps_ref = ctns.ctns_cd_plain(*args)
+    assert int(sweeps) == int(sweeps_ref) and 1 <= int(sweeps) <= 100
+    assert torch.equal(w, w_ref)
+    assert torch.equal(w, ctns.ctns_cd(*args))
+
+
+def test_ctns_cd_sweep_cap(cuda):
+    XtX = torch.tensor([[2.0, 1.9], [1.9, 2.0]], device=cuda)
+    b = torch.tensor([1.0, -1.0], device=cuda)
+    w, sweeps = ctns.ctns_cd(XtX, b, torch.zeros(2, device=cuda), 1e-3,
+                             1e-12, 3, with_sweeps=True)
+    assert int(sweeps) == 3
+    with pytest.raises(ValueError):
+        ctns.ctns_cd(torch.zeros((129, 129), device=cuda),
+                     torch.zeros(129, device=cuda),
+                     torch.zeros(129, device=cuda), 1.0, 0.1)
+
+
+@pytest.mark.parametrize("partition", [1, 0])
+def test_covariate_fit_card_against_cpu(cuda, partition):
+    """A fit with two continuous covariates, on the card and on the CPU
+    from one initial state: per-boundary losses agree to rtol 1e-5; the
+    masked fit launches ctns_cd twice an iteration, the dense fit never
+    (its covariate update is the closed form)."""
+    import insider_tpu_torch as itt
+    from insider_tpu_torch.model.state import state_from_numpy
+
+    sim = itt.simulate_scale(120, 2000, 8, level_counts=(2, 4, 9),
+                             noise_std=0.5, seed=2)
+    rng = np.random.default_rng(7)
+    c = rng.standard_normal((120, 2))
+    data = sim.data + (c @ rng.standard_normal((2, 8))) @ sim.gene_factor
+    histories, launched = {}, {}
+    for dev in ("cuda", "cpu"):
+        obj = itt.Insider(data, sim.confounder, c, interaction_idx=[0, 1],
+                          max_iter=20, device=dev)
+        init = np.random.default_rng(4)
+        counts = [np.unique(v).size for v in obj.confounder.T]
+        state = state_from_numpy(
+            [1e-3 * init.standard_normal((L, 8)) for L in counts],
+            1e-3 * init.standard_normal((2, 8)),
+            1e-3 * init.standard_normal((8, obj.data.shape[1])), dev)
+        n0 = ctns.ctns_cd.launches
+        obj.fit(8, 5.0, 0.4, partition=partition, verbose=False, state=state)
+        launched[dev] = ctns.ctns_cd.launches - n0
+        histories[dev] = [h["loss"] for h in obj.fit_result.history]
+    assert launched == {"cuda": 2 * 21 if partition else 0, "cpu": 0}
+    np.testing.assert_allclose(histories["cuda"], histories["cpu"],
+                               rtol=1e-5, atol=0)
+
+
+def test_covariate_update_has_no_host_sync(cuda):
+    """One masked covariate update (the constants, the (M, N) @ (N, K)
+    correction and the ctns_cd launch) runs with the sync debug mode set
+    to raise on any host sync."""
+    from insider_tpu_torch.ops import continuous
+
+    rng = np.random.default_rng(3)
+    n, m, k = 60, 500, 8
+    t = lambda x: _t(np.asarray(x, np.float32), cuda)
+    mask, data = t(rng.random((n, m)) > 0.1), t(rng.standard_normal((n, m)))
+    c, F = t(rng.standard_normal(n)), t(rng.standard_normal((k, m)))
+    R_minus, w0 = t(rng.standard_normal((n, k))), t(np.zeros(k))
+    q, bc = (c * c) @ mask, c @ (mask * data)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w = continuous.update_ctns_row_masked_fast(q, bc, mask, R_minus, F,
+                                                   c, w0, 1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(w).all()
 
 
 def test_mixed_devices_raise(cuda):

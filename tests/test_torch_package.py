@@ -19,7 +19,7 @@ import insider_tpu_torch as itt
 from insider_tpu.model.state import init_state as jax_init_state
 from insider_tpu_torch.config import FitConfig, decay_from_delta_loss
 from insider_tpu_torch.kernels import eval as ev
-from insider_tpu_torch.kernels import cd, fss, gram, row
+from insider_tpu_torch.kernels import cd, ctns, fss, gram, row
 from insider_tpu_torch.model.state import init_state, state_from_numpy
 from insider_tpu_torch.ops import col_update
 from insider_tpu_torch.train import als
@@ -121,24 +121,33 @@ def test_col_solver_accepts_only_the_ported_solver():
             FitConfig(col_solver=s)
 
 
-def test_unsupported_problem_and_fit_raise():
+@pytest.mark.parametrize("call", ["masked problem", "dense problem",
+                                  "dense fit", "masked cold-CD fit"])
+def test_covariate_problem_and_fit_run(call):
+    """Continuous covariates are ported: the calls that raised before build
+    their problem and fit, with W as the last of cfd_matrices."""
     rng = np.random.default_rng(1)
     data = rng.standard_normal((12, 20))
     conf = rng.integers(1, 3, (12, 2))
     ind = np.ones((12, 20), np.uint8)
     ctns = rng.standard_normal((12, 1))
-    with pytest.raises(NotImplementedError):
-        als.build_problem(data, conf, ind, 0 * ind, ctns_confounder=ctns,
-                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        als.build_problem(data, conf, ind, 0 * ind, masked=False,
-                          ctns_confounder=ctns, device="cpu")
-    with pytest.raises(NotImplementedError):
-        itt.Insider(data, conf, ctns_confounder=ctns, device="cpu").fit(
-            3, 1.0, 0.5, partition=0)
-    with pytest.raises(NotImplementedError):
-        itt.Insider(data, conf, ctns_confounder=ctns, device="cpu").fit(
-            3, 1.0, 0.5, partition=1, col_solver="cd", cd_warm_start=False)
+    if call.endswith("problem"):
+        masked = call == "masked problem"
+        prob = als.build_problem(data, conf, ind, 0 * ind,
+                                 ctns_confounder=ctns, masked=masked,
+                                 device="cpu")
+        assert tuple(prob.ctns.shape) == (12, 1)
+        const = prob.ctns_q if masked else prob.ctns_dc
+        assert tuple(const.shape) == (1, 20)
+        return
+    obj = itt.Insider(data, conf, ctns_confounder=ctns, device="cpu")
+    if call == "dense fit":
+        obj.fit(3, 1.0, 0.5, partition=0, verbose=False, max_iter=3)
+    else:
+        obj.fit(3, 1.0, 0.5, partition=1, col_solver="cd",
+                cd_warm_start=False, verbose=False, max_iter=3)
+    assert obj.cfd_matrices[-1].shape == (1, 3)
+    assert np.isfinite(obj.fit_result.loss)
 
 
 def test_dense_problem_and_ridge_update_build():
@@ -193,6 +202,8 @@ def test_non_cpu_operands_never_take_the_plain_path():
                        1e-5)
     with pytest.raises(ValueError):
         cd.cd_shared(meta(4, 4), meta(4, 10), meta(4, 10), 1.0, 0.5, 1e-5)
+    with pytest.raises(ValueError):
+        ctns.ctns_cd(meta(4, 4), meta(4), meta(4), 1.0, 0.1)
 
 
 def test_chip_smoke_fails_without_gpu():

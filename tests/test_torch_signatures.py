@@ -11,6 +11,7 @@ counterpart and must be None.
 """
 
 import inspect
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -101,20 +102,44 @@ CALLS = {
 
 @pytest.mark.parametrize("entry,name,value,item", [
     ("Insider.__init__", "sharding", object(), "Queue 1 item 9"),
-    ("Insider.fit", "checkpoint_path", "ckpt.npz", "Queue 1 item 5"),
-    ("Insider.fit", "resume", True, "Queue 1 item 5"),
     ("Insider.fit", "mask_dtype", np.uint8, "Queue 1 item 6"),
     ("Insider.fit", "precompute", False, "Queue 1 item 6"),
     ("build_problem", "sharding", object(), "Queue 1 item 9"),
     ("build_problem", "mask_dtype", np.uint8, "Queue 1 item 6"),
     ("build_problem", "precompute", False, "Queue 1 item 6"),
-    ("optimize", "checkpoint_path", "ckpt.npz", "Queue 1 item 5"),
-    ("optimize", "resume", True, "Queue 1 item 5"),
     ("optimize", "profile_dir", "trace", "Queue 1 item 6")])
 def test_unported_values_raise(entry, name, value, item):
     with pytest.raises(NotImplementedError, match=item) as err:
         CALLS[entry](**{name: value})
     assert name in str(err.value)
+
+
+def _history(out):
+    return (out.fit_result if isinstance(out, itt.Insider) else out).history
+
+
+@pytest.mark.parametrize("entry", ["Insider.fit", "optimize"])
+def test_checkpoint_path_runs(tmp_path, entry):
+    """checkpoint_path is ported: the run saves its last boundary there."""
+    path = str(tmp_path / "ckpt.npz")
+    out = CALLS[entry](checkpoint_path=path)
+    assert "checkpoint_path" not in als.UNPORTED
+    with open(path + ".json") as fh:
+        assert json.load(fh)["iter"] == _history(out)[-1]["iter"] == 2
+
+
+@pytest.mark.parametrize("entry", ["Insider.fit", "optimize"])
+def test_resume_runs(tmp_path, entry):
+    """resume is ported: with a checkpoint at the last boundary, the run
+    evaluates the restored state and has nothing left to do; without one
+    it starts fresh."""
+    path = str(tmp_path / "ckpt.npz")
+    fresh = _history(CALLS[entry](checkpoint_path=path, resume=True))
+    assert "resume" not in als.UNPORTED
+    assert [h["iter"] for h in fresh] == [-1, 0, 2]
+    again = _history(CALLS[entry](checkpoint_path=path, resume=True))
+    assert [h["iter"] for h in again] == [-1]
+    assert again[0]["loss"] == fresh[-1]["loss"]
 
 
 @pytest.mark.parametrize("value", [True, False])

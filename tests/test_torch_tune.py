@@ -24,13 +24,13 @@ import insider_tpu.kernels.eval_pallas as ep
 import insider_tpu.kernels.fss_pallas as fsp
 import insider_tpu.kernels.row_pallas as rp
 import insider_tpu_torch as itt
-import insider_tpu_torch.tune.grid as grid
 from insider_tpu.config import FitConfig as JaxFitConfig
 from insider_tpu.model.state import init_state as jax_init_state
 from insider_tpu_torch.model.state import state_from_numpy
 
-# insider_tpu's package attribute `tune` is the function, not the module
+# each package's attribute `tune` is the function, not the module
 jax_grid = importlib.import_module("insider_tpu.tune.grid")
+grid = importlib.import_module("insider_tpu_torch.tune.grid")
 
 RANKS, LAMBDAS, ALPHAS = [2, 4], [1.0, 2.0], [0.2, 0.5]
 
