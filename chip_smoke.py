@@ -97,7 +97,33 @@ Phases, each fatal on failure:
      and the 16-level interaction codes, card against CPU (coefficients
      rtol 1e-4), timed; torch.profiler over 10 iterations of the masked
      covariate fit, and over 10 covariate updates alone (their device ms
-     per iteration).
+     per iteration);
+ 14. the memory-lean fit: row_xty, masked_eval, feature_sign_fused and
+     cd_fused with uint8 masks against the same masks as f32, bit for bit,
+     at the flagship shape (each also against its plain version, timed with
+     both dtypes beside the uint8 bound) and at the K=50 shape (the fused
+     kernels there at K=32, and col_gram_xty at K=50); the flagship FSS and
+     cold-CD fits with mask_dtype=uint8, their losses bit for bit phases 8
+     and 10's; the GTEx-sized masked fit (17382 x 56200, 54 tissues x 948
+     donors and their interaction, about 14.7k levels, which takes the
+     segment-sum update; K=24, 20 iterations) with uint8 and with f32
+     masks: the routes, the precompute's column chunks, the problem's
+     bytes on the card, the build's and the fit's peaks beyond them and
+     ms/iter printed, and a profile of 5 iterations of the uint8 fit;
+     the uint8 fit's last in-fit call of level_gram, row_xty (tissue and
+     donor), masked_eval and feature_sign_fused launched again on its
+     inputs and held against its plain version (gtex_infit_checks);
+     gates: losses equal bit for bit, finite and
+     non-increasing, level_gram once an iteration, row_xty twice,
+     feature_sign_fused once, uint8 saving at least 0.99 x 2 N M 3 bytes,
+     the build's peak at most 3 GB (N is cut only where the host's memory
+     would not hold the set-up, and then printed); small fits card against
+     CPU at rtol 1e-5: masked K=8 uint8, masked and dense K=8
+     precompute=False, masked K=8 with the 9-level confounder on segment
+     sums (the fast route's budget lowered in this process), masked K=40
+     uint8 (col_gram_xty); optimize(profile_dir=...) writes a trace with
+     the card's kernels and fits the same bits; fit_interaction and the two
+     CD solvers, card against CPU.
 The route checks (phases 4, 5): the fused kernels and col_gram_xty sum the
 exact bf16 planes of the f32 table on the tensor cores in the same k-steps
 of 16 rows, but the fused kernels sum Xty row by row and col_gram_xty each
@@ -124,7 +150,9 @@ column update in the cold-CD fits); feature_sign_shared's count its
 solves' operations (fss_flops: each outer step's elimination, a^3 / 3
 multiply-adds over its a active coordinates, and its gradient, K^2; each
 polish sweep, K^2; from fss_counts' replay of the timed input); the other
-FSS kernels' leave their solves out.  As the last line {"ok": true,
+FSS kernels' leave their solves out.  The uint8 records (phase 14) count a
+byte an element of the mask; their launches are the GTEx-sized uint8 fit's
+(the cold-CD flagship uint8 fit's for cd_fused).  As the last line {"ok": true,
 "device": {...}}.
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -166,12 +194,13 @@ def pairs(k):
     return k * (k + 1) // 2
 
 
-def fused_bound(n, k, m, sweeps=None):
-    """The fused column kernels: mask and data read, R, beta0 read, beta
-    written; the gram in three bf16 planes on the tensor cores over the
-    K(K+1)/2 pairs, Xty in f32; for CD with `sweeps`, also cd_flops (the
-    FSS solve's operations are not counted)."""
-    return bound(4 * (2 * n * m + n * k + 2 * k * m),
+def fused_bound(n, k, m, sweeps=None, mask_bytes=4):
+    """The fused column kernels: mask (mask_bytes an element) and data
+    read, R, beta0 read, beta written; the gram in three bf16 planes on the
+    tensor cores over the K(K+1)/2 pairs, Xty in f32; for CD with
+    `sweeps`, also cd_flops (the FSS solve's operations are not
+    counted)."""
+    return bound(mask_bytes * n * m + 4 * (n * m + n * k + 2 * k * m),
                  bf16_flop=2 * 3 * pairs(k) * n * m,
                  f32_flop=2 * k * n * m + (0.0 if sweeps is None
                                            else cd_flops(k, sweeps)))
@@ -295,13 +324,15 @@ def row_order(row, codes, L):
 
 def row_xty_times(torch, row, cases, mask, F, reps=20):
     """row_xty over every (codes, R_minus, D) of `cases` in one timed call,
-    kernel and plain version, beside the bound: per case the mask, D, F, R
-    and the row order read once, the (L, K) output written; the prediction's
-    and the contraction's FMAs in f32."""
+    kernel and plain version, beside the bound: per case the mask (f32 or
+    uint8), D, F, R and the row order read once, the (L, K) output
+    written; the prediction's and the contraction's FMAs in f32."""
     n = mask.shape[0]
     k, m = F.shape
+    mb = mask.element_size()
     orders = [row_order(row, c, D.shape[0]) for c, _, D in cases]
-    b = bound(sum(4 * (n * m + L * m + k * m + n * k + 2 * n + L + 1 + L * k)
+    b = bound(sum(mb * n * m
+                  + 4 * (L * m + k * m + n * k + 2 * n + L + 1 + L * k)
                   for L in (D.shape[0] for _, _, D in cases)),
               f32_flop=sum(2 * (n * k * m + D.shape[0] * k * m)
                            for _, _, D in cases))
@@ -316,10 +347,12 @@ def row_xty_times(torch, row, cases, mask, F, reps=20):
 
 def masked_eval_times(torch, ev, data, train, test, R, F, reps=20):
     """masked_eval's kernel and plain times beside its bound: data and the
-    two masks (N, M), R and F read once; the prediction's FMAs in f32."""
+    two masks (N, M; f32 or uint8), R and F read once; the prediction's
+    FMAs in f32."""
     n, k = R.shape
     m = F.shape[1]
-    b = bound(4 * (3 * n * m + n * k + k * m) + 32, f32_flop=2 * n * k * m)
+    b = bound(4 * (n * m + n * k + k * m) + 2 * train.element_size() * n * m
+              + 32, f32_flop=2 * n * k * m)
     return dict(
         ms=timed_ms(torch, lambda: ev.masked_eval(data, train, test, R, F),
                     reps),
@@ -1128,10 +1161,10 @@ KERNEL_NAMES = {"level_gram": "level_gram", "row_xty": "row_xty",
 
 
 def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
-                alpha, iters=10, masked=True, **solver):
+                alpha, iters=10, masked=True, mask_dtype=None, **solver):
     """torch.profiler over `iters` iterations of the object's masked (or,
     with masked=False, dense) fit (FSS, or the FitConfig solver settings in
-    `solver`) from `state` (where
+    `solver`; masks stored as mask_dtype) from `state` (where
     an earlier fit ended: in-fit inputs, kernels built and warm), boundary
     evals included (three: before, after iteration 0 and after the last).
     The problem is staged before the window, which holds train/als.optimize
@@ -1153,7 +1186,8 @@ def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
     problem = als.build_problem(obj.data, obj.confounder,
                                 obj.train_indicator + obj.test_indicator,
                                 obj.na_indicator, obj.ctns_confounder,
-                                masked=masked, device="cuda")
+                                masked=masked, mask_dtype=mask_dtype,
+                                device="cuda")
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
@@ -1428,30 +1462,48 @@ def cd_count_summary(torch, name, K, c, bnd=None, refill=False):
     return out
 
 
+def captured_calls(torch, specs, run):
+    """The arguments of chosen calls while run() runs: specs maps a key to
+    (module, name, at), the `at`-th call (1-based) of <module>.<name>, or
+    its last call where `at` is None; returns {key: (args, kwargs)}.  The
+    wrappers are restored after."""
+    wanted = {}
+    for key, (module, name, at) in specs.items():
+        wanted.setdefault((module, name), {})[at] = key
+    seen, got, origs = {}, {}, {}
+
+    def spy_for(module, name):
+        orig = origs[(module, name)] = getattr(module, name)
+
+        def spy(*args, **kw):
+            n = seen[(module, name)] = seen.get((module, name), 0) + 1
+            for at in (n, None):
+                if at in wanted[(module, name)]:
+                    got[wanted[(module, name)][at]] = (args, kw)
+            return orig(*args, **kw)
+        return spy
+
+    try:
+        for module, name in wanted:
+            setattr(module, name, spy_for(module, name))
+        run()
+    finally:
+        for (module, name), orig in origs.items():
+            setattr(module, name, orig)
+    for key, (module, name, at) in specs.items():
+        if key not in got:
+            fail(f"{name} was called {seen.get((module, name), 0)} times, "
+                 f"not {at}")
+    return got
+
+
 def captured_call(torch, name, at, run, module=None):
     """The arguments of the `at`-th call (1-based) of <module>.<name> (by
     default ops/col_update, whose column-update kernel wrappers it names)
     while run() runs, as (args, kwargs); the wrapper is restored after."""
     if module is None:
         from insider_tpu_torch.ops import col_update as module
-
-    orig = getattr(module, name)
-    seen = {"n": 0}
-
-    def spy(*args, **kw):
-        seen["n"] += 1
-        if seen["n"] == at:
-            seen["call"] = (args, kw)
-        return orig(*args, **kw)
-
-    setattr(module, name, spy)
-    try:
-        run()
-    finally:
-        setattr(module, name, orig)
-    if "call" not in seen:
-        fail(f"{name} was called {seen['n']} times, not {at}")
-    return seen["call"]
+    return captured_calls(torch, {0: (module, name, at)}, run)[0]
 
 
 def phase_counts(torch, itt, gram, flagship, flag_state, dense_state,
@@ -1853,6 +1905,466 @@ def phase_covariates(torch, itt, wrappers, masked_path, flag_ms):
     return rec
 
 
+# Phase 14, the memory-lean fit.  GTEx v8 (the GTEx Consortium's v8
+# release): 17382 RNA-seq samples of 948 donors in 54 tissues, 56200
+# GENCODE v26 genes; the tissue x donor interaction is inserted as one more
+# confounder, whose levels are the combinations seen (R/insider.R:34-40),
+# about 14.7k on random codes: past the fast route's budgets, so it takes
+# the segment-sum update.
+GTEX_N, GTEX_M, GTEX_LEVELS = 17382, 56200, (54, 948)
+GTEX_FIT = dict(latent_dimension=K, lambda_=LAM, alpha=ALPHA, partition=1,
+                max_iter=20)
+GB = 1e9
+
+
+def bit_equal(torch, name, a, b):
+    """Fail unless the uint8-mask output a equals the f32-mask output b bit
+    for bit (tensors, or tuples and lists of them)."""
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{name}: uint8 masks differ from f32 masks")
+
+
+def uint8_kernels(torch, row, fss, cd, ev, gram):
+    """The four kernels that read the mask, with uint8 masks against the
+    same masks as f32: at the flagship shape (377 x 44477, K=24; M odd, so
+    the uint8 rows start at every byte) row_xty, masked_eval,
+    feature_sign_fused and cd_fused, each also against its plain version
+    (phase 3's and phase 5's checks) and timed with both dtypes beside the
+    uint8 bound; at the K=50 shape (300 x 44477) row_xty and masked_eval,
+    the fused kernels at their largest K, 32, and col_gram_xty.  Every
+    uint8 output equals the f32 one bit for bit.  Returns
+    {name: record} of the uint8 kernels at the flagship shape."""
+    from insider_tpu_torch.ops.col_update import col_gram_masked
+
+    out = {}
+    x = flagship_inputs(torch)
+    train, test, data, F = x["train"], x["test"], x["data"], x["F"]
+    train8, test8 = train.to(torch.uint8), test.to(torch.uint8)
+    cases = list(zip(x["codes"], x["R_minus"], x["D"]))
+    for c, r, D in cases:
+        o = row_order(row, c, D.shape[0])
+        bit_equal(torch, f"row_xty (L={D.shape[0]})",
+                  row.row_xty(c, r, train8, D, F, **o),
+                  row.row_xty(c, r, train, D, F, **o))
+    errs = [row_xty_check(torch, row, f"row_xty uint8 (L={D.shape[0]})", c,
+                          r, train8, D, F) for c, r, D in cases]
+    rec = row_xty_times(torch, row, cases, train8, F)
+    out["row_xty uint8"] = dict(
+        max_abs_err=max(errs), f32_ms=row_xty_times(
+            torch, row, cases, train, F)["ms"], **rec)
+
+    args = (data, train8, test8, x["R"], F)
+    bit_equal(torch, "masked_eval", torch.stack(list(ev.masked_eval(*args))),
+              torch.stack(list(ev.masked_eval(data, train, test, x["R"], F))))
+    out["masked_eval uint8"] = dict(
+        max_abs_err=masked_eval_check(torch, ev, "masked_eval uint8", *args),
+        f32_ms=masked_eval_times(torch, ev, data, train, test, x["R"],
+                                 F)["ms"],
+        **masked_eval_times(torch, ev, *args))
+
+    kw = dict(max_outer=48, polish_sweeps=32, tol=SUB_TOL)
+    R, beta0 = x["R"], x["beta0"]
+    G = col_gram_masked(R, train).permute(1, 2, 0).contiguous()
+    b = R.T @ (train * data)
+    got = fss.feature_sign_fused(train8, data, R, beta0, LAM, ALPHA, **kw)
+    bit_equal(torch, "feature_sign_fused", got, fss.feature_sign_fused(
+        train, data, R, beta0, LAM, ALPHA, **kw))
+    ref = fss.feature_sign_fused_plain(train8, data, R, beta0, LAM, ALPHA,
+                                       **kw)
+    fss_checks(torch, "feature_sign_fused uint8", got, ref, G, b, LAM, ALPHA)
+    bnd = fused_bound(N, K, M, mask_bytes=1)
+    out["feature_sign_fused uint8"] = dict(
+        max_abs_err=float((got - ref).abs().max()),
+        ms=timed_ms(torch, lambda: fss.feature_sign_fused(
+            train8, data, R, beta0, LAM, ALPHA, **kw), 10),
+        f32_ms=timed_ms(torch, lambda: fss.feature_sign_fused(
+            train, data, R, beta0, LAM, ALPHA, **kw), 10),
+        plain_ms=timed_ms(torch, lambda: fss.feature_sign_fused_plain(
+            train8, data, R, beta0, LAM, ALPHA, **kw), 3),
+        bound_ms=bnd[0], bound_by=bnd[1])
+
+    # cd_fused on phase 5's input, at its 200-sweep cap
+    S = 200
+    R, mask, data5, beta0 = problem(torch, N, K, M, 7)
+    mask8 = mask.to(torch.uint8)
+    cargs = (data5, R, beta0, LAM, ALPHA, SUB_TOL)
+    got = cd.cd_fused(mask8, *cargs, S)
+    bit_equal(torch, "cd_fused", got, cd.cd_fused(mask, *cargs, S))
+    G, b5 = gram.col_gram_xty(mask, data5, R)
+    _, st = cd_checks(torch, "cd_fused uint8", cd.cd_fused,
+                      cd.cd_fused_plain, (mask8,) + cargs, G, b5, LAM,
+                      ALPHA, S)
+    Gp = col_gram_masked(R, mask).permute(1, 2, 0).contiguous()
+    sw = cd_counts(torch, Gp, R.T @ (mask * data5), beta0, LAM, ALPHA,
+                   SUB_TOL, S)["sweeps"]
+    del Gp, G
+    bnd = fused_bound(N, K, M, sweeps=sw, mask_bytes=1)
+    out["cd_fused uint8"] = dict(
+        max_abs_err=st["max_abs_err"],
+        ms=timed_ms(torch, lambda: cd.cd_fused(mask8, *cargs, S), 5),
+        f32_ms=timed_ms(torch, lambda: cd.cd_fused(mask, *cargs, S), 5),
+        plain_ms=timed_ms(torch, lambda: cd.cd_fused_plain(mask8, *cargs, S),
+                          2),
+        bound_ms=bnd[0], bound_by=bnd[1])
+
+    # the K=50 shape
+    k50 = k50_inputs(torch)
+    mask8, test8 = k50["mask"].to(torch.uint8), k50["test"].to(torch.uint8)
+    for c, r, D in zip(k50["codes"], k50["R_minus"], k50["D"]):
+        bit_equal(torch, f"row_xty K=50 (L={D.shape[0]})",
+                  row.row_xty(c, r, mask8, D, k50["F"]),
+                  row.row_xty(c, r, k50["mask"], D, k50["F"]))
+        row_xty_check(torch, row, f"row_xty uint8 K=50 (L={D.shape[0]})", c,
+                      r, mask8, D, k50["F"])
+    args = (k50["data"], mask8, test8, k50["R"], k50["F"])
+    bit_equal(torch, "masked_eval K=50",
+              torch.stack(list(ev.masked_eval(*args))),
+              torch.stack(list(ev.masked_eval(
+                  k50["data"], k50["mask"], k50["test"], k50["R"],
+                  k50["F"]))))
+    masked_eval_check(torch, ev, "masked_eval uint8 K=50", *args)
+    bit_equal(torch, "col_gram_xty K=50",
+              gram.col_gram_xty(mask8, k50["data"], k50["R"]),
+              gram.col_gram_xty(k50["mask"], k50["data"], k50["R"]))
+    R32 = k50["R"][:, :32].contiguous()
+    beta32 = torch.zeros((32, M), device="cuda")
+    bit_equal(torch, "feature_sign_fused 300 x 44477 K=32",
+              fss.feature_sign_fused(mask8, k50["data"], R32, beta32, 1.0,
+                                     0.5, **kw),
+              fss.feature_sign_fused(k50["mask"], k50["data"], R32, beta32,
+                                     1.0, 0.5, **kw))
+    bit_equal(torch, "cd_fused 300 x 44477 K=32",
+              cd.cd_fused(mask8, k50["data"], R32, beta32, 1.0, 0.5, SUB_TOL,
+                          S),
+              cd.cd_fused(k50["mask"], k50["data"], R32, beta32, 1.0, 0.5,
+                          SUB_TOL, S))
+    print("uint8 masks at the K=50 shape (300 x 44477): row_xty, "
+          "masked_eval, col_gram_xty (K=50), feature_sign_fused and cd_fused "
+          "(K=32) equal the f32 masks' outputs bit for bit")
+    return out
+
+
+def gtex_object(itt, n):
+    """The GTEx-sized problem (n x 56200; 54 tissues, 948 donors, their
+    interaction) as an Insider on the card: simulate_scale's data with 1%
+    NaNs, made a block of rows at a time."""
+    sim = itt.simulate_scale(n, GTEX_M, K, level_counts=GTEX_LEVELS,
+                             noise_std=1.0, seed=0)
+    conf = sim.confounder
+    data = sim.data.astype(np.float64)
+    del sim
+    rng = np.random.default_rng(0)
+    for i0 in range(0, n, 1024):
+        blk = data[i0:i0 + 1024]
+        blk[rng.random(blk.shape) < 0.01] = np.nan
+    return itt.Insider(data, conf, interaction_idx=[0, 1], split_ratio=0.1,
+                       device="cuda")
+
+
+def measured_fit(torch, als, obj, wrappers, expect, name, **fit_kw):
+    """run_fit with the device memory read around the fit's build_problem:
+    the bytes it leaves allocated (the problem), its peak beyond them, and
+    the fit's peak beyond what the build left.  Returns (launch counts,
+    losses, ms per iteration, memory figures, the problem's fast
+    confounders)."""
+    mem, orig = {}, als.build_problem
+
+    def build(*args, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        prob = orig(*args, **kw)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        mem.update(persistent=after - before,
+                   build_peak=torch.cuda.max_memory_allocated() - after,
+                   after=after, fast=prob.fast())
+        torch.cuda.reset_peak_memory_stats()
+        return prob
+
+    als.build_problem = build
+    try:
+        launches, _, ms = run_fit(torch, obj, wrappers, expect, name,
+                                  **fit_kw)
+    finally:
+        als.build_problem = orig
+    mem["fit_peak"] = torch.cuda.max_memory_allocated() - mem["after"]
+    losses = [h["loss"] for h in obj.fit_result.history]
+    print(f"{name}: problem {mem['persistent'] / GB:.3f} GB on the card; "
+          f"build peak beyond it {mem['build_peak'] / GB:.3f} GB; fit peak "
+          f"beyond it {mem['fit_peak'] / GB:.3f} GB; {ms:.3f} ms/iter")
+    return launches, losses, ms, mem
+
+
+def gtex_infit_checks(torch, als, iters, run):
+    """Each kernel of the GTEx-sized fit held against its plain version on
+    the inputs the fit gave it: the last iteration's calls of level_gram,
+    row_xty (tissue, L=54, and donor, L=948), masked_eval and
+    feature_sign_fused, captured while run() drives the fit, and launched
+    again after it beside the plain versions.  Tolerances: level_gram
+    within LEVEL_GRAM_RTOL of max |ref| of the f64 sums (level_gram_gate);
+    row_xty within ROW_XTY_RTOL of max |ref| of the f64 plain version (the
+    fit's inputs nearly cancel, as row_xty_gate's do); masked_eval's SSEs
+    within 1e-5 relative, counts exact (masked_eval_check);
+    feature_sign_fused's per-column objective at most 1e-6 relative above
+    the plain version's (fss_checks).  Returns what run() returns."""
+    from insider_tpu_torch.kernels import eval as ev, fss, row
+    from insider_tpu_torch.ops import col_update
+    from insider_tpu_torch.ops.col_update import col_gram_masked
+
+    out = {}
+    calls = captured_calls(torch, {
+        "level_gram": (als, "level_gram", None),
+        "row_xty tissue": (als, "row_xty", 2 * iters - 1),
+        "row_xty donor": (als, "row_xty", 2 * iters),
+        "masked_eval": (als, "masked_eval", None),
+        "feature_sign_fused": (col_update, "feature_sign_fused", None)},
+        lambda: out.update(result=run()))
+
+    (mw, F, max_count), _ = calls.pop("level_gram")
+    level_gram_gate(torch, row, mw, F, row.level_gram(mw, F, max_count))
+    for key in ("row_xty tissue", "row_xty donor"):
+        args, _ = calls.pop(key)
+        codes, Rm, mask, D, F = args[:5]
+        got = row.row_xty(*args)
+        exact = row.row_xty_plain(codes, Rm.double(), mask, D.double(),
+                                  F.double())
+        scale = float(exact.abs().max())
+        err = float((got.double() - exact).abs().max()) / scale
+        f32 = float((row.row_xty_plain(codes, Rm, mask, D, F).double()
+                     - exact).abs().max()) / scale
+        print(f"GTEx-sized fit, in-fit {key} (L={D.shape[0]}, mask "
+              f"{mask.dtype}): max err vs the f64 plain version {err:.4e} "
+              f"of max |ref| (plain f32 {f32:.4e}); limit {ROW_XTY_RTOL:g}")
+        if not err <= ROW_XTY_RTOL:
+            fail(f"GTEx-sized fit: in-fit {key} max err {err:.4e}")
+        del exact
+    args, _ = calls.pop("masked_eval")
+    err = masked_eval_check(torch, ev, "GTEx-sized fit, in-fit masked_eval",
+                            *args)
+    print(f"GTEx-sized fit, in-fit masked_eval: max abs diff {err:.4e} "
+          "from the plain version")
+    args, kw = calls.pop("feature_sign_fused")
+    mask, data, R, beta0, lam, alpha = args
+    got = fss.feature_sign_fused(*args, **kw)
+    ref = fss.feature_sign_fused_plain(*args, **kw)
+    G = col_gram_masked(R, mask.to(R.dtype)).permute(1, 2, 0).contiguous()
+    b = R.T @ (mask * data)
+    share, excess = fss_checks(torch, "GTEx-sized fit, in-fit "
+                               "feature_sign_fused", got, ref, G, b, lam,
+                               alpha)
+    print(f"GTEx-sized fit, in-fit feature_sign_fused (mask {mask.dtype}, "
+          f"{tuple(mask.shape)}): columns matching the plain version "
+          f"{share:.6f}, max objective excess {excess:.3e} (limit 1e-6), "
+          f"max abs diff {float((got - ref).abs().max()):.3e}")
+    return out["result"]
+
+
+def gtex_fits(torch, itt, als, wrappers, host_gb):
+    """The GTEx-sized masked fit, 20 iterations, with uint8 masks and with
+    the default f32 masks: each kernel of the uint8 fit against its plain
+    version on its in-fit inputs (gtex_infit_checks); equal losses bit for
+    bit, finite and non-increasing; level_gram once an iteration, row_xty exactly twice
+    (tissue and donor, never the interaction), feature_sign_fused once;
+    the uint8 problem at least 0.99 x 2 N M 3 bytes below the f32 one; the
+    build's peak beyond the problem at most 3 GB.  N is cut only where the
+    host's memory would not hold the host-side set-up, which keeps several
+    f64 copies of the matrix at once (55 bytes an element allowed)."""
+    n = GTEX_N
+    if host_gb < 55 * GTEX_N * GTEX_M / GB:
+        n = int(host_gb * GB / 55 / GTEX_M) // 1024 * 1024
+        print(f"GTEx-sized fit: N cut from {GTEX_N} to {n} by the host's "
+              f"{host_gb:.0f} GB")
+    t0 = time.time()
+    obj = gtex_object(itt, n)
+    n, m = obj.data.shape
+    levels = [int(np.unique(c).size) for c in obj.confounder.T]
+    chunk = als.precompute_chunk(n, m)
+    print(f"GTEx-sized fit: {n} x {m}, host set-up {time.time() - t0:.1f} s; "
+          f"levels (tissue, tissue x donor, donor) {levels}; precompute in "
+          f"{-(-m // chunk)} column chunks of {chunk}")
+    iters = GTEX_FIT["max_iter"] + 1
+    expect = dict(level_gram=1, row_xty=1, feature_sign_fused=1,
+                  masked_eval=1, col_gram_xty=0, cd_fused=0)
+    res = {}
+    for label, mdt in (("uint8", torch.uint8), ("f32", None)):
+        def run():
+            return measured_fit(torch, als, obj, wrappers, expect,
+                                f"GTEx-sized fit, {label} masks",
+                                mask_dtype=mdt, **GTEX_FIT)
+        launches, losses, ms, mem = (
+            gtex_infit_checks(torch, als, iters, run) if mdt is not None
+            else run())
+        res[label] = dict(launches=launches, losses=losses, ms=ms, **mem)
+        if mdt is not None:
+            print("profile of the GTEx-sized fit, uint8 masks, 5 iterations "
+                  "from its end state:")
+            profile_fit(torch, obj, wrappers, obj.fit_result.state, K, LAM,
+                        ALPHA, iters=5, mask_dtype=mdt)
+        routes = ["fast" if v in mem["fast"] else "segment sums"
+                  for v in range(len(levels))]
+        print(f"GTEx-sized fit, {label} masks: routes (tissue, interaction, "
+              f"donor) {routes}")
+        if routes != ["fast", "segment sums", "fast"]:
+            fail(f"GTEx-sized fit: routes {routes}")
+        want = dict(level_gram=iters, row_xty=2 * iters,
+                    feature_sign_fused=iters)
+        for k, v in want.items():
+            if launches[k] != v:
+                fail(f"GTEx-sized fit, {label}: {k} launched "
+                     f"{launches[k]} times, not {v}")
+        if not mem["build_peak"] <= 3 * GB:
+            fail(f"GTEx-sized fit, {label}: build peak "
+                 f"{mem['build_peak'] / GB:.3f} GB beyond the problem")
+    if res["uint8"]["losses"] != res["f32"]["losses"]:
+        fail(f"GTEx-sized fit: uint8 losses {res['uint8']['losses']} vs f32 "
+             f"{res['f32']['losses']}")
+    saved = res["f32"]["persistent"] - res["uint8"]["persistent"]
+    print(f"GTEx-sized fit: uint8 and f32 losses equal bit for bit; uint8 "
+          f"masks save {saved / GB:.3f} GB of the problem (2 N M 3 = "
+          f"{6 * n * m / GB:.3f} GB)")
+    if not saved >= 0.99 * 6 * n * m:
+        fail(f"GTEx-sized fit: uint8 saves {saved} bytes, under 0.99 x "
+             f"{6 * n * m}")
+    return res["uint8"]["launches"]
+
+
+def profile_and_solvers(torch, itt, als):
+    """optimize(profile_dir=...) on the card writes a Chrome trace with the
+    card's kernels in it, and computes the fit without it bit for bit;
+    fit_interaction and the two CD solvers, card against CPU."""
+    import tempfile
+
+    from insider_tpu_torch.config import FitConfig
+
+    sim = itt.simulate_scale(120, 2000, 8, level_counts=(2, 4, 9),
+                             noise_std=0.5, seed=2)
+    obj = itt.Insider(sim.data, sim.confounder, interaction_idx=[0, 1],
+                      device="cuda")
+    prob = als.build_problem(obj.data, obj.confounder, obj.train_indicator,
+                             obj.test_indicator, device="cuda")
+    cfg = FitConfig(latent_dim=8, lambda1=5.0, lambda2=5.0, alpha=0.4,
+                    max_iter=20)
+    ref = als.optimize(prob, cfg, verbose=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        got = als.optimize(prob, cfg, verbose=False, profile_dir=tmp)
+        names = os.listdir(tmp)
+        with open(os.path.join(tmp, names[0])) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    print(f"profile_dir: {names}, {len(events)} events, {len(kernels)} "
+          "kernel launches on the card")
+    if [h["loss"] for h in got.history] != [h["loss"] for h in ref.history]:
+        fail("profile_dir changed the fit's losses")
+    if not kernels:
+        fail("profile_dir: the trace holds no kernel of the card")
+
+    rng = np.random.default_rng(5)
+    n, m, k, L = 2000, 500, 8, 50
+    res = rng.standard_normal((n, m)).astype(np.float32)
+    mask = (rng.random((n, m)) > 0.2).astype(np.float32)
+    F = rng.standard_normal((k, m)).astype(np.float32)
+    codes = rng.integers(0, L, n)
+    for masked in (True, False):
+        outs = [itt.fit_interaction(
+            *(torch.from_numpy(a).to(dev) for a in (res, mask)), codes,
+            torch.from_numpy(F).to(dev), masked=masked).cpu().numpy()
+            for dev in ("cuda", "cpu")]
+        err = float(np.abs(outs[0] - outs[1]).max())
+        print(f"fit_interaction masked={masked}: card vs cpu max abs diff "
+              f"{err:.3e} (max |V| {float(np.abs(outs[1]).max()):.3e})")
+        if not err <= 1e-4 * float(np.abs(outs[1]).max()):
+            fail(f"fit_interaction masked={masked}: card vs cpu {err:.3e}")
+    X = rng.standard_normal((50, 7))
+    y = 2 * rng.standard_normal(50)
+    for fn in (itt.coordinate_descent, itt.strong_coordinate_descent):
+        outs = [fn(X, y, np.zeros(7), 1.0, 0.6, tol=1e-10, device=dev)
+                for dev in ("cuda", "cpu")]
+        err = float(np.abs(outs[0] - outs[1]).max())
+        print(f"{fn.__name__}: card vs cpu max abs diff {err:.3e}")
+        if not err <= 1e-5:
+            fail(f"{fn.__name__}: card vs cpu {err:.3e}")
+
+
+def phase_memory_lean(torch, itt, als, kernels, wrappers, hist):
+    """Phase 14.  kernels: the modules (row, fss, cd, ev, gram); hist: the
+    f32-mask flagship fits' losses (phases 8 and 10), which the uint8-mask
+    fits must equal bit for bit.  Returns the uint8 kernels' records with
+    the launches of their fits."""
+    row, fss, cd, ev, gram = kernels
+    recs = uint8_kernels(torch, row, fss, cd, ev, gram)
+    for name, rec in recs.items():
+        print(f"kernel {name}: max_abs_err {rec['max_abs_err']:.3e} kernel "
+              f"{rec['ms']:.4f} ms (f32 masks {rec['f32_ms']:.4f} ms) plain "
+              f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})")
+
+    # the flagship FSS and cold-CD fits of phases 8 and 10 with uint8 masks
+    flagship = flagship_object(itt)
+    u8 = dict(mask_dtype=torch.uint8)
+    masked_path = dict(level_gram=1, row_xty=1, masked_eval=1)
+    launches, _, _ = run_fit(
+        torch, flagship, wrappers, dict(masked_path, feature_sign_fused=1,
+                                        cd_fused=0),
+        "flagship fit, uint8 masks", partition=1, **FLAG_FIT, **u8)
+    got = [h["loss"] for h in flagship.fit_result.history]
+    if got != hist["flagship fit"]:
+        fail(f"flagship fit: uint8 losses {got} vs f32 "
+             f"{hist['flagship fit']}")
+    cold, _, _ = run_fit(
+        torch, flagship, wrappers, dict(masked_path, cd_fused=1,
+                                        feature_sign_fused=0),
+        "cold CD flagship fit, uint8 masks", monotone=False, partition=1,
+        **COLD, **FLAG_FIT, **u8)
+    got = [h["loss"] for h in flagship.fit_result.history]
+    if got != hist["cold CD flagship fit"]:
+        fail(f"cold CD flagship fit: uint8 losses {got} vs f32 "
+             f"{hist['cold CD flagship fit']}")
+    print("flagship FSS and cold-CD fits: uint8 losses equal phases 8 and "
+          "10's f32 losses bit for bit")
+    del flagship
+
+    host_gb = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") / GB
+    gtex = gtex_fits(torch, itt, als, wrappers, host_gb)
+    for name in ("row_xty", "masked_eval", "feature_sign_fused"):
+        recs[f"{name} uint8"]["launches"] = gtex[name]
+    recs["cd_fused uint8"]["launches"] = cold["cd_fused"]
+
+    # small fits, card against CPU (rtol 1e-5)
+    failures = []
+    fast_e = als._FAST_E_BYTES
+    for label, kw, budget in (
+            ("masked 120x2000 K=8 uint8", dict(mask_dtype=torch.uint8), None),
+            ("masked 120x2000 K=8 precompute=False",
+             dict(precompute=False), None),
+            ("dense 120x2000 K=8 precompute=False",
+             dict(partition=0, precompute=False), None),
+            # E of the 9-level confounder, 120 x 9 x 4 bytes, over budget
+            ("masked 120x2000 K=8, the 9-level confounder on segment sums",
+             {}, 120 * 8 * 4),
+            ("masked 120x500 K=40 uint8",
+             dict(k=40, m=500, mask_dtype=torch.uint8), None)):
+        if budget is not None:
+            als._FAST_E_BYTES = budget
+        try:
+            rel, failed = phase_small_fit(torch, itt, **kw)
+        finally:
+            als._FAST_E_BYTES = fast_e
+        if failed:
+            failures.append(failed)
+            print(f"small fit {label}: FAILED")
+        else:
+            print(f"small fit {label}: card vs cpu max loss rel diff "
+                  f"{rel:.3e}")
+    if failures:
+        fail("; ".join(failures))
+
+    profile_and_solvers(torch, itt, als)
+    return recs
+
+
 def main():
     import torch
 
@@ -1990,6 +2502,7 @@ def main():
         dict(masked_path, feature_sign_fused=1, **no_cd), "flagship fit",
         partition=1, **FLAG_FIT)
     flag_state = flagship.fit_result.state
+    hist = {"flagship fit": [h["loss"] for h in flagship.fit_result.history]}
     dense, fss_dense, flag_ms["dense"] = run_fit(
         torch, flagship, wrappers, dict(feature_sign_shared=1, **no_cd),
         "flagship dense fit", partition=0, **FLAG_FIT)
@@ -2021,6 +2534,7 @@ def main():
                                   dict(expect, **no_fss), name,
                                   monotone=False, **COLD, **fit_kw)
         cd_states[name] = obj.fit_result.state
+        hist[name] = [h["loss"] for h in obj.fit_result.history]
         for n in ("cd_fused", "cd_streamed", "cd_shared"):
             if expect.get(n):
                 launches[n] = counts[n]
@@ -2057,6 +2571,13 @@ def main():
                                        flag_ms)
     launches["ctns_cd"] = kern["ctns_cd"]["launches"]
 
+    # 14. the memory-lean fit: uint8 masks, chunked precompute, segment sums
+    lean = phase_memory_lean(torch, itt, als, (row, fss, cd, ev, gram),
+                             wrappers, hist)
+    kern.update(lean)
+    for name, rec in lean.items():
+        launches[name] = rec["launches"]
+
     # result
     tpu = "insider_tpu/kernels/"
     # the CD kernels are the CD instances of the FSS kernels' templates
@@ -2079,6 +2600,9 @@ def main():
                "cd_shared": ("fss_shared.cu", tpu + "cd_pallas.py:289"),
                # no Pallas kernel: the XLA while_loop of _ctns_cd
                "ctns_cd": ("ctns_cd.cu", "insider_tpu/ops/continuous.py:101")}
+    # the uint8-mask instances of the kernels that read the mask
+    for name in lean:
+        sources[name] = sources[name.split()[0]]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "insider_tpu_torch/csrc/" + sources[name][0],
@@ -2088,7 +2612,8 @@ def main():
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"],
-         "library_ms": kern[name].get("library_ms")} for name in wrappers]}))
+         "library_ms": kern[name].get("library_ms")}
+        for name in list(wrappers) + list(lean)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

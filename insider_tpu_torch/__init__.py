@@ -22,6 +22,9 @@ PyTorch versions run.
     tune(...)               - the search of .tune, on an Insider
     glm_interaction(...)    - per-level GLM inference after the fit
     save_checkpoint(...), load_checkpoint(...) - the fit state on disk
+    fit_interaction(...)    - standalone unregularized per-level solve
+    coordinate_descent(...), strong_coordinate_descent(...) - one elastic
+                              net by cyclic CD (the reference's exports)
 """
 
 from insider_tpu_torch.analysis.glm import glm_interaction
@@ -33,6 +36,9 @@ from insider_tpu_torch.data.simulate import (simulate_insider_data,
 from insider_tpu_torch.data.splitter import SplitResult, ratio_splitter
 from insider_tpu_torch.model.state import (InsiderState, init_state,
                                            state_from_numpy)
+from insider_tpu_torch.ops.row_update import fit_interaction
+from insider_tpu_torch.ops.solvers import (coordinate_descent,
+                                           strong_coordinate_descent)
 from insider_tpu_torch.train.als import build_problem, optimize
 from insider_tpu_torch.tune.grid import tune
 
@@ -55,4 +61,7 @@ __all__ = [
     "glm_interaction",
     "save_checkpoint",
     "load_checkpoint",
+    "fit_interaction",
+    "coordinate_descent",
+    "strong_coordinate_descent",
 ]

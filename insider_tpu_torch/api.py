@@ -113,13 +113,18 @@ class Insider:
         (R/insider.R:207-209: train+test is passed as the train mask, NA as
         the test mask, partition as `tuning`.)  col_solver: "auto" | "fss" |
         "cd".  checkpoint_path (+ resume): boundary snapshots and resume
-        from the last (train/als.optimize).  With continuous covariates,
-        cfd_matrices ends with W (P, K), as in the JAX package.  The
-        positional parameters are the JAX package's, in its order.
-        use_pallas has no counterpart (the port runs the kernels on a CUDA
-        device and their plain versions on the CPU) and must be None;
-        mask_dtype and precompute are not ported yet and take only their
-        defaults (train/als.check_unported).
+        from the last (train/als.optimize).  mask_dtype: the masks'
+        storage, None (f32) or any numeric dtype: a 1-byte one (bool,
+        int8, uint8) stores them as uint8, a quarter of the bytes, a wider
+        one as f32; the same fit bit for bit (train/als.mask_storage).  precompute=False: no
+        per-problem row constants, every confounder and covariate takes
+        the segment-sum update (the memory-lean mode for shapes near the
+        card's memory; train/als.build_problem).  With continuous
+        covariates, cfd_matrices ends with W (P, K), as in the JAX
+        package.  The positional parameters are the JAX package's, in its
+        order.  use_pallas has no counterpart (the port runs the kernels
+        on a CUDA device and their plain versions on the CPU) and must be
+        None.
         Keyword-only, the port's own: cd_warm_start=False makes "cd" the
         reference's cold strong-rule CD (FitConfig.cd_warm_start); state:
         optional initial factors (model.state.state_from_numpy)."""
@@ -129,7 +134,6 @@ class Insider:
                 "runs the CUDA kernels on a CUDA device and their plain "
                 "versions on the CPU (ROADMAP, Port constraints); pass "
                 "use_pallas=None")
-        als.check_unported(mask_dtype=mask_dtype, precompute=precompute)
         masked = bool(partition)
         cfg = FitConfig(
             latent_dim=int(latent_dimension), lambda1=float(lambda_),
@@ -143,7 +147,8 @@ class Insider:
         indicator = self.train_indicator + self.test_indicator
         problem = als.build_problem(self.data, self.confounder, indicator,
                                     self.na_indicator, self.ctns_confounder,
-                                    masked=masked, device=self.device)
+                                    masked=masked, mask_dtype=mask_dtype,
+                                    precompute=precompute, device=self.device)
         result = als.optimize(problem, cfg, state=state, verbose=verbose,
                               log_jsonl=log_jsonl,
                               checkpoint_path=checkpoint_path, resume=resume)

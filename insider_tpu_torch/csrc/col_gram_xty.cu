@@ -399,7 +399,7 @@ col_gram_xty_kernel(const MaskT* __restrict__ mask,
 }
 
 template <typename MaskT>
-cudaError_t launch(const void* mask, const float* data, const float* R,
+cudaError_t launch(const MaskT* mask, const float* data, const float* R,
                    float* gram, float* xty, int N, int M, int K,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<MaskT>(K);
@@ -410,7 +410,7 @@ cudaError_t launch(const void* mask, const float* data, const float* R,
       (int)smem);
   if (err != cudaSuccess) return err;
   col_gram_xty_kernel<MaskT><<<grid, THREADS, smem, stream>>>(
-      static_cast<const MaskT*>(mask), data, R, gram, xty, N, M, K);
+      mask, data, R, gram, xty, N, M, K);
   return cudaGetLastError();
 }
 
@@ -425,7 +425,7 @@ INSIDER_API int insider_col_gram_xty(const void* mask, int mask_is_u8,
                                      float* gram, float* xty, int N, int M,
                                      int K, cudaStream_t stream) {
   if (N < 1 || M < 1 || K < 1 || K > KMAX) return (int)cudaErrorInvalidValue;
-  if (mask_is_u8)
-    return (int)launch<uint8_t>(mask, data, R, gram, xty, N, M, K, stream);
-  return (int)launch<float>(mask, data, R, gram, xty, N, M, K, stream);
+  return (int)insider::with_mask(mask, mask_is_u8, [&](auto m) {
+    return launch(m, data, R, gram, xty, N, M, K, stream);
+  });
 }

@@ -133,5 +133,14 @@ struct RowStage {
 // of 8); 0 outside that range.
 inline int padded_rank(int K) { return (K < 1 || K > 128) ? 0 : 8 * ceil_div(K, 8); }
 
+// Calls f with a mask operand as the typed pointer of its storage format
+// (train/als.mask_storage): const uint8_t* where mask_is_u8, else
+// const float*.  The one place an entry point's mask_is_u8 is read.
+template <class Fn>
+auto with_mask(const void* mask, int mask_is_u8, Fn&& f) {
+  if (mask_is_u8) return f(static_cast<const uint8_t*>(mask));
+  return f(static_cast<const float*>(mask));
+}
+
 }  // namespace
 }  // namespace insider

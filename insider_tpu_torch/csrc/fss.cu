@@ -28,7 +28,13 @@
 // and builds them in batches of 32.  Row chunks of R (transposed), mask and
 // data are staged with 4-byte cp.async in a ring of three, two steps ahead
 // (rows of the (N, M) inputs are not 16-byte aligned at odd M), so one
-// kernel covers any N.  The grams are the TPU kernel's arithmetic
+// kernel covers any N.  The mask is f32 or uint8 (a template parameter,
+// the memory-lean storage of a quarter of the bytes; MaskTile): a uint8
+// row starts at any byte, and cp.async moves 4, 8 or 16 aligned bytes, so
+// its rows are staged as the aligned 16-byte chunks that cover a batch's
+// columns, and each value is widened to f32 where the tile is read.  The
+// values are the same 0/1 either way, summed in the same order, so both
+// give the same bits.  The grams are the TPU kernel's arithmetic
 // (fss_pallas.py:_build_gram_table, _planes_dot): a GEMM
 //     G (pairs x columns) = table (pairs x rows) . mask (rows x columns)
 // on mma.sync m16n8k16, bf16 in and f32 out, over the K(K+1)/2 pairs
@@ -77,6 +83,7 @@ namespace {
 
 using insider::cd_group_columns;
 using insider::ceil_div;
+using insider::cp_async16;
 using insider::cp_async4;
 using insider::cp_async_commit;
 using insider::cp_async_wait;
@@ -110,6 +117,61 @@ struct Block {
   static constexpr int CB = BW * BATCHES;
   static constexpr int RCH = CD ? 32 : 64;
   static constexpr int RS = RCH + 8;    // row stride of the transposed R chunk
+};
+
+// A staging step's mask rows: RCH rows of the batch's BW columns, as f32
+// (each element copied by a 4-byte cp.async, zeros past the edges) or as
+// uint8 (the 16-byte aligned chunks that cover them, CH to a row), read
+// back as f32 by at().  Both fit the (RCH, MS) f32 tile.
+template <typename MaskT>
+struct MaskTile;
+
+template <>
+struct MaskTile<float> {
+  static __device__ void stage(const float* mask, float* Ms, int RCH,
+                               int i0, int jb, int N, int M, int tid) {
+    for (int e = tid; e < RCH * BW; e += WARPS * 32) {
+      const int i = e / BW, jj = e % BW, j = jb + jj;
+      const bool ok = i0 + i < N && j < M;
+      cp_async4(Ms + i * MS + jj, ok ? mask + (size_t)(i0 + i) * M + j : mask,
+                ok);
+    }
+  }
+  static __device__ float at(const float* Ms, int i, int jj, int, int, int) {
+    return Ms[i * MS + jj];
+  }
+};
+
+template <>
+struct MaskTile<uint8_t> {
+  static constexpr int CH = (15 + BW + 15) / 16;   // chunks a row
+  static_assert(16 * CH <= sizeof(float) * MS, "a row overflows the tile");
+  static __device__ void stage(const uint8_t* mask, float* Ms, int RCH,
+                               int i0, int jb, int N, int M, int tid) {
+    const size_t total = (size_t)N * M;
+    unsigned char* dst = reinterpret_cast<unsigned char*>(Ms);
+    for (int e = tid; e < RCH * CH; e += WARPS * 32) {
+      const int i = e / CH, w = e % CH;
+      size_t at = 0;
+      int n = 0;
+      if (i0 + i < N) {
+        at = (((size_t)(i0 + i) * M + jb) & ~(size_t)15) + 16 * (size_t)w;
+        if (at < total) n = total - at < 16 ? (int)(total - at) : 16;
+      }
+      cp_async16(dst + (size_t)i * sizeof(float) * MS + 16 * w,
+                 mask + (n ? at : 0), n);
+    }
+  }
+  // element (i, jj) of the batch, 0 past the column edge (rows past N were
+  // zero-filled); the row's chunks start (i0 + i) M + jb mod 16 bytes early
+  static __device__ float at(const float* Ms, int i, int jj, int i0, int jb,
+                             int M) {
+    const unsigned o =
+        ((unsigned)(i0 + i) * (unsigned)M + (unsigned)jb) & 15u;
+    const unsigned char* row =
+        reinterpret_cast<const unsigned char*>(Ms + i * MS);
+    return jb + jj < M ? static_cast<float>(row[o + jj]) : 0.f;
+  }
 };
 
 // Shapes of the build at a KMAX: pairs, m-tiles per warp, Xty coordinates
@@ -182,10 +244,10 @@ struct FusedColumns {
 
 // Two blocks per SM where the shared memory allows it (K <= 24): the solve
 // is latency-bound, and a second block's warps hide it.  L: the CD solve's
-// group width (FSS: 32, unused).
-template <int KMAX, bool CD, int L>
+// group width (FSS: 32, unused).  MaskT: float or uint8_t.
+template <int KMAX, bool CD, int L, typename MaskT>
 __global__ void __launch_bounds__(WARPS * 32, KMAX <= 24 ? 2 : 1)
-fused_kernel(const float* __restrict__ mask, const float* __restrict__ data,
+fused_kernel(const MaskT* __restrict__ mask, const float* __restrict__ data,
              const float* __restrict__ R, const float* __restrict__ beta0,
              float* __restrict__ out, int N, int M, int K,
              Solver<CD> solver, Rows rows) {
@@ -249,12 +311,12 @@ fused_kernel(const float* __restrict__ mask, const float* __restrict__ data,
         cp_async4(Rt + k * Bk::RS + i, ok ? R + (size_t)(i0 + i) * K + k : R,
                   ok);
       }
+      MaskTile<MaskT>::stage(mask, Ms, Bk::RCH, i0, jb, N, M, tid);
       for (int e = tid; e < Bk::RCH * BW; e += WARPS * 32) {
         const int i = e / BW, jj = e % BW, j = jb + jj;
         const bool ok = i0 + i < N && j < M;
-        const size_t at = (size_t)(i0 + i) * M + j;
-        cp_async4(Ms + i * MS + jj, ok ? mask + at : mask, ok);
-        cp_async4(Xs + i * MS + jj, ok ? data + at : data, ok);
+        cp_async4(Xs + i * MS + jj,
+                  ok ? data + (size_t)(i0 + i) * M + j : data, ok);
       }
       cp_async_commit();
     };
@@ -270,6 +332,10 @@ fused_kernel(const float* __restrict__ mask, const float* __restrict__ data,
       const float* Rt = ring + (c % RING) * B::STAGE;
       const float* Ms = Rt + KMAX * Bk::RS;
       const float* Xs = Ms + Bk::RCH * MS;
+      const int i0 = c * Bk::RCH;
+      auto mask_at = [&](int i, int jj) {
+        return MaskTile<MaskT>::at(Ms, i, jj, i0, jb, M);
+      };
 
 #pragma unroll
       for (int ks = 0; ks < Bk::RCH; ks += 16) {
@@ -277,9 +343,9 @@ fused_kernel(const float* __restrict__ mask, const float* __restrict__ data,
         uint32_t bf[NT][2];
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          const float* m = Ms + (ks + 2 * t) * MS + n * 8 + g;
-          bf[n][0] = pack_exact(m[0], m[MS]);
-          bf[n][1] = pack_exact(m[8 * MS], m[9 * MS]);
+          const int i = ks + 2 * t, jj = n * 8 + g;
+          bf[n][0] = pack_exact(mask_at(i, jj), mask_at(i + 1, jj));
+          bf[n][1] = pack_exact(mask_at(i + 8, jj), mask_at(i + 9, jj));
         }
 #pragma unroll
         for (int u = 0; u < B::MTW; ++u) {
@@ -333,7 +399,7 @@ fused_kernel(const float* __restrict__ mask, const float* __restrict__ data,
         float md[4];
 #pragma unroll
         for (int h = 0; h < 4; ++h)
-          md[h] = Ms[(i + h) * MS + lane] * Xs[(i + h) * MS + lane];
+          md[h] = mask_at(i + h, lane) * Xs[(i + h) * MS + lane];
 #pragma unroll
         for (int u = 0; u < B::XW; ++u) {
           const float4 r = *reinterpret_cast<const float4*>(
@@ -410,24 +476,37 @@ size_t smem_bytes(int K) {
   return sizeof(float) * Layout<KMAX, CD>(K, packed_stride<L>(K)).total;
 }
 
-template <int KMAX, bool CD, int L>
-cudaError_t launch(const float* mask, const float* data, const float* R,
-                   const float* beta0, float* out, int N, int M, int K,
-                   Solver<CD> solver, cudaStream_t stream) {
+template <int KMAX, bool CD, int L, typename MaskT>
+cudaError_t launch_as(const MaskT* mask, const float* data, const float* R,
+                      const float* beta0, float* out, int N, int M, int K,
+                      Solver<CD> solver, cudaStream_t stream) {
   const size_t smem = smem_bytes<KMAX, CD, L>(K);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_kernel<KMAX, CD, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fused_kernel<KMAX, CD, L, MaskT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   Rows rows{};                            // CD: the packed grams' rows
   if (CD) {
     packed_rows<L>(K, rows.start);
     rows.stride = packed_stride<L>(K);
   }
-  fused_kernel<KMAX, CD, L>
+  fused_kernel<KMAX, CD, L, MaskT>
       <<<ceil_div(M, Block<CD>::CB), WARPS * 32, smem, stream>>>(
           mask, data, R, beta0, out, N, M, K, solver, rows);
   return cudaGetLastError();
+}
+
+// mask: f32, or uint8 when mask_is_u8 (16-byte aligned)
+template <int KMAX, bool CD, int L>
+cudaError_t launch(const void* mask, int mask_is_u8, const float* data,
+                   const float* R, const float* beta0, float* out, int N,
+                   int M, int K, Solver<CD> solver, cudaStream_t stream) {
+  if (mask_is_u8 && reinterpret_cast<uintptr_t>(mask) % 16)
+    return cudaErrorInvalidValue;
+  return insider::with_mask(mask, mask_is_u8, [&](auto m) {
+    return launch_as<KMAX, CD, L>(m, data, R, beta0, out, N, M, K, solver,
+                                  stream);
+  });
 }
 
 // Calls f(std::integral_constant<int, KMAX>()) with K rounded up to a
@@ -454,10 +533,12 @@ cudaError_t cd_instances(int K, F&& f) {
 
 }  // namespace
 
-// out (K, M) = the FSS + polish solution of every column.  mask, data
-// (N, M), R (N, K), beta0 (K, M): row-major f32.  l1 = lam*alpha and
+// out (K, M) = the FSS + polish solution of every column.  data (N, M),
+// R (N, K), beta0 (K, M): row-major f32; mask (N, M) row-major 0/1, f32 or
+// uint8 (mask_is_u8 != 0; then 16-byte aligned).  l1 = lam*alpha and
 // l2 = lam*(1-alpha) as f32; 1 <= K <= 32.
-INSIDER_API int insider_fss_fused(const float* mask, const float* data,
+INSIDER_API int insider_fss_fused(const void* mask, int mask_is_u8,
+                                  const float* data,
                                   const float* R, const float* beta0,
                                   float* out, float l1, float l2, float tol,
                                   int N, int M, int K, int max_outer,
@@ -465,19 +546,19 @@ INSIDER_API int insider_fss_fused(const float* mask, const float* data,
   if (N < 1 || M < 1 || K < 1 || K > 32) return (int)cudaErrorInvalidValue;
   const Solver<false> solver{l1, l2, tol, max_outer, polish_sweeps};
   return (int)by_kmax(K, [&](auto kmax) {
-    return launch<decltype(kmax)::value, false, 32>(mask, data, R, beta0,
-                                                    out, N, M, K, solver,
-                                                    stream);
+    return launch<decltype(kmax)::value, false, 32>(
+        mask, mask_is_u8, data, R, beta0, out, N, M, K, solver, stream);
   });
 }
 
 // out (K, M) = the cold strong-rule CD solution of every column, at most
-// max_sweeps sweeps.  mask, data (N, M), R (N, K), beta0 (K, M): row-major
-// f32.  lam, alpha, tol as f32; 1 <= K <= 32.  lanes: the group width L, 0
-// for the instance the kernel runs at this K (header), else that of an
-// instance covering K (insider_cd_fused_widths; cudaErrorInvalidValue
-// where none does).
-INSIDER_API int insider_cd_fused(const float* mask, const float* data,
+// max_sweeps sweeps.  data (N, M), R (N, K), beta0 (K, M): row-major f32;
+// mask as for insider_fss_fused.  lam, alpha, tol as f32; 1 <= K <= 32.
+// lanes: the group width L, 0 for the instance the kernel runs at this K
+// (header), else that of an instance covering K (insider_cd_fused_widths;
+// cudaErrorInvalidValue where none does).
+INSIDER_API int insider_cd_fused(const void* mask, int mask_is_u8,
+                                 const float* data,
                                  const float* R, const float* beta0,
                                  float* out, float lam, float alpha, float tol,
                                  int N, int M, int K, int max_sweeps,
@@ -493,8 +574,8 @@ INSIDER_API int insider_cd_fused(const float* mask, const float* data,
           constexpr int L = decltype(l)::value;
           if (found || (lanes != 0 && lanes != L)) return;
           found = true;
-          err = launch<KMAX, true, L>(mask, data, R, beta0, out, N, M, K,
-                                      solver, stream);
+          err = launch<KMAX, true, L>(mask, mask_is_u8, data, R, beta0, out,
+                                      N, M, K, solver, stream);
         }(ls),
         ...);
     return err;
@@ -519,7 +600,7 @@ INSIDER_API int insider_cd_fused_widths(int K, int* n, int* widths,
           if (err != cudaSuccess) return;
           if (columns != nullptr) {
             const size_t smem = smem_bytes<KMAX, true, L>(K);
-            const auto kernel = fused_kernel<KMAX, true, L>;
+            const auto kernel = fused_kernel<KMAX, true, L, float>;
             int per_sm = 0;
             if ((err = cudaFuncSetAttribute(
                      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -12,7 +12,8 @@
 // counts round (eval_pallas.py:194-195).
 //
 // Bound on the H100: reading data and the two masks, 3 x N x M f32 (200 MB
-// at the flagship shape, 0.060 ms at 3.35 TB/s); the prediction's N*M*K
+// at the flagship shape, 0.060 ms at 3.35 TB/s; with uint8 masks, 1.5 x N
+// x M x 4 bytes); the prediction's N*M*K
 // FMAs (0.012 ms at 67 TFLOP/s f32) come second.  The first version read
 // both R and F from shared memory for every FMA, which bound it on shared
 // loads, not on HBM.
@@ -28,7 +29,10 @@
 // and then across the warps in order; each block writes its four partials,
 // and a second pass adds them in a fixed order (no atomics, so repeated
 // runs agree bit for bit).  Global loads are scalar and coalesced (rows
-// start at any 4-byte offset); the ragged edges are guarded, not padded.
+// start at any element); the ragged edges are guarded, not padded.  The
+// masks are f32 or uint8 (a template parameter, the memory-lean storage):
+// each value is widened to f32 as it is loaded, exactly, so both give the
+// same bits.
 // What bounds it now (PERF.md, PR 5): the column tiles x row blocks access
 // pattern alone reads the three arrays below the card's rate, and the
 // arithmetic alone (FMAs, the shared loads of R, the f32 -> f64
@@ -49,11 +53,11 @@ __host__ __device__ constexpr int cols_per_thread(int KP) {
   return KP <= 64 ? 2 : 1;
 }
 
-template <int KP>
+template <int KP, typename MaskT>
 __global__ void __launch_bounds__(CT)
 masked_eval_partial(const float* __restrict__ data,
-                    const float* __restrict__ train,
-                    const float* __restrict__ test,
+                    const MaskT* __restrict__ train,
+                    const MaskT* __restrict__ test,
                     const float* __restrict__ R, const float* __restrict__ F,
                     double* __restrict__ partial, int N, int M, int K) {
   constexpr int C = cols_per_thread(KP);
@@ -93,8 +97,8 @@ masked_eval_partial(const float* __restrict__ data,
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         xs[u][c] = data[row + jc[c]];
-        as[u][c] = train[row + jc[c]];
-        bs[u][c] = test[row + jc[c]];
+        as[u][c] = static_cast<float>(train[row + jc[c]]);
+        bs[u][c] = static_cast<float>(test[row + jc[c]]);
       }
     }
   };
@@ -158,18 +162,30 @@ dim3 grid_for(int N, int M, int K) {
   return dim3(ceil_div(M, CT * C), ceil_div(N, RB));
 }
 
-template <int KP>
-cudaError_t launch(const float* data, const float* train, const float* test,
-                   const float* R, const float* F, double* scratch, int N,
-                   int M, int K, cudaStream_t stream) {
+template <int KP, typename MaskT>
+cudaError_t launch_as(const float* data, const MaskT* train,
+                      const MaskT* test, const float* R, const float* F,
+                      double* scratch, int N, int M, int K,
+                      cudaStream_t stream) {
   const size_t smem = sizeof(float) * RB * KP;
   cudaError_t err = cudaFuncSetAttribute(
-      masked_eval_partial<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      masked_eval_partial<KP, MaskT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  masked_eval_partial<KP><<<grid_for(N, M, K), CT, smem, stream>>>(
+  masked_eval_partial<KP, MaskT><<<grid_for(N, M, K), CT, smem, stream>>>(
       data, train, test, R, F, scratch, N, M, K);
   return cudaGetLastError();
+}
+
+template <int KP>
+cudaError_t launch(const float* data, const void* train, const void* test,
+                   int mask_is_u8, const float* R, const float* F,
+                   double* scratch, int N, int M, int K,
+                   cudaStream_t stream) {
+  return insider::with_mask(train, mask_is_u8, [&](auto tr) {
+    return launch_as<KP>(data, tr, static_cast<decltype(tr)>(test), R, F,
+                         scratch, N, M, K, stream);
+  });
 }
 
 }  // namespace
@@ -180,10 +196,12 @@ INSIDER_API long insider_masked_eval_scratch(int N, int M, int K) {
   return 4L * g.x * g.y;
 }
 
-// out[0..3] = (train_sse, test_sse, n_train, n_test) as f64.  data, train,
-// test (N, M), R (N, K), F (K, M): row-major f32.  1 <= K <= 128.
-INSIDER_API int insider_masked_eval(const float* data, const float* train,
-                                    const float* test, const float* R,
+// out[0..3] = (train_sse, test_sse, n_train, n_test) as f64.  data (N, M),
+// R (N, K), F (K, M): row-major f32; train, test (N, M) row-major, both f32
+// or both uint8 (mask_is_u8 != 0).  1 <= K <= 128.
+INSIDER_API int insider_masked_eval(const float* data, const void* train,
+                                    const void* test, int mask_is_u8,
+                                    const float* R,
                                     const float* F, double* out,
                                     double* scratch, long scratch_len, int N,
                                     int M, int K, cudaStream_t stream) {
@@ -196,7 +214,8 @@ INSIDER_API int insider_masked_eval(const float* data, const float* train,
   switch (KP) {
 #define INSIDER_EVAL_CASE(P)                                                \
   case P:                                                                   \
-    err = launch<P>(data, train, test, R, F, scratch, N, M, K, stream);     \
+    err = launch<P>(data, train, test, mask_is_u8, R, F, scratch, N, M, K, \
+                    stream);                                                \
     break;
     INSIDER_EVAL_CASE(8) INSIDER_EVAL_CASE(16) INSIDER_EVAL_CASE(24)
     INSIDER_EVAL_CASE(32) INSIDER_EVAL_CASE(40) INSIDER_EVAL_CASE(48)

@@ -16,12 +16,12 @@
 // column, before the contraction with F (row_pallas.py:157-162).  The form
 // D.F^T - T.F^T loses the small residual sums to cancellation.
 //
-// Bound on the H100: reading mask (N x M f32, 67 MB at the flagship shape)
-// and D (L x M) once, at 3.35 TB/s; the prediction's N*M*K FMAs (0.4 GFMA,
-// 0.012 ms at 67 TFLOP/s f32) come second.  The first version was bound by
-// neither: it read R and F from shared memory for every FMA, did a shared
-// read-modify-write of T per element, and walked all N rows per column
-// tile with one mask load in flight.
+// Bound on the H100: reading mask (N x M f32, 67 MB at the flagship shape;
+// uint8, 17 MB) and D (L x M) once, at 3.35 TB/s; the prediction's N*M*K
+// FMAs (0.4 GFMA, 0.012 ms at 67 TFLOP/s f32) come second.  The first
+// version was bound by neither: it read R and F from shared memory for every
+// FMA, did a shared read-modify-write of T per element, and walked all N
+// rows per column tile with one mask load in flight.
 // Design:
 //   * a block owns a tile of CT x C columns (C a thread) and a group of
 //     WHOLE levels: the rows sorted by level are cut into groups of about G
@@ -47,11 +47,14 @@
 //     partial; a second pass adds the column tiles in a fixed order (no
 //     atomics, so repeated runs agree bit for bit).
 // Global loads are scalar and coalesced (a row of mask starts at any
-// 4-byte offset: M need not be a multiple of 4), the ragged column edge is
-// guarded, not padded.  What bounds it now (PERF.md, PR 5): the
-// prediction's FMAs and the mask reads each take about as long as a block's
-// serial chain of staging, batch and contraction steps, at two blocks (8
-// warps) an SM, which the register columns of F and the shared tiles set.
+// element: M need not be a multiple of 4), the ragged column edge is
+// guarded, not padded.  The mask is f32 or uint8 (a template parameter, the
+// memory-lean storage of a quarter of the bytes): each value is widened to
+// f32 as it is loaded, exactly, so both give the same bits.  What bounds it
+// now (PERF.md §6, row 1): the prediction's FMAs and the mask reads each take
+// about as long as a block's serial chain of staging, batch and contraction
+// steps, at two blocks (8 warps) an SM, which the register columns of F and
+// the shared tiles set.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -166,11 +169,11 @@ __device__ void contract(const float* Ss, const float* Fs, int nl,
   }
 }
 
-template <int KP>
+template <int KP, typename MaskT>
 __global__ void __launch_bounds__(CT)
 row_xty_partial(const int* __restrict__ order, const int* __restrict__ offsets,
                 const int* __restrict__ level_end, const float* __restrict__ R,
-                const float* __restrict__ mask, const float* __restrict__ D,
+                const MaskT* __restrict__ mask, const float* __restrict__ D,
                 const float* __restrict__ F, float* __restrict__ partial,
                 int M, int L, int K, int NG) {
   using S = Shape<KP>;
@@ -254,7 +257,8 @@ row_xty_partial(const int* __restrict__ order, const int* __restrict__ offsets,
         for (int u = 0; u < U; ++u) {
           const size_t row = (size_t)rid[min(u0 + u, rows - 1)] * M;
 #pragma unroll
-          for (int c = 0; c < C; ++c) ms[u][c] = mask[row + jc[c]];
+          for (int c = 0; c < C; ++c)
+            ms[u][c] = static_cast<float>(mask[row + jc[c]]);
         }
       };
       auto consume = [&](int u0, const float (&ms)[U][C]) {
@@ -306,21 +310,32 @@ row_xty_reduce(const float* __restrict__ part, float* __restrict__ out,
   insider::reduce_split<float>(part, out, n_parts, n, ob);
 }
 
-template <int KP>
-cudaError_t launch(const int* order, const int* offsets, const int* level_end,
-                   const float* R, const float* mask, const float* D,
-                   const float* F, float* scratch, int N, int M, int L, int K,
-                   cudaStream_t stream) {
+template <int KP, typename MaskT>
+cudaError_t launch_as(const int* order, const int* offsets,
+                      const int* level_end, const float* R, const MaskT* mask,
+                      const float* D, const float* F, float* scratch, int N,
+                      int M, int L, int K, cudaStream_t stream) {
   const size_t smem = Shape<KP>::smem;
   cudaError_t err = cudaFuncSetAttribute(
-      row_xty_partial<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      row_xty_partial<KP, MaskT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int NG = ceil_div(N, G);
-  row_xty_partial<KP>
+  row_xty_partial<KP, MaskT>
       <<<dim3(ceil_div(M, Shape<KP>::TW), NG), CT, smem, stream>>>(
       order, offsets, level_end, R, mask, D, F, scratch, M, L, K, NG);
   return cudaGetLastError();
+}
+
+template <int KP>
+cudaError_t launch(const int* order, const int* offsets, const int* level_end,
+                   const float* R, const void* mask, int mask_is_u8,
+                   const float* D, const float* F, float* scratch, int N,
+                   int M, int L, int K, cudaStream_t stream) {
+  return insider::with_mask(mask, mask_is_u8, [&](auto m) {
+    return launch_as<KP>(order, offsets, level_end, R, m, D, F, scratch, N,
+                         M, L, K, stream);
+  });
 }
 
 // Column tiles of one launch at rank K (a block's tile: CT threads of C
@@ -340,11 +355,12 @@ INSIDER_API long insider_row_xty_scratch(int M, int L, int K) {
 // rows sorted by level; offsets (L + 1,) int32: level l's rows are
 // order[offsets[l] : offsets[l + 1]]; level_end (N,) int32: l where sorted
 // position p is the last row of level l, else -1 (kernels/row.level_order).
-// R_minus (N, K), mask (N, M), D (L, M), F (K, M): row-major f32;
-// 1 <= K <= 128.
+// R_minus (N, K), D (L, M), F (K, M): row-major f32; mask (N, M)
+// row-major, f32 or uint8 (mask_is_u8 != 0); 1 <= K <= 128.
 INSIDER_API int insider_row_xty(const int* order, const int* offsets,
                                 const int* level_end,
-                                const float* R, const float* mask,
+                                const float* R, const void* mask,
+                                int mask_is_u8,
                                 const float* D, const float* F, float* out,
                                 float* scratch, long scratch_len, int N, int M,
                                 int L, int K, cudaStream_t stream) {
@@ -356,8 +372,8 @@ INSIDER_API int insider_row_xty(const int* order, const int* offsets,
   switch (KP) {
 #define INSIDER_ROW_XTY_CASE(P)                                            \
   case P:                                                                  \
-    err = launch<P>(order, offsets, level_end, R, mask, D, F, scratch, N, M, L, \
-                    K, stream);                                            \
+    err = launch<P>(order, offsets, level_end, R, mask, mask_is_u8, D, F,  \
+                    scratch, N, M, L, K, stream);                          \
     break;
     INSIDER_ROW_XTY_CASE(8) INSIDER_ROW_XTY_CASE(16) INSIDER_ROW_XTY_CASE(24)
     INSIDER_ROW_XTY_CASE(32) INSIDER_ROW_XTY_CASE(40) INSIDER_ROW_XTY_CASE(48)

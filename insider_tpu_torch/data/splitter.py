@@ -52,6 +52,7 @@ def ratio_splitter(
     observed = np.flatnonzero(~na.ravel())
     n_test = int(np.floor(observed.size * ratio))
     test_idx = rng.choice(observed, size=n_test, replace=False)
+    del observed                      # (N M,) int64: free it before the sets
 
     test = np.zeros(data.shape, bool)
     test.ravel()[test_idx] = True
@@ -68,7 +69,11 @@ def ratio_splitter(
         keep = np.ones(data.shape[1], bool)
     kept_cols = np.flatnonzero(keep)
 
-    sub = lambda m: np.ascontiguousarray(m[:, keep])
+    def sub(m):
+        # every column kept: the array as it is, not a copy (a cohort-scale
+        # matrix takes gigabytes a copy)
+        return m if keep.all() else np.ascontiguousarray(m[:, keep])
+
     return SplitResult(
         trainset=sub(trainset),
         testset=sub(testset),

@@ -46,9 +46,9 @@ _SIGNATURES = {
     "insider_level_gram_scratch": (_L, [_I, _I, _I, _I]),
     "insider_level_gram": (_I, [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
     "insider_row_xty_scratch": (_L, [_I, _I, _I]),
-    "insider_row_xty": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+    "insider_row_xty": (_I, [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L,
                              _I, _I, _I, _I, _P]),
-    "insider_fss_fused": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
+    "insider_fss_fused": (_I, [_P, _I, _P, _P, _P, _P, _F, _F, _F,
                                _I, _I, _I, _I, _I, _P]),
     "insider_col_gram_xty": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
     "insider_fss_streamed": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "insider_fss_shared_widths": (_I, [_I, ctypes.POINTER(_I),
                                        ctypes.POINTER(_I),
                                        ctypes.POINTER(_I)]),
-    "insider_cd_fused": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
+    "insider_cd_fused": (_I, [_P, _I, _P, _P, _P, _P, _F, _F, _F,
                               _I, _I, _I, _I, _I, _P]),
     "insider_cd_fused_widths": (_I, [_I, ctypes.POINTER(_I),
                                      ctypes.POINTER(_I), ctypes.POINTER(_I)]),
@@ -71,7 +71,7 @@ _SIGNATURES = {
                                _I, _I, _I, _P]),
     "insider_ctns_cd": (_I, [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P]),
     "insider_masked_eval_scratch": (_L, [_I, _I, _I]),
-    "insider_masked_eval": (_I, [_P, _P, _P, _P, _P, _P, _P, _L,
+    "insider_masked_eval": (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _L,
                                  _I, _I, _I, _P]),
 }
 
@@ -198,6 +198,20 @@ def require_cuda(what: str, *tensors: torch.Tensor,
             raise TypeError(f"{what}: expected {dtypes}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")
+
+
+MASK_DTYPES = (torch.float32, torch.uint8)
+
+
+def require_mask(what: str, like: torch.Tensor, *masks: torch.Tensor) -> int:
+    """Validate 0/1 mask operands, f32 or uint8 (one dtype for all), on
+    `like`'s device, as require_cuda does; returns the C entry points'
+    mask_is_u8 flag."""
+    require_cuda(what, like, *masks, dtypes=MASK_DTYPES)
+    if len({m.dtype for m in masks}) > 1:
+        raise TypeError(f"{what}: masks of dtypes "
+                        f"{sorted(str(m.dtype) for m in masks)}; expected one")
+    return int(masks[0].dtype == torch.uint8)
 
 
 def on_cpu(what: str, *tensors: torch.Tensor) -> bool:

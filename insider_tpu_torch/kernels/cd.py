@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from insider_tpu_torch.kernels import _lib
-from insider_tpu_torch.kernels.fss import FUSED_MAX_K, MAX_K
+from insider_tpu_torch.kernels.fss import FUSED_MAX_K, MAX_K, fused_mask
 from insider_tpu_torch.ops.fss import elastic_net_cd
 
 
@@ -51,6 +51,7 @@ def cd_fused_plain(mask, data, R, beta0, lam, alpha, tol,
     ops/fss.elastic_net_cd."""
     from insider_tpu_torch.ops.col_update import col_gram_masked
 
+    mask = mask.to(R.dtype)
     xty = torch.matmul(R.T, mask * data)
     G = col_gram_masked(R, mask).permute(1, 2, 0).contiguous()
     return elastic_net_cd(G, xty, beta0, lam, alpha, tol, max_sweeps)
@@ -62,12 +63,13 @@ def cd_fused(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor,
     """Per-gene masked elastic net by cold strong-rule CD.
 
     mask, data (N, M); R (N, K), its columns in the sweep order; beta0
-    (K, M) warm start in the same order; all f32.  Each column's gram and
-    Xty are built inside the kernel.  Returns beta (K, M).  lanes: the
-    kernel's group width L, 0 for the one it runs at this K, else one of
-    cd_fused_widths(K) (it raises where not): a hook for tests and
-    timings, as every width gives the same bits.  The plain version has no
-    lanes.
+    (K, M) warm start in the same order; all f32, the mask f32 or uint8
+    (the same bits either way, as for feature_sign_fused).  Each column's
+    gram and Xty are built inside the kernel.  Returns beta (K, M).
+    lanes: the kernel's group width L, 0 for the one it runs at this K,
+    else one of cd_fused_widths(K) (it raises where not): a hook for tests
+    and timings, as every width gives the same bits.  The plain version
+    has no lanes.
 
     The mask must hold only 0 and 1, as for fss.feature_sign_fused: the
     kernel's bf16 gram build is exact for 0/1 only, and other values give
@@ -76,7 +78,9 @@ def cd_fused(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor,
     if _lib.on_cpu("cd_fused", mask, data, R, beta0):
         return cd_fused_plain(mask, data, R, beta0, lam, alpha, tol,
                               max_sweeps)
-    _lib.require_cuda("cd_fused", mask, data, R, beta0)
+    _lib.require_cuda("cd_fused", data, R, beta0)
+    mask = fused_mask(mask)
+    mask_is_u8 = _lib.require_mask("cd_fused", R, mask)
     N, K = R.shape
     M = mask.shape[1]
     if mask.shape != (N, M) or data.shape != (N, M) or beta0.shape != (K, M):
@@ -87,8 +91,9 @@ def cd_fused(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor,
     out = torch.empty((K, M), dtype=torch.float32, device=R.device)
     with torch.cuda.device(R.device):
         err = _lib.lib().insider_cd_fused(
-            mask.data_ptr(), data.data_ptr(), R.data_ptr(), beta0.data_ptr(),
-            out.data_ptr(), *_scalars(lam, alpha, tol), N, M, K,
+            mask.data_ptr(), mask_is_u8, data.data_ptr(), R.data_ptr(),
+            beta0.data_ptr(), out.data_ptr(), *_scalars(lam, alpha, tol),
+            N, M, K,
             int(max_sweeps), int(lanes), _lib.stream(R))
     _lib.check(err, "cd_fused")
     cd_fused.launches += 1

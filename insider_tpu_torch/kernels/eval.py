@@ -18,22 +18,28 @@ MAX_K = 128
 
 
 def masked_eval_plain(data, train_mask, test_mask, R, F) -> EvalSums:
-    """Plain version of masked_eval: the (N, M) residual, then f64 sums."""
-    return evaluate_masked(data - predict(R, F), train_mask, test_mask)
+    """Plain version of masked_eval: the (N, M) residual, then f64 sums,
+    the masks widened to f32."""
+    return evaluate_masked(data - predict(R, F), train_mask.to(data.dtype),
+                           test_mask.to(data.dtype))
 
 
 def masked_eval(data: torch.Tensor, train_mask: torch.Tensor,
                 test_mask: torch.Tensor, R: torch.Tensor,
                 F: torch.Tensor) -> EvalSums:
     """Train/test SSE and counts of data - R F under the two masks, as f64
-    scalar tensors on the operands' device.  data and masks (N, M), R (N, K),
-    F (K, M), f32; 1 <= K <= 128 on the card.  The kernel's counts are exact
+    scalar tensors on the operands' device.  data (N, M), R (N, K),
+    F (K, M), f32; the masks (N, M) 0/1, both f32 or both uint8 (the kernel
+    widens each value as it reads it, so both give the same bits);
+    1 <= K <= 128 on the card.  The kernel's counts are exact
     for 0/1 masks, as the fit's train and test indicators are (it adds a
     few mask values in f32 before their f64 sum); the plain version adds
     every value in f64."""
     if _lib.on_cpu("masked_eval", data, train_mask, test_mask, R, F):
         return masked_eval_plain(data, train_mask, test_mask, R, F)
-    _lib.require_cuda("masked_eval", data, train_mask, test_mask, R, F)
+    _lib.require_cuda("masked_eval", data, R, F)
+    mask_is_u8 = _lib.require_mask("masked_eval", data, train_mask,
+                                   test_mask)
     N, K = R.shape
     M = F.shape[1]
     if (data.shape != (N, M) or train_mask.shape != (N, M)
@@ -49,8 +55,8 @@ def masked_eval(data: torch.Tensor, train_mask: torch.Tensor,
     with torch.cuda.device(data.device):
         err = lib.insider_masked_eval(
             data.data_ptr(), train_mask.data_ptr(), test_mask.data_ptr(),
-            R.data_ptr(), F.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), N, M, K, _lib.stream(data))
+            mask_is_u8, R.data_ptr(), F.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), N, M, K, _lib.stream(data))
     _lib.check(err, "masked_eval")
     masked_eval.launches += 1
     return EvalSums(out[0], out[1], out[2], out[3])

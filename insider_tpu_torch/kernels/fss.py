@@ -25,6 +25,15 @@ FUSED_MAX_K = 32
 MAX_K = 128
 
 
+def fused_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The mask as the fused kernels read it: a uint8 mask is staged as
+    the 16-byte aligned chunks that cover its rows, so a view that starts
+    off a chunk is copied first (an f32 mask is staged by element)."""
+    if mask.dtype == torch.uint8 and mask.data_ptr() % 16:
+        return mask.clone()
+    return mask
+
+
 def feature_sign_fused_plain(mask, data, R, beta0, lam, alpha,
                              max_outer: int = 48, polish_sweeps: int = 0,
                              tol: float = 0.0) -> torch.Tensor:
@@ -32,6 +41,7 @@ def feature_sign_fused_plain(mask, data, R, beta0, lam, alpha,
     then ops/fss.feature_sign_search."""
     from insider_tpu_torch.ops.col_update import col_gram_masked
 
+    mask = mask.to(R.dtype)
     xty = torch.matmul(R.T, mask * data)
     G = col_gram_masked(R, mask).permute(1, 2, 0).contiguous()
     return feature_sign_search(G, xty, beta0, lam, alpha,
@@ -45,9 +55,11 @@ def feature_sign_fused(mask: torch.Tensor, data: torch.Tensor,
                        tol: float = 0.0) -> torch.Tensor:
     """Per-gene masked elastic net by FSS (+ plain-CD polish).
 
-    mask, data (N, M); R (N, K); beta0 (K, M) warm start; all f32.  Each
-    column's gram sum_i mask_ij r_i r_i^T and Xty sum_i r_i mask_ij data_ij
-    are built inside the kernel.  Returns beta (K, M).
+    mask, data (N, M); R (N, K); beta0 (K, M) warm start; all f32, the
+    mask f32 or uint8 (the kernel widens each value as it reads it, so
+    both give the same bits).  Each column's gram sum_i mask_ij r_i r_i^T
+    and Xty sum_i r_i mask_ij data_ij are built inside the kernel.
+    Returns beta (K, M).
 
     The mask must hold only 0 and 1: the kernel takes it into the bf16
     tensor-core gram build as it is (exact for 0/1 only; other values are
@@ -57,7 +69,9 @@ def feature_sign_fused(mask: torch.Tensor, data: torch.Tensor,
     if _lib.on_cpu("feature_sign_fused", mask, data, R, beta0):
         return feature_sign_fused_plain(mask, data, R, beta0, lam, alpha,
                                         max_outer, polish_sweeps, tol)
-    _lib.require_cuda("feature_sign_fused", mask, data, R, beta0)
+    _lib.require_cuda("feature_sign_fused", data, R, beta0)
+    mask = fused_mask(mask)
+    mask_is_u8 = _lib.require_mask("feature_sign_fused", R, mask)
     N, K = R.shape
     M = mask.shape[1]
     if mask.shape != (N, M) or data.shape != (N, M) or beta0.shape != (K, M):
@@ -70,8 +84,9 @@ def feature_sign_fused(mask: torch.Tensor, data: torch.Tensor,
     out = torch.empty((K, M), dtype=torch.float32, device=R.device)
     with torch.cuda.device(R.device):
         err = lib.insider_fss_fused(
-            mask.data_ptr(), data.data_ptr(), R.data_ptr(), beta0.data_ptr(),
-            out.data_ptr(), l1, l2, float(np.float32(tol)), N, M, K,
+            mask.data_ptr(), mask_is_u8, data.data_ptr(), R.data_ptr(),
+            beta0.data_ptr(), out.data_ptr(), l1, l2, float(np.float32(tol)),
+            N, M, K,
             int(max_outer), int(polish_sweeps), _lib.stream(R))
     _lib.check(err, "feature_sign_fused")
     feature_sign_fused.launches += 1

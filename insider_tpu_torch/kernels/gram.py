@@ -41,12 +41,8 @@ def col_gram_xty(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor):
     """
     if _lib.on_cpu("col_gram_xty", mask, data, R):
         return col_gram_xty_plain(mask, data, R)
-    _lib.require_cuda("col_gram_xty", mask, dtypes=(torch.float32,
-                                                    torch.uint8))
     _lib.require_cuda("col_gram_xty", data, R)
-    if mask.device != R.device:
-        raise ValueError(f"col_gram_xty: operands on {mask.device} and "
-                         f"{R.device}")
+    mask_is_u8 = _lib.require_mask("col_gram_xty", R, mask)
     N, K = R.shape
     M = mask.shape[1]
     if mask.shape != (N, M) or data.shape != (N, M):
@@ -65,7 +61,7 @@ def col_gram_xty(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor):
     xty = torch.empty((K, M), dtype=torch.float32, device=R.device)
     with torch.cuda.device(R.device):
         err = lib.insider_col_gram_xty(
-            mask.data_ptr(), int(mask.dtype == torch.uint8), data.data_ptr(),
+            mask.data_ptr(), mask_is_u8, data.data_ptr(),
             R.data_ptr(), gram.data_ptr(), xty.data_ptr(), N, M, K,
             _lib.stream(R))
     _lib.check(err, "col_gram_xty")

@@ -94,9 +94,9 @@ def level_order(codes: torch.Tensor, n_levels: int):
 
 def row_xty_plain(codes, R_minus, mask, D, F) -> torch.Tensor:
     """Plain version of row_xty, in the operands' dtype (f32 as the
-    kernel; f64 for an accuracy reference)."""
+    kernel; f64 for an accuracy reference), the mask widened to it."""
     return masked_level_xty(one_hot_levels(codes, D.shape[0], R_minus.dtype),
-                            R_minus, mask, D, F)
+                            R_minus, mask.to(R_minus.dtype), D, F)
 
 
 def row_xty(codes: torch.Tensor, R_minus: torch.Tensor, mask: torch.Tensor,
@@ -105,16 +105,18 @@ def row_xty(codes: torch.Tensor, R_minus: torch.Tensor, mask: torch.Tensor,
 
     Counterpart of row_pallas.row_xty_auto (row_xty_pallas and its
     row-chunked variant).  codes: (N,) int32 level codes in [0, L), L =
-    D.shape[0]; R_minus (N, K), mask (N, M), D (L, M), F (K, M), f32;
-    any L, and 1 <= K <= 128 on the card.  levels: the rows sorted by level,
-    level_order(codes, L), which the kernel reads in place of the codes; a
-    fit computes them once per problem (train/als.build_problem), and they
-    are derived here when not given.
+    D.shape[0]; R_minus (N, K), D (L, M), F (K, M), f32; mask (N, M) 0/1,
+    f32 or uint8 (the kernel widens each value as it reads it, so both
+    give the same bits); any L, and 1 <= K <= 128 on the card.  levels:
+    the rows sorted by level, level_order(codes, L), which the kernel
+    reads in place of the codes; a fit computes them once per problem
+    (train/als.build_problem), and they are derived here when not given.
     """
     if _lib.on_cpu("row_xty", codes, R_minus, mask, D, F):
         return row_xty_plain(codes, R_minus, mask, D, F)
     _lib.require_cuda("row_xty", codes, dtypes=(torch.int32,))
-    _lib.require_cuda("row_xty", R_minus, mask, D, F)
+    _lib.require_cuda("row_xty", R_minus, D, F)
+    mask_is_u8 = _lib.require_mask("row_xty", D, mask)
     N, K = R_minus.shape
     L, M = D.shape
     if (codes.shape != (N,) or mask.shape != (N, M)
@@ -137,7 +139,8 @@ def row_xty(codes: torch.Tensor, R_minus: torch.Tensor, mask: torch.Tensor,
     with torch.cuda.device(D.device):
         err = lib.insider_row_xty(
             order.data_ptr(), offsets.data_ptr(), ends.data_ptr(),
-            R_minus.data_ptr(), mask.data_ptr(), D.data_ptr(), F.data_ptr(),
+            R_minus.data_ptr(), mask.data_ptr(), mask_is_u8, D.data_ptr(),
+            F.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), scratch.numel(), N, M, L, K,
             _lib.stream(D))
     _lib.check(err, "row_xty")

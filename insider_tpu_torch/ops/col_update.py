@@ -67,7 +67,8 @@ def _order(perm, device):
 def update_columns_masked(
     data: torch.Tensor,     # (N, M) — optimize() passes data, not the residual
                             # (src/optimize.cpp:376)
-    mask: torch.Tensor,     # (N, M) 0/1 train indicator, f32
+    mask: torch.Tensor,     # (N, M) 0/1 train indicator, f32 or uint8,
+                            # as stored: the kernels read either
     R: torch.Tensor,        # (N, K) row factor
     F_prev: torch.Tensor,   # (K, M) warm start
     lam: float,

@@ -93,7 +93,8 @@ def _first_max_pick(score, viol):
 
 def elastic_net_cd(G: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
                    lam, alpha, tol, max_sweeps: int,
-                   use_strong_rule: bool = True) -> torch.Tensor:
+                   use_strong_rule: bool = True,
+                   perms=None) -> torch.Tensor:
     """Cyclic CD over all columns at once, coordinates in fixed order.
 
     The iteration of the TPU kernel (insider_tpu/kernels/cd_pallas.py:
@@ -107,6 +108,9 @@ def elastic_net_cd(G: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
     |s - xty| > l1, and converge only when there is none
     (coordinate_descent.cpp:74-79, 118-124).  Without it every coordinate
     is active: the FSS polish.  A column stops after at most max_sweeps.
+    perms: None, or a (max_sweeps, K) integer array whose row i is the
+    coordinate order of sweep i, shared by every column (the JAX package's
+    make_sweep_perms, insider_tpu/ops/col_update.py:81-88).
     """
     l1, l2 = penalties(lam, alpha)
     tol = float(np.float32(tol))
@@ -130,14 +134,15 @@ def elastic_net_cd(G: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
     half_denom = 0.5 * denom
     inv_l1 = float(np.float32(1.0) / np.float32(max(l1, 1e-30)))
     conv = torch.zeros((1, M), dtype=torch.bool, device=dev)
-    for _ in range(max_sweeps):
+    for sweep in range(max_sweeps):
         if bool(conv.all()):
             break
         # screened coordinates and converged columns do not move; the mask
         # is frozen for the whole sweep
         upd = active & ~conv
         dec = torch.zeros((1, M), dtype=beta.dtype, device=dev)
-        for k in range(K):
+        for k in (range(K) if perms is None else
+                  [int(i) for i in perms[sweep]]):
             b_k = beta[k:k + 1]
             u = xty[k:k + 1] - s[k:k + 1] + b_k * d[k:k + 1]
             w = (torch.sign(u) * torch.clamp(u.abs() - l1, min=0.0)

@@ -10,15 +10,21 @@ sub_tol decay ladder), and with a checkpoint path saves the state there.
 
 PyTorch runs eagerly, so an iteration is a sequence of kernel launches on
 the problem's device.  Masked problems (partition=1, tuning): the level
-grams (kernels/row.level_gram), one row_xty per confounder with a batched
-K x K Cholesky solve, one covariate CD kernel launch per continuous
-covariate (kernels/ctns.ctns_cd, ops/continuous), and the masked column
-update (ops/col_update: the fused FSS or CD kernel, or col_gram_xty + the
-streamed FSS or CD kernel for K > 32); a boundary runs the fused eval
-kernel (kernels/eval.masked_eval).  Dense problems (partition=0): plain
-row updates with the shared gram F F^T, the covariates' closed-form K x K
-solves, and the shared-gram FSS or CD kernel; a boundary sums the whole
-residual.
+grams (kernels/row.level_gram) of every fast confounder in one launch, one
+row_xty per fast confounder with a batched K x K Cholesky solve, one
+covariate CD kernel launch per continuous covariate (kernels/ctns.ctns_cd,
+ops/continuous), and the masked column update (ops/col_update: the fused
+FSS or CD kernel, or col_gram_xty + the streamed FSS or CD kernel for
+K > 32); a boundary runs the fused eval kernel (kernels/eval.masked_eval).
+Dense problems (partition=0): plain row updates with the shared gram
+F F^T, the covariates' closed-form K x K solves, and the shared-gram FSS
+or CD kernel; a boundary sums the whole residual.  A confounder without
+per-problem constants (past the fast route's memory budgets, or every
+one when the problem is built with precompute=False) takes the
+segment-sum update on the add-back residual (ops/row_update), and a
+covariate without them the update on that residual (ops/continuous).
+The masks are stored as f32 or uint8 (build_problem's mask_dtype); the
+kernels read either as it is stored.
 Cold CD (col_solver="cd", cd_warm_start=False) sweeps each column update in
 one coordinate order from draw_perm.  A boundary copies seven f64 sums to
 the host, which decides it in f64 -- the JAX package's
@@ -43,10 +49,9 @@ from insider_tpu_torch.config import FitConfig, decay_from_delta_loss
 from insider_tpu_torch.kernels.eval import masked_eval
 from insider_tpu_torch.kernels.row import level_gram, level_order, row_xty
 from insider_tpu_torch.model.state import InsiderState, init_state
-from insider_tpu_torch.ops import col_update, continuous, losses
+from insider_tpu_torch.ops import col_update, continuous, losses, row_update
 from insider_tpu_torch.ops.row_update import (_ridge_solve_batched,
-                                              one_hot_levels,
-                                              update_row_factor_dense_fast)
+                                              one_hot_levels)
 
 logger = logging.getLogger("insider_tpu_torch")
 
@@ -63,36 +68,45 @@ def disable_tf32() -> None:
 class Problem:
     """One fit problem, staged on `device`.
 
-    Per confounder v: codes[v] (N,) int32 level codes, E_v their one-hot
-    level membership (insider_tpu/train/als.py:343-402).  Masked: d[v] =
-    E_v^T (mask .* data) (L_v, M), and mw_cat stacks every confounder's
-    E_v^T mask into one (sum L, M) matrix, which the level-gram kernel reads
-    in one launch (max_level_count, its largest count, sets the kernel's
-    count planes), and row_order[v] holds confounder v's rows sorted by level
+    Per confounder v: codes[v] (N,) int32 level codes.  The row constants
+    (insider_tpu/train/als.py:343-402) exist for a confounder on the fast
+    route only, whose one-hot E_v and (L_v, M) level sums fit the budgets
+    _FAST_E_BYTES and _FAST_LM_BYTES; the others (and every confounder of
+    a problem built with precompute=False) have None in d, row_order and
+    counts, and take the segment-sum update (ops/row_update).  Masked:
+    d[v] = E_v^T (mask .* data) (L_v, M), and mw_cat stacks the fast
+    confounders' E_v^T mask, in confounder order, into one (sum L, M)
+    matrix, which the level-gram kernel reads in one launch
+    (max_level_count, its largest count, sets the kernel's count planes),
+    and row_order[v] holds confounder v's rows sorted by level
     (kernels/row.level_order), which the row_xty kernel reads in place of
     the codes.  Dense: d[v] = E_v^T data and counts[v] (L_v,) the level
-    sizes.  With P continuous covariates, ctns (N, P) and their constants:
-    masked ctns_q = (c^2)^T mask and ctns_bc = c^T (mask .* data), dense
-    ctns_dc = c^T data, each (P, M), and ctns_cc = c^T c (P,)
-    (insider_tpu/train/als.py:386-402).
+    sizes.  With P continuous covariates, ctns (N, P) and, unless built
+    with precompute=False, their constants: masked ctns_q = (c^2)^T mask
+    and ctns_bc = c^T (mask .* data), dense ctns_dc = c^T data, each
+    (P, M), and ctns_cc = c^T c (P,) (insider_tpu/train/als.py:386-402).
     """
 
     data: torch.Tensor          # (N, M) f32, NaNs zeroed
-    train_mask: torch.Tensor    # (N, M) f32 0/1
-    test_mask: torch.Tensor     # (N, M) f32 0/1
+    train_mask: torch.Tensor    # (N, M) f32 or uint8 0/1
+    test_mask: torch.Tensor     # (N, M) f32 or uint8 0/1
     codes: List[torch.Tensor]
     n_levels: Tuple[int, ...]
     masked: bool
-    d: List[torch.Tensor]
-    mw_cat: Optional[torch.Tensor] = None       # masked only
+    d: List[Optional[torch.Tensor]]
+    mw_cat: Optional[torch.Tensor] = None       # masked, fast confounders
     max_level_count: Optional[float] = None     # masked only: mw_cat.max()
-    row_order: Optional[List[Tuple[torch.Tensor, ...]]] = None
-    counts: Optional[List[torch.Tensor]] = None  # dense only
+    row_order: Optional[List[Optional[Tuple[torch.Tensor, ...]]]] = None
+    counts: Optional[List[Optional[torch.Tensor]]] = None  # dense only
     ctns: Optional[torch.Tensor] = None         # (N, P) or None
     ctns_q: Optional[torch.Tensor] = None       # masked, (P, M)
     ctns_bc: Optional[torch.Tensor] = None      # masked, (P, M)
     ctns_dc: Optional[torch.Tensor] = None      # dense, (P, M)
     ctns_cc: Optional[torch.Tensor] = None      # dense, (P,)
+
+    def fast(self) -> List[int]:
+        """The confounders that take the fast route (their constants)."""
+        return [v for v, d in enumerate(self.d) if d is not None]
 
     @property
     def shape(self):
@@ -119,10 +133,7 @@ def resolve_device(device) -> torch.device:
 # Reference parameters that the port takes at their positions but does not
 # implement yet: the value that does what the reference's default does,
 # and the ROADMAP item that will port the others.
-UNPORTED = {"sharding": (None, "Queue 1 item 9"),
-            "mask_dtype": (None, "Queue 1 item 6"),
-            "precompute": (True, "Queue 1 item 6"),
-            "profile_dir": (None, "Queue 1 item 6")}
+UNPORTED = {"sharding": (None, "Queue 1 item 9")}
 
 
 def check_unported(**given) -> None:
@@ -153,6 +164,60 @@ def check_dtype(dtype) -> None:
         "torch's float32, or None)")
 
 
+def mask_storage(mask_dtype) -> torch.dtype:
+    """The dtype the indicator matrices are stored in, for the reference's
+    mask_dtype (numpy's, torch's or the JAX package's dtype, or its name):
+    float32 for None (the reference's default); uint8 for any 1-byte dtype
+    (bool, int8, uint8: the memory-lean mode, a quarter of the bytes,
+    insider_tpu/train/als.py:218); float32 for any wider one.  The masks
+    hold 0 and 1, which every numeric dtype holds exactly, so the stored
+    values, and the fit, are the same whatever the dtype; the kernels read
+    float32 or uint8, and a plain torch op that needs float32 casts them
+    itself."""
+    if mask_dtype is None:
+        return torch.float32
+    if isinstance(mask_dtype, torch.dtype):
+        size = mask_dtype.itemsize
+    elif str(mask_dtype) == "bfloat16":   # numpy knows it only by ml_dtypes
+        size = 2
+    else:
+        try:
+            dt = np.dtype(mask_dtype)
+        except TypeError:
+            dt = None
+        if dt is None or not (dt.kind in "biufc" or dt.name == "bfloat16"):
+            raise TypeError(f"mask_dtype={mask_dtype!r} is not a numeric "
+                            "dtype")
+        size = dt.itemsize
+    return torch.uint8 if size == 1 else torch.float32
+
+
+# Memory budgets of the fast row route, the JAX package's
+# (insider_tpu/train/als.py:326-327): a confounder whose one-hot E (N, L)
+# or two (L, M) level-sum matrices would pass them takes the segment-sum
+# update instead, with no per-problem constants.
+_FAST_E_BYTES = 256 * 1024 * 1024
+_FAST_LM_BYTES = 512 * 1024 * 1024
+
+# The precompute runs over column chunks when its (N, M) f32 transients
+# (the widened mask and mask .* data of a chunk) would pass this budget
+# (insider_tpu/train/als.py:330-351).
+_PRECOMPUTE_TRANSIENT_BYTES = 1 * 1024 * 1024 * 1024
+
+
+def precompute_chunk(N: int, M: int) -> int:
+    """Columns of one precompute chunk: all M within the budget, else
+    max(1024, budget // (4 N) rounded down to a multiple of 256)."""
+    if N * M * 4 <= _PRECOMPUTE_TRANSIENT_BYTES:
+        return M
+    return max(1024, _PRECOMPUTE_TRANSIENT_BYTES // (4 * N) // 256 * 256)
+
+
+def fast_route(N: int, M: int, L: int) -> bool:
+    """True when a confounder of L levels takes the fast row route."""
+    return N * L * 4 <= _FAST_E_BYTES and 2 * L * M * 4 <= _FAST_LM_BYTES
+
+
 def build_problem(data: np.ndarray, confounder: np.ndarray,
                   train_indicator: np.ndarray, test_indicator: np.ndarray,
                   ctns_confounder: Optional[np.ndarray] = None,
@@ -164,18 +229,23 @@ def build_problem(data: np.ndarray, confounder: np.ndarray,
     confounder: (N, C) integer level codes per discrete confounder (any
     labels; densified per column as the reference's `unique()` indexing,
     src/optimize.cpp:296-313).  ctns_confounder: (N, P) continuous
-    covariates (a 1-D array is one column), or None.  Masks are stored as
-    f32.  masked=False
+    covariates (a 1-D array is one column), or None.  masked=False
     builds the dense (partition=0) problem, whose updates read every
-    element.  The positional parameters are the JAX package's, in its
-    order: dtype takes f32 only (check_dtype); sharding, mask_dtype and
-    precompute are not ported and take only their defaults
-    (check_unported).  device (keyword-only): "cuda" (default; raises
-    without a card) or "cpu".
+    element.  mask_dtype: the masks' storage, float32 for None or a
+    wider dtype, uint8 for a 1-byte one (mask_storage).  precompute=False builds no row constants: every
+    confounder and covariate then takes the segment-sum update
+    (insider_tpu/train/als.py:191), the memory-lean mode for shapes near
+    the card's memory.  With precompute, each confounder within the fast
+    route's budgets (fast_route) gets its constants, and they are built
+    over column chunks (precompute_chunk), so no (N, M) f32 transient
+    larger than a chunk exists.  The positional parameters are the JAX
+    package's, in its order: dtype takes f32 only (check_dtype); sharding
+    is not ported and takes only its default (check_unported).  device
+    (keyword-only): "cuda" (default; raises without a card) or "cpu".
     """
     check_dtype(dtype)
-    check_unported(sharding=sharding, mask_dtype=mask_dtype,
-                   precompute=precompute)
+    check_unported(sharding=sharding)
+    mdt = mask_storage(mask_dtype)
     disable_tf32()
     device = resolve_device(device)
     confounder = np.asarray(confounder)
@@ -185,36 +255,85 @@ def build_problem(data: np.ndarray, confounder: np.ndarray,
         codes_np.append(inv.reshape(-1).astype(np.int32))
         n_levels.append(int(levels.size))
 
-    def put(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    def put(x, dt=torch.float32):
+        np_dt = np.uint8 if dt is torch.uint8 else np.float32
+        return torch.as_tensor(np.asarray(x, np_dt), device=device)
 
     data_t = put(data)
-    train_t = put(train_indicator)
-    test_t = put(test_indicator)
     codes = [torch.as_tensor(c, device=device) for c in codes_np]
-    E_ts = [one_hot_levels(c, L).T.contiguous()         # (L, N)
-            for c, L in zip(codes, n_levels)]
-    common = dict(data=data_t, train_mask=train_t, test_mask=test_t,
-                  codes=codes, n_levels=tuple(n_levels), masked=masked)
+    problem = Problem(data=data_t, train_mask=put(train_indicator, mdt),
+                      test_mask=put(test_indicator, mdt), codes=codes,
+                      n_levels=tuple(n_levels), masked=masked,
+                      d=[None] * len(codes))
     if ctns_confounder is not None:
         ctns = np.asarray(ctns_confounder)
-        C = common["ctns"] = put(ctns[:, None] if ctns.ndim == 1 else ctns)
-    if not masked:
-        if ctns_confounder is not None:
-            common.update(ctns_dc=torch.matmul(C.T, data_t),
-                          ctns_cc=torch.sum(C * C, dim=0))
-        return Problem(**common, d=[torch.matmul(E_t, data_t)
-                                    for E_t in E_ts],
-                       counts=[E_t.sum(dim=1) for E_t in E_ts])
-    wx = train_t * data_t
-    if ctns_confounder is not None:
-        common.update(ctns_q=torch.matmul((C * C).T, train_t),
-                      ctns_bc=torch.matmul(C.T, wx))
-    mw_cat = torch.cat([torch.matmul(E_t, train_t) for E_t in E_ts], dim=0)
-    return Problem(**common, d=[torch.matmul(E_t, wx) for E_t in E_ts],
-                   mw_cat=mw_cat, max_level_count=float(mw_cat.max()),
-                   row_order=[level_order(c, L)
-                              for c, L in zip(codes, n_levels)])
+        problem.ctns = put(ctns[:, None] if ctns.ndim == 1 else ctns)
+    if precompute:
+        _precompute_row_constants(problem)
+    return problem
+
+
+def _precompute_row_constants(problem: Problem) -> None:
+    """Fill in the row constants of `problem` (see Problem), column chunk
+    by column chunk (insider_tpu/train/als.py:343-402): each chunk's mask
+    is widened to f32 and multiplied into the data once, and every
+    constant's columns of that chunk are contracted from them."""
+    data, mask, C = problem.data, problem.train_mask, problem.ctns
+    N, M = data.shape
+    fast = [v for v, L in enumerate(problem.n_levels) if fast_route(N, M, L)]
+    sizes = [problem.n_levels[v] for v in fast]
+    dev = data.device
+    E_cat = (torch.cat([one_hot_levels(problem.codes[v], L).T
+                        for v, L in zip(fast, sizes)]).contiguous()
+             if fast else None)                   # (sum L, N)
+    Lsum = sum(sizes)
+
+    def zeros(rows):
+        return torch.zeros((rows, M), dtype=torch.float32, device=dev)
+
+    d_cat = zeros(Lsum)
+    mw_cat = zeros(Lsum) if problem.masked else None
+    P = 0 if C is None else C.shape[1]
+    q, bc, dc = (zeros(P), zeros(P), None) if problem.masked else (
+        None, None, zeros(P))
+    chunk = precompute_chunk(N, M)
+    for c0 in range(0, M, chunk):
+        c1 = min(c0 + chunk, M)
+        x, m = data[:, c0:c1], None
+        if problem.masked:
+            m = mask[:, c0:c1].to(torch.float32).contiguous()
+            x = m * x                                  # wx, this chunk only
+        if fast:
+            d_cat[:, c0:c1] = torch.matmul(E_cat, x)
+            if problem.masked:
+                mw_cat[:, c0:c1] = torch.matmul(E_cat, m)
+        if P and problem.masked:
+            q[:, c0:c1] = torch.matmul((C * C).T, m)
+            bc[:, c0:c1] = torch.matmul(C.T, x)
+        elif P:
+            dc[:, c0:c1] = torch.matmul(C.T, x)
+        del x, m                 # before the next chunk's are allocated
+    d = list(torch.split(d_cat, sizes, dim=0)) if fast else []
+    for v, dv in zip(fast, d):
+        problem.d[v] = dv
+    if problem.masked:
+        problem.row_order = [None] * len(problem.codes)
+        for v in fast:
+            problem.row_order[v] = level_order(problem.codes[v],
+                                               problem.n_levels[v])
+        if fast:
+            problem.mw_cat = mw_cat
+            problem.max_level_count = float(mw_cat.max())
+        if P:
+            problem.ctns_q, problem.ctns_bc = q, bc
+    else:
+        counts = list(torch.split(E_cat.sum(dim=1), sizes)) if fast else []
+        problem.counts = [None] * len(problem.codes)
+        for v, cv in zip(fast, counts):
+            problem.counts[v] = cv
+        if P:
+            problem.ctns_dc = dc
+            problem.ctns_cc = torch.sum(C * C, dim=0)
 
 
 def _row_factor(problem: Problem, state: InsiderState) -> torch.Tensor:
@@ -233,20 +352,31 @@ def _update_covariates(problem: Problem, config: FitConfig, W: torch.Tensor,
     """Each continuous covariate's coefficient row of W (P, K) in turn,
     Gauss-Seidel against the row factor R = sum_v V_v[codes_v] + C W that
     holds the new confounder factors (src/optimize.cpp:341-350,
-    insider_tpu/train/als.py:593-628): masked, one ctns_cd launch each;
-    dense (gram = F F^T), the closed form.  Returns the new W."""
+    insider_tpu/train/als.py:593-628): masked, one ctns_cd launch each, on
+    the per-problem constants or, in a problem built without them, on the
+    add-back residual; dense (gram = F F^T), the closed form, likewise.
+    Returns the new W."""
     rows = list(W.unbind(0))
     for j in range(len(rows)):
         c = problem.ctns[:, j]
         R_minus = R - torch.outer(c, rows[j])
-        if problem.masked:
+        if problem.masked and problem.ctns_q is not None:
             w = continuous.update_ctns_row_masked_fast(
                 problem.ctns_q[j], problem.ctns_bc[j], problem.train_mask,
                 R_minus, F, c, rows[j], config.lambda1, tol=config.ctns_tol,
                 max_sweeps=config.max_ctns_sweeps)
-        else:
+        elif problem.masked:
+            w = continuous.update_ctns_row_masked(
+                problem.data - losses.predict(R_minus, F),
+                problem.train_mask, F, c, rows[j], config.lambda1,
+                tol=config.ctns_tol, max_sweeps=config.max_ctns_sweeps)
+        elif problem.ctns_dc is not None:
             w = continuous.update_ctns_row_dense_fast(
                 problem.ctns_dc[j], problem.ctns_cc[j], R_minus, F, gram, c,
+                config.lambda1)
+        else:
+            w = continuous.update_ctns_row_dense(
+                problem.data - losses.predict(R_minus, F), F, gram, c,
                 config.lambda1)
         rows[j] = w
         R = R_minus + torch.outer(c, w)
@@ -306,16 +436,26 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
     mask = problem.train_mask
     R = _row_factor(problem, state)
 
-    # every confounder's level grams use the same F: one launch for all
-    xtx_cat = level_gram(problem.mw_cat, F, problem.max_level_count)
-    level_xtx = torch.split(xtx_cat, list(problem.n_levels), dim=0)
+    # every fast confounder's level grams use the same F: one launch for all
+    level_xtx = [None] * len(problem.codes)
+    fast = problem.fast()
+    if fast:
+        xtx_cat = level_gram(problem.mw_cat, F, problem.max_level_count)
+        for v, xtx in zip(fast, torch.split(
+                xtx_cat, [problem.n_levels[v] for v in fast], dim=0)):
+            level_xtx[v] = xtx
 
     cfd_new = list(state.cfd_factors)
     for v, codes in enumerate(problem.codes):
         R_minus = R - cfd_new[v][codes]
-        V = update_row_factor(level_xtx[v], codes, R_minus, mask,
-                              problem.d[v], F, config.lambda1,
-                              problem.row_order[v])
+        if level_xtx[v] is not None:
+            V = update_row_factor(level_xtx[v], codes, R_minus, mask,
+                                  problem.d[v], F, config.lambda1,
+                                  problem.row_order[v])
+        else:
+            V = row_update.update_row_factor_masked(
+                problem.data - losses.predict(R_minus, F), mask, F, codes,
+                problem.n_levels[v], config.lambda1)
         cfd_new[v] = V
         R = R_minus + V[codes]
 
@@ -342,9 +482,15 @@ def _als_iteration_dense(problem: Problem, config: FitConfig,
     cfd_new = list(state.cfd_factors)
     for v, codes in enumerate(problem.codes):
         R_minus = R - cfd_new[v][codes]
-        E = one_hot_levels(codes, problem.n_levels[v])
-        V = update_row_factor_dense_fast(E, problem.d[v], problem.counts[v],
-                                         R_minus, F, gram, config.lambda1)
+        L = problem.n_levels[v]
+        if problem.d[v] is not None:
+            V = row_update.update_row_factor_dense_fast(
+                one_hot_levels(codes, L), problem.d[v],
+                problem.counts[v], R_minus, F, gram, config.lambda1)
+        else:
+            V = row_update.update_row_factor_dense(
+                problem.data - losses.predict(R_minus, F), F, gram, codes, L,
+                config.lambda1)
         cfd_new[v] = V
         R = R_minus + V[codes]
 
@@ -371,6 +517,21 @@ def _evaluate(problem: Problem, state: InsiderState) -> torch.Tensor:
     reg = losses.regularization_sums(state.cfd_factors, state.ctns_factor,
                                      state.column_factor)
     return losses.pack_metrics(ev, reg)
+
+
+def _profiled(run, state, device, path):
+    """run(state) under torch.profiler (the card's kernels too, where the
+    problem lives there), its trace written to `path` as Chrome JSON."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        state = run(state)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(path)
+    return state
 
 
 @dataclasses.dataclass
@@ -419,11 +580,14 @@ def optimize(problem: Problem, config: FitConfig,
     and no `state`, an existing checkpoint restarts the run at the
     iteration after its own, with its decay ladder, so the resumed run
     continues the uninterrupted one (insider_tpu/train/als.py:941-960).
+    profile_dir: trace the second step chunk (the iterations up to the
+    first boundary after the first one, as the JAX package traces its
+    second chunk, insider_tpu/train/als.py:1094-1095) with torch.profiler
+    and write it there as a Chrome trace, trace_iter_<first>_<last>.json;
+    the fit computes the same bits with and without it.
     The positional parameters are the JAX package's, in its order;
-    profile_dir is not ported and takes only its default
-    (check_unported).  generator is keyword-only.
+    generator is keyword-only.
     """
-    check_unported(profile_dir=profile_dir)
     disable_tf32()
     cold_cd = (config.col_solver == "cd" and not config.cd_warm_start
                and config.alpha != 0.0)
@@ -492,11 +656,22 @@ def optimize(problem: Problem, config: FitConfig,
                 (it // config.check_every + 1) * config.check_every)
             boundary = min(boundary, config.max_iter)
             sub_tol_eff = float(np.float32(config.sub_tol * decay))
-            for _ in range(boundary - it + 1):
-                perm = (draw_perm(perm_gen, state.latent_dim) if cold_cd
-                        else None)
-                state = _als_iteration(problem, config, state, sub_tol_eff,
-                                       perm)
+
+            def run_chunk(state):
+                for _ in range(boundary - it + 1):
+                    perm = (draw_perm(perm_gen, state.latent_dim) if cold_cd
+                            else None)
+                    state = _als_iteration(problem, config, state,
+                                           sub_tol_eff, perm)
+                return state
+
+            if profile_dir and len(history) == 2:
+                state = _profiled(run_chunk, state, problem.device,
+                                  os.path.join(profile_dir,
+                                               f"trace_iter_{it}_{boundary}"
+                                               ".json"))
+            else:
+                state = run_chunk(state)
             it = boundary + 1
 
             pre_loss = loss

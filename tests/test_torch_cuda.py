@@ -769,3 +769,99 @@ def test_mixed_devices_raise(cuda):
     F = torch.zeros((4, 10), device=cuda)
     with pytest.raises(ValueError):
         row.level_gram(torch.zeros((3, 10)), F)
+
+
+# uint8 masks: each kernel that reads the mask computes with it what it
+# computes with the same mask as f32, bit for bit (the widening is exact and
+# the sums keep their order).  M odd, so the uint8 rows start at any byte
+# (the fused kernels stage them as the 16-byte chunks that cover them);
+# N past one staging step; K = 8, 24, 32 and, where the kernel takes it,
+# 50 and 128; a mask view that starts off a 16-byte chunk.
+def _u8_case(rng, N, K, M, dev, offset=0):
+    """A 0/1 mask (N, M) as uint8, `offset` bytes into its allocation, and
+    the same mask as f32."""
+    flat = _t((rng.random(N * M + offset) > 0.15).astype(np.uint8), dev)
+    mask_u8 = flat[offset:].view(N, M)
+    return mask_u8, mask_u8.float().contiguous()
+
+
+@pytest.mark.parametrize("N,K,M", [(37, 8, 1031), (377, 24, 2001),
+                                   (130, 50, 777), (90, 128, 131)])
+def test_row_xty_uint8_mask(cuda, N, K, M):
+    rng = np.random.default_rng(N + K)
+    L = 7
+    codes = _t(rng.integers(0, L, N).astype(np.int32), cuda)
+    R = _t((0.3 * rng.standard_normal((N, K))).astype(np.float32), cuda)
+    F = _t((0.3 * rng.standard_normal((K, M))).astype(np.float32), cuda)
+    D = _t(rng.standard_normal((L, M)).astype(np.float32), cuda)
+    u8, f32 = _u8_case(rng, N, K, M, cuda)
+    got = row.row_xty(codes, R, u8, D, F)
+    assert torch.equal(got, row.row_xty(codes, R, f32, D, F))
+    assert _max_err_ok(got, row.row_xty_plain(codes, R, u8, D, F), 3e-5)
+
+
+@pytest.mark.parametrize("N,M,K", [(64, 257, 8), (377, 2001, 24),
+                                   (300, 777, 50), (90, 131, 128)])
+def test_masked_eval_uint8_masks(cuda, N, M, K):
+    rng = np.random.default_rng(N + M)
+    data = _t(rng.standard_normal((N, M)).astype(np.float32), cuda)
+    train_u8, train = _u8_case(rng, N, K, M, cuda)
+    test = (1 - train) * _t((rng.random((N, M)) < 0.5).astype(np.float32),
+                            cuda)
+    test_u8 = test.to(torch.uint8)
+    R = _t((0.3 * rng.standard_normal((N, K))).astype(np.float32), cuda)
+    F = _t((0.3 * rng.standard_normal((K, M))).astype(np.float32), cuda)
+    got = [float(x) for x in ev.masked_eval(data, train_u8, test_u8, R, F)]
+    assert got == [float(x) for x in ev.masked_eval(data, train, test, R, F)]
+    ref = [float(x) for x in ev.masked_eval_plain(data, train_u8, test_u8,
+                                                  R, F)]
+    for q in (0, 1):
+        assert abs(got[q] - ref[q]) <= 1e-5 * abs(ref[q])
+    assert got[2:] == ref[2:]
+    with pytest.raises(TypeError):
+        ev.masked_eval(data, train_u8, test, R, F)
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 2001),
+                                   (130, 32, 515)])
+def test_fused_kernels_uint8_mask(cuda, N, K, M, offset):
+    rng = np.random.default_rng(N + K + offset)
+    R = _t(rng.standard_normal((N, K)).astype(np.float32), cuda)
+    data = _t(rng.standard_normal((N, M)).astype(np.float32), cuda)
+    beta0 = _t((0.01 * rng.standard_normal((K, M))).astype(np.float32), cuda)
+    u8, f32 = _u8_case(rng, N, K, M, cuda, offset)
+    assert (u8.data_ptr() % 16 != 0) == bool(offset)
+    lam, alpha = 11.0, 0.4
+    kw = dict(max_outer=48, polish_sweeps=16, tol=1e-9)
+    G = col_gram_masked(R, f32).permute(1, 2, 0)
+    b = R.T @ (f32 * data)
+    got = fss.feature_sign_fused(u8, data, R, beta0, lam, alpha, **kw)
+    assert torch.equal(got, fss.feature_sign_fused(f32, data, R, beta0, lam,
+                                                   alpha, **kw))
+    _check_fss(got, fss.feature_sign_fused_plain(u8, data, R, beta0, lam,
+                                                 alpha, **kw),
+               G, b, lam, alpha)
+    got = cd.cd_fused(u8, data, R, beta0, lam, alpha, 1e-9, 20)
+    assert torch.equal(got, cd.cd_fused(f32, data, R, beta0, lam, alpha, 1e-9,
+                                        20))
+    _check_fss(got, cd.cd_fused_plain(u8, data, R, beta0, lam, alpha, 1e-9,
+                                      20), G, b, lam, alpha)
+
+
+@pytest.mark.parametrize("N,L,M", [(300, 7, 1031), (2000, 1700, 257)])
+def test_segment_sum_equals_the_cpu_bit_for_bit(cuda, N, L, M):
+    """The segment-sum row update's level sums (ops/row_update.segment_sum)
+    on the card: each level's rows added in row order, as on the CPU, so
+    the two agree bit for bit and a second run repeats them; with L=1700
+    over 2000 rows some levels have no rows (sums 0)."""
+    from insider_tpu_torch.ops.row_update import segment_sum
+
+    rng = np.random.default_rng(N + L)
+    x = rng.standard_normal((N, M)).astype(np.float32)
+    codes = rng.integers(0, L, N).astype(np.int32)
+    want = segment_sum(torch.from_numpy(x), torch.from_numpy(codes), L)
+    xd, cd_ = _t(x, cuda), _t(codes, cuda)
+    got = segment_sum(xd, cd_, L)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(segment_sum(xd, cd_, L), got)

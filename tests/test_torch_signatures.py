@@ -1,8 +1,9 @@
 """The port's entry points take the JAX package's positional parameters.
 
-Insider.__init__, Insider.fit, Insider.tune, train/als.build_problem and
-train/als.optimize of insider_tpu_torch bind every positional argument of
-the reference's signature to the same name at the same position, with the
+Insider.__init__, Insider.fit, Insider.tune, train/als.build_problem,
+train/als.optimize, fit_interaction and the two CD solvers of
+insider_tpu_torch bind every positional argument of the reference's
+signature to the same name at the same position, with the
 reference's defaults; the port's own parameters are keyword-only; a
 reference parameter the port does not implement takes only the value that
 does what the reference's default does and raises on any other, naming
@@ -20,6 +21,8 @@ import torch
 
 import insider_tpu_torch as itt
 from insider_tpu import api as japi
+from insider_tpu.ops import row_update as jrow
+from insider_tpu.ops import solvers as jsolvers
 from insider_tpu.train import als as jals
 from insider_tpu_torch.config import FitConfig
 from insider_tpu_torch.train import als
@@ -30,6 +33,11 @@ ENTRIES = {
     "Insider.tune": (japi.Insider.tune, itt.Insider.tune),
     "build_problem": (jals.build_problem, als.build_problem),
     "optimize": (jals.optimize, als.optimize),
+    "coordinate_descent": (jsolvers.coordinate_descent,
+                           itt.coordinate_descent),
+    "strong_coordinate_descent": (jsolvers.strong_coordinate_descent,
+                                  itt.strong_coordinate_descent),
+    "fit_interaction": (jrow.fit_interaction, itt.fit_interaction),
 }
 POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
               inspect.Parameter.POSITIONAL_OR_KEYWORD)
@@ -102,16 +110,90 @@ CALLS = {
 
 @pytest.mark.parametrize("entry,name,value,item", [
     ("Insider.__init__", "sharding", object(), "Queue 1 item 9"),
-    ("Insider.fit", "mask_dtype", np.uint8, "Queue 1 item 6"),
-    ("Insider.fit", "precompute", False, "Queue 1 item 6"),
-    ("build_problem", "sharding", object(), "Queue 1 item 9"),
-    ("build_problem", "mask_dtype", np.uint8, "Queue 1 item 6"),
-    ("build_problem", "precompute", False, "Queue 1 item 6"),
-    ("optimize", "profile_dir", "trace", "Queue 1 item 6")])
+    ("build_problem", "sharding", object(), "Queue 1 item 9")])
 def test_unported_values_raise(entry, name, value, item):
     with pytest.raises(NotImplementedError, match=item) as err:
         CALLS[entry](**{name: value})
     assert name in str(err.value)
+    assert set(als.UNPORTED) == {"sharding"}
+
+
+def _losses(out):
+    return [h["loss"] for h in _history(out)]
+
+
+@pytest.mark.parametrize("value", [np.uint8, torch.uint8, jnp.uint8])
+def test_build_problem_mask_dtype_runs(value):
+    """mask_dtype is ported: the masks are stored as uint8, with the same
+    values, and every row constant is the f32 problem's."""
+    ref, got = CALLS["build_problem"](), CALLS["build_problem"](
+        mask_dtype=value)
+    assert got.train_mask.dtype == got.test_mask.dtype == torch.uint8
+    assert torch.equal(got.train_mask.float(), ref.train_mask)
+    assert torch.equal(got.mw_cat, ref.mw_cat)
+    for a, b in zip(got.d, ref.d):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("partition", [1, 0])
+def test_fit_mask_dtype_runs(partition):
+    """Insider.fit with uint8 masks fits what it fits with f32 masks, bit
+    for bit."""
+    ref = _obj().fit(2, 1.0, 0.4, partition, False, max_iter=3)
+    got = _obj().fit(2, 1.0, 0.4, partition, False, max_iter=3,
+                     mask_dtype=np.uint8)
+    assert _losses(got) == _losses(ref)
+
+
+@pytest.mark.parametrize("value,stored", [
+    (np.bool_, torch.uint8), (torch.bool, torch.uint8),
+    (np.int8, torch.uint8), ("int8", torch.uint8),
+    (np.float16, torch.float32), (torch.bfloat16, torch.float32),
+    (jnp.bfloat16, torch.float32), ("bfloat16", torch.float32),
+    (np.float64, torch.float32), (torch.int32, torch.float32),
+    (np.float32, torch.float32)])
+def test_build_problem_mask_dtype_any_numeric_runs(value, stored):
+    """Every numeric mask_dtype the JAX package takes runs: a 1-byte one
+    stores the masks as uint8, a wider one as f32, with the same values
+    and the same row constants."""
+    ref, got = CALLS["build_problem"](), CALLS["build_problem"](
+        mask_dtype=value)
+    assert got.train_mask.dtype == got.test_mask.dtype == stored
+    assert torch.equal(got.train_mask.float(), ref.train_mask)
+    assert torch.equal(got.test_mask.float(), ref.test_mask)
+    assert torch.equal(got.mw_cat, ref.mw_cat)
+
+
+def test_build_problem_mask_dtype_rejects_others():
+    """A dtype that is not numeric cannot hold a 0/1 mask."""
+    with pytest.raises(TypeError, match="mask_dtype"):
+        CALLS["build_problem"](mask_dtype=np.str_)
+
+
+@pytest.mark.parametrize("entry", ["Insider.fit", "build_problem"])
+def test_precompute_runs(entry):
+    """precompute=False is ported: no row constants are built, and the fit
+    on the segment-sum route agrees with the fast one (rtol 1e-5: the same
+    sums in another order)."""
+    if entry == "build_problem":
+        got = CALLS[entry](precompute=False)
+        assert got.d == [None, None] and got.mw_cat is None
+        assert got.row_order is None and got.ctns_q is None
+        return
+    ref = _obj().fit(2, 1.0, 0.4, 1, False, max_iter=3)
+    got = _obj().fit(2, 1.0, 0.4, 1, False, max_iter=3, precompute=False)
+    np.testing.assert_allclose(_losses(got), _losses(ref), rtol=1e-5)
+
+
+def test_profile_dir_runs(tmp_path):
+    """profile_dir is ported: the second step chunk is traced into it as
+    Chrome JSON, and the fit's losses are those without it, bit for bit."""
+    ref = CALLS["optimize"]()
+    got = CALLS["optimize"](profile_dir=str(tmp_path / "prof"))
+    assert _losses(got) == _losses(ref)
+    (trace,) = (tmp_path / "prof").iterdir()
+    assert trace.name == "trace_iter_1_2.json"
+    assert "traceEvents" in json.loads(trace.read_text())
 
 
 def _history(out):
