@@ -112,7 +112,7 @@ Phases, each fatal on failure:
      ms/iter printed, and a profile of 5 iterations of the uint8 fit;
      the uint8 fit's last in-fit call of level_gram, row_xty (tissue and
      donor), masked_eval and feature_sign_fused launched again on its
-     inputs and held against its plain version (gtex_infit_checks);
+     inputs and held against its plain version (infit_checks);
      gates: losses equal bit for bit, finite and
      non-increasing, level_gram once an iteration, row_xty twice,
      feature_sign_fused once, uint8 saving at least 0.99 x 2 N M 3 bytes,
@@ -123,7 +123,35 @@ Phases, each fatal on failure:
      sums (the fast route's budget lowered in this process), masked K=40
      uint8 (col_gram_xty); optimize(profile_dir=...) writes a trace with
      the card's kernels and fits the same bits; fit_interaction and the two
-     CD solvers, card against CPU.
+     CD solvers, card against CPU;
+ 15. the command line, the workloads and debug_checks: an ageing-shaped
+     CSV (a header, 377 rows, 3 integer confounder columns with levels 2,
+     8, 107, every level present, 44477 non-negative expression columns,
+     1% NA, some fields quoted, every value written with %.9g) parsed by
+     the native load_csv equal bit for bit to the f32 table written (NaN
+     at exactly the NA fields; write, build and parse times printed);
+     `python -m insider_tpu_torch fit` on it (K=24, lambda 11, alpha 0.4,
+     the interaction, --log2, partition 1, global_tol 1e-10, 50
+     iterations) as a subprocess: exit 0, its JSON loss and npz factors
+     equal bit for bit to the in-process Insider fit of the table that
+     cli._load_table reads (subprocess wall time, both fits' ms/iter);
+     the same fit through cli.main in this process, launching level_gram,
+     row_xty, feature_sign_fused and masked_eval and nothing else, its
+     factors the same bits, each kernel's last in-fit call (row_xty's for
+     each of the 4 confounders) held against its plain version
+     (infit_checks); `tune` as a subprocess (ranks 20, 24, lambdas
+     6, 11, alpha 0.4, 30 iterations a trial): exit 0, both CSVs written,
+     its result equal to Insider.tune's; each workload module (ageing 377
+     x 44477, gtex 600 x 56200, simulation 250 x 200, prediXcan 300 x
+     44477, brainspan 500 x 44477, psyencode 800 x 44477) through runpy
+     with --max-iter 200 (a cut for time), launch counts set to 0 before
+     each: the kernels of its route launched and no other, each kernel's
+     last in-fit call (row_xty's for each confounder) launched again and
+     held against its plain version (infit_checks), its npz the fit's
+     factors, losses finite and non-increasing, ms/iter printed;
+     the flagship masked fit, 20 iterations, with debug_checks equal bit
+     for bit to the fit without, and a NaN in a train-masked cell raising
+     NonFiniteError with the JAX package's tag for V[0].
 The route checks (phases 4, 5): the fused kernels and col_gram_xty sum the
 exact bf16 planes of the f32 table on the tensor cores in the same k-steps
 of 16 rows, but the fused kernels sum Xty row by row and col_gram_xty each
@@ -1464,22 +1492,27 @@ def cd_count_summary(torch, name, K, c, bnd=None, refill=False):
 
 def captured_calls(torch, specs, run):
     """The arguments of chosen calls while run() runs: specs maps a key to
-    (module, name, at), the `at`-th call (1-based) of <module>.<name>, or
-    its last call where `at` is None; returns {key: (args, kwargs)}.  The
-    wrappers are restored after."""
+    (module, name, at), the `at`-th call of <module>.<name>, counted from 1
+    or, where `at` is negative, from the end (-1 its last call); returns
+    {key: (args, kwargs)}.  The wrappers are restored after."""
+    import collections
+
     wanted = {}
     for key, (module, name, at) in specs.items():
         wanted.setdefault((module, name), {})[at] = key
-    seen, got, origs = {}, {}, {}
+    seen, got, origs, recent = {}, {}, {}, {}
 
     def spy_for(module, name):
         orig = origs[(module, name)] = getattr(module, name)
+        ats = wanted[(module, name)]
+        last = recent[(module, name)] = collections.deque(
+            maxlen=max([-at for at in ats if at < 0], default=0))
 
         def spy(*args, **kw):
             n = seen[(module, name)] = seen.get((module, name), 0) + 1
-            for at in (n, None):
-                if at in wanted[(module, name)]:
-                    got[wanted[(module, name)][at]] = (args, kw)
+            if n in ats:
+                got[ats[n]] = (args, kw)
+            last.append((args, kw))
             return orig(*args, **kw)
         return spy
 
@@ -1490,6 +1523,11 @@ def captured_calls(torch, specs, run):
     finally:
         for (module, name), orig in origs.items():
             setattr(module, name, orig)
+    for (module, name), ats in wanted.items():
+        last = recent[(module, name)]
+        for at, key in ats.items():
+            if at < 0 and -at <= len(last):
+                got[key] = last[at]
     for key, (module, name, at) in specs.items():
         if key not in got:
             fail(f"{name} was called {seen.get((module, name), 0)} times, "
@@ -2098,36 +2136,50 @@ def measured_fit(torch, als, obj, wrappers, expect, name, **fit_kw):
     return launches, losses, ms, mem
 
 
-def gtex_infit_checks(torch, als, iters, run):
-    """Each kernel of the GTEx-sized fit held against its plain version on
-    the inputs the fit gave it: the last iteration's calls of level_gram,
-    row_xty (tissue, L=54, and donor, L=948), masked_eval and
-    feature_sign_fused, captured while run() drives the fit, and launched
-    again after it beside the plain versions.  Tolerances: level_gram
-    within LEVEL_GRAM_RTOL of max |ref| of the f64 sums (level_gram_gate);
-    row_xty within ROW_XTY_RTOL of max |ref| of the f64 plain version (the
-    fit's inputs nearly cancel, as row_xty_gate's do); masked_eval's SSEs
-    within 1e-5 relative, counts exact (masked_eval_check);
-    feature_sign_fused's per-column objective at most 1e-6 relative above
-    the plain version's (fss_checks).  Returns what run() returns."""
-    from insider_tpu_torch.kernels import eval as ev, fss, row
+# where infit_checks finds each kernel's wrapper: the module that calls it
+INFIT_MODULES = dict(level_gram="als", row_xty="als", masked_eval="als",
+                     feature_sign_fused="col_update",
+                     col_gram_xty="col_update", feature_sign="col_update",
+                     feature_sign_shared="col_update")
+
+
+def infit_checks(torch, als, name, run, kernels, rows=0):
+    """Each kernel of a fit held against its plain version on the inputs
+    the fit gave it: the last call of each kernel in `kernels` (level_gram,
+    masked_eval, feature_sign_fused, col_gram_xty, feature_sign,
+    feature_sign_shared) and the last `rows` calls of row_xty (the last
+    iteration's, one for each confounder on the fast route, each at its
+    own L), captured while run() drives the fit, and launched again after
+    it beside the plain versions.  Tolerances those of phases 3 and 5:
+    level_gram within LEVEL_GRAM_RTOL of max |ref| of the f64 sums
+    (level_gram_gate); row_xty within ROW_XTY_RTOL of max |ref| of the f64
+    plain version (the fit's inputs nearly cancel, as row_xty_gate's do);
+    masked_eval's SSEs within 1e-5 relative, counts exact
+    (masked_eval_check); col_gram_xty within COL_GRAM_RTOL of the f64 sums
+    both ways (col_gram_gate); the FSS kernels' per-column objective at
+    most 1e-6 relative above the plain version's (fss_checks).  Returns
+    what run() returns."""
+    from insider_tpu_torch.kernels import eval as ev, fss, gram, row
     from insider_tpu_torch.ops import col_update
     from insider_tpu_torch.ops.col_update import col_gram_masked
 
+    module = dict(als=als, col_update=col_update)
+    specs = {k: (module[INFIT_MODULES[k]], k, -1) for k in kernels}
+    specs.update({("row_xty", -i): (als, "row_xty", -i)
+                  for i in range(1, rows + 1)})
     out = {}
-    calls = captured_calls(torch, {
-        "level_gram": (als, "level_gram", None),
-        "row_xty tissue": (als, "row_xty", 2 * iters - 1),
-        "row_xty donor": (als, "row_xty", 2 * iters),
-        "masked_eval": (als, "masked_eval", None),
-        "feature_sign_fused": (col_update, "feature_sign_fused", None)},
-        lambda: out.update(result=run()))
+    calls = captured_calls(torch, specs, lambda: out.update(result=run()))
 
-    (mw, F, max_count), _ = calls.pop("level_gram")
-    level_gram_gate(torch, row, mw, F, row.level_gram(mw, F, max_count))
-    for key in ("row_xty tissue", "row_xty donor"):
-        args, _ = calls.pop(key)
+    if "level_gram" in calls:
+        (mw, F, max_count), _ = calls.pop("level_gram")
+        print(f"{name}, in-fit level_gram ({tuple(mw.shape)}, K="
+              f"{F.shape[0]}):")
+        level_gram_gate(torch, row, mw, F, row.level_gram(mw, F, max_count))
+    levels = []
+    for i in range(rows, 0, -1):
+        args, _ = calls.pop(("row_xty", -i))
         codes, Rm, mask, D, F = args[:5]
+        levels.append(D.shape[0])
         got = row.row_xty(*args)
         exact = row.row_xty_plain(codes, Rm.double(), mask, D.double(),
                                   F.double())
@@ -2135,37 +2187,57 @@ def gtex_infit_checks(torch, als, iters, run):
         err = float((got.double() - exact).abs().max()) / scale
         f32 = float((row.row_xty_plain(codes, Rm, mask, D, F).double()
                      - exact).abs().max()) / scale
-        print(f"GTEx-sized fit, in-fit {key} (L={D.shape[0]}, mask "
-              f"{mask.dtype}): max err vs the f64 plain version {err:.4e} "
-              f"of max |ref| (plain f32 {f32:.4e}); limit {ROW_XTY_RTOL:g}")
+        print(f"{name}, in-fit row_xty (L={D.shape[0]}, K={F.shape[0]}, "
+              f"mask {mask.dtype}): max err vs the f64 plain version "
+              f"{err:.4e} of max |ref| (plain f32 {f32:.4e}); limit "
+              f"{ROW_XTY_RTOL:g}")
         if not err <= ROW_XTY_RTOL:
-            fail(f"GTEx-sized fit: in-fit {key} max err {err:.4e}")
+            fail(f"{name}: in-fit row_xty L={D.shape[0]} max err {err:.4e}")
         del exact
-    args, _ = calls.pop("masked_eval")
-    err = masked_eval_check(torch, ev, "GTEx-sized fit, in-fit masked_eval",
-                            *args)
-    print(f"GTEx-sized fit, in-fit masked_eval: max abs diff {err:.4e} "
-          "from the plain version")
-    args, kw = calls.pop("feature_sign_fused")
-    mask, data, R, beta0, lam, alpha = args
-    got = fss.feature_sign_fused(*args, **kw)
-    ref = fss.feature_sign_fused_plain(*args, **kw)
-    G = col_gram_masked(R, mask.to(R.dtype)).permute(1, 2, 0).contiguous()
-    b = R.T @ (mask * data)
-    share, excess = fss_checks(torch, "GTEx-sized fit, in-fit "
-                               "feature_sign_fused", got, ref, G, b, lam,
-                               alpha)
-    print(f"GTEx-sized fit, in-fit feature_sign_fused (mask {mask.dtype}, "
-          f"{tuple(mask.shape)}): columns matching the plain version "
-          f"{share:.6f}, max objective excess {excess:.3e} (limit 1e-6), "
-          f"max abs diff {float((got - ref).abs().max()):.3e}")
+    if len(set(levels)) != rows:
+        fail(f"{name}: the last {rows} row_xty calls were at L={levels}, "
+             "not one for each confounder")
+    if "masked_eval" in calls:
+        args, _ = calls.pop("masked_eval")
+        err = masked_eval_check(torch, ev, f"{name}, in-fit masked_eval",
+                                *args)
+        print(f"{name}, in-fit masked_eval ({tuple(args[0].shape)}): max abs "
+              f"diff {err:.4e} from the plain version")
+    if "col_gram_xty" in calls:
+        (mask, data, R), _ = calls.pop("col_gram_xty")
+        col_gram_gate(torch, gram, f"{name}, in-fit col_gram_xty (K="
+                      f"{R.shape[1]}, {tuple(mask.shape)})", mask, data, R,
+                      gram.col_gram_xty(mask, data, R))
+    for k in ("feature_sign_fused", "feature_sign", "feature_sign_shared"):
+        if k not in calls:
+            continue
+        args, kw = calls.pop(k)
+        lam, alpha = args[-2:]
+        got = getattr(fss, k)(*args, **kw)
+        ref = getattr(fss, k + "_plain")(*args, **kw)
+        if k == "feature_sign_fused":
+            mask, data, R = args[:3]
+            G = col_gram_masked(R, mask.to(R.dtype)).permute(1, 2, 0)
+            G, b = G.contiguous(), R.T @ (mask * data)
+        elif k == "feature_sign":
+            G, b = args[:2]
+        else:
+            XtX, b = args[:2]
+            G = XtX[:, :, None].expand(*XtX.shape, b.shape[1])
+        share, excess = fss_checks(torch, f"{name}, in-fit {k}", got, ref, G,
+                                   b, lam, alpha)
+        print(f"{name}, in-fit {k} (K={got.shape[0]}, M={got.shape[1]}): "
+              f"columns matching the plain version {share:.6f}, max "
+              f"objective excess {excess:.3e} (limit 1e-6), max abs diff "
+              f"{float((got - ref).abs().max()):.3e}")
+        del G, b
     return out["result"]
 
 
 def gtex_fits(torch, itt, als, wrappers, host_gb):
     """The GTEx-sized masked fit, 20 iterations, with uint8 masks and with
     the default f32 masks: each kernel of the uint8 fit against its plain
-    version on its in-fit inputs (gtex_infit_checks); equal losses bit for
+    version on its in-fit inputs (infit_checks); equal losses bit for
     bit, finite and non-increasing; level_gram once an iteration, row_xty exactly twice
     (tissue and donor, never the interaction), feature_sign_fused once;
     the uint8 problem at least 0.99 x 2 N M 3 bytes below the f32 one; the
@@ -2195,8 +2267,9 @@ def gtex_fits(torch, itt, als, wrappers, host_gb):
                                 f"GTEx-sized fit, {label} masks",
                                 mask_dtype=mdt, **GTEX_FIT)
         launches, losses, ms, mem = (
-            gtex_infit_checks(torch, als, iters, run) if mdt is not None
-            else run())
+            infit_checks(torch, als, "GTEx-sized fit", run,
+                         ("level_gram", "masked_eval", "feature_sign_fused"),
+                         rows=2) if mdt is not None else run())
         res[label] = dict(launches=launches, losses=losses, ms=ms, **mem)
         if mdt is not None:
             print("profile of the GTEx-sized fit, uint8 masks, 5 iterations "
@@ -2363,6 +2436,344 @@ def phase_memory_lean(torch, itt, als, kernels, wrappers, hist):
 
     profile_and_solvers(torch, itt, als)
     return recs
+
+
+# Phase 15, the command line and the workloads on the card.  The CLI's fit
+# and tune take the ageing workload's configuration (workloads/ageing.py:
+# K=24, lambda=11, alpha=0.4, the interaction of the first two
+# confounders, global_tol=1e-10) on an ageing-shaped table read from a CSV
+# file; each workload module runs with its own configuration on its
+# synthetic matrix, at the widths below, cut to WORKLOAD_ITERS iterations.
+AGEING_LEVELS = (2, 8, 107)
+CLI_FIT = ["--confounder-cols", "3", "--interaction", "0,1", "--log2",
+           "--rank", "24", "--lam", "11", "--alpha", "0.4", "--partition",
+           "1", "--global-tol", "1e-10", "--max-iter", "50"]
+CLI_TUNE = ["--confounder-cols", "3", "--interaction", "0,1", "--log2",
+            "--ranks", "20,24", "--lambdas", "6,11", "--alphas", "0.4",
+            "--tuning-iter", "30", "--global-tol", "1e-10"]
+MASKED_FSS = ("level_gram", "row_xty", "feature_sign_fused", "masked_eval")
+MASKED_WIDE = ("level_gram", "row_xty", "col_gram_xty", "feature_sign",
+               "masked_eval")
+# (module, --synthetic-cols, kernels that must launch, confounders with
+# interactions, each of which row_xty serves once an iteration): GTEx v8's
+# 56200 genes for gtex, the ageing data's 44477 for the others with a
+# synthetic matrix, simulation.rmd's own 200 genes; every fit takes FSS,
+# so no CD kernel may launch, nor an FSS kernel of another route
+WORKLOADS = (("ageing", 44477, MASKED_FSS, 4),
+             ("gtex", 56200, MASKED_FSS, 3),
+             ("simulation", 200, MASKED_FSS, 3),
+             ("prediXcan", 44477, MASKED_WIDE, 2),
+             ("brainspan", 44477, ("feature_sign_shared",), 0),
+             ("psyencode", 44477, ("feature_sign_shared",), 0))
+WORKLOAD_ITERS = 200     # a cut for time: the published max_iter is 1000
+                         # (ageing, gtex, simulation, prediXcan) or 50000
+
+
+def ageing_table(path):
+    """Write phase 15's CSV: a header line, 377 rows of 3 integer
+    confounder columns (levels 2, 8, 107, every level present) and 44477
+    non-negative expression columns, 2^max(x, 0) - 1 of a planted rank-24
+    x (so log2(value + 1) = max(x, 0)), with 1% of the expression fields
+    NA and 1% of the other fields quoted; each value the f32 one written
+    with %.9g, which reads back exactly.  Returns the f32 table as written
+    (NaN at the NA fields)."""
+    n, m, k = N, M, K
+    rng = np.random.default_rng(15)
+    conf = np.column_stack([rng.permutation(np.arange(n) % L) + 1
+                            for L in AGEING_LEVELS])
+    R = sum(rng.standard_normal((L, k))[conf[:, v] - 1]
+            for v, L in enumerate(AGEING_LEVELS))
+    F = rng.standard_normal((k, m)) * 0.4 * (rng.random((k, m)) < 0.3)
+    x = R @ F + 0.5 * rng.standard_normal((n, m))
+    table = np.column_stack([conf, np.exp2(np.maximum(x, 0.0)) - 1.0]
+                            ).astype(np.float32)
+    del R, F, x
+    table[:, 3:][rng.random((n, m)) < 0.01] = np.nan
+    quoted = (rng.random(table.shape) < 0.01) & ~np.isnan(table)
+    with open(path, "w") as fh:
+        names = ["pid", "sid", "did"] + [f"g{j}" for j in range(m)]
+        fh.write(",".join(f'"{s}"' if j % 7 == 0 else s
+                          for j, s in enumerate(names)) + "\n")
+        for i, row in enumerate(table):
+            fields = ["%.9g" % v for v in row.tolist()]
+            for j in np.flatnonzero(np.isnan(row)):
+                fields[j] = "NA"
+            for j in np.flatnonzero(quoted[i]):
+                fields[j] = f'"{fields[j]}"'
+            fh.write(",".join(fields) + "\n")
+    return table
+
+
+def boundary_ms(recs):
+    """ms per iteration from a fit's boundary records (its history or its
+    --log-jsonl lines) over the iterations past the first ten."""
+    late = [r for r in recs if r["iter"] >= 10]
+    if len(late) < 2:
+        fail(f"a fit stopped before two boundaries past iter 10: {recs}")
+    return ((late[-1]["elapsed_s"] - late[0]["elapsed_s"])
+            / (late[-1]["iter"] - late[0]["iter"]) * 1e3)
+
+
+def same_saved(name, path, obj):
+    """Fail unless the npz at path holds obj's factors bit for bit."""
+    z = np.load(path)
+    arrays = [(f"factor{i}", f) for i, f in enumerate(obj.cfd_matrices)]
+    arrays.append(("column_factor", obj.column_factor))
+    if sorted(z.files) != sorted(k for k, _ in arrays):
+        fail(f"{name}: saved arrays {sorted(z.files)}")
+    for key, want in arrays:
+        if not np.array_equal(z[key], want):
+            fail(f"{name}: {key} differs from the in-process fit")
+
+
+def counted(torch, wrappers, name, run):
+    """run() with every launch count set to 0 just before it; returns its
+    result and the counts read just after.  What run() prints (the saved
+    fit's JSON line, with NaN where a fit has no test cells) is echoed
+    indented, so no line of this script's output but the last two is a
+    JSON object."""
+    import contextlib
+    import io
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        out = run()
+    torch.cuda.synchronize()
+    for line in buf.getvalue().splitlines():
+        print(f"  {name} printed: {line}")
+    return out, {n: w.launches for n, w in wrappers.items()}
+
+
+def check_path(name, counts, expect, wrappers):
+    """Fail unless every kernel in expect launched and no other did."""
+    print(f"{name}: launches {counts}")
+    for n in wrappers:
+        if (counts[n] < 1) if n in expect else (counts[n] != 0):
+            fail(f"{name}: {n} launched {counts[n]} times")
+
+
+def cli_phase(torch, itt, als, wrappers, smi, tmp, env):
+    """Phase 15, steps 1-4: the ageing-shaped CSV through the native
+    parser, the CLI fit as a subprocess and through cli.main against the
+    in-process fit (the latter's kernels against their plain versions on
+    its in-fit inputs), and the CLI tune against Insider.tune."""
+    from insider_tpu_torch import cli
+    from insider_tpu_torch.data import native
+
+    csv = os.path.join(tmp, "ageing.csv")
+    t0 = time.time()
+    table = ageing_table(csv)
+    write_s = time.time() - t0
+    t0 = time.time()
+    native.lib()
+    build_s = time.time() - t0
+    build_log = (native.build().parent / "native_build.log").read_text()
+    print("native library: built with `"
+          + [line for line in build_log.splitlines()
+             if line.startswith("$ ")][-1][2:] + "`")
+    with open(csv) as fh:
+        header = cli._looks_like_header(fh.readline(), ",")
+    t0 = time.time()
+    got = native.load_csv(csv, ",", skip_header=header)
+    parse_s = time.time() - t0
+    na = np.isnan(table)
+    if (not header or got.shape != table.shape
+            or not np.array_equal(np.isnan(got), na)
+            or not np.array_equal(got[~na].view(np.uint32),
+                                  table[~na].view(np.uint32))):
+        fail("native load_csv: the parsed table differs from the one "
+             "written")
+    print(f"native IO: {os.path.getsize(csv) / 1e6:.1f} MB CSV, "
+          f"{table.shape[0]} rows x (3 + {table.shape[1] - 3}) columns "
+          f"({int(na.sum())} NA) "
+          f"written in {write_s:.2f} s; library build {build_s:.2f} s; "
+          f"load_csv {parse_s * 1e3:.1f} ms, equal bit for bit ({smi}; "
+          "host times)")
+    del table, got
+
+    # 2. the CLI fit as a subprocess, against the in-process fit
+    out_sub, log = os.path.join(tmp, "cli.npz"), os.path.join(tmp, "cli.jsonl")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "insider_tpu_torch", "fit", "--data", csv,
+         *CLI_FIT, "--out", out_sub, "--log-jsonl", log], cwd=tmp, env=env,
+        capture_output=True, text=True, timeout=600)
+    sub_s = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"CLI fit: exit code {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_sub + ".json") as fh:
+        meta = json.load(fh)
+    with open(log) as fh:
+        sub_ms = boundary_ms([json.loads(line) for line in fh])
+    data, conf = cli._load_table(csv, 3, True, 0)
+    obj = itt.Insider(data, conf, interaction_idx=[0, 1], global_tol=1e-10)
+    del data
+    t0 = time.time()
+    obj.fit(24, 11, 0.4, partition=1, max_iter=50, verbose=False)
+    in_s = time.time() - t0
+    if meta["loss"] != obj.fit_result.loss:
+        fail(f"CLI fit: loss {meta['loss']!r} against the in-process "
+             f"{obj.fit_result.loss!r}")
+    same_saved("CLI fit", out_sub, obj)
+    losses = [h["loss"] for h in obj.fit_result.history]
+    if not all(np.isfinite(losses)) or any(
+            b > a * (1 + 1e-6) for a, b in zip(losses, losses[1:])):
+        fail(f"CLI fit: losses not finite and non-increasing: {losses}")
+    print(f"CLI fit (subprocess, {N} x {M}, K={K}, 50 iterations): exit 0 "
+          f"in {sub_s:.2f} s wall, the fit {sub_ms:.3f} ms/iter from its "
+          f"log; the in-process fit {in_s:.2f} s, "
+          f"{boundary_ms(obj.fit_result.history):.3f} ms/iter; loss "
+          f"{meta['loss']!r} and factors equal bit for bit ({smi})")
+
+    # 3. the same fit through cli.main in this process
+    out_main = os.path.join(tmp, "main.npz")
+    _, counts = infit_checks(
+        torch, als, "CLI fit through cli.main", lambda: counted(
+            torch, wrappers, "cli.main", lambda: cli.main(
+                ["fit", "--data", csv, *CLI_FIT, "--out", out_main])),
+        [k for k in MASKED_FSS if k != "row_xty"], rows=4)
+    check_path("CLI fit through cli.main", counts, MASKED_FSS, wrappers)
+    same_saved("CLI fit through cli.main", out_main, obj)
+
+    # 4. tune, as a subprocess, against Insider.tune in this process
+    tune_dir, own_dir = os.path.join(tmp, "tune"), os.path.join(tmp, "own")
+    os.makedirs(tune_dir)
+    os.makedirs(own_dir)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "insider_tpu_torch", "tune", "--data", csv,
+         *CLI_TUNE, "--out-dir", tune_dir], cwd=tmp, env=env,
+        capture_output=True, text=True, timeout=600)
+    tune_s = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"CLI tune: exit code {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    t0 = time.time()
+    want = obj.tune([20, 24], [6.0, 11.0], [0.4], out_dir=own_dir)
+    own_s = time.time() - t0
+    names = sorted(os.listdir(tune_dir))
+    if names != sorted(["insider_rank_tuning_result.csv",
+                        f"insider_R{want['latent_rank']}_reg_tuning_"
+                        "result.csv"]):
+        fail(f"CLI tune wrote {names}")
+    if (got["latent_rank"] != want["latent_rank"]
+            or got["rank_tuning"] != want["rank_tuning"].tolist()
+            or got["reg_tuning"] != want["reg_tuning"].tolist()):
+        fail(f"CLI tune: {got} against the in-process {want}")
+    print(f"CLI tune (subprocess; ranks 20, 24, lambdas 6, 11, alpha 0.4, "
+          f"30 iterations a trial): exit 0 in {tune_s:.2f} s wall, both "
+          f"CSVs written, latent_rank {got['latent_rank']} and every trial's "
+          f"RMSEs equal to Insider.tune's ({own_s:.2f} s) bit for bit "
+          f"({smi})")
+
+
+def workloads_phase(torch, als, wrappers, smi, tmp):
+    """Phase 15, step 5: each workload module in this process (runpy, as
+    python -m runs it), at its synthetic width, WORKLOAD_ITERS iterations;
+    each kernel of its path held against its plain version on the inputs
+    its fit gave it (infit_checks)."""
+    import runpy
+
+    print(f"workloads: --max-iter {WORKLOAD_ITERS}, a cut for time (the "
+          "published max_iter is 1000, or 50000 for brainspan and "
+          "psyencode)")
+    argv = sys.argv
+    try:
+        for name, cols, expect, rows in WORKLOADS:
+            out = os.path.join(tmp, f"{name}.npz")
+            sys.argv = [name, "--synthetic-cols", str(cols), "--max-iter",
+                        str(WORKLOAD_ITERS), "--out", out]
+
+            def run():
+                t0 = time.time()
+                res = counted(torch, wrappers, name, lambda: runpy.run_module(
+                    f"insider_tpu_torch.workloads.{name}",
+                    run_name="__main__"))
+                return res, time.time() - t0
+            (g, counts), wall = infit_checks(
+                torch, als, f"workload {name}", run,
+                [k for k in expect if k != "row_xty"], rows=rows)
+            check_path(f"workload {name}", counts, expect, wrappers)
+            obj = g["obj"]
+            same_saved(f"workload {name}", out, obj)
+            with open(out + ".json") as fh:
+                meta = json.load(fh)
+            hist = obj.fit_result.history
+            losses = [h["loss"] for h in hist]
+            if meta["loss"] != losses[-1] or not all(np.isfinite(losses)):
+                fail(f"workload {name}: losses {losses}, saved {meta}")
+            rises = [(a, b) for a, b in zip(losses, losses[1:])
+                     if not b <= a * (1 + 1e-6)]
+            if rises:
+                fail(f"workload {name}: loss increased: {rises}")
+            print(f"workload {name}: {obj.data.shape[0]} x "
+                  f"{obj.data.shape[1]}, {obj.fit_result.n_iter} "
+                  f"iterations, final loss {losses[-1]!r}; "
+                  f"{boundary_ms(hist):.3f} ms/iter; {wall:.2f} s with its "
+                  f"set-up ({smi})")
+    finally:
+        sys.argv = argv
+
+
+def debug_checks_phase(torch, itt, als, smi):
+    """Phase 15, step 6: FitConfig.debug_checks on the card."""
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.model.state import init_state
+
+    obj = flagship_object(itt)
+    indicator = obj.train_indicator + obj.test_indicator
+    problem = als.build_problem(obj.data, obj.confounder, indicator,
+                                obj.na_indicator, masked=True)
+    runs, ms = [], []
+    for checks in (False, True):
+        cfg = FitConfig(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
+                        masked=True, global_tol=0.0, max_iter=20,
+                        debug_checks=checks)
+        runs.append(als.optimize(problem, cfg, verbose=False))
+        ms.append(boundary_ms(runs[-1].history))
+    off, on = runs
+    if ([h["loss"] for h in on.history] != [h["loss"] for h in off.history]
+            or not all(np.array_equal(a, b) for a, b in zip(
+                on.row_matrices + [on.column_factor],
+                off.row_matrices + [off.column_factor]))):
+        fail("debug_checks: the fit with the checks differs from the fit "
+             "without them")
+    data = obj.data.copy()
+    data[1, 3] = np.nan
+    indicator[1, 3] = 1
+    poisoned = als.build_problem(data, obj.confounder, indicator,
+                                 obj.na_indicator, masked=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    state = init_state(g, poisoned.n_levels, poisoned.shape[1], K)
+    want = "non-finite values produced by row update V[0] (optimize_row)"
+    try:
+        als._als_iteration(poisoned, cfg, state, SUB_TOL)
+    except als.NonFiniteError as e:
+        if str(e) != want:
+            fail(f"debug_checks: raised {str(e)!r}")
+    else:
+        fail("debug_checks: the poisoned iteration raised nothing")
+    print(f"debug_checks: the flagship masked fit, 20 iterations, equal bit "
+          f"for bit with and without the checks ({ms[1]:.3f} against "
+          f"{ms[0]:.3f} ms/iter, {smi}); a NaN in a train-masked cell "
+          f"raised {want!r}")
+
+
+def phase_cli_workloads(torch, itt, als, wrappers, smi):
+    """Phase 15: the command line, the workloads and debug_checks on the
+    card.  Every check is fatal."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH", "")) if p))
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        cli_phase(torch, itt, als, wrappers, smi, tmp, env)
+        workloads_phase(torch, als, wrappers, smi, tmp)
+    debug_checks_phase(torch, itt, als, smi)
 
 
 def main():
@@ -2577,6 +2988,9 @@ def main():
     kern.update(lean)
     for name, rec in lean.items():
         launches[name] = rec["launches"]
+
+    # 15. the command line, the workloads and debug_checks
+    phase_cli_workloads(torch, itt, als, wrappers, smi)
 
     # result
     tpu = "insider_tpu/kernels/"

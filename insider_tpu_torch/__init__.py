@@ -25,6 +25,10 @@ PyTorch versions run.
     fit_interaction(...)    - standalone unregularized per-level solve
     coordinate_descent(...), strong_coordinate_descent(...) - one elastic
                               net by cyclic CD (the reference's exports)
+
+    python -m insider_tpu_torch fit|tune|simulate   - the command line
+    python -m insider_tpu_torch.workloads.<name>    - the reference's
+                              per-dataset workloads (workloads/)
 """
 
 from insider_tpu_torch.analysis.glm import glm_interaction
@@ -39,7 +43,8 @@ from insider_tpu_torch.model.state import (InsiderState, init_state,
 from insider_tpu_torch.ops.row_update import fit_interaction
 from insider_tpu_torch.ops.solvers import (coordinate_descent,
                                            strong_coordinate_descent)
-from insider_tpu_torch.train.als import build_problem, optimize
+from insider_tpu_torch.train.als import (NonFiniteError, build_problem,
+                                         optimize)
 from insider_tpu_torch.tune.grid import tune
 
 __version__ = "0.1.0"
@@ -57,6 +62,7 @@ __all__ = [
     "state_from_numpy",
     "build_problem",
     "optimize",
+    "NonFiniteError",
     "tune",
     "glm_interaction",
     "save_checkpoint",

@@ -75,15 +75,17 @@ class FitConfig:
     # (src/optimize.cpp:122), with a cap on its sweeps.
     ctns_tol: float = 1e-1
     max_ctns_sweeps: int = 100
-    # The finiteness sanitizer of the JAX package is not ported yet.
+    # Finiteness sanitizer: after each block update (every V_v, every
+    # covariate's row of W, F) check that every value is finite, and raise
+    # train/als.NonFiniteError naming the block that produced the first
+    # non-finite one (insider_tpu/train/als.py:465-474).  Each check is one
+    # host sync; the checks only read, so the fit's bits do not change.
     debug_checks: bool = False
 
     def __post_init__(self):
         if self.col_solver not in ("auto", "fss", "cd"):
             raise ValueError(f"col_solver must be auto|cd|fss, got "
                              f"{self.col_solver!r}")
-        if self.debug_checks:
-            raise NotImplementedError("debug_checks is not ported yet")
         if self.boundaries_per_dispatch != 1:
             raise NotImplementedError(
                 "the port decides every boundary on the host: "

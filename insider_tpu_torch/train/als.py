@@ -28,8 +28,9 @@ kernels read either as it is stored.
 Cold CD (col_solver="cd", cd_warm_start=False) sweeps each column update in
 one coordinate order from draw_perm.  A boundary copies seven f64 sums to
 the host, which decides it in f64 -- the JAX package's
-boundaries_per_dispatch=1 behaviour.  On CPU tensors every kernel wrapper
-runs its plain version.
+boundaries_per_dispatch=1 behaviour.  Under FitConfig.debug_checks every
+block update is checked for finiteness on the host (NonFiniteError names
+the block).  On CPU tensors every kernel wrapper runs its plain version.
 """
 
 from __future__ import annotations
@@ -336,6 +337,19 @@ def _precompute_row_constants(problem: Problem) -> None:
             problem.ctns_cc = torch.sum(C * C, dim=0)
 
 
+class NonFiniteError(RuntimeError):
+    """A block update produced a NaN or an infinity (FitConfig.debug_checks).
+    The message names the block, as the JAX package's checkify error
+    does."""
+
+
+def _check_finite(config: FitConfig, tag: str, x: torch.Tensor) -> None:
+    """Under config.debug_checks, raise NonFiniteError unless every value of
+    x is finite (one host sync); otherwise nothing."""
+    if config.debug_checks and not bool(torch.isfinite(x).all()):
+        raise NonFiniteError(f"non-finite values produced by {tag}")
+
+
 def _row_factor(problem: Problem, state: InsiderState) -> torch.Tensor:
     """R = sum_v V_v[codes_v] + C W  (src/optimize.cpp:365-373)."""
     R = state.cfd_factors[0][problem.codes[0]]
@@ -378,6 +392,8 @@ def _update_covariates(problem: Problem, config: FitConfig, W: torch.Tensor,
             w = continuous.update_ctns_row_dense(
                 problem.data - losses.predict(R_minus, F), F, gram, c,
                 config.lambda1)
+        _check_finite(config,
+                      f"continuous update W[{j}] (optimize_continuous_v2)", w)
         rows[j] = w
         R = R_minus + torch.outer(c, w)
     return torch.stack(rows)
@@ -456,6 +472,7 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
             V = row_update.update_row_factor_masked(
                 problem.data - losses.predict(R_minus, F), mask, F, codes,
                 problem.n_levels[v], config.lambda1)
+        _check_finite(config, f"row update V[{v}] (optimize_row)", V)
         cfd_new[v] = V
         R = R_minus + V[codes]
 
@@ -468,6 +485,7 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
     F_new = col_update.update_columns_masked(
         problem.data, mask, R, F, config.lambda2, config.alpha, sub_tol_eff,
         **_col_kw(config, perm))
+    _check_finite(config, "column update F (optimize_col)", F_new)
     return InsiderState(cfd_new, W, F_new)
 
 
@@ -491,6 +509,7 @@ def _als_iteration_dense(problem: Problem, config: FitConfig,
             V = row_update.update_row_factor_dense(
                 problem.data - losses.predict(R_minus, F), F, gram, codes, L,
                 config.lambda1)
+        _check_finite(config, f"row update V[{v}] (optimize_row)", V)
         cfd_new[v] = V
         R = R_minus + V[codes]
 
@@ -502,6 +521,7 @@ def _als_iteration_dense(problem: Problem, config: FitConfig,
     F_new = col_update.update_columns_dense(
         problem.data, R, F, config.lambda2, config.alpha, sub_tol_eff,
         **_col_kw(config, perm))
+    _check_finite(config, "column update F (optimize_col)", F_new)
     return InsiderState(cfd_new, W, F_new)
 
 

@@ -865,3 +865,87 @@ def test_segment_sum_equals_the_cpu_bit_for_bit(cuda, N, L, M):
     got = segment_sum(xd, cd_, L)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(segment_sum(xd, cd_, L), got)
+
+
+def _csv_table(path, n=120, m=500, seed=2):
+    """An expression table as the command line reads it: a header, 3
+    confounder columns (levels 2, 4, 9), then non-negative values with 1%
+    NA, written with %.9g."""
+    import insider_tpu_torch as itt
+
+    sim = itt.simulate_scale(n, m, 8, level_counts=(2, 4, 9), seed=seed)
+    rng = np.random.default_rng(seed)
+    data = np.abs(sim.data).astype(np.float32)
+    data[rng.random(data.shape) < 0.01] = np.nan
+    table = np.column_stack([sim.confounder, data])
+    with open(path, "w") as fh:
+        fh.write(",".join(f"c{i}" for i in range(table.shape[1])) + "\n")
+        for r in table:
+            fh.write(",".join("NA" if np.isnan(v) else "%.9g" % v
+                              for v in r) + "\n")
+
+
+@pytest.mark.parametrize("partition", [1, 0])
+def test_cli_fit_equals_in_process_card_fit(cuda, tmp_path, partition):
+    """`fit` through the command line, on the card by default, saves the
+    in-process card fit's factors and loss bit for bit."""
+    import json
+
+    import insider_tpu_torch as itt
+    from insider_tpu_torch import cli
+
+    path, out = str(tmp_path / "t.csv"), str(tmp_path / "f.npz")
+    _csv_table(path)
+    cli.main(["fit", "--data", path, "--confounder-cols", "3",
+              "--interaction", "0,1", "--log2", "--rank", "8", "--lam", "2",
+              "--alpha", "0.4", "--partition", str(partition), "--max-iter",
+              "30", "--out", out])
+    data, conf = cli._load_table(path, 3, True, 0)
+    obj = itt.Insider(data, conf, interaction_idx=[0, 1], max_iter=30)
+    assert obj.device.type == "cuda"
+    obj.fit(8, 2.0, 0.4, partition=partition, verbose=False)
+    z = np.load(out)
+    for i, f in enumerate(obj.cfd_matrices):
+        np.testing.assert_array_equal(z[f"factor{i}"], f)
+    np.testing.assert_array_equal(z["column_factor"], obj.column_factor)
+    with open(out + ".json") as fh:
+        assert json.load(fh)["loss"] == obj.fit_result.loss
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_debug_checks_keep_the_card_trajectory(cuda, masked):
+    """FitConfig.debug_checks on the card: the same fit bit for bit (the
+    checks only read); a NaN in a train-masked cell is pinned to the first
+    row update."""
+    import insider_tpu_torch as itt
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.model.state import init_state
+    from insider_tpu_torch.train import als
+
+    sim = itt.simulate_scale(120, 700, 8, level_counts=(2, 4, 9), seed=3)
+    split = itt.ratio_splitter(sim.data, ratio=0.1, seed=3)
+    problem = als.build_problem(split.data, sim.confounder,
+                                split.train_indicator, split.test_indicator,
+                                masked=masked, device="cuda")
+    runs = []
+    for checks in (False, True):
+        cfg = FitConfig(latent_dim=8, lambda1=2.0, lambda2=2.0, alpha=0.4,
+                        masked=masked, max_iter=20, global_tol=0.0,
+                        debug_checks=checks)
+        runs.append(als.optimize(problem, cfg, verbose=False))
+    off, on = runs
+    assert [h["loss"] for h in on.history] == [h["loss"]
+                                               for h in off.history]
+    for a, b in zip(on.row_matrices + [on.column_factor],
+                    off.row_matrices + [off.column_factor]):
+        np.testing.assert_array_equal(a, b)
+    d = np.asarray(split.data).copy()
+    ti = np.asarray(split.train_indicator).copy()
+    d[1, 3], ti[1, 3] = np.nan, 1
+    poisoned = als.build_problem(d, sim.confounder, ti, split.test_indicator,
+                                 masked=masked, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    state = init_state(g, poisoned.n_levels, poisoned.shape[1], 8)
+    with pytest.raises(als.NonFiniteError, match=r"row update V\[0\] "
+                                                 r"\(optimize_row\)"):
+        als._als_iteration(poisoned, cfg, state, 1e-5)

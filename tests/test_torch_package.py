@@ -36,7 +36,16 @@ def _run(args, cwd, timeout=120):
 
 
 def test_import_loads_no_jax():
-    code = ("import sys; before = set(sys.modules); import insider_tpu_torch; "
+    """Neither the package nor its command line, native IO binding or
+    workload modules load jax, jaxlib or any insider_tpu module."""
+    modules = ["insider_tpu_torch", "insider_tpu_torch.cli",
+               "insider_tpu_torch.data.native", "insider_tpu_torch.utils",
+               "insider_tpu_torch.workloads.common"] + [
+        f"insider_tpu_torch.workloads.{w}" for w in
+        ("ageing", "gtex", "simulation", "prediXcan", "brainspan",
+         "psyencode")]
+    code = ("import importlib, sys; before = set(sys.modules); "
+            f"[importlib.import_module(m) for m in {modules!r}]; "
             "new = set(sys.modules) - before; "
             "print(sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'insider_tpu')))")
@@ -97,9 +106,7 @@ def test_decay_ladder_matches_jax():
         assert decay_from_delta_loss(d) == jax_decay(d)
 
 
-@pytest.mark.parametrize("kw", [dict(col_solver="cd", debug_checks=True),
-                                dict(debug_checks=True),
-                                dict(boundaries_per_dispatch=5),
+@pytest.mark.parametrize("kw", [dict(boundaries_per_dispatch=5),
                                 dict(masked=False, col_solver="cd",
                                      cd_warm_start=False,
                                      boundaries_per_dispatch=2)])
