@@ -43,7 +43,8 @@ Phases, each fatal on failure:
      sweep cap and at the 200-sweep cap (every column's objective, and
      element-wise at the short cap);
   6. K = 96 and K = 128 at M=2048 (N=300): col_gram_xty (with the f64
-     gate of phase 4 and its library_ms), feature_sign,
+     gate of phase 4 and its library_ms), feature_sign (and its bound by
+     bytes),
      feature_sign_shared, cd_streamed and cd_shared against their plain
      versions;
   7. small fits: the same fit on the card (kernels) and on the CPU (plain
@@ -151,7 +152,29 @@ Phases, each fatal on failure:
      factors, losses finite and non-increasing, ms/iter printed;
      the flagship masked fit, 20 iterations, with debug_checks equal bit
      for bit to the fit without, and a NaN in a train-masked cell raising
-     NonFiniteError with the JAX package's tag for V[0].
+     NonFiniteError with the JAX package's tag for V[0];
+ 16. the sharded fit: a one-rank NCCL group in this process fits the
+     flagship problem with ShardingConfig(1, 1), 50 iterations, equal bit
+     for bit to phase 8's fit; two worker processes (this script with
+     --sharded-worker, under a 600 s wall-clock limit, each exit code
+     checked) share the card over gloo and fit the flagship problem at
+     full width, 20 iterations: masked FSS at 1 x 2 (level_gram, row_xty,
+     feature_sign_fused, masked_eval) and 2 x 1 (col_gram_xty and
+     feature_sign in place of the fused kernel), dense FSS and cold-CD
+     masked at 1 x 2, each rank's launch counts showing its route and
+     each kernel's last in-fit call held against its plain version
+     (infit_checks; cd_fused against a witness, cd_infit); then
+     DIST_SCALE_r05.json's problem (4096 x 16384, K=8, levels (4, 8),
+     lambda 3, alpha 0.4, Bernoulli 0.1 of seed 77, uint8 masks, 30
+     iterations) written as a raw f32 file and built by each rank from
+     its block alone through file_ingest_callbacks, at 2 x 1 and 1 x 2
+     (each rank's largest ingest block and its problem's bytes on the
+     card printed).  Every rank's history equal; every per-boundary loss
+     (and RMSE) within rel 1e-5 of the one-process fit's, or within twice
+     the gap of the one-process fit with its columns reversed (its sums
+     in another order, reversed_fit), where the fit moves that far with
+     the order of its sums; ms/iter printed beside the card's name and
+     power limit (two ranks on one card measure no multi-card rate).
 The route checks (phases 4, 5): the fused kernels and col_gram_xty sum the
 exact bf16 planes of the f32 table on the tensor cores in the same k-steps
 of 16 rows, but the fused kernels sum Xty row by row and col_gram_xty each
@@ -1022,6 +1045,9 @@ def phase_kernels_wide(torch, gram, fss, cd):
                 match_share=share, max_objective_excess=excess,
                 ms=timed_ms(torch, lambda: fn(*args, **kw), 2),
                 plain_ms=timed_ms(torch, lambda: plain(*args, **kw), 1))
+        # feature_sign's bound by its bytes (its solves not counted)
+        bnd = gram_input_bound(k, m, shared=False)
+        out[f"feature_sign K={k}"].update(bound_ms=bnd[0], bound_by=bnd[1])
         for name, fn, plain, args, GG, bb in (
                 ("cd_streamed", cd.cd_streamed, cd.cd_streamed_plain,
                  (G, b, beta0, lam, alpha, SUB_TOL), G, b),
@@ -1123,14 +1149,15 @@ def phase_small_fit(torch, itt, k=8, m=2000, partition=1, alpha=0.4,
     return float(np.max(np.abs(np.subtract(lc, lp)) / np.abs(lp))), None
 
 
-def flagship_object(itt):
-    """The flagship problem (phases 8, 10, 11) as an Insider on the card."""
+def flagship_object(itt, sharding=None):
+    """The flagship problem (phases 8, 10, 11, 16) as an Insider on the
+    card, sharded by `sharding` (phase 16) or not."""
     sim = itt.simulate_scale(N, M, K, level_counts=(2, 8, 107),
                              noise_std=1.0, seed=0)
     data = sim.data.astype(np.float64)
     data[np.random.default_rng(0).random(data.shape) < 0.01] = np.nan
     return itt.Insider(data, sim.confounder, interaction_idx=[0, 1],
-                       split_ratio=0.1, device="cuda")
+                       split_ratio=0.1, sharding=sharding, device="cuda")
 
 
 def covariate_object(itt):
@@ -2140,16 +2167,16 @@ def measured_fit(torch, als, obj, wrappers, expect, name, **fit_kw):
 INFIT_MODULES = dict(level_gram="als", row_xty="als", masked_eval="als",
                      feature_sign_fused="col_update",
                      col_gram_xty="col_update", feature_sign="col_update",
-                     feature_sign_shared="col_update")
+                     feature_sign_shared="col_update", cd_fused="col_update")
 
 
 def infit_checks(torch, als, name, run, kernels, rows=0):
     """Each kernel of a fit held against its plain version on the inputs
     the fit gave it: the last call of each kernel in `kernels` (level_gram,
     masked_eval, feature_sign_fused, col_gram_xty, feature_sign,
-    feature_sign_shared) and the last `rows` calls of row_xty (the last
-    iteration's, one for each confounder on the fast route, each at its
-    own L), captured while run() drives the fit, and launched again after
+    feature_sign_shared, cd_fused) and the last `rows` calls of row_xty
+    (the last iteration's, one for each confounder on the fast route, each
+    at its own L), captured while run() drives the fit, and launched again after
     it beside the plain versions.  Tolerances those of phases 3 and 5:
     level_gram within LEVEL_GRAM_RTOL of max |ref| of the f64 sums
     (level_gram_gate); row_xty within ROW_XTY_RTOL of max |ref| of the f64
@@ -2157,9 +2184,10 @@ def infit_checks(torch, als, name, run, kernels, rows=0):
     masked_eval's SSEs within 1e-5 relative, counts exact
     (masked_eval_check); col_gram_xty within COL_GRAM_RTOL of the f64 sums
     both ways (col_gram_gate); the FSS kernels' per-column objective at
-    most 1e-6 relative above the plain version's (fss_checks).  Returns
-    what run() returns."""
-    from insider_tpu_torch.kernels import eval as ev, fss, gram, row
+    most 1e-6 relative above the plain version's (fss_checks); cd_fused
+    against its plain version and a witness (cd_infit).  Returns what
+    run() returns."""
+    from insider_tpu_torch.kernels import cd, eval as ev, fss, gram, row
     from insider_tpu_torch.ops import col_update
     from insider_tpu_torch.ops.col_update import col_gram_masked
 
@@ -2231,7 +2259,60 @@ def infit_checks(torch, als, name, run, kernels, rows=0):
               f"objective excess {excess:.3e} (limit 1e-6), max abs diff "
               f"{float((got - ref).abs().max()):.3e}")
         del G, b
+    if "cd_fused" in calls:
+        args, _ = calls.pop("cd_fused")
+        cd_infit(torch, cd, f"{name}, in-fit cd_fused (K={args[2].shape[1]}"
+                 f", M={args[0].shape[1]})", args)
     return out["result"]
+
+
+def cd_infit(torch, cd, name, args):
+    """cd_fused against its plain version on a fit's own inputs `args`, at
+    10 sweeps and at the fit's cap.  There the cold-CD columns are far from
+    phase 5's synthetic ones: they converge slowly (phase 12), and the
+    objective cancels most of the grams' magnitude, so the last bits in
+    which the kernel's exact-split grams and the plain version's f32 grams
+    differ move the result more than phase 5's 1e-6 (on the unsharded
+    flagship fit's last update, 1.55e-6 at 10 sweeps).  The kernel is
+    therefore held to a witness: the plain iteration on the f64 sums
+    rounded once to f32 (cd_streamed_plain), which differ from the plain
+    version's f32 sums in their last bits only.  Every column's objective
+    (in f64, on the f64 sums) may exceed the plain version's by at most
+    max(1e-6, 2 x the witness's excess), and the columns that differ
+    element-wise from the plain version's (rtol 2e-5 / atol 1e-5) may be
+    at most max(1%, 2 x the witness's share)."""
+    from insider_tpu_torch.ops.col_update import col_gram_masked
+
+    mask, data, R, beta0, lam, alpha, tol, sweeps = args
+    m, Rd = mask.to(torch.float64), R.double()
+    G = col_gram_masked(Rd, m).permute(1, 2, 0).contiguous()
+    b = Rd.T @ (m * data.double())
+    del m, Rd
+    for cap in (10, sweeps):
+        ref = cd.cd_fused_plain(*args[:-1], cap)
+        fp = objectives(torch, ref, G, b, lam, alpha)
+        stats = {}
+        for who, out in (("kernel", cd.cd_fused(*args[:-1], cap)),
+                         ("witness", cd.cd_streamed_plain(
+                             G.float(), b.float(), beta0, lam, alpha, tol,
+                             cap))):
+            if not bool(torch.isfinite(out).all()):
+                fail(f"{name}: the {who} is not finite at {cap} sweeps")
+            fo = objectives(torch, out, G, b, lam, alpha)
+            stats[who] = (
+                float(((fo - fp) / fp.abs().clamp(min=1.0)).max()),
+                1.0 - float(torch.isclose(out, ref, rtol=2e-5, atol=1e-5)
+                            .all(0).double().mean()))
+        (ek, dk), (ew, dw) = stats["kernel"], stats["witness"]
+        print(f"{name} at {cap} sweeps: max objective excess over the plain "
+              f"version {ek:.3e} (witness {ew:.3e}), columns differing "
+              f"{dk:.6f} (witness {dw:.6f})")
+        if not ek <= max(1e-6, 2 * ew):
+            fail(f"{name}: objective excess {ek:.3e} at {cap} sweeps, the "
+                 f"witness's {ew:.3e}")
+        if not dk <= max(0.01, 2 * dw):
+            fail(f"{name}: {dk:.6f} of the columns differ at {cap} sweeps, "
+                 f"the witness's {dw:.6f}")
 
 
 def gtex_fits(torch, itt, als, wrappers, host_gb):
@@ -2776,6 +2857,405 @@ def phase_cli_workloads(torch, itt, als, wrappers, smi):
     debug_checks_phase(torch, itt, als, smi)
 
 
+# Phase 16, the sharded fit.  (a) A one-rank NCCL group in this process
+# fits the flagship problem with ShardingConfig(1, 1): every collective is
+# a no-op on one rank, so it must equal phase 8's fit bit for bit.  (b)
+# Two worker processes (this script with --sharded-worker) share the card
+# over gloo (NCCL refuses two ranks on one device) and fit the flagship
+# problem at full width, 1 x 2 and 2 x 1, SHARDED_ITERS iterations; each
+# rank's launch counts show its route and each kernel's last in-fit call
+# is held against its plain version (infit_checks).  (c) The same two
+# ranks build DIST_SCALE_r05.json's problem from a raw f32 file through
+# file_ingest_callbacks, at 2 x 1 and 1 x 2.  Every per-boundary loss
+# within rel 1e-5 of the one-process fit's (MULTIPROC_r05.json's class),
+# or within twice the gap of a witness where the fit itself moves more
+# with the order of its sums (reversed_fit).
+SHARDED_ITERS = 20
+# (name, layout, Insider.fit arguments, kernels that launch and no other,
+# the one-process fit of phases 8 and 10 it is held to)
+COLD_MASKED = ("level_gram", "row_xty", "cd_fused", "masked_eval")
+SHARDED_FITS = (
+    ("flagship masked FSS fit", (1, 2), dict(partition=1), MASKED_FSS,
+     "flagship fit"),
+    ("flagship masked FSS fit", (2, 1), dict(partition=1), MASKED_WIDE,
+     "flagship fit"),
+    ("flagship dense FSS fit", (1, 2), dict(partition=0),
+     ("feature_sign_shared",), "flagship dense fit"),
+    ("cold CD flagship fit", (1, 2), dict(partition=1, **COLD), COLD_MASKED,
+     "cold CD flagship fit"))
+# DIST_SCALE_r05.json's configuration (tools/dist_scale_run.py): the data
+# simulate_scale(4096, 16384, 8, levels (4, 8), noise 1, seed 5) as a raw
+# f32 file, confounder codes from the row index, a Bernoulli(0.1) block
+# split of seed 77, uint8 masks, K=8, lambda 3, alpha 0.4, 30 iterations
+DIST_SHAPE, DIST_LEVELS, DIST_RATIO, DIST_SEED = (4096, 16384), (4, 8), 0.1, 77
+DIST_FIT = dict(latent_dim=8, lambda1=3.0, lambda2=3.0, alpha=0.4,
+                masked=True, global_tol=1e-12, sub_tol=1e-5, max_iter=30,
+                col_solver="fss", seed=0)
+SHARDED_RTOL = 1e-5
+WORKER_WALL_S = 600
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_codes(r0, r1):
+    """The DIST_SCALE confounder codes of rows [r0, r1), from the row index
+    alone (tools/dist_scale_run.py:_codes_for_rows)."""
+    rows = np.arange(r0, r1, dtype=np.int64)
+    return [(rows * (v + 3) // 7 % L).astype(np.int32)
+            for v, L in enumerate(DIST_LEVELS)]
+
+
+def reversed_fit(torch, als, data, confounder, train, test, fit_cfg, seed):
+    """A witness: the one-process fit of the problem with its columns in
+    reverse order, from the initial state the fit draws (seed) with F's
+    columns reversed alike.  Column for column it is the same fit, its sums
+    over the genes (level grams, row Xty, eval) taken in another order, as
+    a sharded fit takes them; how far its losses move from the fit's is
+    how far the fit moves with the order of its sums.  Returns its history
+    as [(iter, loss, train_rmse, test_rmse)]."""
+    from insider_tpu_torch.model.state import init_state
+
+    rev = slice(None, None, -1)
+    problem = als.build_problem(
+        np.ascontiguousarray(data[:, rev]), confounder,
+        np.ascontiguousarray(train[:, rev]),
+        np.ascontiguousarray(test[:, rev]), masked=fit_cfg.masked,
+        mask_dtype=np.uint8 if train.dtype == np.uint8 else None)
+    g = torch.Generator(device=problem.device).manual_seed(seed)
+    state = init_state(g, problem.n_levels, problem.shape[1],
+                       fit_cfg.latent_dim, init_std=fit_cfg.init_std)
+    state.column_factor = state.column_factor.flip(1).contiguous()
+    res = als.optimize(problem, fit_cfg, state=state, verbose=False)
+    return [(h["iter"], h["loss"], h["train_rmse"], h["test_rmse"])
+            for h in res.history]
+
+
+def flagship_witnesses(torch, itt, als):
+    """reversed_fit of each one-process flagship fit that phase 16 holds a
+    sharded fit to, SHARDED_ITERS iterations: {name: [(iter, loss)]}."""
+    from insider_tpu_torch.config import FitConfig
+
+    obj = flagship_object(itt)
+    out = {}
+    for _, _, fit_kw, _, ref_name in SHARDED_FITS:
+        if ref_name in out:
+            continue
+        masked = bool(fit_kw["partition"])
+        cfg = FitConfig(
+            latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
+            masked=masked, global_tol=obj.params["global_tol"],
+            sub_tol=obj.params["sub_tol"], max_iter=SHARDED_ITERS,
+            seed=obj.seed, col_solver=fit_kw.get("col_solver", "auto"),
+            cd_warm_start=fit_kw.get("cd_warm_start", True))
+        hist = reversed_fit(torch, als, obj.data, obj.confounder,
+                            obj.train_indicator + obj.test_indicator,
+                            obj.na_indicator, cfg, obj.seed)
+        out[ref_name] = [h[:2] for h in hist]
+    return out
+
+
+def rel_gaps(got, ref):
+    """The largest relative gap of each column past the boundary's
+    iteration between two histories of (iter, value, ...) rows, which must
+    have the same iterations."""
+    if [g[0] for g in got] != [r[0] for r in ref]:
+        fail(f"boundaries {[g[0] for g in got]} against "
+             f"{[r[0] for r in ref]}")
+    g, r = np.asarray(got, np.float64)[:, 1:], np.asarray(ref,
+                                                          np.float64)[:, 1:]
+    return np.nanmax(np.abs(g - r) / np.abs(r), axis=0)
+
+
+def launched(rec):
+    """The kernels a worker's fit launched, with their counts."""
+    return {k: n for k, n in rec["counts"].items() if n}
+
+
+def sharded_worker(rank, world, address, job_path, out_path):
+    """One rank of phase 16 (b) and (c), on card 0 with its peer; writes
+    what the parent checks to out_path as JSON.  Every check of its own
+    (routes, in-fit kernels) is fatal: the rank exits non-zero."""
+    import torch
+
+    torch.cuda.set_device(0)
+    import insider_tpu_torch as itt
+    from insider_tpu_torch.config import FitConfig, ShardingConfig
+    from insider_tpu_torch.data.native import file_ingest_callbacks
+    from insider_tpu_torch.sharding import initialize_distributed
+    from insider_tpu_torch.train import als
+
+    rank, world = int(rank), int(world)
+    initialize_distributed(address, world, rank, backend="gloo")
+    with open(job_path) as fh:
+        job = json.load(fh)
+    wrappers = kernel_wrappers()
+    out = {"fits": [], "ingest": []}
+    objs = {}
+    for name, layout, fit_kw, expect, _ in SHARDED_FITS:
+        if layout not in objs:
+            objs[layout] = flagship_object(itt, ShardingConfig(*layout))
+        obj = objs[layout]
+        label = f"{name} {layout[0]}x{layout[1]} rank {rank}"
+        _, counts = infit_checks(
+            torch, als, label, lambda: counted(
+                torch, wrappers, label, lambda: obj.fit(
+                    K, LAM, ALPHA, max_iter=SHARDED_ITERS, verbose=False,
+                    **fit_kw)),
+            [k for k in expect if k != "row_xty"],
+            rows=len(LEVELS) if "row_xty" in expect else 0)
+        check_path(label, counts, expect, wrappers)
+        hist = obj.fit_result.history
+        out["fits"].append(dict(
+            name=name, layout=layout, counts=counts,
+            history=[(h["iter"], h["loss"]) for h in hist],
+            ms=boundary_ms(hist)))
+    del objs
+    for layout in ((2, 1), (1, 2)):
+        cbs = file_ingest_callbacks(job["path"], DIST_SHAPE, DIST_RATIO,
+                                    DIST_SEED)
+        largest = [0]
+
+        def seen(cb):
+            def call(index):
+                block = cb(index)
+                largest[0] = max(largest[0], block.nbytes)
+                return block
+            return call
+
+        def codes_cb(v):
+            return lambda index: dist_codes(
+                *index[0].indices(DIST_SHAPE[0])[:2])[v]
+
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        problem = als.build_problem_distributed(
+            *[seen(cb) for cb in cbs],
+            [codes_cb(v) for v in range(len(DIST_LEVELS))], DIST_LEVELS,
+            DIST_SHAPE, ShardingConfig(*layout), mask_dtype="uint8")
+        torch.cuda.synchronize()
+        problem_bytes = torch.cuda.memory_allocated() - before
+        label = f"DIST_SCALE file ingest {layout[0]}x{layout[1]} rank {rank}"
+        res, counts = counted(torch, wrappers, label, lambda: als.optimize(
+            problem, FitConfig(**DIST_FIT), verbose=False))
+        check_path(label, counts,
+                   MASKED_FSS if layout[0] == 1 else MASKED_WIDE, wrappers)
+        out["ingest"].append(dict(
+            layout=layout, counts=counts, largest_block=largest[0],
+            problem_bytes=problem_bytes, split_variant=problem.split_variant,
+            history=[(h["iter"], h["loss"], h["train_rmse"], h["test_rmse"])
+                     for h in res.history], ms=boundary_ms(res.history)))
+        del problem, res
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def sharded_one_rank(torch, itt, wrappers, smi, ref):
+    """Phase 16 (a): a one-rank NCCL group in this process; the flagship
+    masked fit with ShardingConfig(1, 1) equals phase 8's bit for bit."""
+    import torch.distributed as dist
+
+    from insider_tpu_torch.config import ShardingConfig
+    from insider_tpu_torch.sharding import initialize_distributed
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        x = torch.arange(4.0, device="cuda")
+        dist.all_reduce(x)
+        if dist.get_backend() != "nccl" or x.tolist() != [0.0, 1.0, 2.0,
+                                                          3.0]:
+            fail(f"one-rank group: backend {dist.get_backend()}, "
+                 f"all_reduce gave {x.tolist()}")
+        obj = flagship_object(itt, ShardingConfig(1, 1))
+        name = "sharded 1x1 flagship fit (one-rank NCCL group)"
+        _, counts = counted(torch, wrappers, name, lambda: obj.fit(
+            partition=1, verbose=False, **FLAG_FIT))
+        check_path(name, counts, MASKED_FSS, wrappers)
+        res = obj.fit_result
+        if ([h["loss"] for h in res.history] != ref["losses"]
+                or not all(np.array_equal(a, b) for a, b in zip(
+                    res.row_matrices + [res.column_factor],
+                    ref["factors"]))):
+            fail(f"{name}: differs from phase 8's unsharded fit")
+        print(f"{name}: {res.n_iter} iterations, losses and factors equal "
+              f"bit for bit to phase 8's unsharded fit; "
+              f"{boundary_ms(res.history):.3f} ms/iter ({smi})")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_one_process_dist_scale(torch, als, path):
+    """Phase 16 (c)'s reference: the one-process fit of the file's matrix
+    with the same block split, made in memory (the parent holds the whole
+    matrix; the ranks never do), and its witness (reversed_fit); each
+    history as [(iter, loss, train_rmse, test_rmse)]."""
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.data import native
+
+    n, m = DIST_SHAPE
+    data = np.fromfile(path, np.float32).reshape(n, m)
+    train, test, _ = native.split_mask_block(DIST_SHAPE, (0, n), (0, m),
+                                             DIST_RATIO, DIST_SEED,
+                                             data_block=data)
+    confounder = np.column_stack(dist_codes(0, n))
+    problem = als.build_problem(data, confounder, train, test,
+                                mask_dtype="uint8")
+    res = als.optimize(problem, FitConfig(**DIST_FIT), verbose=False)
+    del problem
+    hist = [(h["iter"], h["loss"], h["train_rmse"], h["test_rmse"])
+            for h in res.history]
+    return hist, reversed_fit(torch, als, data, confounder, train, test,
+                              FitConfig(**DIST_FIT), DIST_FIT["seed"])
+
+
+def phase_sharded(torch, itt, als, wrappers, smi, ref):
+    """Phase 16: the sharded fit.  ref: the one-process fits' histories,
+    {name: [(iter, loss)]}, and phase 8's losses and factors."""
+    import tempfile
+
+    from insider_tpu_torch.data import native
+
+    t_phase = time.time()
+    sharded_one_rank(torch, itt, wrappers, smi, ref["phase 8"])
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (root, os.environ.get("PYTHONPATH", "")) if p))
+    native.lib()            # built here, before two ranks could race
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        path = os.path.join(tmp, "dist_scale.f32")
+        t0 = time.time()
+        sim = itt.simulate_scale(*DIST_SHAPE, DIST_FIT["latent_dim"],
+                                 level_counts=DIST_LEVELS, noise_std=1.0,
+                                 seed=5)
+        np.ascontiguousarray(sim.data, np.float32).tofile(path)
+        del sim
+        write_s = time.time() - t0
+        t0 = time.time()
+        dist_ref, dist_witness = sharded_one_process_dist_scale(torch, als,
+                                                                path)
+        print(f"DIST_SCALE one-process fit and its witness: {DIST_SHAPE[0]}"
+              f" x {DIST_SHAPE[1]} raw f32 file ({os.path.getsize(path)} "
+              f"bytes, written in {write_s:.2f} s), built and fitted in "
+              f"memory in {time.time() - t0:.2f} s")
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as fh:
+            json.dump({"path": path}, fh)
+        address = f"127.0.0.1:{free_port()}"
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(2)]
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-worker",
+             str(r), "2", address, job, outs[r]], cwd=root, env=env,
+            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+        deadline = time.monotonic() + WORKER_WALL_S
+        timed_out = False
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                timed_out = True
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        workers_s = time.time() - t0
+        for r, log in enumerate(logs):
+            log.seek(0)
+            for line in log.read().splitlines():
+                print(f"  rank {r}: {line}")
+            log.close()
+        if timed_out:
+            fail(f"sharded workers ran past {WORKER_WALL_S} s and were "
+                 "killed")
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            fail(f"sharded workers exited with {codes}")
+        results = []
+        for out in outs:
+            with open(out) as fh:
+                results.append(json.load(fh))
+
+    note = (f"({smi}; two ranks share one card over gloo through the host: "
+            "these times are no multi-card rate)")
+    witness = flagship_witnesses(torch, itt, als)
+    failures = []
+
+    def held(label, recs, ref, wit):
+        """Each rank's per-boundary gaps (loss, and the RMSEs where given)
+        from the one-process fit, against max(SHARDED_RTOL, 2 x the
+        witness's)."""
+        if any(rec["history"] != recs[0]["history"] for rec in recs):
+            failures.append(f"{label}: the ranks' histories differ")
+        gaps = np.max([rel_gaps(rec["history"], ref) for rec in recs],
+                      axis=0)
+        wgaps = rel_gaps(wit, ref)
+        limit = np.maximum(SHARDED_RTOL, 2 * wgaps)
+        by_boundary = [float(np.max(np.abs(np.subtract(g[1], r[1]))
+                                    / abs(r[1])))
+                       for g, r in zip(recs[0]["history"], ref)]
+        def show(xs):
+            return "[" + ", ".join(f"{x:.3e}" for x in xs) + "]"
+
+        print(f"{label}: largest per-boundary gaps (loss{', train and test '
+              f'rmse' if len(gaps) > 1 else ''}) from the one-process fit "
+              f"{show(gaps)}, its witness's {show(wgaps)}, limit "
+              f"{show(limit)}; loss gap by boundary (rank 0) "
+              f"{show(by_boundary)}")
+        if not (gaps <= limit).all():
+            failures.append(f"{label}: gaps {gaps.tolist()} past "
+                            f"{limit.tolist()}")
+
+    for i, (name, layout, _, _, ref_name) in enumerate(SHARDED_FITS):
+        recs = [res["fits"][i] for res in results]
+        want = [h for h in ref[ref_name] if h[0] <= SHARDED_ITERS]
+        label = f"sharded {name} {layout[0]}x{layout[1]}"
+        held(label, recs, want, witness[ref_name])
+        print(f"{label}: launches rank 0 {launched(recs[0])}, rank 1 "
+              f"{launched(recs[1])}; ms/iter rank 0 {recs[0]['ms']:.3f}, "
+              f"rank 1 {recs[1]['ms']:.3f} {note}")
+    for i, layout in enumerate(((2, 1), (1, 2))):
+        recs = [res["ingest"][i] for res in results]
+        label = f"DIST_SCALE file ingest {layout[0]}x{layout[1]}"
+        held(label, recs, dist_ref, dist_witness)
+        if any(rec["split_variant"] != "bernoulli_block" for rec in recs):
+            failures.append(f"{label}: split_variant "
+                            f"{[rec['split_variant'] for rec in recs]}")
+        for r, rec in enumerate(recs):
+            print(f"{label} rank {r}: largest ingest block "
+                  f"{rec['largest_block']} bytes, problem on the card "
+                  f"{rec['problem_bytes']} bytes, launches {launched(rec)}, "
+                  f"{rec['ms']:.3f} ms/iter {note}")
+    if failures:
+        fail("; ".join(failures))
+    print(f"phase 16: the workers {workers_s:.1f} s, the phase "
+          f"{time.time() - t_phase:.1f} s")
+
+
+def kernel_wrappers():
+    """{name: wrapper} of every kernel, each with its launch count."""
+    from insider_tpu_torch.kernels import cd, ctns, eval as ev, fss, gram, row
+
+    return {"level_gram": row.level_gram, "row_xty": row.row_xty,
+            "feature_sign_fused": fss.feature_sign_fused,
+            "masked_eval": ev.masked_eval,
+            "col_gram_xty": gram.col_gram_xty,
+            "feature_sign": fss.feature_sign,
+            "feature_sign_shared": fss.feature_sign_shared,
+            "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
+            "cd_shared": cd.cd_shared, "ctns_cd": ctns.ctns_cd}
+
+
 def main():
     import torch
 
@@ -2785,8 +3265,7 @@ def main():
         return 2
 
     import insider_tpu_torch as itt
-    from insider_tpu_torch.kernels import (_lib, cd, ctns, eval as ev, fss,
-                                           gram, row)
+    from insider_tpu_torch.kernels import _lib, cd, eval as ev, fss, gram, row
     from insider_tpu_torch.train import als
 
     # 1. device
@@ -2892,14 +3371,7 @@ def main():
     if failures:
         fail("; ".join(failures))
 
-    wrappers = {"level_gram": row.level_gram, "row_xty": row.row_xty,
-                "feature_sign_fused": fss.feature_sign_fused,
-                "masked_eval": ev.masked_eval,
-                "col_gram_xty": gram.col_gram_xty,
-                "feature_sign": fss.feature_sign,
-                "feature_sign_shared": fss.feature_sign_shared,
-                "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
-                "cd_shared": cd.cd_shared, "ctns_cd": ctns.ctns_cd}
+    wrappers = kernel_wrappers()
     no_cd = dict(cd_fused=0, cd_streamed=0, cd_shared=0, ctns_cd=0)
     no_fss = dict(feature_sign_fused=0, feature_sign=0, feature_sign_shared=0,
                   ctns_cd=0)
@@ -2914,10 +3386,21 @@ def main():
         partition=1, **FLAG_FIT)
     flag_state = flagship.fit_result.state
     hist = {"flagship fit": [h["loss"] for h in flagship.fit_result.history]}
+    # what phase 16's sharded fits are held to
+    one_process = {"phase 8": dict(
+        losses=hist["flagship fit"],
+        factors=[f.copy() for f in flagship.fit_result.row_matrices
+                 + [flagship.fit_result.column_factor]])}
+
+    def boundaries(name, obj):
+        one_process[name] = [(h["iter"], h["loss"])
+                             for h in obj.fit_result.history]
+    boundaries("flagship fit", flagship)
     dense, fss_dense, flag_ms["dense"] = run_fit(
         torch, flagship, wrappers, dict(feature_sign_shared=1, **no_cd),
         "flagship dense fit", partition=0, **FLAG_FIT)
     dense_state = flagship.fit_result.state
+    boundaries("flagship dense fit", flagship)
     launches["feature_sign_shared"] = dense["feature_sign_shared"]
 
     # 9. K=50 masked fit at the prediXcan shape
@@ -2946,6 +3429,7 @@ def main():
                                   monotone=False, **COLD, **fit_kw)
         cd_states[name] = obj.fit_result.state
         hist[name] = [h["loss"] for h in obj.fit_result.history]
+        boundaries(name, obj)
         for n in ("cd_fused", "cd_streamed", "cd_shared"):
             if expect.get(n):
                 launches[n] = counts[n]
@@ -2992,6 +3476,10 @@ def main():
     # 15. the command line, the workloads and debug_checks
     phase_cli_workloads(torch, itt, als, wrappers, smi)
 
+    # 16. the sharded fit: one rank over NCCL, two ranks sharing the card
+    # over gloo, and the file ingest
+    phase_sharded(torch, itt, als, wrappers, smi, one_process)
+
     # result
     tpu = "insider_tpu/kernels/"
     # the CD kernels are the CD instances of the FSS kernels' templates
@@ -3035,4 +3523,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        sys.exit(sharded_worker(*sys.argv[2:]))
     sys.exit(main())

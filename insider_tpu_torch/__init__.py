@@ -19,6 +19,10 @@ PyTorch versions run.
     .tune(...)              - two-stage rank / (lambda, alpha) search
     .fit(...)               - final fit (partition=1 masked, partition=0 dense)
     optimize(...)           - the ALS loop
+    ShardingConfig(rows, cols), initialize_distributed(), pod_sharding(),
+    build_problem_distributed(...) - the sharded fit, one process per
+                              device on a torch.distributed group
+                              (sharding/)
     tune(...)               - the search of .tune, on an Insider
     glm_interaction(...)    - per-level GLM inference after the fit
     save_checkpoint(...), load_checkpoint(...) - the fit state on disk
@@ -34,7 +38,7 @@ PyTorch versions run.
 from insider_tpu_torch.analysis.glm import glm_interaction
 from insider_tpu_torch.api import FitResult, Insider
 from insider_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
-from insider_tpu_torch.config import FitConfig
+from insider_tpu_torch.config import FitConfig, ShardingConfig
 from insider_tpu_torch.data.simulate import (simulate_insider_data,
                                              simulate_scale)
 from insider_tpu_torch.data.splitter import SplitResult, ratio_splitter
@@ -43,8 +47,10 @@ from insider_tpu_torch.model.state import (InsiderState, init_state,
 from insider_tpu_torch.ops.row_update import fit_interaction
 from insider_tpu_torch.ops.solvers import (coordinate_descent,
                                            strong_coordinate_descent)
+from insider_tpu_torch.sharding.distributed import (initialize_distributed,
+                                                    pod_sharding)
 from insider_tpu_torch.train.als import (NonFiniteError, build_problem,
-                                         optimize)
+                                         build_problem_distributed, optimize)
 from insider_tpu_torch.tune.grid import tune
 
 __version__ = "0.1.0"
@@ -53,6 +59,9 @@ __all__ = [
     "Insider",
     "FitResult",
     "FitConfig",
+    "ShardingConfig",
+    "initialize_distributed",
+    "pod_sharding",
     "ratio_splitter",
     "SplitResult",
     "simulate_insider_data",
@@ -61,6 +70,7 @@ __all__ = [
     "init_state",
     "state_from_numpy",
     "build_problem",
+    "build_problem_distributed",
     "optimize",
     "NonFiniteError",
     "tune",

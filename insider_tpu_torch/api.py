@@ -36,10 +36,14 @@ class Insider:
     inserted as column 2 of the confounder matrix (R/insider.R:40).
     ctns_confounder: (N, P) continuous covariates, the C of C W (a 1-D
     array is one column), or None.  The positional parameters are the JAX
-    package's, in its order; sharding is not ported (only None).  device
-    (keyword-only): where the problem and the factors live: "cuda" (the
-    default) runs the CUDA kernels and raises without a card, "cpu" runs
-    their plain PyTorch versions.
+    package's, in its order.  sharding: a ShardingConfig: every rank of
+    the process group (sharding/distributed.initialize_distributed) makes
+    the same Insider, and fit and tune run the sharded fit, each rank on
+    its block (train/als.build_problem); continuous covariates are not
+    ported under a sharding (train/als.UNPORTED).  device (keyword-only):
+    where the problem and the factors live: "cuda" (the default) runs the
+    CUDA kernels and raises without a card, "cpu" runs their plain
+    PyTorch versions.
     """
 
     def __init__(self, data: np.ndarray, confounder: np.ndarray,
@@ -50,7 +54,9 @@ class Insider:
                  max_iter: int = 50000, rm_na_col: bool = True,
                  split_seed: int = 123, seed: int = 0, sharding=None, *,
                  device="cuda"):
-        als.check_unported(sharding=sharding)
+        als.check_unported(sharding,
+                           ctns_confounder=ctns_confounder is not None)
+        self.sharding = sharding
         self.device = als.resolve_device(device)
         data = np.asarray(data, np.float64)
         confounder = np.asarray(confounder)
@@ -119,7 +125,9 @@ class Insider:
         one as f32; the same fit bit for bit (train/als.mask_storage).  precompute=False: no
         per-problem row constants, every confounder and covariate takes
         the segment-sum update (the memory-lean mode for shapes near the
-        card's memory; train/als.build_problem).  With continuous
+        card's memory; train/als.build_problem).  Under the object's
+        sharding, every rank calls fit alike; precompute=False,
+        checkpoint_path and resume are not ported there.  With continuous
         covariates, cfd_matrices ends with W (P, K), as in the JAX
         package.  The positional parameters are the JAX package's, in its
         order.  use_pallas has no counterpart (the port runs the kernels
@@ -134,6 +142,9 @@ class Insider:
                 "runs the CUDA kernels on a CUDA device and their plain "
                 "versions on the CPU (ROADMAP, Port constraints); pass "
                 "use_pallas=None")
+        als.check_unported(self.sharding, no_precompute=not precompute,
+                           checkpoint_path=bool(checkpoint_path),
+                           resume=resume)
         masked = bool(partition)
         cfg = FitConfig(
             latent_dim=int(latent_dimension), lambda1=float(lambda_),
@@ -147,7 +158,8 @@ class Insider:
         indicator = self.train_indicator + self.test_indicator
         problem = als.build_problem(self.data, self.confounder, indicator,
                                     self.na_indicator, self.ctns_confounder,
-                                    masked=masked, mask_dtype=mask_dtype,
+                                    masked=masked, sharding=self.sharding,
+                                    mask_dtype=mask_dtype,
                                     precompute=precompute, device=self.device)
         result = als.optimize(problem, cfg, state=state, verbose=verbose,
                               log_jsonl=log_jsonl,
@@ -165,7 +177,7 @@ class Insider:
         return als.build_problem(self.data, self.confounder,
                                  self.train_indicator, self.test_indicator,
                                  self.ctns_confounder, masked=True,
-                                 device=self.device)
+                                 sharding=self.sharding, device=self.device)
 
 
 FitResult = als.OptimizeResult

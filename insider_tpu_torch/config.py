@@ -11,6 +11,7 @@ built, so a run never silently takes a path the port does not have.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,3 +112,26 @@ def decay_from_delta_loss(delta_loss: float) -> float:
     if d <= 1e-1:
         return 1e-1
     return 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """The layout of a sharded fit: rows x cols ranks of a torch.distributed
+    process group, one device each (insider_tpu/config.py:155-171).
+
+    'rows' splits the sample axis: the ranks of a column block add their
+    partial level sums, grams and Xty over it.  'cols' splits the gene
+    axis: the column update is local to a column block, and only the row
+    side's (L, K) and (L, K, K) sums cross it.  Rank r * cols + c holds row
+    block r and column block c (sharding/mesh.py).
+    """
+
+    rows: int = 1
+    cols: int = 1
+    # Optional torch.device (or its name) of each rank, in rank order; by
+    # default cuda:LOCAL_RANK, or the CPU for a fit built with device="cpu".
+    devices: Optional[tuple] = None
+
+    @property
+    def n_devices(self) -> int:
+        return self.rows * self.cols

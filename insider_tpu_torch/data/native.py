@@ -316,3 +316,34 @@ def split_mask_block_plain(global_shape: Tuple[int, int],
     test[na == 1] = 0
     train = ((test == 0) & (na == 0)).astype(np.uint8)
     return train, test, na
+
+
+def file_ingest_callbacks(path: str, global_shape: Tuple[int, int],
+                          ratio: float, seed: int):
+    """(data_cb, train_cb, test_cb) for train/als.build_problem_distributed
+    (insider_tpu/data/native.py:251-289): each takes the tuple of slices
+    of a rank's block and returns that block, the data read from the raw
+    row-major f32 file at `path` (read_block) and the masks made by the
+    block splitter (split_mask_block, its NaNs in neither), so no process
+    holds more than its own block and every rank sees one global split.
+
+    The split is Bernoulli(ratio) per element, not ratio_splitter's exact
+    count: the same (data, seed) in memory holds out other elements.
+    """
+    N, M = global_shape
+
+    def bounds(index):
+        rs, cs = index[0].indices(N), index[1].indices(M)
+        return (rs[0], rs[1]), (cs[0], cs[1])
+
+    def data_cb(index):
+        return read_block(path, global_shape, *bounds(index))
+
+    def masks(index):
+        rows, cols = bounds(index)
+        return split_mask_block(global_shape, rows, cols, ratio, seed,
+                                data_block=read_block(path, global_shape,
+                                                      rows, cols))
+
+    return data_cb, (lambda index: masks(index)[0]), (
+        lambda index: masks(index)[1])

@@ -20,6 +20,14 @@ arguments.  Cold CD sweeps coordinates in a fixed order, so the caller's
 the dense gram) with one random order per update and un-permutes the
 solution (insider_tpu/ops/col_update.py:436-446, :545-551).
 
+Under a mesh (sharding/mesh.py) each rank updates the F columns of its
+block.  With one row block the update is local to the column block and
+takes the route above; with several, each rank's col_gram_xty partial
+grams and Xty are summed over the row blocks and the streamed solvers run
+on them, at any K (insider_tpu/ops/col_update.py:360, where the fused
+kernels need the whole row axis on the device).  The dense gram R^T R and
+R^T data are summed over the row blocks likewise.
+
 On the card the column update takes K <= 128 (the kernels hold at most
 four coordinates per lane of a warp) and larger K raises ValueError
 (check_rank; train/als.optimize checks it before the first iteration).  On
@@ -37,6 +45,7 @@ from insider_tpu_torch.kernels.fss import (FUSED_MAX_K, MAX_K, feature_sign,
 from insider_tpu_torch.kernels.gram import col_gram_xty
 from insider_tpu_torch.ops.linalg import spd_solve
 from insider_tpu_torch.ops.row_update import _ridge_solve_batched
+from insider_tpu_torch.sharding import comm
 
 
 def col_gram_masked(R: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -79,6 +88,7 @@ def update_columns_masked(
     max_fss_polish_sweeps: int = 32,
     perm: torch.Tensor = None,
     max_cd_sweeps: int = 200,
+    mesh=None,
 ) -> torch.Tensor:
     """Masked (tuning==1) column update, src/optimize.cpp:203-230.
 
@@ -90,31 +100,37 @@ def update_columns_masked(
     TPU's VMEM holds them and its streamed route otherwise; the port picks
     by K, on every device: the fused kernel for K <= 32, the streamed route
     (col_gram_xty, then the solver on its grams) for K > 32 (at most 128 on
-    the card).
+    the card).  mesh: this rank's place in a sharded fit (see the module
+    docstring); with several row blocks the streamed route at any K.
     """
     K = R.shape[1]
     check_rank(K, R.device)
-    if alpha == 0.0:
+    fused = K <= FUSED_MAX_K and (mesh is None or mesh.cfg.rows == 1)
+
+    def grams(R):
         XtXt, Xty = col_gram_xty(mask, data, R)
+        return comm.psum(XtXt, mesh, "rows"), comm.psum(Xty, mesh, "rows")
+
+    if alpha == 0.0:
+        XtXt, Xty = grams(R)
         F = _ridge_solve_batched(XtXt.permute(2, 0, 1), Xty.T, lam)
         return F.T.contiguous()
     if perm is not None:
         perm, inv = _order(perm, R.device)
         Rp = R[:, perm].contiguous()
         beta0 = F_prev[perm].contiguous()
-        if K <= FUSED_MAX_K:
+        if fused:
             F = cd_fused(mask, data, Rp, beta0, lam, alpha, tol, max_cd_sweeps)
         else:
-            XtXt, Xty = col_gram_xty(mask, data, Rp)
-            F = cd_streamed(XtXt, Xty, beta0, lam, alpha, tol, max_cd_sweeps)
+            F = cd_streamed(*grams(Rp), beta0, lam, alpha, tol,
+                            max_cd_sweeps)
         return F[inv].contiguous()
     kw = dict(max_outer=max_fss_outer,
               polish_sweeps=max_fss_polish_sweeps if fss_polish else 0,
               tol=tol)
-    if K <= FUSED_MAX_K:
+    if fused:
         return feature_sign_fused(mask, data, R, F_prev, lam, alpha, **kw)
-    XtXt, Xty = col_gram_xty(mask, data, R)
-    return feature_sign(XtXt, Xty, F_prev, lam, alpha, **kw)
+    return feature_sign(*grams(R), F_prev, lam, alpha, **kw)
 
 
 def update_columns_dense(
@@ -129,15 +145,17 @@ def update_columns_dense(
     max_fss_polish_sweeps: int = 32,
     perm: torch.Tensor = None,
     max_cd_sweeps: int = 200,
+    mesh=None,
 ) -> torch.Tensor:
     """Dense (tuning==0) column update, src/optimize.cpp:232-247, and
     insider_tpu/ops/col_update.py:484-552.  XtX = R^T R and Xty = R^T data
-    are plain matmuls there too (:512-513).  Solvers as
-    update_columns_masked; cold CD permutes both axes of the gram."""
+    are plain matmuls there too (:512-513), summed over the row blocks
+    under a mesh.  Solvers as update_columns_masked; cold CD permutes both
+    axes of the gram."""
     K = R.shape[1]
     check_rank(K, R.device)
-    XtX = torch.matmul(R.T, R)                           # (K, K) shared
-    Xty = torch.matmul(R.T, data)                        # (K, M)
+    XtX = comm.psum(torch.matmul(R.T, R), mesh, "rows")  # (K, K) shared
+    Xty = comm.psum(torch.matmul(R.T, data), mesh, "rows")   # (K, M)
     if alpha == 0.0:
         A = XtX + lam * torch.eye(K, dtype=R.dtype, device=R.device)
         return spd_solve(A, Xty.T).T.contiguous()

@@ -84,22 +84,17 @@ def masked_level_xty(E: torch.Tensor, R_minus: torch.Tensor,
     return torch.matmul(D - T, F.T)                  # (L, K)
 
 
-def update_row_factor_dense_fast(E: torch.Tensor, Ddense: torch.Tensor,
-                                 counts: torch.Tensor, R_minus: torch.Tensor,
-                                 F: torch.Tensor, gram: torch.Tensor,
-                                 lam: float) -> torch.Tensor:
-    """Dense per-level ridge with precomputed constants -> (L, K)
-    (src/optimize.cpp:178-191; insider_tpu/ops/row_update.py:130-145).
-
-    E (N, L) one-hot levels, Ddense (L, M) = E^T data, counts (L,) level
-    sizes, R_minus (N, K) the row factor without this confounder, gram
-    (K, K) = F F^T.
-    """
+def dense_level_xty(E: torch.Tensor, Ddense: torch.Tensor,
+                    R_minus: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+    """The dense per-level update's right-hand sides (src/optimize.cpp:
+    178-191; insider_tpu/ops/row_update.py:130-145): (Ddense - E^T
+    (R_minus F)) F^T -> (L, K), E (N, L) one-hot levels, Ddense (L, M) =
+    E^T data, R_minus (N, K) the row factor without this confounder.  The
+    fit solves them with the level grams counts * F F^T
+    (train/als._als_iteration_dense)."""
     P = torch.matmul(R_minus, F)                     # (N, M)
     S = Ddense - torch.matmul(E.T, P)                # (L, M)
-    XtX = counts[:, None, None] * gram               # (L, K, K)
-    Xty = torch.matmul(S, F.T)                       # (L, K)
-    return _ridge_solve_batched(XtX, Xty, lam)
+    return torch.matmul(S, F.T)                      # (L, K)
 
 
 def segment_sum(x: torch.Tensor, codes: torch.Tensor,

@@ -31,6 +31,14 @@ the host, which decides it in f64 -- the JAX package's
 boundaries_per_dispatch=1 behaviour.  Under FitConfig.debug_checks every
 block update is checked for finiteness on the host (NonFiniteError names
 the block).  On CPU tensors every kernel wrapper runs its plain version.
+
+A sharded problem (build_problem(sharding=...), build_problem_distributed)
+is fitted by every rank of a torch.distributed group, each on its row x
+column block (sharding/mesh.py), with the same kernels: the level grams
+summed over the column blocks, each row Xty over every rank (D on row
+block 0), the column update's grams over the row blocks (ops/col_update),
+the boundary sums over every rank in f64 (sharding/comm.py holds every
+collective); the rest runs on every rank alike.
 """
 
 from __future__ import annotations
@@ -46,13 +54,19 @@ import numpy as np
 import torch
 
 from insider_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
-from insider_tpu_torch.config import FitConfig, decay_from_delta_loss
+from insider_tpu_torch.config import (FitConfig, ShardingConfig,
+                                      decay_from_delta_loss)
 from insider_tpu_torch.kernels.eval import masked_eval
 from insider_tpu_torch.kernels.row import level_gram, level_order, row_xty
 from insider_tpu_torch.model.state import InsiderState, init_state
 from insider_tpu_torch.ops import col_update, continuous, losses, row_update
 from insider_tpu_torch.ops.row_update import (_ridge_solve_batched,
                                               one_hot_levels)
+from insider_tpu_torch.sharding import comm
+from insider_tpu_torch.sharding.distributed import (
+    make_global_array, make_global_array_from_callback)
+from insider_tpu_torch.sharding.mesh import (MAT, Mesh, make_mesh,
+                                             shard_problem_arrays)
 
 logger = logging.getLogger("insider_tpu_torch")
 
@@ -104,6 +118,14 @@ class Problem:
     ctns_bc: Optional[torch.Tensor] = None      # masked, (P, M)
     ctns_dc: Optional[torch.Tensor] = None      # dense, (P, M)
     ctns_cc: Optional[torch.Tensor] = None      # dense, (P,)
+    # Sharded (build_problem(sharding=...), build_problem_distributed):
+    # this rank's place in the layout and the whole matrix's (N, M); the
+    # tensors above are then this rank's blocks (see Mesh).
+    mesh: Optional[Mesh] = None
+    global_shape: Optional[Tuple[int, int]] = None
+    # "bernoulli_block" where the masks came from callbacks (the per-block
+    # splitter, data/native.split_mask_block), else None.
+    split_variant: Optional[str] = None
 
     def fast(self) -> List[int]:
         """The confounders that take the fast route (their constants)."""
@@ -111,7 +133,8 @@ class Problem:
 
     @property
     def shape(self):
-        return tuple(self.data.shape)
+        """The whole matrix's (N, M), sharded or not."""
+        return self.global_shape or tuple(self.data.shape)
 
     @property
     def device(self):
@@ -131,23 +154,36 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-# Reference parameters that the port takes at their positions but does not
-# implement yet: the value that does what the reference's default does,
-# and the ROADMAP item that will port the others.
-UNPORTED = {"sharding": (None, "Queue 1 item 9")}
+# What a sharded fit does not run yet: each combination of `sharding` with
+# another setting, what it is, and the ROADMAP item that will port it.
+UNPORTED = {
+    ("sharding", "ctns_confounder"): (
+        "continuous covariates (ctns_confounder)", "Queue 1 item 9a"),
+    ("sharding", "segment_sum"): (
+        "a confounder past the fast row route's memory budgets (the "
+        "segment-sum row update)", "Queue 1 item 9b"),
+    ("sharding", "no_precompute"): ("precompute=False", "Queue 1 item 9c"),
+    ("sharding", "checkpoint_path"): ("checkpoint_path", "Queue 1 item 9d"),
+    ("sharding", "resume"): ("resume=True", "Queue 1 item 9d"),
+    ("sharding", "debug_checks"): ("FitConfig(debug_checks=True)",
+                                   "Queue 1 item 9e"),
+}
 
 
-def check_unported(**given) -> None:
-    """Raise NotImplementedError, naming the parameter and its ROADMAP
-    item, for each parameter of UNPORTED given another value than its
-    default."""
-    for name, value in given.items():
-        default, item = UNPORTED[name]
-        if value is default or (default is not None and value == default):
-            continue
-        raise NotImplementedError(
-            f"{name}={value!r} is not ported yet (ROADMAP {item}); only "
-            f"{name}={default!r} is taken")
+def check_unported(sharding, **used) -> None:
+    """Under a sharding, raise NotImplementedError for the first setting
+    of `used` (a key of UNPORTED after "sharding") that is true, naming it
+    and its ROADMAP item.  The callers check before any collective, with
+    arguments every rank shares, so every rank raises alike and no group
+    is left waiting."""
+    if sharding is None:
+        return
+    for name, on in used.items():
+        if on:
+            what, item = UNPORTED[("sharding", name)]
+            raise NotImplementedError(
+                f"{what} under sharding={sharding!r} is not ported yet "
+                f"(ROADMAP {item})")
 
 
 def check_dtype(dtype) -> None:
@@ -219,6 +255,30 @@ def fast_route(N: int, M: int, L: int) -> bool:
     return N * L * 4 <= _FAST_E_BYTES and 2 * L * M * 4 <= _FAST_LM_BYTES
 
 
+def _densify(confounder) -> Tuple[List[np.ndarray], List[int]]:
+    """Each confounder column's labels as int32 codes 0..L-1 in sorted
+    order, and the L of each (the reference's unique() indexing,
+    src/optimize.cpp:296-313)."""
+    confounder = np.asarray(confounder)
+    codes_np, n_levels = [], []
+    for c in range(confounder.shape[1]):
+        levels, inv = np.unique(confounder[:, c], return_inverse=True)
+        codes_np.append(inv.reshape(-1).astype(np.int32))
+        n_levels.append(int(levels.size))
+    return codes_np, n_levels
+
+
+def _check_sharded_build(sharding, global_shape, n_levels, ctns,
+                         precompute: bool) -> None:
+    """The build's refusals under a sharding (UNPORTED), from the global
+    shape, before any collective."""
+    N, M = global_shape
+    check_unported(sharding, ctns_confounder=ctns is not None,
+                   no_precompute=not precompute,
+                   segment_sum=not all(fast_route(N, M, L)
+                                       for L in n_levels))
+
+
 def build_problem(data: np.ndarray, confounder: np.ndarray,
                   train_indicator: np.ndarray, test_indicator: np.ndarray,
                   ctns_confounder: Optional[np.ndarray] = None,
@@ -240,37 +300,99 @@ def build_problem(data: np.ndarray, confounder: np.ndarray,
     route's budgets (fast_route) gets its constants, and they are built
     over column chunks (precompute_chunk), so no (N, M) f32 transient
     larger than a chunk exists.  The positional parameters are the JAX
-    package's, in its order: dtype takes f32 only (check_dtype); sharding
-    is not ported and takes only its default (check_unported).  device
-    (keyword-only): "cuda" (default; raises without a card) or "cpu".
+    package's, in its order: dtype takes f32 only (check_dtype).
+    sharding: a ShardingConfig; every rank of the process group calls
+    build_problem with the same host arrays, and keeps its own block
+    (sharding/mesh.py) on its device; the level sums are then summed over
+    the row blocks (the problem's collectives).  Not yet under a sharding
+    (UNPORTED): continuous covariates, precompute=False, a confounder past
+    the fast route's budgets.  device (keyword-only): "cuda" (default;
+    raises without a card) or "cpu"; under a sharding each rank's card
+    (sharding/mesh.make_mesh).
     """
     check_dtype(dtype)
-    check_unported(sharding=sharding)
     mdt = mask_storage(mask_dtype)
+    codes_np, n_levels = _densify(confounder)
+    global_shape = tuple(np.shape(data))
+    _check_sharded_build(sharding, global_shape, n_levels, ctns_confounder,
+                         precompute)
     disable_tf32()
     device = resolve_device(device)
-    confounder = np.asarray(confounder)
-    codes_np, n_levels = [], []
-    for c in range(confounder.shape[1]):
-        levels, inv = np.unique(confounder[:, c], return_inverse=True)
-        codes_np.append(inv.reshape(-1).astype(np.int32))
-        n_levels.append(int(levels.size))
+    mesh = (None if sharding is None
+            else make_mesh(sharding, device, global_shape))
+    arrays = shard_problem_arrays(mesh, data, train_indicator,
+                                  test_indicator, codes_np, ctns_confounder,
+                                  mdt, device=device)
+    return _finish_problem(arrays, n_levels, masked, mesh, global_shape,
+                           precompute)
 
-    def put(x, dt=torch.float32):
-        np_dt = np.uint8 if dt is torch.uint8 else np.float32
-        return torch.as_tensor(np.asarray(x, np_dt), device=device)
 
-    data_t = put(data)
-    codes = [torch.as_tensor(c, device=device) for c in codes_np]
-    problem = Problem(data=data_t, train_mask=put(train_indicator, mdt),
-                      test_mask=put(test_indicator, mdt), codes=codes,
-                      n_levels=tuple(n_levels), masked=masked,
-                      d=[None] * len(codes))
-    if ctns_confounder is not None:
-        ctns = np.asarray(ctns_confounder)
-        problem.ctns = put(ctns[:, None] if ctns.ndim == 1 else ctns)
+def _finish_problem(arrays, n_levels, masked: bool, mesh: Optional[Mesh],
+                    global_shape, precompute: bool) -> Problem:
+    data_t, train_t, test_t, codes, ctns = arrays
+    problem = Problem(data=data_t, train_mask=train_t, test_mask=test_t,
+                      codes=codes, n_levels=tuple(n_levels), masked=masked,
+                      d=[None] * len(codes), ctns=ctns, mesh=mesh,
+                      global_shape=(None if mesh is None
+                                    else tuple(global_shape)))
     if precompute:
         _precompute_row_constants(problem)
+    return problem
+
+
+def build_problem_distributed(data, train_indicator, test_indicator, codes,
+                              n_levels: Tuple[int, ...],
+                              global_shape: Tuple[int, int],
+                              sharding: ShardingConfig,
+                              ctns_confounder=None, n_ctns: int = 0,
+                              masked: bool = True, dtype=torch.float32,
+                              mask_dtype=None, precompute: bool = True, *,
+                              device="cuda") -> Problem:
+    """Build a sharded Problem with no process ever holding the whole
+    matrix (insider_tpu/train/als.py:253-321).
+
+    Each of data, train_indicator and test_indicator is either this rank's
+    block, covering exactly sharding/distributed.process_block(mesh, MAT,
+    global_shape) (host_row_block x host_col_block), or a callable
+    cb(index) -> numpy block, called once with the tuple of slices of this
+    rank's block (data/native.file_ingest_callbacks reads them from a raw
+    file).  codes: one per confounder, this rank's rows of the level codes
+    or a callable cb((row_slice,)); they must be dense in [0, n_levels[v])
+    over the whole matrix already (a rank's own np.unique would number the
+    levels otherwise than the others'), so n_levels is given.  The level
+    counts and sums and the largest count are then made global by the
+    problem's collectives, and every route is chosen from global_shape, so
+    every rank takes the same one.  split_variant is "bernoulli_block"
+    when the masks come from callbacks.  ctns_confounder and n_ctns are
+    the JAX package's; continuous covariates are not ported under a
+    sharding (UNPORTED), nor is precompute=False.  device as
+    build_problem.
+    """
+    check_dtype(dtype)
+    mdt = mask_storage(mask_dtype)
+    N, M = global_shape
+    _check_sharded_build(sharding, (N, M), n_levels, ctns_confounder,
+                         precompute)
+    disable_tf32()
+    device = resolve_device(device)
+    mesh = make_mesh(sharding, device, (N, M))
+
+    def local(x, spec, shape, np_dtype):
+        if callable(x):
+            return make_global_array_from_callback(shape, mesh, spec, x,
+                                                   np_dtype=np_dtype)
+        return make_global_array(np.asarray(x, np_dtype), mesh, spec,
+                                 global_shape=shape)
+
+    np_mask = np.uint8 if mdt is torch.uint8 else np.float32
+    arrays = (local(data, MAT, (N, M), np.float32),
+              local(train_indicator, MAT, (N, M), np_mask),
+              local(test_indicator, MAT, (N, M), np_mask),
+              [local(c, ("rows",), (N,), np.int32) for c in codes], None)
+    problem = _finish_problem(arrays, n_levels, masked, mesh, (N, M),
+                              precompute)
+    problem.split_variant = ("bernoulli_block" if callable(train_indicator)
+                             else None)
     return problem
 
 
@@ -278,9 +400,13 @@ def _precompute_row_constants(problem: Problem) -> None:
     """Fill in the row constants of `problem` (see Problem), column chunk
     by column chunk (insider_tpu/train/als.py:343-402): each chunk's mask
     is widened to f32 and multiplied into the data once, and every
-    constant's columns of that chunk are contracted from them."""
+    constant's columns of that chunk are contracted from them.  The routes
+    and the chunk are chosen from the whole matrix's shape; under a
+    sharding the level sums and counts of the rank's rows are then summed
+    over the row blocks, and the largest count taken over every rank."""
     data, mask, C = problem.data, problem.train_mask, problem.ctns
-    N, M = data.shape
+    N, M = problem.shape
+    mesh = problem.mesh
     fast = [v for v, L in enumerate(problem.n_levels) if fast_route(N, M, L)]
     sizes = [problem.n_levels[v] for v in fast]
     dev = data.device
@@ -288,9 +414,10 @@ def _precompute_row_constants(problem: Problem) -> None:
                         for v, L in zip(fast, sizes)]).contiguous()
              if fast else None)                   # (sum L, N)
     Lsum = sum(sizes)
+    width = data.shape[1]                         # this rank's columns
 
     def zeros(rows):
-        return torch.zeros((rows, M), dtype=torch.float32, device=dev)
+        return torch.zeros((rows, width), dtype=torch.float32, device=dev)
 
     d_cat = zeros(Lsum)
     mw_cat = zeros(Lsum) if problem.masked else None
@@ -298,8 +425,8 @@ def _precompute_row_constants(problem: Problem) -> None:
     q, bc, dc = (zeros(P), zeros(P), None) if problem.masked else (
         None, None, zeros(P))
     chunk = precompute_chunk(N, M)
-    for c0 in range(0, M, chunk):
-        c1 = min(c0 + chunk, M)
+    for c0 in range(0, width, chunk):
+        c1 = min(c0 + chunk, width)
         x, m = data[:, c0:c1], None
         if problem.masked:
             m = mask[:, c0:c1].to(torch.float32).contiguous()
@@ -314,6 +441,7 @@ def _precompute_row_constants(problem: Problem) -> None:
         elif P:
             dc[:, c0:c1] = torch.matmul(C.T, x)
         del x, m                 # before the next chunk's are allocated
+    d_cat = comm.psum(d_cat, mesh, "rows")
     d = list(torch.split(d_cat, sizes, dim=0)) if fast else []
     for v, dv in zip(fast, d):
         problem.d[v] = dv
@@ -323,12 +451,14 @@ def _precompute_row_constants(problem: Problem) -> None:
             problem.row_order[v] = level_order(problem.codes[v],
                                                problem.n_levels[v])
         if fast:
-            problem.mw_cat = mw_cat
-            problem.max_level_count = float(mw_cat.max())
+            problem.mw_cat = comm.psum(mw_cat, mesh, "rows")
+            problem.max_level_count = float(comm.pmax(
+                problem.mw_cat.max(), mesh, "world"))
         if P:
             problem.ctns_q, problem.ctns_bc = q, bc
     else:
-        counts = list(torch.split(E_cat.sum(dim=1), sizes)) if fast else []
+        counts = (list(torch.split(comm.psum(E_cat.sum(dim=1), mesh, "rows"),
+                                   sizes)) if fast else [])
         problem.counts = [None] * len(problem.codes)
         for v, cv in zip(fast, counts):
             problem.counts[v] = cv
@@ -399,20 +529,31 @@ def _update_covariates(problem: Problem, config: FitConfig, W: torch.Tensor,
     return torch.stack(rows)
 
 
+def _row_block_d(D: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A confounder's level sums D as this rank's share of the row Xty:
+    D on row block 0, zeros on the others, so the sum over every rank
+    carries D once, exactly, for any number of row blocks
+    (insider_tpu/train/als.py:405-439)."""
+    return D if mesh is None or mesh.r == 0 else torch.zeros_like(D)
+
+
 def update_row_factor(xtx: torch.Tensor, codes: torch.Tensor,
                       R_minus: torch.Tensor, mask: torch.Tensor,
                       D: torch.Tensor, F: torch.Tensor,
-                      lam: float, row_order=None) -> torch.Tensor:
+                      lam: float, row_order=None,
+                      mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One confounder's masked per-level ridge update -> (L, K).
 
     Counterpart of insider_tpu/ops/row_update.update_row_factor_masked_fast
     with its level grams `xtx` (L, K, K) precomputed (kernels/row.level_gram
     runs once for every confounder): Xty from the row_xty kernel, then the
     batched SPD solve.  row_order: these codes' rows sorted by level
-    (Problem.row_order), or None to derive them.
+    (Problem.row_order), or None to derive them.  Under a mesh, row_xty
+    runs on this rank's block and its partial Xty is summed over every
+    rank; the solve then runs on every rank, on the same inputs.
     """
-    xty = row_xty(codes, R_minus, mask, D, F, row_order)
-    return _ridge_solve_batched(xtx, xty, lam)
+    xty = row_xty(codes, R_minus, mask, _row_block_d(D, mesh), F, row_order)
+    return _ridge_solve_batched(xtx, comm.psum(xty, mesh, "world"), lam)
 
 
 def draw_perm(generator: torch.Generator, K: int) -> torch.Tensor:
@@ -456,7 +597,9 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
     level_xtx = [None] * len(problem.codes)
     fast = problem.fast()
     if fast:
-        xtx_cat = level_gram(problem.mw_cat, F, problem.max_level_count)
+        xtx_cat = comm.psum(
+            level_gram(problem.mw_cat, F, problem.max_level_count),
+            problem.mesh, "cols")
         for v, xtx in zip(fast, torch.split(
                 xtx_cat, [problem.n_levels[v] for v in fast], dim=0)):
             level_xtx[v] = xtx
@@ -467,7 +610,7 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
         if level_xtx[v] is not None:
             V = update_row_factor(level_xtx[v], codes, R_minus, mask,
                                   problem.d[v], F, config.lambda1,
-                                  problem.row_order[v])
+                                  problem.row_order[v], problem.mesh)
         else:
             V = row_update.update_row_factor_masked(
                 problem.data - losses.predict(R_minus, F), mask, F, codes,
@@ -484,7 +627,7 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
     R = _row_factor(problem, InsiderState(cfd_new, W, F))
     F_new = col_update.update_columns_masked(
         problem.data, mask, R, F, config.lambda2, config.alpha, sub_tol_eff,
-        **_col_kw(config, perm))
+        mesh=problem.mesh, **_col_kw(config, perm))
     _check_finite(config, "column update F (optimize_col)", F_new)
     return InsiderState(cfd_new, W, F_new)
 
@@ -493,18 +636,25 @@ def _als_iteration_dense(problem: Problem, config: FitConfig,
                          state: InsiderState, sub_tol_eff: float,
                          perm: Optional[torch.Tensor] = None) -> InsiderState:
     """One dense (partition=0) ALS iteration: every level's gram is its
-    size times F F^T (insider_tpu/train/als.py:576-587, 647-658)."""
+    size times F F^T (insider_tpu/train/als.py:576-587, 647-658).  Under a
+    mesh F F^T is summed over the column blocks, each level's Xty over
+    every rank (D on row block 0), and R^T R and R^T data over the row
+    blocks (ops/col_update)."""
     F = state.column_factor
-    gram = torch.matmul(F, F.T)
+    mesh = problem.mesh
+    gram = comm.psum(torch.matmul(F, F.T), mesh, "cols")
     R = _row_factor(problem, state)
     cfd_new = list(state.cfd_factors)
     for v, codes in enumerate(problem.codes):
         R_minus = R - cfd_new[v][codes]
         L = problem.n_levels[v]
         if problem.d[v] is not None:
-            V = row_update.update_row_factor_dense_fast(
-                one_hot_levels(codes, L), problem.d[v],
-                problem.counts[v], R_minus, F, gram, config.lambda1)
+            xty = row_update.dense_level_xty(
+                one_hot_levels(codes, L), _row_block_d(problem.d[v], mesh),
+                R_minus, F)
+            V = _ridge_solve_batched(problem.counts[v][:, None, None] * gram,
+                                     comm.psum(xty, mesh, "world"),
+                                     config.lambda1)
         else:
             V = row_update.update_row_factor_dense(
                 problem.data - losses.predict(R_minus, F), F, gram, codes, L,
@@ -520,13 +670,18 @@ def _als_iteration_dense(problem: Problem, config: FitConfig,
     R = _row_factor(problem, InsiderState(cfd_new, W, F))
     F_new = col_update.update_columns_dense(
         problem.data, R, F, config.lambda2, config.alpha, sub_tol_eff,
-        **_col_kw(config, perm))
+        mesh=mesh, **_col_kw(config, perm))
     _check_finite(config, "column update F (optimize_col)", F_new)
     return InsiderState(cfd_new, W, F_new)
 
 
 def _evaluate(problem: Problem, state: InsiderState) -> torch.Tensor:
-    """The boundary metrics as one (7,) f64 vector (losses.pack_metrics)."""
+    """The boundary metrics as one (7,) f64 vector (losses.pack_metrics).
+    Under a mesh each rank sums its block (the masked_eval kernel on it),
+    and one f64 sum over every rank finishes the vector: the replicated
+    V's squares come from rank 0 and F's sums from row block 0, so each
+    factor counts once; every rank gets the same bits, and so decides the
+    boundary alike."""
     R = _row_factor(problem, state)
     if problem.masked:
         ev = masked_eval(problem.data, problem.train_mask, problem.test_mask,
@@ -536,7 +691,30 @@ def _evaluate(problem: Problem, state: InsiderState) -> torch.Tensor:
             problem.data - losses.predict(R, state.column_factor))
     reg = losses.regularization_sums(state.cfd_factors, state.ctns_factor,
                                      state.column_factor)
-    return losses.pack_metrics(ev, reg)
+    vec = losses.pack_metrics(ev, reg)
+    mesh = problem.mesh
+    if mesh is None:
+        return vec
+    own = torch.tensor([True] * 4 + [mesh.rank == 0] + [mesh.r == 0] * 2,
+                       device=vec.device)
+    return comm.psum(torch.where(own, vec, 0.0), mesh, "world")
+
+
+def _stage_state(problem: Problem, state: InsiderState) -> InsiderState:
+    """The initial state on a sharded problem's rank: the whole state
+    given or drawn alike on every rank, with F cut to the rank's columns
+    (insider_tpu/train/als.py:849-875 _stage_state_global)."""
+    mesh = problem.mesh
+    if mesh is None:
+        return state
+    M = problem.shape[1]
+    F = state.column_factor
+    if F.shape[1] != M:
+        raise ValueError(f"a sharded fit starts from the whole (K, {M}) F, "
+                         f"got {tuple(F.shape)}")
+    _, (c0, c1) = mesh.block(problem.shape)
+    return InsiderState(list(state.cfd_factors), state.ctns_factor,
+                        F[:, c0:c1].contiguous())
 
 
 def _profiled(run, state, device, path):
@@ -607,8 +785,24 @@ def optimize(problem: Problem, config: FitConfig,
     the fit computes the same bits with and without it.
     The positional parameters are the JAX package's, in its order;
     generator is keyword-only.
+
+    A sharded problem (build_problem(sharding=...)) is fitted by every rank
+    of its process group together: each rank draws (or is given) the same
+    whole initial state and keeps the F columns of its block, runs the
+    iterations on its block with the collectives of sharding/comm.py, and
+    decides each boundary from the same all-reduced sums, so history,
+    n_iter and the losses are equal on every rank; at the end F is
+    gathered, so column_factor and state hold the whole (K, M) F on every
+    rank.  Rank 0 alone logs and writes log_jsonl; each rank writes its
+    own profile, trace_iter_<first>_<last>_rank<rank>.json.  Not yet under
+    a sharding (UNPORTED): checkpoint_path, resume, debug_checks.
     """
+    mesh = problem.mesh
+    check_unported(None if mesh is None else mesh.cfg,
+                   checkpoint_path=bool(checkpoint_path), resume=resume,
+                   debug_checks=config.debug_checks)
     disable_tf32()
+    lead = mesh is None or mesh.rank == 0
     cold_cd = (config.col_solver == "cd" and not config.cd_warm_start
                and config.alpha != 0.0)
     perm_gen = torch.Generator().manual_seed(config.seed) if cold_cd else None
@@ -634,6 +828,7 @@ def optimize(problem: Problem, config: FitConfig,
         state = init_state(generator, problem.n_levels, M,
                            config.latent_dim, n_ctns=n_ctns,
                            init_std=config.init_std)
+    state = _stage_state(problem, state)
 
     def finalize(vec):
         return losses.finalize_metrics_vec(vec, config.lambda1,
@@ -641,14 +836,14 @@ def optimize(problem: Problem, config: FitConfig,
                                            masked=problem.masked)
 
     history: List[dict] = []
-    jl = open(log_jsonl, "a") if log_jsonl else None
+    jl = open(log_jsonl, "a") if log_jsonl and lead else None
 
     def emit(rec):
         history.append(rec)
         if jl:
             jl.write(json.dumps(rec) + "\n")
             jl.flush()
-        if verbose:
+        if verbose and lead:
             logger.info(
                 "iter %d: loss=%.12g train_rmse=%.12g test_rmse=%.12g "
                 "delta=%.6g decay=%g", rec["iter"], rec["loss"],
@@ -686,10 +881,10 @@ def optimize(problem: Problem, config: FitConfig,
                 return state
 
             if profile_dir and len(history) == 2:
+                name = f"trace_iter_{it}_{boundary}" + (
+                    "" if mesh is None else f"_rank{mesh.rank}")
                 state = _profiled(run_chunk, state, problem.device,
-                                  os.path.join(profile_dir,
-                                               f"trace_iter_{it}_{boundary}"
-                                               ".json"))
+                                  os.path.join(profile_dir, name + ".json"))
             else:
                 state = run_chunk(state)
             it = boundary + 1
@@ -720,6 +915,10 @@ def optimize(problem: Problem, config: FitConfig,
         if jl:
             jl.close()
 
+    if mesh is not None:
+        state = InsiderState(state.cfd_factors, state.ctns_factor,
+                             comm.gather_cols(state.column_factor, mesh,
+                                              problem.shape[1]))
     return OptimizeResult(
         row_matrices=[f.cpu().numpy() for f in state.cfd_factors],
         ctns_factor=(None if state.ctns_factor is None

@@ -66,7 +66,11 @@ def _run_trial(problem, obj, rank, lam, alpha, trial_seed, tuning_iter):
     return als.optimize(problem, cfg, state=state, verbose=False)
 
 
-def _append_csv(path, header, row):
+def _append_csv(path, header, row, problem):
+    """Append row (after the header, in a new file); under a sharding
+    rank 0 alone writes, the other ranks hold the same rows."""
+    if problem.mesh is not None and problem.mesh.rank != 0:
+        return
     exists = os.path.exists(path)
     with open(path, "a", newline="") as f:
         w = csv.writer(f)
@@ -105,7 +109,7 @@ def tune(obj, latent_dimension, lambda_=0.1, alpha=0.0, out_dir="."):
                              tuning_iter=tuning_iter)
             row = [rank, res.train_rmse, res.test_rmse]
             rank_tuning.append(row)
-            _append_csv(rank_csv, RANK_HEADER, row)
+            _append_csv(rank_csv, RANK_HEADER, row, problem)
         best = int(np.argmin([r[2] for r in rank_tuning]))
         latent_rank = ranks[best]               # argmin test rmse, :135-139
     else:
@@ -123,7 +127,7 @@ def tune(obj, latent_dimension, lambda_=0.1, alpha=0.0, out_dir="."):
                              tuning_iter=tuning_iter)
             row = [lam, al, res.train_rmse, res.test_rmse]
             reg_tuning.append(row)
-            _append_csv(reg_csv, REG_HEADER, row)
+            _append_csv(reg_csv, REG_HEADER, row, problem)
 
     return {
         "rank_tuning": np.asarray(rank_tuning) if rank_tuning else None,

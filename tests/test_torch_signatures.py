@@ -1,13 +1,12 @@
 """The port's entry points take the JAX package's positional parameters.
 
 Insider.__init__, Insider.fit, Insider.tune, train/als.build_problem,
-train/als.optimize, fit_interaction and the two CD solvers of
-insider_tpu_torch bind every positional argument of the reference's
-signature to the same name at the same position, with the
-reference's defaults; the port's own parameters are keyword-only; a
-reference parameter the port does not implement takes only the value that
-does what the reference's default does and raises on any other, naming
-itself and the ROADMAP item that will port it; use_pallas has no
+train/als.build_problem_distributed, train/als.optimize, fit_interaction
+and the two CD solvers of insider_tpu_torch bind every positional
+argument of the reference's signature to the same name at the same
+position, with the reference's defaults; the port's own parameters are keyword-only; a
+combination with `sharding` that the port does not run yet raises,
+naming itself and the ROADMAP item that will port it; use_pallas has no
 counterpart and must be None.
 """
 
@@ -24,7 +23,7 @@ from insider_tpu import api as japi
 from insider_tpu.ops import row_update as jrow
 from insider_tpu.ops import solvers as jsolvers
 from insider_tpu.train import als as jals
-from insider_tpu_torch.config import FitConfig
+from insider_tpu_torch.config import FitConfig, ShardingConfig
 from insider_tpu_torch.train import als
 
 ENTRIES = {
@@ -32,6 +31,8 @@ ENTRIES = {
     "Insider.fit": (japi.Insider.fit, itt.Insider.fit),
     "Insider.tune": (japi.Insider.tune, itt.Insider.tune),
     "build_problem": (jals.build_problem, als.build_problem),
+    "build_problem_distributed": (jals.build_problem_distributed,
+                                  als.build_problem_distributed),
     "optimize": (jals.optimize, als.optimize),
     "coordinate_descent": (jsolvers.coordinate_descent,
                            itt.coordinate_descent),
@@ -63,7 +64,7 @@ def test_positional_parameters_bind_alike(entry):
 @pytest.mark.parametrize("entry,name", [
     ("Insider.__init__", "device"), ("Insider.fit", "state"),
     ("Insider.fit", "cd_warm_start"), ("build_problem", "device"),
-    ("optimize", "generator")])
+    ("build_problem_distributed", "device"), ("optimize", "generator")])
 def test_port_only_parameters_are_keyword_only(entry, name):
     ref, port = (inspect.signature(f).parameters for f in ENTRIES[entry])
     assert name not in ref
@@ -108,14 +109,65 @@ CALLS = {
 }
 
 
-@pytest.mark.parametrize("entry,name,value,item", [
-    ("Insider.__init__", "sharding", object(), "Queue 1 item 9"),
-    ("build_problem", "sharding", object(), "Queue 1 item 9")])
-def test_unported_values_raise(entry, name, value, item):
-    with pytest.raises(NotImplementedError, match=item) as err:
-        CALLS[entry](**{name: value})
-    assert name in str(err.value)
-    assert set(als.UNPORTED) == {"sharding"}
+def _sharded_problem():
+    obj = _obj()
+    return als.build_problem(obj.data, obj.confounder, obj.train_indicator,
+                             obj.test_indicator, sharding=ShardingConfig(),
+                             device="cpu")
+
+
+def _segment_sum_build():
+    saved = als._FAST_E_BYTES
+    als._FAST_E_BYTES = 0          # every confounder past the budget
+    try:
+        CALLS["build_problem"](sharding=ShardingConfig())
+    finally:
+        als._FAST_E_BYTES = saved
+
+
+CTNS = np.linspace(0.0, 1.0, 24)
+SHARDED = {
+    "Insider.__init__ ctns_confounder": lambda: itt.Insider(
+        *_data(), CTNS, sharding=ShardingConfig(), device="cpu"),
+    "build_problem ctns_confounder": lambda: CALLS["build_problem"](
+        ctns_confounder=CTNS, sharding=ShardingConfig()),
+    "build_problem segment_sum": _segment_sum_build,
+    "build_problem no_precompute": lambda: CALLS["build_problem"](
+        sharding=ShardingConfig(), precompute=False),
+    "Insider.fit no_precompute": lambda: itt.Insider(
+        *_data(), sharding=ShardingConfig(), device="cpu").fit(
+            2, 1.0, 0.4, verbose=False, max_iter=2, precompute=False),
+    "Insider.fit checkpoint_path": lambda: itt.Insider(
+        *_data(), sharding=ShardingConfig(), device="cpu").fit(
+            2, 1.0, 0.4, verbose=False, max_iter=2,
+            checkpoint_path="never-written.npz"),
+    "optimize checkpoint_path": lambda: als.optimize(
+        _sharded_problem(), _config(), verbose=False,
+        checkpoint_path="never-written.npz"),
+    "optimize resume": lambda: als.optimize(
+        _sharded_problem(), _config(), verbose=False, resume=True),
+    "optimize debug_checks": lambda: als.optimize(
+        _sharded_problem(), FitConfig(latent_dim=2, max_iter=2,
+                                      debug_checks=True), verbose=False),
+}
+
+
+@pytest.mark.parametrize("call", sorted(SHARDED))
+def test_unported_sharded_combinations_raise(call):
+    """sharding is ported; each combination with it that is not yet
+    raises NotImplementedError naming the setting, the sharding and its
+    ROADMAP item (train/als.UNPORTED), here on a 1 x 1 layout."""
+    name = call.split()[-1]
+    what, item = als.UNPORTED[("sharding", name)]
+    with pytest.raises(NotImplementedError) as err:
+        SHARDED[call]()
+    assert str(err.value).startswith(what)
+    assert "ShardingConfig(rows=1, cols=1" in str(err.value)
+    assert f"(ROADMAP {item})" in str(err.value)
+    assert {n for _, n in als.UNPORTED} == {
+        c.split()[-1] for c in SHARDED} == {
+        "ctns_confounder", "segment_sum", "no_precompute",
+        "checkpoint_path", "resume", "debug_checks"}
 
 
 def _losses(out):
