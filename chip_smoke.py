@@ -174,7 +174,30 @@ Phases, each fatal on failure:
      the gap of the one-process fit with its columns reversed (its sums
      in another order, reversed_fit), where the fit moves that far with
      the order of its sums; ms/iter printed beside the card's name and
-     power limit (two ranks on one card measure no multi-card rate).
+     power limit (two ranks on one card measure no multi-card rate);
+ 17. the iteration as one CUDA graph and the chained boundaries: the
+     flagship masked FSS, dense FSS and cold-CD masked fits (50
+     iterations), the prediXcan K=50 fit (20), the flagship fit with P=3
+     covariates (50) and the flagship masked FSS fit to 200 iterations
+     with a global_tol that stops it inside a dispatch (converge_tol),
+     each through Insider.fit in three modes: eager (every kernel
+     launched from the host, each boundary decided there), graph
+     boundaries_per_dispatch=1 and graph 5 (the default); the graph fits
+     equal the eager fit bit for bit (every history record's numbers,
+     the factors, n_iter, converged) and launch its kernels as often
+     (plus a chained dispatch's boundary past its stop); ms/iter of each
+     mode, the capture time, the wasted iterations and the busy share of
+     20 replays of the captured iteration (torch.profiler) printed beside
+     the card's name and power limit.  Phase 14 also fits the GTEx-sized
+     uint8 problem eagerly: the same losses, its peak beside the graph
+     fit's.
+A fit on the card runs its first iteration eagerly and the rest as
+replays of one captured iteration (train/graph.py): a replay adds the
+captured iteration's launches to each wrapper's count, so a fit's counts
+are its kernels' launches.  The phases that take the k-th call of a
+wrapper (12, 13) run their fit eagerly; infit_checks takes a kernel's
+last call, which under the graph is the capture's, its tensors holding
+the last replay's values.
 The route checks (phases 4, 5): the fused kernels and col_gram_xty sum the
 exact bf16 planes of the f32 table on the tensor cores in the same k-steps
 of 16 rows, but the fused kernels sum Xty row by row and col_gram_xty each
@@ -187,8 +210,10 @@ them just after: each kernel of its path must have launched, and the
 kernels of the other solver or route never; losses finite, and
 non-increasing for the FSS fits (a cold-CD fit screens its warm start, so
 its losses need not be monotone; whether they were is printed); ms per
-iteration from the fit's own boundary clock (each boundary copies its
-metrics to the host, so the clock reads a synchronized device).
+iteration from the fit's own boundary clock, from iteration 0's boundary
+to the last (each dispatch ends by copying its metrics to the host, so
+the clock reads a synchronized device; boundary_ms).  Each phase's end
+is printed on the smoke's clock ("[phase clock]").
 Then one JSON line with the kernels' numbers: each kernel's bound_ms is
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over the peak of their type (989
@@ -1655,9 +1680,15 @@ def phase_counts(torch, itt, gram, flagship, flag_state, dense_state,
           f"{2.0 * K * K * float(c['polish_sweeps'].sum()):.4g})")
     del prob
 
-    (G, b, beta0, lam, alpha), ckw = captured_call(
-        torch, "feature_sign", 5,
-        lambda: predixcan.fit(verbose=False, **dict(K50_FIT, max_iter=4)))
+    # the fifth update's own call: eagerly (under the graph the later
+    # iterations are replays of one captured call)
+    import insider_tpu_torch.api as api
+
+    with fit_mode(als, api, "eager"):
+        (G, b, beta0, lam, alpha), ckw = captured_call(
+            torch, "feature_sign", 5,
+            lambda: predixcan.fit(verbose=False,
+                                  **dict(K50_FIT, max_iter=4)))
     out["K=50 fit, 5th update"] = count_summary(
         torch, "K=50 masked fit's fifth column update", 50,
         fss_counts(torch, G, b, beta0, lam, alpha, **ckw))
@@ -1724,10 +1755,11 @@ def phase_counts(torch, itt, gram, flagship, flag_state, dense_state,
         gram_input_bound(50, b.shape[1], shared=False, sweeps=c["sweeps"]))
     del prob, G, b
 
-    (G, b, beta0, lam, alpha, tol, sweeps), _ = captured_call(
-        torch, "cd_streamed", 5,
-        lambda: predixcan.fit(verbose=False, **dict(K50_FIT, max_iter=4),
-                              **COLD))
+    with fit_mode(als, api, "eager"):
+        (G, b, beta0, lam, alpha, tol, sweeps), _ = captured_call(
+            torch, "cd_streamed", 5,
+            lambda: predixcan.fit(verbose=False,
+                                  **dict(K50_FIT, max_iter=4), **COLD))
     c = cd_counts(torch, G, b, beta0, lam, alpha, tol, sweeps)
     out["cold CD K=50 fit, 5th update"] = cd_count_summary(
         torch, "cold-CD K=50 masked fit's fifth column update", 50, c,
@@ -1765,16 +1797,13 @@ def run_fit(torch, obj, wrappers, expect, name, monotone=True, **fit_kw):
     for h in hist:
         print(f"  iter {h['iter']}: loss {h['loss']!r} train_rmse "
               f"{h['train_rmse']!r} test_rmse {h['test_rmse']!r}")
-    late = [h for h in hist if h["iter"] >= 10]
-    if len(late) < 2:
-        fail(f"{name}: the fit stopped before two boundaries past iter 10")
-    first, last = late[0], late[-1]
-    ms_fit = ((last["elapsed_s"] - first["elapsed_s"])
-              / (last["iter"] - first["iter"]) * 1e3)
+    ms_fit = boundary_ms(hist)
     print(f"{name}: {obj.fit_result.n_iter} iterations in {fit_s:.2f} s; "
           f"train_rmse {hist[-1]['train_rmse']!r} test_rmse "
           f"{obj.test_rmse!r}; {ms_fit:.3f} ms/iter over iterations "
-          f"{first['iter'] + 1}-{last['iter']} (boundary evals included)")
+          f"1-{hist[-1]['iter']} (boundary evals included; graph "
+          f"{obj.fit_result.graphed}, capture "
+          f"{obj.fit_result.capture_s * 1e3:.2f} ms)")
     return launches, losses[-1], ms_fit
 
 
@@ -1830,10 +1859,14 @@ def phase_covariates(torch, itt, wrappers, masked_path, flag_ms):
                        dict(masked_path, feature_sign_fused=1, ctns_cd=1,
                             **no_cd), "covariate flagship fit", **fit_kw)
 
-    # the masked fit's last covariate update's inputs to ctns_cd
-    args, _ = captured_call(torch, "ctns_cd", 3 * n_iter,
-                            lambda: inputs.update(fit=masked_fit()),
-                            module=continuous)
+    # the masked fit's last covariate update's inputs to ctns_cd, its own
+    # call: the fit runs eagerly here (phase 17 runs it under the graph)
+    import insider_tpu_torch.api as api
+
+    with fit_mode(als, api, "eager"):
+        args, _ = captured_call(torch, "ctns_cd", 3 * n_iter,
+                                lambda: inputs.update(fit=masked_fit()),
+                                module=continuous)
     launches, loss, ms = inputs["fit"]
     if launches["ctns_cd"] != 3 * n_iter:
         fail(f"covariate flagship fit: ctns_cd launched "
@@ -2375,6 +2408,23 @@ def gtex_fits(torch, itt, als, wrappers, host_gb):
     if res["uint8"]["losses"] != res["f32"]["losses"]:
         fail(f"GTEx-sized fit: uint8 losses {res['uint8']['losses']} vs f32 "
              f"{res['f32']['losses']}")
+    # the uint8 fit again, eagerly (phase 17's "eager" mode): the same bits,
+    # and the peak beyond the problem without the graph's private pool
+    import insider_tpu_torch.api as api
+
+    graphed = obj.fit_result.graphed
+    with fit_mode(als, api, "eager"):
+        _, losses, ms, mem = measured_fit(
+            torch, als, obj, wrappers, expect,
+            "GTEx-sized fit, uint8 masks, eager", mask_dtype=torch.uint8,
+            **GTEX_FIT)
+    if losses != res["uint8"]["losses"]:
+        fail(f"GTEx-sized fit: the eager fit's losses {losses} vs "
+             f"{res['uint8']['losses']}")
+    print(f"GTEx-sized fit: took the graph {graphed}; fit peak beyond the "
+          f"problem {res['uint8']['fit_peak'] / GB:.3f} GB with it, "
+          f"{mem['fit_peak'] / GB:.3f} GB eager; ms/iter "
+          f"{res['uint8']['ms']:.3f} with it, {ms:.3f} eager")
     saved = res["f32"]["persistent"] - res["uint8"]["persistent"]
     print(f"GTEx-sized fit: uint8 and f32 losses equal bit for bit; uint8 "
           f"masks save {saved / GB:.3f} GB of the problem (2 N M 3 = "
@@ -2587,12 +2637,16 @@ def ageing_table(path):
 
 def boundary_ms(recs):
     """ms per iteration from a fit's boundary records (its history or its
-    --log-jsonl lines) over the iterations past the first ten."""
-    late = [r for r in recs if r["iter"] >= 10]
-    if len(late) < 2:
-        fail(f"a fit stopped before two boundaries past iter 10: {recs}")
-    return ((late[-1]["elapsed_s"] - late[0]["elapsed_s"])
-            / (late[-1]["iter"] - late[0]["iter"]) * 1e3)
+    --log-jsonl lines), from its first boundary (iteration 0's, after a
+    graph fit's capture) to its last: a chained dispatch's boundaries are
+    recorded together when it ends, so only a span of whole dispatches
+    reads the time of its iterations."""
+    first = min((r for r in recs if r["iter"] >= 0), key=lambda r: r["iter"])
+    last = recs[-1]
+    if last["iter"] < first["iter"] + 10:
+        fail(f"a fit stopped before a boundary past its first: {recs}")
+    return ((last["elapsed_s"] - first["elapsed_s"])
+            / (last["iter"] - first["iter"]) * 1e3)
 
 
 def same_saved(name, path, obj):
@@ -3242,18 +3296,235 @@ def phase_sharded(torch, itt, als, wrappers, smi, ref):
           f"{time.time() - t_phase:.1f} s")
 
 
-def kernel_wrappers():
-    """{name: wrapper} of every kernel, each with its launch count."""
-    from insider_tpu_torch.kernels import cd, ctns, eval as ev, fss, gram, row
+# Phase 17, the iteration as one CUDA graph and the chained boundaries.
+# Each fit in three modes: "eager" (every kernel launched from the host and
+# every boundary decided there, the fit as it runs off the card:
+# train/als.graph_route patched to False), "graph 1" (the iterations as
+# replays of one captured iteration, boundaries_per_dispatch=1) and "graph
+# 5" (the replays and five boundaries a dispatch decided on the card, the
+# default), through Insider.fit (its FitConfig patched for the
+# boundaries).  (name, Insider factory, Insider.fit arguments.)
+GRAPH_FITS = [
+    ("flagship masked FSS", "flagship", dict(partition=1, **FLAG_FIT)),
+    ("flagship dense FSS", "flagship", dict(partition=0, **FLAG_FIT)),
+    ("cold-CD flagship masked", "flagship",
+     dict(partition=1, **FLAG_FIT, **COLD)),
+    ("prediXcan K=50", "predixcan", K50_FIT),
+    ("flagship P=3 covariates masked", "covariates",
+     dict(partition=1, **FLAG_FIT)),
+]
+GRAPH_MODES = ("eager", "graph 1", "graph 5")
+# the converging fit: the flagship masked FSS fit to CONVERGE_ITERS with a
+# global_tol that stops it at a boundary inside a dispatch (converge_tol)
+CONVERGE_ITERS = 200
 
-    return {"level_gram": row.level_gram, "row_xty": row.row_xty,
-            "feature_sign_fused": fss.feature_sign_fused,
-            "masked_eval": ev.masked_eval,
-            "col_gram_xty": gram.col_gram_xty,
-            "feature_sign": fss.feature_sign,
-            "feature_sign_shared": fss.feature_sign_shared,
-            "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
-            "cd_shared": cd.cd_shared, "ctns_cd": ctns.ctns_cd}
+
+def fit_mode(als, api, mode):
+    """A context that runs Insider.fit in `mode` (GRAPH_MODES)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        route, config = als.graph_route, api.FitConfig
+        bpd = 1 if mode != "graph 5" else 5
+        api.FitConfig = lambda *a, **k: config(
+            *a, **dict(k, boundaries_per_dispatch=bpd))
+        if mode == "eager":
+            als.graph_route = lambda *a, **k: False
+        try:
+            yield
+        finally:
+            als.graph_route, api.FitConfig = route, config
+    return ctx()
+
+
+def same_fit(a, b):
+    """'' when two OptimizeResults are the same fit bit for bit (every
+    history record's numbers, the factors, n_iter, converged, diverged),
+    else what differs."""
+    if [h["iter"] for h in a.history] != [h["iter"] for h in b.history]:
+        return "boundaries differ"
+    for x, y in zip(a.history, b.history):
+        for k in x:
+            if (k != "elapsed_s" and np.float64(x[k]).tobytes()
+                    != np.float64(y[k]).tobytes()):
+                return f"iter {x['iter']} {k}: {x[k]!r} vs {y[k]!r}"
+    for i, (x, y) in enumerate(zip(
+            a.row_matrices + [a.column_factor] + [a.ctns_factor],
+            b.row_matrices + [b.column_factor] + [b.ctns_factor])):
+        if not (x is None and y is None or np.array_equal(x, y)):
+            return f"factor {i} differs"
+    if (a.n_iter, a.converged, a.diverged) != (b.n_iter, b.converged,
+                                               b.diverged):
+        return "n_iter, converged or diverged differ"
+    return ""
+
+
+def converge_tol(losses):
+    """A global_tol that stops a fit with these boundary losses ({iter:
+    loss} every 10 iterations) at a boundary inside a dispatch of five,
+    with a later one in it (the second, third or fourth boundary of
+    iterations 1-50, 51-100, ...), the latest: between the relative
+    decrease there and the least one before it.  Returns (global_tol, the
+    boundary)."""
+    its = sorted(i for i in losses if i >= 10)
+    rel = {b: (losses[b - 10] - losses[b]) / losses[b - 10] for b in its
+           if b - 10 in losses}
+    for b in reversed(its):               # the latest such boundary
+        before = [rel[c] for c in rel if c < b]
+        if (b // 10) % 5 in (2, 3, 4) and before and 0 < rel[b] < min(
+                before):
+            return float(np.sqrt(rel[b] * min(before))), b
+    fail(f"converging fit: no boundary inside a dispatch where the relative "
+         f"decrease falls below all before it: {rel}")
+
+
+def graph_busy(torch, als, obj, fit_kw, state, iters=20):
+    """torch.profiler around `iters` replays of the fit's captured
+    iteration (graph.IterationGraph from `state`, the fit's end): device
+    kernel time over the host's window, which ends in a synchronize; None
+    where the profiler shows no device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.train import graph
+
+    masked = bool(fit_kw.get("partition", 0))
+    cold = fit_kw.get("col_solver") == "cd"
+    cfg = FitConfig(latent_dim=fit_kw["latent_dimension"],
+                    lambda1=fit_kw["lambda_"], lambda2=fit_kw["lambda_"],
+                    alpha=fit_kw["alpha"], masked=masked,
+                    col_solver=fit_kw.get("col_solver", "auto"),
+                    cd_warm_start=not cold)
+    problem = als.build_problem(obj.data, obj.confounder,
+                                obj.train_indicator + obj.test_indicator,
+                                obj.na_indicator, obj.ctns_confounder,
+                                masked=masked, device="cuda")
+    perm = (torch.randperm(state.latent_dim).cuda() if cold else None)
+    g = graph.IterationGraph(problem, cfg, state, als._als_iteration,
+                             SUB_TOL, perm)
+    g.run(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        g.run(iters)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    us = sum(t for t, _ in device_kernel_times(torch, prof).values())
+    return (us / wall_us if us else None), wall_us / 1e3 / iters
+
+
+def phase_graph(torch, itt, als, wrappers, smi):
+    """Phase 17: every GRAPH_FITS fit and the converging fit in the three
+    modes of GRAPH_MODES, each with every launch count set to 0 just
+    before it; the graph fits equal the eager fit bit for bit, launch the
+    eager fit's kernels as often (plus the iterations a chained dispatch
+    ran past its stop, and their evals); ms/iter of each mode, the
+    capture time, the wasted iterations and the graph's busy share
+    (graph_busy) printed beside the card's name and power limit.  Returns
+    {fit: {mode: record}}."""
+    import insider_tpu_torch.api as api
+
+    t_phase = time.time()
+    factories = dict(flagship=flagship_object, predixcan=predixcan_object,
+                     covariates=covariate_object)
+    objs = {}
+    out, failures = {}, []
+
+    def drive(name, obj, fit_kw, mode):
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        with fit_mode(als, api, mode):
+            obj.fit(verbose=False, **fit_kw)
+        torch.cuda.synchronize()
+        res = obj.fit_result
+        return res, {n: w.launches for n, w in wrappers.items()}
+
+    fits = list(GRAPH_FITS)
+    flag = objs["flagship"] = flagship_object(itt)
+    flag.params["global_tol"] = 0.0
+    ref, _ = drive("converging fit, its losses", flag,
+                   dict(FLAG_FIT, partition=1, max_iter=CONVERGE_ITERS),
+                   "graph 5")
+    flag.params["global_tol"] = 1e-9
+    tol, stop = converge_tol({h["iter"]: h["loss"] for h in ref.history})
+    fits.append(("flagship masked FSS converging mid-dispatch", "flagship",
+                 dict(FLAG_FIT, partition=1, max_iter=CONVERGE_ITERS,
+                      global_tol=tol)))
+    for name, factory, fit_kw in fits:
+        if factory not in objs:
+            objs[factory] = factories[factory](itt)
+        obj = objs[factory]
+        kw = {k: v for k, v in fit_kw.items() if k != "global_tol"}
+        obj.params["global_tol"] = fit_kw.get("global_tol", 1e-9)
+        runs, counts = {}, {}
+        for mode in GRAPH_MODES:
+            runs[mode], counts[mode] = drive(name, obj, kw, mode)
+        obj.params["global_tol"] = 1e-9
+        eager = runs["eager"]
+        rec = out[name] = {}
+        for mode in GRAPH_MODES:
+            res = runs[mode]
+            rec[mode] = dict(ms=boundary_ms(res.history), capture_s=res.capture_s,
+                             graphed=res.graphed, wasted=res.wasted_iters,
+                             n_iter=res.n_iter, converged=res.converged)
+            if mode == "eager":
+                if res.graphed:
+                    failures.append(f"{name}: the eager fit took the graph")
+                continue
+            if not res.graphed:
+                print(f"{name}, {mode}: the route was not captured (ran "
+                      "eagerly)")
+            diff = same_fit(res, eager)
+            if diff:
+                failures.append(f"{name}, {mode}: {diff}")
+            # the boundaries a chained dispatch ran past its stop: their
+            # iterations and their evals
+            for k, c in counts["eager"].items():
+                want = (c + (res.wasted_iters // 10 if c else 0)
+                        if k == "masked_eval" else
+                        c // (eager.n_iter + 1)
+                        * (eager.n_iter + 1 + res.wasted_iters))
+                if counts[mode][k] != want:
+                    failures.append(f"{name}, {mode}: {k} launched "
+                                    f"{counts[mode][k]} times, not {want}")
+        launched = {k: c for k, c in counts["graph 5"].items() if c}
+        busy, replay_ms = graph_busy(torch, als, obj, kw,
+                                     runs["graph 5"].state)
+        rec["busy_share"], rec["replay_ms"] = busy, replay_ms
+        print(f"{name}: {eager.n_iter} iterations, converged "
+              f"{eager.converged}; ms/iter eager "
+              f"{rec['eager']['ms']:.4f}, graph 1 "
+              f"{rec['graph 1']['ms']:.4f}, graph 5 "
+              f"{rec['graph 5']['ms']:.4f}; capture "
+              f"{rec['graph 5']['capture_s'] * 1e3:.2f} ms; wasted "
+              f"iterations {runs['graph 5'].wasted_iters}; graph busy share "
+              f"{'not measured' if busy is None else f'{busy:.3f}'} over "
+              f"20 replays ({replay_ms:.4f} ms a replay); graph fits equal "
+              f"the eager fit bit for bit: "
+              f"{not any(f.startswith(name + ',') for f in failures)}; "
+              f"launches (graph 5) {launched} ({smi})")
+    conv = out["flagship masked FSS converging mid-dispatch"]
+    print(f"converging fit: global_tol {tol!r} stops at iteration {stop}")
+    for mode in GRAPH_MODES:
+        if not (conv[mode]["converged"] and conv[mode]["n_iter"] == stop):
+            failures.append(f"converging fit, {mode}: n_iter "
+                            f"{conv[mode]['n_iter']}, converged "
+                            f"{conv[mode]['converged']}, not at {stop}")
+    if failures:
+        fail("; ".join(failures))
+    print(f"phase 17: {time.time() - t_phase:.1f} s")
+    return out
+
+
+def kernel_wrappers():
+    """{name: wrapper} of every kernel, each with its launch count (which
+    a graph replay advances by the launches of its captured iteration)."""
+    from insider_tpu_torch.train import graph
+
+    return graph.kernel_wrappers()
 
 
 def main():
@@ -3263,6 +3534,12 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+
+    t_main = time.time()
+
+    def lap(phase):
+        print(f"[phase clock] phase {phase} done at "
+              f"{time.time() - t_main:.1f} s")
 
     import insider_tpu_torch as itt
     from insider_tpu_torch.kernels import _lib, cd, eval as ev, fss, gram, row
@@ -3280,6 +3557,8 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    lap(1)
+
     # 2. build
     t0 = time.time()
     _lib.lib()
@@ -3289,6 +3568,8 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+
+    lap(2)
 
     # 3. kernels against plain versions
     kern, fss_stats, alone = phase_kernels(torch, row, fss, cd, ev)
@@ -3304,6 +3585,8 @@ def main():
     print(f"fused gram build alone (no solve): feature_sign_fused "
           f"{alone['feature_sign_fused']:.4f} ms, cd_fused "
           f"{alone['cd_fused']:.4f} ms")
+
+    lap(3)
 
     # 4. kernels of the dense and K > 32 paths
     kern2, stats2 = phase_kernels_slice2(torch, gram, fss)
@@ -3321,12 +3604,16 @@ def main():
                  f"{kern2[name]['lanes']}" if "lanes" in kern2[name]
                  else ""))
 
+    lap(4)
+
     # 5. the cold-CD kernels
     kern_cd = phase_kernels_cd(torch, gram, cd)
     kern.update(kern_cd)
     for name, rec in kern_cd.items():
         print(f"kernel {name}: max_abs_err {rec['max_abs_err']:.3e} "
               f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms")
+
+    lap(5)
 
     # 6. K = 96 and K = 128
     for name, rec in phase_kernels_wide(torch, gram, fss, cd).items():
@@ -3337,6 +3624,8 @@ def main():
               + (f" bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                  if "bound_ms" in rec else "")
               + (f" group width L={rec['lanes']}" if "lanes" in rec else ""))
+
+    lap(6)
 
     # 7. small fits, card against CPU (every fit runs; then fatal if any
     # disagreed)
@@ -3376,6 +3665,8 @@ def main():
     no_fss = dict(feature_sign_fused=0, feature_sign=0, feature_sign_shared=0,
                   ctns_cd=0)
 
+    lap(7)
+
     # 8. flagship fits through the user entry point
     flagship = flagship_object(itt)
     masked_path = dict(level_gram=1, row_xty=1, masked_eval=1)
@@ -3403,6 +3694,8 @@ def main():
     boundaries("flagship dense fit", flagship)
     launches["feature_sign_shared"] = dense["feature_sign_shared"]
 
+    lap(8)
+
     # 9. K=50 masked fit at the prediXcan shape
     predixcan = predixcan_object(itt)
     k50, fss_k50, _ = run_fit(
@@ -3411,6 +3704,8 @@ def main():
              feature_sign=1, **no_cd), "K=50 masked fit", **K50_FIT)
     launches["col_gram_xty"] = k50["col_gram_xty"]
     launches["feature_sign"] = k50["feature_sign"]
+
+    lap(9)
 
     # 10. cold-CD fits of the same problems
     cd_states = {}
@@ -3436,6 +3731,8 @@ def main():
         print(f"{name}: final loss {loss!r} vs FSS fit {fss_loss!r} "
               f"(ratio {loss / fss_loss:.6f})")
 
+    lap(10)
+
     # 11. in-fit profiles: the flagship masked and dense FSS fits, the
     # cold-CD flagship masked and dense fits and the cold-CD K=50 masked fit
     print("profile of the flagship masked fit (FSS), 10 iterations:")
@@ -3452,6 +3749,8 @@ def main():
         profile_fit(torch, obj, wrappers, cd_states[name], k, lam, alpha,
                     masked=masked, **COLD)
 
+    lap(11)
+
     # 12. what the columns cost: counting replays of the FSS and cold-CD
     # iterations
     phase_counts(torch, itt, gram, flagship, flag_state, dense_state,
@@ -3461,10 +3760,14 @@ def main():
                  cd_states["cold CD K=50 masked fit"])
     del flagship, predixcan
 
+    lap(12)
+
     # 13. continuous covariates, checkpoint, glm
     kern["ctns_cd"] = phase_covariates(torch, itt, wrappers, masked_path,
                                        flag_ms)
     launches["ctns_cd"] = kern["ctns_cd"]["launches"]
+
+    lap(13)
 
     # 14. the memory-lean fit: uint8 masks, chunked precompute, segment sums
     lean = phase_memory_lean(torch, itt, als, (row, fss, cd, ev, gram),
@@ -3473,12 +3776,23 @@ def main():
     for name, rec in lean.items():
         launches[name] = rec["launches"]
 
+    lap(14)
+
     # 15. the command line, the workloads and debug_checks
     phase_cli_workloads(torch, itt, als, wrappers, smi)
+
+    lap(15)
 
     # 16. the sharded fit: one rank over NCCL, two ranks sharing the card
     # over gloo, and the file ingest
     phase_sharded(torch, itt, als, wrappers, smi, one_process)
+
+    lap(16)
+
+    # 17. the iteration as one CUDA graph and the chained boundaries
+    phase_graph(torch, itt, als, wrappers, smi)
+
+    lap(17)
 
     # result
     tpu = "insider_tpu/kernels/"

@@ -3,9 +3,9 @@
 Counterpart of insider_tpu/config.py.  The port runs a slice of the JAX
 package's settings: the masked and the dense fit with the feature-sign-search
 (FSS) column solver or the reference's strong-rule coordinate descent (CD),
-ridge solves at alpha == 0, every check boundary decided on the host.
-Settings outside that slice raise NotImplementedError when the config is
-built, so a run never silently takes a path the port does not have.
+ridge solves at alpha == 0, check boundaries decided on the host or chained
+on the device.  use_pallas, which the port has no counterpart of, raises
+ValueError unless it is None, as Insider.fit's does.
 """
 
 from __future__ import annotations
@@ -19,7 +19,9 @@ class FitConfig:
     """Optimization hyperparameters for one `optimize` run.
 
     Mirrors the argument list of the reference's optimize()
-    (src/optimize.cpp:256-257) plus the constants it hardcodes.
+    (src/optimize.cpp:256-257) plus the constants it hardcodes; the fields
+    are the JAX package's, in its order, so a positional FitConfig binds
+    alike in both.
     """
 
     latent_dim: int = 10
@@ -42,16 +44,14 @@ class FitConfig:
     max_iter: int = 10000
     # Convergence/metrics cadence (src/optimize.cpp:327,381: `iter % 10`).
     check_every: int = 10
-    # Check boundaries per host decision.  The port decides every boundary
-    # on the host in float64, so 1 is the only value it runs.
-    boundaries_per_dispatch: int = 1
-    # Init distribution N(0, init_std^2) (R/utils.R:40-43).
-    init_std: float = 1e-3
-    seed: int = 0
-    # Column sub-solver for alpha > 0: "fss" = the feature-sign search with
-    # its polish (ops/fss.py); "cd" = strong-rule coordinate descent, the
-    # reference's algorithm (coordinate_descent.cpp:57); "auto" = "fss".
-    col_solver: str = "auto"
+    # Check boundaries per dispatch: with more than one, full boundaries of
+    # check_every iterations run back to back, the relative-loss stop and
+    # the sub_tol decay ladder decided on the device in float64 between
+    # them, and the host reads the boundaries' sums once a dispatch
+    # (train/als._run_boundary_chain); a checkpoint is saved once a
+    # dispatch.  The fit is the same, bit for bit, at every value; <= 1
+    # decides every boundary on the host (insider_tpu/config.py:41-49).
+    boundaries_per_dispatch: int = 5
     # Safety cap on CD sweeps inside one column update (the reference loops
     # unboundedly, coordinate_descent.cpp:82-114).  KKT reactivation
     # (coordinate_descent.cpp:118-124) is folded into the same sweep loop
@@ -67,15 +67,26 @@ class FitConfig:
     # (cold strong-rule CD, in the coordinate order train/als.draw_perm
     # draws for each column update).
     cd_warm_start: bool = True
+    # Continuous-covariate CD stop: sum|delta w| < ctns_tol
+    # (src/optimize.cpp:122), with a cap on its sweeps.
+    ctns_tol: float = 1e-1
+    max_ctns_sweeps: int = 100
+    # Init distribution N(0, init_std^2) (R/utils.R:40-43).
+    init_std: float = 1e-3
+    seed: int = 0
+    # The JAX package's switch for its TPU kernels; the port runs its CUDA
+    # kernels on the card and their plain versions on the CPU, so it must be
+    # None (as Insider.fit's use_pallas must).
+    use_pallas: Optional[bool] = None
+    # Column sub-solver for alpha > 0: "fss" = the feature-sign search with
+    # its polish (ops/fss.py); "cd" = strong-rule coordinate descent, the
+    # reference's algorithm (coordinate_descent.cpp:57); "auto" = "fss".
+    col_solver: str = "auto"
     # Outer-step cap for the FSS solver.
     max_fss_outer: int = 48
     # Plain-CD polish after FSS, at optimize()'s effective sub_tol.
     fss_polish: bool = True
     max_fss_polish_sweeps: int = 32
-    # Continuous-covariate CD stop: sum|delta w| < ctns_tol
-    # (src/optimize.cpp:122), with a cap on its sweeps.
-    ctns_tol: float = 1e-1
-    max_ctns_sweeps: int = 100
     # Finiteness sanitizer: after each block update (every V_v, every
     # covariate's row of W, F) check that every value is finite, and raise
     # train/als.NonFiniteError naming the block that produced the first
@@ -87,10 +98,11 @@ class FitConfig:
         if self.col_solver not in ("auto", "fss", "cd"):
             raise ValueError(f"col_solver must be auto|cd|fss, got "
                              f"{self.col_solver!r}")
-        if self.boundaries_per_dispatch != 1:
-            raise NotImplementedError(
-                "the port decides every boundary on the host: "
-                "boundaries_per_dispatch must be 1")
+        if self.use_pallas is not None:
+            raise ValueError(
+                f"use_pallas={self.use_pallas!r}: the port has no Pallas "
+                "kernels (its CUDA kernels run on the card, their plain "
+                "versions on the CPU); leave it None")
 
 
 def decay_from_delta_loss(delta_loss: float) -> float:

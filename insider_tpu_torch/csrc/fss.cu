@@ -451,7 +451,7 @@ fused_kernel(const MaskT* __restrict__ mask, const float* __restrict__ data,
     FusedColumns<L> cols{next, smem + lay.grams, Bs, beta0, out, S, K, M,
                          j0};
     cd_group_columns<(KMAX + L - 1) / L, L>(cols, Rs, K, solver.lam,
-                                            solver.alpha, solver.tol,
+                                            solver.alpha, *solver.tol,
                                             solver.max_sweeps);
   } else {
     // one warp per column
@@ -536,11 +536,13 @@ cudaError_t cd_instances(int K, F&& f) {
 // out (K, M) = the FSS + polish solution of every column.  data (N, M),
 // R (N, K), beta0 (K, M): row-major f32; mask (N, M) row-major 0/1, f32 or
 // uint8 (mask_is_u8 != 0; then 16-byte aligned).  l1 = lam*alpha and
-// l2 = lam*(1-alpha) as f32; 1 <= K <= 32.
+// l2 = lam*(1-alpha) as f32; tol: one f32 on the device (the polish's
+// stop); 1 <= K <= 32.
 INSIDER_API int insider_fss_fused(const void* mask, int mask_is_u8,
                                   const float* data,
                                   const float* R, const float* beta0,
-                                  float* out, float l1, float l2, float tol,
+                                  float* out, float l1, float l2,
+                                  const float* tol,
                                   int N, int M, int K, int max_outer,
                                   int polish_sweeps, cudaStream_t stream) {
   if (N < 1 || M < 1 || K < 1 || K > 32) return (int)cudaErrorInvalidValue;
@@ -553,14 +555,16 @@ INSIDER_API int insider_fss_fused(const void* mask, int mask_is_u8,
 
 // out (K, M) = the cold strong-rule CD solution of every column, at most
 // max_sweeps sweeps.  data (N, M), R (N, K), beta0 (K, M): row-major f32;
-// mask as for insider_fss_fused.  lam, alpha, tol as f32; 1 <= K <= 32.
+// mask as for insider_fss_fused.  lam, alpha as f32; tol: one f32 on the
+// device; 1 <= K <= 32.
 // lanes: the group width L, 0 for the instance the kernel runs at this K
 // (header), else that of an instance covering K (insider_cd_fused_widths;
 // cudaErrorInvalidValue where none does).
 INSIDER_API int insider_cd_fused(const void* mask, int mask_is_u8,
                                  const float* data,
                                  const float* R, const float* beta0,
-                                 float* out, float lam, float alpha, float tol,
+                                 float* out, float lam, float alpha,
+                                 const float* tol,
                                  int N, int M, int K, int max_sweeps,
                                  int lanes, cudaStream_t stream) {
   if (N < 1 || M < 1 || K < 1 || K > 32) return (int)cudaErrorInvalidValue;

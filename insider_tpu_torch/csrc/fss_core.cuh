@@ -1345,9 +1345,13 @@ __device__ __forceinline__ void polish_group_columns(
 template <bool CD>
 struct Solver;
 
+// tol: the polish's (FSS) or the sweeps' (CD) stop, one f32 in device
+// memory that the kernel reads, so a launch captured in a CUDA graph takes
+// the value the buffer holds when it is replayed.
 template <>
 struct Solver<false> {   // FSS + polish; l1 = lam*alpha, l2 = lam*(1-alpha)
-  float l1, l2, tol;
+  float l1, l2;
+  const float* tol;
   int max_outer, polish_sweeps;
   __host__ __device__ static constexpr int workspace_floats(int C, int K) {
     return 2 * PIVOT_ROW + (C > 1 ? wide_workspace_floats(K) : 0);
@@ -1356,7 +1360,8 @@ struct Solver<false> {   // FSS + polish; l1 = lam*alpha, l2 = lam*(1-alpha)
 
 template <>
 struct Solver<true> {    // cold strong-rule CD (cd_group_columns)
-  float lam, alpha, tol;
+  float lam, alpha;
+  const float* tol;
   int max_sweeps;
 };
 
@@ -1366,7 +1371,7 @@ __device__ __forceinline__ void solve_column(const Solver<false>& s,
                                              const float* G, float* W, int K,
                                              int GS, const float (&xty)[C],
                                              float (&beta)[C]) {
-  fss_column<AMAX, C>(G, W, K, GS, xty, beta, s.l1, s.l2, s.tol,
+  fss_column<AMAX, C>(G, W, K, GS, xty, beta, s.l1, s.l2, *s.tol,
                       s.max_outer, s.polish_sweeps);
 }
 

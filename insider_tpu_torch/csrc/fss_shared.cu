@@ -165,7 +165,7 @@ shared_kernel_groups(const float* __restrict__ xtx,
     __syncthreads();                       // every FSS result is stored
     SharedColumns<L> polish{&next[1], smem, xty, out, out, M, j0, cols};
     polish_group_columns<C, L>(polish, smem, K + 1, K, solver.l1, solver.l2,
-                               solver.tol, solver.polish_sweeps);
+                               *solver.tol, solver.polish_sweeps);
   }
 }
 
@@ -219,7 +219,7 @@ shared_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
   __syncthreads();
   SharedColumns<L> cols{&next, Gs, xty, beta0, out, M,
                         (int)blockIdx.x * COLUMNS, COLUMNS};
-  cd_group_columns<C, L>(cols, R, K, solver.lam, solver.alpha, solver.tol,
+  cd_group_columns<C, L>(cols, R, K, solver.lam, solver.alpha, *solver.tol,
                          solver.max_sweeps);
 }
 
@@ -359,13 +359,14 @@ int cd_shared(const float* xtx, const float* xty, const float* beta0,
 
 // out (K, M) = the FSS + polish solution of every column against the one
 // gram xtx (K, K).  xty and beta0 (K, M): row-major f32.  l1 = lam*alpha
-// and l2 = lam*(1-alpha) as f32; 1 <= K <= 128.  lanes: the group width L,
+// and l2 = lam*(1-alpha) as f32; tol: one f32 on the device (the polish's
+// stop); 1 <= K <= 128.  lanes: the group width L,
 // 0 for the instance the kernel runs at this K (header), else that of an
 // instance covering K (insider_fss_shared_widths; cudaErrorInvalidValue
 // where none does).
 INSIDER_API int insider_fss_shared(const float* xtx, const float* xty,
                                    const float* beta0, float* out, float l1,
-                                   float l2, float tol, int M, int K,
+                                   float l2, const float* tol, int M, int K,
                                    int max_outer, int polish_sweeps,
                                    int lanes, cudaStream_t stream) {
   return fss_shared(xtx, xty, beta0, out, M, K,
@@ -420,10 +421,12 @@ INSIDER_API int insider_fss_shared_widths(int K, int* n, int* widths,
 
 // out (K, M) = the cold strong-rule CD solution of every column against the
 // one gram xtx (K, K), at most max_sweeps sweeps.  xty and beta0 (K, M):
-// row-major f32.  lam, alpha, tol as f32; 1 <= K <= 128.
+// row-major f32.  lam, alpha as f32; tol: one f32 on the device;
+// 1 <= K <= 128.
 INSIDER_API int insider_cd_shared(const float* xtx, const float* xty,
                                   const float* beta0, float* out, float lam,
-                                  float alpha, float tol, int M, int K,
+                                  float alpha, const float* tol, int M,
+                                  int K,
                                   int max_sweeps, cudaStream_t stream) {
   return cd_shared(xtx, xty, beta0, out, M, K,
                    Solver<true>{lam, alpha, tol, max_sweeps}, stream);

@@ -200,7 +200,7 @@ streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
       __syncwarp();
       StreamedColumns<L> cols{grams, xty, beta0, out, S, M, j0, false};
       cd_group_columns<C, L>(cols, R, K, solver.lam, solver.alpha,
-                             solver.tol, solver.max_sweeps);
+                             *solver.tol, solver.max_sweeps);
       __syncwarp();                                  // the grams are read
     }                                                // no more
   }
@@ -263,12 +263,13 @@ int fss_streamed(const float* xtx, const float* xty, const float* beta0,
 
 // out (K, M) = the FSS + polish solution of every column.  xtx (K, K, M),
 // xty and beta0 (K, M): row-major f32; next: one int of device scratch (the
-// column counter).  l1 = lam*alpha and l2 = lam*(1-alpha) as f32;
-// 1 <= K <= 128.
+// column counter).  l1 = lam*alpha and l2 = lam*(1-alpha) as f32; tol:
+// one f32 on the device (the polish's stop); 1 <= K <= 128.
 INSIDER_API int insider_fss_streamed(const float* xtx, const float* xty,
                                      const float* beta0, float* out,
                                      int* next, float l1, float l2,
-                                     float tol, int M, int K, int max_outer,
+                                     const float* tol, int M, int K,
+                                     int max_outer,
                                      int polish_sweeps, cudaStream_t stream) {
   return fss_streamed(xtx, xty, beta0, out, next, M, K,
                       Solver<false>{l1, l2, tol, max_outer, polish_sweeps},
@@ -277,13 +278,15 @@ INSIDER_API int insider_fss_streamed(const float* xtx, const float* xty,
 
 // out (K, M) = the cold strong-rule CD solution of every column, at most
 // max_sweeps sweeps.  xtx (K, K, M), xty and beta0 (K, M): row-major f32;
-// next: one int of device scratch (the column counter).  lam, alpha, tol
-// as f32; 1 <= K <= 128.  lanes: the group width L, 0 for the instance
-// the kernel runs at this K (header), else that of an instance covering K
+// next: one int of device scratch (the column counter).  lam, alpha as
+// f32; tol: one f32 on the device; 1 <= K <= 128.  lanes: the group
+// width L, 0 for the instance the kernel runs at this K (header), else
+// that of an instance covering K
 // (insider_cd_streamed_widths; cudaErrorInvalidValue where none does).
 INSIDER_API int insider_cd_streamed(const float* xtx, const float* xty,
                                     const float* beta0, float* out, int* next,
-                                    float lam, float alpha, float tol, int M,
+                                    float lam, float alpha, const float* tol,
+                                    int M,
                                     int K, int max_sweeps, int lanes,
                                     cudaStream_t stream) {
   if (M < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;

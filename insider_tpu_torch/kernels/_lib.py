@@ -25,6 +25,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -48,26 +49,26 @@ _SIGNATURES = {
     "insider_row_xty_scratch": (_L, [_I, _I, _I]),
     "insider_row_xty": (_I, [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L,
                              _I, _I, _I, _I, _P]),
-    "insider_fss_fused": (_I, [_P, _I, _P, _P, _P, _P, _F, _F, _F,
+    "insider_fss_fused": (_I, [_P, _I, _P, _P, _P, _P, _F, _F, _P,
                                _I, _I, _I, _I, _I, _P]),
     "insider_col_gram_xty": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "insider_fss_streamed": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
+    "insider_fss_streamed": (_I, [_P, _P, _P, _P, _P, _F, _F, _P,
                                   _I, _I, _I, _I, _P]),
-    "insider_fss_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
+    "insider_fss_shared": (_I, [_P, _P, _P, _P, _F, _F, _P,
                                 _I, _I, _I, _I, _I, _P]),
     "insider_fss_shared_widths": (_I, [_I, ctypes.POINTER(_I),
                                        ctypes.POINTER(_I),
                                        ctypes.POINTER(_I)]),
-    "insider_cd_fused": (_I, [_P, _I, _P, _P, _P, _P, _F, _F, _F,
+    "insider_cd_fused": (_I, [_P, _I, _P, _P, _P, _P, _F, _F, _P,
                               _I, _I, _I, _I, _I, _P]),
     "insider_cd_fused_widths": (_I, [_I, ctypes.POINTER(_I),
                                      ctypes.POINTER(_I), ctypes.POINTER(_I)]),
-    "insider_cd_streamed": (_I, [_P, _P, _P, _P, _P, _F, _F, _F,
+    "insider_cd_streamed": (_I, [_P, _P, _P, _P, _P, _F, _F, _P,
                                  _I, _I, _I, _I, _P]),
     "insider_cd_streamed_widths": (_I, [_I, ctypes.POINTER(_I),
                                         ctypes.POINTER(_I),
                                         ctypes.POINTER(_I)]),
-    "insider_cd_shared": (_I, [_P, _P, _P, _P, _F, _F, _F,
+    "insider_cd_shared": (_I, [_P, _P, _P, _P, _F, _F, _P,
                                _I, _I, _I, _P]),
     "insider_ctns_cd": (_I, [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P]),
     "insider_masked_eval_scratch": (_L, [_I, _I, _I]),
@@ -154,6 +155,22 @@ def lib() -> ctypes.CDLL:
         fn.restype = restype
         fn.argtypes = argtypes
     return handle
+
+
+def tol_on_device(tol, like: torch.Tensor) -> torch.Tensor:
+    """A column kernel's tolerance as it reads it, one f32 on like's card:
+    a 0-d f32 tensor there as it is (a fit's boundary tolerance, which a
+    captured launch reads when it is replayed), or a float rounded to f32
+    and written there by a fill kernel (no host sync)."""
+    if isinstance(tol, torch.Tensor):
+        if (tol.dtype != torch.float32 or tol.numel() != 1
+                or tol.device != like.device):
+            raise ValueError(f"tol: expected one f32 on {like.device}, got "
+                             f"{tuple(tol.shape)} {tol.dtype} on "
+                             f"{tol.device}")
+        return tol
+    return torch.full((), float(np.float32(tol)), dtype=torch.float32,
+                      device=like.device)
 
 
 def column_counter(t: torch.Tensor) -> torch.Tensor:

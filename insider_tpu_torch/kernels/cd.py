@@ -40,9 +40,11 @@ from insider_tpu_torch.kernels.fss import FUSED_MAX_K, MAX_K, fused_mask
 from insider_tpu_torch.ops.fss import elastic_net_cd
 
 
-def _scalars(lam, alpha, tol):
+def _scalars(lam, alpha, tol, like):
+    """lam and alpha as f32, and tol as the kernel reads it (one f32 on
+    like's card, _lib.tol_on_device)."""
     return (float(np.float32(lam)), float(np.float32(alpha)),
-            float(np.float32(tol)))
+            _lib.tol_on_device(tol, like))
 
 
 def cd_fused_plain(mask, data, R, beta0, lam, alpha, tol,
@@ -64,7 +66,8 @@ def cd_fused(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor,
 
     mask, data (N, M); R (N, K), its columns in the sweep order; beta0
     (K, M) warm start in the same order; all f32, the mask f32 or uint8
-    (the same bits either way, as for feature_sign_fused).  Each column's
+    (the same bits either way, as for feature_sign_fused).  tol: a float
+    or one f32 on the card, as for fss.feature_sign_fused.  Each column's
     gram and Xty are built inside the kernel.  Returns beta (K, M).
     lanes: the kernel's group width L, 0 for the one it runs at this K,
     else one of cd_fused_widths(K) (it raises where not): a hook for tests
@@ -88,11 +91,12 @@ def cd_fused(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor,
     if K > FUSED_MAX_K:
         raise ValueError(f"cd_fused: K={K} > {FUSED_MAX_K} is not supported "
                          "by the CUDA kernel")
+    lam, alpha, tol = _scalars(lam, alpha, tol, R)
     out = torch.empty((K, M), dtype=torch.float32, device=R.device)
     with torch.cuda.device(R.device):
         err = _lib.lib().insider_cd_fused(
             mask.data_ptr(), mask_is_u8, data.data_ptr(), R.data_ptr(),
-            beta0.data_ptr(), out.data_ptr(), *_scalars(lam, alpha, tol),
+            beta0.data_ptr(), out.data_ptr(), lam, alpha, tol.data_ptr(),
             N, M, K,
             int(max_sweeps), int(lanes), _lib.stream(R))
     _lib.check(err, "cd_fused")
@@ -121,12 +125,13 @@ def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
     if K > MAX_K:
         raise ValueError(f"{what}: K={K} > {MAX_K} is not supported by the "
                          "CUDA kernel")
+    lam, alpha, tol = _scalars(lam, alpha, tol, xty)
     out = torch.empty((K, M), dtype=torch.float32, device=xty.device)
     counter = [_lib.column_counter(xty).data_ptr()] if streamed else []
     with torch.cuda.device(xty.device):
         err = getattr(_lib.lib(), c_entry)(
             xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),
-            *counter, *_scalars(lam, alpha, tol), M, K, int(max_sweeps),
+            *counter, lam, alpha, tol.data_ptr(), M, K, int(max_sweeps),
             *streamed, _lib.stream(xty))
     _lib.check(err, what)
     return out

@@ -59,7 +59,10 @@ def feature_sign_fused(mask: torch.Tensor, data: torch.Tensor,
     mask f32 or uint8 (the kernel widens each value as it reads it, so
     both give the same bits).  Each column's gram sum_i mask_ij r_i r_i^T
     and Xty sum_i r_i mask_ij data_ij are built inside the kernel.
-    Returns beta (K, M).
+    Returns beta (K, M).  tol, the polish's stop: a float, or one f32 on
+    the operands' device, which the kernel reads there (so a launch
+    captured in a CUDA graph takes the value the tensor holds when it is
+    replayed); likewise for every column kernel.
 
     The mask must hold only 0 and 1: the kernel takes it into the bf16
     tensor-core gram build as it is (exact for 0/1 only; other values are
@@ -80,12 +83,13 @@ def feature_sign_fused(mask: torch.Tensor, data: torch.Tensor,
         raise ValueError(f"feature_sign_fused: K={K} > {FUSED_MAX_K} is not "
                          "supported by the CUDA kernel")
     l1, l2 = penalties(lam, alpha)
+    tol = _lib.tol_on_device(tol, R)
     lib = _lib.lib()
     out = torch.empty((K, M), dtype=torch.float32, device=R.device)
     with torch.cuda.device(R.device):
         err = lib.insider_fss_fused(
             mask.data_ptr(), mask_is_u8, data.data_ptr(), R.data_ptr(),
-            beta0.data_ptr(), out.data_ptr(), l1, l2, float(np.float32(tol)),
+            beta0.data_ptr(), out.data_ptr(), l1, l2, tol.data_ptr(),
             N, M, K,
             int(max_outer), int(polish_sweeps), _lib.stream(R))
     _lib.check(err, "feature_sign_fused")
@@ -109,14 +113,15 @@ def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
         raise ValueError(f"{what}: K={K} > {MAX_K} is not supported by the "
                          "CUDA kernel")
     l1, l2 = penalties(lam, alpha)
+    tol = _lib.tol_on_device(tol, xty)
     out = torch.empty((K, M), dtype=torch.float32, device=xty.device)
     counter = ([_lib.column_counter(xty)]
                if c_entry == "insider_fss_streamed" else [])
     with torch.cuda.device(xty.device):
         err = getattr(_lib.lib(), c_entry)(
             xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),
-            *[c.data_ptr() for c in counter], l1, l2,
-            float(np.float32(tol)), M, K, int(max_outer),
+            *[c.data_ptr() for c in counter], l1, l2, tol.data_ptr(), M, K,
+            int(max_outer),
             int(polish_sweeps), *shared, _lib.stream(xty))
     _lib.check(err, what)
     return out

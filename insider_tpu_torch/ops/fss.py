@@ -113,7 +113,7 @@ def elastic_net_cd(G: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
     make_sweep_perms, insider_tpu/ops/col_update.py:81-88).
     """
     l1, l2 = penalties(lam, alpha)
-    tol = float(np.float32(tol))
+    tol = float(np.float32(float(tol)))   # a float or a 0-d tensor
     K, M = xty.shape
     dev = xty.device
     if use_strong_rule:

@@ -15,6 +15,12 @@ import torch
 def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b.  A: (..., K, K), b: (..., K) -> (..., K)."""
     # cholesky_ex: no host sync for the error flag; a non-SPD system gives
-    # non-finite factors, which optimize()'s divergence abort catches.
+    # non-finite factors, which optimize()'s divergence abort catches.  The
+    # two triangular solves (cuBLAS trsm on the card) in place of
+    # cholesky_solve, whose batched form on the card (MAGMA's
+    # spotrs_batched) allocates device memory at each call and so cannot
+    # be captured in a CUDA graph (train/graph.py); eager and captured
+    # fits solve alike.
     L, _ = torch.linalg.cholesky_ex(A)
-    return torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+    y = torch.linalg.solve_triangular(L, b.unsqueeze(-1), upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True).squeeze(-1)

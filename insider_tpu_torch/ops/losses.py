@@ -48,10 +48,12 @@ def evaluate_dense(residual) -> EvalSums:
     """Whole-matrix SSE (src/utils.cpp:61-63): every element is a training
     element, and there is no test set."""
     zero = torch.zeros((), dtype=torch.float64, device=residual.device)
+    # the count by a fill on the device: a copy from the host would wait
+    # for the device (a chained boundary never waits for it)
     return EvalSums(_sum_squares(residual),
                     zero,
-                    torch.tensor(float(residual.numel()), dtype=torch.float64,
-                                 device=residual.device),
+                    torch.full((), float(residual.numel()),
+                               dtype=torch.float64, device=residual.device),
                     zero)
 
 

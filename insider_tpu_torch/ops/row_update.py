@@ -136,11 +136,16 @@ def update_row_factor_masked(residual_plus: torch.Tensor,
 
 def update_row_factor_dense(residual_plus: torch.Tensor, F: torch.Tensor,
                             gram: torch.Tensor, codes: torch.Tensor,
-                            n_levels: int, lam: float) -> torch.Tensor:
+                            n_levels: int, lam: float,
+                            counts=None) -> torch.Tensor:
     """Dense (tuning==0) per-level ridge by segment sums -> (L, K)
     (src/optimize.cpp:178-191; insider_tpu/ops/row_update.py:148-163):
-    each level's gram is its size times gram = F F^T."""
-    counts = torch.bincount(codes.long(), minlength=n_levels).to(F.dtype)
+    each level's gram is its size times gram = F F^T.  counts: the (L,)
+    level sizes (a fit's Problem.counts), or None to count them here, a
+    bincount that reads its largest code on the host."""
+    if counts is None:
+        counts = torch.bincount(codes.long(), minlength=n_levels)
+    counts = counts.to(F.dtype)
     S = segment_sum(residual_plus, codes, n_levels)            # (L, M)
     XtX = counts[:, None, None] * gram                         # (L, K, K)
     Xty = torch.matmul(S, F.T)

@@ -8,9 +8,11 @@ column update of F; every `check_every` iterations a boundary evaluates the
 loss and applies the reference's convergence protocol (relative-loss stop,
 sub_tol decay ladder), and with a checkpoint path saves the state there.
 
-PyTorch runs eagerly, so an iteration is a sequence of kernel launches on
-the problem's device.  Masked problems (partition=1, tuning): the level
-grams (kernels/row.level_gram) of every fast confounder in one launch, one
+An iteration is a sequence of kernel launches on the problem's device; on
+the card the fit runs the first eagerly and the rest as replays of one
+CUDA graph of it (train/graph.py, graph_route).  Masked problems
+(partition=1, tuning): the level grams (kernels/row.level_gram) of every
+fast confounder in one launch, one
 row_xty per fast confounder with a batched K x K Cholesky solve, one
 covariate CD kernel launch per continuous covariate (kernels/ctns.ctns_cd,
 ops/continuous), and the masked column update (ops/col_update: the fused
@@ -26,11 +28,14 @@ covariate without them the update on that residual (ops/continuous).
 The masks are stored as f32 or uint8 (build_problem's mask_dtype); the
 kernels read either as it is stored.
 Cold CD (col_solver="cd", cd_warm_start=False) sweeps each column update in
-one coordinate order from draw_perm.  A boundary copies seven f64 sums to
-the host, which decides it in f64 -- the JAX package's
-boundaries_per_dispatch=1 behaviour.  Under FitConfig.debug_checks every
-block update is checked for finiteness on the host (NonFiniteError names
-the block).  On CPU tensors every kernel wrapper runs its plain version.
+one coordinate order from draw_perm.  With boundaries_per_dispatch=1 a
+boundary copies seven f64 sums to the host, which decides it in f64; with
+more, that many boundaries run back to back, each decided on the device
+with the host's f64 formulas (_run_boundary_chain), and the host reads
+their sums once a dispatch: the same fit, bit for bit.  Under
+FitConfig.debug_checks every block update is checked for finiteness on
+the host (NonFiniteError names the block).  On CPU tensors every kernel
+wrapper runs its plain version.
 
 A sharded problem (build_problem(sharding=...), build_problem_distributed)
 is fitted by every rank of a torch.distributed group, each on its row x
@@ -67,6 +72,7 @@ from insider_tpu_torch.sharding.distributed import (
     make_global_array, make_global_array_from_callback)
 from insider_tpu_torch.sharding.mesh import (MAT, Mesh, make_mesh,
                                              shard_problem_arrays)
+from insider_tpu_torch.train import graph
 
 logger = logging.getLogger("insider_tpu_torch")
 
@@ -87,17 +93,18 @@ class Problem:
     (insider_tpu/train/als.py:343-402) exist for a confounder on the fast
     route only, whose one-hot E_v and (L_v, M) level sums fit the budgets
     _FAST_E_BYTES and _FAST_LM_BYTES; the others (and every confounder of
-    a problem built with precompute=False) have None in d, row_order and
-    counts, and take the segment-sum update (ops/row_update).  Masked:
+    a problem built with precompute=False) have None in d and row_order,
+    and take the segment-sum update (ops/row_update).  Masked:
     d[v] = E_v^T (mask .* data) (L_v, M), and mw_cat stacks the fast
     confounders' E_v^T mask, in confounder order, into one (sum L, M)
     matrix, which the level-gram kernel reads in one launch
     (max_level_count, its largest count, sets the kernel's count planes),
     and row_order[v] holds confounder v's rows sorted by level
     (kernels/row.level_order), which the row_xty kernel reads in place of
-    the codes.  Dense: d[v] = E_v^T data and counts[v] (L_v,) the level
-    sizes.  With P continuous covariates, ctns (N, P) and, unless built
-    with precompute=False, their constants: masked ctns_q = (c^2)^T mask
+    the codes.  Dense: d[v] = E_v^T data, and counts[v] (L_v,) the level
+    sizes of every confounder.  With P continuous covariates, ctns (N, P)
+    and, unless built with precompute=False, their constants: masked
+    ctns_q = (c^2)^T mask
     and ctns_bc = c^T (mask .* data), dense ctns_dc = c^T data, each
     (P, M), and ctns_cc = c^T c (P,) (insider_tpu/train/als.py:386-402).
     """
@@ -337,6 +344,15 @@ def _finish_problem(arrays, n_levels, masked: bool, mesh: Optional[Mesh],
                                     else tuple(global_shape)))
     if precompute:
         _precompute_row_constants(problem)
+    if not masked:
+        # the level sizes of the confounders without constants too, so no
+        # iteration counts them (a bincount reads its largest code on the
+        # host); the fast ones' came from the precompute
+        problem.counts = problem.counts or [None] * len(codes)
+        for v, L in enumerate(problem.n_levels):
+            if problem.counts[v] is None:
+                problem.counts[v] = torch.bincount(
+                    codes[v].long(), minlength=L).to(torch.float32)
     return problem
 
 
@@ -658,7 +674,7 @@ def _als_iteration_dense(problem: Problem, config: FitConfig,
         else:
             V = row_update.update_row_factor_dense(
                 problem.data - losses.predict(R_minus, F), F, gram, codes, L,
-                config.lambda1)
+                config.lambda1, problem.counts[v])
         _check_finite(config, f"row update V[{v}] (optimize_row)", V)
         cfd_new[v] = V
         R = R_minus + V[codes]
@@ -732,6 +748,241 @@ def _profiled(run, state, device, path):
     return state
 
 
+def _draw_perms(perm_gen: Optional[torch.Generator], K: int,
+                n: int) -> Optional[torch.Tensor]:
+    """n cold-CD coordinate orders (n, K), one an iteration, drawn in
+    order (draw_perm), or None when the fit is not cold CD."""
+    if perm_gen is None:
+        return None
+    return torch.stack([draw_perm(perm_gen, K) for _ in range(n)])
+
+
+def _run_steps(problem: Problem, config: FitConfig, state: InsiderState,
+               n: int, sub_tol_eff, perms: Optional[torch.Tensor] = None
+               ) -> InsiderState:
+    """n ALS iterations, eagerly: every kernel launched from the host (the
+    JAX package's _run_steps, insider_tpu/train/als.py:666, is one jitted
+    fori_loop; train/graph.py captures one iteration instead).  perms: the
+    cold-CD orders (n, K), row i for iteration i; sub_tol_eff a float or a
+    0-d f32 tensor on the problem's device."""
+    for i in range(n):
+        state = _als_iteration(problem, config, state, sub_tol_eff,
+                               None if perms is None else perms[i])
+    return state
+
+
+class _EagerSteps:
+    """The iterations of a fit, launched eagerly (_run_steps): on the CPU,
+    under a sharding, debug_checks or profile_dir.  done: the chain's stop
+    flag (a 0-d bool tensor); once set, the state is kept (graph.freeze)."""
+
+    graphed = False
+    capture_s = 0.0
+
+    def __init__(self, problem: Problem, config: FitConfig,
+                 state: InsiderState):
+        self.problem, self.config, self.state = problem, config, state
+        self.done = torch.zeros((), dtype=torch.bool, device=problem.device)
+
+    def steps(self, n: int, sub_tol_eff, perms=None, chained=False) -> None:
+        if perms is not None and self.problem.device.type == "cuda":
+            # one copy a call from pinned memory, no wait for the device
+            perms = perms.pin_memory().to(self.problem.device,
+                                          non_blocking=True)
+        if not chained:
+            self.state = _run_steps(self.problem, self.config, self.state, n,
+                                    sub_tol_eff, perms)
+            return
+        for i in range(n):
+            new = _als_iteration(self.problem, self.config, self.state,
+                                 sub_tol_eff,
+                                 None if perms is None else perms[i])
+            self.state = graph.freeze(self.done, self.state, new)
+
+
+class _GraphSteps:
+    """The iterations of a fit on the card: the first eagerly, the others
+    as replays of one captured iteration (graph.IterationGraph, made at
+    the first call)."""
+
+    graphed = True
+
+    def __init__(self, problem: Problem, config: FitConfig,
+                 state: InsiderState):
+        self.problem, self.config = problem, config
+        self._state, self.graph = state, None
+        self.capture_s = 0.0
+        self.pinned = []
+        self.done = torch.zeros((), dtype=torch.bool, device=problem.device)
+
+    @property
+    def state(self) -> InsiderState:
+        return self._state if self.graph is None else self.graph.state
+
+    def steps(self, n: int, sub_tol_eff, perms=None, chained=False) -> None:
+        dev = self.problem.device
+        if perms is not None:
+            # pinned, so each replay's order is copied without a wait;
+            # kept until the dispatch's metrics are read (the chain's, or
+            # the next unchained call's)
+            perms = perms.pin_memory()
+        self.pinned = (self.pinned if chained else []) + [perms]
+        if self.graph is None:
+            # the first iteration eagerly, then the capture of the next
+            tol = (float(sub_tol_eff) if isinstance(sub_tol_eff, torch.Tensor)
+                   else sub_tol_eff)
+            self.graph = graph.IterationGraph(
+                self.problem, self.config, self._state, _als_iteration, tol,
+                None if perms is None else perms[0].to(dev,
+                                                       non_blocking=True),
+                self.done)
+            self.capture_s = self.graph.capture_s
+            self._state = None
+            n, perms = n - 1, None if perms is None else perms[1:]
+        g = self.graph
+        if isinstance(sub_tol_eff, torch.Tensor):
+            g.tol.copy_(sub_tol_eff)
+        else:
+            g.tol.fill_(sub_tol_eff)
+        g.run(n, perms)
+
+
+def graph_route(problem: Problem, config: FitConfig,
+                profile_dir: Optional[str] = None) -> bool:
+    """Whether a fit of `problem` runs its iterations as replays of one
+    CUDA graph (train/graph.py), decided from the problem and the config
+    before the first iteration: on the card with no sharding (a collective
+    of the CPU's gloo group cannot be captured; NCCL's wait for a machine
+    with more than one card), no debug_checks (a host check a block) and
+    no profile_dir (the JAX chain leaves out the same two,
+    insider_tpu/train/als.py:1036-1037).  Every route of the iteration is
+    captured: masked and dense, fast and segment-sum rows, covariates,
+    FSS, cold CD and ridge columns at every K the card takes."""
+    return (problem.device.type == "cuda" and problem.mesh is None
+            and not config.debug_checks and not profile_dir)
+
+
+# The sub_tol decay ladder's rungs (config.decay_from_delta_loss), largest
+# first.
+_RUNGS = (1e-1, 1e-2, 1e-3, 1e-4, 1e-5, 1e-6)
+
+
+def _device_loss(vec: torch.Tensor, config: FitConfig) -> torch.Tensor:
+    """losses.finalize_loss's loss from a pack_metrics vector, on its
+    device in f64: the host's operations in the host's order, each a
+    correctly rounded torch op (a division by 2 is exact either way), so
+    it gives the host's bits."""
+    c2 = config.lambda2 * (1.0 - config.alpha)
+    c1 = config.lambda2 * config.alpha
+    return (vec[0] / 2.0 + (vec[4] * config.lambda1) / 2.0
+            + (vec[5] * c2) / 2.0 + vec[6] * c1)
+
+
+def _device_decay(delta: torch.Tensor) -> torch.Tensor:
+    """config.decay_from_delta_loss on the device, in f64.  delta / 1000 by
+    a tensor: a CUDA division by a host scalar multiplies by its
+    reciprocal, which would round otherwise than the host."""
+    d = delta / torch.full((), 1000.0, dtype=torch.float64,
+                           device=delta.device)
+    out = torch.ones_like(d)
+    for t in _RUNGS:                      # the smallest rung d reaches
+        out = torch.where(d <= t, t, out)
+    return out
+
+
+class _StopFlags:
+    """Each chained boundary's `done`, copied to pinned host memory as the
+    boundary ends, so the host can stop enqueueing boundaries k + 2 on
+    once boundary k has stopped, waiting only for boundary k while k + 1
+    keeps the device busy."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.host = torch.zeros(n, dtype=torch.bool, pin_memory=self.cuda)
+        self.events = []
+
+    def record(self, k: int, done: torch.Tensor) -> None:
+        self.host[k].copy_(done, non_blocking=True)
+        if self.cuda:
+            self.events.append(torch.cuda.Event())
+            self.events[-1].record()
+
+    def stopped(self, k: int) -> bool:
+        if self.cuda:
+            self.events[k].synchronize()
+        return bool(self.host[k])
+
+
+def _run_boundary_chain(problem: Problem, config: FitConfig, steps,
+                        n_chunks: int, decay: float, pre_loss: float,
+                        perm_gen: Optional[torch.Generator]):
+    """Up to n_chunks boundaries of check_every iterations each, back to
+    back, with no host sync between them (insider_tpu/train/als.py:759
+    _run_boundary_chain): each boundary's tolerance f32(sub_tol * decay),
+    its eval, and in f64 on the device, with the host's own formulas in
+    the host's order, its loss (_device_loss), delta = pre - loss, the
+    next decay (_device_decay), converged = delta / pre < global_tol and
+    diverged = the loss not finite.  Once a boundary converges or
+    diverges, `done` is set and the later boundaries' iterations keep the
+    state as it is; the host stops enqueueing two boundaries after
+    (_StopFlags).  One copy to the host at the end: the (n_chunks, 8) f64
+    block of each boundary's 7 sums and its decay, and the flags.
+
+    Returns (block rows of the boundaries that ran live, the chain's
+    next decay, converged, diverged, iterations run after the stop)."""
+    dev = problem.device
+    ce = config.check_every
+    K = steps.state.latent_dim
+
+    def f64(x):
+        return torch.full((), x, dtype=torch.float64, device=dev)
+
+    decay_t, pre_t = f64(decay), f64(pre_loss)
+    done = steps.done
+    done.zero_()
+    conv_t = torch.zeros((), dtype=torch.bool, device=dev)
+    div_t = torch.zeros((), dtype=torch.bool, device=dev)
+    k_done = torch.zeros((), dtype=torch.int64, device=dev)
+    block = torch.zeros((n_chunks, 8), dtype=torch.float64, device=dev)
+    flags = _StopFlags(n_chunks, dev)
+    gen_states, ran = [], 0
+    for k in range(n_chunks):
+        if k >= 2 and flags.stopped(k - 2):
+            break
+        gen_states.append(None if perm_gen is None else perm_gen.get_state())
+        tol = (decay_t * config.sub_tol).to(torch.float32)
+        steps.steps(ce, tol, _draw_perms(perm_gen, K, ce), chained=True)
+        ran += 1
+        vec = _evaluate(problem, steps.state)
+        loss = _device_loss(vec, config)
+        delta = pre_t - loss
+        new_decay = _device_decay(delta)
+        conv = delta / pre_t < config.global_tol
+        div = ~torch.isfinite(loss)
+        live = ~done
+        block[k, :7] = vec
+        block[k, 7] = new_decay
+        k_done += live
+        decay_t = torch.where(live, new_decay, decay_t)
+        pre_t = torch.where(live, loss, pre_t)
+        conv_t |= live & conv
+        div_t |= live & div
+        done |= live & (conv | div)
+        flags.record(k, done)
+    out = torch.cat([block.flatten(), torch.stack([
+        k_done.double(), decay_t, conv_t.double(), div_t.double()])]).cpu()
+    steps.pinned = []
+    tail = out[-4:].tolist()
+    n_live = int(tail[0])
+    if perm_gen is not None and n_live < ran:
+        # the generator as after the live boundaries' draws, as the
+        # unchained fit leaves it
+        perm_gen.set_state(gen_states[n_live])
+    rows = out[:-4].reshape(n_chunks, 8).numpy()[:n_live]
+    return (rows, tail[1], bool(tail[2]), bool(tail[3]),
+            (ran - n_live) * ce)
+
+
 @dataclasses.dataclass
 class OptimizeResult:
     row_matrices: List[np.ndarray]
@@ -747,6 +998,13 @@ class OptimizeResult:
     diverged: bool = False
     # True iff the relative-loss stop fired (src/optimize.cpp:405).
     converged: bool = False
+    # True when the iterations ran as replays of one CUDA graph
+    # (graph_route), with capture_s the seconds its warm-up and capture
+    # took; wasted_iters: iterations a chained dispatch ran after its stop
+    # (their state discarded).
+    graphed: bool = False
+    capture_s: float = 0.0
+    wasted_iters: int = 0
 
 
 def optimize(problem: Problem, config: FitConfig,
@@ -852,6 +1110,13 @@ def optimize(problem: Problem, config: FitConfig,
         if progress_callback:
             progress_callback(rec)
 
+    graphed = graph_route(problem, config, profile_dir)
+    steps = (_GraphSteps(problem, config, state) if graphed
+             else _EagerSteps(problem, config, state))
+    chain_ok = (config.boundaries_per_dispatch > 1
+                and not config.debug_checks and profile_dir is None)
+    ce = config.check_every
+    wasted = 0
     try:
         t0 = time.time()
         m = finalize(_evaluate(problem, state))
@@ -867,30 +1132,72 @@ def optimize(problem: Problem, config: FitConfig,
         converged = False
         while (not diverged) and it <= config.max_iter:
             # advance to the end of the next check boundary (iters it..b)
-            boundary = it if it % config.check_every == 0 else (
-                (it // config.check_every + 1) * config.check_every)
+            boundary = it if it % ce == 0 else ((it // ce + 1) * ce)
             boundary = min(boundary, config.max_iter)
+            n = boundary - it + 1
+            # whole boundaries left before max_iter; the first 1-iteration
+            # chunk and a max_iter tail take the single-boundary path
+            # (insider_tpu/train/als.py:1036-1049)
+            n_full = (config.max_iter - (it - 1)) // ce if n == ce else 0
+            if chain_ok and n_full >= 1:
+                rows, decay, conv, div, waste = _run_boundary_chain(
+                    problem, config, steps,
+                    min(config.boundaries_per_dispatch, n_full), decay,
+                    loss, perm_gen)
+                wasted += waste
+                base = it - 1
+                for i, row in enumerate(rows):
+                    pre_loss = loss
+                    m = finalize(row[:7])
+                    loss = m["loss"]
+                    delta_loss = pre_loss - loss
+                    emit({"iter": base + (i + 1) * ce, **m,
+                          "delta_loss": delta_loss,
+                          "decay": decay_from_delta_loss(delta_loss),
+                          "elapsed_s": time.time() - t0})
+                    stop = (not np.isfinite(loss)
+                            or delta_loss / pre_loss < config.global_tol)
+                    if stop != (i == len(rows) - 1 and (conv or div)):
+                        raise RuntimeError(
+                            f"the boundary chain decided iteration "
+                            f"{base + (i + 1) * ce} otherwise than the "
+                            "host's float64 decision")
+                it = base + len(rows) * ce + 1
+                if div:
+                    diverged = True
+                    logger.warning("infinite or missing values in loss at "
+                                   "iter %d; aborting", it - 1)
+                    break
+                if checkpoint_path:
+                    save_checkpoint(checkpoint_path, steps.state, it=it - 1,
+                                    loss=loss,
+                                    extra={"decay": decay,
+                                           "delta_loss": delta_loss},
+                                    generator=perm_gen)
+                if conv:
+                    converged = True
+                    break
+                continue
+
             sub_tol_eff = float(np.float32(config.sub_tol * decay))
-
-            def run_chunk(state):
-                for _ in range(boundary - it + 1):
-                    perm = (draw_perm(perm_gen, state.latent_dim) if cold_cd
-                            else None)
-                    state = _als_iteration(problem, config, state,
-                                           sub_tol_eff, perm)
-                return state
-
+            perms = _draw_perms(perm_gen, steps.state.latent_dim, n)
             if profile_dir and len(history) == 2:
                 name = f"trace_iter_{it}_{boundary}" + (
                     "" if mesh is None else f"_rank{mesh.rank}")
-                state = _profiled(run_chunk, state, problem.device,
-                                  os.path.join(profile_dir, name + ".json"))
+
+                def run_chunk(st):
+                    return _run_steps(problem, config, st, n, sub_tol_eff,
+                                      perms)
+
+                steps.state = _profiled(
+                    run_chunk, steps.state, problem.device,
+                    os.path.join(profile_dir, name + ".json"))
             else:
-                state = run_chunk(state)
+                steps.steps(n, sub_tol_eff, perms)
             it = boundary + 1
 
             pre_loss = loss
-            m = finalize(_evaluate(problem, state))
+            m = finalize(_evaluate(problem, steps.state))
             loss = m["loss"]
             delta_loss = pre_loss - loss
             decay = decay_from_delta_loss(delta_loss)
@@ -902,7 +1209,7 @@ def optimize(problem: Problem, config: FitConfig,
                                "%d; aborting", boundary)
                 break
             if checkpoint_path:
-                save_checkpoint(checkpoint_path, state, it=boundary,
+                save_checkpoint(checkpoint_path, steps.state, it=boundary,
                                 loss=loss, extra={"decay": decay,
                                                   "delta_loss": delta_loss},
                                 generator=perm_gen)
@@ -914,6 +1221,7 @@ def optimize(problem: Problem, config: FitConfig,
     finally:
         if jl:
             jl.close()
+    state = steps.state
 
     if mesh is not None:
         state = InsiderState(state.cfd_factors, state.ctns_factor,
@@ -932,4 +1240,7 @@ def optimize(problem: Problem, config: FitConfig,
         state=state,
         diverged=diverged,
         converged=converged,
+        graphed=graphed,
+        capture_s=steps.capture_s,
+        wasted_iters=wasted,
     )

@@ -79,9 +79,16 @@ def _append_csv(path, header, row, problem):
         w.writerow(row)
 
 
-def tune(obj, latent_dimension, lambda_=0.1, alpha=0.0, out_dir="."):
+def tune(obj, latent_dimension, lambda_=0.1, alpha=0.0, out_dir=".",
+         batch_grid=True, batch_size=16):
     """Returns dict(rank_tuning, latent_rank, reg_tuning) like
-    R/insider.R:175."""
+    R/insider.R:175.
+
+    batch_grid and batch_size are the JAX package's, in its positions: it
+    runs the stage-2 (lambda, alpha) grid as vmapped trials in chunks of
+    batch_size, which its tests hold equal to the serial grid
+    (tests/test_batched_tune.py:22).  The port runs the grid serially for
+    either value, so both give its serial result."""
     ranks = [int(r) for r in _as_list(latent_dimension)]
     lambdas = [float(x) for x in _as_list(lambda_)]
     alphas = [float(a) for a in _as_list(alpha)]

@@ -949,3 +949,197 @@ def test_debug_checks_keep_the_card_trajectory(cuda, masked):
     with pytest.raises(als.NonFiniteError, match=r"row update V\[0\] "
                                                  r"\(optimize_row\)"):
         als._als_iteration(poisoned, cfg, state, 1e-5)
+
+
+# --- the column kernels' tolerance on the device, the graph and the chain --
+
+# two rungs of the sub_tol decay ladder, f32(1e-5 * decay)
+RUNGS = (float(np.float32(1e-5 * 1.0)), float(np.float32(1e-5 * 1e-3)))
+
+
+def _tol_cases(dev):
+    """{kernel: (launch(tol), plain(tol), check(got, ref))} at shapes that
+    take each kernel's route; the FSS kernels from far warm starts at a
+    2-step cap, so that the polish, which tol stops, does the work."""
+    R, mask, data, beta0 = (_t(x, dev) for x in _masked_inputs(77, 8, 301,
+                                                                seed=5))
+    Rw, maskw, dataw, beta0w = (_t(x, dev) for x in _masked_inputs(
+        120, 40, 257, seed=6))
+    far, farw = 100 * beta0, 100 * beta0w
+    G, b = gram.col_gram_xty_plain(mask, data, R)
+    Gw, bw = gram.col_gram_xty_plain(maskw, dataw, Rw)
+    XtX, bd = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+    Gd = XtX[:, :, None].expand(*XtX.shape, bd.shape[1])
+    lam, alpha = 11.0, 0.4
+    fkw = dict(max_outer=2, polish_sweeps=16)
+    ckw = dict(max_sweeps=20)
+
+    def fss_check(G, b):
+        return lambda got, ref: _check_fss(got, ref, G, b, lam, alpha)
+
+    return {
+        "feature_sign_fused": (
+            lambda t: fss.feature_sign_fused(mask, data, R, far, lam, alpha,
+                                             tol=t, **fkw),
+            lambda t: fss.feature_sign_fused_plain(mask, data, R, far, lam,
+                                                   alpha, tol=t, **fkw),
+            fss_check(G, b)),
+        "feature_sign": (
+            lambda t: fss.feature_sign(Gw, bw, farw, lam, alpha, tol=t,
+                                       **fkw),
+            lambda t: fss.feature_sign_plain(Gw, bw, farw, lam, alpha, tol=t,
+                                             **fkw),
+            fss_check(Gw, bw)),
+        "feature_sign_shared": (
+            lambda t: fss.feature_sign_shared(XtX, bd, far, 30.0, alpha,
+                                              tol=t, **fkw),
+            lambda t: fss.feature_sign_shared_plain(XtX, bd, far, 30.0,
+                                                    alpha, tol=t, **fkw),
+            lambda got, ref: _check_fss(got, ref, Gd, bd, 30.0, alpha)),
+        "cd_fused": (
+            lambda t: cd.cd_fused(mask, data, R, beta0, lam, alpha, t, **ckw),
+            lambda t: cd.cd_fused_plain(mask, data, R, beta0, lam, alpha, t,
+                                        **ckw),
+            fss_check(G, b)),
+        "cd_streamed": (
+            lambda t: cd.cd_streamed(Gw, bw, beta0w, lam, alpha, t, **ckw),
+            lambda t: cd.cd_streamed_plain(Gw, bw, beta0w, lam, alpha, t,
+                                           **ckw),
+            fss_check(Gw, bw)),
+        "cd_shared": (
+            lambda t: cd.cd_shared(XtX, bd, beta0, 30.0, alpha, t, **ckw),
+            lambda t: cd.cd_shared_plain(XtX, bd, beta0, 30.0, alpha, t,
+                                         **ckw),
+            lambda got, ref: _check_fss(got, ref, Gd, bd, 30.0, alpha)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["feature_sign_fused", "feature_sign",
+                                    "feature_sign_shared", "cd_fused",
+                                    "cd_streamed", "cd_shared"])
+def test_tol_by_pointer_at_two_rungs(cuda, kernel):
+    """One launch site, captured in a CUDA graph, reading its tolerance
+    from one f32 on the card: replayed at two rungs of the decay ladder it
+    gives what a launch with the tolerance as a float gives, bit for bit,
+    and passes the kernel's checks against its plain version at each."""
+    launch, plain, check = _tol_cases(cuda)[kernel]
+    tol = torch.full((), RUNGS[0], dtype=torch.float32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(tol)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = launch(tol)
+    outs = []
+    for rung in RUNGS:
+        tol.fill_(rung)
+        g.replay()
+        torch.cuda.synchronize()
+        got = out.clone()
+        assert torch.equal(got, launch(rung)), rung
+        check(got, plain(rung))
+        outs.append(got)
+    assert not torch.equal(*outs)        # the kernel read the new rung
+
+
+def _graph_problem(kind, dev):
+    import insider_tpu_torch as itt
+    from insider_tpu_torch.train import als
+
+    k = 40 if "K40" in kind else 8
+    sim = itt.simulate_scale(120, 700, k, level_counts=(2, 4, 9), seed=3)
+    split = itt.ratio_splitter(sim.data, ratio=0.1, seed=3)
+    ctns = (np.random.default_rng(2).standard_normal((120, 2))
+            .astype(np.float32) if "covariates" in kind else None)
+    problem = als.build_problem(split.data, sim.confounder,
+                                split.train_indicator, split.test_indicator,
+                                ctns, masked="dense" not in kind,
+                                precompute="segment" not in kind,
+                                device=dev)
+    kw = dict(latent_dim=k, lambda1=2.0, lambda2=2.0, alpha=0.4,
+              max_iter=60, global_tol=1e-9)
+    if "cold" in kind:
+        kw.update(col_solver="cd", cd_warm_start=False)
+    if "converging" in kind:
+        kw.update(max_iter=200, global_tol=_mid_dispatch_tol(problem, kw))
+    return problem, kw
+
+
+def _mid_dispatch_tol(problem, kw):
+    """A global_tol that stops this fit at the 2nd, 3rd or 4th boundary of
+    a dispatch of five (a later one is enqueued): between the relative
+    loss decrease there and the least one before it, read from the fit
+    run to 200 iterations with no stop."""
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.train import als
+
+    res = als.optimize(problem, FitConfig(**dict(kw, max_iter=200,
+                                                 global_tol=0.0)),
+                       verbose=False)
+    loss = {h["iter"]: h["loss"] for h in res.history}
+    rel = {b: (loss[b - 10] - loss[b]) / loss[b - 10]
+           for b in range(10, 201, 10)}
+    for b in range(20, 201, 10):
+        least = min(rel[c] for c in range(10, b, 10))
+        if (b // 10) % 5 in (2, 3, 4) and 0 < rel[b] < least:
+            return float(np.sqrt(rel[b] * least))
+    pytest.fail(f"no boundary inside a dispatch to stop at: {rel}")
+
+
+GRAPH_KINDS = ["masked", "dense", "cold masked", "cold dense", "masked K40",
+               "covariates masked", "covariates dense", "segment masked",
+               "segment dense", "converging masked"]
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_graph_fit_equals_eager_fit(cuda, monkeypatch, kind):
+    """The fit as replays of one captured iteration, unchained and chained
+    (boundaries_per_dispatch 1 and 5), equals the eager fit (every kernel
+    launched from the host, each boundary decided there) bit for bit;
+    each replay counts the kernels of the captured iteration."""
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.train import als, graph
+
+    problem, kw = _graph_problem(kind, cuda)
+    wrappers = graph.kernel_wrappers()
+    runs, counts = {}, {}
+    for mode in ("eager", "graph 1", "graph 5"):
+        with monkeypatch.context() as m:
+            if mode == "eager":     # the fit as it runs off the card
+                m.setattr(als, "graph_route", lambda *a, **k: False)
+            for w in wrappers.values():
+                w.launches = 0
+            runs[mode] = als.optimize(problem, FitConfig(
+                **kw, boundaries_per_dispatch=int(mode[-1]) if mode !=
+                "eager" else 1), verbose=False)
+            counts[mode] = {n: w.launches for n, w in wrappers.items()}
+    ref = runs["eager"]
+    assert not ref.graphed
+    for mode in ("graph 1", "graph 5"):
+        got = runs[mode]
+        assert got.graphed and got.capture_s > 0
+        assert [h["loss"] for h in got.history] == [h["loss"]
+                                                    for h in ref.history]
+        assert [h["decay"] for h in got.history[1:]] == [
+            h["decay"] for h in ref.history[1:]]
+        assert (got.n_iter, got.converged) == (ref.n_iter, ref.converged)
+        for a, b in zip(got.row_matrices + [got.column_factor],
+                        ref.row_matrices + [ref.column_factor]):
+            np.testing.assert_array_equal(a, b)
+    # the graph fits launch each kernel as often as the eager fit (the
+    # first iteration eagerly, the others as replays), plus the iterations
+    # (and their boundary's eval) a chained dispatch ran past its stop
+    for mode in ("graph 1", "graph 5"):
+        wasted = runs[mode].wasted_iters
+        per_iter = {n: c / (ref.n_iter + 1) for n, c in counts["eager"].items()
+                    if n != "masked_eval"}
+        for n, c in per_iter.items():
+            assert counts[mode][n] == c * (ref.n_iter + 1 + wasted), (mode, n)
+        assert counts[mode]["masked_eval"] == (
+            counts["eager"]["masked_eval"]
+            + (wasted // 10 if problem.masked else 0))
+    if "converging" in kind:
+        assert ref.converged and ref.n_iter % 50 in (20, 30, 40)
+        assert runs["graph 5"].wasted_iters == 10

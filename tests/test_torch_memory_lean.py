@@ -192,7 +192,12 @@ def test_segment_sum_route_matches_jax(interpret_kernels, monkeypatch,
         assert prob.mw_cat.shape[0] == 2 + 4
         assert prob.row_order[1] is None and prob.row_order[3] is None
     else:
-        assert prob.counts[1] is None and prob.counts[3] is None
+        # every confounder's level sizes, the segment-sum ones' counted at
+        # the build so that no iteration counts them
+        assert prob.d[1] is None and prob.d[3] is None
+        for v, codes in enumerate(prob.codes):
+            assert torch.equal(prob.counts[v], torch.bincount(
+                codes.long(), minlength=prob.n_levels[v]).float())
     _assert_fits_match(tobj, jobj)
 
 

@@ -111,8 +111,16 @@ def test_decay_ladder_matches_jax():
                                      cd_warm_start=False,
                                      boundaries_per_dispatch=2)])
 def test_unsupported_config_raises(kw):
-    with pytest.raises(NotImplementedError):
-        FitConfig(**kw)
+    """Every boundaries_per_dispatch constructs, as the reference's does (5
+    its default, <= 1 unchained, train/als._run_boundary_chain above);
+    what the port has no counterpart of, use_pallas, raises."""
+    for bpd in (0, 1, 2, 5):
+        assert FitConfig(**dict(kw, boundaries_per_dispatch=bpd)
+                         ).boundaries_per_dispatch == bpd
+    assert FitConfig().boundaries_per_dispatch == 5
+    for value in (True, False):
+        with pytest.raises(ValueError, match="use_pallas"):
+            FitConfig(**kw, use_pallas=value)
 
 
 def test_col_solver_accepts_only_the_ported_solver():

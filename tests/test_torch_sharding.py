@@ -136,6 +136,21 @@ def test_ranks_agree(ranks, case, layout):
             assert np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("layout", jobs.UNCHAINED_LAYOUTS)
+def test_sharded_chain_is_bit_for_bit_the_unchained(ranks, layout):
+    """On every rank the chained fit (boundaries_per_dispatch=5, each
+    boundary decided on the device from the all-reduced f64 sums) equals
+    the fit that decides every boundary on the host, bit for bit."""
+    for out in ranks:
+        got, ref = out["masked", layout], out["masked_unchained", layout]
+        np.testing.assert_array_equal(got["history"], ref["history"])
+        assert (got["n_iter"], got["converged"]) == (ref["n_iter"],
+                                                     ref["converged"])
+        assert np.array_equal(got["F"], ref["F"])
+        for a, b in zip(got["V"], ref["V"]):
+            assert np.array_equal(a, b)
+
+
 @pytest.mark.parametrize("case", sorted(jobs.CASES))
 def test_one_by_one_layout_is_bit_for_bit(inputs, one_process, case):
     """ShardingConfig(1, 1) with no process group fits what no sharding

@@ -1,8 +1,9 @@
 """The port's entry points take the JAX package's positional parameters.
 
 Insider.__init__, Insider.fit, Insider.tune, train/als.build_problem,
-train/als.build_problem_distributed, train/als.optimize, fit_interaction
-and the two CD solvers of insider_tpu_torch bind every positional
+train/als.build_problem_distributed, train/als.optimize, fit_interaction,
+the two CD solvers, FitConfig and tune/grid.tune of insider_tpu_torch
+bind every positional
 argument of the reference's signature to the same name at the same
 position, with the reference's defaults; the port's own parameters are keyword-only; a
 combination with `sharding` that the port does not run yet raises,
@@ -10,6 +11,7 @@ naming itself and the ROADMAP item that will port it; use_pallas has no
 counterpart and must be None.
 """
 
+import importlib
 import inspect
 import json
 
@@ -20,6 +22,7 @@ import torch
 
 import insider_tpu_torch as itt
 from insider_tpu import api as japi
+from insider_tpu.config import FitConfig as JaxFitConfig
 from insider_tpu.ops import row_update as jrow
 from insider_tpu.ops import solvers as jsolvers
 from insider_tpu.train import als as jals
@@ -39,6 +42,9 @@ ENTRIES = {
     "strong_coordinate_descent": (jsolvers.strong_coordinate_descent,
                                   itt.strong_coordinate_descent),
     "fit_interaction": (jrow.fit_interaction, itt.fit_interaction),
+    "FitConfig": (JaxFitConfig, FitConfig),
+    "tune": (importlib.import_module("insider_tpu.tune.grid").tune,
+             importlib.import_module("insider_tpu_torch.tune.grid").tune),
 }
 POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
               inspect.Parameter.POSITIONAL_OR_KEYWORD)

@@ -26,9 +26,16 @@ CASES = {
     "cold_cd": (dict(masked=True), dict(masked=True, col_solver="cd",
                                         cd_warm_start=False)),
     "ridge": (dict(masked=True), dict(masked=True, alpha=0.0)),
+    # every boundary decided on the host: the chained fit of the others
+    # (FitConfig's default boundaries_per_dispatch=5) must equal it
+    "masked_unchained": (dict(masked=True), dict(
+        masked=True, boundaries_per_dispatch=1)),
 }
 EVERY_LAYOUT = ("masked", "dense")
 AT_2x2 = ("cold_cd", "ridge")
+# the layouts that also fit "masked_unchained" (the group's four ranks
+# hold no 1 x 2 layout; 1 x 4 splits the columns alone, 2 x 2 both axes)
+UNCHAINED_LAYOUTS = [(1, 4), (2, 2)]
 
 
 def summary(res) -> dict:
@@ -153,7 +160,9 @@ def sharding_job(inp: dict, rank: int) -> dict:
     out = {}
     for layout in LAYOUTS:
         cfg = ShardingConfig(*layout)
-        for case in EVERY_LAYOUT + (AT_2x2 if layout == (2, 2) else ()):
+        for case in EVERY_LAYOUT + (AT_2x2 if layout == (2, 2) else ()) + (
+                ("masked_unchained",) if layout in UNCHAINED_LAYOUTS
+                else ()):
             out[case, layout] = fit_case(inp, case, cfg)
     out["refusals"] = refusals(inp, ShardingConfig(2, 2))
     # after the refusals the group still runs a fit: no rank was left in
