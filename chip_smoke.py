@@ -181,7 +181,7 @@ Phases, each fatal on failure:
      covariates (50) and the flagship masked FSS fit to 200 iterations
      with a global_tol that stops it inside a dispatch (converge_tol),
      each through Insider.fit in three modes: eager (every kernel
-     launched from the host, each boundary decided there), graph
+     launched from the host, one boundary a dispatch), graph
      boundaries_per_dispatch=1 and graph 5 (the default); the graph fits
      equal the eager fit bit for bit (every history record's numbers,
      the factors, n_iter, converged) and launch its kernels as often
@@ -1371,7 +1371,7 @@ def fss_counts(torch, G, xty, beta0, lam, alpha, max_outer=48,
     den = torch.where(den > 0.0, den, 1.0)
     inv_den, half_den = 1.0 / den, 0.5 * den
     inv_l1 = float(np.float32(1.0) / np.float32(max(l1, 1e-30)))
-    tol32 = float(np.float32(tol))
+    tol32 = float(np.float32(float(tol)))   # a float or a 0-d tensor
     pconv = torch.zeros((1, M), dtype=torch.bool, device=dev)
     sweeps = torch.zeros(M, dtype=torch.long, device=dev)
     for _ in range(polish_sweeps):
@@ -1432,7 +1432,7 @@ def cd_counts(torch, G, xty, beta0, lam, alpha, tol, max_sweeps):
     from insider_tpu_torch.ops import fss as plain
 
     l1, l2 = plain.penalties(lam, alpha)
-    tol = float(np.float32(tol))
+    tol = float(np.float32(float(tol)))   # a float or a 0-d tensor
     K, M = xty.shape
     dev = xty.device
     lam32, alpha32 = np.float32(lam), np.float32(alpha)
@@ -2462,6 +2462,8 @@ def profile_and_solvers(torch, itt, als):
           "kernel launches on the card")
     if [h["loss"] for h in got.history] != [h["loss"] for h in ref.history]:
         fail("profile_dir changed the fit's losses")
+    if not (got.graphed and ref.graphed):
+        fail("profile_dir: the fit did not take the graph")
     if not kernels:
         fail("profile_dir: the trace holds no kernel of the card")
 
@@ -3298,7 +3300,7 @@ def phase_sharded(torch, itt, als, wrappers, smi, ref):
 
 # Phase 17, the iteration as one CUDA graph and the chained boundaries.
 # Each fit in three modes: "eager" (every kernel launched from the host and
-# every boundary decided there, the fit as it runs off the card:
+# one boundary a dispatch, the fit as it runs off the card:
 # train/als.graph_route patched to False), "graph 1" (the iterations as
 # replays of one captured iteration, boundaries_per_dispatch=1) and "graph
 # 5" (the replays and five boundaries a dispatch decided on the card, the
@@ -3379,11 +3381,30 @@ def converge_tol(losses):
          f"decrease falls below all before it: {rel}")
 
 
+# the device kernel each wrapper launches once a call, by a part of its name
+ONCE_A_CALL = {"level_gram": "level_gram_partial",
+               "row_xty": "row_xty_partial",
+               "feature_sign_fused": "fused_kernel<", "cd_fused": "fused_kernel<",
+               "masked_eval": "masked_eval_partial",
+               "col_gram_xty": "col_gram_xty_kernel",
+               "feature_sign": "streamed_kernel<",
+               "cd_streamed": "streamed_kernel<",
+               "feature_sign_shared": "shared_kernel",
+               "cd_shared": "shared_kernel", "ctns_cd": "ctns_cd_kernel"}
+
+
 def graph_busy(torch, als, obj, fit_kw, state, iters=20):
     """torch.profiler around `iters` replays of the fit's captured
     iteration (graph.IterationGraph from `state`, the fit's end): device
-    kernel time over the host's window, which ends in a synchronize; None
-    where the profiler shows no device kernels."""
+    kernel time over the host's window, which ends in a synchronize (None
+    where the profiler shows no device kernels), and the ms a replay.
+    Fails unless the profiler saw each kernel launched `iters` times its
+    count in the capture (per_replay, what a replay adds to the launch
+    counts).  The tracer drops the first kernels of the first replay in
+    its window, so one replay runs first, then a marker kernel
+    (torch.cuda._sleep's spin_kernel), and only the device events after
+    the marker are read."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from insider_tpu_torch.config import FitConfig
@@ -3407,11 +3428,28 @@ def graph_busy(torch, als, obj, fit_kw, state, iters=20):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        g.run(1)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.time()
         g.run(iters)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-    us = sum(t for t, _ in device_kernel_times(torch, prof).values())
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    if not marks:
+        fail("graph replays: the profiler shows no marker kernel")
+    events = [e for e in events if e.time_range.start >= max(marks)]
+    want = {}
+    for wname, part in ONCE_A_CALL.items():
+        want[part] = want.get(part, 0) + iters * g.per_replay[wname]
+    seen = {part: sum(part in e.name for e in events) for part in want}
+    print(f"  {iters} replays: the profiler's launches {seen}, the launch "
+          f"counts' {want}")
+    if seen != want:
+        fail(f"graph replays: the profiler saw {seen} launches, the launch "
+             f"counts {want} (per_replay {g.per_replay})")
+    us = sum(e.time_range.end - e.time_range.start for e in events)
     return (us / wall_us if us else None), wall_us / 1e3 / iters
 
 

@@ -3,8 +3,8 @@
 Counterpart of insider_tpu/config.py.  The port runs a slice of the JAX
 package's settings: the masked and the dense fit with the feature-sign-search
 (FSS) column solver or the reference's strong-rule coordinate descent (CD),
-ridge solves at alpha == 0, check boundaries decided on the host or chained
-on the device.  use_pallas, which the port has no counterpart of, raises
+ridge solves at alpha == 0, check boundaries decided on the device, one or
+more a dispatch.  use_pallas, which the port has no counterpart of, raises
 ValueError unless it is None, as Insider.fit's does.
 """
 
@@ -44,13 +44,13 @@ class FitConfig:
     max_iter: int = 10000
     # Convergence/metrics cadence (src/optimize.cpp:327,381: `iter % 10`).
     check_every: int = 10
-    # Check boundaries per dispatch: with more than one, full boundaries of
-    # check_every iterations run back to back, the relative-loss stop and
-    # the sub_tol decay ladder decided on the device in float64 between
-    # them, and the host reads the boundaries' sums once a dispatch
-    # (train/als._run_boundary_chain); a checkpoint is saved once a
+    # Check boundaries per dispatch: full boundaries of check_every
+    # iterations run back to back, the relative-loss stop and the sub_tol
+    # decay ladder decided on the device in float64 between them, and the
+    # host reads the boundaries' sums once a dispatch and decides each
+    # again (train/als._run_boundary_chain); a checkpoint is saved once a
     # dispatch.  The fit is the same, bit for bit, at every value; <= 1
-    # decides every boundary on the host (insider_tpu/config.py:41-49).
+    # runs one boundary a dispatch (insider_tpu/config.py:41-49).
     boundaries_per_dispatch: int = 5
     # Safety cap on CD sweeps inside one column update (the reference loops
     # unboundedly, coordinate_descent.cpp:82-114).  KKT reactivation

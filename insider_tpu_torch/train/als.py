@@ -28,11 +28,12 @@ covariate without them the update on that residual (ops/continuous).
 The masks are stored as f32 or uint8 (build_problem's mask_dtype); the
 kernels read either as it is stored.
 Cold CD (col_solver="cd", cd_warm_start=False) sweeps each column update in
-one coordinate order from draw_perm.  With boundaries_per_dispatch=1 a
-boundary copies seven f64 sums to the host, which decides it in f64; with
-more, that many boundaries run back to back, each decided on the device
-with the host's f64 formulas (_run_boundary_chain), and the host reads
-their sums once a dispatch: the same fit, bit for bit.  Under
+one coordinate order from draw_perm.  A dispatch runs
+boundaries_per_dispatch boundaries back to back (one where the JAX
+package takes its single-boundary path), each decided on the device with
+the host's f64 formulas (_run_boundary_chain); the host reads their sums
+once a dispatch and decides each again: the same fit, bit for bit, at
+every boundaries_per_dispatch.  Under
 FitConfig.debug_checks every block update is checked for finiteness on
 the host (NonFiniteError names the block).  On CPU tensors every kernel
 wrapper runs its plain version.
@@ -48,6 +49,7 @@ collective); the rest runs on every rank alike.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -733,19 +735,19 @@ def _stage_state(problem: Problem, state: InsiderState) -> InsiderState:
                         F[:, c0:c1].contiguous())
 
 
-def _profiled(run, state, device, path):
-    """run(state) under torch.profiler (the card's kernels too, where the
+@contextlib.contextmanager
+def _profiled(device, path):
+    """The block under torch.profiler (the card's kernels too, where the
     problem lives there), its trace written to `path` as Chrome JSON."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
-        state = run(state)
+        yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     prof.export_chrome_trace(path)
-    return state
 
 
 def _draw_perms(perm_gen: Optional[torch.Generator], K: int,
@@ -758,23 +760,25 @@ def _draw_perms(perm_gen: Optional[torch.Generator], K: int,
 
 
 def _run_steps(problem: Problem, config: FitConfig, state: InsiderState,
-               n: int, sub_tol_eff, perms: Optional[torch.Tensor] = None
-               ) -> InsiderState:
+               n: int, sub_tol_eff, perms: Optional[torch.Tensor],
+               done: torch.Tensor) -> InsiderState:
     """n ALS iterations, eagerly: every kernel launched from the host (the
     JAX package's _run_steps, insider_tpu/train/als.py:666, is one jitted
     fori_loop; train/graph.py captures one iteration instead).  perms: the
-    cold-CD orders (n, K), row i for iteration i; sub_tol_eff a float or a
-    0-d f32 tensor on the problem's device."""
+    cold-CD orders (n, K), row i for iteration i, or None; sub_tol_eff a
+    float or a 0-d f32 tensor on the problem's device; done: a 0-d bool
+    tensor, once set the state is kept (graph.freeze)."""
     for i in range(n):
-        state = _als_iteration(problem, config, state, sub_tol_eff,
-                               None if perms is None else perms[i])
+        new = _als_iteration(problem, config, state, sub_tol_eff,
+                             None if perms is None else perms[i])
+        state = graph.freeze(done, state, new)
     return state
 
 
 class _EagerSteps:
     """The iterations of a fit, launched eagerly (_run_steps): on the CPU,
-    under a sharding, debug_checks or profile_dir.  done: the chain's stop
-    flag (a 0-d bool tensor); once set, the state is kept (graph.freeze)."""
+    under a sharding or debug_checks.  done: the boundary chain's stop
+    flag (a 0-d bool tensor)."""
 
     graphed = False
     capture_s = 0.0
@@ -783,21 +787,15 @@ class _EagerSteps:
                  state: InsiderState):
         self.problem, self.config, self.state = problem, config, state
         self.done = torch.zeros((), dtype=torch.bool, device=problem.device)
+        self.pinned = []
 
-    def steps(self, n: int, sub_tol_eff, perms=None, chained=False) -> None:
+    def steps(self, n: int, sub_tol_eff, perms=None) -> None:
         if perms is not None and self.problem.device.type == "cuda":
             # one copy a call from pinned memory, no wait for the device
             perms = perms.pin_memory().to(self.problem.device,
                                           non_blocking=True)
-        if not chained:
-            self.state = _run_steps(self.problem, self.config, self.state, n,
-                                    sub_tol_eff, perms)
-            return
-        for i in range(n):
-            new = _als_iteration(self.problem, self.config, self.state,
-                                 sub_tol_eff,
-                                 None if perms is None else perms[i])
-            self.state = graph.freeze(self.done, self.state, new)
+        self.state = _run_steps(self.problem, self.config, self.state, n,
+                                sub_tol_eff, perms, self.done)
 
 
 class _GraphSteps:
@@ -819,47 +817,40 @@ class _GraphSteps:
     def state(self) -> InsiderState:
         return self._state if self.graph is None else self.graph.state
 
-    def steps(self, n: int, sub_tol_eff, perms=None, chained=False) -> None:
+    def steps(self, n: int, sub_tol_eff, perms=None) -> None:
         dev = self.problem.device
         if perms is not None:
             # pinned, so each replay's order is copied without a wait;
-            # kept until the dispatch's metrics are read (the chain's, or
-            # the next unchained call's)
+            # kept until the dispatch's metrics are read
+            # (_run_boundary_chain empties the list)
             perms = perms.pin_memory()
-        self.pinned = (self.pinned if chained else []) + [perms]
+            self.pinned.append(perms)
         if self.graph is None:
             # the first iteration eagerly, then the capture of the next
-            tol = (float(sub_tol_eff) if isinstance(sub_tol_eff, torch.Tensor)
-                   else sub_tol_eff)
             self.graph = graph.IterationGraph(
-                self.problem, self.config, self._state, _als_iteration, tol,
+                self.problem, self.config, self._state, _als_iteration,
+                float(sub_tol_eff),
                 None if perms is None else perms[0].to(dev,
                                                        non_blocking=True),
                 self.done)
             self.capture_s = self.graph.capture_s
             self._state = None
             n, perms = n - 1, None if perms is None else perms[1:]
-        g = self.graph
-        if isinstance(sub_tol_eff, torch.Tensor):
-            g.tol.copy_(sub_tol_eff)
-        else:
-            g.tol.fill_(sub_tol_eff)
-        g.run(n, perms)
+        self.graph.tol.copy_(sub_tol_eff)
+        self.graph.run(n, perms)
 
 
-def graph_route(problem: Problem, config: FitConfig,
-                profile_dir: Optional[str] = None) -> bool:
+def graph_route(problem: Problem, config: FitConfig) -> bool:
     """Whether a fit of `problem` runs its iterations as replays of one
     CUDA graph (train/graph.py), decided from the problem and the config
     before the first iteration: on the card with no sharding (a collective
     of the CPU's gloo group cannot be captured; NCCL's wait for a machine
-    with more than one card), no debug_checks (a host check a block) and
-    no profile_dir (the JAX chain leaves out the same two,
-    insider_tpu/train/als.py:1036-1037).  Every route of the iteration is
-    captured: masked and dense, fast and segment-sum rows, covariates,
-    FSS, cold CD and ridge columns at every K the card takes."""
+    with more than one card) and no debug_checks (a host check a block).
+    Every route of the iteration is captured: masked and dense, fast and
+    segment-sum rows, covariates, FSS, cold CD and ridge columns at every
+    K the card takes."""
     return (problem.device.type == "cuda" and problem.mesh is None
-            and not config.debug_checks and not profile_dir)
+            and not config.debug_checks)
 
 
 # The sub_tol decay ladder's rungs (config.decay_from_delta_loss), largest
@@ -913,25 +904,26 @@ class _StopFlags:
         return bool(self.host[k])
 
 
-def _run_boundary_chain(problem: Problem, config: FitConfig, steps,
+def _run_boundary_chain(problem: Problem, config: FitConfig, steps, n: int,
                         n_chunks: int, decay: float, pre_loss: float,
                         perm_gen: Optional[torch.Generator]):
-    """Up to n_chunks boundaries of check_every iterations each, back to
-    back, with no host sync between them (insider_tpu/train/als.py:759
-    _run_boundary_chain): each boundary's tolerance f32(sub_tol * decay),
-    its eval, and in f64 on the device, with the host's own formulas in
-    the host's order, its loss (_device_loss), delta = pre - loss, the
-    next decay (_device_decay), converged = delta / pre < global_tol and
-    diverged = the loss not finite.  Once a boundary converges or
-    diverges, `done` is set and the later boundaries' iterations keep the
-    state as it is; the host stops enqueueing two boundaries after
-    (_StopFlags).  One copy to the host at the end: the (n_chunks, 8) f64
-    block of each boundary's 7 sums and its decay, and the flags.
+    """One dispatch: up to n_chunks boundaries of n iterations each, back
+    to back, with no host sync between them (insider_tpu/train/als.py:759
+    _run_boundary_chain; n_chunks is 1 where the JAX package takes its
+    single-boundary path).  Each boundary runs at the tolerance
+    f32(sub_tol * decay), then its eval, and decides in f64 on the device,
+    with the host's own formulas in the host's order: its loss
+    (_device_loss), delta = pre - loss, the next decay (_device_decay),
+    and whether it stops (delta / pre < global_tol, or the loss not
+    finite).  Once a boundary stops, `done` is set and the later
+    boundaries' iterations keep the state as it is; the host stops
+    enqueueing two boundaries after (_StopFlags).  One copy to the host at
+    the end: the (n_chunks, 9) f64 block of each boundary's 7 sums, its
+    next decay and its stop.
 
-    Returns (block rows of the boundaries that ran live, the chain's
-    next decay, converged, diverged, iterations run after the stop)."""
+    Returns (the block's rows of the boundaries up to the stop, the
+    iterations run after it)."""
     dev = problem.device
-    ce = config.check_every
     K = steps.state.latent_dim
 
     def f64(x):
@@ -940,47 +932,38 @@ def _run_boundary_chain(problem: Problem, config: FitConfig, steps,
     decay_t, pre_t = f64(decay), f64(pre_loss)
     done = steps.done
     done.zero_()
-    conv_t = torch.zeros((), dtype=torch.bool, device=dev)
-    div_t = torch.zeros((), dtype=torch.bool, device=dev)
-    k_done = torch.zeros((), dtype=torch.int64, device=dev)
-    block = torch.zeros((n_chunks, 8), dtype=torch.float64, device=dev)
+    block = torch.zeros((n_chunks, 9), dtype=torch.float64, device=dev)
     flags = _StopFlags(n_chunks, dev)
     gen_states, ran = [], 0
     for k in range(n_chunks):
         if k >= 2 and flags.stopped(k - 2):
             break
         gen_states.append(None if perm_gen is None else perm_gen.get_state())
-        tol = (decay_t * config.sub_tol).to(torch.float32)
-        steps.steps(ce, tol, _draw_perms(perm_gen, K, ce), chained=True)
+        steps.steps(n, (decay_t * config.sub_tol).to(torch.float32),
+                    _draw_perms(perm_gen, K, n))
         ran += 1
         vec = _evaluate(problem, steps.state)
         loss = _device_loss(vec, config)
         delta = pre_t - loss
-        new_decay = _device_decay(delta)
-        conv = delta / pre_t < config.global_tol
-        div = ~torch.isfinite(loss)
         live = ~done
+        stop = live & (~torch.isfinite(loss)
+                       | (delta / pre_t < config.global_tol))
         block[k, :7] = vec
-        block[k, 7] = new_decay
-        k_done += live
-        decay_t = torch.where(live, new_decay, decay_t)
+        block[k, 7] = _device_decay(delta)
+        block[k, 8] = stop.double()
+        decay_t = torch.where(live, block[k, 7], decay_t)
         pre_t = torch.where(live, loss, pre_t)
-        conv_t |= live & conv
-        div_t |= live & div
-        done |= live & (conv | div)
+        done |= stop
         flags.record(k, done)
-    out = torch.cat([block.flatten(), torch.stack([
-        k_done.double(), decay_t, conv_t.double(), div_t.double()])]).cpu()
+    rows = block.cpu().numpy()
     steps.pinned = []
-    tail = out[-4:].tolist()
-    n_live = int(tail[0])
+    stops = np.flatnonzero(rows[:ran, 8])
+    n_live = ran if stops.size == 0 else int(stops[0]) + 1
     if perm_gen is not None and n_live < ran:
-        # the generator as after the live boundaries' draws, as the
+        # the generator as after the live boundaries' draws, as an
         # unchained fit leaves it
         perm_gen.set_state(gen_states[n_live])
-    rows = out[:-4].reshape(n_chunks, 8).numpy()[:n_live]
-    return (rows, tail[1], bool(tail[2]), bool(tail[3]),
-            (ran - n_live) * ce)
+    return rows[:n_live], (ran - n_live) * n
 
 
 @dataclasses.dataclass
@@ -1037,10 +1020,12 @@ def optimize(problem: Problem, config: FitConfig,
     iteration after its own, with its decay ladder, so the resumed run
     continues the uninterrupted one (insider_tpu/train/als.py:941-960).
     profile_dir: trace the second step chunk (the iterations up to the
-    first boundary after the first one, as the JAX package traces its
-    second chunk, insider_tpu/train/als.py:1094-1095) with torch.profiler
-    and write it there as a Chrome trace, trace_iter_<first>_<last>.json;
-    the fit computes the same bits with and without it.
+    first boundary after the first one and that boundary's eval, as the
+    JAX package traces its second chunk, insider_tpu/train/als.py:
+    1094-1095; on the card the graph's replays) with torch.profiler and
+    write it there as a Chrome trace, trace_iter_<first>_<last>.json; the
+    fit computes the same bits with and without it.  Like debug_checks,
+    it runs one boundary a dispatch.
     The positional parameters are the JAX package's, in its order;
     generator is keyword-only.
 
@@ -1110,9 +1095,12 @@ def optimize(problem: Problem, config: FitConfig,
         if progress_callback:
             progress_callback(rec)
 
-    graphed = graph_route(problem, config, profile_dir)
+    graphed = graph_route(problem, config)
     steps = (_GraphSteps(problem, config, state) if graphed
              else _EagerSteps(problem, config, state))
+    # boundaries a dispatch: full check_every-sized ones back to back; the
+    # first 1-iteration chunk, a max_iter tail, debug_checks and the
+    # profiled chunk take one (insider_tpu/train/als.py:1036-1049)
     chain_ok = (config.boundaries_per_dispatch > 1
                 and not config.debug_checks and profile_dir is None)
     ce = config.check_every
@@ -1135,76 +1123,40 @@ def optimize(problem: Problem, config: FitConfig,
             boundary = it if it % ce == 0 else ((it // ce + 1) * ce)
             boundary = min(boundary, config.max_iter)
             n = boundary - it + 1
-            # whole boundaries left before max_iter; the first 1-iteration
-            # chunk and a max_iter tail take the single-boundary path
-            # (insider_tpu/train/als.py:1036-1049)
             n_full = (config.max_iter - (it - 1)) // ce if n == ce else 0
-            if chain_ok and n_full >= 1:
-                rows, decay, conv, div, waste = _run_boundary_chain(
-                    problem, config, steps,
-                    min(config.boundaries_per_dispatch, n_full), decay,
-                    loss, perm_gen)
-                wasted += waste
-                base = it - 1
-                for i, row in enumerate(rows):
-                    pre_loss = loss
-                    m = finalize(row[:7])
-                    loss = m["loss"]
-                    delta_loss = pre_loss - loss
-                    emit({"iter": base + (i + 1) * ce, **m,
-                          "delta_loss": delta_loss,
-                          "decay": decay_from_delta_loss(delta_loss),
-                          "elapsed_s": time.time() - t0})
-                    stop = (not np.isfinite(loss)
-                            or delta_loss / pre_loss < config.global_tol)
-                    if stop != (i == len(rows) - 1 and (conv or div)):
-                        raise RuntimeError(
-                            f"the boundary chain decided iteration "
-                            f"{base + (i + 1) * ce} otherwise than the "
-                            "host's float64 decision")
-                it = base + len(rows) * ce + 1
-                if div:
-                    diverged = True
-                    logger.warning("infinite or missing values in loss at "
-                                   "iter %d; aborting", it - 1)
-                    break
-                if checkpoint_path:
-                    save_checkpoint(checkpoint_path, steps.state, it=it - 1,
-                                    loss=loss,
-                                    extra={"decay": decay,
-                                           "delta_loss": delta_loss},
-                                    generator=perm_gen)
-                if conv:
-                    converged = True
-                    break
-                continue
-
-            sub_tol_eff = float(np.float32(config.sub_tol * decay))
-            perms = _draw_perms(perm_gen, steps.state.latent_dim, n)
+            n_chunks = (min(config.boundaries_per_dispatch, n_full)
+                        if chain_ok and n_full >= 1 else 1)
+            profile = contextlib.nullcontext()
             if profile_dir and len(history) == 2:
                 name = f"trace_iter_{it}_{boundary}" + (
                     "" if mesh is None else f"_rank{mesh.rank}")
-
-                def run_chunk(st):
-                    return _run_steps(problem, config, st, n, sub_tol_eff,
-                                      perms)
-
-                steps.state = _profiled(
-                    run_chunk, steps.state, problem.device,
-                    os.path.join(profile_dir, name + ".json"))
-            else:
-                steps.steps(n, sub_tol_eff, perms)
-            it = boundary + 1
-
-            pre_loss = loss
-            m = finalize(_evaluate(problem, steps.state))
-            loss = m["loss"]
-            delta_loss = pre_loss - loss
-            decay = decay_from_delta_loss(delta_loss)
-            emit({"iter": boundary, **m, "delta_loss": delta_loss,
-                  "decay": decay, "elapsed_s": time.time() - t0})
-            if not np.isfinite(loss):
-                diverged = True
+                profile = _profiled(problem.device,
+                                    os.path.join(profile_dir, name + ".json"))
+            with profile:
+                rows, waste = _run_boundary_chain(
+                    problem, config, steps, n, n_chunks, decay, loss,
+                    perm_gen)
+            wasted += waste
+            # every boundary decided again on the host, in f64
+            for row in rows:
+                boundary = it + n - 1
+                it = boundary + 1
+                pre_loss = loss
+                m = finalize(row[:7])
+                loss = m["loss"]
+                delta_loss = pre_loss - loss
+                decay = decay_from_delta_loss(delta_loss)
+                emit({"iter": boundary, **m, "delta_loss": delta_loss,
+                      "decay": decay, "elapsed_s": time.time() - t0})
+                diverged = not np.isfinite(loss)
+                converged = (not diverged
+                             and delta_loss / pre_loss < config.global_tol)
+                if (row[7] != decay
+                        or bool(row[8]) != (diverged or converged)):
+                    raise RuntimeError(
+                        f"the device decided iteration {boundary} otherwise "
+                        "than the host's float64 decision")
+            if diverged:
                 logger.warning("infinite or missing values in loss at iter "
                                "%d; aborting", boundary)
                 break
@@ -1213,10 +1165,7 @@ def optimize(problem: Problem, config: FitConfig,
                                 loss=loss, extra={"decay": decay,
                                                   "delta_loss": delta_loss},
                                 generator=perm_gen)
-            if (pre_loss - loss) / pre_loss < config.global_tol:
-                converged = True
-                break
-            if boundary >= config.max_iter:
+            if converged or boundary >= config.max_iter:
                 break
     finally:
         if jl:

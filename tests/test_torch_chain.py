@@ -169,6 +169,22 @@ def test_chain_aborts_within_one_boundary(data, monkeypatch):
     assert res.wasted_iters <= 10
 
 
+@pytest.mark.parametrize("wrong", ["decay", "stop"])
+def test_host_decides_every_boundary_again(data, monkeypatch, wrong):
+    """The host decides each boundary again from the copied sums in f64
+    and raises where the device decided its decay or its stop
+    otherwise."""
+    problem = _problem(data)
+    if wrong == "decay":        # never leaves the first rung
+        monkeypatch.setattr(als, "_device_decay",
+                            lambda delta: torch.ones_like(delta))
+    else:                       # a loss that stops the first boundary
+        monkeypatch.setattr(als, "_device_loss",
+                            lambda vec, config: vec[0] * float("nan"))
+    with pytest.raises(RuntimeError, match="otherwise than the host"):
+        _fit(problem)
+
+
 def test_chained_resume_equals_uninterrupted(data, tmp_path):
     """A cold-CD chained fit stopped at a checkpoint (max_iter=30) and
     resumed to 70 equals the uninterrupted chained fit bit for bit, its

@@ -1097,7 +1097,7 @@ GRAPH_KINDS = ["masked", "dense", "cold masked", "cold dense", "masked K40",
 def test_graph_fit_equals_eager_fit(cuda, monkeypatch, kind):
     """The fit as replays of one captured iteration, unchained and chained
     (boundaries_per_dispatch 1 and 5), equals the eager fit (every kernel
-    launched from the host, each boundary decided there) bit for bit;
+    launched from the host, one boundary a dispatch) bit for bit;
     each replay counts the kernels of the captured iteration."""
     from insider_tpu_torch.config import FitConfig
     from insider_tpu_torch.train import als, graph

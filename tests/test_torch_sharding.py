@@ -140,7 +140,7 @@ def test_ranks_agree(ranks, case, layout):
 def test_sharded_chain_is_bit_for_bit_the_unchained(ranks, layout):
     """On every rank the chained fit (boundaries_per_dispatch=5, each
     boundary decided on the device from the all-reduced f64 sums) equals
-    the fit that decides every boundary on the host, bit for bit."""
+    the fit of one boundary a dispatch, bit for bit."""
     for out in ranks:
         got, ref = out["masked", layout], out["masked_unchained", layout]
         np.testing.assert_array_equal(got["history"], ref["history"])

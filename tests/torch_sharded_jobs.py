@@ -26,7 +26,7 @@ CASES = {
     "cold_cd": (dict(masked=True), dict(masked=True, col_solver="cd",
                                         cd_warm_start=False)),
     "ridge": (dict(masked=True), dict(masked=True, alpha=0.0)),
-    # every boundary decided on the host: the chained fit of the others
+    # one boundary a dispatch: the chained fit of the others
     # (FitConfig's default boundaries_per_dispatch=5) must equal it
     "masked_unchained": (dict(masked=True), dict(
         masked=True, boundaries_per_dispatch=1)),
