@@ -111,11 +111,14 @@ Phases, each fatal on failure:
      masks: the routes, the precompute's column chunks, the problem's
      bytes on the card, the build's and the fit's peaks beyond them and
      ms/iter printed, and a profile of 5 iterations of the uint8 fit;
-     the uint8 fit's last in-fit call of level_gram, row_xty (tissue and
-     donor), masked_eval and feature_sign_fused launched again on its
-     inputs and held against its plain version (infit_checks);
-     gates: losses equal bit for bit, finite and
-     non-increasing, level_gram once an iteration, row_xty twice,
+     the uint8 fit's last in-fit call of level_gram (the fast confounders'
+     and the interaction's mask counts), row_xty (tissue and donor),
+     masked_eval and feature_sign_fused launched again on its inputs and
+     held against its plain version (infit_checks; the interaction's
+     level grams within the plain version's error and unbiased on their
+     diagonal, segment_gram_gate); gates: losses equal bit for bit,
+     finite and non-increasing, level_gram twice an iteration, row_xty
+     twice,
      feature_sign_fused once, uint8 saving at least 0.99 x 2 N M 3 bytes,
      the build's peak at most 3 GB (N is cut only where the host's memory
      would not hold the set-up, and then printed); small fits card against
@@ -169,7 +172,19 @@ Phases, each fatal on failure:
      iterations) written as a raw f32 file and built by each rank from
      its block alone through file_ingest_callbacks, at 2 x 1 and 1 x 2
      (each rank's largest ingest block and its problem's bytes on the
-     card printed).  Every rank's history equal; every per-boundary loss
+     card printed); then the settings ported to the sharded fit last
+     (SETTING_FITS): the cold-CD flagship fit with precompute=False at
+     1 x 2 and 2 x 1, the FSS flagship fit with P=3 covariates masked and dense at 1 x 2 (ctns_cd 3
+     launches an iteration on each rank), the 1 x 2 fit checkpointed at
+     10 and resumed (bit for bit the uninterrupted fit, rank 0 alone
+     writing the whole F), the 1 x 2 precompute=False fit under
+     debug_checks with a NaN put into rank 1's data block (both ranks
+     raise the row update's NonFiniteError, then fit clean, bit for bit);
+     and the GTEx-sized masked fit at 1 x 2, each rank reading its half of
+     a raw f32 file the parent writes (the interaction on the segment
+     sums; its problem's bytes, fit peak and ms/iter per rank), held to
+     the one-process fit of the same file.  Every rank's history equal;
+     every per-boundary loss
      (and RMSE) within rel 1e-5 of the one-process fit's, or within twice
      the gap of the one-process fit with its columns reversed (its sums
      in another order, reversed_fit), where the fit moves that far with
@@ -542,6 +557,34 @@ def level_gram_gate(torch, row, mw, F, got):
         fail(f"level_gram max err {errs['kernel']:.4e} > {limit:.4e}")
     if errs["one-plane control"] <= limit:
         fail("level_gram's gate does not reject one bf16 plane of the table")
+
+
+SEGMENT_GRAM_BIAS = 1e-7
+
+
+def segment_gram_gate(torch, row, mw, F, got):
+    """level_gram's output `got` on a segment-sum confounder's mask counts
+    (a fit's (L, M) counts of levels of one or two rows each, where
+    level_gram_gate's 1e-6 of the largest magnitude is below f32's reach
+    over M columns) against the f64 sums: its max error at most the plain
+    f32 version's, which it replaces there, and its diagonal unbiased:
+    the mean relative error of the (L, K) diagonal within
+    SEGMENT_GRAM_BIAS (the plain version's is printed beside it)."""
+    exact = row.level_gram_plain(mw.double(), F.double())
+    d = torch.arange(F.shape[0], device=F.device)
+    stats = {}
+    for who, x in (("kernel", got), ("plain f32", row.level_gram_plain(mw,
+                                                                       F))):
+        err = x.double() - exact
+        stats[who] = (float(err.abs().max()),
+                      float((err[:, d, d] / exact[:, d, d]).mean()))
+    (ek, bk), (ep, bp) = stats["kernel"], stats["plain f32"]
+    print(f"segment level_gram vs the f64 sums: max err kernel {ek:.4e}, "
+          f"plain f32 {ep:.4e}; diagonal mean relative error kernel "
+          f"{bk:+.3e}, plain f32 {bp:+.3e} (limit {SEGMENT_GRAM_BIAS:g})")
+    if not (ek <= ep and abs(bk) <= SEGMENT_GRAM_BIAS):
+        fail(f"segment level_gram: max err {ek:.4e} (plain {ep:.4e}), "
+             f"diagonal bias {bk:+.3e}")
 
 
 def level_gram_times(torch, row, mw, F, reps=20):
@@ -1185,11 +1228,12 @@ def flagship_object(itt, sharding=None):
                        split_ratio=0.1, sharding=sharding, device="cuda")
 
 
-def covariate_object(itt):
-    """The flagship problem with P=3 continuous covariates (phase 13),
+def covariate_object(itt, sharding=None):
+    """The flagship problem with P=3 continuous covariates (phases 13, 16),
     planted as tools/parity_run.py:129-139 plants them (its Protocol C
     problem): C (N, 3) and W_true (3, K) from default_rng(7), the data
-    plus C W_true F_true; the 1% NaNs and the split of flagship_object."""
+    plus C W_true F_true; the 1% NaNs and the split of flagship_object;
+    sharded by `sharding` or not."""
     sim = itt.simulate_scale(N, M, K, level_counts=(2, 8, 107),
                              noise_std=1.0, seed=0)
     rng = np.random.default_rng(7)
@@ -1198,7 +1242,7 @@ def covariate_object(itt):
     data = (sim.data + (ctns @ w_true) @ sim.gene_factor).astype(np.float64)
     data[np.random.default_rng(0).random(data.shape) < 0.01] = np.nan
     return itt.Insider(data, sim.confounder, ctns, interaction_idx=[0, 1],
-                       split_ratio=0.1, device="cuda")
+                       split_ratio=0.1, sharding=sharding, device="cuda")
 
 
 def predixcan_object(itt):
@@ -2203,14 +2247,17 @@ INFIT_MODULES = dict(level_gram="als", row_xty="als", masked_eval="als",
                      feature_sign_shared="col_update", cd_fused="col_update")
 
 
-def infit_checks(torch, als, name, run, kernels, rows=0):
+def infit_checks(torch, als, name, run, kernels, rows=0, segment=False):
     """Each kernel of a fit held against its plain version on the inputs
     the fit gave it: the last call of each kernel in `kernels` (level_gram,
     masked_eval, feature_sign_fused, col_gram_xty, feature_sign,
     feature_sign_shared, cd_fused) and the last `rows` calls of row_xty
     (the last iteration's, one for each confounder on the fast route, each
     at its own L), captured while run() drives the fit, and launched again after
-    it beside the plain versions.  Tolerances those of phases 3 and 5:
+    it beside the plain versions; with `segment` (a fit with one
+    confounder on the segment sums, after the fast confounders' launch),
+    level_gram's last call is that confounder's mask counts
+    (segment_gram_gate) and the one before it the fast confounders'.  Tolerances those of phases 3 and 5:
     level_gram within LEVEL_GRAM_RTOL of max |ref| of the f64 sums
     (level_gram_gate); row_xty within ROW_XTY_RTOL of max |ref| of the f64
     plain version (the fit's inputs nearly cancel, as row_xty_gate's do);
@@ -2228,11 +2275,22 @@ def infit_checks(torch, als, name, run, kernels, rows=0):
     specs = {k: (module[INFIT_MODULES[k]], k, -1) for k in kernels}
     specs.update({("row_xty", -i): (als, "row_xty", -i)
                   for i in range(1, rows + 1)})
+    if segment:
+        specs["level_gram"] = (als, "level_gram", -2)
+        specs["segment level_gram"] = (als, "level_gram", -1)
     out = {}
     calls = captured_calls(torch, specs, lambda: out.update(result=run()))
+    if segment:
+        args, kw = calls.pop("segment level_gram")
+        print(f"{name}, in-fit level_gram of the segment-sum confounder "
+              f"({tuple(args[0].shape)}, K={args[1].shape[0]}):")
+        segment_gram_gate(torch, row, args[0], args[1],
+                          row.level_gram(*args, **kw))
 
     if "level_gram" in calls:
-        (mw, F, max_count), _ = calls.pop("level_gram")
+        args, kw = calls.pop("level_gram")
+        mw, F = args[:2]
+        max_count = args[2] if len(args) > 2 else kw["max_count"]
         print(f"{name}, in-fit level_gram ({tuple(mw.shape)}, K="
               f"{F.shape[0]}):")
         level_gram_gate(torch, row, mw, F, row.level_gram(mw, F, max_count))
@@ -2352,8 +2410,10 @@ def gtex_fits(torch, itt, als, wrappers, host_gb):
     """The GTEx-sized masked fit, 20 iterations, with uint8 masks and with
     the default f32 masks: each kernel of the uint8 fit against its plain
     version on its in-fit inputs (infit_checks); equal losses bit for
-    bit, finite and non-increasing; level_gram once an iteration, row_xty exactly twice
-    (tissue and donor, never the interaction), feature_sign_fused once;
+    bit, finite and non-increasing; level_gram twice an iteration (tissue
+    and donor in one launch, then the interaction's mask counts, its last
+    in-fit call, held in f64), row_xty exactly twice (tissue and donor,
+    never the interaction), feature_sign_fused once;
     the uint8 problem at least 0.99 x 2 N M 3 bytes below the f32 one; the
     build's peak beyond the problem at most 3 GB.  N is cut only where the
     host's memory would not hold the host-side set-up, which keeps several
@@ -2383,7 +2443,7 @@ def gtex_fits(torch, itt, als, wrappers, host_gb):
         launches, losses, ms, mem = (
             infit_checks(torch, als, "GTEx-sized fit", run,
                          ("level_gram", "masked_eval", "feature_sign_fused"),
-                         rows=2) if mdt is not None else run())
+                         rows=2, segment=True) if mdt is not None else run())
         res[label] = dict(launches=launches, losses=losses, ms=ms, **mem)
         if mdt is not None:
             print("profile of the GTEx-sized fit, uint8 masks, 5 iterations "
@@ -2396,7 +2456,7 @@ def gtex_fits(torch, itt, als, wrappers, host_gb):
               f"donor) {routes}")
         if routes != ["fast", "segment sums", "fast"]:
             fail(f"GTEx-sized fit: routes {routes}")
-        want = dict(level_gram=iters, row_xty=2 * iters,
+        want = dict(level_gram=2 * iters, row_xty=2 * iters,
                     feature_sign_fused=iters)
         for k, v in want.items():
             if launches[k] != v:
@@ -2949,6 +3009,45 @@ DIST_FIT = dict(latent_dim=8, lambda1=3.0, lambda2=3.0, alpha=0.4,
                 col_solver="fss", seed=0)
 SHARDED_RTOL = 1e-5
 WORKER_WALL_S = 600
+# (d) The settings the sharded fit runs since they were ported to it, on
+# the same two ranks: (name, layout, Insider factory, Insider.fit
+# arguments, kernels that launch and no other, ctns_cd launches an
+# iteration); each held, as the fits above, to the one-process fit of the
+# same factory and arguments and to its witness.  The precompute=False
+# fits, every confounder on the segment sums, run cold CD: its fits move
+# ~1e-6 with the order of their sums (the cold-CD flagship fit above),
+# where an FSS fit's active sets flip, so the segment route is held to
+# 1e-5 itself (the FSS precompute=False fit's 1 x 2 run moved 3.9e-5 at
+# boundary 10, within the scatter of its own reorderings, -3e-6 to 3.9e-5,
+# PERF.md section 6, PR 17).  Then the 1 x 2 flagship
+# masked fit checkpointed at boundary CKPT_AT and resumed, against the
+# 1 x 2 fit above bit for bit, and the 1 x 2 precompute=False fit under
+# debug_checks with a NaN put into rank 1's data block (both ranks must
+# raise NAN_MESSAGE), then clean, against its fit here bit for bit.
+SETTING_FITS = (
+    ("cold CD flagship fit, precompute=False", (1, 2), "flagship",
+     dict(partition=1, precompute=False, **COLD),
+     ("level_gram", "cd_fused", "masked_eval"), 0),
+    ("cold CD flagship fit, precompute=False", (2, 1), "flagship",
+     dict(partition=1, precompute=False, **COLD),
+     ("level_gram", "col_gram_xty", "cd_streamed", "masked_eval"), 0),
+    ("flagship masked FSS fit, P=3 covariates", (1, 2), "covariate",
+     dict(partition=1), MASKED_FSS + ("ctns_cd",), 3),
+    ("flagship dense FSS fit, P=3 covariates", (1, 2), "covariate",
+     dict(partition=0), ("feature_sign_shared",), 0))
+FACTORIES = {"flagship": flagship_object, "covariate": covariate_object}
+CKPT_AT = 10
+NAN_MESSAGE = "non-finite values produced by row update V[0] (optimize_row)"
+# (e) The GTEx-sized masked fit (phase 14's problem) at 1 x 2: the parent
+# writes simulate_scale's matrix with its 1% NaNs once as a raw f32 file
+# and the codes of its three confounders (tissue, tissue x donor, donor),
+# numbered over the whole matrix; each rank reads its block of the file
+# (its NaNs zeroed, and in neither mask), a Bernoulli(0.1) block split of
+# seed 123, uint8 masks, 20 iterations.  Held to the one-process fit of
+# the same file and split and to its witness.
+GTEX_SPLIT = (0.1, 123)
+GTEX_SHARDED_FIT = dict(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
+                        masked=True, max_iter=SHARDED_ITERS, seed=0)
 
 
 def free_port():
@@ -2967,27 +3066,32 @@ def dist_codes(r0, r1):
             for v, L in enumerate(DIST_LEVELS)]
 
 
-def reversed_fit(torch, als, data, confounder, train, test, fit_cfg, seed):
+def reversed_fit(torch, als, data, confounder, train, test, fit_cfg, seed,
+                 ctns=None, precompute=True):
     """A witness: the one-process fit of the problem with its columns in
     reverse order, from the initial state the fit draws (seed) with F's
     columns reversed alike.  Column for column it is the same fit, its sums
     over the genes (level grams, row Xty, eval) taken in another order, as
     a sharded fit takes them; how far its losses move from the fit's is
-    how far the fit moves with the order of its sums.  Returns its history
-    as [(iter, loss, train_rmse, test_rmse)]."""
+    how far the fit moves with the order of its sums.  ctns: the
+    covariates (N, P), or None.  Returns its history as [(iter, loss,
+    train_rmse, test_rmse)]."""
     from insider_tpu_torch.model.state import init_state
 
     rev = slice(None, None, -1)
     problem = als.build_problem(
         np.ascontiguousarray(data[:, rev]), confounder,
         np.ascontiguousarray(train[:, rev]),
-        np.ascontiguousarray(test[:, rev]), masked=fit_cfg.masked,
-        mask_dtype=np.uint8 if train.dtype == np.uint8 else None)
+        np.ascontiguousarray(test[:, rev]), ctns, masked=fit_cfg.masked,
+        mask_dtype=np.uint8 if train.dtype == np.uint8 else None,
+        precompute=precompute)
     g = torch.Generator(device=problem.device).manual_seed(seed)
     state = init_state(g, problem.n_levels, problem.shape[1],
-                       fit_cfg.latent_dim, init_std=fit_cfg.init_std)
+                       fit_cfg.latent_dim, init_std=fit_cfg.init_std,
+                       n_ctns=0 if ctns is None else ctns.shape[1])
     state.column_factor = state.column_factor.flip(1).contiguous()
     res = als.optimize(problem, fit_cfg, state=state, verbose=False)
+    del problem
     return [(h["iter"], h["loss"], h["train_rmse"], h["test_rmse"])
             for h in res.history]
 
@@ -3033,6 +3137,216 @@ def launched(rec):
     return {k: n for k, n in rec["counts"].items() if n}
 
 
+def factors_of(res):
+    """An OptimizeResult's factors, the row factors, W where it has one,
+    then the whole F."""
+    return res.row_matrices + ([] if res.ctns_factor is None
+                               else [res.ctns_factor]) + [res.column_factor]
+
+
+def equal_to_base(label, hist, factors, base):
+    """Fail unless a fit's boundaries [(iter, loss)] and factors equal
+    base's bit for bit."""
+    if hist != base["history"] or len(factors) != len(base["factors"]) or \
+            not all(np.array_equal(a, b)
+                    for a, b in zip(factors, base["factors"])):
+        fail(f"{label}: differs from the 1x2 flagship masked fit ("
+             f"{hist} against {base['history']})")
+
+
+def setting_fits(torch, itt, wrappers, rank):
+    """Phase 16 (d), SETTING_FITS on this rank: each fit's launches (its
+    route, ctns_cd exactly its count an iteration), history and ms/iter;
+    and the first fit's (1 x 2, precompute=False) history and factors."""
+    from insider_tpu_torch.config import ShardingConfig
+
+    out, objs, first = [], {}, None
+    for name, layout, factory, fit_kw, expect, ctns_per_iter in SETTING_FITS:
+        if (factory, layout) not in objs:
+            objs[factory, layout] = FACTORIES[factory](
+                itt, ShardingConfig(*layout))
+        obj = objs[factory, layout]
+        label = f"{name} {layout[0]}x{layout[1]} rank {rank}"
+        _, counts = counted(torch, wrappers, label, lambda: obj.fit(
+            K, LAM, ALPHA, max_iter=SHARDED_ITERS, verbose=False, **fit_kw))
+        check_path(label, counts, expect, wrappers)
+        if counts["ctns_cd"] != ctns_per_iter * (SHARDED_ITERS + 1):
+            fail(f"{label}: ctns_cd launched {counts['ctns_cd']} times, not "
+                 f"{ctns_per_iter} an iteration")
+        hist = obj.fit_result.history
+        out.append(dict(name=name, layout=layout, counts=counts,
+                        history=[(h["iter"], h["loss"]) for h in hist],
+                        ms=boundary_ms(hist)))
+        if first is None:
+            first = dict(history=out[0]["history"],
+                         factors=factors_of(obj.fit_result))
+    return out, first
+
+
+def checkpoint_fit(torch, als, wrappers, obj, rank, base, path):
+    """Phase 16 (d): the 1 x 2 flagship masked fit to boundary CKPT_AT
+    with a checkpoint, then resumed to SHARDED_ITERS: bit for bit base
+    (the uninterrupted 1 x 2 fit), the checkpoint written by rank 0 alone
+    at each boundary, holding the whole F."""
+    writes, save = [], als.save_checkpoint
+
+    def counted_save(*args, **kw):
+        writes.append(kw["it"])
+        return save(*args, **kw)
+
+    label = f"checkpointed 1x2 flagship fit rank {rank}"
+    fit = dict(partition=1, verbose=False, checkpoint_path=path)
+    als.save_checkpoint = counted_save
+    try:
+        obj.fit(K, LAM, ALPHA, max_iter=CKPT_AT, **fit)
+        first = obj.fit_result.history
+        _, counts = counted(torch, wrappers, label, lambda: obj.fit(
+            K, LAM, ALPHA, max_iter=SHARDED_ITERS, resume=True, **fit))
+    finally:
+        als.save_checkpoint = save
+    check_path(label, counts, MASKED_FSS, wrappers)
+    res = obj.fit_result
+    equal_to_base(label, [(h["iter"], h["loss"])
+                          for h in first + res.history[1:]],
+                  factors_of(res), base)
+    if res.history[0]["loss"] != dict(base["history"])[CKPT_AT]:
+        fail(f"{label}: the restored state's loss differs from boundary "
+             f"{CKPT_AT}'s")
+    with np.load(path) as z:
+        saved_F = z["column_factor"]
+    if saved_F.shape != (K, obj.data.shape[1]) or not np.array_equal(
+            saved_F, res.column_factor):
+        fail(f"{label}: the checkpoint's F {saved_F.shape} is not the whole "
+             "gathered F")
+    if writes != ([0, CKPT_AT, SHARDED_ITERS] if rank == 0 else []):
+        fail(f"{label}: wrote the checkpoint at {writes}")
+    print(f"{label}: resumed at {CKPT_AT} and equal to the uninterrupted "
+          f"fit bit for bit; checkpoint writes {writes}, F {saved_F.shape}")
+
+
+def debug_checks_fit(torch, als, wrappers, obj, rank, base):
+    """Phase 16 (d): the 1 x 2 cold-CD flagship masked fit with
+    precompute=False under debug_checks, a NaN put into the first train
+    element of rank 1's
+    data block once the initial loss is evaluated (progress_callback: the
+    fit would stop on a non-finite initial loss first).  The first row
+    update reads it (the segment sums of the add-back residual), so every
+    rank must raise the row update's NonFiniteError.  Then the clean fit
+    under debug_checks, bit for bit base (the 1 x 2 precompute=False fit
+    of SETTING_FITS).  Also, not gated: the same NaN in the fit on the
+    fast route, where only the column update reads the data, and what
+    each rank did.  Returns the message, the seconds to the raise and
+    that outcome."""
+    from insider_tpu_torch.config import FitConfig, ShardingConfig
+
+    def build(precompute):
+        return als.build_problem(
+            obj.data, obj.confounder, obj.train_indicator + obj.test_indicator,
+            obj.na_indicator, masked=True, sharding=ShardingConfig(1, 2),
+            precompute=precompute)
+
+    cfg = FitConfig(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
+                    masked=True, global_tol=obj.params["global_tol"],
+                    sub_tol=obj.params["sub_tol"], max_iter=SHARDED_ITERS,
+                    seed=obj.seed, col_solver="cd", cd_warm_start=False,
+                    debug_checks=True)
+
+    def poisoned(precompute):
+        problem = build(precompute)
+        i, j = torch.nonzero(problem.train_mask)[0].tolist()
+
+        def poison(rec):
+            if rec["iter"] == -1 and rank == 1:
+                problem.data[i, j] = float("nan")
+
+        t0 = time.time()
+        try:
+            res = als.optimize(problem, cfg, verbose=False,
+                               progress_callback=poison)
+            what = (f"no raise; stopped at boundary {res.n_iter} with loss "
+                    f"{res.loss!r}, diverged {res.diverged}")
+        except als.NonFiniteError as e:
+            what = str(e)
+        return what, time.time() - t0
+
+    message, raised_s = poisoned(False)
+    label = (f"debug_checks 1x2 cold CD flagship fit, precompute=False, "
+             f"rank {rank}")
+    res, counts = counted(torch, wrappers, label, lambda: als.optimize(
+        build(False), cfg, verbose=False))
+    check_path(label, counts, ("level_gram", "cd_fused", "masked_eval"),
+               wrappers)
+    equal_to_base(label, [(h["iter"], h["loss"]) for h in res.history],
+                  factors_of(res), base)
+    fast, _ = poisoned(True)
+    print(f"{label}: the poisoned fit raised {message!r} after "
+          f"{raised_s:.2f} s; the clean fit equals the unchecked fit bit "
+          f"for bit; on the fast route (only the column update reads the "
+          f"data): {fast}")
+    return dict(message=message, raised_s=raised_s, fast=fast)
+
+
+def gtex_sharded(torch, als, wrappers, rank, job):
+    """Phase 16 (e) on this rank: the GTEx-sized fit at 1 x 2 from the
+    rank's block of the file, each kernel's last in-fit call held against
+    its plain version (infit_checks); the problem's bytes on the card, the
+    fit's peak beyond them, ms/iter, and the routes (the interaction's
+    on the segment sums: no constants, d is None)."""
+    from insider_tpu_torch.config import FitConfig, ShardingConfig
+    from insider_tpu_torch.data.native import file_ingest_callbacks
+
+    shape = tuple(job["gtex_shape"])
+    data_cb, train_cb, test_cb = file_ingest_callbacks(job["gtex_path"],
+                                                       shape, *GTEX_SPLIT)
+    codes = np.load(job["gtex_codes"], mmap_mode="r")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    problem = als.build_problem_distributed(
+        lambda index: np.nan_to_num(data_cb(index), nan=0.0), train_cb,
+        test_cb, [(lambda v: lambda index: np.array(codes[v][index[0]]))(v)
+                  for v in range(len(codes))],
+        tuple(job["gtex_levels"]), shape, ShardingConfig(1, 2),
+        mask_dtype="uint8")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    after = torch.cuda.memory_allocated()
+    routes = ["fast" if d is not None else "segment sums" for d in problem.d]
+    label = f"GTEx-sized fit 1x2 rank {rank}"
+    if routes != ["fast", "segment sums", "fast"]:
+        fail(f"{label}: routes {routes}")
+    mem = {}
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        res = als.optimize(problem, FitConfig(**GTEX_SHARDED_FIT),
+                           verbose=False)
+        torch.cuda.synchronize()
+        mem["peak"] = torch.cuda.max_memory_allocated() - after
+        return res
+
+    res, counts = infit_checks(
+        torch, als, label, lambda: counted(torch, wrappers, label, run),
+        ("level_gram", "masked_eval", "feature_sign_fused"), rows=2,
+        segment=True)
+    check_path(label, counts, MASKED_FSS, wrappers)
+    iters = SHARDED_ITERS + 1
+    if counts["row_xty"] != 2 * iters or counts["level_gram"] != 2 * iters:
+        fail(f"{label}: row_xty {counts['row_xty']}, level_gram "
+             f"{counts['level_gram']} launches in {iters} iterations")
+    out = dict(counts=counts, routes=routes, problem_bytes=after - before,
+               fit_peak=mem["peak"], build_s=build_s,
+               history=[(h["iter"], h["loss"], h["train_rmse"],
+                         h["test_rmse"]) for h in res.history],
+               ms=boundary_ms(res.history))
+    print(f"{label}: routes (tissue, tissue x donor, donor) {routes}; "
+          f"problem {out['problem_bytes'] / GB:.3f} GB on the card, fit peak "
+          f"beyond it {out['fit_peak'] / GB:.3f} GB, built in {build_s:.1f} s,"
+          f" {out['ms']:.3f} ms/iter")
+    return out
+
+
 def sharded_worker(rank, world, address, job_path, out_path):
     """One rank of phase 16 (b) and (c), on card 0 with its peer; writes
     what the parent checks to out_path as JSON.  Every check of its own
@@ -3052,7 +3366,7 @@ def sharded_worker(rank, world, address, job_path, out_path):
         job = json.load(fh)
     wrappers = kernel_wrappers()
     out = {"fits": [], "ingest": []}
-    objs = {}
+    objs, base = {}, None
     for name, layout, fit_kw, expect, _ in SHARDED_FITS:
         if layout not in objs:
             objs[layout] = flagship_object(itt, ShardingConfig(*layout))
@@ -3071,6 +3385,13 @@ def sharded_worker(rank, world, address, job_path, out_path):
             name=name, layout=layout, counts=counts,
             history=[(h["iter"], h["loss"]) for h in hist],
             ms=boundary_ms(hist)))
+        if base is None:        # the 1x2 flagship masked fit
+            base = dict(history=out["fits"][-1]["history"],
+                        factors=factors_of(obj.fit_result))
+    out["settings"], nopre = setting_fits(torch, itt, wrappers, rank)
+    checkpoint_fit(torch, als, wrappers, objs[1, 2], rank, base, job["ckpt"])
+    out["debug"] = debug_checks_fit(torch, als, wrappers, objs[1, 2], rank,
+                                    nopre)
     del objs
     for layout in ((2, 1), (1, 2)):
         cbs = file_ingest_callbacks(job["path"], DIST_SHAPE, DIST_RATIO,
@@ -3107,6 +3428,7 @@ def sharded_worker(rank, world, address, job_path, out_path):
             history=[(h["iter"], h["loss"], h["train_rmse"], h["test_rmse"])
                      for h in res.history], ms=boundary_ms(res.history)))
         del problem, res
+    out["gtex"] = gtex_sharded(torch, als, wrappers, rank, job)
     with open(out_path, "w") as fh:
         json.dump(out, fh)
     torch.distributed.destroy_process_group()
@@ -3171,6 +3493,95 @@ def sharded_one_process_dist_scale(torch, als, path):
                               FitConfig(**DIST_FIT), DIST_FIT["seed"])
 
 
+def setting_refs(torch, itt, als):
+    """Phase 16 (d)'s references: for each name of SETTING_FITS the
+    one-process fit of its factory and arguments, SHARDED_ITERS
+    iterations, and its witness (reversed_fit), each [(iter, loss)]."""
+    from insider_tpu_torch.config import FitConfig
+
+    out = {}
+    for name, _, factory, fit_kw, _, _ in SETTING_FITS:
+        if name in out:
+            continue
+        obj = FACTORIES[factory](itt)
+        obj.fit(K, LAM, ALPHA, max_iter=SHARDED_ITERS, verbose=False,
+                **fit_kw)
+        cfg = FitConfig(
+            latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
+            masked=bool(fit_kw["partition"]),
+            global_tol=obj.params["global_tol"],
+            sub_tol=obj.params["sub_tol"], max_iter=SHARDED_ITERS,
+            seed=obj.seed, col_solver=fit_kw.get("col_solver", "auto"),
+            cd_warm_start=fit_kw.get("cd_warm_start", True))
+        wit = reversed_fit(torch, als, obj.data, obj.confounder,
+                           obj.train_indicator + obj.test_indicator,
+                           obj.na_indicator, cfg, obj.seed,
+                           ctns=obj.ctns_confounder,
+                           precompute=fit_kw.get("precompute", True))
+        out[name] = ([(h["iter"], h["loss"]) for h in obj.fit_result.history],
+                     [h[:2] for h in wit])
+    return out
+
+
+def gtex_file(itt, tmp):
+    """Phase 16 (e)'s inputs, written into tmp: simulate_scale's GTEx-sized
+    matrix with 1% NaNs (gtex_object's, made a block of rows at a time) as
+    a raw f32 file, and the codes of tissue, tissue x donor and donor,
+    numbered over the whole matrix, as an (3, N) int32 .npy.  Returns the
+    job's entries."""
+    from insider_tpu_torch.api import build_interaction_codes
+
+    sim = itt.simulate_scale(GTEX_N, GTEX_M, K, level_counts=GTEX_LEVELS,
+                             noise_std=1.0, seed=0)
+    data, conf = sim.data, sim.confounder
+    del sim
+    rng = np.random.default_rng(0)
+    for i0 in range(0, GTEX_N, 1024):
+        blk = data[i0:i0 + 1024]
+        blk[rng.random(blk.shape) < 0.01] = np.nan
+    path = os.path.join(tmp, "gtex.f32")
+    np.ascontiguousarray(data, np.float32).tofile(path)
+    del data
+    raw = [conf[:, 0], build_interaction_codes(conf, [0, 1]), conf[:, 1]]
+    codes, levels = [], []
+    for c in raw:
+        u, inv = np.unique(c, return_inverse=True)
+        codes.append(inv.reshape(-1).astype(np.int32))
+        levels.append(int(u.size))
+    codes_path = os.path.join(tmp, "gtex_codes.npy")
+    np.save(codes_path, np.stack(codes))
+    return dict(gtex_path=path, gtex_codes=codes_path,
+                gtex_shape=[GTEX_N, GTEX_M], gtex_levels=levels)
+
+
+def gtex_refs(torch, als, job):
+    """Phase 16 (e)'s reference: the one-process fit of the file's matrix
+    (its NaNs zeroed) with the whole block split, made in memory (the
+    parent holds the whole matrix; the ranks never do), and its witness
+    (reversed_fit); each history [(iter, loss, train_rmse, test_rmse)]."""
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.data import native
+
+    n, m = job["gtex_shape"]
+    data = np.fromfile(job["gtex_path"], np.float32).reshape(n, m)
+    train, test, _ = native.split_mask_block((n, m), (0, n), (0, m),
+                                             *GTEX_SPLIT, data_block=data)
+    np.nan_to_num(data, copy=False, nan=0.0)
+    confounder = np.load(job["gtex_codes"]).T
+    cfg = FitConfig(**GTEX_SHARDED_FIT)
+    problem = als.build_problem(data, confounder, train, test,
+                                mask_dtype="uint8")
+    res = als.optimize(problem, cfg, verbose=False)
+    del problem
+    torch.cuda.empty_cache()
+    hist = [(h["iter"], h["loss"], h["train_rmse"], h["test_rmse"])
+            for h in res.history]
+    wit = reversed_fit(torch, als, data, confounder, train, test, cfg,
+                       cfg.seed)
+    torch.cuda.empty_cache()
+    return hist, wit, boundary_ms(res.history)
+
+
 def phase_sharded(torch, itt, als, wrappers, smi, ref):
     """Phase 16: the sharded fit.  ref: the one-process fits' histories,
     {name: [(iter, loss)]}, and phase 8's losses and factors."""
@@ -3202,9 +3613,17 @@ def phase_sharded(torch, itt, als, wrappers, smi, ref):
               f" x {DIST_SHAPE[1]} raw f32 file ({os.path.getsize(path)} "
               f"bytes, written in {write_s:.2f} s), built and fitted in "
               f"memory in {time.time() - t0:.2f} s")
+        t0 = time.time()
+        gtex = gtex_file(itt, tmp)
+        print(f"GTEx-sized file: {GTEX_N} x {GTEX_M} raw f32 "
+              f"({os.path.getsize(gtex['gtex_path'])} bytes) and the codes of "
+              f"{gtex['gtex_levels']} levels, written in "
+              f"{time.time() - t0:.1f} s")
         job = os.path.join(tmp, "job.json")
         with open(job, "w") as fh:
-            json.dump({"path": path}, fh)
+            json.dump(dict(gtex, path=path,
+                           ckpt=os.path.join(tmp, "flagship_1x2.npz")), fh)
+        torch.cuda.empty_cache()
         address = f"127.0.0.1:{free_port()}"
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
@@ -3241,10 +3660,16 @@ def phase_sharded(torch, itt, als, wrappers, smi, ref):
         for out in outs:
             with open(out) as fh:
                 results.append(json.load(fh))
+        t0 = time.time()
+        gtex_ref, gtex_witness, gtex_ms = gtex_refs(torch, als, gtex)
+        print(f"GTEx-sized one-process fit of the file and its witness: "
+              f"{time.time() - t0:.1f} s, the fit {gtex_ms:.3f} ms/iter "
+              f"({smi})")
 
     note = (f"({smi}; two ranks share one card over gloo through the host: "
             "these times are no multi-card rate)")
     witness = flagship_witnesses(torch, itt, als)
+    settings = setting_refs(torch, itt, als)
     failures = []
 
     def held(label, recs, ref, wit):
@@ -3292,6 +3717,31 @@ def phase_sharded(torch, itt, als, wrappers, smi, ref):
                   f"{rec['largest_block']} bytes, problem on the card "
                   f"{rec['problem_bytes']} bytes, launches {launched(rec)}, "
                   f"{rec['ms']:.3f} ms/iter {note}")
+    for i, (name, layout, *_) in enumerate(SETTING_FITS):
+        recs = [res["settings"][i] for res in results]
+        label = f"sharded {name} {layout[0]}x{layout[1]}"
+        held(label, recs, *settings[name])
+        print(f"{label}: launches rank 0 {launched(recs[0])}, rank 1 "
+              f"{launched(recs[1])}; ms/iter rank 0 {recs[0]['ms']:.3f}, "
+              f"rank 1 {recs[1]['ms']:.3f} {note}")
+    debug = [res["debug"] for res in results]
+    print(f"debug_checks 1x2 with a NaN in rank 1's block: rank 0 raised "
+          f"{debug[0]['message']!r} after {debug[0]['raised_s']:.2f} s, rank "
+          f"1 {debug[1]['message']!r} after {debug[1]['raised_s']:.2f} s; "
+          f"on the fast route rank 0: {debug[0]['fast']}, rank 1: "
+          f"{debug[1]['fast']}")
+    if any(d["message"] != NAN_MESSAGE for d in debug):
+        failures.append(f"debug_checks 1x2: raised {debug}, not "
+                        f"{NAN_MESSAGE!r} on both ranks")
+    recs = [res["gtex"] for res in results]
+    held("sharded GTEx-sized fit 1x2", recs, gtex_ref, gtex_witness)
+    for r, rec in enumerate(recs):
+        print(f"sharded GTEx-sized fit 1x2 rank {r}: problem "
+              f"{rec['problem_bytes']} bytes on the card, fit peak beyond it "
+              f"{rec['fit_peak']} bytes, built in {rec['build_s']:.1f} s, "
+              f"routes {rec['routes']}, launches {launched(rec)}, "
+              f"{rec['ms']:.3f} ms/iter (the one-process fit {gtex_ms:.3f}) "
+              f"{note}")
     if failures:
         fail("; ".join(failures))
     print(f"phase 16: the workers {workers_s:.1f} s, the phase "

@@ -39,8 +39,8 @@ class Insider:
     package's, in its order.  sharding: a ShardingConfig: every rank of
     the process group (sharding/distributed.initialize_distributed) makes
     the same Insider, and fit and tune run the sharded fit, each rank on
-    its block (train/als.build_problem); continuous covariates are not
-    ported under a sharding (train/als.UNPORTED).  device (keyword-only):
+    its block (train/als.build_problem), with every setting they take
+    without one.  device (keyword-only):
     where the problem and the factors live: "cuda" (the default) runs the
     CUDA kernels and raises without a card, "cpu" runs their plain
     PyTorch versions.
@@ -54,8 +54,6 @@ class Insider:
                  max_iter: int = 50000, rm_na_col: bool = True,
                  split_seed: int = 123, seed: int = 0, sharding=None, *,
                  device="cuda"):
-        als.check_unported(sharding,
-                           ctns_confounder=ctns_confounder is not None)
         self.sharding = sharding
         self.device = als.resolve_device(device)
         data = np.asarray(data, np.float64)
@@ -126,9 +124,9 @@ class Insider:
         per-problem row constants, every confounder and covariate takes
         the segment-sum update (the memory-lean mode for shapes near the
         card's memory; train/als.build_problem).  Under the object's
-        sharding, every rank calls fit alike; precompute=False,
-        checkpoint_path and resume are not ported there.  With continuous
-        covariates, cfd_matrices ends with W (P, K), as in the JAX
+        sharding, every rank calls fit alike, with the same arguments
+        (checkpoint_path on a file system every rank shares).  With
+        continuous covariates, cfd_matrices ends with W (P, K), as in the JAX
         package.  The positional parameters are the JAX package's, in its
         order.  use_pallas has no counterpart (the port runs the kernels
         on a CUDA device and their plain versions on the CPU) and must be
@@ -142,9 +140,6 @@ class Insider:
                 "runs the CUDA kernels on a CUDA device and their plain "
                 "versions on the CPU (ROADMAP, Port constraints); pass "
                 "use_pallas=None")
-        als.check_unported(self.sharding, no_precompute=not precompute,
-                           checkpoint_path=bool(checkpoint_path),
-                           resume=resume)
         masked = bool(partition)
         cfg = FitConfig(
             latent_dim=int(latent_dimension), lambda1=float(lambda_),

@@ -21,10 +21,16 @@ route's memory budgets, or a problem built with precompute=False) takes
 the segment-sum forms, update_row_factor_masked and
 update_row_factor_dense: the level sums of the add-back residual
 (segment_sum, a fixed-order index_put_), plain PyTorch on every device, as
-the JAX package runs them outside any kernel.
+the JAX package runs them outside any kernel, but for the masked level
+grams, which the fit takes from the level_gram kernel.  Each is two
+steps, the level systems (masked_level_system, dense_level_system) and
+the batched ridge solve, so that a sharded fit sums each rank's
+(L, K, K) and (L, K) systems over its blocks in between (train/als.py).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -114,42 +120,69 @@ def segment_sum(x: torch.Tensor, codes: torch.Tensor,
     return out.index_add_(0, codes.long(), x)
 
 
-def update_row_factor_masked(residual_plus: torch.Tensor,
-                             mask: torch.Tensor, F: torch.Tensor,
-                             codes: torch.Tensor, n_levels: int,
-                             lam: float) -> torch.Tensor:
-    """Masked (tuning==1) per-level ridge by segment sums -> (L, K)
-    (src/optimize.cpp:150-176; insider_tpu/ops/row_update.py:77-91).
+def masked_level_system(residual_plus: torch.Tensor, mask: torch.Tensor,
+                        F: torch.Tensor, codes: torch.Tensor, n_levels: int,
+                        gram=level_gram_masked
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The masked per-level ridge systems by segment sums (src/optimize.cpp:
+    150-176; insider_tpu/ops/row_update.py:77-91): (XtX (L, K, K), Xty
+    (L, K)).
 
     residual_plus (N, M): the residual with this confounder added back;
     mask (N, M) 0/1, f32 or uint8 (widened inside this call only); F
     (K, M); codes (N,) level codes in [0, L).  The level grams are the
-    (L, M) mask counts against the (K^2, M) outer-product table, then one
-    batched SPD solve.
+    (L, M) mask counts against the (K^2, M) outer-product table, by
+    gram(Mw, F): level_gram_masked, one f32 matmul, or the fit's
+    kernels/row.level_gram, exact on the card.  Both are linear in the
+    rows and the columns, so on a block of the matrix they are the
+    block's share of the whole matrix's systems.
     """
     Mw = segment_sum(mask.to(F.dtype), codes, n_levels)        # (L, M)
     S = segment_sum(mask * residual_plus, codes, n_levels)     # (L, M)
-    XtX = level_gram_masked(Mw, F)                             # (L, K, K)
+    XtX = gram(Mw, F)                                          # (L, K, K)
     Xty = torch.matmul(S, F.T)                                 # (L, K)
-    return _ridge_solve_batched(XtX, Xty, lam)
+    return XtX, Xty
 
 
-def update_row_factor_dense(residual_plus: torch.Tensor, F: torch.Tensor,
-                            gram: torch.Tensor, codes: torch.Tensor,
-                            n_levels: int, lam: float,
-                            counts=None) -> torch.Tensor:
-    """Dense (tuning==0) per-level ridge by segment sums -> (L, K)
+def update_row_factor_masked(residual_plus: torch.Tensor,
+                             mask: torch.Tensor, F: torch.Tensor,
+                             codes: torch.Tensor, n_levels: int,
+                             lam: float) -> torch.Tensor:
+    """Masked (tuning==1) per-level ridge by segment sums -> (L, K): the
+    systems of masked_level_system, then one batched SPD solve."""
+    return _ridge_solve_batched(
+        *masked_level_system(residual_plus, mask, F, codes, n_levels), lam)
+
+
+def dense_level_system(residual_plus: torch.Tensor, F: torch.Tensor,
+                       gram: torch.Tensor, codes: torch.Tensor,
+                       n_levels: int,
+                       counts=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense (tuning==0) per-level ridge systems by segment sums
     (src/optimize.cpp:178-191; insider_tpu/ops/row_update.py:148-163):
-    each level's gram is its size times gram = F F^T.  counts: the (L,)
-    level sizes (a fit's Problem.counts), or None to count them here, a
-    bincount that reads its largest code on the host."""
+    (XtX (L, K, K), Xty (L, K)), each level's gram its size times gram =
+    F F^T.  counts: the (L,) level sizes (a fit's Problem.counts), or None
+    to count them here, a bincount that reads its largest code on the
+    host.  Xty is linear in the rows and the columns, as in
+    masked_level_system; XtX is as whole as counts and gram are."""
     if counts is None:
         counts = torch.bincount(codes.long(), minlength=n_levels)
     counts = counts.to(F.dtype)
     S = segment_sum(residual_plus, codes, n_levels)            # (L, M)
     XtX = counts[:, None, None] * gram                         # (L, K, K)
     Xty = torch.matmul(S, F.T)
-    return _ridge_solve_batched(XtX, Xty, lam)
+    return XtX, Xty
+
+
+def update_row_factor_dense(residual_plus: torch.Tensor, F: torch.Tensor,
+                            gram: torch.Tensor, codes: torch.Tensor,
+                            n_levels: int, lam: float,
+                            counts=None) -> torch.Tensor:
+    """Dense (tuning==0) per-level ridge by segment sums -> (L, K): the
+    systems of dense_level_system, then one batched SPD solve."""
+    return _ridge_solve_batched(
+        *dense_level_system(residual_plus, F, gram, codes, n_levels, counts),
+        lam)
 
 
 def fit_interaction(residual: torch.Tensor, train_indicator: torch.Tensor,

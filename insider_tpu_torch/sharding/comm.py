@@ -14,10 +14,20 @@ for one:
                           whole columns, as JAX's P(None, 'cols') does
   psum(x, mesh, "world")  the row Xty, each block's partial, D carried by
                           row block 0 (als.py:405-439 _shard_row_xty);
-                          the eval and loss sums
+                          a segment-sum confounder's level systems; the
+                          eval and loss sums
   pmax(x, mesh, "world")  the largest level count
-  gather_cols(F, mesh, M) F's column blocks, at the end of a fit
-                          (als.py:878-893 _to_host)
+  gather_cols(F, mesh, M) F's column blocks, at the end of a fit and at
+                          each checkpoint (als.py:878-893 _to_host)
+
+and for the covariates (insider_tpu/train/als.py:593-628, where GSPMD
+inserts them) the level-size counts and covariate constants at build
+time, over 'rows', and each covariate's K-space system, its sums over the
+rows over 'rows' and its contractions over the columns over 'cols'.
+psum_many reduces several tensors in one all-reduce, and count counts
+the ranks where a flag holds (under debug_checks, a block update that is
+not finite; a checkpoint rank 0 could not write; a checkpoint found to
+resume from), which also holds every rank until the last reaches it.
 
 Each returns its input unchanged when mesh is None or the axis's group has
 one rank, and otherwise reduces in place, in its input's dtype (f32 for
@@ -59,6 +69,19 @@ def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return x
 
 
+def psum_many(xs, mesh, axis: str):
+    """psum of each tensor of xs (all of one dtype and device), in one
+    all-reduce of their concatenation; the list itself where there is
+    nothing to reduce."""
+    group = _group(mesh, axis)
+    if group is None or not xs:
+        return list(xs)
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out = torch.split(flat, [x.numel() for x in xs])
+    return [o.view(x.shape) for o, x in zip(out, xs)]
+
+
 def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The largest x over the ranks of `axis`, element by element."""
     group = _group(mesh, axis)
@@ -80,3 +103,19 @@ def gather_cols(F: torch.Tensor, mesh, n_cols: int) -> torch.Tensor:
     full[:, c0:c1] = F
     dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
     return full
+
+
+
+def count(flag: bool, mesh, device) -> int:
+    """The number of ranks of the mesh on which `flag` is true, the same
+    on every rank (int(flag) without a mesh): a one-element all-reduce on
+    `device`, read on the host, so it returns only once every rank has
+    reached it.  Every decision a rank could take alone (a raise, a
+    checkpoint found) is taken from it, so no rank leaves a path that
+    another stays in."""
+    group = _group(mesh, "world")
+    if group is None:
+        return int(bool(flag))
+    x = torch.full((1,), float(bool(flag)), device=device)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return int(x.item())

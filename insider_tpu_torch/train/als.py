@@ -40,17 +40,22 @@ wrapper runs its plain version.
 
 A sharded problem (build_problem(sharding=...), build_problem_distributed)
 is fitted by every rank of a torch.distributed group, each on its row x
-column block (sharding/mesh.py), with the same kernels: the level grams
-summed over the column blocks, each row Xty over every rank (D on row
-block 0), the column update's grams over the row blocks (ops/col_update),
-the boundary sums over every rank in f64 (sharding/comm.py holds every
-collective); the rest runs on every rank alike.
+column block (sharding/mesh.py), with the same kernels and every setting
+of the one-process fit: the level grams summed over the column blocks,
+each row Xty over every rank (D on row block 0), a segment-sum
+confounder's (L, K, K) and (L, K) level systems over every rank, each
+covariate's K-space system over its blocks (ops/continuous), the column
+update's grams over the row blocks (ops/col_update), the boundary sums
+over every rank in f64 (sharding/comm.py holds every collective); the
+rest runs on every rank alike.  Checkpoints hold the whole F, written by
+rank 0; debug_checks raise on every rank alike.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -103,8 +108,10 @@ class Problem:
     (max_level_count, its largest count, sets the kernel's count planes),
     and row_order[v] holds confounder v's rows sorted by level
     (kernels/row.level_order), which the row_xty kernel reads in place of
-    the codes.  Dense: d[v] = E_v^T data, and counts[v] (L_v,) the level
-    sizes of every confounder.  With P continuous covariates, ctns (N, P)
+    the codes; segment_max_count, the largest level of the confounders
+    without constants, sets the count planes of their level grams
+    (kernels/row.level_gram on their (L_v, M) mask counts).  Dense: d[v] =
+    E_v^T data, and counts[v] (L_v,) the level sizes of every confounder.  With P continuous covariates, ctns (N, P)
     and, unless built with precompute=False, their constants: masked
     ctns_q = (c^2)^T mask
     and ctns_bc = c^T (mask .* data), dense ctns_dc = c^T data, each
@@ -122,6 +129,7 @@ class Problem:
     max_level_count: Optional[float] = None     # masked only: mw_cat.max()
     row_order: Optional[List[Optional[Tuple[torch.Tensor, ...]]]] = None
     counts: Optional[List[Optional[torch.Tensor]]] = None  # dense only
+    segment_max_count: Optional[float] = None   # masked, segment confounders
     ctns: Optional[torch.Tensor] = None         # (N, P) or None
     ctns_q: Optional[torch.Tensor] = None       # masked, (P, M)
     ctns_bc: Optional[torch.Tensor] = None      # masked, (P, M)
@@ -161,38 +169,6 @@ def resolve_device(device) -> torch.device:
             "torch.cuda.is_available() is False; pass device=\"cpu\" to run "
             "the plain PyTorch versions of the kernels on the CPU")
     return device
-
-
-# What a sharded fit does not run yet: each combination of `sharding` with
-# another setting, what it is, and the ROADMAP item that will port it.
-UNPORTED = {
-    ("sharding", "ctns_confounder"): (
-        "continuous covariates (ctns_confounder)", "Queue 1 item 9a"),
-    ("sharding", "segment_sum"): (
-        "a confounder past the fast row route's memory budgets (the "
-        "segment-sum row update)", "Queue 1 item 9b"),
-    ("sharding", "no_precompute"): ("precompute=False", "Queue 1 item 9c"),
-    ("sharding", "checkpoint_path"): ("checkpoint_path", "Queue 1 item 9d"),
-    ("sharding", "resume"): ("resume=True", "Queue 1 item 9d"),
-    ("sharding", "debug_checks"): ("FitConfig(debug_checks=True)",
-                                   "Queue 1 item 9e"),
-}
-
-
-def check_unported(sharding, **used) -> None:
-    """Under a sharding, raise NotImplementedError for the first setting
-    of `used` (a key of UNPORTED after "sharding") that is true, naming it
-    and its ROADMAP item.  The callers check before any collective, with
-    arguments every rank shares, so every rank raises alike and no group
-    is left waiting."""
-    if sharding is None:
-        return
-    for name, on in used.items():
-        if on:
-            what, item = UNPORTED[("sharding", name)]
-            raise NotImplementedError(
-                f"{what} under sharding={sharding!r} is not ported yet "
-                f"(ROADMAP {item})")
 
 
 def check_dtype(dtype) -> None:
@@ -277,17 +253,6 @@ def _densify(confounder) -> Tuple[List[np.ndarray], List[int]]:
     return codes_np, n_levels
 
 
-def _check_sharded_build(sharding, global_shape, n_levels, ctns,
-                         precompute: bool) -> None:
-    """The build's refusals under a sharding (UNPORTED), from the global
-    shape, before any collective."""
-    N, M = global_shape
-    check_unported(sharding, ctns_confounder=ctns is not None,
-                   no_precompute=not precompute,
-                   segment_sum=not all(fast_route(N, M, L)
-                                       for L in n_levels))
-
-
 def build_problem(data: np.ndarray, confounder: np.ndarray,
                   train_indicator: np.ndarray, test_indicator: np.ndarray,
                   ctns_confounder: Optional[np.ndarray] = None,
@@ -312,19 +277,17 @@ def build_problem(data: np.ndarray, confounder: np.ndarray,
     package's, in its order: dtype takes f32 only (check_dtype).
     sharding: a ShardingConfig; every rank of the process group calls
     build_problem with the same host arrays, and keeps its own block
-    (sharding/mesh.py) on its device; the level sums are then summed over
-    the row blocks (the problem's collectives).  Not yet under a sharding
-    (UNPORTED): continuous covariates, precompute=False, a confounder past
-    the fast route's budgets.  device (keyword-only): "cuda" (default;
-    raises without a card) or "cpu"; under a sharding each rank's card
-    (sharding/mesh.make_mesh).
+    (sharding/mesh.py) on its device; the level sums and sizes and the
+    covariate constants are then summed over the row blocks (the problem's
+    collectives), and every route is chosen from the whole matrix's shape,
+    so every rank takes the same one.  device (keyword-only): "cuda"
+    (default; raises without a card) or "cpu"; under a sharding each
+    rank's card (sharding/mesh.make_mesh).
     """
     check_dtype(dtype)
     mdt = mask_storage(mask_dtype)
     codes_np, n_levels = _densify(confounder)
     global_shape = tuple(np.shape(data))
-    _check_sharded_build(sharding, global_shape, n_levels, ctns_confounder,
-                         precompute)
     disable_tf32()
     device = resolve_device(device)
     mesh = (None if sharding is None
@@ -346,15 +309,22 @@ def _finish_problem(arrays, n_levels, masked: bool, mesh: Optional[Mesh],
                                     else tuple(global_shape)))
     if precompute:
         _precompute_row_constants(problem)
-    if not masked:
-        # the level sizes of the confounders without constants too, so no
-        # iteration counts them (a bincount reads its largest code on the
-        # host); the fast ones' came from the precompute
+    # the level sizes of the confounders without constants, so no iteration
+    # counts them (a bincount reads its largest code on the host): dense,
+    # each level's (the fast ones' came from the precompute); masked, the
+    # largest.  Under a sharding each rank counts its rows, summed over
+    # the row blocks.
+    segment = [v for v, dv in enumerate(problem.d) if dv is None]
+    sizes = comm.psum_many(
+        [torch.bincount(codes[v].long(), minlength=problem.n_levels[v])
+         .to(torch.float32) for v in segment], mesh, "rows")
+    if masked:
+        problem.segment_max_count = max((float(s.max()) for s in sizes),
+                                        default=None)
+    else:
         problem.counts = problem.counts or [None] * len(codes)
-        for v, L in enumerate(problem.n_levels):
-            if problem.counts[v] is None:
-                problem.counts[v] = torch.bincount(
-                    codes[v].long(), minlength=L).to(torch.float32)
+        for v, cv in zip(segment, sizes):
+            problem.counts[v] = cv
     return problem
 
 
@@ -381,16 +351,23 @@ def build_problem_distributed(data, train_indicator, test_indicator, codes,
     counts and sums and the largest count are then made global by the
     problem's collectives, and every route is chosen from global_shape, so
     every rank takes the same one.  split_variant is "bernoulli_block"
-    when the masks come from callbacks.  ctns_confounder and n_ctns are
-    the JAX package's; continuous covariates are not ported under a
-    sharding (UNPORTED), nor is precompute=False.  device as
-    build_problem.
+    when the masks come from callbacks.  ctns_confounder: the continuous
+    covariates, this rank's rows (N_block, n_ctns) (a 1-D block is one
+    column) or a callable cb((row_slice, slice(None))), and n_ctns their
+    number P, which a callable needs (insider_tpu/train/als.py:261-262,
+    312).  precompute, masked and device as build_problem.
     """
     check_dtype(dtype)
     mdt = mask_storage(mask_dtype)
     N, M = global_shape
-    _check_sharded_build(sharding, (N, M), n_levels, ctns_confounder,
-                         precompute)
+    if ctns_confounder is not None and not callable(ctns_confounder):
+        ctns_confounder = np.asarray(ctns_confounder)
+        if ctns_confounder.ndim == 1:
+            ctns_confounder = ctns_confounder[:, None]
+        n_ctns = n_ctns or ctns_confounder.shape[1]
+    if ctns_confounder is not None and n_ctns < 1:
+        raise ValueError("build_problem_distributed: a ctns_confounder "
+                         "callback needs n_ctns, the number of covariates")
     disable_tf32()
     device = resolve_device(device)
     mesh = make_mesh(sharding, device, (N, M))
@@ -406,7 +383,9 @@ def build_problem_distributed(data, train_indicator, test_indicator, codes,
     arrays = (local(data, MAT, (N, M), np.float32),
               local(train_indicator, MAT, (N, M), np_mask),
               local(test_indicator, MAT, (N, M), np_mask),
-              [local(c, ("rows",), (N,), np.int32) for c in codes], None)
+              [local(c, ("rows",), (N,), np.int32) for c in codes],
+              None if ctns_confounder is None else local(
+                  ctns_confounder, ("rows", None), (N, n_ctns), np.float32))
     problem = _finish_problem(arrays, n_levels, masked, mesh, (N, M),
                               precompute)
     problem.split_variant = ("bernoulli_block" if callable(train_indicator)
@@ -420,8 +399,9 @@ def _precompute_row_constants(problem: Problem) -> None:
     is widened to f32 and multiplied into the data once, and every
     constant's columns of that chunk are contracted from them.  The routes
     and the chunk are chosen from the whole matrix's shape; under a
-    sharding the level sums and counts of the rank's rows are then summed
-    over the row blocks, and the largest count taken over every rank."""
+    sharding the level sums, the counts and the covariate constants of
+    the rank's rows are then summed over the row blocks, and the largest
+    count taken over every rank."""
     data, mask, C = problem.data, problem.train_mask, problem.ctns
     N, M = problem.shape
     mesh = problem.mesh
@@ -473,7 +453,8 @@ def _precompute_row_constants(problem: Problem) -> None:
             problem.max_level_count = float(comm.pmax(
                 problem.mw_cat.max(), mesh, "world"))
         if P:
-            problem.ctns_q, problem.ctns_bc = q, bc
+            problem.ctns_q, problem.ctns_bc = comm.psum_many([q, bc], mesh,
+                                                             "rows")
     else:
         counts = (list(torch.split(comm.psum(E_cat.sum(dim=1), mesh, "rows"),
                                    sizes)) if fast else [])
@@ -481,8 +462,8 @@ def _precompute_row_constants(problem: Problem) -> None:
         for v, cv in zip(fast, counts):
             problem.counts[v] = cv
         if P:
-            problem.ctns_dc = dc
-            problem.ctns_cc = torch.sum(C * C, dim=0)
+            problem.ctns_dc, problem.ctns_cc = comm.psum_many(
+                [dc, torch.sum(C * C, dim=0)], mesh, "rows")
 
 
 class NonFiniteError(RuntimeError):
@@ -491,10 +472,15 @@ class NonFiniteError(RuntimeError):
     does."""
 
 
-def _check_finite(config: FitConfig, tag: str, x: torch.Tensor) -> None:
+def _check_finite(config: FitConfig, tag: str, x: torch.Tensor,
+                  mesh: Optional[Mesh] = None) -> None:
     """Under config.debug_checks, raise NonFiniteError unless every value of
-    x is finite (one host sync); otherwise nothing."""
-    if config.debug_checks and not bool(torch.isfinite(x).all()):
+    x is finite (one host sync); otherwise nothing.  Under a mesh x is this
+    rank's block or replica, and the flag is counted over every rank
+    (comm.count), so every rank raises the same error or none does
+    (insider_tpu/train/als.py:465-475 checks the whole array)."""
+    if config.debug_checks and comm.count(
+            not bool(torch.isfinite(x).all()), mesh, x.device):
         raise NonFiniteError(f"non-finite values produced by {tag}")
 
 
@@ -517,7 +503,9 @@ def _update_covariates(problem: Problem, config: FitConfig, W: torch.Tensor,
     insider_tpu/train/als.py:593-628): masked, one ctns_cd launch each, on
     the per-problem constants or, in a problem built without them, on the
     add-back residual; dense (gram = F F^T), the closed form, likewise.
-    Returns the new W."""
+    Under a mesh each system is summed over the blocks (ops/continuous),
+    so W stays the same on every rank.  Returns the new W."""
+    mesh = problem.mesh
     rows = list(W.unbind(0))
     for j in range(len(rows)):
         c = problem.ctns[:, j]
@@ -526,22 +514,24 @@ def _update_covariates(problem: Problem, config: FitConfig, W: torch.Tensor,
             w = continuous.update_ctns_row_masked_fast(
                 problem.ctns_q[j], problem.ctns_bc[j], problem.train_mask,
                 R_minus, F, c, rows[j], config.lambda1, tol=config.ctns_tol,
-                max_sweeps=config.max_ctns_sweeps)
+                max_sweeps=config.max_ctns_sweeps, mesh=mesh)
         elif problem.masked:
             w = continuous.update_ctns_row_masked(
                 problem.data - losses.predict(R_minus, F),
                 problem.train_mask, F, c, rows[j], config.lambda1,
-                tol=config.ctns_tol, max_sweeps=config.max_ctns_sweeps)
+                tol=config.ctns_tol, max_sweeps=config.max_ctns_sweeps,
+                mesh=mesh)
         elif problem.ctns_dc is not None:
             w = continuous.update_ctns_row_dense_fast(
                 problem.ctns_dc[j], problem.ctns_cc[j], R_minus, F, gram, c,
-                config.lambda1)
+                config.lambda1, mesh=mesh)
         else:
             w = continuous.update_ctns_row_dense(
                 problem.data - losses.predict(R_minus, F), F, gram, c,
-                config.lambda1)
+                config.lambda1, mesh=mesh)
         _check_finite(config,
-                      f"continuous update W[{j}] (optimize_continuous_v2)", w)
+                      f"continuous update W[{j}] (optimize_continuous_v2)", w,
+                      mesh)
         rows[j] = w
         R = R_minus + torch.outer(c, w)
     return torch.stack(rows)
@@ -630,10 +620,21 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
                                   problem.d[v], F, config.lambda1,
                                   problem.row_order[v], problem.mesh)
         else:
-            V = row_update.update_row_factor_masked(
+            # the rank's (L, K, K) and (L, K) systems, summed over every
+            # rank: the (L, M) level sums never leave the rank.  Their
+            # grams by the level_gram kernel, whose exact planes keep the
+            # sums unbiased at any M (on an H100 cuBLAS's f32 GEMM read the
+            # GTEx-sized interaction's diagonal 1.7e-5 low over 56200
+            # columns and 1.4e-5 over 28100, so the fit moved with the
+            # column split)
+            XtX, Xty = comm.psum_many(row_update.masked_level_system(
                 problem.data - losses.predict(R_minus, F), mask, F, codes,
-                problem.n_levels[v], config.lambda1)
-        _check_finite(config, f"row update V[{v}] (optimize_row)", V)
+                problem.n_levels[v], functools.partial(
+                    level_gram, max_count=problem.segment_max_count)),
+                problem.mesh, "world")
+            V = _ridge_solve_batched(XtX, Xty, config.lambda1)
+        _check_finite(config, f"row update V[{v}] (optimize_row)", V,
+                      problem.mesh)
         cfd_new[v] = V
         R = R_minus + V[codes]
 
@@ -646,7 +647,8 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
     F_new = col_update.update_columns_masked(
         problem.data, mask, R, F, config.lambda2, config.alpha, sub_tol_eff,
         mesh=problem.mesh, **_col_kw(config, perm))
-    _check_finite(config, "column update F (optimize_col)", F_new)
+    _check_finite(config, "column update F (optimize_col)", F_new,
+                  problem.mesh)
     return InsiderState(cfd_new, W, F_new)
 
 
@@ -656,8 +658,10 @@ def _als_iteration_dense(problem: Problem, config: FitConfig,
     """One dense (partition=0) ALS iteration: every level's gram is its
     size times F F^T (insider_tpu/train/als.py:576-587, 647-658).  Under a
     mesh F F^T is summed over the column blocks, each level's Xty over
-    every rank (D on row block 0), and R^T R and R^T data over the row
-    blocks (ops/col_update)."""
+    every rank (D on row block 0; a segment-sum confounder's from its
+    rank's level sums), and R^T R and R^T data over the row blocks
+    (ops/col_update); the level sizes are the whole matrix's
+    (Problem.counts)."""
     F = state.column_factor
     mesh = problem.mesh
     gram = comm.psum(torch.matmul(F, F.T), mesh, "cols")
@@ -674,10 +678,12 @@ def _als_iteration_dense(problem: Problem, config: FitConfig,
                                      comm.psum(xty, mesh, "world"),
                                      config.lambda1)
         else:
-            V = row_update.update_row_factor_dense(
+            XtX, Xty = row_update.dense_level_system(
                 problem.data - losses.predict(R_minus, F), F, gram, codes, L,
-                config.lambda1, problem.counts[v])
-        _check_finite(config, f"row update V[{v}] (optimize_row)", V)
+                problem.counts[v])
+            V = _ridge_solve_batched(XtX, comm.psum(Xty, mesh, "world"),
+                                     config.lambda1)
+        _check_finite(config, f"row update V[{v}] (optimize_row)", V, mesh)
         cfd_new[v] = V
         R = R_minus + V[codes]
 
@@ -689,7 +695,7 @@ def _als_iteration_dense(problem: Problem, config: FitConfig,
     F_new = col_update.update_columns_dense(
         problem.data, R, F, config.lambda2, config.alpha, sub_tol_eff,
         mesh=mesh, **_col_kw(config, perm))
-    _check_finite(config, "column update F (optimize_col)", F_new)
+    _check_finite(config, "column update F (optimize_col)", F_new, mesh)
     return InsiderState(cfd_new, W, F_new)
 
 
@@ -966,6 +972,47 @@ def _run_boundary_chain(problem: Problem, config: FitConfig, steps, n: int,
     return rows[:n_live], (ran - n_live) * n
 
 
+def _found(path: str, mesh: Optional[Mesh], device) -> bool:
+    """Whether the checkpoint at `path` exists, decided alike on every
+    rank: a file that some ranks see and others do not raises ValueError
+    on every rank."""
+    n = comm.count(os.path.exists(path), mesh, device)
+    world = 1 if mesh is None else mesh.cfg.n_devices
+    if 0 < n < world:
+        raise ValueError(f"checkpoint {path!r} exists on {n} of {world} "
+                         "ranks: every rank must read one path on a file "
+                         "system they share")
+    return n > 0
+
+
+def _save_boundary(problem: Problem, path: str, state: InsiderState,
+                   it: int, loss: float, extra: dict,
+                   generator: Optional[torch.Generator]) -> None:
+    """Checkpoint a boundary (checkpoint.save_checkpoint).  Under a mesh
+    every rank gathers F, rank 0 alone writes the whole state, and every
+    rank then waits for its write (comm.count), so no rank can return and
+    read the file of an earlier boundary while rank 0 still writes; a
+    write that failed raises on every rank."""
+    mesh = problem.mesh
+    if mesh is None:
+        save_checkpoint(path, state, it=it, loss=loss, extra=extra,
+                        generator=generator)
+        return
+    F = comm.gather_cols(state.column_factor, mesh, problem.shape[1])
+    error = None
+    if mesh.rank == 0:
+        try:
+            save_checkpoint(path, InsiderState(state.cfd_factors,
+                                               state.ctns_factor, F),
+                            it=it, loss=loss, extra=extra,
+                            generator=generator)
+        except OSError as e:
+            error = e
+    if comm.count(error is not None, mesh, problem.device):
+        raise error or OSError(f"rank 0 could not write the checkpoint "
+                               f"{path!r}")
+
+
 @dataclasses.dataclass
 class OptimizeResult:
     row_matrices: List[np.ndarray]
@@ -1037,13 +1084,17 @@ def optimize(problem: Problem, config: FitConfig,
     n_iter and the losses are equal on every rank; at the end F is
     gathered, so column_factor and state hold the whole (K, M) F on every
     rank.  Rank 0 alone logs and writes log_jsonl; each rank writes its
-    own profile, trace_iter_<first>_<last>_rank<rank>.json.  Not yet under
-    a sharding (UNPORTED): checkpoint_path, resume, debug_checks.
+    own profile, trace_iter_<first>_<last>_rank<rank>.json.  Every rank
+    passes the same checkpoint_path: at each boundary every rank gathers
+    F and rank 0 alone writes the whole state, in the one-process format,
+    and no rank goes on before the file is written (_save_boundary); to
+    resume, every rank reads it and keeps its columns, so a checkpoint of
+    either fit resumes the other.  On several hosts the path must lie on
+    a file system they share (a checkpoint some ranks find and others do
+    not raises ValueError on every rank).  debug_checks raise the same
+    NonFiniteError on every rank (_check_finite).
     """
     mesh = problem.mesh
-    check_unported(None if mesh is None else mesh.cfg,
-                   checkpoint_path=bool(checkpoint_path), resume=resume,
-                   debug_checks=config.debug_checks)
     disable_tf32()
     lead = mesh is None or mesh.rank == 0
     cold_cd = (config.col_solver == "cd" and not config.cd_warm_start
@@ -1051,7 +1102,7 @@ def optimize(problem: Problem, config: FitConfig,
     perm_gen = torch.Generator().manual_seed(config.seed) if cold_cd else None
     start_iter, resume_decay = 0, 1.0
     if (resume and checkpoint_path and state is None
-            and os.path.exists(checkpoint_path)):
+            and _found(checkpoint_path, mesh, problem.device)):
         state, meta = load_checkpoint(checkpoint_path, device=problem.device,
                                       generator=perm_gen)
         start_iter = meta["iter"] + 1
@@ -1161,10 +1212,10 @@ def optimize(problem: Problem, config: FitConfig,
                                "%d; aborting", boundary)
                 break
             if checkpoint_path:
-                save_checkpoint(checkpoint_path, steps.state, it=boundary,
-                                loss=loss, extra={"decay": decay,
-                                                  "delta_loss": delta_loss},
-                                generator=perm_gen)
+                _save_boundary(problem, checkpoint_path, steps.state,
+                               boundary, loss, {"decay": decay,
+                                                "delta_loss": delta_loss},
+                               perm_gen)
             if converged or boundary >= config.max_iter:
                 break
     finally:

@@ -1044,7 +1044,7 @@ def test_tol_by_pointer_at_two_rungs(cuda, kernel):
     assert not torch.equal(*outs)        # the kernel read the new rung
 
 
-def _graph_problem(kind, dev):
+def _graph_problem(kind, dev, sharding=None):
     import insider_tpu_torch as itt
     from insider_tpu_torch.train import als
 
@@ -1056,6 +1056,7 @@ def _graph_problem(kind, dev):
     problem = als.build_problem(split.data, sim.confounder,
                                 split.train_indicator, split.test_indicator,
                                 ctns, masked="dense" not in kind,
+                                sharding=sharding,
                                 precompute="segment" not in kind,
                                 device=dev)
     kw = dict(latent_dim=k, lambda1=2.0, lambda2=2.0, alpha=0.4,
@@ -1143,3 +1144,41 @@ def test_graph_fit_equals_eager_fit(cuda, monkeypatch, kind):
     if "converging" in kind:
         assert ref.converged and ref.n_iter % 50 in (20, 30, 40)
         assert runs["graph 5"].wasted_iters == 10
+
+
+@pytest.mark.parametrize("kind", ["covariates masked", "covariates dense",
+                                  "segment masked", "segment dense"])
+def test_one_by_one_sharded_card_fit_equals_the_eager_fit(
+        cuda, monkeypatch, tmp_path, kind):
+    """On the card, ShardingConfig(1, 1) with no process group runs the
+    settings ported to the sharded fit (covariates, the segment-sum rows
+    of precompute=False), checkpointed at boundary 30 and resumed, and
+    under debug_checks: each bit for bit the eager unsharded fit (a
+    sharded fit runs eagerly)."""
+    from insider_tpu_torch.config import FitConfig, ShardingConfig
+    from insider_tpu_torch.train import als
+
+    problem, kw = _graph_problem(kind, cuda)
+    sharded, _ = _graph_problem(kind, cuda, ShardingConfig(1, 1))
+    monkeypatch.setattr(als, "graph_route", lambda *a, **k: False)
+    ref = als.optimize(problem, FitConfig(**kw), verbose=False)
+    path = str(tmp_path / "ckpt.npz")
+    als.optimize(sharded, FitConfig(**dict(kw, max_iter=30)), verbose=False,
+                 checkpoint_path=path)
+    resumed = als.optimize(sharded, FitConfig(**kw), verbose=False,
+                           checkpoint_path=path, resume=True)
+    checked = als.optimize(sharded, FitConfig(**kw, debug_checks=True),
+                           verbose=False)
+    by_iter = {h["iter"]: h["loss"] for h in ref.history}
+    assert [h["loss"] for h in checked.history] == [h["loss"]
+                                                    for h in ref.history]
+    assert resumed.history[0]["loss"] == by_iter[30]
+    assert [(h["iter"], h["loss"]) for h in resumed.history[1:]] == [
+        (h["iter"], h["loss"]) for h in ref.history if h["iter"] > 30]
+    for got in (resumed, checked):
+        assert not got.graphed
+        for a, b in zip(got.row_matrices + [got.column_factor],
+                        ref.row_matrices + [ref.column_factor]):
+            np.testing.assert_array_equal(a, b)
+        if ref.ctns_factor is not None:
+            np.testing.assert_array_equal(got.ctns_factor, ref.ctns_factor)

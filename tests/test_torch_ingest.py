@@ -69,7 +69,9 @@ def inputs(tmp_path_factory):
                 F=np.asarray(st.column_factor), path=str(path),
                 file_shape=FILE_SHAPE, file_data=fsim.data.astype(np.float32),
                 file_confounder=fsim.confounder, file_codes=fcodes,
-                file_levels=flevels)
+                file_levels=flevels,
+                ctns=np.random.default_rng(5).standard_normal(
+                    (split.data.shape[0], 2)))
 
 
 @pytest.fixture(scope="module")
@@ -99,6 +101,26 @@ def test_distributed_build_equals_build_problem(ranks, layout, source):
                     (r0, r1), (c0, c1))
                 assert bounds == want, name
     assert ranks[0][layout]["split_variants"] == (None, "bernoulli_block")
+
+
+@pytest.mark.parametrize("source", ["blocks", "callbacks"])
+@pytest.mark.parametrize("layout", jobs.INGEST_LAYOUTS)
+def test_distributed_build_with_covariates_equals_build_problem(
+        ranks, layout, source):
+    """build_problem_distributed with ctns_confounder (the rank's rows, or
+    a callback with n_ctns): the covariates and their constants, summed
+    over the row blocks, and the dense level sizes, with and without the
+    precompute, as build_problem(sharding=...) makes them, bit for bit;
+    the callback called once a build, for the rank's rows and every
+    covariate."""
+    for out in ranks:
+        rec = out[layout]
+        for kind, fields in jobs.CTNS_FIELDS.items():
+            got = rec["ctns"][kind][["blocks", "callbacks"].index(source)]
+            assert got == {f: True for f in fields}, kind
+        (r0, r1), _ = rec["block"]
+        assert rec["ctns_calls"] == [("ctns", ((r0, r1), (0, 2)))] * len(
+            jobs.CTNS_FIELDS)
 
 
 @pytest.mark.parametrize("layout", jobs.INGEST_LAYOUTS)

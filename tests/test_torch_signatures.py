@@ -5,12 +5,13 @@ train/als.build_problem_distributed, train/als.optimize, fit_interaction,
 the two CD solvers, FitConfig and tune/grid.tune of insider_tpu_torch
 bind every positional
 argument of the reference's signature to the same name at the same
-position, with the reference's defaults; the port's own parameters are keyword-only; a
-combination with `sharding` that the port does not run yet raises,
-naming itself and the ROADMAP item that will port it; use_pallas has no
-counterpart and must be None.
+position, with the reference's defaults; the port's own parameters are keyword-only; every
+combination with `sharding` runs, and on a 1 x 1 layout gives what the
+call without a sharding gives; use_pallas has no counterpart and must be
+None.
 """
 
+import dataclasses
 import importlib
 import inspect
 import json
@@ -115,65 +116,92 @@ CALLS = {
 }
 
 
-def _sharded_problem():
+def _problem_of(sharding):
     obj = _obj()
     return als.build_problem(obj.data, obj.confounder, obj.train_indicator,
-                             obj.test_indicator, sharding=ShardingConfig(),
+                             obj.test_indicator, sharding=sharding,
                              device="cpu")
 
 
-def _segment_sum_build():
+def _segment_sum_fit(sharding, path):
     saved = als._FAST_E_BYTES
     als._FAST_E_BYTES = 0          # every confounder past the budget
     try:
-        CALLS["build_problem"](sharding=ShardingConfig())
+        problem = CALLS["build_problem"](sharding=sharding)
     finally:
         als._FAST_E_BYTES = saved
+    assert problem.d == [None, None]
+    return problem, als.optimize(problem, _config(), verbose=False)
+
+
+def _resumed(sharding, path):
+    problem = _problem_of(sharding)
+    als.optimize(problem, _config(), verbose=False, checkpoint_path=path)
+    return als.optimize(problem, dataclasses.replace(_config(), max_iter=4),
+                        verbose=False, checkpoint_path=path, resume=True)
 
 
 CTNS = np.linspace(0.0, 1.0, 24)
+# each combination of `sharding` with another setting, as a call of
+# (sharding, a checkpoint path)
 SHARDED = {
-    "Insider.__init__ ctns_confounder": lambda: itt.Insider(
-        *_data(), CTNS, sharding=ShardingConfig(), device="cpu"),
-    "build_problem ctns_confounder": lambda: CALLS["build_problem"](
-        ctns_confounder=CTNS, sharding=ShardingConfig()),
-    "build_problem segment_sum": _segment_sum_build,
-    "build_problem no_precompute": lambda: CALLS["build_problem"](
-        sharding=ShardingConfig(), precompute=False),
-    "Insider.fit no_precompute": lambda: itt.Insider(
-        *_data(), sharding=ShardingConfig(), device="cpu").fit(
+    "Insider.__init__ ctns_confounder": lambda s, path: itt.Insider(
+        *_data(), CTNS, sharding=s, device="cpu").fit(
+            2, 1.0, 0.4, verbose=False, max_iter=2),
+    "build_problem ctns_confounder": lambda s, path: CALLS["build_problem"](
+        ctns_confounder=CTNS, sharding=s),
+    "build_problem segment_sum": _segment_sum_fit,
+    "build_problem no_precompute": lambda s, path: CALLS["build_problem"](
+        sharding=s, precompute=False, masked=False),
+    "Insider.fit no_precompute": lambda s, path: itt.Insider(
+        *_data(), sharding=s, device="cpu").fit(
             2, 1.0, 0.4, verbose=False, max_iter=2, precompute=False),
-    "Insider.fit checkpoint_path": lambda: itt.Insider(
-        *_data(), sharding=ShardingConfig(), device="cpu").fit(
-            2, 1.0, 0.4, verbose=False, max_iter=2,
-            checkpoint_path="never-written.npz"),
-    "optimize checkpoint_path": lambda: als.optimize(
-        _sharded_problem(), _config(), verbose=False,
-        checkpoint_path="never-written.npz"),
-    "optimize resume": lambda: als.optimize(
-        _sharded_problem(), _config(), verbose=False, resume=True),
-    "optimize debug_checks": lambda: als.optimize(
-        _sharded_problem(), FitConfig(latent_dim=2, max_iter=2,
-                                      debug_checks=True), verbose=False),
+    "Insider.fit checkpoint_path": lambda s, path: itt.Insider(
+        *_data(), sharding=s, device="cpu").fit(
+            2, 1.0, 0.4, verbose=False, max_iter=2, checkpoint_path=path),
+    "optimize checkpoint_path": lambda s, path: als.optimize(
+        _problem_of(s), _config(), verbose=False, checkpoint_path=path),
+    "optimize resume": _resumed,
+    "optimize debug_checks": lambda s, path: als.optimize(
+        _problem_of(s), FitConfig(latent_dim=2, max_iter=2,
+                                  debug_checks=True), verbose=False),
 }
 
 
+def _outcome(out):
+    """What a call gave: a problem's constants, or a fit's losses and
+    factors, with the checkpoint it saved."""
+    if isinstance(out, tuple):
+        return [_outcome(x) for x in out]
+    if isinstance(out, als.Problem):
+        return [out.d, out.mw_cat, out.max_level_count, out.counts,
+                out.ctns, out.ctns_q, out.ctns_bc, out.ctns_dc, out.ctns_cc]
+    res = out.fit_result if isinstance(out, itt.Insider) else out
+    return [[h["loss"] for h in res.history], res.row_matrices,
+            res.ctns_factor, res.column_factor]
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if a is None or isinstance(a, (int, float)):
+        return a == b
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
 @pytest.mark.parametrize("call", sorted(SHARDED))
-def test_unported_sharded_combinations_raise(call):
-    """sharding is ported; each combination with it that is not yet
-    raises NotImplementedError naming the setting, the sharding and its
-    ROADMAP item (train/als.UNPORTED), here on a 1 x 1 layout."""
-    name = call.split()[-1]
-    what, item = als.UNPORTED[("sharding", name)]
-    with pytest.raises(NotImplementedError) as err:
-        SHARDED[call]()
-    assert str(err.value).startswith(what)
-    assert "ShardingConfig(rows=1, cols=1" in str(err.value)
-    assert f"(ROADMAP {item})" in str(err.value)
-    assert {n for _, n in als.UNPORTED} == {
-        c.split()[-1] for c in SHARDED} == {
-        "ctns_confounder", "segment_sum", "no_precompute",
-        "checkpoint_path", "resume", "debug_checks"}
+def test_sharded_combinations_run(call, tmp_path):
+    """sharding is ported with every setting: each combination runs and,
+    here on a 1 x 1 layout, gives what the call without a sharding gives,
+    bit for bit, checkpoints too."""
+    got = SHARDED[call](ShardingConfig(), str(tmp_path / "sharded.npz"))
+    ref = SHARDED[call](None, str(tmp_path / "plain.npz"))
+    assert _same(_outcome(got), _outcome(ref))
+    if "checkpoint_path" in call or "resume" in call:
+        with open(tmp_path / "sharded.npz.json") as fh, open(
+                tmp_path / "plain.npz.json") as gh:
+            assert json.load(fh) == json.load(gh)
 
 
 def _losses(out):
@@ -263,7 +291,6 @@ def test_checkpoint_path_runs(tmp_path, entry):
     """checkpoint_path is ported: the run saves its last boundary there."""
     path = str(tmp_path / "ckpt.npz")
     out = CALLS[entry](checkpoint_path=path)
-    assert "checkpoint_path" not in als.UNPORTED
     with open(path + ".json") as fh:
         assert json.load(fh)["iter"] == _history(out)[-1]["iter"] == 2
 
@@ -275,7 +302,6 @@ def test_resume_runs(tmp_path, entry):
     it starts fresh."""
     path = str(tmp_path / "ckpt.npz")
     fresh = _history(CALLS[entry](checkpoint_path=path, resume=True))
-    assert "resume" not in als.UNPORTED
     assert [h["iter"] for h in fresh] == [-1, 0, 2]
     again = _history(CALLS[entry](checkpoint_path=path, resume=True))
     assert [h["iter"] for h in again] == [-1]
