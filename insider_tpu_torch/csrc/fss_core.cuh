@@ -71,6 +71,26 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float KKT_RTOL = 1e-5f;   // fss_pallas.py:KKT_RTOL
 
+// A column whose Xty or warm start holds a NaN or an Inf comes out of the
+// FSS solves all NaN, as it does from the plain version
+// (ops/fss.feature_sign_search) and from the TPU kernel: the solve's
+// comparisons would pass over the non-finite values and return a finite
+// column, which no finiteness check of the fit could see.  finite_coords:
+// whether a lane's coordinates are all finite (slots past K hold 0).
+__device__ __forceinline__ float not_a_number() {
+  return __int_as_float(0x7fc00000);
+}
+
+template <int C>
+__device__ __forceinline__ bool finite_coords(const float (&xty)[C],
+                                              const float (&beta)[C]) {
+  bool fin = true;
+#pragma unroll
+  for (int q = 0; q < C; ++q)
+    fin = fin && isfinite(xty[q]) && isfinite(beta[q]);
+  return fin;
+}
+
 __device__ __forceinline__ float sgn(float x) {
   return static_cast<float>((x > 0.f) - (x < 0.f));
 }
@@ -849,10 +869,17 @@ __device__ __forceinline__ void cd_group_columns(Feed& feed,
                     : (c <= i ? above + i : below[q] + c);
   };
   auto sign = [](float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f); };
+  // the group's column is stored all NaN: its warm start holds a NaN or an
+  // Inf, or its Xty an Inf, where the plain version's column comes out
+  // non-finite and the sweeps' selects would pass over the values and
+  // return a finite one (a NaN in Xty fails the screen and the KKT check
+  // here as there, and the column solves to its screened warm start)
+  bool nonfinite = false;
   auto store = [&](int c, const float (&beta)[C]) {
 #pragma unroll
     for (int q = 0; q < C; ++q)
-      if (ok[q]) feed.store(c, r + L * q, beta[q]);
+      if (ok[q])
+        feed.store(c, r + L * q, nonfinite ? not_a_number() : beta[q]);
   };
 
   // the group's column (-1: none) and its state
@@ -910,7 +937,12 @@ __device__ __forceinline__ void cd_group_columns(Feed& feed,
       half_den[q] = 0.5f * den;
     }
     sweep = 0;
-    if (max_sweeps <= 0) {
+    bool bad = false;
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+      bad = bad || !isfinite(beta[q]) || isinf(xty[q]);
+    nonfinite = (__ballot_sync(got, bad) & group) != 0u;
+    if (max_sweeps <= 0 || nonfinite) {
       store(c, beta);
       c = -1;
     }
@@ -1158,6 +1190,7 @@ __device__ __forceinline__ void fss_group_columns(Feed& feed,
   }
   int c = -1, outer = 0;
   bool left = true;                        // the feed may have more
+  bool nonfinite = false;                  // the group's column is NaN
   float xty[C], beta[C], theta[C], thresh = 0.f;
   bool act[C];
 #pragma unroll
@@ -1168,7 +1201,8 @@ __device__ __forceinline__ void fss_group_columns(Feed& feed,
   auto store = [&]() {
 #pragma unroll
     for (int q = 0; q < C; ++q)
-      if (ok[q]) feed.store(c, r + L * q, beta[q]);
+      if (ok[q])
+        feed.store(c, r + L * q, nonfinite ? not_a_number() : beta[q]);
     c = -1;
   };
   // a group without a column takes the feed's next (mask: the groups
@@ -1190,7 +1224,9 @@ __device__ __forceinline__ void fss_group_columns(Feed& feed,
     }
     thresh = __fmaf_rn(KKT_RTOL, __fadd_rn(l1, group_max<L>(xmax, got)), l1);
     outer = 0;
-    if (max_outer <= 0) store();
+    nonfinite =
+        ((__ballot_sync(got, !finite_coords<C>(xty, beta)) >> g0) & low) != 0u;
+    if (max_outer <= 0 || nonfinite) store();
   };
   // one outer step of every group (live: the group holds a column).
   // Returns whether the group's column converged
@@ -1294,9 +1330,11 @@ __device__ __forceinline__ void polish_group_columns(
     Feed& feed, const float* __restrict__ G, int GS, int K, float l1,
     float l2, float tol, int max_sweeps) {
   const int r = threadIdx.x & (L - 1);
+  const int g0 = threadIdx.x & 31 & ~(L - 1);   // the group's first lane
+  const unsigned low = L == 32 ? FULL : (1u << L) - 1u;
   const float inv_l1 = 1.f / fmaxf(l1, 1e-30f);
   int c = -1, sweep = 0;
-  bool left = true;
+  bool left = true, nonfinite = false;
   float xty[C], beta[C];
   Polish<C> p;
 #pragma unroll
@@ -1305,7 +1343,8 @@ __device__ __forceinline__ void polish_group_columns(
   auto store = [&]() {
 #pragma unroll
     for (int q = 0; q < C; ++q)
-      if (r + L * q < K) feed.store(c, r + L * q, beta[q]);
+      if (r + L * q < K)
+        feed.store(c, r + L * q, nonfinite ? not_a_number() : beta[q]);
     c = -1;
   };
   for (;;) {
@@ -1326,7 +1365,9 @@ __device__ __forceinline__ void polish_group_columns(
           }
           polish_start<C, L>(G, GS, K, beta, l2, p, got);
           sweep = 0;
-          if (max_sweeps <= 0) store();
+          nonfinite = ((__ballot_sync(got, !finite_coords<C>(xty, beta)) >>
+                        g0) & low) != 0u;
+          if (max_sweeps <= 0 || nonfinite) store();
         }
       }
     }
@@ -1371,6 +1412,11 @@ __device__ __forceinline__ void solve_column(const Solver<false>& s,
                                              const float* G, float* W, int K,
                                              int GS, const float (&xty)[C],
                                              float (&beta)[C]) {
+  if (!__all_sync(FULL, finite_coords<C>(xty, beta))) {
+#pragma unroll
+    for (int q = 0; q < C; ++q) beta[q] = not_a_number();
+    return;
+  }
   fss_column<AMAX, C>(G, W, K, GS, xty, beta, s.l1, s.l2, *s.tol,
                       s.max_outer, s.polish_sweeps);
 }

@@ -28,6 +28,11 @@ cd_fused and cd_streamed have at a K are cd_fused_widths and
 cd_streamed_widths; their `lanes` argument forces one, a hook for tests
 and timings.  Each column's arithmetic, and so its bits, do not depend on
 L, on the columns that share its warp or on when it was taken.
+
+A column whose warm start holds a NaN or an Inf, or whose Xty an Inf,
+comes out all NaN, where the plain version's and the TPU kernel's come out
+non-finite; a NaN in Xty fails the screen, as there, and the column
+solves to zero.
 """
 
 from __future__ import annotations

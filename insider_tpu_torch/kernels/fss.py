@@ -9,6 +9,10 @@ fss_shared.cu, all on the solver of csrc/fss_core.cuh) on CUDA tensors and
 its plain version (ops/fss.feature_sign_search) on CPU tensors; a CUDA
 tensor never reaches the plain version.  `<wrapper>.launches` counts the
 kernel's launches.
+
+A column whose Xty or warm start holds a NaN or an Inf comes out all NaN,
+as it does from the plain version and the TPU kernel, so a fit's
+finiteness checks see it.
 """
 
 from __future__ import annotations

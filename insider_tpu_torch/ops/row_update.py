@@ -22,7 +22,7 @@ the segment-sum forms, update_row_factor_masked and
 update_row_factor_dense: the level sums of the add-back residual
 (segment_sum, a fixed-order index_put_), plain PyTorch on every device, as
 the JAX package runs them outside any kernel, but for the masked level
-grams, which the fit takes from the level_gram kernel.  Each is two
+grams, which come from the level_gram kernel.  Each is two
 steps, the level systems (masked_level_system, dense_level_system) and
 the batched ridge solve, so that a sharded fit sums each rank's
 (L, K, K) and (L, K) systems over its blocks in between (train/als.py).
@@ -122,8 +122,7 @@ def segment_sum(x: torch.Tensor, codes: torch.Tensor,
 
 def masked_level_system(residual_plus: torch.Tensor, mask: torch.Tensor,
                         F: torch.Tensor, codes: torch.Tensor, n_levels: int,
-                        gram=level_gram_masked
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        max_count=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The masked per-level ridge systems by segment sums (src/optimize.cpp:
     150-176; insider_tpu/ops/row_update.py:77-91): (XtX (L, K, K), Xty
     (L, K)).
@@ -131,15 +130,21 @@ def masked_level_system(residual_plus: torch.Tensor, mask: torch.Tensor,
     residual_plus (N, M): the residual with this confounder added back;
     mask (N, M) 0/1, f32 or uint8 (widened inside this call only); F
     (K, M); codes (N,) level codes in [0, L).  The level grams are the
-    (L, M) mask counts against the (K^2, M) outer-product table, by
-    gram(Mw, F): level_gram_masked, one f32 matmul, or the fit's
-    kernels/row.level_gram, exact on the card.  Both are linear in the
-    rows and the columns, so on a block of the matrix they are the
-    block's share of the whole matrix's systems.
+    (L, M) mask counts against the (K^2, M) outer-product table, by the
+    level_gram kernel (kernels/row.level_gram, its plain version
+    level_gram_masked on the CPU), whose exact planes keep the sums
+    unbiased at any M (on an H100 cuBLAS's f32 GEMM read a GTEx-sized
+    interaction's diagonal 1.4-1.8e-5 low).  max_count: the largest mask
+    count of any level (a fit's Problem.segment_max_count), or None to
+    read it from the counts.  Both systems are linear in the rows and the
+    columns, so on a block of the matrix they are the block's share of
+    the whole matrix's systems.
     """
+    from insider_tpu_torch.kernels.row import level_gram
+
     Mw = segment_sum(mask.to(F.dtype), codes, n_levels)        # (L, M)
     S = segment_sum(mask * residual_plus, codes, n_levels)     # (L, M)
-    XtX = gram(Mw, F)                                          # (L, K, K)
+    XtX = level_gram(Mw, F, max_count)                         # (L, K, K)
     Xty = torch.matmul(S, F.T)                                 # (L, K)
     return XtX, Xty
 

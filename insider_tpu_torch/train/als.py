@@ -55,7 +55,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import json
 import logging
 import os
@@ -621,16 +620,10 @@ def _als_iteration(problem: Problem, config: FitConfig, state: InsiderState,
                                   problem.row_order[v], problem.mesh)
         else:
             # the rank's (L, K, K) and (L, K) systems, summed over every
-            # rank: the (L, M) level sums never leave the rank.  Their
-            # grams by the level_gram kernel, whose exact planes keep the
-            # sums unbiased at any M (on an H100 cuBLAS's f32 GEMM read the
-            # GTEx-sized interaction's diagonal 1.7e-5 low over 56200
-            # columns and 1.4e-5 over 28100, so the fit moved with the
-            # column split)
+            # rank: the (L, M) level sums never leave the rank
             XtX, Xty = comm.psum_many(row_update.masked_level_system(
                 problem.data - losses.predict(R_minus, F), mask, F, codes,
-                problem.n_levels[v], functools.partial(
-                    level_gram, max_count=problem.segment_max_count)),
+                problem.n_levels[v], problem.segment_max_count),
                 problem.mesh, "world")
             V = _ridge_solve_batched(XtX, Xty, config.lambda1)
         _check_finite(config, f"row update V[{v}] (optimize_row)", V,
@@ -992,7 +985,8 @@ def _save_boundary(problem: Problem, path: str, state: InsiderState,
     every rank gathers F, rank 0 alone writes the whole state, and every
     rank then waits for its write (comm.count), so no rank can return and
     read the file of an earlier boundary while rank 0 still writes; a
-    write that failed raises on every rank."""
+    write that failed, by any exception, raises on every rank: rank 0's
+    own exception there, an OSError naming the file on the others."""
     mesh = problem.mesh
     if mesh is None:
         save_checkpoint(path, state, it=it, loss=loss, extra=extra,
@@ -1006,7 +1000,7 @@ def _save_boundary(problem: Problem, path: str, state: InsiderState,
                                                state.ctns_factor, F),
                             it=it, loss=loss, extra=extra,
                             generator=generator)
-        except OSError as e:
+        except Exception as e:  # re-raised below, once every rank knows
             error = e
     if comm.count(error is not None, mesh, problem.device):
         raise error or OSError(f"rank 0 could not write the checkpoint "

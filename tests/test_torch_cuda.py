@@ -1182,3 +1182,71 @@ def test_one_by_one_sharded_card_fit_equals_the_eager_fit(
             np.testing.assert_array_equal(a, b)
         if ref.ctns_factor is not None:
             np.testing.assert_array_equal(got.ctns_factor, ref.ctns_factor)
+
+
+# every column kernel, and the K it runs at: the fused ones up to 32, the
+# others also past it (K=50: two coordinates a lane)
+NONFINITE_CASES = [(name, k) for k in (6, 24, 50)
+                   for name in ("col_gram_xty", "feature_sign",
+                                "feature_sign_shared", "cd_streamed",
+                                "cd_shared")
+                   + (("feature_sign_fused", "cd_fused") if k <= 32 else ())]
+
+
+@pytest.mark.parametrize("name,K", NONFINITE_CASES)
+def test_nonfinite_inputs_give_the_plain_versions_columns(cuda, name, K):
+    """Column 1's data a NaN at a train element, column 2's an Inf, column
+    3's warm start a NaN: the kernel gives non-finite the columns its plain
+    version gives non-finite (an FSS kernel all NaN), a poisoned column it
+    keeps finite as the plain version does (a CD kernel's NaN in Xty: zero),
+    and every other column as on the clean input, bit for bit
+    (tests/test_torch_nonfinite.py holds the plain versions to the TPU
+    kernels there)."""
+    rng = np.random.default_rng(K)
+    N, M = 300, 1031
+    R = _t(rng.standard_normal((N, K)).astype(np.float32), cuda)
+    mask = _t((rng.random((N, M)) > 0.1).astype(np.float32), cuda)
+    clean = _t(rng.standard_normal((N, M)).astype(np.float32), cuda)
+    beta_clean = _t((0.01 * rng.standard_normal((K, M))).astype(np.float32),
+                    cuda)
+    data, beta0 = clean.clone(), beta_clean.clone()
+    for j, v in ((1, float("nan")), (2, float("inf"))):
+        data[int(torch.nonzero(mask[:, j])[0]), j] = v
+    beta0[0, 3] = float("nan")
+    kw = dict(max_outer=48, polish_sweeps=16, tol=1e-6)
+
+    def run(fn, data, beta0):
+        G = col_gram_masked(R, mask).permute(1, 2, 0).contiguous()
+        b = R.T @ (mask * data)
+        Gs, bs = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+        if name == "col_gram_xty":
+            return fn(mask, data, R)[1]
+        if name in ("feature_sign_fused", "cd_fused"):
+            args = (mask, data, R, beta0, 2.0, 0.5)
+        elif name in ("feature_sign", "cd_streamed"):
+            args = (G, b, beta0, 2.0, 0.5)
+        else:
+            args = (Gs, bs, beta0, 2.0, 0.5)
+        if name.startswith("cd"):
+            return fn(*args, 1e-6, 200)
+        return fn(*args, **kw)
+
+    module = {"col_gram_xty": gram, "feature_sign": fss,
+              "feature_sign_fused": fss, "feature_sign_shared": fss,
+              "cd_fused": cd, "cd_streamed": cd, "cd_shared": cd}[name]
+    kernel, plain = getattr(module, name), getattr(module, name + "_plain")
+    got, ref = run(kernel, data, beta0), run(plain, data, beta0)
+    base = run(kernel, clean, beta_clean)
+    bad = ~torch.isfinite(got).all(0)
+    assert torch.equal(bad, ~torch.isfinite(ref).all(0))
+    assert bad[1:4].any()
+    poisoned = torch.zeros_like(bad)             # its inputs' columns
+    poisoned[1:3 if name == "col_gram_xty" else 4] = True
+    assert torch.equal(got[:, ~poisoned], base[:, ~poisoned])
+    # a poisoned column that stays finite (CD's NaN in Xty: screened out)
+    # is the plain version's, zero
+    kept = poisoned & ~bad
+    assert torch.equal(got[:, kept], ref[:, kept])
+    assert not got[:, kept].any()
+    if name != "col_gram_xty":
+        assert torch.isnan(got[:, bad]).all()

@@ -315,6 +315,23 @@ def test_sharded_checkpoint_resumes_a_one_process_fit(inputs, ranks):
         np.testing.assert_allclose(h[1:3], ref[it_][1:3], rtol=1e-5)
 
 
+def test_failed_checkpoint_write_raises_on_every_rank(inputs, ranks):
+    """Rank 0's write of a 2 x 2 fit's checkpoint raising ValueError: rank
+    0 raises it, every other rank an OSError naming the file, and the
+    group then fits on (no rank was left in a collective: the ranks'
+    "insider" fits)."""
+    path = jobs.ckpt_path(inputs, ShardingConfig(2, 2), "failed")
+    for r, out in enumerate(ranks):
+        got = out["failed save"]
+        if r == 0:
+            assert got == dict(type="ValueError",
+                               message="rank 0's write failed")
+        else:
+            assert got["type"] == "OSError" and repr(path) in got["message"]
+        np.testing.assert_array_equal(out["insider"]["history"],
+                                      ranks[0]["insider"]["history"])
+
+
 @pytest.mark.parametrize("layout", jobs.LAYOUTS)
 def test_nan_in_one_rank_block_raises_on_every_rank(inputs, ranks, layout):
     """debug_checks with a NaN put into rank 1's data block after the

@@ -227,6 +227,33 @@ def poisoned_fit(inp: dict, layout, sharded: bool, rank: int = 1) -> dict:
                 collectives=counter.n)
 
 
+def failed_save(inp: dict, sharding) -> dict:
+    """The "checkpoint_resume" fit at `sharding` with rank 0's write of
+    its first checkpoint raising ValueError (an error that is not an
+    OSError): the type and message of the exception this rank raised."""
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.train import als
+
+    problem = build_case(inp, "checkpoint_resume", sharding)
+    cfg = FitConfig(**dict(BASE, **CASES["checkpoint_resume"][1]))
+    saved = als.save_checkpoint
+
+    def broken(*a, **kw):
+        raise ValueError("rank 0's write failed")
+
+    if dist.get_rank() == 0:
+        als.save_checkpoint = broken
+    try:
+        als.optimize(problem, cfg, state=initial_state(
+            inp, "checkpoint_resume"), verbose=False,
+            checkpoint_path=ckpt_path(inp, sharding, "failed"))
+    except Exception as e:
+        return dict(type=type(e).__name__, message=str(e))
+    finally:
+        als.save_checkpoint = saved
+    return dict(type=None, message=None)
+
+
 def insider_fit(inp: dict, sharding=None, ctns=False) -> dict:
     """Insider(...).fit(K, 1.0, 0.4, partition=1) of the raw matrix, with
     the JAX package's initial state for it; with ctns, of the raw matrix
@@ -281,8 +308,9 @@ def sharding_job(inp: dict, rank: int) -> dict:
         out["poisoned", layout] = poisoned_fit(inp, layout, True)
     out["resumed from one process"] = resume_case(
         inp, inp["one_process_ckpt"], ShardingConfig(2, 2))
-    # after the poisoned fits the group still runs a fit: no rank was left
-    # in a collective
+    out["failed save"] = failed_save(inp, ShardingConfig(2, 2))
+    # after the poisoned fits and the failed save the group still runs a
+    # fit: no rank was left in a collective
     out["insider"] = insider_fit(inp, ShardingConfig(2, 2))
     out["insider ctns"] = insider_fit(inp, ShardingConfig(2, 2), ctns=True)
     return out
