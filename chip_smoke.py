@@ -49,15 +49,27 @@ Phases, each fatal on failure:
   6. K = 96 and K = 128 at M=2048 (N=300): col_gram_xty (with the f64
      gate of phase 4 and its library_ms), feature_sign (and its bound by
      bytes),
-     feature_sign_shared, cd_streamed and cd_shared against their plain
-     versions;
+     feature_sign_shared (and its bound by its solves' operations),
+     cd_streamed and cd_shared against their plain
+     versions; feature_sign_shared and cd_shared at K=50 (SHARED_CASES,
+     M=44477) with their bounds; past the narrow kernels' K <= 128
+     (WIDE_CASES: K = 160 and 256 at M=2048, K = 300 at M=256, where the
+     wide FSS solve reads its gram from device memory) every widened
+     kernel against its plain version with the gates above, its uint8
+     mask bit for bit its f32 mask's, twice bit for bit, timed beside its
+     plain version (the plain FSS once, by CUDA events) and its bound:
+     col_gram_xty, feature_sign (bytes), feature_sign_shared (fss_flops),
+     row_xty (the f64 gate on near-cancelling inputs at the flagship's
+     377 x 44477 and levels; timed on two confounders of 12 and 25
+     levels), level_gram and masked_eval;
   7. small fits: the same fit on the card (kernels) and on the CPU (plain
      versions) from one numpy initial state, per-boundary losses agree to
      rtol 1e-5: masked K=8, dense K=8, masked K=40, masked alpha=0 at K=8
      and at tests/test_torch_dense.py's ridge shape (40 x 300, K=6) (FSS
      and Cholesky); masked K=8, dense K=8, masked K=40 with R of full rank
      (cold CD; beside it the CPU fit on exact column grams, printed: how
-     far the fit moves with their last bit); masked K=96 (FSS);
+     far the fit moves with their last bit); masked K=96 (FSS); masked and
+     dense K=136 (120 x 100, 10 iterations: the K > 128 kernels);
   8. flagship fit: Insider(...).fit(24, 11, 0.4, partition=1) at
      377 x 44477 on the card, then the same with partition=0;
   9. K=50 masked fit: the prediXcan shape, 300 x 44477, levels (12, 25),
@@ -211,7 +223,16 @@ Phases, each fatal on failure:
      20 replays of the captured iteration (torch.profiler) printed beside
      the card's name and power limit.  Phase 14 also fits the GTEx-sized
      uint8 problem eagerly: the same losses, its peak beside the graph
-     fit's.
+     fit's;
+ 18. rank K above 128: the flagship problem at full width at K = 160
+     (simulate_scale(377, 44477, 160, ...), 1% NaNs, lambda 11, alpha
+     0.4) through Insider.fit, masked (partition=1) and dense, 10
+     iterations each under the graph: col_gram_xty, feature_sign,
+     row_xty, level_gram and masked_eval launched (masked),
+     feature_sign_shared (dense), no other column kernel; losses finite
+     and non-increasing; ms/iter, the problem's bytes and the fit's peak
+     printed; the masked fit's last level_gram, masked_eval and row_xty
+     calls held against their plain versions (infit_checks).
 A fit on the card runs its first iteration eagerly and the rest as
 replays of one captured iteration (train/graph.py): a replay adds the
 captured iteration's launches to each wrapper's count, so a fit's counts
@@ -249,12 +270,15 @@ multiply-adds over its a active coordinates, and its gradient, K^2; each
 polish sweep, K^2; from fss_counts' replay of the timed input); the other
 FSS kernels' leave their solves out.  The uint8 records (phase 14) count a
 byte an element of the mask; their launches are the GTEx-sized uint8 fit's
-(the cold-CD flagship uint8 fit's for cd_fused).  As the last line {"ok": true,
+(the cold-CD flagship uint8 fit's for cd_fused).  The "<kernel> K=160"
+records are the widened kernels at phase 6's K = 160 (N=300, M=2048),
+their launches phase 18's fits'.  As the last line {"ok": true,
 "device": {...}}.
 Without CUDA the script exits non-zero and prints no result.
 """
 
 import functools
+import gc
 import inspect
 import json
 import os
@@ -509,22 +533,10 @@ def row_xty_gate(torch, row, x):
     worst = {"kernel": 0.0, "plain f32": 0.0, "f32 control": 0.0}
     for codes, Rm, L in zip(x["codes"], x["R_minus"], LEVELS):
         noise = torch.from_numpy(rng.standard_normal(mask.shape)).to("cuda")
-        data = Rm.double() @ F.double() + 0.01 * noise
-        E_t = torch.nn.functional.one_hot(codes.long(), L).double().T
-        D = (E_t @ (mask.double() * data)).float().contiguous()
-        exact = row.row_xty_plain(codes, Rm.double(), mask.double(),
-                                  D.double(), F.double())
-        T = E_t.float() @ (mask * (Rm @ F))
-        scale = float(exact.abs().max())
-        for name, got in (
-                ("kernel", row.row_xty(codes, Rm, mask, D, F,
-                                       **row_order(row, codes, L))),
-                ("plain f32", row.row_xty_plain(codes, Rm, mask, D, F)),
-                ("f32 control", D @ F.T - T @ F.T)):
-            worst[name] = max(worst[name],
-                              float((got.double() - exact).abs().max())
-                              / scale)
-        del noise, data, E_t, D, exact, T
+        for name, v in near_cancel_row_xty(torch, row, codes, Rm, mask, F, L,
+                                           noise).items():
+            worst[name] = max(worst[name], v)
+        del noise
     print("row_xty max err vs the f64 sum, near-cancelling inputs, over "
           "the four confounders, as a fraction of max |ref|: " + "; ".join(
               f"{k} {v:.4e}" for k, v in worst.items())
@@ -1159,6 +1171,32 @@ def nonfinite_checks(torch, gram, fss, cd):
                 fail(f"{name} K={k}: a non-finite column is not all NaN")
 
 
+def col_gram_record(torch, gram, mask, data, R):
+    """col_gram_xty on (mask, data, R) against its plain version (each
+    output within 3e-5 of its largest magnitude) and the f64 gate
+    (col_gram_gate), timed beside its plain version, its library
+    yardstick and its bound.  Returns ((grams, Xty), record)."""
+    n, k = R.shape
+    m = data.shape[1]
+    G, b = gram.col_gram_xty(mask, data, R)
+    ref = gram.col_gram_xty_plain(mask, data, R)
+    for g, r, what in zip((G, b), ref, ("gram", "xty")):
+        e = float((g - r).abs().max())
+        if not e <= 3e-5 * float(r.abs().max()):
+            fail(f"col_gram_xty K={k} {what} max err {e:.3e}")
+    bnd = col_gram_bound(n, k, m)
+    return (G, b), dict(
+        max_abs_err=max(float((g - r).abs().max())
+                        for g, r in zip((G, b), ref)),
+        f64_gate=col_gram_gate(torch, gram, f"col_gram_xty K={k}", mask,
+                               data, R, (G, b)),
+        ms=timed_ms(torch, lambda: gram.col_gram_xty(mask, data, R), 5),
+        plain_ms=timed_ms(torch, lambda: gram.col_gram_xty_plain(
+            mask, data, R), 3),
+        library_ms=col_gram_library_ms(torch, R, mask),
+        bound_ms=bnd[0], bound_by=bnd[1])
+
+
 def phase_kernels_wide(torch, gram, fss, cd):
     """K = 96 and K = 128 (three and four coordinates per lane) at
     M=2048, N=300: every gram-input kernel against its plain version.
@@ -1168,23 +1206,8 @@ def phase_kernels_wide(torch, gram, fss, cd):
     kw = dict(max_outer=48, polish_sweeps=32, tol=SUB_TOL)
     for k in (96, 128):
         R, mask, data, beta0 = problem(torch, n, k, m, k)
-        G, b = gram.col_gram_xty(mask, data, R)
-        ref = gram.col_gram_xty_plain(mask, data, R)
-        for g, r, what in zip((G, b), ref, ("gram", "xty")):
-            e = float((g - r).abs().max())
-            if not e <= 3e-5 * float(r.abs().max()):
-                fail(f"col_gram_xty K={k} {what} max err {e:.3e}")
-        bnd = col_gram_bound(n, k, m)
-        out[f"col_gram_xty K={k}"] = dict(
-            max_abs_err=max(float((g - r).abs().max())
-                            for g, r in zip((G, b), ref)),
-            f64_gate=col_gram_gate(torch, gram, f"col_gram_xty K={k}", mask,
-                                   data, R, (G, b)),
-            ms=timed_ms(torch, lambda: gram.col_gram_xty(mask, data, R), 5),
-            plain_ms=timed_ms(torch, lambda: gram.col_gram_xty_plain(
-                mask, data, R), 3),
-            library_ms=col_gram_library_ms(torch, R, mask),
-            bound_ms=bnd[0], bound_by=bnd[1])
+        (G, b), out[f"col_gram_xty K={k}"] = col_gram_record(
+            torch, gram, mask, data, R)
         XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
         Gd = XtX[:, :, None].expand(k, k, m)
         lam, alpha = 1.0, 0.5
@@ -1202,9 +1225,14 @@ def phase_kernels_wide(torch, gram, fss, cd):
                 match_share=share, max_objective_excess=excess,
                 ms=timed_ms(torch, lambda: fn(*args, **kw), 2),
                 plain_ms=timed_ms(torch, lambda: plain(*args, **kw), 1))
-        # feature_sign's bound by its bytes (its solves not counted)
+        # feature_sign's bound by its bytes (its solves not counted);
+        # feature_sign_shared's by its solves' operations (fss_flops)
         bnd = gram_input_bound(k, m, shared=False)
         out[f"feature_sign K={k}"].update(bound_ms=bnd[0], bound_by=bnd[1])
+        bnd = gram_input_bound(k, m, shared=True, fss=fss_counts(
+            torch, Gd, Xty, beta0, lam, alpha, **kw))
+        out[f"feature_sign_shared K={k}"].update(bound_ms=bnd[0],
+                                                  bound_by=bnd[1])
         for name, fn, plain, args, GG, bb in (
                 ("cd_streamed", cd.cd_streamed, cd.cd_streamed_plain,
                  (G, b, beta0, lam, alpha, SUB_TOL), G, b),
@@ -1221,6 +1249,206 @@ def phase_kernels_wide(torch, gram, fss, cd):
                 plain_ms=timed_ms(torch, lambda: plain(*args, 200), 1),
                 bound_ms=bnd[0], bound_by=bnd[1])
         out[f"cd_streamed K={k}"]["lanes"] = cd.cd_streamed_widths(k)[0][0]
+    # the dense kernels at K=50 (SHARED_CASES[50], M=44477): times and
+    # bounds, feature_sign_shared's by its solves' operations, cd_shared's
+    # by its sweeps (both counted by a replay of the plain iteration)
+    XtX, Xty, beta0, lam, alpha = shared_inputs(torch, 50)
+    Gd = XtX[:, :, None].expand(50, 50, Xty.shape[1])
+    args = (XtX, Xty, beta0, lam, alpha)
+    got = fss.feature_sign_shared(*args, **kw)
+    ref, plain_ms = timed_once(torch, lambda: fss.feature_sign_shared_plain(
+        *args, **kw))
+    share, excess = fss_checks(torch, "feature_sign_shared K=50", got, ref,
+                               Gd, Xty, lam, alpha)
+    bnd = gram_input_bound(50, Xty.shape[1], shared=True, fss=fss_counts(
+        torch, Gd, Xty, beta0, lam, alpha, **kw))
+    out["feature_sign_shared K=50"] = dict(
+        max_abs_err=float((got - ref).abs().max()), match_share=share,
+        max_objective_excess=excess,
+        ms=timed_ms(torch, lambda: fss.feature_sign_shared(*args, **kw), 5),
+        plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+        lanes=fss.feature_sign_shared_widths(50)[0][0], M=Xty.shape[1])
+    args = (XtX, Xty, beta0, lam, alpha, SUB_TOL)
+    _, st = cd_checks(torch, "cd_shared K=50", cd.cd_shared,
+                      cd.cd_shared_plain, args, Gd, Xty, lam, alpha, 200)
+    sw = cd_counts(torch, Gd, Xty, beta0, lam, alpha, SUB_TOL, 200)["sweeps"]
+    bnd = gram_input_bound(50, Xty.shape[1], shared=True, sweeps=sw)
+    out["cd_shared K=50"] = dict(
+        st, ms=timed_ms(torch, lambda: cd.cd_shared(*args, 200), 5),
+        plain_ms=timed_ms(torch, lambda: cd.cd_shared_plain(*args, 200), 1),
+        bound_ms=bnd[0], bound_by=bnd[1], M=Xty.shape[1])
+    return out
+
+
+# Phase 6 past the narrow kernels' K <= 128: (K, N, M).  K = 160 and 256 at
+# phase 6's M = 2048; K = 300 on a small M, where the wide FSS solve's gram
+# no longer fits a block's shared memory (K > 235) and is read from device
+# memory.
+WIDE_CASES = ((160, 300, 2048), (256, 300, 2048), (300, 300, 256))
+# the levels of the row kernels' inputs there (the K=50 shape's)
+WIDE_LEVELS = (12, 25)
+
+
+def timed_once(torch, fn):
+    """(fn(), its ms): one call timed by CUDA events, for plain versions
+    that take seconds a call (the FSS iteration at K >= 160)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def near_cancel_row_xty(torch, row, codes, Rm, mask, F, L, noise):
+    """row_xty against its f64 plain version where D and T nearly cancel:
+    data = R_minus F + 0.01 noise, so S = D - T is about 1e-3 of D.
+    Returns the kernel's, the plain f32 version's and the f32 control's
+    (D F^T - T F^T, T = E^T (mask .* R_minus F) in f32) max errors as
+    fractions of the f64 result's max |ref|."""
+    data = Rm.double() @ F.double() + 0.01 * noise
+    E_t = torch.nn.functional.one_hot(codes.long(), L).double().T
+    D = (E_t @ (mask.double() * data)).float().contiguous()
+    exact = row.row_xty_plain(codes, Rm.double(), mask.double(), D.double(),
+                              F.double())
+    T = E_t.float() @ (mask * (Rm @ F))
+    scale = float(exact.abs().max())
+    return {name: float((got.double() - exact).abs().max()) / scale
+            for name, got in (
+                ("kernel", row.row_xty(codes, Rm, mask, D, F,
+                                       **row_order(row, codes, L))),
+                ("plain f32", row.row_xty_plain(codes, Rm, mask, D, F)),
+                ("f32 control", D @ F.T - T @ F.T))}
+
+
+def phase_kernels_wider(torch, gram, fss, row, ev):
+    """Phase 6 past K = 128 (WIDE_CASES): every widened kernel against its
+    plain version with phases 3-6's gates, run twice (bit for bit), timed
+    beside its plain version and its bound, its uint8 mask bit for bit its
+    f32 mask where it takes both: col_gram_xty (the f64 gate, library_ms);
+    the wide FSS solve as feature_sign on col_gram_xty's grams (bound by
+    bytes, as row 7 reckons it) and as feature_sign_shared on R^T R (bound
+    by its solves' operations, fss_flops, as row 8 reckons it), each and
+    its plain version timed over one call (the kernel's second); row_xty
+    (the f64 gate on near-cancelling inputs at the flagship's shape, then
+    at the case's shape against its f32 plain version, the two
+    confounders' calls timed together); level_gram (the f64 gate,
+    library_ms); masked_eval (exact counts).  Returns {"<name> K=<k>":
+    record}."""
+    out = {}
+    kw = dict(max_outer=48, polish_sweeps=32, tol=SUB_TOL)
+    lam, alpha = 1.0, 0.5
+    for k, n, m in WIDE_CASES:
+        R, mask, data, beta0 = problem(torch, n, k, m, k)
+        u8 = mask.to(torch.uint8)
+        (G, b), rec = col_gram_record(torch, gram, mask, data, R)
+        out[f"col_gram_xty K={k}"] = dict(rec, N=n, M=m)
+        for x, y in zip(gram.col_gram_xty(u8, data, R), (G, b)):
+            if not torch.equal(x, y):
+                fail(f"col_gram_xty K={k}: uint8 mask differs from f32")
+
+        XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+        Gd = XtX[:, :, None].expand(k, k, m)
+        for name, args, GG, bb in (
+                ("feature_sign", (G, b, beta0, lam, alpha), G, b),
+                ("feature_sign_shared", (XtX, Xty, beta0, lam, alpha), Gd,
+                 Xty)):
+            fn, plain = getattr(fss, name), getattr(fss, name + "_plain")
+            got = fn(*args, **kw)
+            again, ms = timed_once(torch, lambda: fn(*args, **kw))
+            if not torch.equal(got, again):
+                fail(f"{name} K={k} differs from itself")
+            ref_, plain_ms = timed_once(torch, lambda: plain(*args, **kw))
+            bnd = (gram_input_bound(k, m, shared=True, fss=fss_counts(
+                torch, GG, bb, beta0, lam, alpha, **kw))
+                   if name == "feature_sign_shared"
+                   else gram_input_bound(k, m, shared=False))
+            share, excess = fss_checks(torch, f"{name} K={k}", got, ref_, GG,
+                                       bb, lam, alpha)
+            out[f"{name} K={k}"] = dict(
+                max_abs_err=float((got - ref_).abs().max()),
+                match_share=share, max_objective_excess=excess,
+                ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                N=n, M=m)
+        out[f"feature_sign_shared K={k}"]["lanes"] = \
+            fss.feature_sign_shared_widths(k)[0][0]
+        del G, b, Gd
+
+        # row_xty: where D and T nearly cancel, at the flagship's shape (N,
+        # M and LEVELS, as row_xty_gate: the f32 control's error grows with
+        # the sum over M, and at M = 2048 it stays below the limit), then
+        # timed at this case's shape beside its f32 plain version
+        rng = np.random.default_rng(k)
+        full_mask = (torch.from_numpy(rng.random((N, M))) > 0.1).float().to(
+            "cuda")
+        full_F = (0.3 * torch.from_numpy(rng.standard_normal((k, M)))
+                  ).float().to("cuda")
+        worst = {}
+        for L in LEVELS:
+            codes = torch.from_numpy(rng.integers(0, L, N).astype(
+                np.int32)).to("cuda")
+            Rm = (0.5 * torch.from_numpy(rng.standard_normal((N, k)))
+                  ).float().to("cuda")
+            noise = torch.from_numpy(rng.standard_normal((N, M))).to("cuda")
+            for key, v in near_cancel_row_xty(torch, row, codes, Rm,
+                                              full_mask, full_F, L,
+                                              noise).items():
+                worst[key] = max(worst.get(key, 0.0), v)
+        del full_mask, full_F, noise
+        print(f"row_xty K={k} max err vs the f64 sum, near-cancelling "
+              f"inputs at {N} x {M}, over the four confounders, as a "
+              "fraction of max |ref|: " + "; ".join(
+                  f"{key} {v:.4e}" for key, v in worst.items())
+              + f"; limit {ROW_XTY_RTOL:g}")
+        if not worst["kernel"] <= ROW_XTY_RTOL:
+            fail(f"row_xty K={k} near-cancelling max err "
+                 f"{worst['kernel']:.4e} > {ROW_XTY_RTOL:g}")
+        if worst["f32 control"] <= ROW_XTY_RTOL:
+            fail(f"row_xty K={k}: the gate does not reject the f32 form "
+                 "D F^T - T F^T")
+        F = (0.3 * torch.from_numpy(rng.standard_normal((k, m)))).float().to(
+            "cuda")
+        cases = []
+        for L in WIDE_LEVELS:
+            codes = torch.from_numpy(rng.integers(0, L, n).astype(
+                np.int32)).to("cuda")
+            Rm = (0.5 * torch.from_numpy(rng.standard_normal((n, k)))
+                  ).float().to("cuda")
+            E_t = torch.nn.functional.one_hot(codes.long(), L).float().T
+            D = (E_t @ (mask * data)).contiguous()
+            row_xty_check(torch, row, f"row_xty K={k} L={L}", codes, Rm,
+                          mask, D, F)
+            if not torch.equal(row.row_xty(codes, Rm, u8, D, F),
+                               row.row_xty(codes, Rm, mask, D, F)):
+                fail(f"row_xty K={k}: uint8 mask differs from f32")
+            cases.append((codes, Rm, D))
+        out[f"row_xty K={k}"] = dict(
+            row_xty_times(torch, row, cases, mask, F, reps=5),
+            max_abs_err=worst["kernel"], N=n, M=m)
+        mw = torch.from_numpy(rng.integers(0, 40, (sum(WIDE_LEVELS), m))
+                              .astype(np.float32)).to("cuda")
+        got = row.level_gram(mw, F)
+        print(f"level_gram K={k}, L={sum(WIDE_LEVELS)}, M={m}:")
+        level_gram_gate(torch, row, mw, F, got)
+        if not torch.equal(got, row.level_gram(mw, F)):
+            fail(f"level_gram K={k} differs from itself")
+        out[f"level_gram K={k}"] = dict(
+            level_gram_times(torch, row, mw, F, reps=5),
+            max_abs_err=float((got - row.level_gram_plain(mw, F)).abs()
+                              .max()), N=n, M=m)
+        test = ((1 - mask) * (torch.from_numpy(rng.random(mask.shape))
+                              .to("cuda") < 0.5)).float()
+        err = masked_eval_check(torch, ev, f"masked_eval K={k}", data, mask,
+                                test, Rm, F)
+        if [float(x) for x in ev.masked_eval(data, u8, test.to(torch.uint8),
+                                             Rm, F)] != [
+                float(x) for x in ev.masked_eval(data, mask, test, Rm, F)]:
+            fail(f"masked_eval K={k}: uint8 masks differ from f32")
+        out[f"masked_eval K={k}"] = dict(
+            masked_eval_times(torch, ev, data, mask, test, Rm, F, reps=5),
+            max_abs_err=err, N=n, M=m)
     return out
 
 
@@ -4136,6 +4364,71 @@ def phase_graph(torch, itt, als, wrappers, smi):
     return out
 
 
+# Phase 18, rank K above 128 on the card: the flagship problem at its full
+# width at K = 160 (simulate_scale(377, 44477, 160, level_counts=(2, 8,
+# 107), noise_std=1.0, seed=0), 1% NaNs, lambda 11, alpha 0.4), masked
+# (partition=1, 10% held out: col_gram_xty + the wide FSS solve as
+# feature_sign, row_xty and masked_eval in tiles of 128 coordinates,
+# level_gram) and dense (partition=0: the wide solve as feature_sign_shared),
+# 10 iterations each under the graph (cut from convergence for time; N, M
+# and K not cut).
+WIDE_K = 160
+WIDE_FIT = dict(latent_dimension=WIDE_K, lambda_=LAM, alpha=ALPHA,
+                max_iter=10)
+NO_CD = dict(cd_fused=0, cd_streamed=0, cd_shared=0, ctns_cd=0)
+
+
+def wide_object(itt):
+    """The flagship problem at K = 160 as an Insider on the card: the data
+    simulated at rank 160, the 1% NaNs and the split of flagship_object."""
+    sim = itt.simulate_scale(N, M, WIDE_K, level_counts=(2, 8, 107),
+                             noise_std=1.0, seed=0)
+    data = sim.data.astype(np.float64)
+    data[np.random.default_rng(0).random(data.shape) < 0.01] = np.nan
+    return itt.Insider(data, sim.confounder, interaction_idx=[0, 1],
+                       split_ratio=0.1, device="cuda")
+
+
+def phase_wide_rank(torch, itt, als, wrappers, smi):
+    """Phase 18: the K = 160 flagship fits through Insider.fit, masked then
+    dense, each with its launch counts set to 0 just before it: the kernels
+    of its route launched and no other, losses finite and non-increasing
+    (x (1 + 1e-6)), ms/iter, the problem's bytes on the card and the fit's
+    peak beyond them printed (measured_fit); the masked fit's last in-fit
+    calls of level_gram, masked_eval and row_xty (one for each of the four
+    confounders) launched again and held against their plain versions
+    (infit_checks; col_gram_xty and the FSS kernels at K = 160 are held to
+    theirs in phase 6, whose plain FSS iteration at this width would take
+    minutes at M = 44477).  Returns {kernel: launches} of the two fits."""
+    obj = wide_object(itt)
+    name = f"K={WIDE_K} masked fit"
+    # garbage collected before each fit (the dense fit on an object of its
+    # own), so that no earlier tensor is freed inside the build's memory
+    # reading (measured_fit)
+    gc.collect()
+    masked, _, ms_m, mem_m = infit_checks(
+        torch, als, name, lambda: measured_fit(
+            torch, als, obj, wrappers,
+            dict(dict.fromkeys(MASKED_WIDE, 1), feature_sign_fused=0,
+                 feature_sign_shared=0, **NO_CD), name, partition=1,
+            **WIDE_FIT),
+        ["level_gram", "masked_eval"], rows=4)
+    name = f"K={WIDE_K} dense fit"
+    del obj
+    gc.collect()
+    dense, _, ms_d, mem_d = measured_fit(
+        torch, als, wide_object(itt), wrappers,
+        dict(feature_sign_shared=1, col_gram_xty=0, feature_sign=0,
+             feature_sign_fused=0, **NO_CD), name, partition=0, **WIDE_FIT)
+    for what, ms, mem in (("masked", ms_m, mem_m), ("dense", ms_d, mem_d)):
+        print(f"K={WIDE_K} {what} fit at {N} x {M}: {ms:.3f} ms/iter; "
+              f"problem {mem['persistent']} bytes on the card, fit peak "
+              f"{mem['fit_peak']} bytes beyond it ({smi})")
+    out = {k: masked[k] for k in MASKED_WIDE}
+    out["feature_sign_shared"] = dense["feature_sign_shared"]
+    return out
+
+
 def kernel_wrappers():
     """{name: wrapper} of every kernel, each with its launch count (which
     a graph replay advances by the launches of its captured iteration)."""
@@ -4235,13 +4528,28 @@ def main():
 
     # 6. K = 96 and K = 128
     for name, rec in phase_kernels_wide(torch, gram, fss, cd).items():
-        print(f"kernel {name} M=2048: max_abs_err {rec['max_abs_err']:.3e} "
+        print(f"kernel {name} M={rec.get('M', 2048)}: max_abs_err "
+              f"{rec['max_abs_err']:.3e} "
               f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
               + (f" library {rec['library_ms']:.4f} ms"
                  if "library_ms" in rec else "")
               + (f" bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                  if "bound_ms" in rec else "")
               + (f" group width L={rec['lanes']}" if "lanes" in rec else ""))
+
+    # 6, past K = 128: the widened kernels at K = 160, 256 and 300
+    wide = phase_kernels_wider(torch, gram, fss, row, ev)
+    for name, rec in wide.items():
+        print(f"kernel {name} N={rec['N']} M={rec['M']}: max_abs_err "
+              f"{rec['max_abs_err']:.3e} kernel {rec['ms']:.4f} ms plain "
+              f"{rec['plain_ms']:.4f} ms"
+              + (f" library {rec['library_ms']:.4f} ms"
+                 if rec.get("library_ms") is not None else "")
+              + f" bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+              + (f" group width L={rec['lanes']}" if "lanes" in rec else "")
+              + f" ({smi})")
+    kern.update({name: rec for name, rec in wide.items()
+                 if name.endswith(f" K={WIDE_K}")})
 
     lap(6)
 
@@ -4267,7 +4575,13 @@ def main():
                        dict(COLD, k=40, m=500, levels=(4, 8, 30),
                             witness=True)),
                       ("masked 120x300 K=96, 10 iterations",
-                       dict(k=96, m=300, max_iter=10, witness=True))):
+                       dict(k=96, m=300, max_iter=10, witness=True)),
+                      # past K = 128: col_gram_xty and the wide FSS solve,
+                      # row_xty and masked_eval in tiles of 128
+                      ("masked 120x100 K=136, 10 iterations",
+                       dict(k=136, m=100, max_iter=10, witness=True)),
+                      ("dense 120x100 K=136, 10 iterations",
+                       dict(k=136, m=100, max_iter=10, partition=0))):
         rel, failed = phase_small_fit(torch, itt, **kw)
         if failed:
             failures.append(failed)
@@ -4412,6 +4726,12 @@ def main():
 
     lap(17)
 
+    # 18. rank K above 128: the K=160 flagship fits
+    for name, n in phase_wide_rank(torch, itt, als, wrappers, smi).items():
+        launches[f"{name} K={WIDE_K}"] = n
+
+    lap(18)
+
     # result
     tpu = "insider_tpu/kernels/"
     # the CD kernels are the CD instances of the FSS kernels' templates
@@ -4434,9 +4754,16 @@ def main():
                "cd_shared": ("fss_shared.cu", tpu + "cd_pallas.py:289"),
                # no Pallas kernel: the XLA while_loop of _ctns_cd
                "ctns_cd": ("ctns_cd.cu", "insider_tpu/ops/continuous.py:101")}
-    # the uint8-mask instances of the kernels that read the mask
+    # the uint8-mask instances of the kernels that read the mask, and the
+    # K=160 instances (the wide FSS solve in fss_wide.cuh; the others'
+    # K > 128 kernels in their own sources)
     for name in lean:
         sources[name] = sources[name.split()[0]]
+    wide = [name for name in kern if name.endswith(f" K={WIDE_K}")]
+    for name in wide:
+        src, tpu_def = sources[name.split()[0]]
+        sources[name] = ("fss_wide.cuh" if name.startswith("feature_sign")
+                         else src, tpu_def)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "insider_tpu_torch/csrc/" + sources[name][0],
@@ -4447,7 +4774,7 @@ def main():
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"],
          "library_ms": kern[name].get("library_ms")}
-        for name in list(wrappers) + list(lean)]}))
+        for name in list(wrappers) + list(lean) + wide]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -45,12 +45,17 @@
 // and each warp writes whole 128-column rows of the grams, coalesced along
 // the gene axis, to (k1, k2) and (k2, k1) from the same value (symmetric
 // bit for bit; the diagonal once), with evict-first stores so that the mask
-// stays in L2.  Block x = 0 of each column tile computes Xty alone in f32
-// FMA (the TPU kernel's HIGHEST), a thread per column and every other
-// coordinate, each k-step from zero in row order and then added, and is the
-// only block that reads data.  The grid runs a column tile's blocks
-// together, so the mask is read from device memory once and from L2 by the
-// other pair groups.
+// stays in L2.  Blocks x < ceil(K / 128) of each column tile compute Xty
+// alone in f32 FMA (the TPU kernel's HIGHEST), 128 coordinates a block, a
+// thread per column and every other coordinate, each k-step from zero in
+// row order and then added; they are the only blocks that read data.  The
+// grid runs a column tile's blocks together, so the mask is read from
+// device memory once and from L2 by the other pair groups.
+// Any K: the pair blocks cover the triangle at any K and the Xty blocks
+// its coordinates 128 at a time; a k-step stages all K rows of R^T, so the
+// ring's shared memory grows with K (f32 masks: 141 KB at K = 300) and the
+// launch is refused past the card's 227 KB a block (K > 664 with f32 masks,
+// where the (K, K, M) grams take 1.76 MB a gene).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -70,7 +75,6 @@ using insider::pair_of;
 using insider::split3;
 using bf16 = __nv_bfloat16;
 
-constexpr int KMAX = 128;
 constexpr int THREADS = 256;
 constexpr int KS = 16;         // rows per pipeline step: one k-step
 constexpr int P = 128;         // pairs per gram block: 8 m-tiles of 16
@@ -80,7 +84,8 @@ constexpr int PS = KS + 8;     // bf16 row stride of the table planes (48
                                // bytes: ldmatrix rows in distinct banks)
 constexpr int CS = C + 8;      // bf16 row stride of the mask tile (272 bytes)
 constexpr int SS = C + 8;      // f32 row stride of the accumulator staging
-constexpr int XU = KMAX / 2;   // Xty coordinates per thread at most
+constexpr int XK = 128;        // Xty coordinates of one Xty block
+constexpr int XU = XK / 2;     // Xty coordinates per thread at most
 constexpr int NST = 3;         // staging steps in the ring (two blocks a SM
                                // still fit at K = 128)
 
@@ -164,7 +169,8 @@ col_gram_xty_kernel(const MaskT* __restrict__ mask,
   const int warp = tid >> 5, lane = tid & 31;
   const int j0 = blockIdx.y * C;
   const int nsteps = (N + KS - 1) / KS;
-  const bool xty_block = blockIdx.x == 0;               // block-uniform
+  const int xty_blocks = (K + XK - 1) / XK;
+  const bool xty_block = (int)blockIdx.x < xty_blocks;  // block-uniform
   const size_t SB = stage_bytes<MaskT>(K, xty_block);
 
   // the parts of ring slot s: R^T, mask rows, data rows
@@ -201,8 +207,9 @@ col_gram_xty_kernel(const MaskT* __restrict__ mask,
   };
 
   if (xty_block) {
-    // Xty: column jc, coordinates h, h + 2, ... (h warp-uniform)
-    const int h = tid / C, jc = tid % C;
+    // Xty: column jc, coordinates h, h + 2, ... of this block's 128 (h
+    // warp-uniform)
+    const int h = blockIdx.x * XK + tid / C, jc = tid % C;
     float acc[XU];
 #pragma unroll
     for (int u = 0; u < XU; ++u) acc[u] = 0.f;
@@ -256,7 +263,7 @@ col_gram_xty_kernel(const MaskT* __restrict__ mask,
   // the grams: pairs q0 .. q0 + P - 1 of the upper triangle
   bf16* planes = reinterpret_cast<bf16*>(ring + NST * SB);
   bf16* tiles = reinterpret_cast<bf16*>(ring + NST * SB + 2 * PLANE_BYTES);
-  const int q0 = (blockIdx.x - 1) * P;
+  const int q0 = (blockIdx.x - xty_blocks) * P;
   if (tid < P) pk[tid] = pair_of(q0 + tid, K);
 
   // the table planes and the bf16 mask tile of step c into buffer c % 2
@@ -403,7 +410,8 @@ cudaError_t launch(const MaskT* mask, const float* data, const float* R,
                    float* gram, float* xty, int N, int M, int K,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<MaskT>(K);
-  const dim3 grid(1 + ceil_div(K * (K + 1) / 2, P), ceil_div(M, C));
+  const dim3 grid(ceil_div(K, XK) + ceil_div(K * (K + 1) / 2, P),
+                  ceil_div(M, C));
   if (grid.y > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       col_gram_xty_kernel<MaskT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -418,13 +426,14 @@ cudaError_t launch(const MaskT* mask, const float* data, const float* R,
 
 // gram (K, K, M) and xty (K, M) of the masked column update.  mask (N, M)
 // f32 or uint8 (mask_is_u8 != 0) with 0/1 entries, data (N, M) and R (N, K)
-// f32, all row-major, mask and data 16-byte aligned; 1 <= K <= 128, M at
-// most 65535 x 128.
+// f32, all row-major, mask and data 16-byte aligned; K >= 1 (up to what a
+// block's shared memory holds, header), M at most 65535 x 128.
 INSIDER_API int insider_col_gram_xty(const void* mask, int mask_is_u8,
                                      const float* data, const float* R,
                                      float* gram, float* xty, int N, int M,
                                      int K, cudaStream_t stream) {
-  if (N < 1 || M < 1 || K < 1 || K > KMAX) return (int)cudaErrorInvalidValue;
+  if (N < 1 || M < 1 || K < 1 || K >= 1 << 15)
+    return (int)cudaErrorInvalidValue;
   return (int)insider::with_mask(mask, mask_is_u8, [&](auto m) {
     return launch(m, data, R, gram, xty, N, M, K, stream);
   });

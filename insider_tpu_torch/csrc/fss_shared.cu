@@ -57,6 +57,10 @@
 // against 14.89-15.01 ms at K=96 and 40.39-40.55 against 66.59-67.18 at
 // K=128 (M=2048).
 //
+// FSS at K > 128: the wide solve, one column a block of 128 threads on the
+// gram in shared memory where it fits (K <= 235), else in device memory
+// (fss_wide.cuh).  CD stops at 128.
+//
 // CD runs the one cold-CD loop (fss_core.cuh: cd_group_columns) on the
 // gram packed to its upper triangle (packed_rows; 33 KB at K=128), 8
 // warps at every K, P = 32 / L columns a warp: L = 8 at K <= 32, 16 at K
@@ -67,7 +71,7 @@
 // in the cold-CD flagship dense fit, against 0.37-0.38 and 4.99-5.02 for
 // one column a warp on the full (K, K + 1) gram (chip_ab.py, NVIDIA H100
 // 80GB HBM3 at 700 W).
-#include "fss_core.cuh"
+#include "fss_wide.cuh"
 
 namespace {
 
@@ -284,9 +288,15 @@ cudaError_t wide_warps(int K, int& warps) {
 }
 
 int fss_shared(const float* xtx, const float* xty, const float* beta0,
-               float* out, int M, int K, Solver<false> solver, int lanes,
-               cudaStream_t stream) {
-  if (M < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;
+               float* out, int* next, float* scratch, long scratch_len, int M,
+               int K, Solver<false> solver, int lanes, cudaStream_t stream) {
+  if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (K > insider::NARROW_MAX_K) {                   // fss_wide.cuh
+    if (lanes != 0 && lanes != insider::WIDE_THREADS)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_wide<true>(xtx, xty, beta0, out, next, scratch,
+                                  scratch_len, M, K, solver, stream);
+  }
   if (K > 32) {
     if (lanes != 0 && lanes != 32) return (int)cudaErrorInvalidValue;
     return (int)by_lane_count(K, [&](auto c) {
@@ -357,32 +367,50 @@ int cd_shared(const float* xtx, const float* xty, const float* beta0,
 
 }  // namespace
 
+// Floats of device scratch that insider_fss_shared needs: 0 at K <= 128,
+// the wide solve's above (fss_wide.cuh).
+INSIDER_API long insider_fss_shared_scratch(int M, int K) {
+  return wide_scratch_floats<true>(M, K);
+}
+
 // out (K, M) = the FSS + polish solution of every column against the one
-// gram xtx (K, K).  xty and beta0 (K, M): row-major f32.  l1 = lam*alpha
-// and l2 = lam*(1-alpha) as f32; tol: one f32 on the device (the polish's
-// stop); 1 <= K <= 128.  lanes: the group width L,
-// 0 for the instance the kernel runs at this K (header), else that of an
-// instance covering K (insider_fss_shared_widths; cudaErrorInvalidValue
-// where none does).
+// gram xtx (K, K).  xty and beta0 (K, M): row-major f32.  next, scratch: at
+// K > 128 one int of device scratch (the wide solve's column counter) and
+// insider_fss_shared_scratch(M, K) floats; unused (may be null) at K <=
+// 128.  l1 = lam*alpha and l2 = lam*(1-alpha) as f32; tol: one f32 on the
+// device (the polish's stop); K >= 1.  lanes: the group width L, 0 for the
+// instance the kernel runs at this K (header), else that of an instance
+// covering K (insider_fss_shared_widths; cudaErrorInvalidValue where none
+// does).
 INSIDER_API int insider_fss_shared(const float* xtx, const float* xty,
-                                   const float* beta0, float* out, float l1,
+                                   const float* beta0, float* out, int* next,
+                                   float* scratch, long scratch_len, float l1,
                                    float l2, const float* tol, int M, int K,
                                    int max_outer, int polish_sweeps,
                                    int lanes, cudaStream_t stream) {
-  return fss_shared(xtx, xty, beta0, out, M, K,
+  return fss_shared(xtx, xty, beta0, out, next, scratch, scratch_len, M, K,
                     Solver<false>{l1, l2, tol, max_outer, polish_sweeps},
                     lanes, stream);
 }
 
 // The FSS instances of insider_fss_shared that cover K, the one it runs
 // first: *n of them (at most 3), their group widths L into widths[] (32:
-// one column a warp), and where `columns` is given, the columns an SM of
+// one column a warp; 128 at K > 128: one column a block of 128 threads,
+// fss_wide.cuh), and where `columns` is given, the columns an SM of
 // the current device solves at once with each into columns[].
 INSIDER_API int insider_fss_shared_widths(int K, int* n, int* widths,
                                           int* columns) {
-  if (K < 1 || K > 128) return (int)cudaErrorInvalidValue;
+  if (K < 1) return (int)cudaErrorInvalidValue;
   *n = 0;
   Residency res;
+  if (K > insider::NARROW_MAX_K) {        // the wide solve: a block a column
+    WidePlan p;
+    const cudaError_t err = wide_plan<true>(1, K, p);
+    if (err != cudaSuccess) return (int)err;
+    if (columns != nullptr) columns[0] = p.per_sm;
+    widths[(*n)++] = insider::WIDE_THREADS;
+    return (int)cudaSuccess;
+  }
   if (K > 32)
     return (int)by_lane_count(K, [&](auto c) {
       constexpr int C = decltype(c)::value;

@@ -12,9 +12,10 @@
 // layout question that does not arise on the GPU).  The grams come from
 // col_gram_xty.cu: the JAX package's streamed route
 // (insider_tpu/ops/col_update.py:378-390, :463-478), which the port takes
-// for 32 < K <= 128, where the fused kernel's one coordinate per lane does
-// not reach.  For CD the caller permutes the problem to set the sweep
-// order.
+// for K > 32, where the fused kernel's one coordinate per lane does not
+// reach.  For CD the caller permutes the problem to set the sweep order.
+// FSS above K = 128 runs the wide solve, one column a block
+// (fss_wide.cuh); CD stops at 128.
 //
 // Bound on the H100: the (K, K, M) gram read, K^2 M f32 (445 MB at K=50,
 // M=44477), and the serial solve of each column, latency-bound: FSS
@@ -77,7 +78,7 @@
 // state 30% of the columns stop before the cap, and two neighbouring
 // columns swept together take 1.26 times the sweeps of each alone
 // (chip_smoke.py phase 12).
-#include "fss_core.cuh"
+#include "fss_wide.cuh"
 
 namespace {
 
@@ -249,9 +250,12 @@ cudaError_t cd_instances(int K, F&& f) {
 }
 
 int fss_streamed(const float* xtx, const float* xty, const float* beta0,
-                 float* out, int* next, int M, int K, Solver<false> solver,
-                 cudaStream_t stream) {
-  if (M < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;
+                 float* out, int* next, float* scratch, long scratch_len,
+                 int M, int K, Solver<false> solver, cudaStream_t stream) {
+  if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (K > insider::NARROW_MAX_K)                     // fss_wide.cuh
+    return (int)launch_wide<false>(xtx, xty, beta0, out, next, scratch,
+                                   scratch_len, M, K, solver, stream);
   return (int)by_width(K, [&](auto c, auto amax) {
     constexpr int AMAX = decltype(amax)::value, C = decltype(c)::value;
     return launch<AMAX, C, 32, false>(xtx, xty, beta0, out, next, M, K,
@@ -261,17 +265,25 @@ int fss_streamed(const float* xtx, const float* xty, const float* beta0,
 
 }  // namespace
 
+// Floats of device scratch that insider_fss_streamed needs: 0 at K <= 128,
+// the wide solve's above (fss_wide.cuh).
+INSIDER_API long insider_fss_streamed_scratch(int M, int K) {
+  return wide_scratch_floats<false>(M, K);
+}
+
 // out (K, M) = the FSS + polish solution of every column.  xtx (K, K, M),
 // xty and beta0 (K, M): row-major f32; next: one int of device scratch (the
-// column counter).  l1 = lam*alpha and l2 = lam*(1-alpha) as f32; tol:
-// one f32 on the device (the polish's stop); 1 <= K <= 128.
+// column counter); scratch: insider_fss_streamed_scratch(M, K) floats of
+// device scratch (none at K <= 128).  l1 = lam*alpha and l2 = lam*(1-alpha)
+// as f32; tol: one f32 on the device (the polish's stop); K >= 1.
 INSIDER_API int insider_fss_streamed(const float* xtx, const float* xty,
                                      const float* beta0, float* out,
-                                     int* next, float l1, float l2,
+                                     int* next, float* scratch,
+                                     long scratch_len, float l1, float l2,
                                      const float* tol, int M, int K,
                                      int max_outer,
                                      int polish_sweeps, cudaStream_t stream) {
-  return fss_streamed(xtx, xty, beta0, out, next, M, K,
+  return fss_streamed(xtx, xty, beta0, out, next, scratch, scratch_len, M, K,
                       Solver<false>{l1, l2, tol, max_outer, polish_sweeps},
                       stream);
 }

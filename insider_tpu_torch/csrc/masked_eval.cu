@@ -37,6 +37,11 @@
 // pattern alone reads the three arrays below the card's rate, and the
 // arithmetic alone (FMAs, the shared loads of R, the f32 -> f64
 // conversions of the squares) takes about as long as the reads.
+// Above K = 128 (masked_eval_wide) F no longer fits a thread's registers:
+// one column a thread, and the prediction's dot product over K in tiles of
+// 128 coordinates, each tile's F in registers and its rows of R staged in
+// shared memory, the tiles' sums accumulated in f32 in a shared (rows,
+// columns) tile; the squares and counts then as above.
 #include "common.cuh"
 
 namespace {
@@ -51,6 +56,28 @@ constexpr int U = 4;      // rows a batch
 // thread); 3 U C loads a thread a batch, two batches in flight.
 __host__ __device__ constexpr int cols_per_thread(int KP) {
   return KP <= 64 ? 2 : 1;
+}
+
+// The block's four f64 sums (one set a thread) added by a fixed
+// xor-shuffle tree in each warp, then across the warps in order, into the
+// block's partial.
+__device__ __forceinline__ void write_partial(double (&s)[4],
+                                              double (&red)[CT / 32][4],
+                                              double* __restrict__ partial) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    for (int off = 16; off > 0; off >>= 1)
+      s[q] += __shfl_xor_sync(0xffffffffu, s[q], off);
+  if (tid % 32 == 0)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) red[tid / 32][q] = s[q];
+  __syncthreads();
+  if (tid < 4) {
+    double t = 0.0;
+    for (int w = 0; w < CT / 32; ++w) t += red[w][tid];
+    partial[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 4 + tid] = t;
+  }
 }
 
 template <int KP, typename MaskT>
@@ -136,19 +163,71 @@ masked_eval_partial(const float* __restrict__ data,
     fetch(u0 + 2 * U, x0, a0, b0);
     consume(u0 + U, x1, a1, b1);
   }
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    for (int off = 16; off > 0; off >>= 1)
-      s[q] += __shfl_xor_sync(0xffffffffu, s[q], off);
-  if (tid % 32 == 0)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) red[tid / 32][q] = s[q];
-  __syncthreads();
-  if (tid < 4) {
-    double t = 0.0;
-    for (int w = 0; w < CT / 32; ++w) t += red[w][tid];
-    partial[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 4 + tid] = t;
+  write_partial(s, red, partial);
+}
+
+// K > 128: one column a thread; for each tile of KT coordinates, its F in
+// registers and its rows of R in shared memory, the predictions of the
+// block's (rows, columns) added into the shared tile Ps in f32 (tile by
+// tile, from zero); then the residuals, squares and counts as above.
+constexpr int KT = 128;
+
+template <typename MaskT>
+__global__ void __launch_bounds__(CT)
+masked_eval_wide(const float* __restrict__ data,
+                 const MaskT* __restrict__ train,
+                 const MaskT* __restrict__ test, const float* __restrict__ R,
+                 const float* __restrict__ F, double* __restrict__ partial,
+                 int N, int M, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Rs = reinterpret_cast<float*>(smem_raw);             // (RB, KT)
+  float* Ps = Rs + RB * KT;                                    // (RB, CT)
+  __shared__ double red[CT / 32][4];
+
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * CT + tid;
+  const bool valid = j0 < M;
+  const int jc = min(j0, M - 1);               // in-bounds loads
+  const int i0 = blockIdx.y * RB;
+  const int rows = min(RB, N - i0);
+  for (int k0 = 0; k0 < K; k0 += KT) {
+    const int kn = min(KT, K - k0);
+    float f[1][KT];
+    insider::load_columns<KT, 1, CT>(F + (size_t)k0 * M, M, kn, j0, f);
+    __syncthreads();                           // the last tile's Rs is read
+    for (int e = tid; e < rows * KT; e += CT) {
+      const int r = e / KT, k = e - r * KT;
+      Rs[e] = k < kn ? R[(size_t)(i0 + r) * K + k0 + k] : 0.f;
+    }
+    __syncthreads();
+    for (int u = 0; u < rows; ++u) {
+      float p[1];
+      insider::dot_row<KT, 1>(Rs + u * KT, f, p);
+      Ps[u * CT + tid] = k0 == 0 ? p[0] : Ps[u * CT + tid] + p[0];
+    }
   }
+  double s[4] = {0.0, 0.0, 0.0, 0.0};     // train_sse, test_sse, n_tr, n_te
+  for (int u0 = 0; u0 < rows; u0 += U) {
+    float n_tr = 0.f, n_te = 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (valid && u0 + u < rows) {
+        const size_t at = (size_t)(i0 + u0 + u) * M + jc;
+        const float a = static_cast<float>(train[at]);
+        const float b = static_cast<float>(test[at]);
+        const float res = data[at] - Ps[(u0 + u) * CT + tid];
+        const double rt = (double)(res * a);
+        const double re = (double)(res * b);
+        s[0] += rt * rt;
+        s[1] += re * re;
+        n_tr += a;
+        n_te += b;
+      }
+    }
+    s[2] += (double)n_tr;
+    s[3] += (double)n_te;
+  }
+  write_partial(s, red, partial);
 }
 
 __global__ void __launch_bounds__(insider::SPLIT_THREADS)
@@ -158,8 +237,23 @@ masked_eval_reduce(const double* __restrict__ part, double* __restrict__ out,
 }
 
 dim3 grid_for(int N, int M, int K) {
-  const int C = cols_per_thread(insider::padded_rank(K));
+  const int C = K > KT ? 1 : cols_per_thread(insider::padded_rank(K));
   return dim3(ceil_div(M, CT * C), ceil_div(N, RB));
+}
+
+template <typename MaskT>
+cudaError_t launch_wide(const float* data, const MaskT* train,
+                        const MaskT* test, const float* R, const float* F,
+                        double* scratch, int N, int M, int K,
+                        cudaStream_t stream) {
+  const size_t smem = sizeof(float) * RB * (KT + CT);
+  cudaError_t err = cudaFuncSetAttribute(
+      masked_eval_wide<MaskT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  masked_eval_wide<MaskT><<<grid_for(N, M, K), CT, smem, stream>>>(
+      data, train, test, R, F, scratch, N, M, K);
+  return cudaGetLastError();
 }
 
 template <int KP, typename MaskT>
@@ -198,20 +292,25 @@ INSIDER_API long insider_masked_eval_scratch(int N, int M, int K) {
 
 // out[0..3] = (train_sse, test_sse, n_train, n_test) as f64.  data (N, M),
 // R (N, K), F (K, M): row-major f32; train, test (N, M) row-major, both f32
-// or both uint8 (mask_is_u8 != 0).  1 <= K <= 128.
+// or both uint8 (mask_is_u8 != 0).  K >= 1.
 INSIDER_API int insider_masked_eval(const float* data, const void* train,
                                     const void* test, int mask_is_u8,
                                     const float* R,
                                     const float* F, double* out,
                                     double* scratch, long scratch_len, int N,
                                     int M, int K, cudaStream_t stream) {
-  const int KP = insider::padded_rank(K);
+  const int KP = K > KT ? KT : insider::padded_rank(K);
   if (KP == 0 || N < 1 || M < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid = grid_for(N, M, K);
   const long blocks = (long)grid.x * grid.y;
   if (scratch_len < 4 * blocks) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  switch (KP) {
+  if (K > KT) {
+    err = insider::with_mask(train, mask_is_u8, [&](auto tr) {
+      return launch_wide(data, tr, static_cast<decltype(tr)>(test), R, F,
+                         scratch, N, M, K, stream);
+    });
+  } else switch (KP) {
 #define INSIDER_EVAL_CASE(P)                                                \
   case P:                                                                   \
     err = launch<P>(data, train, test, mask_is_u8, R, F, scratch, N, M, K, \

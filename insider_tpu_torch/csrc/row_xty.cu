@@ -55,6 +55,13 @@
 // about as long as a block's serial chain of staging, batch and contraction
 // steps, at two blocks (8 warps) an SM, which the register columns of F and
 // the shared tiles set.
+// Above K = 128 (row_xty_wide) F no longer fits a thread's registers: the
+// prediction's dot product runs over K in tiles of 128 coordinates, one
+// column a thread.  T is linear in the tiles, so a batch's rows are walked
+// once a tile, each tile's T of a level subtracted from S at the level's
+// last row (S = D - T_0 - T_1 - ..., every partial complete in its block,
+// so the cancellation fix holds), and S is contracted with F a tile of 128
+// coordinates at a time.  The mask is read once a tile.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -108,14 +115,14 @@ __device__ void group_levels(const int* __restrict__ offsets, int L, int NG,
 }
 
 // out[l * K + k] = sum_c Ss[l][c] Fs[k][c] over the TW columns, for l < nl,
-// k < K.  Tiles of 4 levels x 4 coordinates; tpt adjacent lanes (a power of
+// k < kn (<= K: a tile of F's rows where out points at its first).  Tiles of 4 levels x 4 coordinates; tpt adjacent lanes (a power of
 // two) share a tile, each adding every tpt-th float4 of the columns, then
 // an xor-shuffle tree adds their sums (both lanes of a pair add the same two
 // values, so the result does not depend on the lane).  Every thread runs the
 // same number of rounds, so the shuffles see full warps.
 template <int KP>
 __device__ void contract(const float* Ss, const float* Fs, int nl,
-                         float* __restrict__ out, int K) {
+                         float* __restrict__ out, int K, int kn) {
   constexpr int NKT = KP / 4, TW = Shape<KP>::TW, FST = Shape<KP>::FST;
   const int tiles = ((nl + 3) / 4) * NKT;
   int tpt = 32;
@@ -164,7 +171,7 @@ __device__ void contract(const float* Ss, const float* Fs, int nl,
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int b = 0; b < 4; ++b)
-          if (4 * lt + a < nl && 4 * kt + b < K)
+          if (4 * lt + a < nl && 4 * kt + b < kn)
             out[(4 * lt + a) * K + 4 * kt + b] = acc[a][b];
   }
 }
@@ -296,11 +303,93 @@ row_xty_partial(const int* __restrict__ order, const int* __restrict__ offsets,
     const int lb_next = lb + nl, nl_next = min(LB, l_hi - lb_next);
     if (lb_next < l_hi && offsets[lb_next] < offsets[lb_next + nl_next])
       fetch(offsets[lb_next], offsets[lb_next + nl_next], lb_next);
-    contract<KP>(Ss, Fs, nl, partial + ((size_t)blockIdx.x * L + lb) * K, K);
+    contract<KP>(Ss, Fs, nl, partial + ((size_t)blockIdx.x * L + lb) * K, K,
+                 K);
     __syncthreads();                      // Ss is rewritten by the next batch
     if (lb_next < l_hi) load_d(lb_next, nl_next);
     lb = lb_next;
     nl = nl_next;
+  }
+}
+
+// K > 128: tiles of KT coordinates, one column a thread (Shape<KT>: C =
+// 1, a tile of CT columns), the batches of whole levels as above.  For each
+// batch, S = D is set, then for each tile the rows are walked with that
+// tile's F in registers and its T subtracted at every level's end; then S
+// is contracted with F a tile at a time (Fs holds one tile).
+constexpr int KT = 128;
+
+template <typename MaskT>
+__global__ void __launch_bounds__(CT)
+row_xty_wide(const int* __restrict__ order, const int* __restrict__ offsets,
+             const int* __restrict__ level_end, const float* __restrict__ R,
+             const MaskT* __restrict__ mask, const float* __restrict__ D,
+             const float* __restrict__ F, float* __restrict__ partial, int M,
+             int L, int K, int NG) {
+  using S = Shape<KT>;
+  static_assert(S::C == 1 && S::TW == CT, "one column a thread");
+  constexpr int FST = S::FST, LB = S::LB, RCH = S::RCH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Fs = reinterpret_cast<float*>(smem_raw);      // (KT, FST)
+  float* Ss = Fs + KT * FST;                           // (LB, FST)
+  float* Rs = Ss + LB * FST;                           // (RCH, KT)
+  int* rid = reinterpret_cast<int*>(Rs + RCH * KT);    // (RCH,) row index
+  int* ends = rid + RCH;         // (RCH,) the batch level ending at the row
+
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * CT + tid;
+  const int jc = min(j0, M - 1);             // in-bounds loads
+  __shared__ int range[2];
+  group_levels(offsets, L, NG, blockIdx.y, range);
+  const int l_lo = range[0], l_hi = range[1];
+  for (int lb = l_lo; lb < l_hi; lb += LB) {
+    const int nl = min(LB, l_hi - lb);
+    const int r_begin = offsets[lb], r_end = offsets[lb + nl];
+    for (int l = 0; l < nl; ++l)             // each thread its own column
+      Ss[l * FST + tid] = j0 < M ? D[(size_t)(lb + l) * M + j0] : 0.f;
+    for (int k0 = 0; k0 < K; k0 += KT) {
+      const int kn = min(KT, K - k0);
+      float f[1][KT];
+      insider::load_columns<KT, 1, CT>(F + (size_t)k0 * M, M, kn, j0, f);
+      float T = 0.f;
+      for (int r0 = r_begin; r0 < r_end; r0 += RCH) {
+        const int rows = min(RCH, r_end - r0);
+        __syncthreads();                    // the previous chunk is consumed
+        for (int e = tid; e < rows * KT; e += CT) {
+          const int r = e / KT, k = e - r * KT;
+          Rs[e] = k < kn ? R[(size_t)order[r0 + r] * K + k0 + k] : 0.f;
+        }
+        if (tid < rows) {
+          rid[tid] = order[r0 + tid];
+          const int e = level_end[r0 + tid];
+          ends[tid] = e >= 0 ? e - lb : -1;
+        }
+        __syncthreads();
+        for (int u = 0; u < rows; ++u) {
+          const float m = static_cast<float>(mask[(size_t)rid[u] * M + jc]);
+          float p[1];
+          insider::dot_row<KT, 1>(Rs + u * KT, f, p);
+          T = fmaf(m, p[0], T);
+          const int e = ends[u];
+          if (e >= 0) {
+            // S = D - T_0 - T_1 - ...: each tile's complete T of the level
+            Ss[e * FST + tid] -= T;
+            T = 0.f;
+          }
+        }
+      }
+    }
+    for (int k0 = 0; k0 < K; k0 += KT) {
+      const int kn = min(KT, K - k0);
+      __syncthreads();              // Ss is complete; Fs is read no more
+      for (int k = 0; k < KT; ++k)
+        Fs[k * FST + tid] =
+            k < kn && j0 < M ? F[(size_t)(k0 + k) * M + j0] : 0.f;
+      __syncthreads();
+      contract<KT>(Ss, Fs, nl, partial + ((size_t)blockIdx.x * L + lb) * K +
+                                   k0, K, kn);
+    }
+    __syncthreads();                // Ss is rewritten by the next batch
   }
 }
 
@@ -339,9 +428,31 @@ cudaError_t launch(const int* order, const int* offsets, const int* level_end,
 }
 
 // Column tiles of one launch at rank K (a block's tile: CT threads of C
-// columns each).
+// columns each; one each above K = 128).
 int column_tiles(int M, int K) {
-  return ceil_div(M, CT * cols_per_thread(insider::padded_rank(K)));
+  return ceil_div(M, K > KT ? CT
+                            : CT * cols_per_thread(insider::padded_rank(K)));
+}
+
+template <typename MaskT>
+cudaError_t launch_wide(const int* order, const int* offsets,
+                        const int* level_end, const float* R,
+                        const MaskT* mask, const float* D, const float* F,
+                        float* scratch, int N, int M, int L, int K,
+                        cudaStream_t stream) {
+  using S = Shape<KT>;
+  const size_t smem =
+      sizeof(float) * ((size_t)KT * S::FST + (size_t)S::LB * S::FST +
+                       (size_t)S::RCH * KT) +
+      sizeof(int) * 2 * S::RCH;
+  cudaError_t err = cudaFuncSetAttribute(
+      row_xty_wide<MaskT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int NG = ceil_div(N, G);
+  row_xty_wide<MaskT><<<dim3(ceil_div(M, CT), NG), CT, smem, stream>>>(
+      order, offsets, level_end, R, mask, D, F, scratch, M, L, K, NG);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -356,7 +467,7 @@ INSIDER_API long insider_row_xty_scratch(int M, int L, int K) {
 // order[offsets[l] : offsets[l + 1]]; level_end (N,) int32: l where sorted
 // position p is the last row of level l, else -1 (kernels/row.level_order).
 // R_minus (N, K), D (L, M), F (K, M): row-major f32; mask (N, M)
-// row-major, f32 or uint8 (mask_is_u8 != 0); 1 <= K <= 128.
+// row-major, f32 or uint8 (mask_is_u8 != 0); K >= 1.
 INSIDER_API int insider_row_xty(const int* order, const int* offsets,
                                 const int* level_end,
                                 const float* R, const void* mask,
@@ -364,12 +475,17 @@ INSIDER_API int insider_row_xty(const int* order, const int* offsets,
                                 const float* D, const float* F, float* out,
                                 float* scratch, long scratch_len, int N, int M,
                                 int L, int K, cudaStream_t stream) {
-  const int KP = insider::padded_rank(K);
+  const int KP = K > KT ? KT : insider::padded_rank(K);
   if (KP == 0 || N < 1 || M < 1 || L < 1) return (int)cudaErrorInvalidValue;
   const int tiles = column_tiles(M, K);
   if (scratch_len < (long)tiles * L * K) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  switch (KP) {
+  if (K > KT) {
+    err = insider::with_mask(mask, mask_is_u8, [&](auto m) {
+      return launch_wide(order, offsets, level_end, R, m, D, F, scratch, N,
+                         M, L, K, stream);
+    });
+  } else switch (KP) {
 #define INSIDER_ROW_XTY_CASE(P)                                            \
   case P:                                                                  \
     err = launch<P>(order, offsets, level_end, R, mask, mask_is_u8, D, F,  \

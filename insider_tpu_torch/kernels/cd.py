@@ -41,8 +41,12 @@ import numpy as np
 import torch
 
 from insider_tpu_torch.kernels import _lib
-from insider_tpu_torch.kernels.fss import FUSED_MAX_K, MAX_K, fused_mask
+from insider_tpu_torch.kernels.fss import FUSED_MAX_K, fused_mask
 from insider_tpu_torch.ops.fss import elastic_net_cd
+
+# The gram-input CD kernels hold at most four coordinates per lane of a
+# warp; cold CD above 128 is not ported to the card yet.
+MAX_K = 128
 
 
 def _scalars(lam, alpha, tol, like):

@@ -13,9 +13,6 @@ import torch
 from insider_tpu_torch.kernels import _lib
 from insider_tpu_torch.ops.losses import EvalSums, evaluate_masked, predict
 
-# The kernel keeps a column of F in registers, at most 128 coordinates.
-MAX_K = 128
-
 
 def masked_eval_plain(data, train_mask, test_mask, R, F) -> EvalSums:
     """Plain version of masked_eval: the (N, M) residual, then f64 sums,
@@ -31,7 +28,8 @@ def masked_eval(data: torch.Tensor, train_mask: torch.Tensor,
     scalar tensors on the operands' device.  data (N, M), R (N, K),
     F (K, M), f32; the masks (N, M) 0/1, both f32 or both uint8 (the kernel
     widens each value as it reads it, so both give the same bits);
-    1 <= K <= 128 on the card.  The kernel's counts are exact
+    any K (above 128 the kernel takes the prediction's dot product in
+    tiles of 128 coordinates).  The kernel's counts are exact
     for 0/1 masks, as the fit's train and test indicators are (it adds a
     few mask values in f32 before their f64 sum); the plain version adds
     every value in f64."""
@@ -45,9 +43,6 @@ def masked_eval(data: torch.Tensor, train_mask: torch.Tensor,
     if (data.shape != (N, M) or train_mask.shape != (N, M)
             or test_mask.shape != (N, M) or F.shape != (K, M)):
         raise ValueError("masked_eval: shapes do not agree")
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"masked_eval: K={K} is outside the CUDA kernel's "
-                         f"1..{MAX_K}")
     lib = _lib.lib()
     out = torch.empty(4, dtype=torch.float64, device=data.device)
     scratch = torch.empty(lib.insider_masked_eval_scratch(N, M, K),

@@ -13,6 +13,11 @@ kernel's launches.
 A column whose Xty or warm start holds a NaN or an Inf comes out all NaN,
 as it does from the plain version and the TPU kernel, so a fit's
 finiteness checks see it.
+
+The gram-input kernels take any K: above 128 coordinates (four a lane of
+a warp) they run the wide solve, one column a block (csrc/fss_wide.cuh),
+on a column counter and the scratch whose size their C entry reports,
+which the wrapper allocates beside the output.
 """
 
 from __future__ import annotations
@@ -23,10 +28,8 @@ import torch
 from insider_tpu_torch.kernels import _lib
 from insider_tpu_torch.ops.fss import feature_sign_search, penalties
 
-# The fused kernel keeps one coordinate per lane of a warp; the streamed and
-# shared kernels keep up to four.
+# The fused kernel keeps one coordinate per lane of a warp.
 FUSED_MAX_K = 32
-MAX_K = 128
 
 
 def fused_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -106,27 +109,28 @@ feature_sign_fused.launches = 0
 
 def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
                      lam, alpha, max_outer, polish_sweeps, tol, *shared):
-    """Check the operands of a gram-input FSS kernel and launch it (the
-    streamed kernel also takes a column counter; `shared`: the shared-gram
-    kernel's group width)."""
+    """Check the operands of a gram-input FSS kernel and launch it, with a
+    column counter (the streamed kernel's and the wide solve's; the narrow
+    shared-gram kernel leaves it) and the scratch its C entry's `_scratch`
+    asks for (the wide solve's, none at K <= 128); `shared`: the
+    shared-gram kernel's group width."""
     _lib.require_cuda(what, xtx, xty, beta0)
     K, M = xty.shape
     if xtx.shape != gram_shape or beta0.shape != (K, M):
         raise ValueError(f"{what}: shapes do not agree")
-    if K > MAX_K:
-        raise ValueError(f"{what}: K={K} > {MAX_K} is not supported by the "
-                         "CUDA kernel")
     l1, l2 = penalties(lam, alpha)
     tol = _lib.tol_on_device(tol, xty)
     out = torch.empty((K, M), dtype=torch.float32, device=xty.device)
-    counter = ([_lib.column_counter(xty)]
-               if c_entry == "insider_fss_streamed" else [])
+    lib = _lib.lib()
+    counter = _lib.column_counter(xty)
     with torch.cuda.device(xty.device):
-        err = getattr(_lib.lib(), c_entry)(
+        n = getattr(lib, c_entry + "_scratch")(M, K)
+        scratch = torch.empty(n, dtype=torch.float32, device=xty.device)
+        err = getattr(lib, c_entry)(
             xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),
-            *[c.data_ptr() for c in counter], l1, l2, tol.data_ptr(), M, K,
-            int(max_outer),
-            int(polish_sweeps), *shared, _lib.stream(xty))
+            counter.data_ptr(), scratch.data_ptr() if n else None, n, l1, l2,
+            tol.data_ptr(), M, K, int(max_outer), int(polish_sweeps),
+            *shared, _lib.stream(xty))
     _lib.check(err, what)
     return out
 
@@ -146,7 +150,7 @@ def feature_sign(xtx: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
     """Per-gene elastic net by FSS (+ plain-CD polish) on streamed grams.
 
     xtx (K, K, M) per-gene grams, gene axis last (kernels/gram.col_gram_xty);
-    xty, beta0 (K, M); all f32.  Returns beta (K, M).
+    xty, beta0 (K, M); all f32; any K.  Returns beta (K, M).
     """
     if _lib.on_cpu("feature_sign", xtx, xty, beta0):
         return feature_sign_plain(xtx, xty, beta0, lam, alpha, max_outer,
@@ -180,9 +184,10 @@ def feature_sign_shared(xtx: torch.Tensor, xty: torch.Tensor,
     """Per-gene elastic net by FSS (+ plain-CD polish) against ONE (K, K)
     gram shared by every column: the dense column update.
 
-    xtx (K, K); xty, beta0 (K, M); all f32.  Returns beta (K, M).  lanes:
-    the kernel's group width L (K <= 32: P = 32 / L columns a warp; above,
-    32, one column a warp), 0 for the one it runs at this K, else one of
+    xtx (K, K); xty, beta0 (K, M); all f32; any K.  Returns beta (K, M).
+    lanes: the kernel's group width L (K <= 32: P = 32 / L columns a warp;
+    up to 128, 32, one column a warp; above, 128, one column a block), 0
+    for the one it runs at this K, else one of
     feature_sign_shared_widths(K) (it raises where not): a hook for tests
     and timings, as every width gives the same bits.  The plain version has
     no lanes.

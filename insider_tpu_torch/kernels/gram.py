@@ -6,6 +6,13 @@ tensor cores from exact planes, whose arithmetic ops/planes.
 planes_col_gram_xty writes out) on CUDA tensors and its plain version on CPU
 tensors; a CUDA tensor never reaches the plain version.
 `col_gram_xty.launches` counts the kernel's launches.
+
+Any K on the card: the kernel's Xty blocks take 128 coordinates each and
+its pair blocks the K (K + 1) / 2 pairs; it stages all K rows of R a
+k-step, so past K = 664 (f32 masks) a block's shared memory refuses the
+launch (RuntimeError).  The output holds K^2 M f32: at M = 44477, 4.55 GB
+at K = 160 and 11.66 GB at K = 256, as the JAX package's streamed route
+holds them whole (insider_tpu/ops/col_update.py:378-390).
 """
 
 from __future__ import annotations
@@ -13,9 +20,6 @@ from __future__ import annotations
 import torch
 
 from insider_tpu_torch.kernels import _lib
-
-# The kernel's Xty threads hold up to 64 coordinates, two threads a column.
-MAX_K = 128
 
 
 def col_gram_xty_plain(mask, data, R):
@@ -34,7 +38,7 @@ def col_gram_xty(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor):
 
     mask (N, M) 0/1, f32 or uint8; data (N, M) and R (N, K) f32.  Returns
     (XtXt (K, K, M), Xty (K, M)) in the JAX package's layout, gene axis
-    last: XtXt[k, l, j] = sum_i mask_ij R_ik R_il and Xty[k, j] =
+    last (4 K^2 M bytes of grams: module docstring): XtXt[k, l, j] = sum_i mask_ij R_ik R_il and Xty[k, j] =
     sum_i R_ik mask_ij data_ij.  The kernel's grams are symmetric bit for
     bit.  The mask must hold only 0 and 1: the kernel's bf16 gram build is
     exact for 0/1 only.
@@ -47,9 +51,6 @@ def col_gram_xty(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor):
     M = mask.shape[1]
     if mask.shape != (N, M) or data.shape != (N, M):
         raise ValueError("col_gram_xty: shapes do not agree")
-    if K > MAX_K:
-        raise ValueError(f"col_gram_xty: K={K} > {MAX_K} is not supported "
-                         "by the CUDA kernel")
     # the kernel copies the rows of mask and data as the 16-byte aligned
     # chunks that cover them; a view that starts off a chunk is copied first
     if mask.data_ptr() % 16:

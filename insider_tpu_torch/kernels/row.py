@@ -16,9 +16,6 @@ from insider_tpu_torch.ops.row_update import (level_gram_masked,
                                               masked_level_xty,
                                               one_hot_levels)
 
-# row_xty keeps a column of F in registers, at most 128 coordinates.
-MAX_K = 128
-
 
 def level_gram_plain(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     """Plain version of level_gram."""
@@ -42,7 +39,9 @@ def level_gram(mw: torch.Tensor, F: torch.Tensor,
     in Mw, which a fit computes once per problem (train/als.build_problem);
     taken from Mw (a device-to-host read) when not given.  A max_count
     outside [0, 2**24) raises ValueError; one below Mw's largest count
-    gives wrong grams."""
+    gives wrong grams.  Any K: the kernel's ring of F (2 K x 32 f32) grows
+    with K, and past about K = 517 (3 count planes, 144 levels a block) a
+    block's shared memory refuses the launch (RuntimeError)."""
     if _lib.on_cpu("level_gram", mw, F):
         return level_gram_plain(mw, F)
     _lib.require_cuda("level_gram", mw, F)
@@ -107,7 +106,8 @@ def row_xty(codes: torch.Tensor, R_minus: torch.Tensor, mask: torch.Tensor,
     row-chunked variant).  codes: (N,) int32 level codes in [0, L), L =
     D.shape[0]; R_minus (N, K), D (L, M), F (K, M), f32; mask (N, M) 0/1,
     f32 or uint8 (the kernel widens each value as it reads it, so both
-    give the same bits); any L, and 1 <= K <= 128 on the card.  levels:
+    give the same bits); any L and any K (above 128 the kernel takes the
+    prediction's dot product in tiles of 128 coordinates).  levels:
     the rows sorted by level, level_order(codes, L), which the kernel
     reads in place of the codes; a fit computes them once per problem
     (train/als.build_problem), and they are derived here when not given.
@@ -122,9 +122,6 @@ def row_xty(codes: torch.Tensor, R_minus: torch.Tensor, mask: torch.Tensor,
     if (codes.shape != (N,) or mask.shape != (N, M)
             or F.shape != (K, M)):
         raise ValueError("row_xty: shapes do not agree")
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"row_xty: K={K} is outside the CUDA kernel's "
-                         f"1..{MAX_K}")
     order, offsets, ends = (level_order(codes, L) if levels is None
                             else levels)
     _lib.require_cuda("row_xty", codes, order, offsets, ends,

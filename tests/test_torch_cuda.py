@@ -29,7 +29,10 @@ not bit for bit; the FSS routes also agree element-wise (rtol 2e-5 / atol
 col_gram_xty also every entry's error <= 1e-6 of its own sum of |terms|), a
 bound that one bf16 plane of the table would not meet; col_gram_xty's grams
 are symmetric bit for bit.  Every kernel is run twice
-and must agree with itself bit for bit.
+and must agree with itself bit for bit.  Past K = 128 (WIDE_RANKS: 129,
+160, 256 and 300, where the wide FSS solve reads its gram from device
+memory) the widened kernels are held to the same gates, with both mask
+dtypes where the kernel takes both.
 """
 
 import numpy as np
@@ -47,6 +50,7 @@ pytestmark = pytest.mark.cuda
 LEVEL_GRAM_RTOL = 1e-6          # of the f64 sum's max magnitude
 COL_GRAM_RTOL = 1e-6            # of the f64 sums' max magnitude, and of
                                 # each entry's sum of |terms|
+WIDE_RANKS = (129, 160, 256, 300)   # past the narrow kernels' 128
 
 
 @pytest.fixture()
@@ -78,7 +82,11 @@ def _max_err_ok(got, ref, rtol):
                                         (37, 50, 2000, 1000),
                                         (150, 24, 777, 1000),
                                         (6, 24, 1031, 70000),
-                                        (4, 13, 300, (1 << 24) - 1)])
+                                        (4, 13, 300, (1 << 24) - 1),
+                                        (37, 129, 517, 1000),
+                                        (37, 160, 517, 70000),
+                                        (9, 256, 301, 1000),
+                                        (9, 300, 301, 1000)])
 def test_level_gram(cuda, L, K, M, cmax):
     rng = np.random.default_rng(0)
     mw = _t(rng.integers(0, cmax + 1, (L, M)).astype(np.float32), cuda)
@@ -156,7 +164,9 @@ def _row_xty_errors(codes, R, mask, D, F, got):
     (120, 25, 96, 301, "random"), (90, 9, 128, 130, "empty"),
     (70, 5, 13, 99, "big"), (1, 1, 24, 333, "random"),
     (1, 4, 8, 65, "random"), (65535, 3, 8, 37, "random"),
-    (200, 8, 24, 8191, "cancel")])
+    (200, 8, 24, 8191, "cancel"), (150, 12, 129, 301, "empty"),
+    (200, 8, 160, 8191, "cancel"), (120, 25, 256, 301, "random"),
+    (90, 9, 300, 130, "big")])
 def test_row_xty(cuda, N, L, K, M, layout):
     codes, R, mask, D, F = (_t(x, cuda) for x in _row_xty_case(
         N, L, K, M, layout, seed=N + L + K))
@@ -176,7 +186,9 @@ def test_row_xty(cuda, N, L, K, M, layout):
 
 @pytest.mark.parametrize("N,M,K,no_test", [
     (64, 256, 8, False), (377, 1111, 24, False), (300, 777, 50, False),
-    (120, 301, 96, True), (90, 130, 128, False), (1, 33, 24, True)])
+    (120, 301, 96, True), (90, 130, 128, False), (1, 33, 24, True),
+    (150, 301, 129, False), (120, 130, 160, True), (90, 131, 256, False),
+    (65, 67, 300, False)])
 def test_masked_eval(cuda, N, M, K, no_test):
     rng = np.random.default_rng(2)
     data = _t(rng.standard_normal((N, M)).astype(np.float32), cuda)
@@ -309,7 +321,9 @@ LONG_SUM_RTOL = 1e-5
                                       (70, 64, 257, True),
                                       (150, 96, 300, False),
                                       (140, 128, 257, True),
-                                      (70001, 8, 37, False)])
+                                      (70001, 8, 37, False)]
+                         + [(70, k, 131, u8) for k in WIDE_RANKS
+                            for u8 in (False, True)])
 def test_col_gram_xty(cuda, N, K, M, u8):
     R, mask, data, _ = _masked_inputs(N, K, M, seed=20 + K)
     R, data = _t(R, cuda), _t(data, cuda)
@@ -363,12 +377,19 @@ def test_col_gram_xty_views_off_a_chunk(cuda, u8):
 
 
 # one, two, three and four coordinates a lane; active sets above 32 (the
-# kernels' shared-memory solve) from K = 33
+# kernels' shared-memory solve) from K = 33; the wide solve past K = 128,
+# its gram in device memory at K = 256 and 300, with N about 2 K as at K =
+# 128 (at N = 300, K = 256 the warm start far from the solution and
+# max_outer = 2 leave the columns unconverged on an ill-conditioned gram,
+# where the kernel and the plain version, both f32, lie 1-2e-5 apart and
+# each as far from the f64 plain version)
 @pytest.mark.parametrize("warm", WARM_STARTS)
 @pytest.mark.parametrize("N,K,M", [(45, 5, 333), (377, 24, 1000),
                                    (100, 33, 300), (300, 50, 700),
                                    (120, 64, 257), (130, 65, 200),
-                                   (150, 96, 130), (200, 128, 70)])
+                                   (150, 96, 130), (200, 128, 70),
+                                   (260, 129, 64), (320, 160, 64),
+                                   (500, 256, 40), (600, 300, 40)])
 def test_feature_sign(cuda, N, K, M, warm):
     R, mask, data, _ = _masked_inputs(N, K, M, seed=30 + K)
     beta0, kw = _warm(np.random.default_rng(K), K, M, warm)
@@ -393,7 +414,9 @@ def test_feature_sign(cuda, N, K, M, warm):
 @pytest.mark.parametrize("N,K,M", [(45, 3, 333), (45, 5, 333),
                                    (377, 24, 1000), (377, 25, 1000),
                                    (300, 50, 700), (300, 96, 130),
-                                   (300, 128, 70)])
+                                   (300, 128, 70), (300, 129, 64),
+                                   (300, 160, 64), (300, 256, 40),
+                                   (350, 300, 40)])
 def test_feature_sign_shared(cuda, N, K, M):
     R, _, data, beta0 = _masked_inputs(N, K, M, seed=40 + K)
     R, data, beta0 = (_t(x, cuda) for x in (R, data, beta0))
@@ -786,7 +809,8 @@ def _u8_case(rng, N, K, M, dev, offset=0):
 
 
 @pytest.mark.parametrize("N,K,M", [(37, 8, 1031), (377, 24, 2001),
-                                   (130, 50, 777), (90, 128, 131)])
+                                   (130, 50, 777), (90, 128, 131)]
+                         + [(90, k, 131) for k in WIDE_RANKS])
 def test_row_xty_uint8_mask(cuda, N, K, M):
     rng = np.random.default_rng(N + K)
     L = 7
@@ -801,7 +825,8 @@ def test_row_xty_uint8_mask(cuda, N, K, M):
 
 
 @pytest.mark.parametrize("N,M,K", [(64, 257, 8), (377, 2001, 24),
-                                   (300, 777, 50), (90, 131, 128)])
+                                   (300, 777, 50), (90, 131, 128)]
+                         + [(90, 131, k) for k in WIDE_RANKS])
 def test_masked_eval_uint8_masks(cuda, N, M, K):
     rng = np.random.default_rng(N + M)
     data = _t(rng.standard_normal((N, M)).astype(np.float32), cuda)
@@ -1048,7 +1073,7 @@ def _graph_problem(kind, dev, sharding=None):
     import insider_tpu_torch as itt
     from insider_tpu_torch.train import als
 
-    k = 40 if "K40" in kind else 8
+    k = 160 if "K160" in kind else 40 if "K40" in kind else 8
     sim = itt.simulate_scale(120, 700, k, level_counts=(2, 4, 9), seed=3)
     split = itt.ratio_splitter(sim.data, ratio=0.1, seed=3)
     ctns = (np.random.default_rng(2).standard_normal((120, 2))
@@ -1091,7 +1116,8 @@ def _mid_dispatch_tol(problem, kw):
 
 GRAPH_KINDS = ["masked", "dense", "cold masked", "cold dense", "masked K40",
                "covariates masked", "covariates dense", "segment masked",
-               "segment dense", "converging masked"]
+               "segment dense", "converging masked", "masked K160",
+               "dense K160"]
 
 
 @pytest.mark.parametrize("kind", GRAPH_KINDS)
@@ -1185,12 +1211,15 @@ def test_one_by_one_sharded_card_fit_equals_the_eager_fit(
 
 
 # every column kernel, and the K it runs at: the fused ones up to 32, the
-# others also past it (K=50: two coordinates a lane)
+# others also past it (K=50: two coordinates a lane; K=160: the wide FSS
+# solve and col_gram_xty's second Xty block)
 NONFINITE_CASES = [(name, k) for k in (6, 24, 50)
                    for name in ("col_gram_xty", "feature_sign",
                                 "feature_sign_shared", "cd_streamed",
                                 "cd_shared")
-                   + (("feature_sign_fused", "cd_fused") if k <= 32 else ())]
+                   + (("feature_sign_fused", "cd_fused") if k <= 32 else ())
+                   ] + [(name, 160) for name in ("col_gram_xty", "feature_sign",
+                                                 "feature_sign_shared")]
 
 
 @pytest.mark.parametrize("name,K", NONFINITE_CASES)

@@ -156,24 +156,37 @@ def test_dense_column_update_dispatch(monkeypatch):
 
 
 @pytest.mark.parametrize("update", ["masked", "dense"])
-def test_column_update_rejects_k_over_64(update):
-    """The CUDA column kernels hold at most four coordinates per lane: on
-    the card K = 129 raises (check_rank, which both updates call first);
-    on the CPU the plain versions take it, as the JAX package's CPU path
-    does.  The test keeps its name from when the limit was 64, on every
-    device."""
+def test_column_update_rejects_k_over_64(update, monkeypatch):
+    """On the card only cold CD (cd_streamed, cd_shared) and the masked
+    covariates' ctns_cd stop at K = 128: check_rank raises for them at
+    K = 129 and lets FSS through at K = 129 and 200 (the wide solve); both
+    updates call it first, cold CD flagged by its coordinate order; on the
+    CPU every solver takes any K, as the JAX package's CPU path does.  The
+    test keeps its name from when every column kernel stopped at 64."""
     K, N, M = 129, 140, 10
     R, mask, data, F0 = (T(x) for x in _inputs(N, K, M, seed=129))
-    with pytest.raises(ValueError, match="128"):
-        col_update.check_rank(K, "cuda")
-    col_update.check_rank(128, "cuda")
-    col_update.check_rank(K, "cpu")
-    if update == "masked":
-        F = col_update.update_columns_masked(data, mask, R, F0, 30.0, 0.5,
-                                             1e-5)
-    else:
-        F = col_update.update_columns_dense(data, R, F0, 30.0, 0.5, 1e-5)
-    assert F.shape == (K, M) and bool(torch.isfinite(F).all())
+    for flags in (dict(cold_cd=True), dict(masked_ctns=True),
+                  dict(cold_cd=True, masked_ctns=True)):
+        with pytest.raises(ValueError, match="128"):
+            col_update.check_rank(K, "cuda", **flags)
+        col_update.check_rank(128, "cuda", **flags)
+        col_update.check_rank(K, "cpu", **flags)
+    for k in (K, 200):
+        col_update.check_rank(k, "cuda")
+    seen = []
+    real = col_update.check_rank
+    monkeypatch.setattr(col_update, "check_rank", lambda k, dev, **kw: (
+        seen.append((k, dev.type, kw)), real(k, dev, **kw)))
+    for perm in (None, torch.arange(K - 1, -1, -1)):
+        if update == "masked":
+            F = col_update.update_columns_masked(data, mask, R, F0, 30.0,
+                                                 0.5, 1e-5, perm=perm)
+        else:
+            F = col_update.update_columns_dense(data, R, F0, 30.0, 0.5, 1e-5,
+                                                perm=perm)
+        assert F.shape == (K, M) and bool(torch.isfinite(F).all())
+    assert seen == [(K, "cpu", dict(cold_cd=False)),
+                    (K, "cpu", dict(cold_cd=True))]
 
 
 def _inputs(N, K, M, seed):
@@ -288,17 +301,27 @@ def test_column_update_k136_on_cpu_matches_jax(update):
 def test_fit_on_the_card_checks_the_rank_before_its_first_iteration(
         monkeypatch):
     """optimize() on a problem that lies on a CUDA device raises ValueError
-    for K = 129 before it evaluates, draws or iterates anything.  Runs
-    without a card: the problem (on the CPU) reports a CUDA device, and
-    every step a fit would take first is replaced by one that fails."""
+    for K = 129 and 200 with cold CD or masked continuous covariates, the
+    kernels that stop at 128 on the card, before it evaluates, draws or
+    iterates anything; FSS (masked, dense, with covariates where dense),
+    warm-started CD and the ridge solves get past the check.  Runs without
+    a card: the problems (on the CPU) report a CUDA device, and every step
+    a fit would take first is replaced by one that fails."""
     from insider_tpu_torch.config import FitConfig
     from insider_tpu_torch.train import als
 
     rng = np.random.default_rng(0)
     N, M = 30, 12
-    problem = als.build_problem(
-        rng.standard_normal((N, M)), rng.integers(0, 3, (N, 2)),
-        np.ones((N, M)), np.zeros((N, M)), masked=True, device="cpu")
+
+    def problem_of(ctns, masked):
+        return als.build_problem(
+            rng.standard_normal((N, M)), rng.integers(0, 3, (N, 2)),
+            np.ones((N, M)), np.zeros((N, M)), ctns, masked=masked,
+            device="cpu")
+
+    plain, dense = problem_of(None, True), problem_of(None, False)
+    covariates = problem_of(rng.standard_normal((N, 2)), True)
+    dense_covariates = problem_of(rng.standard_normal((N, 2)), False)
 
     def ran(*args, **kw):
         raise AssertionError("the fit ran before checking the rank")
@@ -307,12 +330,23 @@ def test_fit_on_the_card_checks_the_rank_before_its_first_iteration(
                         property(lambda self: torch.device("cuda")))
     for name in ("init_state", "_evaluate", "_als_iteration"):
         monkeypatch.setattr(als, name, ran)
-    for K in (129, 200):
-        with pytest.raises(ValueError, match="128"):
-            als.optimize(problem, FitConfig(latent_dim=K, lambda1=1.0,
-                                            lambda2=1.0, alpha=0.5),
-                         verbose=False)
-    with pytest.raises(AssertionError, match="before checking"):
-        als.optimize(problem, FitConfig(latent_dim=128, lambda1=1.0,
-                                        lambda2=1.0, alpha=0.5),
+    cold = dict(col_solver="cd", cd_warm_start=False)
+
+    def fit(problem, K, **kw):
+        als.optimize(problem, FitConfig(**dict(
+            dict(latent_dim=K, lambda1=1.0, lambda2=1.0, alpha=0.5), **kw)),
                      generator=torch.Generator(), verbose=False)
+
+    for K in (129, 200):
+        for problem, kw in ((plain, cold), (dense, cold), (covariates, {})):
+            with pytest.raises(ValueError, match="128"):
+                fit(problem, K, **kw)
+    for K in (128, 129, 200):
+        for problem, kw in ((plain, {}), (dense, {}), (dense_covariates, {}),
+                            (plain, dict(col_solver="cd")),
+                            (plain, dict(cold, alpha=0.0))):
+            with pytest.raises(AssertionError, match="before checking"):
+                fit(problem, K, **kw)
+    for problem, kw in ((plain, cold), (covariates, {})):
+        with pytest.raises(AssertionError, match="before checking"):
+            fit(problem, 128, **kw)
