@@ -57,8 +57,12 @@ Phases, each fatal on failure:
      wide FSS solve reads its gram from device memory) every widened
      kernel against its plain version with the gates above, its uint8
      mask bit for bit its f32 mask's, twice bit for bit, timed beside its
-     plain version (the plain FSS once, by CUDA events) and its bound:
-     col_gram_xty, feature_sign (bytes), feature_sign_shared (fss_flops),
+     plain version (the plain FSS and CD once, by CUDA events) and its
+     bound: col_gram_xty, feature_sign (bytes), feature_sign_shared
+     (fss_flops), cd_streamed and cd_shared (the wide cold-CD solve on a
+     problem of its own with 2K rows, phase 5's gates at 10 sweeps and
+     the 200-sweep cap, bound by the sweeps of cd_counts' replay), ctns_cd (a covariate's system of the
+     case's shape, both stop criteria, bit for bit with equal sweeps),
      row_xty (the f64 gate on near-cancelling inputs at the flagship's
      377 x 44477 and levels; timed on two confounders of 12 and 25
      levels), level_gram and masked_eval;
@@ -226,13 +230,20 @@ Phases, each fatal on failure:
      fit's;
  18. rank K above 128: the flagship problem at full width at K = 160
      (simulate_scale(377, 44477, 160, ...), 1% NaNs, lambda 11, alpha
-     0.4) through Insider.fit, masked (partition=1) and dense, 10
-     iterations each under the graph: col_gram_xty, feature_sign,
-     row_xty, level_gram and masked_eval launched (masked),
-     feature_sign_shared (dense), no other column kernel; losses finite
-     and non-increasing; ms/iter, the problem's bytes and the fit's peak
-     printed; the masked fit's last level_gram, masked_eval and row_xty
-     calls held against their plain versions (infit_checks).
+     0.4) through Insider.fit under the graph (FSS fits 10 iterations,
+     cold CD 5): FSS masked (partition=1: col_gram_xty, feature_sign, row_xty, level_gram
+     and masked_eval launched) and dense (feature_sign_shared), cold CD
+     masked (col_gram_xty + cd_streamed) and dense (cd_shared), FSS
+     masked with P=3 covariates (ctns_cd exactly 3 launches an
+     iteration), no other column kernel; losses finite (non-increasing
+     for FSS); ms/iter, the problem's bytes and the fit's peak printed;
+     the last level_gram, masked_eval and row_xty calls of the FSS masked
+     fit, cd_streamed and cd_shared of the cold-CD fits (phase 5's gates
+     with the element-wise one at one sweep, the in-fit bound from
+     cd_counts) and ctns_cd of the covariate fit
+     (bit for bit) held against their plain versions (infit_checks); a
+     profile of one (eager) iteration of each fit from its end state
+     (each wrapper's in-fit ms a launch beside its in-fit bound).
 A fit on the card runs its first iteration eagerly and the rest as
 replays of one captured iteration (train/graph.py): a replay adds the
 captured iteration's launches to each wrapper's count, so a fit's counts
@@ -271,9 +282,10 @@ polish sweep, K^2; from fss_counts' replay of the timed input); the other
 FSS kernels' leave their solves out.  The uint8 records (phase 14) count a
 byte an element of the mask; their launches are the GTEx-sized uint8 fit's
 (the cold-CD flagship uint8 fit's for cd_fused).  The "<kernel> K=160"
-records are the widened kernels at phase 6's K = 160 (N=300, M=2048),
-their launches phase 18's fits'.  As the last line {"ok": true,
-"device": {...}}.
+records are the widened kernels at phase 6's K = 160 (N=300, M=2048; the
+CD kernels' problem N=320),
+their launches phase 18's fits' (the most of any of its fits).  As the
+last line {"ok": true, "device": {...}}.
 Without CUDA the script exits non-zero and prints no result.
 """
 
@@ -979,38 +991,98 @@ def phase_kernels_slice2(torch, gram, fss):
     return out, stats
 
 
-def cd_checks(torch, name, fn, plain, args, G, b, lam, alpha, sweeps):
+# The witness rule's largest share of differing columns at the short cap:
+# where the witness differs in more than half of it, the problem moves with
+# the last bits of its inputs too far for an element-wise gate at that cap to
+# tell a wrong kernel from a right one, and the check fails.
+WITNESS_SHARE_CEILING = 0.25
+
+
+def cd_checks(torch, name, fn, plain, args, G, b, lam, alpha, sweeps,
+              times=None, witness=None, short=10):
     """A CD kernel against its plain version on the same inputs, at a short
-    sweep cap (10) and at the cap `sweeps`.  At both caps the kernel's
-    output is finite and every column's objective exceeds the plain
-    version's by at most 1e-6 relative, as fss_checks holds the FSS
-    kernels; at the short cap >= 99% of the columns also match element-wise
-    (rtol 2e-5 / atol 1e-5).  The matching share at the cap is reported.
+    sweep cap (`short`, phase 5's 10), at 10 sweeps and at the cap
+    `sweeps`.  At every cap the kernel's output is finite and every
+    column's objective exceeds the plain version's by at most 1e-6
+    relative, as fss_checks holds the FSS kernels; at the short cap >= 99%
+    of the columns also match element-wise (rtol 2e-5 / atol 1e-5).  The
+    matching share at the other caps is reported.
+    With `witness` (cap -> the plain iteration on the f64 sums rounded to
+    f32, cd_infit's witness: inputs that differ from the kernel's in their
+    last bits only), a cap whose gate the kernel misses is judged by
+    cd_infit's witness rule instead, both distances printed: the objective
+    excess at most max(1e-6, 2 x the witness's), and the objective deficit
+    (the kernel's objective below the plain version's, as an iteration
+    that runs too far or activates too much would leave it) at most
+    max(1e-6, 2 x the witness's); at the short cap the share of columns
+    differing at most max(1%, 2 x the witness's), a limit that may not pass
+    WITNESS_SHARE_CEILING.
+    With `times` (a dict), the kernel at the cap is run again, timed (one
+    call, CUDA events) and held to its first run bit for bit, and the plain
+    version's one call there is timed: times["ms"], times["plain_ms"].
     Returns (kernel output at the cap, statistics)."""
     seen = {}
-    for cap in (10, sweeps):
-        got, ref = fn(*args, cap), plain(*args, cap)
+    for cap in dict.fromkeys((short, 10, sweeps)):
+        got = fn(*args, cap)
+        if times is not None and cap == sweeps:
+            again, times["ms"] = timed_once(torch, lambda: fn(*args, cap))
+            if not torch.equal(got, again):
+                fail(f"{name} differs from itself at {cap} sweeps")
+            ref, times["plain_ms"] = timed_once(torch,
+                                                lambda: plain(*args, cap))
+        else:
+            ref = plain(*args, cap)
         if not bool(torch.isfinite(got).all()):
             fail(f"{name} returned non-finite values at {cap} sweeps")
-        fk = objectives(torch, got, G, b, lam, alpha)
         fp = objectives(torch, ref, G, b, lam, alpha)
-        excess = float(((fk - fp) / fp.abs().clamp(min=1.0)).max())
-        match = float(torch.isclose(got, ref, rtol=2e-5, atol=1e-5).all(0)
-                      .double().mean())
-        seen[cap] = (match, excess)
+
+        def distance(out):
+            fo = objectives(torch, out, G, b, lam, alpha)
+            rel = (fo - fp) / fp.abs().clamp(min=1.0)
+            return (float(rel.max()), float((-rel).max()),
+                    float(torch.isclose(out, ref, rtol=2e-5, atol=1e-5)
+                          .all(0).double().mean()))
+
+        excess, deficit, match = distance(got)
+        limits = (1e-6, None, 0.01)
         print(f"{name} at {cap} sweeps: columns matching plain {match:.6f}; "
-              f"max objective excess {excess:.3e}; max abs err "
-              f"{float((got - ref).abs().max()):.3e}")
-        if not excess <= 1e-6:
+              f"max objective excess {excess:.3e} (deficit {deficit:.3e}); "
+              f"max abs err {float((got - ref).abs().max()):.3e}")
+        missed = excess > limits[0] or (cap == short
+                                        and match < 1 - limits[2])
+        if missed and witness is not None:
+            w_out = witness(cap)
+            if not bool(torch.isfinite(w_out).all()):
+                fail(f"{name}: the witness is not finite at {cap} sweeps")
+            ew, dw, mw = distance(w_out)
+            limits = (max(1e-6, 2 * ew), max(1e-6, 2 * dw),
+                      max(0.01, 2 * (1 - mw)))
+            print(f"{name} at {cap} sweeps, beside the witness (the plain "
+                  f"iteration on the f64 sums rounded to f32): objective "
+                  f"excess {excess:.3e} (witness {ew:.3e}), deficit "
+                  f"{deficit:.3e} (witness {dw:.3e}), columns differing "
+                  f"{1 - match:.6f} (witness {1 - mw:.6f}); limits "
+                  f"{limits[0]:.3e}, {limits[1]:.3e}, {limits[2]:.6f}")
+            if cap == short and limits[2] > WITNESS_SHARE_CEILING:
+                fail(f"{name}: the witness differs in {1 - mw:.6f} of the "
+                     f"columns at {cap} sweeps, past half the ceiling "
+                     f"{WITNESS_SHARE_CEILING}: no element-wise gate there")
+            if not deficit <= limits[1]:
+                fail(f"{name} objective deficit {deficit:.3e} at {cap} "
+                     "sweeps")
+        seen[cap] = (match, excess, limits)
+        if not excess <= limits[0]:
             fail(f"{name} objective excess {excess:.3e} at {cap} sweeps")
-    if not seen[10][0] >= 0.99:
-        fail(f"{name}: {seen[10][0]:.6f} of the columns match plain at 10 "
-             "sweeps")
-    stats = dict(short_cap_match_share=seen[10][0],
-                 short_cap_max_objective_excess=seen[10][1],
+    if not seen[short][0] >= 1 - seen[short][2][2]:
+        fail(f"{name}: {seen[short][0]:.6f} of the columns match plain at "
+             f"{short} sweeps")
+    stats = dict(short_cap_match_share=seen[short][0],
+                 short_cap_max_objective_excess=seen[short][1],
                  match_share=seen[sweeps][0],
                  max_objective_excess=seen[sweeps][1],
-                 max_abs_err=float((got - ref).abs().max()))
+                 max_abs_err=float((got - ref).abs().max()),
+                 witness_limits=dict((cap, v[2]) for cap, v in seen.items()
+                                     if v[2][1] is not None))
     return got, stats
 
 
@@ -1285,6 +1357,7 @@ def phase_kernels_wide(torch, gram, fss, cd):
 # no longer fits a block's shared memory (K > 235) and is read from device
 # memory.
 WIDE_CASES = ((160, 300, 2048), (256, 300, 2048), (300, 300, 256))
+CD_CAP = 200                      # the CD kernels' sweep cap (a fit's)
 # the levels of the row kernels' inputs there (the K=50 shape's)
 WIDE_LEVELS = (12, 25)
 
@@ -1323,7 +1396,7 @@ def near_cancel_row_xty(torch, row, codes, Rm, mask, F, L, noise):
                 ("f32 control", D @ F.T - T @ F.T))}
 
 
-def phase_kernels_wider(torch, gram, fss, row, ev):
+def phase_kernels_wider(torch, gram, fss, cd, ctns, row, ev):
     """Phase 6 past K = 128 (WIDE_CASES): every widened kernel against its
     plain version with phases 3-6's gates, run twice (bit for bit), timed
     beside its plain version and its bound, its uint8 mask bit for bit its
@@ -1341,6 +1414,7 @@ def phase_kernels_wider(torch, gram, fss, row, ev):
     kw = dict(max_outer=48, polish_sweeps=32, tol=SUB_TOL)
     lam, alpha = 1.0, 0.5
     for k, n, m in WIDE_CASES:
+        rng_c = np.random.default_rng(1000 + k)
         R, mask, data, beta0 = problem(torch, n, k, m, k)
         u8 = mask.to(torch.uint8)
         (G, b), rec = col_gram_record(torch, gram, mask, data, R)
@@ -1374,7 +1448,73 @@ def phase_kernels_wider(torch, gram, fss, row, ev):
                 N=n, M=m)
         out[f"feature_sign_shared K={k}"]["lanes"] = \
             fss.feature_sign_shared_widths(k)[0][0]
+
+        # the wide cold-CD solve: cd_streamed on col_gram_xty's grams,
+        # cd_shared on R^T R, of a problem of its own with 2K rows (at N =
+        # 300 the grams of K = 256 and 300 are near-singular, and last-bit
+        # differences move most columns past rtol 2e-5 by 10 sweeps), at the
+        # flagship's lambda and alpha, phase 5's gates at 10 sweeps and at
+        # the 200-sweep cap (where missed, cd_infit's witness rule, both
+        # distances printed), each timed there over one call beside its
+        # plain version's one call, bound by the sweeps its columns take
+        # (cd_counts' replay: 2 K^2 flops a column-sweep)
         del G, b, Gd
+        n_cd = 2 * k
+        R2, mask2, data2, beta2 = problem(torch, n_cd, k, m, k)
+        G, b = gram.col_gram_xty(mask2, data2, R2)
+        XtX2 = (R2.T @ R2).contiguous()
+        Xty2 = (R2.T @ data2).contiguous()
+        Gd = XtX2[:, :, None].expand(k, k, m)
+        for name, args, GG in (
+                ("cd_streamed", (G, b, beta2, LAM, ALPHA, SUB_TOL), G),
+                ("cd_shared", (XtX2, Xty2, beta2, LAM, ALPHA, SUB_TOL),
+                 Gd)):
+            times = {}
+            _, st = cd_checks(torch, f"{name} K={k}", getattr(cd, name),
+                              getattr(cd, name + "_plain"), args, GG,
+                              args[1], LAM, ALPHA, CD_CAP, times=times,
+                              witness=cd_witness(torch, cd, name, beta2, LAM,
+                                                 ALPHA, SUB_TOL, mask2, data2,
+                                                 R2))
+            sw = cd_counts(torch, GG, args[1], beta2, LAM, ALPHA, SUB_TOL,
+                           CD_CAP)["sweeps"]
+            bnd = gram_input_bound(k, m, shared=name == "cd_shared",
+                                   sweeps=sw)
+            out[f"{name} K={k}"] = dict(
+                max_abs_err=st["max_abs_err"],
+                match_share=st["match_share"],
+                max_objective_excess=st["max_objective_excess"],
+                ms=times["ms"], plain_ms=times["plain_ms"], bound_ms=bnd[0],
+                bound_by=bnd[1], sweeps_mean=float(sw.double().mean()),
+                capped=float((sw >= CD_CAP).double().mean()),
+                witness_limits=st["witness_limits"], N=n_cd, M=m)
+            print(f"{name} K={k}: columns {float(sw.double().mean()):.1f} "
+                  f"sweeps on average, "
+                  f"{out[f'{name} K={k}']['capped']:.3f} at the cap")
+        out[f"cd_streamed K={k}"]["lanes"] = cd.cd_streamed_widths(k)[0][0]
+        del G, b, Gd, R2, mask2, data2, beta2, XtX2, Xty2
+
+        # ctns_cd past 128 (a block of 128 threads; XtX in shared memory at
+        # K = 160, read in place at 256 and 300): a covariate's system
+        # (F q) F^T, F b of n samples and 2048 genes, both stop criteria,
+        # bit for bit its plain version with equal sweeps
+        mc = 2048
+        c = torch.from_numpy(rng_c.standard_normal(n).astype(
+            np.float32)).to("cuda")
+        Fc = (0.3 * torch.from_numpy(rng_c.standard_normal((k, mc)))).float(
+            ).to("cuda")
+        mask_c = (torch.from_numpy(rng_c.random((n, mc))) > 0.1).float().to(
+            "cuda")
+        data_c = torch.from_numpy(rng_c.standard_normal((n, mc)).astype(
+            np.float32)).to("cuda")
+        XtXc = ((Fc * ((c * c) @ mask_c)[None]) @ Fc.T).contiguous()
+        bc = Fc @ (c @ (mask_c * data_c))
+        w0 = torch.zeros(k, device="cuda")
+        out[f"ctns_cd K={k}"] = dict(ctns_cd_record(
+            torch, ctns, f"ctns_cd K={k}", XtXc, bc, w0, False, 1e-1, reps=5,
+            plain_reps=1), N=n, M=mc)
+        ctns_cd_record(torch, ctns, f"ctns_cd K={k} loss criterion", XtXc,
+                       bc, w0, True, 1e-3, reps=5, plain_reps=1)
 
         # row_xty: where D and T nearly cancel, at the flagship's shape (N,
         # M and LEVELS, as row_xty_gate: the f32 control's error grows with
@@ -1591,14 +1731,19 @@ def device_kernel_times(torch, prof):
     return out
 
 
-# the device kernels of the profiled fit's wrappers, by a part of their names
-KERNEL_NAMES = {"level_gram": "level_gram", "row_xty": "row_xty",
-                "feature_sign_fused": "fused_kernel<",
-                "masked_eval": "masked_eval", "col_gram_xty": "col_gram_xty",
-                "feature_sign": "streamed_kernel<",
-                "feature_sign_shared": "shared_kernel",
-                "cd_fused": "fused_kernel<", "cd_streamed": "streamed_kernel<",
-                "cd_shared": "shared_kernel", "ctns_cd": "ctns_cd_kernel"}
+# the device kernels of the profiled fit's wrappers, by parts of their names
+# (the gram-input FSS and CD wrappers' wide solves above K = 128:
+# wide_kernel<, fss_wide.cuh; ctns_cd's block above 128: ctns_cd_block)
+KERNEL_NAMES = {"level_gram": ("level_gram",), "row_xty": ("row_xty",),
+                "feature_sign_fused": ("fused_kernel<",),
+                "masked_eval": ("masked_eval",),
+                "col_gram_xty": ("col_gram_xty",),
+                "feature_sign": ("streamed_kernel<", "wide_kernel<"),
+                "feature_sign_shared": ("shared_kernel", "wide_kernel<"),
+                "cd_fused": ("fused_kernel<",),
+                "cd_streamed": ("streamed_kernel<", "wide_kernel<"),
+                "cd_shared": ("shared_kernel", "wide_kernel<"),
+                "ctns_cd": ("ctns_cd_kernel", "ctns_cd_block")}
 
 
 def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
@@ -1648,14 +1793,15 @@ def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
         print(f"  profile: {us / 1e3 / iters:9.4f} ms/iter "
               f"{us / 1e3 / n:9.4f} ms/launch x{n:4d}  {name[:90]}")
     print(f"  profile: device busy {busy:.3f} of {wall_us / 1e3:.2f} ms "
-          f"({iters} iterations, 3 boundary evals); wrapper launches "
-          f"{launches}")
+          f"({iters} iterations, {3 if iters > 1 else 2} boundary evals); "
+          f"wrapper launches {launches}")
     in_fit = {}
     for wname, n in launches.items():
-        part = KERNEL_NAMES.get(wname)
-        if not (n and part):
+        parts = KERNEL_NAMES.get(wname)
+        if not (n and parts):
             continue
-        us = sum(t for k, (t, _) in times.items() if part in k)
+        us = sum(t for k, (t, _) in times.items()
+                 if any(part in k for part in parts))
         if not us:
             fail(f"profile: {wname} launched {n} times, no device time")
         in_fit[wname] = dict(ms_per_launch=us / 1e3 / n,
@@ -2140,12 +2286,14 @@ def phase_counts(torch, itt, gram, flagship, flag_state, dense_state,
     return out
 
 
-def run_fit(torch, obj, wrappers, expect, name, monotone=True, **fit_kw):
+def run_fit(torch, obj, wrappers, expect, name, monotone=True, min_iters=10,
+            **fit_kw):
     """Drive one fit through Insider.fit with every launch count set to 0
     just before it; check that the kernels in `expect` launched (and those
     mapped to 0 did not), that losses are finite and, with `monotone`,
-    non-increasing; print its history and ms per iteration.  Returns the
-    launch counts, the final loss and the ms per iteration."""
+    non-increasing; print its history and ms per iteration (boundary_ms,
+    over at least min_iters iterations).  Returns the launch counts, the
+    final loss and the ms per iteration."""
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
@@ -2170,7 +2318,7 @@ def run_fit(torch, obj, wrappers, expect, name, monotone=True, **fit_kw):
     for h in hist:
         print(f"  iter {h['iter']}: loss {h['loss']!r} train_rmse "
               f"{h['train_rmse']!r} test_rmse {h['test_rmse']!r}")
-    ms_fit = boundary_ms(hist)
+    ms_fit = boundary_ms(hist, min_iters)
     print(f"{name}: {obj.fit_result.n_iter} iterations in {fit_s:.2f} s; "
           f"train_rmse {hist[-1]['train_rmse']!r} test_rmse "
           f"{obj.test_rmse!r}; {ms_fit:.3f} ms/iter over iterations "
@@ -2573,10 +2721,13 @@ def measured_fit(torch, als, obj, wrappers, expect, name, **fit_kw):
 INFIT_MODULES = dict(level_gram="als", row_xty="als", masked_eval="als",
                      feature_sign_fused="col_update",
                      col_gram_xty="col_update", feature_sign="col_update",
-                     feature_sign_shared="col_update", cd_fused="col_update")
+                     feature_sign_shared="col_update", cd_fused="col_update",
+                     cd_streamed="col_update", cd_shared="col_update",
+                     ctns_cd="continuous")
 
 
-def infit_checks(torch, als, name, run, kernels, rows=0, segment=False):
+def infit_checks(torch, als, name, run, kernels, rows=0, segment=False,
+                 notes=None):
     """Each kernel of a fit held against its plain version on the inputs
     the fit gave it: the last call of each kernel in `kernels` (level_gram,
     masked_eval, feature_sign_fused, col_gram_xty, feature_sign,
@@ -2594,14 +2745,28 @@ def infit_checks(torch, als, name, run, kernels, rows=0, segment=False):
     (masked_eval_check); col_gram_xty within COL_GRAM_RTOL of the f64 sums
     both ways (col_gram_gate); the FSS kernels' per-column objective at
     most 1e-6 relative above the plain version's (fss_checks); cd_fused
-    against its plain version and a witness (cd_infit).  Returns what
+    against its plain version and a witness (cd_infit); cd_streamed and
+    cd_shared (given their grams, as the plain version is) with phase 5's
+    gates (cd_checks: the element-wise one at one sweep, the objective at
+    1 and 10 sweeps and at the fit's cap), their in-fit bound
+    from cd_counts' replay of the call; ctns_cd bit for bit, equal sweeps
+    (ctns_cd_record).  With `notes` (a dict), notes[kernel]["bound"] is
+    set to the in-fit bound of the CD kernels and ctns_cd.  Returns what
     run() returns."""
-    from insider_tpu_torch.kernels import cd, eval as ev, fss, gram, row
-    from insider_tpu_torch.ops import col_update
+    from insider_tpu_torch.kernels import cd, ctns, eval as ev, fss, gram, row
+    from insider_tpu_torch.ops import col_update, continuous
     from insider_tpu_torch.ops.col_update import col_gram_masked
 
-    module = dict(als=als, col_update=col_update)
+    module = dict(als=als, col_update=col_update, continuous=continuous)
+    notes = {} if notes is None else notes
     specs = {k: (module[INFIT_MODULES[k]], k, -1) for k in kernels}
+    # the inputs of the CD kernels' witnesses: the streamed grams' mask,
+    # data and (permuted) row factor; the dense update's data, row factor
+    # and coordinate order
+    if "cd_streamed" in kernels:
+        specs["cd grams"] = (col_update, "col_gram_xty", -1)
+    if "cd_shared" in kernels:
+        specs["cd dense update"] = (col_update, "update_columns_dense", -1)
     specs.update({("row_xty", -i): (als, "row_xty", -i)
                   for i in range(1, rows + 1)})
     if segment:
@@ -2685,7 +2850,75 @@ def infit_checks(torch, als, name, run, kernels, rows=0, segment=False):
         args, _ = calls.pop("cd_fused")
         cd_infit(torch, cd, f"{name}, in-fit cd_fused (K={args[2].shape[1]}"
                  f", M={args[0].shape[1]})", args)
+    for k in ("cd_streamed", "cd_shared"):
+        if k not in calls:
+            continue
+        (G, b, beta0, lam, alpha, tol, sweeps), _ = calls.pop(k)
+        kk, m = b.shape
+        Gc = G if k == "cd_streamed" else G[:, :, None].expand(kk, kk, m)
+        label = f"{name}, in-fit {k} (K={kk}, M={m})"
+        if k == "cd_streamed":
+            (mask_w, data_w, R_w), _ = calls.pop("cd grams")
+            witness = cd_witness(torch, cd, k, beta0, lam, alpha, tol,
+                                 mask_w, data_w, R_w)
+        else:
+            args_w, kw_w = calls.pop("cd dense update")
+            witness = cd_witness(torch, cd, k, beta0, lam, alpha, tol,
+                                 None, args_w[0], args_w[1], kw_w["perm"])
+        # the element-wise gate at one sweep: the fits' grams at K = 160 are
+        # near-singular in f32, and by 10 sweeps their last bits move most
+        # columns past rtol 2e-5 (the witness moved 43-46% there), so at 10
+        # sweeps and at the cap the objective gates hold the kernel
+        _, st = cd_checks(torch, label, getattr(cd, k),
+                          getattr(cd, k + "_plain"),
+                          (G, b, beta0, lam, alpha, tol), Gc, b, lam, alpha,
+                          sweeps, witness=witness, short=1)
+        sw = cd_counts(torch, Gc, b, beta0, lam, alpha, tol,
+                       sweeps)["sweeps"]
+        bnd = gram_input_bound(kk, m, shared=k == "cd_shared", sweeps=sw)
+        notes.setdefault(k, {})["bound"] = bnd
+        print(f"{label}: columns {float(sw.double().mean()):.1f} sweeps on "
+              f"average, {float((sw >= sweeps).double().mean()):.3f} at the "
+              f"cap; in-fit bound {bnd[0]:.4f} ms ({bnd[1]})")
+        del Gc
+    if "ctns_cd" in calls:
+        (XtX, b, w0, lam, tol, sweeps), _ = calls.pop("ctns_cd")
+        rec = ctns_cd_record(torch, ctns, f"{name}, in-fit ctns_cd (K="
+                             f"{b.shape[0]})", XtX, b, w0, False, tol,
+                             plain_reps=1)
+        notes.setdefault("ctns_cd", {})["bound"] = (rec["bound_ms"],
+                                                    rec["bound_by"])
     return out["result"]
+
+
+def cd_witness(torch, cd, kind, beta0, lam, alpha, tol, mask, data, R,
+               perm=None):
+    """The witness of a gram-input CD kernel's check (cd_infit's): the plain
+    iteration on the f64 sums, rounded once to f32, of the problem the
+    kernel's grams were summed from: for cd_streamed the per-gene grams
+    and Xty of (mask, data, R), R's columns in the sweep order; for
+    cd_shared R^T R and R^T data, both axes in the coordinate order perm.
+    Returns cap -> its output (the sums made on the first call)."""
+    from insider_tpu_torch.ops.col_update import col_gram_masked
+
+    made = {}
+
+    def run(cap):
+        if not made:
+            Rd = R.double()
+            if kind == "cd_streamed":
+                m = mask.double()
+                made["G"] = col_gram_masked(Rd, m).permute(1, 2, 0).float(
+                    ).contiguous()
+                made["b"] = (Rd.T @ (m * data.double())).float()
+            else:
+                p = (torch.arange(R.shape[1], device=R.device)
+                     if perm is None else perm.long())
+                made["G"] = (Rd.T @ Rd)[p][:, p].float().contiguous()
+                made["b"] = (Rd.T @ data.double())[p].float().contiguous()
+        return getattr(cd, kind + "_plain")(made["G"], made["b"], beta0, lam,
+                                            alpha, tol, cap)
+    return run
 
 
 def cd_infit(torch, cd, name, args):
@@ -3028,15 +3261,17 @@ def ageing_table(path):
     return table
 
 
-def boundary_ms(recs):
+def boundary_ms(recs, min_iters=10):
     """ms per iteration from a fit's boundary records (its history or its
     --log-jsonl lines), from its first boundary (iteration 0's, after a
     graph fit's capture) to its last: a chained dispatch's boundaries are
     recorded together when it ends, so only a span of whole dispatches
-    reads the time of its iterations."""
+    reads the time of its iterations.  Fails on a span of fewer than
+    min_iters iterations (a fit that stopped early; a fit cut to fewer than
+    check_every iterations spans its max_iter tail, one dispatch)."""
     first = min((r for r in recs if r["iter"] >= 0), key=lambda r: r["iter"])
     last = recs[-1]
-    if last["iter"] < first["iter"] + 10:
+    if last["iter"] < first["iter"] + min_iters:
         fail(f"a fit stopped before a boundary past its first: {recs}")
     return ((last["elapsed_s"] - first["elapsed_s"])
             / (last["iter"] - first["iter"]) * 1e3)
@@ -4370,62 +4605,133 @@ def phase_graph(torch, itt, als, wrappers, smi):
 # (partition=1, 10% held out: col_gram_xty + the wide FSS solve as
 # feature_sign, row_xty and masked_eval in tiles of 128 coordinates,
 # level_gram) and dense (partition=0: the wide solve as feature_sign_shared),
-# 10 iterations each under the graph (cut from convergence for time; N, M
-# and K not cut).
+# then with cold CD (col_solver="cd", cd_warm_start=False: the wide cold-CD
+# solve as cd_streamed, masked, and cd_shared, dense), then masked with P=3
+# continuous covariates planted as covariate_object plants them (ctns_cd's
+# block of 128 threads, 3 launches an iteration), under the graph: the FSS
+# fits 10 iterations, the cold-CD fits 5 (both cut from convergence for
+# time; N, M and K not cut).
 WIDE_K = 160
-WIDE_FIT = dict(latent_dimension=WIDE_K, lambda_=LAM, alpha=ALPHA,
-                max_iter=10)
+WIDE_FIT = dict(latent_dimension=WIDE_K, lambda_=LAM, alpha=ALPHA)
+WIDE_ITERS = dict(fss=10, cd=5)
 NO_CD = dict(cd_fused=0, cd_streamed=0, cd_shared=0, ctns_cd=0)
+NO_FSS = dict(feature_sign_fused=0, feature_sign=0, feature_sign_shared=0)
+WIDE_COLD_MASKED = ("level_gram", "row_xty", "col_gram_xty", "cd_streamed",
+                    "masked_eval")
+WIDE_PROFILE_ITERS = 1   # iterations a profile of a K=160 fit: the first,
+                         # eager (for time: no capture)
 
 
-def wide_object(itt):
+def wide_object(itt, n_ctns=0):
     """The flagship problem at K = 160 as an Insider on the card: the data
-    simulated at rank 160, the 1% NaNs and the split of flagship_object."""
+    simulated at rank 160, the 1% NaNs and the split of flagship_object;
+    with n_ctns = 3, the covariates of covariate_object (C and W_true from
+    default_rng(7), the data plus C W_true F_true)."""
     sim = itt.simulate_scale(N, M, WIDE_K, level_counts=(2, 8, 107),
                              noise_std=1.0, seed=0)
-    data = sim.data.astype(np.float64)
+    data, ctns = sim.data, None
+    if n_ctns:
+        rng = np.random.default_rng(7)
+        ctns = rng.standard_normal((N, n_ctns)).astype(np.float32)
+        w_true = rng.standard_normal((n_ctns, WIDE_K)).astype(np.float32)
+        data = data + (ctns @ w_true) @ sim.gene_factor
+    data = data.astype(np.float64)
     data[np.random.default_rng(0).random(data.shape) < 0.01] = np.nan
-    return itt.Insider(data, sim.confounder, interaction_idx=[0, 1],
+    return itt.Insider(data, sim.confounder, ctns, interaction_idx=[0, 1],
                        split_ratio=0.1, device="cuda")
 
 
 def phase_wide_rank(torch, itt, als, wrappers, smi):
-    """Phase 18: the K = 160 flagship fits through Insider.fit, masked then
-    dense, each with its launch counts set to 0 just before it: the kernels
-    of its route launched and no other, losses finite and non-increasing
-    (x (1 + 1e-6)), ms/iter, the problem's bytes on the card and the fit's
-    peak beyond them printed (measured_fit); the masked fit's last in-fit
-    calls of level_gram, masked_eval and row_xty (one for each of the four
-    confounders) launched again and held against their plain versions
-    (infit_checks; col_gram_xty and the FSS kernels at K = 160 are held to
-    theirs in phase 6, whose plain FSS iteration at this width would take
-    minutes at M = 44477).  Returns {kernel: launches} of the two fits."""
-    obj = wide_object(itt)
-    name = f"K={WIDE_K} masked fit"
-    # garbage collected before each fit (the dense fit on an object of its
-    # own), so that no earlier tensor is freed inside the build's memory
-    # reading (measured_fit)
-    gc.collect()
-    masked, _, ms_m, mem_m = infit_checks(
-        torch, als, name, lambda: measured_fit(
-            torch, als, obj, wrappers,
-            dict(dict.fromkeys(MASKED_WIDE, 1), feature_sign_fused=0,
-                 feature_sign_shared=0, **NO_CD), name, partition=1,
-            **WIDE_FIT),
-        ["level_gram", "masked_eval"], rows=4)
-    name = f"K={WIDE_K} dense fit"
-    del obj
-    gc.collect()
-    dense, _, ms_d, mem_d = measured_fit(
-        torch, als, wide_object(itt), wrappers,
-        dict(feature_sign_shared=1, col_gram_xty=0, feature_sign=0,
-             feature_sign_fused=0, **NO_CD), name, partition=0, **WIDE_FIT)
-    for what, ms, mem in (("masked", ms_m, mem_m), ("dense", ms_d, mem_d)):
-        print(f"K={WIDE_K} {what} fit at {N} x {M}: {ms:.3f} ms/iter; "
-              f"problem {mem['persistent']} bytes on the card, fit peak "
+    """Phase 18: the K = 160 flagship fits through Insider.fit, each on an
+    object of its own with its launch counts set to 0 just before it: FSS
+    masked and dense, cold CD masked and dense, FSS masked with P=3
+    covariates.  Each: the kernels of its route launched and no other
+    (ctns_cd exactly 3 times an iteration in the covariate fit), losses
+    finite (and non-increasing x (1 + 1e-6) for the FSS fits; a cold-CD
+    fit screens its warm start), ms/iter, the problem's bytes on the card
+    and the fit's peak beyond them printed (measured_fit); the last in-fit
+    calls held against their plain versions (infit_checks): of the FSS
+    masked fit level_gram, masked_eval and row_xty (one for each of the
+    four confounders; col_gram_xty and the FSS kernels at K = 160 are held
+    to theirs in phase 6, whose plain FSS iteration at this width would
+    take minutes at M = 44477), of the cold-CD fits cd_streamed and
+    cd_shared (phase 5's gates, the element-wise one at one sweep, and the
+    in-fit bound from cd_counts' replay of that call), of the covariate fit ctns_cd (bit for bit, equal
+    sweeps).  Then torch.profiler over WIDE_PROFILE_ITERS iterations of
+    each fit from its end state (profile_fit): each wrapper's in-fit ms a
+    launch, beside its in-fit bound (the FSS kernels' by bytes, their
+    solves' operations not counted).  Returns {kernel: launches} of the
+    fits."""
+    # (label, fit settings, covariates, launches, in-fit kernels, row_xty
+    # calls); the fits of one problem share its object (the masked and the
+    # dense problem are one Insider)
+    fits = (
+        ("FSS masked", dict(partition=1), 0,
+         dict(dict.fromkeys(MASKED_WIDE, 1), feature_sign_fused=0,
+              feature_sign_shared=0, **NO_CD),
+         ["level_gram", "masked_eval"], 4),
+        ("FSS dense", dict(partition=0), 0,
+         dict(feature_sign_shared=1, col_gram_xty=0, feature_sign=0,
+              feature_sign_fused=0, **NO_CD), [], 0),
+        ("cold CD masked", dict(partition=1, **COLD), 0,
+         dict(dict.fromkeys(WIDE_COLD_MASKED, 1), cd_fused=0, cd_shared=0,
+              ctns_cd=0, **NO_FSS), ["cd_streamed"], 0),
+        ("cold CD dense", dict(partition=0, **COLD), 0,
+         dict(cd_shared=1, cd_streamed=0, cd_fused=0, col_gram_xty=0,
+              ctns_cd=0, **NO_FSS), ["cd_shared"], 0),
+        ("FSS masked P=3", dict(partition=1), 3,
+         dict(dict.fromkeys(MASKED_WIDE, 1), feature_sign_fused=0,
+              feature_sign_shared=0, ctns_cd=1, cd_fused=0, cd_streamed=0,
+              cd_shared=0), ["ctns_cd"], 0))
+    out, table, objs = {}, [], {}
+    for label, kw, n_ctns, expect, infit, rows in fits:
+        name = f"K={WIDE_K} {label} fit"
+        if n_ctns not in objs:
+            objs.clear()
+            objs[n_ctns] = wide_object(itt, n_ctns)
+        obj = objs[n_ctns]
+        # garbage collected before each fit, so that no earlier tensor is
+        # freed inside the build's memory reading (measured_fit)
+        gc.collect()
+        notes = {}
+        max_iter = WIDE_ITERS["cd" if "cold" in label else "fss"]
+        launches, losses, ms, mem = infit_checks(
+            torch, als, name, lambda: measured_fit(
+                torch, als, obj, wrappers, expect, name,
+                monotone="cold" not in label, min_iters=max_iter,
+                max_iter=max_iter, **kw, **WIDE_FIT),
+            infit, rows=rows, notes=notes)
+        n_iter = max_iter + 1
+        if n_ctns and launches["ctns_cd"] != n_ctns * n_iter:
+            fail(f"{name}: ctns_cd launched {launches['ctns_cd']} times, not "
+                 f"{n_ctns} x {n_iter}")
+        print(f"{name} at {N} x {M}: {ms:.3f} ms/iter; problem "
+              f"{mem['persistent']} bytes on the card, fit peak "
               f"{mem['fit_peak']} bytes beyond it ({smi})")
-    out = {k: masked[k] for k in MASKED_WIDE}
-    out["feature_sign_shared"] = dense["feature_sign_shared"]
+        for k, n in launches.items():
+            if expect.get(k):
+                out[k] = max(out.get(k, 0), n)
+        solver = COLD if "cold" in label else {}
+        print(f"profile of the {name}, {WIDE_PROFILE_ITERS} iterations from "
+              "its end state:")
+        prof = profile_fit(torch, obj, wrappers, obj.fit_result.state,
+                           WIDE_K, LAM, ALPHA, iters=WIDE_PROFILE_ITERS,
+                           masked=kw["partition"] == 1, **solver)
+        for k in ("feature_sign", "feature_sign_shared", "cd_streamed",
+                  "cd_shared", "ctns_cd"):
+            if k not in prof["in_fit"]:
+                continue
+            bnd = notes.get(k, {}).get("bound") or gram_input_bound(
+                WIDE_K, M, shared=k == "feature_sign_shared")
+            rec = prof["in_fit"][k]
+            table.append((name, k, rec["ms_per_launch"],
+                          rec["launches"] / WIDE_PROFILE_ITERS, bnd))
+        del obj
+    objs.clear()
+    for name, k, ms_launch, per_iter, bnd in table:
+        print(f"in-fit {k} at K={WIDE_K} ({name}): {ms_launch:.4f} ms a "
+              f"launch, {per_iter:g} launches/iter; in-fit bound "
+              f"{bnd[0]:.6f} ms ({bnd[1]}) ({smi})")
     return out
 
 
@@ -4452,7 +4758,8 @@ def main():
               f"{time.time() - t_main:.1f} s")
 
     import insider_tpu_torch as itt
-    from insider_tpu_torch.kernels import _lib, cd, eval as ev, fss, gram, row
+    from insider_tpu_torch.kernels import (_lib, cd, ctns, eval as ev, fss,
+                                           gram, row)
     from insider_tpu_torch.train import als
 
     # 1. device
@@ -4538,7 +4845,7 @@ def main():
               + (f" group width L={rec['lanes']}" if "lanes" in rec else ""))
 
     # 6, past K = 128: the widened kernels at K = 160, 256 and 300
-    wide = phase_kernels_wider(torch, gram, fss, row, ev)
+    wide = phase_kernels_wider(torch, gram, fss, cd, ctns, row, ev)
     for name, rec in wide.items():
         print(f"kernel {name} N={rec['N']} M={rec['M']}: max_abs_err "
               f"{rec['max_abs_err']:.3e} kernel {rec['ms']:.4f} ms plain "
@@ -4755,15 +5062,16 @@ def main():
                # no Pallas kernel: the XLA while_loop of _ctns_cd
                "ctns_cd": ("ctns_cd.cu", "insider_tpu/ops/continuous.py:101")}
     # the uint8-mask instances of the kernels that read the mask, and the
-    # K=160 instances (the wide FSS solve in fss_wide.cuh; the others'
-    # K > 128 kernels in their own sources)
+    # K=160 instances (the wide FSS and cold-CD solves in fss_wide.cuh; the
+    # others' K > 128 kernels in their own sources)
     for name in lean:
         sources[name] = sources[name.split()[0]]
     wide = [name for name in kern if name.endswith(f" K={WIDE_K}")]
     for name in wide:
         src, tpu_def = sources[name.split()[0]]
-        sources[name] = ("fss_wide.cuh" if name.startswith("feature_sign")
-                         else src, tpu_def)
+        sources[name] = ("fss_wide.cuh" if name.split()[0] in (
+            "feature_sign", "feature_sign_shared", "cd_streamed", "cd_shared")
+            else src, tpu_def)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "insider_tpu_torch/csrc/" + sources[name][0],

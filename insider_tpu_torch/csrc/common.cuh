@@ -142,5 +142,21 @@ auto with_mask(const void* mask, int mask_is_u8, Fn&& f) {
   return f(static_cast<const float*>(mask));
 }
 
+// The dynamic shared memory a block of `kernel` may take on the current
+// device: the card's opt-in maximum less the kernel's static shared
+// memory.
+template <auto kernel>
+cudaError_t max_dynamic_smem(int& bytes) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  bytes = err == cudaSuccess ? optin - (int)attr.sharedSizeBytes : 0;
+  return err;
+}
+
 }  // namespace
 }  // namespace insider

@@ -1432,22 +1432,6 @@ __device__ __forceinline__ int next_column(int* next) {
   return __shfl_sync(FULL, c, 0);
 }
 
-// The dynamic shared memory a block of `kernel` may take on the current
-// device: the card's opt-in maximum less the kernel's static shared
-// memory.
-template <auto kernel>
-cudaError_t max_dynamic_smem(int& bytes) {
-  int dev = 0, optin = 0;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  bytes = err == cudaSuccess ? optin - (int)attr.sharedSizeBytes : 0;
-  return err;
-}
-
 // Blocks an SM holds at once of `kernel` with `threads` threads and `smem`
 // bytes of dynamic shared memory, and the card's SMs (remembered for the
 // last device, threads and size asked, under a lock: host threads may

@@ -57,9 +57,9 @@
 // against 14.89-15.01 ms at K=96 and 40.39-40.55 against 66.59-67.18 at
 // K=128 (M=2048).
 //
-// FSS at K > 128: the wide solve, one column a block of 128 threads on the
-// gram in shared memory where it fits (K <= 235), else in device memory
-// (fss_wide.cuh).  CD stops at 128.
+// FSS and CD at K > 128: the wide solves, one column a block of 128
+// threads on the gram in shared memory where it fits (K <= 235), else in
+// device memory (fss_wide.cuh).
 //
 // CD runs the one cold-CD loop (fss_core.cuh: cd_group_columns) on the
 // gram packed to its upper triangle (packed_rows; 33 KB at K=128), 8
@@ -294,8 +294,8 @@ int fss_shared(const float* xtx, const float* xty, const float* beta0,
   if (K > insider::NARROW_MAX_K) {                   // fss_wide.cuh
     if (lanes != 0 && lanes != insider::WIDE_THREADS)
       return (int)cudaErrorInvalidValue;
-    return (int)launch_wide<true>(xtx, xty, beta0, out, next, scratch,
-                                  scratch_len, M, K, solver, stream);
+    return (int)launch_wide<true, false>(xtx, xty, beta0, out, next, scratch,
+                                         scratch_len, M, K, solver, stream);
   }
   if (K > 32) {
     if (lanes != 0 && lanes != 32) return (int)cudaErrorInvalidValue;
@@ -347,9 +347,12 @@ cudaError_t cd_width(int K, F f) {
 }
 
 int cd_shared(const float* xtx, const float* xty, const float* beta0,
-              float* out, int M, int K, Solver<true> solver,
-              cudaStream_t stream) {
-  if (M < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;
+              float* out, int* next, float* scratch, long scratch_len, int M,
+              int K, Solver<true> solver, cudaStream_t stream) {
+  if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (K > insider::NARROW_MAX_K)                     // fss_wide.cuh
+    return (int)launch_wide<true, true>(xtx, xty, beta0, out, next, scratch,
+                                        scratch_len, M, K, solver, stream);
   return (int)cd_width(K, [&](auto c, auto l) {
     constexpr int C = decltype(c)::value, L = decltype(l)::value;
     const size_t smem = sizeof(float) * (((K + 3) & ~3) + packed_rows<L>(K));
@@ -370,7 +373,13 @@ int cd_shared(const float* xtx, const float* xty, const float* beta0,
 // Floats of device scratch that insider_fss_shared needs: 0 at K <= 128,
 // the wide solve's above (fss_wide.cuh).
 INSIDER_API long insider_fss_shared_scratch(int M, int K) {
-  return wide_scratch_floats<true>(M, K);
+  return wide_scratch_floats<true, false>(M, K);
+}
+
+// Floats of device scratch that insider_cd_shared needs: 0 at K <= 128,
+// the wide solve's above (fss_wide.cuh).
+INSIDER_API long insider_cd_shared_scratch(int M, int K) {
+  return wide_scratch_floats<true, true>(M, K);
 }
 
 // out (K, M) = the FSS + polish solution of every column against the one
@@ -404,10 +413,10 @@ INSIDER_API int insider_fss_shared_widths(int K, int* n, int* widths,
   *n = 0;
   Residency res;
   if (K > insider::NARROW_MAX_K) {        // the wide solve: a block a column
-    WidePlan p;
-    const cudaError_t err = wide_plan<true>(1, K, p);
+    int per_sm = 0;
+    const cudaError_t err = wide_columns<true, false>(K, per_sm);
     if (err != cudaSuccess) return (int)err;
-    if (columns != nullptr) columns[0] = p.per_sm;
+    if (columns != nullptr) columns[0] = per_sm;
     widths[(*n)++] = insider::WIDE_THREADS;
     return (int)cudaSuccess;
   }
@@ -449,13 +458,15 @@ INSIDER_API int insider_fss_shared_widths(int K, int* n, int* widths,
 
 // out (K, M) = the cold strong-rule CD solution of every column against the
 // one gram xtx (K, K), at most max_sweeps sweeps.  xty and beta0 (K, M):
-// row-major f32.  lam, alpha as f32; tol: one f32 on the device;
-// 1 <= K <= 128.
+// row-major f32.  next, scratch: at K > 128 one int of device scratch (the
+// wide solve's column counter) and insider_cd_shared_scratch(M, K) floats;
+// unused (may be null) at K <= 128.  lam, alpha as f32; tol: one f32 on
+// the device; K >= 1.
 INSIDER_API int insider_cd_shared(const float* xtx, const float* xty,
-                                  const float* beta0, float* out, float lam,
-                                  float alpha, const float* tol, int M,
-                                  int K,
+                                  const float* beta0, float* out, int* next,
+                                  float* scratch, long scratch_len, float lam,
+                                  float alpha, const float* tol, int M, int K,
                                   int max_sweeps, cudaStream_t stream) {
-  return cd_shared(xtx, xty, beta0, out, M, K,
+  return cd_shared(xtx, xty, beta0, out, next, scratch, scratch_len, M, K,
                    Solver<true>{lam, alpha, tol, max_sweeps}, stream);
 }

@@ -14,8 +14,8 @@
 // (insider_tpu/ops/col_update.py:378-390, :463-478), which the port takes
 // for K > 32, where the fused kernel's one coordinate per lane does not
 // reach.  For CD the caller permutes the problem to set the sweep order.
-// FSS above K = 128 runs the wide solve, one column a block
-// (fss_wide.cuh); CD stops at 128.
+// Above K = 128 FSS and CD run the wide solves, one column a block
+// (fss_wide.cuh).
 //
 // Bound on the H100: the (K, K, M) gram read, K^2 M f32 (445 MB at K=50,
 // M=44477), and the serial solve of each column, latency-bound: FSS
@@ -254,8 +254,9 @@ int fss_streamed(const float* xtx, const float* xty, const float* beta0,
                  int M, int K, Solver<false> solver, cudaStream_t stream) {
   if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
   if (K > insider::NARROW_MAX_K)                     // fss_wide.cuh
-    return (int)launch_wide<false>(xtx, xty, beta0, out, next, scratch,
-                                   scratch_len, M, K, solver, stream);
+    return (int)launch_wide<false, false>(xtx, xty, beta0, out, next,
+                                          scratch, scratch_len, M, K, solver,
+                                          stream);
   return (int)by_width(K, [&](auto c, auto amax) {
     constexpr int AMAX = decltype(amax)::value, C = decltype(c)::value;
     return launch<AMAX, C, 32, false>(xtx, xty, beta0, out, next, M, K,
@@ -268,7 +269,13 @@ int fss_streamed(const float* xtx, const float* xty, const float* beta0,
 // Floats of device scratch that insider_fss_streamed needs: 0 at K <= 128,
 // the wide solve's above (fss_wide.cuh).
 INSIDER_API long insider_fss_streamed_scratch(int M, int K) {
-  return wide_scratch_floats<false>(M, K);
+  return wide_scratch_floats<false, false>(M, K);
+}
+
+// Floats of device scratch that insider_cd_streamed needs: 0 at K <= 128,
+// the wide solve's above (fss_wide.cuh).
+INSIDER_API long insider_cd_streamed_scratch(int M, int K) {
+  return wide_scratch_floats<false, true>(M, K);
 }
 
 // out (K, M) = the FSS + polish solution of every column.  xtx (K, K, M),
@@ -290,19 +297,26 @@ INSIDER_API int insider_fss_streamed(const float* xtx, const float* xty,
 
 // out (K, M) = the cold strong-rule CD solution of every column, at most
 // max_sweeps sweeps.  xtx (K, K, M), xty and beta0 (K, M): row-major f32;
-// next: one int of device scratch (the column counter).  lam, alpha as
-// f32; tol: one f32 on the device; 1 <= K <= 128.  lanes: the group
-// width L, 0 for the instance the kernel runs at this K (header), else
-// that of an instance covering K
+// next: one int of device scratch (the column counter); scratch:
+// insider_cd_streamed_scratch(M, K) floats of device scratch (none at K <=
+// 128).  lam, alpha as f32; tol: one f32 on the device; K >= 1.  lanes:
+// the group width L, 0 for the instance the kernel runs at this K
+// (header), else that of an instance covering K
 // (insider_cd_streamed_widths; cudaErrorInvalidValue where none does).
 INSIDER_API int insider_cd_streamed(const float* xtx, const float* xty,
                                     const float* beta0, float* out, int* next,
+                                    float* scratch, long scratch_len,
                                     float lam, float alpha, const float* tol,
-                                    int M,
-                                    int K, int max_sweeps, int lanes,
+                                    int M, int K, int max_sweeps, int lanes,
                                     cudaStream_t stream) {
-  if (M < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;
+  if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
   const Solver<true> solver{lam, alpha, tol, max_sweeps};
+  if (K > insider::NARROW_MAX_K) {                   // fss_wide.cuh
+    if (lanes != 0 && lanes != insider::WIDE_THREADS)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_wide<false, true>(xtx, xty, beta0, out, next, scratch,
+                                         scratch_len, M, K, solver, stream);
+  }
   return (int)cd_instances(K, [&](auto... gs) {
     cudaError_t err = cudaErrorInvalidValue;
     bool found = false;
@@ -320,13 +334,22 @@ INSIDER_API int insider_cd_streamed(const float* xtx, const float* xty,
 }
 
 // The CD instances of insider_cd_streamed that cover K, the one it runs
-// first: *n of them (at most 2), their group widths L into widths[], and
-// where `columns` is given, the columns an SM of the current device holds
-// of each into columns[].
+// first: *n of them (at most 2), their group widths L into widths[] (128
+// at K > 128: one column a block of 128 threads, fss_wide.cuh), and where
+// `columns` is given, the columns an SM of the current device holds of
+// each into columns[].
 INSIDER_API int insider_cd_streamed_widths(int K, int* n, int* widths,
                                            int* columns) {
-  if (K < 1 || K > 128) return (int)cudaErrorInvalidValue;
+  if (K < 1) return (int)cudaErrorInvalidValue;
   *n = 0;
+  if (K > insider::NARROW_MAX_K) {        // the wide solve: a block a column
+    int per_sm = 0;
+    const cudaError_t err = wide_columns<false, true>(K, per_sm);
+    if (err != cudaSuccess) return (int)err;
+    if (columns != nullptr) columns[0] = per_sm;
+    widths[(*n)++] = insider::WIDE_THREADS;
+    return (int)cudaSuccess;
+  }
   return (int)cd_instances(K, [&](auto... gs) {
     cudaError_t err = cudaSuccess;
     (

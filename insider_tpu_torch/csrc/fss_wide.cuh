@@ -1,9 +1,10 @@
-// The wide FSS column solve: feature_sign (fss_streamed.cu) and
-// feature_sign_shared (fss_shared.cu) above 128 coordinates, where a warp's
-// register slots (four coordinates a lane) and its K x (K + 1) gram plus
-// workspace in shared memory (past 227 KB at K ~ 170) no longer reach.
+// The wide column solves: feature_sign and cd_streamed (fss_streamed.cu),
+// feature_sign_shared and cd_shared (fss_shared.cu) above 128 coordinates,
+// where a warp's register slots (four coordinates a lane; CD: eight at L =
+// 16) and its K x (K + 1) gram plus workspace in shared memory (past 227
+// KB at K ~ 170) no longer reach.
 //
-// It computes fss_column's iteration (fss_core.cuh; the TPU kernel's
+// FSS computes fss_column's iteration (fss_core.cuh; the TPU kernel's
 // fss_pallas.py:_fss_compute) for any K: forward elimination without
 // pivoting over the active coordinates, compacted in ascending order; the
 // step to the first sign crossing with the livelock guard; ONE KKT violator
@@ -11,9 +12,17 @@
 // 1e-5 (l1 + max|b_j|); at most max_outer steps; then the polish, CD sweeps
 // in the fixed order 0..K-1 stopped when a sweep's decrease is <= tol.  A
 // column whose Xty or warm start holds a NaN or an Inf comes out all NaN.
+// CD computes cd_group_columns' iteration (the TPU kernel's
+// cd_pallas.py:_cd_compute): the strong screen, sweeps in the fixed order
+// 0..K-1 over the active coordinates, and after a sweep whose decrease is
+// <= tol EVERY inactive violator |s - xty| > l1 activated; at most
+// max_sweeps sweeps.  Its column comes out all NaN where the warm start
+// holds a NaN or an Inf, or Xty an Inf; a NaN in Xty fails the screen.
+// The polish and CD are one sweep loop (wide_cd_sweeps), the polish's
+// flags all active.
 //
 // Bound on the H100: the serial solve of each column, latency-bound (a
-// barrier a pivot and a barrier a polish coordinate), as the narrow
+// barrier a pivot and a barrier a sweep's coordinate), as the narrow
 // kernels' (fss_streamed.cu, fss_shared.cu); the streamed grams' K^2 M f32
 // read comes second.
 //
@@ -39,16 +48,19 @@
 // spread over the trailing columns (neighbouring threads on neighbouring
 // columns) and, where fewer columns are left than threads, over rows too,
 // a barrier each.
-// The polish runs a coordinate a step: every thread evaluates coordinate
-// k's update from the shared vectors (the same values, so the same bits),
-// then updates s for its own coordinates; k's own diagonal term and its new
-// beta are written one step later (the coordinate's shared values must
-// stay as read until every thread has read them), so one barrier a step.
-// Scratch and counter come from the wrapper (kernels/fss.py), which asks
-// for their size (insider_fss_*_scratch): nothing is allocated or read back
-// inside a launch, so the launch is captured by a CUDA graph like the
-// others.  Each column's arithmetic is independent of the block that runs
-// it, so repeated runs agree bit for bit.
+// The sweeps (the polish, CD) run a coordinate a step: every thread
+// evaluates coordinate k's update from the shared vectors (the same
+// values, so the same bits), then updates s for its own coordinates; k's
+// own diagonal term and its new beta are written one step later (the
+// coordinate's shared values must stay as read until every thread has read
+// them), so one barrier a step; CD skips its screened coordinates.  CD
+// solves no system: its blocks take the vectors and the gram only.
+// Scratch and counter come from the wrapper (kernels/_lib.launch_on_grams),
+// which asks for their size (insider_fss_*_scratch, insider_cd_*_scratch):
+// nothing is allocated or read back inside a launch, so the launch is
+// captured by a CUDA graph like the others.  Each column's arithmetic is
+// independent of the block that runs it, so repeated runs agree bit for
+// bit.
 #pragma once
 
 #include "fss_core.cuh"
@@ -58,7 +70,7 @@ namespace {
 
 constexpr int WIDE_THREADS = 128;          // a block solves one column
 constexpr int WIDE_WARPS = WIDE_THREADS / 32;
-constexpr int NARROW_MAX_K = 128;          // the wide solve runs above
+constexpr int NARROW_MAX_K = 128;          // the wide solves run above
 constexpr int WIDE_VECTORS = 11;           // per-coordinate vectors
 
 // The shared per-coordinate vectors of a block, each padded to 4 floats.
@@ -148,6 +160,94 @@ __device__ __forceinline__ float gram_row_times(const float* Gi,
   float s = 0.f;
   for (int c = 0; c < K; ++c) s = __fmaf_rn(Gi[c], beta[c], s);
   return s;
+}
+
+// CD sweeps of one column by the block, the one sweep loop of the wide
+// solves: cold CD (wide_cd_column) and the FSS polish, whose coordinates
+// are all active.  cd_group_columns' iteration (the sweep loop of
+// cd_pallas.py:_cd_compute, :111-175) in the fixed order 0..K-1.  G: the
+// column's K x K gram, row stride GS; v.act: the active flags (1 or 0),
+// v.xty and v.beta loaded, all visible to every thread.  The prologue
+// sets s = G beta (gram_row_times), the diagonal and the denominators; a
+// sweep takes every active coordinate's soft-threshold update and sums
+// its loss decrease in the cancellation-free form, in order.  Every thread
+// evaluates coordinate k's update from the shared vectors (the same
+// values, so the same bits), then updates s for its own coordinates; k's
+// own diagonal term and its new beta are written at the next active
+// coordinate's step (the coordinate's shared values must stay as read
+// until every thread has read them), so one barrier a coordinate.  An
+// inactive coordinate has beta 0 and would not move: it is skipped, with
+// no barrier (the flags change only between sweeps, so every thread skips
+// alike).  After a sweep whose decrease is <= tol every inactive
+// coordinate with |s - xty| > l1 is activated, and the column converges
+// when there is none (a block-wide or, the same in every thread; with
+// every coordinate active, when the decrease is <= tol).  At most
+// max_sweeps sweeps; beta is updated in place in v.beta, visible to every
+// thread on return.
+__device__ __noinline__ void wide_cd_sweeps(const float* G, int GS,
+                                            WideVectors v, int K, float l1,
+                                            float l2, float tol,
+                                            int max_sweeps) {
+  constexpr int NT = WIDE_THREADS;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < K; i += NT) {
+    const float* Gi = G + i * GS;
+    v.s[i] = gram_row_times(Gi, v.beta, K);
+    const float d = Gi[i];
+    float den = d + l2;
+    den = den > 0.f ? den : 1.f;
+    v.d[i] = d;
+    v.inv_den[i] = 1.f / den;
+    v.half_den[i] = 0.5f * den;
+  }
+  __syncthreads();
+  const float inv_l1 = 1.f / fmaxf(l1, 1e-30f);
+  bool conv = false;
+  for (int sweep = 0; sweep < max_sweeps && !conv; ++sweep) {
+    float dec = 0.f, prev_delta = 0.f, prev_w = 0.f;
+    int prev = -1;                 // the last coordinate updated
+    for (int k = 0; k < K; ++k) {
+      if (v.act[k] < 0.5f) continue;              // block-uniform
+      // every thread evaluates coordinate k's update (the same bits)
+      const float b = v.beta[k];
+      const float u = v.xty[k] - v.s[k] + b * v.d[k];
+      const float w = sgn(u) * fmaxf(fabsf(u) - l1, 0.f) * v.inv_den[k];
+      const float delta = w - b;
+      const float xi = w != 0.f ? sgn(w)
+                                : fminf(fmaxf(u * inv_l1, -1.f), 1.f);
+      const float term = v.half_den[k] * delta * delta +
+                         l1 * (fabsf(b) - xi * b);
+      dec = dec + term;
+      // s += G[k, :] delta; prev's own term, and its beta, now
+      const float* Gk = G + k * GS;
+      for (int i = tid; i < K; i += NT) {
+        if (i == k) continue;
+        float s = v.s[i];
+        if (i == prev) s = s + G[i * GS + i] * prev_delta;
+        v.s[i] = s + Gk[i] * delta;
+      }
+      if (tid == 0 && prev >= 0) v.beta[prev] = prev_w;
+      prev = k;
+      prev_delta = delta;
+      prev_w = w;
+      __syncthreads();
+    }
+    if (prev >= 0) {                              // block-uniform
+      for (int i = tid; i < K; i += NT)
+        if (i == prev) v.s[i] = v.s[i] + G[i * GS + i] * prev_delta;
+      if (tid == 0) v.beta[prev] = prev_w;
+    }
+    // KKT reactivation after a sweep whose decrease is <= tol; each
+    // thread reads and sets only its own coordinates' s and flags
+    const bool cand = fabsf(dec) <= tol;          // block-uniform
+    bool viol = false;
+    for (int i = tid; i < K; i += NT)
+      if (v.act[i] < 0.5f && fabsf(__fsub_rn(v.s[i], v.xty[i])) > l1) {
+        viol = true;
+        if (cand) v.act[i] = 1.f;
+      }
+    conv = !__syncthreads_or(viol) && cand;       // also the barrier
+  }
 }
 
 // FSS + polish of one column by the block.  G: the column's K x K gram, row
@@ -280,52 +380,36 @@ __device__ __noinline__ void wide_fss_column(const float* G, int GS,
   }
 
   if (polish_sweeps <= 0) return;
-  // the polish: cd_sweeps' iteration with every coordinate active
-  for (int i = tid; i < K; i += NT) {
-    const float* Gi = G + i * GS;
-    v.s[i] = gram_row_times(Gi, v.beta, K);
-    const float d = Gi[i];
-    float den = d + l2;
-    den = den > 0.f ? den : 1.f;
-    v.d[i] = d;
-    v.inv_den[i] = 1.f / den;
-    v.half_den[i] = 0.5f * den;
+  // the polish: cold CD's sweeps with every coordinate active
+  for (int i = tid; i < K; i += NT) v.act[i] = 1.f;
+  __syncthreads();
+  wide_cd_sweeps(G, GS, v, K, l1, l2, tol, polish_sweeps);
+}
+
+// Cold strong-rule CD of one column by the block (cd_group_columns'
+// iteration, the TPU kernel's cd_pallas.py:_cd_compute): the screen thr =
+// alpha (2 lam - max|xty|) in the TPU kernel's operation order, the
+// screened coordinates' warm start set to zero, then wide_cd_sweeps.  v:
+// the shared vectors, v.xty and v.beta loaded (the warm start finite, Xty
+// free of Infs) and visible to every thread; xm: this thread's max |Xty|
+// over its coordinates (a NaN passed over, as fmaxf does: a column whose
+// Xty is NaN fails the screen everywhere and solves to zero).  beta is
+// updated in place in v.beta, visible to every thread on return.
+__device__ __noinline__ void wide_cd_column(const float* G, int GS,
+                                            WideVectors v, int K, float lam,
+                                            float alpha, float tol,
+                                            int max_sweeps, float xm,
+                                            float* red) {
+  const float thr =
+      __fmul_rn(alpha, __fsub_rn(2.f * lam, block_max(xm, red)));
+  for (int i = threadIdx.x; i < K; i += WIDE_THREADS) {
+    const bool on = fabsf(v.xty[i]) >= thr;
+    v.act[i] = on ? 1.f : 0.f;
+    v.beta[i] = v.beta[i] * (on ? 1.f : 0.f);
   }
   __syncthreads();
-  const float inv_l1 = 1.f / fmaxf(l1, 1e-30f);
-  bool pconv = false;
-  for (int sweep = 0; sweep < polish_sweeps && !pconv; ++sweep) {
-    float dec = 0.f, prev_delta = 0.f, prev_w = 0.f;
-    for (int k = 0; k < K; ++k) {
-      // every thread evaluates coordinate k's update (the same bits)
-      const float b = v.beta[k];
-      const float u = v.xty[k] - v.s[k] + b * v.d[k];
-      const float w = sgn(u) * fmaxf(fabsf(u) - l1, 0.f) * v.inv_den[k];
-      const float delta = w - b;
-      const float xi = w != 0.f ? sgn(w)
-                                : fminf(fmaxf(u * inv_l1, -1.f), 1.f);
-      const float term = v.half_den[k] * delta * delta +
-                         l1 * (fabsf(b) - xi * b);
-      dec = dec + term;
-      // s += G[k, :] delta; k's own term, and its beta, one step later
-      const float* Gk = G + k * GS;
-      for (int i = tid; i < K; i += NT) {
-        if (i == k) continue;
-        float s = v.s[i];
-        if (i == k - 1) s = s + G[i * GS + i] * prev_delta;
-        v.s[i] = s + Gk[i] * delta;
-      }
-      if (tid == 0 && k > 0) v.beta[k - 1] = prev_w;
-      prev_delta = delta;
-      prev_w = w;
-      __syncthreads();
-    }
-    for (int i = tid; i < K; i += NT)
-      if (i == K - 1) v.s[i] = v.s[i] + G[i * GS + i] * prev_delta;
-    if (tid == 0) v.beta[K - 1] = prev_w;
-    __syncthreads();
-    pconv = fabsf(dec) <= tol;   // block-uniform
-  }
+  wide_cd_sweeps(G, GS, v, K, lam * alpha,
+                 __fmul_rn(lam, __fsub_rn(1.f, alpha)), tol, max_sweeps);
 }
 
 }  // namespace
@@ -355,14 +439,15 @@ __host__ __device__ inline size_t wide_gram_floats(int K) {
 
 // One column a block, from the counter `next`.  SHARED: xtx is one (K, K)
 // gram for every column (else (K, K, M), gene axis last); SMEM: the gram
-// lies in shared memory after the vectors (else in device memory); u_rows:
-// the active coordinates whose system fits in shared memory after them.
-template <bool SHARED, bool SMEM>
+// lies in shared memory after the vectors (else in device memory); CD: cold
+// strong-rule CD (else FSS + polish); u_rows: the active coordinates whose
+// FSS system fits in shared memory after them (CD: K, no system).
+template <bool SHARED, bool SMEM, bool CD>
 __global__ void __launch_bounds__(insider::WIDE_THREADS)
 wide_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
             const float* __restrict__ beta0, float* __restrict__ out,
             int* next, float* scratch, int M, int K, int u_rows,
-            insider::Solver<false> solver) {
+            insider::Solver<CD> solver) {
   using insider::WIDE_THREADS;
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[insider::WIDE_WARPS];
@@ -398,13 +483,16 @@ wide_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
           Gg[e] = g;
       }
     }
+    // a column comes out all NaN where its warm start holds a NaN or an
+    // Inf, or its Xty an Inf (FSS: also a NaN), as cd_group_columns' and
+    // fss_column's do
     bool fin = true;
     float xm = 0.f;
     for (int i = tid; i < K; i += WIDE_THREADS) {
       const float x = xty[(size_t)i * M + j], b = beta0[(size_t)i * M + j];
       v.xty[i] = x;
       v.beta[i] = b;
-      fin = fin && isfinite(x) && isfinite(b);
+      fin = fin && isfinite(b) && (CD ? !isinf(x) : isfinite(x));
       xm = fmaxf(xm, fabsf(x));
     }
     if (!__syncthreads_and(fin)) {
@@ -412,10 +500,13 @@ wide_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
         out[(size_t)i * M + j] = insider::not_a_number();
       continue;
     }
-    insider::wide_fss_column(G, GS, Us, u_rows, Ug, v, K, solver.l1,
-                             solver.l2, tol,
-                             solver.max_outer, solver.polish_sweeps, xm, red,
-                             ired);
+    if constexpr (CD)
+      insider::wide_cd_column(G, GS, v, K, solver.lam, solver.alpha, tol,
+                              solver.max_sweeps, xm, red);
+    else
+      insider::wide_fss_column(G, GS, Us, u_rows, Ug, v, K, solver.l1,
+                               solver.l2, tol, solver.max_outer,
+                               solver.polish_sweeps, xm, red, ired);
     for (int i = tid; i < K; i += WIDE_THREADS)
       out[(size_t)i * M + j] = v.beta[i];
   }
@@ -431,27 +522,28 @@ struct WidePlan {
   int blocks, per_sm;
 };
 
-template <bool SHARED>
+template <bool SHARED, bool CD>
 cudaError_t wide_plan(int M, int K, WidePlan& p) {
   const size_t vec =
       sizeof(float) * insider::WIDE_VECTORS * insider::wide_stride(K);
   const size_t gram = sizeof(float) * wide_gram_floats(K);
   int most = 0;
-  cudaError_t err = insider::max_dynamic_smem<wide_kernel<SHARED, true>>(most);
+  cudaError_t err =
+      insider::max_dynamic_smem<wide_kernel<SHARED, true, CD>>(most);
   if (err != cudaSuccess) return err;
   p.smem_gram = vec + gram <= (size_t)most;
   p.smem = p.smem_gram ? vec + gram : vec;
-  p.u_rows = 0;
-  while (p.smem_gram && p.u_rows < K &&
+  p.u_rows = CD ? K : 0;                 // CD solves no system
+  while (!CD && p.smem_gram && p.u_rows < K &&
          p.smem + sizeof(float) * wide_u_floats(p.u_rows + 1) <=
              (size_t)most)
     ++p.u_rows;
-  p.smem += sizeof(float) * wide_u_floats(p.u_rows);
+  if (!CD) p.smem += sizeof(float) * wide_u_floats(p.u_rows);
   insider::Residency res;
   err = p.smem_gram
-            ? insider::residency<wide_kernel<SHARED, true>>(
+            ? insider::residency<wide_kernel<SHARED, true, CD>>(
                   insider::WIDE_THREADS, p.smem, res)
-            : insider::residency<wide_kernel<SHARED, false>>(
+            : insider::residency<wide_kernel<SHARED, false, CD>>(
                   insider::WIDE_THREADS, p.smem, res);
   if (err != cudaSuccess) return err;
   if (res.per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -464,23 +556,23 @@ cudaError_t wide_plan(int M, int K, WidePlan& p) {
 // Floats of device scratch the wide solve needs at (M, K): 0 at K <= 128
 // (the narrow kernels) and where no plan exists (the launch then reports
 // the CUDA error).
-template <bool SHARED>
+template <bool SHARED, bool CD>
 long wide_scratch_floats(int M, int K) {
   WidePlan p;
   if (M < 1 || K <= insider::NARROW_MAX_K ||
-      wide_plan<SHARED>(M, K, p) != cudaSuccess)
+      wide_plan<SHARED, CD>(M, K, p) != cudaSuccess)
     return 0;
   return (long)p.blocks *
          (long)wide_block_floats(SHARED, p.smem_gram, p.u_rows, K);
 }
 
-template <bool SHARED>
+template <bool SHARED, bool CD>
 cudaError_t launch_wide(const float* xtx, const float* xty,
                         const float* beta0, float* out, int* next,
                         float* scratch, long scratch_len, int M, int K,
-                        insider::Solver<false> solver, cudaStream_t stream) {
+                        insider::Solver<CD> solver, cudaStream_t stream) {
   WidePlan p;
-  cudaError_t err = wide_plan<SHARED>(M, K, p);
+  cudaError_t err = wide_plan<SHARED, CD>(M, K, p);
   if (err != cudaSuccess) return err;
   const long need =
       (long)p.blocks *
@@ -491,14 +583,24 @@ cudaError_t launch_wide(const float* xtx, const float* xty,
   if ((err = cudaMemsetAsync(next, 0, sizeof(int), stream)) != cudaSuccess)
     return err;
   if (p.smem_gram)
-    wide_kernel<SHARED, true><<<p.blocks, insider::WIDE_THREADS, p.smem,
-                                stream>>>(xtx, xty, beta0, out, next,
-                                          scratch, M, K, p.u_rows, solver);
+    wide_kernel<SHARED, true, CD><<<p.blocks, insider::WIDE_THREADS, p.smem,
+                                    stream>>>(xtx, xty, beta0, out, next,
+                                              scratch, M, K, p.u_rows,
+                                              solver);
   else
-    wide_kernel<SHARED, false><<<p.blocks, insider::WIDE_THREADS, p.smem,
-                                 stream>>>(xtx, xty, beta0, out, next,
-                                           scratch, M, K, p.u_rows, solver);
+    wide_kernel<SHARED, false, CD><<<p.blocks, insider::WIDE_THREADS,
+                                     p.smem, stream>>>(
+        xtx, xty, beta0, out, next, scratch, M, K, p.u_rows, solver);
   return cudaGetLastError();
+}
+
+// The wide instance's columns an SM solves at once (insider_*_widths).
+template <bool SHARED, bool CD>
+cudaError_t wide_columns(int K, int& columns) {
+  WidePlan p;
+  const cudaError_t err = wide_plan<SHARED, CD>(1, K, p);
+  if (err == cudaSuccess) columns = p.per_sm;
+  return err;
 }
 
 }  // namespace

@@ -18,16 +18,22 @@ fss_shared.cu), all on the one cold-CD loop of csrc/fss_core.cuh
 Every kernel sweeps coordinates in the fixed order 0..K-1: the caller
 permutes the problem to randomize it (ops/col_update.py).
 
-The loop runs P = 32 / L columns on one warp, one to each group of L
-lanes, the groups sweeping in lockstep.  cd_fused runs four columns a warp
-(L = 8) and hands a group whose column converged the block's next column
-at the next sweep boundary (csrc/fss.cu, header), as cd_shared does with
-L = 8, 16 or 32 by K (csrc/fss_shared.cu); cd_streamed runs two columns a
-warp (L = 16), with no refill (csrc/fss_streamed.cu, header).  The widths
+Up to K = 128 the loop runs P = 32 / L columns on one warp, one to each
+group of L lanes, the groups sweeping in lockstep.  cd_fused runs four
+columns a warp (L = 8) and hands a group whose column converged the
+block's next column at the next sweep boundary (csrc/fss.cu, header), as
+cd_shared does with L = 8, 16 or 32 by K (csrc/fss_shared.cu); cd_streamed
+runs two columns a warp (L = 16), with no refill (csrc/fss_streamed.cu,
+header).  The widths
 cd_fused and cd_streamed have at a K are cd_fused_widths and
 cd_streamed_widths; their `lanes` argument forces one, a hook for tests
 and timings.  Each column's arithmetic, and so its bits, do not depend on
-L, on the columns that share its warp or on when it was taken.
+L, on the columns that share its warp or on when it was taken.  Above 128
+coordinates cd_streamed and cd_shared run the wide solve, one column a
+block of 128 threads (csrc/fss_wide.cuh, whose sweep loop the wide FSS
+polish shares), on a column counter and the scratch whose size their C
+entry reports (insider_cd_*_scratch), which the wrapper allocates beside
+the output, as kernels/fss.py does; cd_fused stays at K <= 32.
 
 A column whose warm start holds a NaN or an Inf, or whose Xty an Inf,
 comes out all NaN, where the plain version's and the TPU kernel's come out
@@ -44,16 +50,10 @@ from insider_tpu_torch.kernels import _lib
 from insider_tpu_torch.kernels.fss import FUSED_MAX_K, fused_mask
 from insider_tpu_torch.ops.fss import elastic_net_cd
 
-# The gram-input CD kernels hold at most four coordinates per lane of a
-# warp; cold CD above 128 is not ported to the card yet.
-MAX_K = 128
 
-
-def _scalars(lam, alpha, tol, like):
-    """lam and alpha as f32, and tol as the kernel reads it (one f32 on
-    like's card, _lib.tol_on_device)."""
-    return (float(np.float32(lam)), float(np.float32(alpha)),
-            _lib.tol_on_device(tol, like))
+def _f32(lam, alpha):
+    """lam and alpha as the kernels take them, rounded to f32."""
+    return float(np.float32(lam)), float(np.float32(alpha))
 
 
 def cd_fused_plain(mask, data, R, beta0, lam, alpha, tol,
@@ -100,7 +100,8 @@ def cd_fused(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor,
     if K > FUSED_MAX_K:
         raise ValueError(f"cd_fused: K={K} > {FUSED_MAX_K} is not supported "
                          "by the CUDA kernel")
-    lam, alpha, tol = _scalars(lam, alpha, tol, R)
+    lam, alpha = _f32(lam, alpha)
+    tol = _lib.tol_on_device(tol, R)
     out = torch.empty((K, M), dtype=torch.float32, device=R.device)
     with torch.cuda.device(R.device):
         err = _lib.lib().insider_cd_fused(
@@ -122,30 +123,6 @@ def cd_fused_widths(K: int, device=None) -> list:
     return _lib.widths("insider_cd_fused_widths", K, device)
 
 
-def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
-                     lam, alpha, tol, max_sweeps, *streamed):
-    """Check the operands of a gram-input CD kernel and launch it (the
-    streamed kernel also takes a column counter; `streamed`: its group
-    width)."""
-    _lib.require_cuda(what, xtx, xty, beta0)
-    K, M = xty.shape
-    if xtx.shape != gram_shape or beta0.shape != (K, M):
-        raise ValueError(f"{what}: shapes do not agree")
-    if K > MAX_K:
-        raise ValueError(f"{what}: K={K} > {MAX_K} is not supported by the "
-                         "CUDA kernel")
-    lam, alpha, tol = _scalars(lam, alpha, tol, xty)
-    out = torch.empty((K, M), dtype=torch.float32, device=xty.device)
-    counter = [_lib.column_counter(xty).data_ptr()] if streamed else []
-    with torch.cuda.device(xty.device):
-        err = getattr(_lib.lib(), c_entry)(
-            xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),
-            *counter, lam, alpha, tol.data_ptr(), M, K, int(max_sweeps),
-            *streamed, _lib.stream(xty))
-    _lib.check(err, what)
-    return out
-
-
 def cd_streamed_plain(xtx, xty, beta0, lam, alpha, tol,
                       max_sweeps: int = 200) -> torch.Tensor:
     """Plain version of cd_streamed: ops/fss.elastic_net_cd."""
@@ -158,18 +135,19 @@ def cd_streamed(xtx: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
     """Per-gene elastic net by cold strong-rule CD on streamed grams.
 
     xtx (K, K, M) per-gene grams, gene axis last (kernels/gram.col_gram_xty);
-    xty, beta0 (K, M); all f32, coordinates in the sweep order.  Returns
-    beta (K, M).  lanes: the kernel's group width L, 0 for the one it runs
-    at this K, else one of cd_streamed_widths(K) (it raises where not): a
-    hook for tests and timings, as every width gives the same bits.  The
-    plain version has no lanes.
+    xty, beta0 (K, M); all f32, coordinates in the sweep order; any K.
+    Returns beta (K, M).  lanes: the kernel's group width L (K <= 128: P =
+    32 / L columns a warp; above, 128, one column a block), 0 for the one
+    it runs at this K, else one of cd_streamed_widths(K) (it raises where
+    not): a hook for tests and timings, as every width gives the same
+    bits.  The plain version has no lanes.
     """
     if _lib.on_cpu("cd_streamed", xtx, xty, beta0):
         return cd_streamed_plain(xtx, xty, beta0, lam, alpha, tol, max_sweeps)
     K, M = xty.shape
-    out = _launch_on_grams("cd_streamed", "insider_cd_streamed", xtx,
-                           (K, K, M), xty, beta0, lam, alpha, tol, max_sweeps,
-                           int(lanes))
+    out = _lib.launch_on_grams("cd_streamed", "insider_cd_streamed", xtx,
+                               (K, K, M), xty, beta0, *_f32(lam, alpha), tol,
+                               max_sweeps, lanes)
     cd_streamed.launches += 1
     return out
 
@@ -197,14 +175,14 @@ def cd_shared(xtx: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
     """Per-gene elastic net by cold strong-rule CD against ONE (K, K) gram
     shared by every column: the dense column update.
 
-    xtx (K, K); xty, beta0 (K, M); all f32, coordinates in the sweep order.
-    Returns beta (K, M).
+    xtx (K, K); xty, beta0 (K, M); all f32, coordinates in the sweep order;
+    any K.  Returns beta (K, M).
     """
     if _lib.on_cpu("cd_shared", xtx, xty, beta0):
         return cd_shared_plain(xtx, xty, beta0, lam, alpha, tol, max_sweeps)
     K = xty.shape[0]
-    out = _launch_on_grams("cd_shared", "insider_cd_shared", xtx, (K, K), xty,
-                           beta0, lam, alpha, tol, max_sweeps)
+    out = _lib.launch_on_grams("cd_shared", "insider_cd_shared", xtx, (K, K),
+                               xty, beta0, *_f32(lam, alpha), tol, max_sweeps)
     cd_shared.launches += 1
     return out
 

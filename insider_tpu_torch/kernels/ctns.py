@@ -2,9 +2,12 @@
 
 No Pallas counterpart: it replaces the XLA while_loop of
 insider_tpu/ops/continuous.py:_ctns_cd (src/optimize.cpp:102-126).  The
-wrapper runs the CUDA kernel (csrc/ctns_cd.cu, one warp) on CUDA tensors
+wrapper runs the CUDA kernel (csrc/ctns_cd.cu) on CUDA tensors
 and its plain version on CPU tensors; a CUDA tensor never reaches the plain
-version.  `ctns_cd.launches` counts the kernel's launches.
+version.  `ctns_cd.launches` counts the kernel's launches.  The kernel
+takes any K: one warp up to 128 coordinates, a block of 128 threads above
+(XtX in shared memory where it fits, else read in place), bit for bit its
+plain version either way.
 """
 
 from __future__ import annotations
@@ -13,9 +16,6 @@ import numpy as np
 import torch
 
 from insider_tpu_torch.kernels import _lib
-
-# A lane holds four coordinates of the warp's 32 lanes.
-MAX_K = 128
 
 
 def ctns_cd_plain(XtX, b, w0, lam, tol, max_sweeps: int = 100,
@@ -57,8 +57,8 @@ def ctns_cd(XtX: torch.Tensor, b: torch.Tensor, w0: torch.Tensor, lam, tol,
             with_sweeps: bool = False):
     """Sequential ridge CD of one covariate's coefficients in K-space.
 
-    XtX (K, K), b (K,), w0 (K,) warm start, f32; 1 <= K <= 128 on the
-    card; max_sweeps >= 1.  Sweeps coordinates 0..K-1 until a sweep's
+    XtX (K, K), b (K,), w0 (K,) warm start, f32; any K >= 1;
+    max_sweeps >= 1.  Sweeps coordinates 0..K-1 until a sweep's
     sum |delta w| (loss_criterion: its sum of 0.5 (XtX_kk + lam) delta^2)
     is below tol, or max_sweeps sweeps.  Returns w (K,), or with
     with_sweeps (w, sweeps) where sweeps is a (1,) int32 tensor on the
@@ -74,9 +74,8 @@ def ctns_cd(XtX: torch.Tensor, b: torch.Tensor, w0: torch.Tensor, lam, tol,
     K = b.shape[0]
     if XtX.shape != (K, K) or w0.shape != (K,):
         raise ValueError("ctns_cd: shapes do not agree")
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"ctns_cd: K={K} is outside the CUDA kernel's "
-                         f"1..{MAX_K}")
+    if K < 1:
+        raise ValueError("ctns_cd: K must be >= 1")
     w = torch.empty_like(w0)
     sweeps = torch.empty(1, dtype=torch.int32, device=w0.device)
     with torch.cuda.device(w0.device):

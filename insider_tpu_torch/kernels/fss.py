@@ -107,34 +107,6 @@ def feature_sign_fused(mask: torch.Tensor, data: torch.Tensor,
 feature_sign_fused.launches = 0
 
 
-def _launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
-                     lam, alpha, max_outer, polish_sweeps, tol, *shared):
-    """Check the operands of a gram-input FSS kernel and launch it, with a
-    column counter (the streamed kernel's and the wide solve's; the narrow
-    shared-gram kernel leaves it) and the scratch its C entry's `_scratch`
-    asks for (the wide solve's, none at K <= 128); `shared`: the
-    shared-gram kernel's group width."""
-    _lib.require_cuda(what, xtx, xty, beta0)
-    K, M = xty.shape
-    if xtx.shape != gram_shape or beta0.shape != (K, M):
-        raise ValueError(f"{what}: shapes do not agree")
-    l1, l2 = penalties(lam, alpha)
-    tol = _lib.tol_on_device(tol, xty)
-    out = torch.empty((K, M), dtype=torch.float32, device=xty.device)
-    lib = _lib.lib()
-    counter = _lib.column_counter(xty)
-    with torch.cuda.device(xty.device):
-        n = getattr(lib, c_entry + "_scratch")(M, K)
-        scratch = torch.empty(n, dtype=torch.float32, device=xty.device)
-        err = getattr(lib, c_entry)(
-            xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),
-            counter.data_ptr(), scratch.data_ptr() if n else None, n, l1, l2,
-            tol.data_ptr(), M, K, int(max_outer), int(polish_sweeps),
-            *shared, _lib.stream(xty))
-    _lib.check(err, what)
-    return out
-
-
 def feature_sign_plain(xtx, xty, beta0, lam, alpha, max_outer: int = 48,
                        polish_sweeps: int = 0,
                        tol: float = 0.0) -> torch.Tensor:
@@ -156,9 +128,9 @@ def feature_sign(xtx: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
         return feature_sign_plain(xtx, xty, beta0, lam, alpha, max_outer,
                                   polish_sweeps, tol)
     K, M = xty.shape
-    out = _launch_on_grams("feature_sign", "insider_fss_streamed", xtx,
-                           (K, K, M), xty, beta0, lam, alpha, max_outer,
-                           polish_sweeps, tol)
+    out = _lib.launch_on_grams("feature_sign", "insider_fss_streamed", xtx,
+                               (K, K, M), xty, beta0, *penalties(lam, alpha),
+                               tol, max_outer, polish_sweeps)
     feature_sign.launches += 1
     return out
 
@@ -196,9 +168,10 @@ def feature_sign_shared(xtx: torch.Tensor, xty: torch.Tensor,
         return feature_sign_shared_plain(xtx, xty, beta0, lam, alpha,
                                          max_outer, polish_sweeps, tol)
     K = xty.shape[0]
-    out = _launch_on_grams("feature_sign_shared", "insider_fss_shared", xtx,
-                           (K, K), xty, beta0, lam, alpha, max_outer,
-                           polish_sweeps, tol, int(lanes))
+    out = _lib.launch_on_grams("feature_sign_shared", "insider_fss_shared",
+                               xtx, (K, K), xty, beta0,
+                               *penalties(lam, alpha), tol, max_outer,
+                               polish_sweeps, lanes)
     feature_sign_shared.launches += 1
     return out
 

@@ -28,20 +28,17 @@ on them, at any K (insider_tpu/ops/col_update.py:360, where the fused
 kernels need the whole row axis on the device).  The dense gram R^T R and
 R^T data are summed over the row blocks likewise.
 
-On the card FSS and the ridge solves take any K (above 128 the FSS
-kernels run their wide solve, one column a block); cold CD (cd_streamed,
-cd_shared) and the masked covariates' ctns_cd stop at 128, and a fit that
-would reach them above it raises ValueError (check_rank; train/als.optimize
-checks it before the first iteration).  On the CPU the plain versions take
-any K, as the JAX package's CPU path does.
+Every solver takes any K, on the card and on the CPU: above 128 the
+gram-input FSS and CD kernels run their wide solves, one column a block
+(csrc/fss_wide.cuh); on the CPU the plain versions run, as the JAX
+package's CPU path does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from insider_tpu_torch.kernels.cd import (MAX_K, cd_fused, cd_shared,
-                                          cd_streamed)
+from insider_tpu_torch.kernels.cd import cd_fused, cd_shared, cd_streamed
 from insider_tpu_torch.kernels.fss import (FUSED_MAX_K, feature_sign,
                                            feature_sign_fused,
                                            feature_sign_shared)
@@ -60,23 +57,6 @@ def col_gram_masked(R: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     N, K = R.shape
     PR = (R[:, :, None] * R[:, None, :]).reshape(N, K * K)
     return torch.matmul(mask.T, PR).reshape(-1, K, K)
-
-
-def check_rank(K: int, device, cold_cd: bool = False,
-               masked_ctns: bool = False) -> None:
-    """Raise ValueError when a rank-K fit on `device` would reach a kernel
-    that the card takes only up to K = 128: cold CD (`cold_cd`: cd_streamed,
-    cd_shared) or the masked continuous covariates' ctns_cd
-    (`masked_ctns`).  FSS, the ridge solves and every other kernel take any
-    K on the card; the CPU takes any K."""
-    if torch.device(device).type != "cuda" or K <= MAX_K:
-        return
-    what = [name for name, on in (
-        ("cold CD (col_solver='cd', cd_warm_start=False)", cold_cd),
-        ("masked continuous covariates", masked_ctns)) if on]
-    if what:
-        raise ValueError(f"on the card {' and '.join(what)} take latent_dim "
-                         f"<= {MAX_K} (the kernels' limit), got {K}")
 
 
 def _order(perm, device):
@@ -111,12 +91,11 @@ def update_columns_masked(
     polish (:345-390).  The JAX package takes its fused kernels when the
     TPU's VMEM holds them and its streamed route otherwise; the port picks
     by K, on every device: the fused kernel for K <= 32, the streamed route
-    (col_gram_xty, then the solver on its grams) for K > 32 (cold CD at
-    most 128 on the card).  mesh: this rank's place in a sharded fit (see the module
-    docstring); with several row blocks the streamed route at any K.
+    (col_gram_xty, then the solver on its grams) for K > 32.  mesh: this
+    rank's place in a sharded fit (see the module docstring); with several
+    row blocks the streamed route at any K.
     """
     K = R.shape[1]
-    check_rank(K, R.device, cold_cd=perm is not None and alpha != 0.0)
     fused = K <= FUSED_MAX_K and (mesh is None or mesh.cfg.rows == 1)
 
     def grams(R):
@@ -165,7 +144,6 @@ def update_columns_dense(
     under a mesh.  Solvers as update_columns_masked; cold CD permutes both
     axes of the gram."""
     K = R.shape[1]
-    check_rank(K, R.device, cold_cd=perm is not None and alpha != 0.0)
     XtX = comm.psum(torch.matmul(R.T, R), mesh, "rows")  # (K, K) shared
     Xty = comm.psum(torch.matmul(R.T, data), mesh, "rows")   # (K, M)
     if alpha == 0.0:

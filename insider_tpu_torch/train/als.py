@@ -1051,9 +1051,7 @@ def optimize(problem: Problem, config: FitConfig,
     covariates).  The problem decides masked or dense
     (build_problem(masked=...)), as in the JAX package.  Cold CD draws one
     coordinate order per iteration (draw_perm) from a CPU generator seeded
-    with config.seed.  On the card the rank is checked, before anything
-    runs, against the K <= 128 of the kernels that do not take more yet:
-    cold CD's and the masked covariates' (ops/col_update.check_rank).
+    with config.seed.  Every setting takes any rank, on the card too.
 
     checkpoint_path: save the state at every check boundary (checkpoint.py,
     the JAX package's format, with the decay ladder and the loss delta in
@@ -1105,10 +1103,6 @@ def optimize(problem: Problem, config: FitConfig,
         if verbose:
             logger.info("resumed from %s at iter %d (decay=%g)",
                         checkpoint_path, meta["iter"], resume_decay)
-    col_update.check_rank(
-        config.latent_dim if state is None else state.latent_dim,
-        problem.device, cold_cd=cold_cd,
-        masked_ctns=problem.masked and problem.ctns is not None)
     if state is None:
         M = problem.shape[1]
         if generator is None:

@@ -172,7 +172,7 @@ def test_dense_update_matches_jax_and_closed_form(fast):
 
 @pytest.mark.parametrize("loss_criterion,tol", [(False, 1e-1), (True, 1e-3),
                                                 (False, 1e-6)])
-@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("k", [1, 5, 8, 136])
 def test_plain_ctns_cd_matches_jax(loss_criterion, tol, k):
     rng = np.random.default_rng(10 + k)
     A = rng.standard_normal((3 * k, k)).astype(np.float32)

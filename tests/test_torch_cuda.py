@@ -30,9 +30,10 @@ col_gram_xty also every entry's error <= 1e-6 of its own sum of |terms|), a
 bound that one bf16 plane of the table would not meet; col_gram_xty's grams
 are symmetric bit for bit.  Every kernel is run twice
 and must agree with itself bit for bit.  Past K = 128 (WIDE_RANKS: 129,
-160, 256 and 300, where the wide FSS solve reads its gram from device
-memory) the widened kernels are held to the same gates, with both mask
-dtypes where the kernel takes both.
+160, 256 and 300, where the wide FSS and cold-CD solves read their gram
+from device memory) the widened kernels are held to the same gates, with
+both mask dtypes where the kernel takes both; ctns_cd is its plain
+version bit for bit, sweep counts included, at every K.
 """
 
 import numpy as np
@@ -648,6 +649,65 @@ def test_cd_shared(cuda, N, K, M):
     assert torch.equal(got, cd.cd_shared(XtX, b, beta0, **kw))
 
 
+# past the narrow kernels' 128 (WIDE_RANKS), the wide cold-CD solve: lam 11
+# screens nothing here, lam 30 screens part of every column (the skipped
+# coordinates, the KKT reactivation)
+@pytest.mark.parametrize("lam", [11.0, 30.0])
+@pytest.mark.parametrize("K", WIDE_RANKS)
+@pytest.mark.parametrize("name", ["cd_streamed", "cd_shared"])
+def test_cd_wide(cuda, name, K, lam):
+    N, M = K + 50, 67
+    R, mask, data, beta0 = _masked_inputs(N, K, M, seed=80 + K)
+    R, mask, data, beta0 = (_t(x, cuda) for x in (R, mask, data, beta0))
+    kw = dict(CD_KW, lam=lam)
+    if name == "cd_streamed":
+        G, b = gram.col_gram_xty_plain(mask, data, R)
+        args, Gc = (G, b, beta0), G
+    else:
+        G, b = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+        args, Gc = (G, b, beta0), G[:, :, None].expand(K, K, M)
+    fn, plain = getattr(cd, name), getattr(cd, name + "_plain")
+    n0 = fn.launches
+    got = fn(*args, **kw)
+    assert fn.launches == n0 + 1
+    _check_cd(got, plain(*args, **kw), Gc, b, lam)
+    assert torch.equal(got, fn(*args, **kw))                 # bit for bit
+    thr = kw["alpha"] * (2 * lam - b.abs().max(0).values)
+    assert bool((b.abs() < thr).any()) == (lam > 20)         # screened
+    if name == "cd_streamed":
+        # one instance, a column a block of 128 threads; other widths raise
+        widths = dict(cd.cd_streamed_widths(K))
+        assert list(widths) == [128] and widths[128] >= 1
+        assert torch.equal(got, fn(*args, **kw, lanes=128))
+        with pytest.raises(RuntimeError):
+            fn(*args, **kw, lanes=16)
+
+
+@pytest.mark.parametrize("K", WIDE_RANKS)
+@pytest.mark.parametrize("name", ["cd_streamed", "cd_shared"])
+def test_cd_wide_columns_are_independent(cuda, name, K):
+    """The wide cold-CD solve: each column of one batched call equals, bit
+    for bit, the kernel's output on that column alone, where neighbouring
+    columns stop at very different sweeps (every even one after a sweep,
+    the odd ones at the cap).  M = 37."""
+    M = 37
+    G, b, beta0 = _staggered(K, M, K, cuda)
+    if name == "cd_shared":
+        G = G[:, :, 0].contiguous()
+    kw = dict(lam=0.05, alpha=0.5, tol=0.0, max_sweeps=40)
+    fn = getattr(cd, name)
+    got = fn(G, b, beta0, **kw)
+    fewer = fn(G, b, beta0, **dict(kw, max_sweeps=39))
+    assert float(got[:, ::2].abs().max()) == 0.0
+    assert not any(torch.equal(got[:, j], fewer[:, j])
+                   for j in range(1, M, 2))          # at the cap
+    for j in range(M):
+        Gj = G if name == "cd_shared" else G[:, :, j:j + 1].contiguous()
+        alone = fn(Gj, b[:, j:j + 1].contiguous(),
+                   beta0[:, j:j + 1].contiguous(), **kw)
+        assert torch.equal(alone[:, 0], got[:, j]), j
+
+
 def test_masked_problem_past_65536_rows(cuda):
     """A masked problem whose one level holds 70000 rows builds on the card,
     its level grams (three count planes) hold to the f64 sum, and a short
@@ -697,8 +757,11 @@ def test_masked_k50_fit(cuda):
 
 
 # K = 109 is the largest whose padded XtX fits 48 KB of shared memory, 110
-# the first past it; 33 and 128 fill a lane's second and fourth slot
-@pytest.mark.parametrize("K", [1, 5, 24, 33, 64, 109, 110, 128])
+# the first past it; 33 and 128 fill a lane's second and fourth slot; past
+# 128 (WIDE_RANKS) the block of 128 threads, XtX in shared memory at 129
+# and 160, read in place at 256 and 300
+@pytest.mark.parametrize("K", [1, 5, 24, 33, 64, 109, 110, 128]
+                         + list(WIDE_RANKS))
 @pytest.mark.parametrize("loss_criterion,tol", [(False, 1e-1), (True, 1e-3),
                                                 (False, 1e-7)])
 def test_ctns_cd(cuda, K, loss_criterion, tol):
@@ -726,10 +789,15 @@ def test_ctns_cd_sweep_cap(cuda):
     w, sweeps = ctns.ctns_cd(XtX, b, torch.zeros(2, device=cuda), 1e-3,
                              1e-12, 3, with_sweeps=True)
     assert int(sweeps) == 3
-    with pytest.raises(ValueError):
-        ctns.ctns_cd(torch.zeros((129, 129), device=cuda),
-                     torch.zeros(129, device=cuda),
-                     torch.zeros(129, device=cuda), 1.0, 0.1)
+    # past 128 too (the block of 128 threads), bit for bit its plain version
+    rng = np.random.default_rng(129)
+    A = rng.standard_normal((140, 129)).astype(np.float32)
+    args = (_t(A.T @ A, cuda), _t(rng.standard_normal(129).astype(
+        np.float32), cuda), torch.zeros(129, device=cuda), 1e-3, 1e-12, 3)
+    w, sweeps = ctns.ctns_cd(*args, with_sweeps=True)
+    w_ref, sweeps_ref = ctns.ctns_cd_plain(*args)
+    assert int(sweeps) == int(sweeps_ref) == 3
+    assert torch.equal(w, w_ref)
 
 
 @pytest.mark.parametrize("partition", [1, 0])
@@ -1117,7 +1185,7 @@ def _mid_dispatch_tol(problem, kw):
 GRAPH_KINDS = ["masked", "dense", "cold masked", "cold dense", "masked K40",
                "covariates masked", "covariates dense", "segment masked",
                "segment dense", "converging masked", "masked K160",
-               "dense K160"]
+               "dense K160", "cold masked K160"]
 
 
 @pytest.mark.parametrize("kind", GRAPH_KINDS)
@@ -1212,14 +1280,15 @@ def test_one_by_one_sharded_card_fit_equals_the_eager_fit(
 
 # every column kernel, and the K it runs at: the fused ones up to 32, the
 # others also past it (K=50: two coordinates a lane; K=160: the wide FSS
-# solve and col_gram_xty's second Xty block)
+# and cold-CD solves and col_gram_xty's second Xty block)
 NONFINITE_CASES = [(name, k) for k in (6, 24, 50)
                    for name in ("col_gram_xty", "feature_sign",
                                 "feature_sign_shared", "cd_streamed",
                                 "cd_shared")
                    + (("feature_sign_fused", "cd_fused") if k <= 32 else ())
                    ] + [(name, 160) for name in ("col_gram_xty", "feature_sign",
-                                                 "feature_sign_shared")]
+                                                 "feature_sign_shared",
+                                                 "cd_streamed", "cd_shared")]
 
 
 @pytest.mark.parametrize("name,K", NONFINITE_CASES)

@@ -2,9 +2,8 @@
 fss.py: feature_sign on streamed (K, K, M) grams, feature_sign_shared on one
 (K, K) gram) against the JAX package's Pallas kernels, the masked column
 update's dispatch by K, the column updates at K = 72 > 64 (which raised
-before the kernels held four coordinates per lane), and at K = 136 > 128 on
-the CPU, where the plain versions take any K (the CUDA kernels stop at 128,
-and a fit on the card says so before its first iteration).
+before the kernels held four coordinates per lane), and at K = 129-200 >
+128, where the plain versions take any K, as the card's wide solves do.
 
 On CPU tensors the wrappers run their plain version (ops/fss.py, which
 follows the TPU kernel's iteration); the Pallas kernels run in interpret
@@ -157,36 +156,39 @@ def test_dense_column_update_dispatch(monkeypatch):
 
 @pytest.mark.parametrize("update", ["masked", "dense"])
 def test_column_update_rejects_k_over_64(update, monkeypatch):
-    """On the card only cold CD (cd_streamed, cd_shared) and the masked
-    covariates' ctns_cd stop at K = 128: check_rank raises for them at
-    K = 129 and lets FSS through at K = 129 and 200 (the wide solve); both
-    updates call it first, cold CD flagged by its coordinate order; on the
-    CPU every solver takes any K, as the JAX package's CPU path does.  The
-    test keeps its name from when every column kernel stopped at 64."""
-    K, N, M = 129, 140, 10
-    R, mask, data, F0 = (T(x) for x in _inputs(N, K, M, seed=129))
-    for flags in (dict(cold_cd=True), dict(masked_ctns=True),
-                  dict(cold_cd=True, masked_ctns=True)):
-        with pytest.raises(ValueError, match="128"):
-            col_update.check_rank(K, "cuda", **flags)
-        col_update.check_rank(128, "cuda", **flags)
-        col_update.check_rank(K, "cpu", **flags)
-    for k in (K, 200):
-        col_update.check_rank(k, "cuda")
-    seen = []
-    real = col_update.check_rank
-    monkeypatch.setattr(col_update, "check_rank", lambda k, dev, **kw: (
-        seen.append((k, dev.type, kw)), real(k, dev, **kw)))
-    for perm in (None, torch.arange(K - 1, -1, -1)):
-        if update == "masked":
-            F = col_update.update_columns_masked(data, mask, R, F0, 30.0,
-                                                 0.5, 1e-5, perm=perm)
-        else:
-            F = col_update.update_columns_dense(data, R, F0, 30.0, 0.5, 1e-5,
-                                                perm=perm)
-        assert F.shape == (K, M) and bool(torch.isfinite(F).all())
-    assert seen == [(K, "cpu", dict(cold_cd=False)),
-                    (K, "cpu", dict(cold_cd=True))]
+    """No rank is refused: the masked and dense column updates run FSS and
+    cold CD (given a coordinate order) at K = 129 and 200, past the narrow
+    CUDA kernels' 128, where the card runs the wide solves; here, on the
+    CPU, through the dispatch the card takes (masked: col_gram_xty, then
+    feature_sign or cd_streamed; dense: feature_sign_shared or cd_shared),
+    with finite results of the update's shape.  The test keeps its name
+    from when every column kernel stopped at 64 (and, until cold CD and
+    the covariates took K > 128 on the card, checked their refusal)."""
+    M = 10
+    names = (["col_gram_xty", "feature_sign", "cd_streamed"]
+             if update == "masked" else ["feature_sign_shared", "cd_shared"])
+    calls = []
+    for name in names:
+        _spy(monkeypatch, name, calls)
+    for K in (129, 200):
+        R, mask, data, F0 = (T(x) for x in _inputs(K + 11, K, M, seed=K))
+        for perm in (None, torch.arange(K - 1, -1, -1)):
+            del calls[:]
+            if update == "masked":
+                F = col_update.update_columns_masked(
+                    data, mask, R, F0, 30.0, 0.5, 1e-5, perm=perm,
+                    max_cd_sweeps=40)
+                want = ["col_gram_xty",
+                        "feature_sign" if perm is None else "cd_streamed"]
+            else:
+                F = col_update.update_columns_dense(
+                    data, R, F0, 30.0, 0.5, 1e-5, perm=perm,
+                    max_cd_sweeps=40)
+                want = ["feature_sign_shared" if perm is None
+                        else "cd_shared"]
+            assert calls == want, (K, perm is None)
+            assert F.shape == (K, M) and bool(torch.isfinite(F).all())
+            assert int((F == 0).sum()) > 0 and int((F != 0).sum()) > 0
 
 
 def _inputs(N, K, M, seed):
@@ -300,13 +302,15 @@ def test_column_update_k136_on_cpu_matches_jax(update):
 
 def test_fit_on_the_card_checks_the_rank_before_its_first_iteration(
         monkeypatch):
-    """optimize() on a problem that lies on a CUDA device raises ValueError
-    for K = 129 and 200 with cold CD or masked continuous covariates, the
-    kernels that stop at 128 on the card, before it evaluates, draws or
-    iterates anything; FSS (masked, dense, with covariates where dense),
-    warm-started CD and the ridge solves get past the check.  Runs without
-    a card: the problems (on the CPU) report a CUDA device, and every step
-    a fit would take first is replaced by one that fails."""
+    """optimize() on a problem that lies on a CUDA device refuses no rank:
+    at K = 128, 129 and 200, cold CD (masked and dense), masked continuous
+    covariates, FSS (masked, dense, with covariates where dense),
+    warm-started CD and the ridge solves all go on to the fit's first
+    step, where the card runs the wide solves past 128.  Runs without a
+    card: the problems (on the CPU) report a CUDA device, and every step a
+    fit would take first is replaced by one that fails.  The test keeps
+    its name from when cold CD and the masked covariates were refused
+    there above 128."""
     from insider_tpu_torch.config import FitConfig
     from insider_tpu_torch.train import als
 
@@ -324,7 +328,7 @@ def test_fit_on_the_card_checks_the_rank_before_its_first_iteration(
     dense_covariates = problem_of(rng.standard_normal((N, 2)), False)
 
     def ran(*args, **kw):
-        raise AssertionError("the fit ran before checking the rank")
+        raise AssertionError("the fit reached its first step")
 
     monkeypatch.setattr(als.Problem, "device",
                         property(lambda self: torch.device("cuda")))
@@ -337,16 +341,11 @@ def test_fit_on_the_card_checks_the_rank_before_its_first_iteration(
             dict(latent_dim=K, lambda1=1.0, lambda2=1.0, alpha=0.5), **kw)),
                      generator=torch.Generator(), verbose=False)
 
-    for K in (129, 200):
-        for problem, kw in ((plain, cold), (dense, cold), (covariates, {})):
-            with pytest.raises(ValueError, match="128"):
-                fit(problem, K, **kw)
     for K in (128, 129, 200):
-        for problem, kw in ((plain, {}), (dense, {}), (dense_covariates, {}),
+        for problem, kw in ((plain, cold), (dense, cold), (covariates, {}),
+                            (covariates, cold), (plain, {}), (dense, {}),
+                            (dense_covariates, {}),
                             (plain, dict(col_solver="cd")),
                             (plain, dict(cold, alpha=0.0))):
-            with pytest.raises(AssertionError, match="before checking"):
+            with pytest.raises(AssertionError, match="first step"):
                 fit(problem, K, **kw)
-    for problem, kw in ((plain, cold), (covariates, {})):
-        with pytest.raises(AssertionError, match="before checking"):
-            fit(problem, 128, **kw)

@@ -3,8 +3,9 @@ versions against the JAX package, on the same numpy inputs.
 
 On the card these are the widened kernels (row_xty and masked_eval in tiles
 of 128 coordinates, col_gram_xty's Xty blocks of 128, level_gram's wider F
-ring, the wide FSS solve for feature_sign and feature_sign_shared); here, on
-CPU tensors, their wrappers run the plain versions, which tests/
+ring, the wide FSS and cold-CD solves for feature_sign, feature_sign_shared,
+cd_streamed and cd_shared, ctns_cd's block of 128 threads); here, on CPU
+tensors, their wrappers run the plain versions, which tests/
 test_torch_cuda.py holds the kernels to on the card.
 
 Tolerances:
@@ -18,6 +19,21 @@ Tolerances:
     Pallas FSS kernel takes ~50 s in interpret mode at this K): the same
     iteration, whose elimination rounds otherwise, so each column's
     elastic-net objective within 1e-6 relative;
+  * cd_streamed's and cd_shared's plain iteration (cold strong-rule CD,
+    ops/fss.elastic_net_cd) against the JAX package's elastic_net_cd
+    (insider_tpu/ops/col_update.py:155) at a 40-sweep cap, given the
+    JAX-drawn per-sweep orders (perms=): rtol 2e-5, atol 1e-5 on beta, as
+    tests/test_torch_cd.py holds the CD kernels at narrow K;
+  * a whole cold-CD masked fit (48 x 16, col_solver="cd",
+    cd_warm_start=False, sub_tol 1e-9: at the default 1e-5 the two
+    iterations' tolerance-stopped sub-solves on these rank-48 grams leave
+    the losses 9e-5 apart) against the f64 oracle: every boundary's loss
+    and RMSEs within rtol 2e-5, as tests/test_torch_cd_fit.py:83 holds the
+    narrow cold-CD fit;
+  * a whole masked fit with P = 2 continuous covariates (48 x 16, ridge
+    columns, the covariates' ctns_cd at K = 136) against the JAX package's
+    fit on its CPU path: every boundary's loss and train RMSE within rtol
+    1e-5, as tests/test_torch_continuous.py holds the narrow covariate fits;
   * a whole masked and a whole dense fit (48 x 16, two confounders, K =
     136) against the JAX package's fit on its CPU path (use_pallas=False:
     FSS and a randomly permuted plain-CD polish, where the port's polish
@@ -46,12 +62,14 @@ from insider_tpu.kernels.eval_pallas import masked_eval_pallas
 from insider_tpu.kernels.gram_pallas import col_gram_xty_pallas
 from insider_tpu.kernels.row_pallas import level_gram_pallas, row_xty_pallas
 from insider_tpu.model.state import init_state as jax_init_state
+from insider_tpu.ops import col_update as jax_col_update
 from insider_tpu.ops.fss import feature_sign_batched
 from insider_tpu.train import als as jax_als
 from insider_tpu_torch.config import FitConfig
 from insider_tpu_torch.kernels import eval as ev
-from insider_tpu_torch.kernels import fss, gram, row
+from insider_tpu_torch.kernels import ctns, fss, gram, row
 from insider_tpu_torch.model.state import state_from_numpy
+from insider_tpu_torch.ops.fss import elastic_net_cd
 from insider_tpu_torch.train import als
 
 K = 136
@@ -172,6 +190,45 @@ def test_feature_sign_plain_matches_jax_iteration(shared):
     assert int((got == 0).sum()) > 0 and int((got != 0).sum()) > 0
 
 
+@pytest.mark.parametrize("shared", [False, True])
+def test_cd_plain_matches_jax_elastic_net_cd(shared):
+    """Cold strong-rule CD at K = 136: the port's plain iteration
+    (ops/fss.elastic_net_cd, what cd_streamed_plain runs, and on the gram
+    broadcast to every column what cd_shared_plain runs), given the
+    per-sweep orders the JAX package draws from its key, against the JAX
+    package's elastic_net_cd; some coordinates screened, lasso zeros
+    exact."""
+    _, R, mask, data, _ = _masked(60, 12, seed=20 + shared)
+    M = data.shape[1]
+    beta0 = (0.01 * np.random.default_rng(21).standard_normal((K, M))
+             ).astype(np.float32)
+    lam, alpha, tol, sweeps = 6.0, 0.4, 1e-8, 40
+    if shared:
+        G = (R.T @ R).astype(np.float32)
+        b = (R.T @ data).astype(np.float32)
+        G_jax = G[None]
+    else:
+        Gk, bk = gram.col_gram_xty(*(torch.from_numpy(x)
+                                     for x in (mask, data, R)))
+        G, b = Gk.numpy(), bk.numpy()
+        G_jax = np.ascontiguousarray(G.transpose(2, 0, 1))
+    key = jax.random.PRNGKey(5)
+    want, _, _ = jax_col_update.elastic_net_cd(
+        jnp.asarray(G_jax), jnp.asarray(b), jnp.asarray(beta0), lam, alpha,
+        jnp.float32(tol), key, max_sweeps=sweeps)
+    perms = np.asarray(jax_col_update.make_sweep_perms(
+        jax.random.split(key)[1], K, sweeps))
+    Gt, bt, b0 = (torch.from_numpy(x) for x in (G, b, beta0))
+    if shared:
+        Gt = Gt[:, :, None].expand(K, K, M)
+    got = elastic_net_cd(Gt, bt, b0, lam, alpha, tol, sweeps, perms=perms)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=1e-5)
+    mx = np.abs(b).max(0)
+    assert (np.abs(b) < np.float32(alpha) * (2 * lam - mx)).any()  # screened
+    assert int((got == 0).sum()) > 0 and int((got != 0).sum()) > 0
+
+
 # the fits: 48 samples, 16 genes, two confounders (4 and 6 levels), FSS to
 # convergence (max_fss_outer 200: from a warm start a step activates one
 # coordinate), 10 iterations (the plain FSS at K = 136 and the JAX fit's
@@ -231,3 +288,68 @@ def test_fit_matches_jax_cpu_path_and_f64_oracle(masked):
     o_loss = [h["loss"] for h in oracle["history"]]
     assert [h["iter"] for h in oracle["history"]] == [-1, 0, 10]
     np.testing.assert_allclose(losses, o_loss, rtol=1e-5)
+
+
+def test_cold_cd_masked_fit_matches_f64_oracle():
+    """Cold strong-rule CD (col_solver="cd", cd_warm_start=False) through the
+    masked fit at K = 136 against the f64 oracle's strong-rule CD, from the
+    JAX package's initial state."""
+    import oracles
+
+    data, confounder, train, test = _fit_problem(True)
+    prob = als.build_problem(data, confounder, train, test, device="cpu")
+    st = jax_init_state(jax.random.PRNGKey(0), prob.n_levels, M_FIT, K)
+    cfd0 = [np.asarray(f) for f in st.cfd_factors]
+    F0 = np.asarray(st.column_factor)
+    cfg = FitConfig(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=ALPHA,
+                    max_iter=MAX_ITER, global_tol=1e-12, sub_tol=1e-9,
+                    col_solver="cd", cd_warm_start=False)
+    res = als.optimize(prob, cfg, state=state_from_numpy(cfd0, None, F0,
+                                                         "cpu"),
+                       verbose=False)
+    oracle = oracles.reference_optimize(
+        prob.data.numpy(), prob.train_mask.numpy(), prob.test_mask.numpy(),
+        [c.numpy() for c in prob.codes], list(prob.n_levels), F0, cfd0, LAM,
+        LAM, ALPHA, max_iter=MAX_ITER, global_tol=1e-12, sub_tol=1e-9)
+    assert [h["iter"] for h in res.history] == [-1, 0, 10]
+    assert [h["iter"] for h in oracle["history"]] == [-1, 0, 10]
+    for fld in ("loss", "train_rmse", "test_rmse"):
+        np.testing.assert_allclose([h[fld] for h in res.history],
+                                   [h[fld] for h in oracle["history"]],
+                                   rtol=2e-5, err_msg=fld)
+    assert int((res.column_factor == 0).sum()) > 0
+
+
+def test_masked_covariate_fit_matches_jax_cpu_path():
+    """A masked fit with P = 2 continuous covariates at K = 136 (ctns_cd's
+    K-space CD on a (K, K) system a covariate an iteration) against the JAX
+    package's fit on its CPU path, from the same initial state; alpha = 0,
+    so that the column side is the ridge solves in both packages and the
+    comparison rests on the covariates' CD."""
+    data, confounder, train, test = _fit_problem(True)
+    c = np.random.default_rng(14).standard_normal((N_FIT, 2))
+    jprob = jax_als.build_problem(data, confounder, train, test, c,
+                                  masked=True)
+    jst = jax_init_state(jax.random.PRNGKey(0), jprob.n_levels, M_FIT, K,
+                         n_ctns=2)
+    cfd0 = [np.asarray(f) for f in jst.cfd_factors]
+    W0, F0 = np.asarray(jst.ctns_factor), np.asarray(jst.column_factor)
+    kw = dict(latent_dim=K, lambda1=LAM, lambda2=LAM, alpha=0.0,
+              max_iter=MAX_ITER, global_tol=1e-12)
+    jres = jax_als.optimize(jprob, JaxFitConfig(
+        **kw, use_pallas=False, boundaries_per_dispatch=1), state=jst,
+        verbose=False)
+    prob = als.build_problem(data, confounder, train, test, c, masked=True,
+                             device="cpu")
+    n0 = ctns.ctns_cd.launches
+    res = als.optimize(prob, FitConfig(**kw),
+                       state=state_from_numpy(cfd0, W0, F0, "cpu"),
+                       verbose=False)
+    assert ctns.ctns_cd.launches == n0            # CPU: the plain version
+    assert [h["iter"] for h in res.history] == [-1, 0, 10]
+    assert [h["iter"] for h in jres.history] == [-1, 0, 10]
+    for fld in ("loss", "train_rmse"):
+        np.testing.assert_allclose([h[fld] for h in res.history],
+                                   [h[fld] for h in jres.history], rtol=1e-5,
+                                   err_msg=fld)
+    assert res.ctns_factor.shape == (2, K)
