@@ -2,7 +2,7 @@
 """Time the port's main-path kernels, its FSS kernels and its six fits, for
 one package tree, on one NVIDIA GPU.
 
-    python3 chip_ab.py ROOT [--out FILE]
+    python3 chip_ab.py ROOT [--out FILE] [--shared-only | --wide-cd]
     python3 chip_ab.py --share FILE.npz FILE.npz
 
 ROOT is a directory that holds an insider_tpu_torch package: this checkout,
@@ -54,6 +54,15 @@ directory's chip_smoke.py, so both trees see the same inputs.  Measured:
     K=50 masked fit (with group widths, also at each width cd_streamed has
     at K=50), each from where its fit ended: each kernel's device time,
     each wrapper's in-fit ms per launch, the device busy share.
+With --wide-cd only the cold-CD kernels past K = 128: cd_streamed and
+cd_shared at every group width they have (cd_*_widths; 128 the block
+solve) at K = 129, 160, 192, 224, 256, 288, 300, 320 and 321 on
+chip_smoke's phase-6 problem of 2K rows (lambda 11, alpha 0.4, the
+200-sweep cap; M = 2048, 1024 from K = 288, 512 at 321), each width's
+output held to the block solve's (lanes=128) bit for bit at 10 and 200
+sweeps, and on columns that all run to the cap (tol 0, lambda 0.05, M =
+2048) at K = 160, 192, 224, 256 and 320: the times the kernels' order of
+widths rests on.
 Prints one JSON line (and writes it to FILE).  Exits non-zero without
 CUDA.
 """
@@ -261,6 +270,51 @@ def cd_kernels(torch, cs, gram, cd, saved):
     return out
 
 
+def wide_cd_kernels(torch, cs, gram, cd):
+    """{"<kernel> K=<k> L=<lanes>": {"ms", "checksum", "columns_per_sm"}}
+    of the cold-CD kernels past K = 128 at every width (module docstring);
+    fails where a width's output differs from the block solve's."""
+    out = {}
+    cases = ((129, 2048), (160, 2048), (192, 2048), (224, 2048),
+             (256, 2048), (288, 1024), (300, 1024), (320, 1024),
+             (321, 512))
+    for (k, m), capped in [(c, False) for c in cases] + [
+            ((k, 2048), True) for k in (160, 192, 224, 256, 320)]:
+        if capped:
+            R, mask, data, beta0 = cs.problem(torch, 2 * k, k, m, 200 + k)
+            lam, alpha, tol = 0.05, 0.5, 0.0
+        else:
+            R, mask, data, beta0 = cs.problem(torch, 2 * k, k, m, k)
+            lam, alpha, tol = cs.LAM, cs.ALPHA, cs.SUB_TOL
+        G, b = gram.col_gram_xty(mask, data, R)
+        XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+        for name, args in (("cd_streamed", (G, b, beta0, lam, alpha, tol)),
+                           ("cd_shared", (XtX, Xty, beta0, lam, alpha,
+                                          tol))):
+            fn = getattr(cd, name)
+            widths = getattr(cd, name + "_widths")(k)
+            for cap in (() if capped else (10,)) + (200,):
+                block = fn(*args, cap, lanes=128) if k > 128 else None
+                for lanes, _ in widths:
+                    if not torch.equal(fn(*args, cap, lanes=lanes), block):
+                        cs.fail(f"{name} K={k} L={lanes} differs from the "
+                                f"block solve at {cap} sweeps")
+            for lanes, cols in widths:
+                key = (f"{name} K={k} L={lanes}"
+                       + (" capped" if capped else ""))
+                out[key] = dict(
+                    ms=cs.timed_ms(torch, lambda: fn(*args, 200,
+                                                     lanes=lanes),
+                                   1 if capped else 2),
+                    checksum=checksum(fn(*args, 200, lanes=lanes)),
+                    columns_per_sm=cols, M=m)
+                print(f"chip_ab: {key} M={m}: {out[key]['ms']:.4f} ms, "
+                      f"{cols} columns an SM, checksum "
+                      f"{out[key]['checksum']}")
+        del G, b, XtX, Xty
+    return out
+
+
 def col_gram_times(torch, cs, gram):
     """{name: record} of col_gram_xty alone on chip_smoke's phase-4 (K=50)
     and phase-6 (K=96, 128) inputs: kernel time, library_ms, bound and
@@ -320,6 +374,9 @@ def main():
     ap.add_argument("--shared-only", action="store_true",
                     help="only feature_sign_shared alone and the FSS "
                          "dense fit")
+    ap.add_argument("--wide-cd", action="store_true",
+                    help="only the cold-CD kernels past K = 128, at every "
+                         "group width")
     a = ap.parse_args()
     if a.share:
         return share_equal(*a.share)
@@ -363,6 +420,9 @@ def main():
                 "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
                 "cd_shared": cd.cd_shared}
     saved = {}
+    if a.wide_cd:
+        res["wide_cd"] = wide_cd_kernels(torch, cs, gram, cd)
+        return finish(a, res, saved)
     res["fss_shared"] = fss_shared_kernels(torch, cs, fss, saved)
     if a.shared_only:
         dense_fit(torch, cs, itt, fss, wrappers, res)

@@ -59,9 +59,12 @@ Phases, each fatal on failure:
      mask bit for bit its f32 mask's, twice bit for bit, timed beside its
      plain version (the plain FSS and CD once, by CUDA events) and its
      bound: col_gram_xty, feature_sign (bytes), feature_sign_shared
-     (fss_flops), cd_streamed and cd_shared (the wide cold-CD solve on a
-     problem of its own with 2K rows, phase 5's gates at 10 sweeps and
-     the 200-sweep cap, bound by the sweeps of cd_counts' replay), ctns_cd (a covariate's system of the
+     (fss_flops), cd_streamed and cd_shared (the grouped CD loop's
+     instances past 128, on a problem of its own with 2K rows, phase 5's
+     gates at 10 sweeps and the 200-sweep cap, bound by the sweeps of
+     cd_counts' replay; every width of cd_*_widths held to the same gates
+     and to the block solve, lanes=128, bit for bit, each timed at the
+     cap), ctns_cd (a covariate's system of the
      case's shape, both stop criteria, bit for bit with equal sweeps),
      row_xty (the f64 gate on near-cancelling inputs at the flagship's
      377 x 44477 and levels; timed on two confounders of 12 and 25
@@ -230,8 +233,8 @@ Phases, each fatal on failure:
      fit's;
  18. rank K above 128: the flagship problem at full width at K = 160
      (simulate_scale(377, 44477, 160, ...), 1% NaNs, lambda 11, alpha
-     0.4) through Insider.fit under the graph (FSS fits 10 iterations,
-     cold CD 5): FSS masked (partition=1: col_gram_xty, feature_sign, row_xty, level_gram
+     0.4) through Insider.fit under the graph (10 iterations each): FSS
+     masked (partition=1: col_gram_xty, feature_sign, row_xty, level_gram
      and masked_eval launched) and dense (feature_sign_shared), cold CD
      masked (col_gram_xty + cd_streamed) and dense (cd_shared), FSS
      masked with P=3 covariates (ctns_cd exactly 3 launches an
@@ -999,7 +1002,7 @@ WITNESS_SHARE_CEILING = 0.25
 
 
 def cd_checks(torch, name, fn, plain, args, G, b, lam, alpha, sweeps,
-              times=None, witness=None, short=10):
+              times=None, witness=None, short=10, widths=(), replay=False):
     """A CD kernel against its plain version on the same inputs, at a short
     sweep cap (`short`, phase 5's 10), at 10 sweeps and at the cap
     `sweeps`.  At every cap the kernel's output is finite and every
@@ -1020,8 +1023,27 @@ def cd_checks(torch, name, fn, plain, args, G, b, lam, alpha, sweeps,
     With `times` (a dict), the kernel at the cap is run again, timed (one
     call, CUDA events) and held to its first run bit for bit, and the plain
     version's one call there is timed: times["ms"], times["plain_ms"].
+    With `widths` (the kernel's group widths, `lanes`; 128 the block solve
+    past K = 128), at every cap each width's output is held to the block
+    solve's (lanes=128) and to the output gated above bit for bit, so the
+    gates hold for each; with `times` each is timed at the cap (one call):
+    times["width_ms"].
+    With `replay` (args the gram-input kernels' (G, b, beta0, lam, alpha,
+    tol)), the plain output at the cap comes from cd_counts' counting
+    replay of the plain loop (its solution the plain version's; timed in
+    its place with `times`), whose per-column sweeps the statistics return
+    ("sweeps"): one run of the plain loop where a caller also wants the
+    sweeps.
     Returns (kernel output at the cap, statistics)."""
-    seen = {}
+    seen, counts = {}, {}
+
+    def plain_at(cap):
+        if not (replay and cap == sweeps):
+            return plain(*args, cap)
+        counts.update(cd_counts(torch, G, b, args[2], lam, alpha, args[5],
+                                cap))
+        return counts["beta"]
+
     for cap in dict.fromkeys((short, 10, sweeps)):
         got = fn(*args, cap)
         if times is not None and cap == sweeps:
@@ -1029,9 +1051,9 @@ def cd_checks(torch, name, fn, plain, args, G, b, lam, alpha, sweeps,
             if not torch.equal(got, again):
                 fail(f"{name} differs from itself at {cap} sweeps")
             ref, times["plain_ms"] = timed_once(torch,
-                                                lambda: plain(*args, cap))
+                                                lambda: plain_at(cap))
         else:
-            ref = plain(*args, cap)
+            ref = plain_at(cap)
         if not bool(torch.isfinite(got).all()):
             fail(f"{name} returned non-finite values at {cap} sweeps")
         fp = objectives(torch, ref, G, b, lam, alpha)
@@ -1073,6 +1095,22 @@ def cd_checks(torch, name, fn, plain, args, G, b, lam, alpha, sweeps,
         seen[cap] = (match, excess, limits)
         if not excess <= limits[0]:
             fail(f"{name} objective excess {excess:.3e} at {cap} sweeps")
+        block = fn(*args, cap, lanes=128) if widths else None
+        for lanes in widths:
+            if not (torch.equal(fn(*args, cap, lanes=lanes), block)
+                    and torch.equal(block, got)):
+                fail(f"{name} L={lanes} differs from the block solve "
+                     f"(lanes=128) or from the output gated above at {cap} "
+                     "sweeps")
+        if widths:
+            print(f"{name} at {cap} sweeps: widths {list(widths)} equal the "
+                  "block solve (lanes=128) and the output gated above bit "
+                  "for bit")
+        if times is not None and cap == sweeps and widths:
+            times["width_ms"] = {
+                lanes: timed_once(torch, lambda: fn(*args, cap,
+                                                     lanes=lanes))[1]
+                for lanes in widths}
     if not seen[short][0] >= 1 - seen[short][2][2]:
         fail(f"{name}: {seen[short][0]:.6f} of the columns match plain at "
              f"{short} sweeps")
@@ -1082,7 +1120,8 @@ def cd_checks(torch, name, fn, plain, args, G, b, lam, alpha, sweeps,
                  max_objective_excess=seen[sweeps][1],
                  max_abs_err=float((got - ref).abs().max()),
                  witness_limits=dict((cap, v[2]) for cap, v in seen.items()
-                                     if v[2][1] is not None))
+                                     if v[2][1] is not None),
+                 sweeps=counts.get("sweeps"))
     return got, stats
 
 
@@ -1311,9 +1350,8 @@ def phase_kernels_wide(torch, gram, fss, cd):
                 ("cd_shared", cd.cd_shared, cd.cd_shared_plain,
                  (XtX, Xty, beta0, lam, alpha, SUB_TOL), Gd, Xty)):
             _, st = cd_checks(torch, f"{name} K={k}", fn, plain, args, GG,
-                              bb, lam, alpha, 200)
-            sw = cd_counts(torch, GG, bb, beta0, lam, alpha, SUB_TOL,
-                           200)["sweeps"]
+                              bb, lam, alpha, 200, replay=True)
+            sw = st.pop("sweeps")
             bnd = gram_input_bound(k, m, shared=name == "cd_shared",
                                    sweeps=sw)
             out[f"{name} K={k}"] = dict(
@@ -1342,8 +1380,9 @@ def phase_kernels_wide(torch, gram, fss, cd):
         lanes=fss.feature_sign_shared_widths(50)[0][0], M=Xty.shape[1])
     args = (XtX, Xty, beta0, lam, alpha, SUB_TOL)
     _, st = cd_checks(torch, "cd_shared K=50", cd.cd_shared,
-                      cd.cd_shared_plain, args, Gd, Xty, lam, alpha, 200)
-    sw = cd_counts(torch, Gd, Xty, beta0, lam, alpha, SUB_TOL, 200)["sweeps"]
+                      cd.cd_shared_plain, args, Gd, Xty, lam, alpha, 200,
+                      replay=True)
+    sw = st.pop("sweeps")
     bnd = gram_input_bound(50, Xty.shape[1], shared=True, sweeps=sw)
     out["cd_shared K=50"] = dict(
         st, ms=timed_ms(torch, lambda: cd.cd_shared(*args, 200), 5),
@@ -1449,15 +1488,18 @@ def phase_kernels_wider(torch, gram, fss, cd, ctns, row, ev):
         out[f"feature_sign_shared K={k}"]["lanes"] = \
             fss.feature_sign_shared_widths(k)[0][0]
 
-        # the wide cold-CD solve: cd_streamed on col_gram_xty's grams,
-        # cd_shared on R^T R, of a problem of its own with 2K rows (at N =
+        # cold CD past 128: cd_streamed on col_gram_xty's grams, cd_shared
+        # on R^T R, of a problem of its own with 2K rows (at N =
         # 300 the grams of K = 256 and 300 are near-singular, and last-bit
         # differences move most columns past rtol 2e-5 by 10 sweeps), at the
         # flagship's lambda and alpha, phase 5's gates at 10 sweeps and at
         # the 200-sweep cap (where missed, cd_infit's witness rule, both
         # distances printed), each timed there over one call beside its
         # plain version's one call, bound by the sweeps its columns take
-        # (cd_counts' replay: 2 K^2 flops a column-sweep)
+        # (cd_counts' replay: 2 K^2 flops a column-sweep); every width of
+        # cd_*_widths (the grouped loop's instances, the block solve as
+        # 128) held to the same gates and to the block bit for bit, each
+        # timed at the cap
         del G, b, Gd
         n_cd = 2 * k
         R2, mask2, data2, beta2 = problem(torch, n_cd, k, m, k)
@@ -1470,14 +1512,16 @@ def phase_kernels_wider(torch, gram, fss, cd, ctns, row, ev):
                 ("cd_shared", (XtX2, Xty2, beta2, LAM, ALPHA, SUB_TOL),
                  Gd)):
             times = {}
+            widths = getattr(cd, name + "_widths")(k)
             _, st = cd_checks(torch, f"{name} K={k}", getattr(cd, name),
                               getattr(cd, name + "_plain"), args, GG,
                               args[1], LAM, ALPHA, CD_CAP, times=times,
                               witness=cd_witness(torch, cd, name, beta2, LAM,
                                                  ALPHA, SUB_TOL, mask2, data2,
-                                                 R2))
-            sw = cd_counts(torch, GG, args[1], beta2, LAM, ALPHA, SUB_TOL,
-                           CD_CAP)["sweeps"]
+                                                 R2),
+                              widths=[lanes for lanes, _ in widths],
+                              replay=True)
+            sw = st.pop("sweeps")
             bnd = gram_input_bound(k, m, shared=name == "cd_shared",
                                    sweeps=sw)
             out[f"{name} K={k}"] = dict(
@@ -1487,11 +1531,15 @@ def phase_kernels_wider(torch, gram, fss, cd, ctns, row, ev):
                 ms=times["ms"], plain_ms=times["plain_ms"], bound_ms=bnd[0],
                 bound_by=bnd[1], sweeps_mean=float(sw.double().mean()),
                 capped=float((sw >= CD_CAP).double().mean()),
-                witness_limits=st["witness_limits"], N=n_cd, M=m)
+                witness_limits=st["witness_limits"], N=n_cd, M=m,
+                lanes=widths[0][0])
             print(f"{name} K={k}: columns {float(sw.double().mean()):.1f} "
                   f"sweeps on average, "
-                  f"{out[f'{name} K={k}']['capped']:.3f} at the cap")
-        out[f"cd_streamed K={k}"]["lanes"] = cd.cd_streamed_widths(k)[0][0]
+                  f"{out[f'{name} K={k}']['capped']:.3f} at the cap; each "
+                  "width at the cap (L, columns an SM, ms, times its bound): "
+                  + "; ".join(f"L={lanes} {cols} {times['width_ms'][lanes]:.4f}"
+                              f" ms {times['width_ms'][lanes] / bnd[0]:.1f}x"
+                              for lanes, cols in widths))
         del G, b, Gd, R2, mask2, data2, beta2, XtX2, Xty2
 
         # ctns_cd past 128 (a block of 128 threads; XtX in shared memory at
@@ -1732,8 +1780,9 @@ def device_kernel_times(torch, prof):
 
 
 # the device kernels of the profiled fit's wrappers, by parts of their names
-# (the gram-input FSS and CD wrappers' wide solves above K = 128:
-# wide_kernel<, fss_wide.cuh; ctns_cd's block above 128: ctns_cd_block)
+# (the gram-input FSS and CD wrappers' block solves above K = 128:
+# wide_kernel<, fss_wide.cuh; cd_streamed's instances on grams read through
+# L2: streamed_global_kernel<; ctns_cd's block above 128: ctns_cd_block)
 KERNEL_NAMES = {"level_gram": ("level_gram",), "row_xty": ("row_xty",),
                 "feature_sign_fused": ("fused_kernel<",),
                 "masked_eval": ("masked_eval",),
@@ -1741,7 +1790,8 @@ KERNEL_NAMES = {"level_gram": ("level_gram",), "row_xty": ("row_xty",),
                 "feature_sign": ("streamed_kernel<", "wide_kernel<"),
                 "feature_sign_shared": ("shared_kernel", "wide_kernel<"),
                 "cd_fused": ("fused_kernel<",),
-                "cd_streamed": ("streamed_kernel<", "wide_kernel<"),
+                "cd_streamed": ("streamed_kernel<", "streamed_global_kernel<",
+                                "wide_kernel<"),
                 "cd_shared": ("shared_kernel", "wide_kernel<"),
                 "ctns_cd": ("ctns_cd_kernel", "ctns_cd_block")}
 
@@ -2872,9 +2922,8 @@ def infit_checks(torch, als, name, run, kernels, rows=0, segment=False,
         _, st = cd_checks(torch, label, getattr(cd, k),
                           getattr(cd, k + "_plain"),
                           (G, b, beta0, lam, alpha, tol), Gc, b, lam, alpha,
-                          sweeps, witness=witness, short=1)
-        sw = cd_counts(torch, Gc, b, beta0, lam, alpha, tol,
-                       sweeps)["sweeps"]
+                          sweeps, witness=witness, short=1, replay=True)
+        sw = st.pop("sweeps")
         bnd = gram_input_bound(kk, m, shared=k == "cd_shared", sweeps=sw)
         notes.setdefault(k, {})["bound"] = bnd
         print(f"{label}: columns {float(sw.double().mean()):.1f} sweeps on "
@@ -4605,15 +4654,15 @@ def phase_graph(torch, itt, als, wrappers, smi):
 # (partition=1, 10% held out: col_gram_xty + the wide FSS solve as
 # feature_sign, row_xty and masked_eval in tiles of 128 coordinates,
 # level_gram) and dense (partition=0: the wide solve as feature_sign_shared),
-# then with cold CD (col_solver="cd", cd_warm_start=False: the wide cold-CD
-# solve as cd_streamed, masked, and cd_shared, dense), then masked with P=3
-# continuous covariates planted as covariate_object plants them (ctns_cd's
-# block of 128 threads, 3 launches an iteration), under the graph: the FSS
-# fits 10 iterations, the cold-CD fits 5 (both cut from convergence for
-# time; N, M and K not cut).
+# then with cold CD (col_solver="cd", cd_warm_start=False: the grouped CD
+# loop's instances past 128 as cd_streamed, masked, and cd_shared, dense),
+# then masked with P=3 continuous covariates planted as covariate_object
+# plants them (ctns_cd's block of 128 threads, 3 launches an iteration),
+# under the graph, 10 iterations each (cut from convergence for time; N, M
+# and K not cut).
 WIDE_K = 160
 WIDE_FIT = dict(latent_dimension=WIDE_K, lambda_=LAM, alpha=ALPHA)
-WIDE_ITERS = dict(fss=10, cd=5)
+WIDE_ITERS = dict(fss=10, cd=10)
 NO_CD = dict(cd_fused=0, cd_streamed=0, cd_shared=0, ctns_cd=0)
 NO_FSS = dict(feature_sign_fused=0, feature_sign=0, feature_sign_shared=0)
 WIDE_COLD_MASKED = ("level_gram", "row_xty", "col_gram_xty", "cd_streamed",
@@ -5062,16 +5111,16 @@ def main():
                # no Pallas kernel: the XLA while_loop of _ctns_cd
                "ctns_cd": ("ctns_cd.cu", "insider_tpu/ops/continuous.py:101")}
     # the uint8-mask instances of the kernels that read the mask, and the
-    # K=160 instances (the wide FSS and cold-CD solves in fss_wide.cuh; the
-    # others' K > 128 kernels in their own sources)
+    # K=160 instances (the wide FSS solve in fss_wide.cuh; the others'
+    # K > 128 kernels, the cold-CD ones the grouped CD loop's, in their own
+    # sources)
     for name in lean:
         sources[name] = sources[name.split()[0]]
     wide = [name for name in kern if name.endswith(f" K={WIDE_K}")]
     for name in wide:
         src, tpu_def = sources[name.split()[0]]
         sources[name] = ("fss_wide.cuh" if name.split()[0] in (
-            "feature_sign", "feature_sign_shared", "cd_streamed", "cd_shared")
-            else src, tpu_def)
+            "feature_sign", "feature_sign_shared") else src, tpu_def)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "insider_tpu_torch/csrc/" + sources[name][0],

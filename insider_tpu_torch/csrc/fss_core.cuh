@@ -28,7 +28,9 @@
 // _cd_core, the same iteration in a TPU sublane layout): strong screening
 // thr = alpha (2 lam - max|b_j|), the screened coordinates' warm start set
 // to zero, then CD sweeps with KKT reactivation of every violator.  It is
-// the one cold-CD loop of every CD kernel.
+// the cold-CD loop of every CD kernel up to K = CD_GROUP_MAX_K (320);
+// past that cd_streamed and cd_shared run the block solve of fss_wide.cuh
+// (wide_cd_column), whose bits the grouped loop's equal at every K.
 //
 // Columns are independent: a converged column is frozen in the TPU block
 // (fss_pallas.py:173-177, :262; cd_pallas.py:127, :157-168), so a warp or
@@ -48,8 +50,14 @@
 // one column to each group of L lanes, on grams packed to their upper
 // triangle: one issue of the per-coordinate scalar chain serves P columns,
 // and a group whose column converges stores it and takes the next at a
-// sweep boundary, where the kernel has one to give.  A column's bits
-// depend neither on L nor on the columns beside it or before it.
+// sweep boundary, where the kernel has one to give.  A lane holds C =
+// ceil(K / L) coordinates in registers, about nine registers a slot: up to
+// C = 8 at K <= 128, and past 128 C = 5 to 10 at L = 32 and (cd_streamed's
+// grams read through L2, past K = 192) 14 to 20 at L = 16, K rounded up to
+// a multiple of 32 (by_wide_slots), to K = 320.  A
+// column's bits depend neither on L nor on the columns beside it or before
+// it, and equal those of fss_wide.cuh's block solve on the same symmetric
+// gram (every gram the port builds is symmetric bit for bit).
 // fss_group_columns does the same for FSS's outer steps (L = 4 to 32, lane
 // r of a group holding coordinates r + L q and compact rows r + L q'), and
 // polish_group_columns for the polish (polish_sweep); their bits are
@@ -779,13 +787,64 @@ __host__ __device__ int packed_stride(int K) {
   return n + ((L - n) & 31);
 }
 
+// The largest K of cd_group_columns' instances (CD_GROUP_MAX_K / 32 slots
+// a lane at L = 32, twice that at L = 16); past it the block solve runs.
+constexpr int CD_GROUP_MAX_K = 320;
+
 // The row starts of a packed gram and packed_stride, as the host computes
-// them for a launch (kernel parameters; the kernel copies them to shared
-// memory).
+// them for a launch (kernel parameters, 1.3 KB; the kernel copies them to
+// shared memory).
 struct Rows {
-  int start[128];
+  int start[CD_GROUP_MAX_K];
   int stride;
 };
+
+// Calls f(std::integral_constant<int, C16>(), std::integral_constant<int,
+// C32>()) with the slots a lane of cd_group_columns' instances past 128
+// coordinates, at L = 16 and L = 32: K rounded up to a multiple of 32, for
+// 128 < K <= CD_GROUP_MAX_K.
+template <class F>
+inline cudaError_t by_wide_slots(int K, F f) {
+  using std::integral_constant;
+  if (K <= 160)
+    return f(integral_constant<int, 10>(), integral_constant<int, 5>());
+  if (K <= 192)
+    return f(integral_constant<int, 12>(), integral_constant<int, 6>());
+  if (K <= 224)
+    return f(integral_constant<int, 14>(), integral_constant<int, 7>());
+  if (K <= 256)
+    return f(integral_constant<int, 16>(), integral_constant<int, 8>());
+  if (K <= 288)
+    return f(integral_constant<int, 18>(), integral_constant<int, 9>());
+  return f(integral_constant<int, 20>(), integral_constant<int, 10>());
+}
+
+// An instance of cd_group_columns: C slots a lane in groups of L lanes;
+// GLOBAL: its grams read from device memory through L2 (cd_streamed past
+// 128 coordinates), else from shared memory.
+template <int C_, int L_, bool GLOBAL_ = false>
+struct Group {
+  static constexpr int C = C_, L = L_;
+  static constexpr bool GLOBAL = GLOBAL_;
+};
+
+// Runs launch(g) for the first of the instances gs whose group width is
+// `lanes` (the first of all where lanes is 0): cudaErrorInvalidValue where
+// none is.
+template <class Launch, class... Gs>
+cudaError_t launch_width(int lanes, Launch&& launch, Gs... gs) {
+  cudaError_t err = cudaErrorInvalidValue;
+  bool found = false;
+  (
+      [&](auto g) {
+        using G = decltype(g);
+        if (found || (lanes != 0 && lanes != G::L)) return;
+        found = true;
+        err = launch(g);
+      }(gs),
+      ...);
+  return err;
+}
 
 // The next value of a counter in shared or device memory for a group of L
 // lanes: its first lane adds one; mask: the lanes calling, whole groups.
@@ -796,8 +855,9 @@ __device__ __forceinline__ int group_take(int* counter, unsigned mask) {
   return __shfl_sync(mask, t, 0, L);
 }
 
-// Cold strong-rule CD, the one loop of every CD kernel: P = 32 / L columns
-// on one warp, one to each group of L lanes.  Lane g L + r holds
+// Cold strong-rule CD, the loop of every CD kernel up to CD_GROUP_MAX_K
+// coordinates: P = 32 / L columns on one warp, one to each group of L
+// lanes.  Lane g L + r holds
 // coordinates r + L q, q < C, of group g's column, whose gram is packed
 // (packed_rows; R: its row starts, shared by every column).  The columns
 // come from `feed`:
@@ -839,8 +899,17 @@ __device__ __forceinline__ int group_take(int* counter, unsigned mask) {
 // its lane and summed after the sweep in order k, off the chain from one
 // coordinate to the next.  Shuffles and ballots stay inside the group.  So
 // a column's bits depend neither on L nor on the columns beside it, nor on
-// when or where it was taken.
-template <int C, int L, class Feed>
+// when or where it was taken.  They equal wide_cd_column's (fss_wide.cuh),
+// which reads the gram's row k where this loop reads its column k: the
+// same values on a symmetric gram.
+//
+// ROW_MAJOR: the grams are K x K, row-major (R is not read), and lane i reads
+// G[k][i], row k, where the packed loop reads column k: on the symmetric
+// gram the same value, and a group's L lanes read L neighbouring floats.
+// For grams in device memory (cd_streamed's copies past 128 coordinates,
+// read through L2): a sweep issues each coordinate's row one coordinate
+// ahead, so its loads are in flight while the chain before it runs.
+template <int C, int L, bool ROW_MAJOR = false, class Feed>
 __device__ __forceinline__ void cd_group_columns(Feed& feed,
                                                  const int* __restrict__ R,
                                                  int K, float lam,
@@ -858,12 +927,16 @@ __device__ __forceinline__ void cd_group_columns(Feed& feed,
   for (int q = 0; q < C; ++q) {
     const int i = r + L * q;
     ok[q] = i < K;
-    below[q] = ok[q] ? R[i] - i : 0;
+    below[q] = !ok[q] ? 0 : ROW_MAJOR ? i * K : R[i] - i;
   }
+  // where column c's entries start: R[c] - c (packed), c K (ROW_MAJOR)
+  auto row = [&](int c) { return ROW_MAJOR ? c * K : R[c] - c; };
   // G[i_q][c]: column c of rows above it (slots past qc), row i_q at and
-  // past the diagonal (slots before qc), either in slot qc
+  // past the diagonal (slots before qc), either in slot qc; ROW_MAJOR:
+  // row c
   auto at = [&](int q, int qc, int c, int above) {
     const int i = r + L * q;
+    if constexpr (ROW_MAJOR) return above + i;
     return q > qc   ? above + i
            : q < qc ? below[q] + c
                     : (c <= i ? above + i : below[q] + c);
@@ -922,7 +995,7 @@ __device__ __forceinline__ void cd_group_columns(Feed& feed,
       const int c_end = min(K, L * (qc + 1));
       for (int cc = L * qc; cc < c_end; ++cc) {
         const float bc = __shfl_sync(got, beta[qc], cc & (L - 1), L);
-        const int above = R[cc] - cc;
+        const int above = row(cc);
 #pragma unroll
         for (int q = 0; q < C; ++q)
           if (ok[q]) s[q] = __fmaf_rn(G[at(q, qc, cc, above)], bc, s[q]);
@@ -961,10 +1034,24 @@ __device__ __forceinline__ void cd_group_columns(Feed& feed,
   // column) keeps w = beta.  Returns whether the group's column converged
   auto sweep_once = [&](bool frozen) {
     float terms[C] = {};                   // coordinate r + L q's term
+    float ahead[C];                        // ROW_MAJOR: the next row
+    if constexpr (ROW_MAJOR) {
+#pragma unroll
+      for (int q = 0; q < C; ++q) ahead[q] = ok[q] ? G[r + L * q] : 0.f;
+    }
 #pragma unroll
     for (int qk = 0; qk < C; ++qk) {
       const int k_end = min(K, L * (qk + 1));
       for (int k = L * qk; k < k_end; ++k) {
+        float gk[C];                       // ROW_MAJOR: row k, G[k][i_q]
+        if constexpr (ROW_MAJOR) {
+          const float* Gn = G + (k + 1 < K ? k + 1 : k) * K + r;
+#pragma unroll
+          for (int q = 0; q < C; ++q) {
+            gk[q] = ahead[q];
+            ahead[q] = ok[q] ? Gn[L * q] : 0.f;
+          }
+        }
         // every lane evaluates the update; lane k % L's is the one used
         const float b = beta[qk];
         const float u = __fmaf_rn(b, d[qk], __fsub_rn(xty[qk], s[qk]));
@@ -980,10 +1067,15 @@ __device__ __forceinline__ void cd_group_columns(Feed& feed,
             __fmaf_rn(delta, __fmul_rn(half_den[qk], delta),
                       __fmul_rn(l1, __fmaf_rn(-xi, b, fabsf(b))));
         const float delta_k = __shfl_sync(FULL, delta, k & (L - 1), L);
-        const int above = R[k] - k;
+        const int above = row(k);
 #pragma unroll
-        for (int q = 0; q < C; ++q)
-          if (ok[q]) s[q] = __fmaf_rn(G[at(q, qk, k, above)], delta_k, s[q]);
+        for (int q = 0; q < C; ++q) {
+          if (!ok[q]) continue;
+          if constexpr (ROW_MAJOR)
+            s[q] = __fmaf_rn(gk[q], delta_k, s[q]);
+          else
+            s[q] = __fmaf_rn(G[at(q, qk, k, above)], delta_k, s[q]);
+        }
         if (r == (k & (L - 1))) {
           beta[qk] = w;
           terms[qk] = term;

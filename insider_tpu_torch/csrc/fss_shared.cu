@@ -57,20 +57,32 @@
 // against 14.89-15.01 ms at K=96 and 40.39-40.55 against 66.59-67.18 at
 // K=128 (M=2048).
 //
-// FSS and CD at K > 128: the wide solves, one column a block of 128
-// threads on the gram in shared memory where it fits (K <= 235), else in
-// device memory (fss_wide.cuh).
+// FSS at K > 128: the block solve, one column a block of 128 threads on
+// the gram in shared memory where it fits (K <= 235), else in device
+// memory (fss_wide.cuh).
 //
-// CD runs the one cold-CD loop (fss_core.cuh: cd_group_columns) on the
-// gram packed to its upper triangle (packed_rows; 33 KB at K=128), 8
-// warps at every K, P = 32 / L columns a warp: L = 8 at K <= 32, 16 at K
-// <= 64, 32 above (cd_width).  A group whose column converges takes the
+// CD runs the cold-CD loop (fss_core.cuh: cd_group_columns) on the gram
+// packed to its upper triangle (packed_rows; 33 KB at K=128), 8 warps at K
+// <= 128, P = 32 / L columns a warp: L = 8 at K <= 32, 16 at K <= 64, 32
+// above (cd_instances).  A group whose column converges takes the
 // block's next at the next sweep boundary (refill), and a block owns 4
 // columns a group, so that refills happen.  At K=24 (L = 8) it took
 // 0.23-0.24 ms on chip_smoke.py's phase-5 input and 2.31-2.32 ms a launch
 // in the cold-CD flagship dense fit, against 0.37-0.38 and 4.99-5.02 for
 // one column a warp on the full (K, K + 1) gram (chip_ab.py, NVIDIA H100
 // 80GB HBM3 at 700 W).
+//
+// Past K = 128, to K = 320: L = 32, C = ceil(K / 32) slots a lane, on the
+// one packed gram (51.5 KB at K=160, 205 KB at 320), as many warps a block
+// as the registers hold at an estimate of ten a slot, at most 16
+// (cd_warps: 16 to K = 256, 15 and 14 past), and fewer than CPW columns a
+// group where the card's blocks would not all get columns.  With every
+// column at the 200-sweep cap (M=2048; chip_ab.py --wide-cd, NVIDIA H100
+// 80GB HBM3 at 700 W) 5.49 ms at K=160, 11.0 at 256 and 22.5 at 320,
+// against the block solve's 82.6, 77.5 and 111.4; L = 16 (two columns a
+// warp, 128-255 registers, spilling from C = 14) took 6.69, 20.1 and 23.5
+// and is not built.  Past 320, or with lanes = 128, the block solve
+// (fss_wide.cuh), bit for bit the same.
 #include "fss_wide.cuh"
 
 namespace {
@@ -201,29 +213,29 @@ shared_kernel_wide(const float* __restrict__ xtx,
   }
 }
 
-// CD: the packed gram's row starts (K ints, padded to 16 bytes), then the
-// packed gram; CPW columns a group.
-template <int C, int L>
-__global__ void __launch_bounds__(CD_WARPS * 32)
+// CD: WARPS warps a block, `cols` columns a block; shared memory the
+// packed gram's row starts (K ints, padded to 16 bytes), then the packed
+// gram.
+template <int C, int L, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
 shared_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
               const float* __restrict__ beta0, float* __restrict__ out, int M,
-              int K, Solver<true> solver, Rows rows) {
-  constexpr int COLUMNS = CD_WARPS * CPW * (32 / L);
+              int K, int cols, Solver<true> solver, Rows rows) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int next;                     // the solve's column counter
   const int tid = threadIdx.x;
   if (tid == 0) next = 0;
   int* R = reinterpret_cast<int*>(smem);   // the packed gram's rows
   float* Gs = smem + ((K + 3) & ~3);       // the packed gram
-  for (int a = tid; a < K; a += CD_WARPS * 32) R[a] = rows.start[a];
-  for (int e = tid; e < K * K; e += CD_WARPS * 32) {
+  for (int a = tid; a < K; a += WARPS * 32) R[a] = rows.start[a];
+  for (int e = tid; e < K * K; e += WARPS * 32) {
     const int k = e / K, l = e % K;
     if (l >= k) Gs[rows.start[k] + l - k] = xtx[e];
   }
   __syncthreads();
-  SharedColumns<L> cols{&next, Gs, xty, beta0, out, M,
-                        (int)blockIdx.x * COLUMNS, COLUMNS};
-  cd_group_columns<C, L>(cols, R, K, solver.lam, solver.alpha, *solver.tol,
+  SharedColumns<L> feed{&next, Gs, xty, beta0, out, M,
+                        (int)blockIdx.x * cols, cols};
+  cd_group_columns<C, L>(feed, R, K, solver.lam, solver.alpha, *solver.tol,
                          solver.max_sweeps);
 }
 
@@ -332,39 +344,85 @@ int fss_shared(const float* xtx, const float* xty, const float* beta0,
   });
 }
 
-// Calls f(std::integral_constant<int, C>(), std::integral_constant<int,
-// L>()) with CD's group width L at K (header) and C = ceil(K / L).
-template <class F>
-cudaError_t cd_width(int K, F f) {
-  using std::integral_constant;
-  auto go = [&](auto l) {
-    constexpr int L = decltype(l)::value;
-    return by_lane_count(K * 32 / L, [&](auto c) { return f(c, l); });
-  };
-  if (K <= 32) return go(integral_constant<int, 8>());
-  if (K <= 64) return go(integral_constant<int, 16>());
-  return go(integral_constant<int, 32>());
+// Warps a block of a CD instance: 8 at K <= 128; past it as many as the
+// registers of an SM hold at an estimate of 10 a slot and 40 more a lane,
+// at most 16 (__launch_bounds__ then holds the compiler to them), so that a
+// gram that fills the shared memory still has most of an SM's lanes on it.
+constexpr int cd_warps(int C, int L) {
+  if (C * L <= insider::NARROW_MAX_K) return CD_WARPS;
+  const int w = 65536 / (32 * (10 * C + 40));
+  return w < 16 ? w : 16;
 }
+
+// Calls f(Group<C, L>()) with the CD instance that covers K <=
+// CD_GROUP_MAX_K (header): L = 8 at K <= 32, 16 at K <= 64, 32 above.
+template <class F>
+cudaError_t cd_instances(int K, F f) {
+  using insider::Group;
+  if (K <= 32) return by_lane_count(K * 4, [&](auto c) {
+    return f(Group<decltype(c)::value, 8>());
+  });
+  if (K <= 64) return by_lane_count(K * 2, [&](auto c) {
+    return f(Group<decltype(c)::value, 16>());
+  });
+  if (K <= insider::NARROW_MAX_K) return by_lane_count(K, [&](auto c) {
+    return f(Group<decltype(c)::value, 32>());
+  });
+  return insider::by_wide_slots(K, [&](auto, auto c32) {
+    return f(Group<decltype(c32)::value, 32>());
+  });
+}
+
+// The kernel of CD instance G at K, its block and shared bytes.
+template <class G>
+struct CdLaunch {
+  static constexpr int W = cd_warps(G::C, G::L);
+  static constexpr auto kernel = shared_kernel<G::C, G::L, W>;
+  static size_t smem(int K) {
+    return sizeof(float) * (((K + 3) & ~3) + packed_rows<G::L>(K));
+  }
+};
 
 int cd_shared(const float* xtx, const float* xty, const float* beta0,
               float* out, int* next, float* scratch, long scratch_len, int M,
-              int K, Solver<true> solver, cudaStream_t stream) {
+              int K, Solver<true> solver, int lanes, cudaStream_t stream) {
   if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  if (K > insider::NARROW_MAX_K)                     // fss_wide.cuh
+  if ((K > insider::NARROW_MAX_K && lanes == insider::WIDE_THREADS) ||
+      K > insider::CD_GROUP_MAX_K) {                 // fss_wide.cuh
+    if (lanes != 0 && lanes != insider::WIDE_THREADS)
+      return (int)cudaErrorInvalidValue;
     return (int)launch_wide<true, true>(xtx, xty, beta0, out, next, scratch,
                                         scratch_len, M, K, solver, stream);
-  return (int)cd_width(K, [&](auto c, auto l) {
-    constexpr int C = decltype(c)::value, L = decltype(l)::value;
-    const size_t smem = sizeof(float) * (((K + 3) & ~3) + packed_rows<L>(K));
-    const auto kernel = shared_kernel<C, L>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    Rows rows{};                           // the packed gram's rows
-    packed_rows<L>(K, rows.start);
-    kernel<<<ceil_div(M, CD_WARPS * CPW * (32 / L)), CD_WARPS * 32, smem,
-             stream>>>(xtx, xty, beta0, out, M, K, solver, rows);
-    return cudaGetLastError();
+  }
+  return (int)cd_instances(K, [&](auto... gs) {
+    return insider::launch_width(lanes, [&](auto g) {
+      using G = decltype(g);
+      using Lc = CdLaunch<G>;
+      const auto kernel = Lc::kernel;
+      const size_t smem = Lc::smem(K);
+      // CPW columns a group; past 128 fewer where the card's blocks would
+      // otherwise not all hold columns (at least one a block)
+      int cols = Lc::W * CPW * (32 / G::L);
+      cudaError_t err;
+      if (K > insider::NARROW_MAX_K) {
+        Residency res;                     // (sets the shared memory's max)
+        if ((err = residency<Lc::kernel>(Lc::W * 32, smem, res)) !=
+            cudaSuccess)
+          return err;
+        if (res.per_sm < 1) return cudaErrorInvalidConfiguration;
+        const int fill = ceil_div(M, (long)res.per_sm * res.sms);
+        cols = fill < cols ? fill : cols;
+      } else if ((err = cudaFuncSetAttribute(
+                      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                      (int)smem)) != cudaSuccess) {
+        return err;
+      }
+      Rows rows{};                         // the packed gram's rows
+      packed_rows<G::L>(K, rows.start);
+      kernel<<<ceil_div(M, cols), Lc::W * 32, smem, stream>>>(
+          xtx, xty, beta0, out, M, K, cols, solver, rows);
+      return cudaGetLastError();
+    }, gs...);
   });
 }
 
@@ -376,9 +434,12 @@ INSIDER_API long insider_fss_shared_scratch(int M, int K) {
   return wide_scratch_floats<true, false>(M, K);
 }
 
-// Floats of device scratch that insider_cd_shared needs: 0 at K <= 128,
-// the wide solve's above (fss_wide.cuh).
-INSIDER_API long insider_cd_shared_scratch(int M, int K) {
+// Floats of device scratch that insider_cd_shared needs: 0 up to K = 320
+// (lanes = 128 forces the block solve past 128), the block solve's above
+// (fss_wide.cuh).
+INSIDER_API long insider_cd_shared_scratch(int M, int K, int lanes) {
+  if (K <= insider::CD_GROUP_MAX_K && lanes != insider::WIDE_THREADS)
+    return 0;
   return wide_scratch_floats<true, true>(M, K);
 }
 
@@ -457,16 +518,57 @@ INSIDER_API int insider_fss_shared_widths(int K, int* n, int* widths,
 }
 
 // out (K, M) = the cold strong-rule CD solution of every column against the
-// one gram xtx (K, K), at most max_sweeps sweeps.  xty and beta0 (K, M):
-// row-major f32.  next, scratch: at K > 128 one int of device scratch (the
-// wide solve's column counter) and insider_cd_shared_scratch(M, K) floats;
-// unused (may be null) at K <= 128.  lam, alpha as f32; tol: one f32 on
-// the device; K >= 1.
+// one gram xtx (K, K), symmetric, at most max_sweeps sweeps.  xty and beta0
+// (K, M): row-major f32.  next, scratch: one int of device scratch (the
+// block solve's column counter) and insider_cd_shared_scratch(M, K, lanes)
+// floats; unused (may be null) where the block solve does not run.  lam,
+// alpha as f32; tol: one f32 on the device; K >= 1.  lanes: the group
+// width L, 0 for the instance the kernel runs at this K (header), else that
+// of an instance covering K (insider_cd_shared_widths; 128 past K = 128 the
+// block solve; cudaErrorInvalidValue where none does).
 INSIDER_API int insider_cd_shared(const float* xtx, const float* xty,
                                   const float* beta0, float* out, int* next,
                                   float* scratch, long scratch_len, float lam,
                                   float alpha, const float* tol, int M, int K,
-                                  int max_sweeps, cudaStream_t stream) {
+                                  int max_sweeps, int lanes,
+                                  cudaStream_t stream) {
   return cd_shared(xtx, xty, beta0, out, next, scratch, scratch_len, M, K,
-                   Solver<true>{lam, alpha, tol, max_sweeps}, stream);
+                   Solver<true>{lam, alpha, tol, max_sweeps}, lanes, stream);
+}
+
+// The CD instances of insider_cd_shared that cover K, the one it runs
+// first: *n of them (at most 2), their group widths L into widths[] (128
+// past K = 128: one column a block of 128 threads, fss_wide.cuh), and
+// where `columns` is given, the columns an SM of the current device sweeps
+// at once with each into columns[].
+INSIDER_API int insider_cd_shared_widths(int K, int* n, int* widths,
+                                         int* columns) {
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  *n = 0;
+  cudaError_t err = cudaSuccess;
+  if (K <= insider::CD_GROUP_MAX_K)
+    err = cd_instances(K, [&](auto... gs) {
+      cudaError_t e = cudaSuccess;
+      (
+          [&](auto g) {
+            using G = decltype(g);
+            using Lc = CdLaunch<G>;
+            if (e != cudaSuccess) return;
+            Residency res;
+            if (columns != nullptr &&
+                (e = residency<Lc::kernel>(Lc::W * 32, Lc::smem(K), res)) ==
+                    cudaSuccess)
+              columns[*n] = res.per_sm * Lc::W * (32 / G::L);
+            widths[(*n)++] = G::L;
+          }(gs),
+          ...);
+      return e;
+    });
+  if (err != cudaSuccess || K <= insider::NARROW_MAX_K) return (int)err;
+  int per_sm = 0;                          // the block solve
+  if ((err = wide_columns<true, true>(K, per_sm)) != cudaSuccess)
+    return (int)err;
+  if (columns != nullptr) columns[*n] = per_sm;
+  widths[(*n)++] = insider::WIDE_THREADS;
+  return (int)cudaSuccess;
 }

@@ -14,8 +14,9 @@
 // (insider_tpu/ops/col_update.py:378-390, :463-478), which the port takes
 // for K > 32, where the fused kernel's one coordinate per lane does not
 // reach.  For CD the caller permutes the problem to set the sweep order.
-// Above K = 128 FSS and CD run the wide solves, one column a block
-// (fss_wide.cuh).
+// Above K = 128 FSS runs the block solve, one column a block
+// (fss_wide.cuh); CD the grouped loop to K = 320 (below), then that block's
+// CD instance.
 //
 // Bound on the H100: the (K, K, M) gram read, K^2 M f32 (445 MB at K=50,
 // M=44477), and the serial solve of each column, latency-bound: FSS
@@ -71,6 +72,24 @@
 // with every column at the cap, L = 32 1.62-1.69 and 2.58-2.68.  Instances
 // (L, C): K <= 32 (16, 2), (32, 1); K <= 64 (16, 4), (32, 2); K <= 96 (16,
 // 6), (32, 3); K <= 128 (16, 8), (32, 4).
+//
+// Past K = 128, to CD_GROUP_MAX_K = 320, the loop holds C = ceil(K / L)
+// slots a lane in two instances.  L = 32 copies one column's packed gram
+// into its warp's slice, as above (51.5 KB at K=160: four columns an SM,
+// three at 192, two at 224, one from ~235).  L = 16, past K = 192, copies
+// its two columns' grams K x K row-major into device scratch and reads
+// their rows through L2 (streamed_global_kernel; cd_group_columns with
+// ROW_MAJOR, each row issued a coordinate ahead): 16 columns an SM, as
+// many as its 212-255 registers allow.  With every column at the
+// 200-sweep cap (M=2048; chip_ab.py --wide-cd, NVIDIA H100 80GB HBM3 at
+// 700 W) L = 32 took 14.8 ms at K=160 and 23.0 at 192, where L = 16 took
+// 21.9 and 28.3; L = 16 took 36.7, 44.2 and 70.2 ms at K = 224, 256 and
+// 320, L = 32 41.5, 92.9 and 127.7; the block solve 75.7-198.  So L = 32
+// runs to K = 192 and L = 16 past it, first.  On phase 6's problems (M =
+// 2048 columns at most a few times what the card holds, so the slowest
+// column sets the time) L = 32 is the faster by 3-28% at K = 224 and
+// 288-320.  Every width gives the block solve's bits (lanes = 128, which
+// selects it).
 //
 // The groups of a warp sweep in lockstep, so a column that converges early
 // waits for the other of its warp; handing it a new column in mid-flight
@@ -207,6 +226,94 @@ streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
   }
 }
 
+// Floats of one column's gram in streamed_global_kernel's slices: K x K,
+// rounded up to 128 bytes.
+__host__ __device__ inline int square_stride(int K) {
+  return (K * K + 31) & ~31;
+}
+
+// CD past 128 coordinates with the grams read through L2: each one-warp
+// block copies the grams of its P = 32 / L columns from xtx into its own
+// slice of device scratch, K x K row-major (each entry of the upper
+// triangle, xtx[k][l] for l >= k, written to [k][l] and [l][k]; stride
+// square_stride), and the solve reads them there (cd_group_columns with
+// ROW_MAJOR: a group's lanes read neighbouring floats of one row); no gram
+// takes shared memory, so the registers, not the grams, decide how many
+// warps an SM holds.
+template <int C, int L>
+__global__ void __launch_bounds__(32)
+streamed_global_kernel(const float* __restrict__ xtx,
+                       const float* __restrict__ xty,
+                       const float* __restrict__ beta0,
+                       float* __restrict__ out, int* __restrict__ next,
+                       float* __restrict__ scratch, int M, int K,
+                       Solver<true> solver) {
+  constexpr int P = 32 / L;
+  const int lane = threadIdx.x;
+  const int S = square_stride(K);                   // one column's gram
+  float* grams = scratch + (size_t)blockIdx.x * P * S;
+  const int h = lane & (P - 1);                      // the column it copies
+  const int n = K * (K + 1) / 2;
+  for (;;) {
+    const int j0 = next_column(next) * P;
+    if (j0 >= M) break;                              // warp-uniform
+    // lane h + P t copies entries t, t + 32 / P, ... of the upper triangle
+    // of column j0 + h in row order, through registers
+    if (j0 + h < M) {
+      float* Gh = grams + h * S;
+      const float* src = xtx + j0 + h;
+      int k = 0, l = lane / P;
+#pragma unroll 8
+      for (int e = lane / P; e < n; e += 32 / P, l += 32 / P) {
+        while (l >= K) l -= K - ++k;                 // next row: l from k
+        const float v = src[((size_t)k * K + l) * M];
+        Gh[k * K + l] = v;
+        Gh[l * K + k] = v;
+      }
+    }
+    __syncwarp();                                    // the copies are seen
+    StreamedColumns<L> cols{grams, xty, beta0, out, S, M, j0, false};
+    cd_group_columns<C, L, true>(cols, nullptr, K, solver.lam, solver.alpha,
+                                 *solver.tol, solver.max_sweeps);
+    __syncwarp();                                    // the grams are read
+  }                                                  // no more
+}
+
+// The one-warp blocks of streamed_global_kernel<C, L> at M: as many as the
+// card holds at once, no more than there are groups of P columns; 0 where
+// the residency cannot be read.
+template <int C, int L>
+int global_blocks(int M) {
+  Residency res;
+  if (residency<streamed_global_kernel<C, L>>(32, 0, res) != cudaSuccess)
+    return 0;
+  const int most = res.per_sm * res.sms, groups = ceil_div(M, 32 / L);
+  return groups < most ? groups : most;
+}
+
+// Floats of device scratch streamed_global_kernel<C, L> needs at (M, K).
+template <int C, int L>
+long global_scratch_floats(int M, int K) {
+  return (long)global_blocks<C, L>(M) * (32 / L) * square_stride(K);
+}
+
+template <int C, int L>
+cudaError_t launch_global(const float* xtx, const float* xty,
+                          const float* beta0, float* out, int* next,
+                          float* scratch, long scratch_len, int M, int K,
+                          Solver<true> solver, cudaStream_t stream) {
+  const int blocks = global_blocks<C, L>(M);
+  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  if (next == nullptr || scratch == nullptr ||
+      scratch_len < global_scratch_floats<C, L>(M, K))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(next, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  streamed_global_kernel<C, L><<<blocks, 32, 0, stream>>>(
+      xtx, xty, beta0, out, next, scratch, M, K, solver);
+  return cudaGetLastError();
+}
+
 // Launches as many one-warp blocks as the card holds at once (no more than
 // there are groups of P = 32 / L columns).
 template <int AMAX, int C, int L, bool CD>
@@ -233,20 +340,31 @@ cudaError_t launch(const float* xtx, const float* xty, const float* beta0,
   return cudaGetLastError();
 }
 
-// A CD instance: C coordinates a lane in groups of L lanes.
-template <int C_, int L_>
-struct Group {
-  static constexpr int C = C_, L = L_;
-};
-
-// Calls f with the CD instances that cover K, the one the kernel runs
-// first (header).
+// Calls f(Group<C, L, GLOBAL>()...) with the CD instances that cover K <=
+// CD_GROUP_MAX_K, the one the kernel runs first listed first (header): at K
+// <= 128 L = 16 and 32 on grams in shared memory; past it L = 32 on a gram
+// in shared memory, and past K = 192 before it L = 16 on grams read
+// through L2 (GLOBAL).
 template <class F>
 cudaError_t cd_instances(int K, F&& f) {
+  using insider::Group;
   if (K <= 32) return f(Group<2, 16>(), Group<1, 32>());
   if (K <= 64) return f(Group<4, 16>(), Group<2, 32>());
   if (K <= 96) return f(Group<6, 16>(), Group<3, 32>());
-  return f(Group<8, 16>(), Group<4, 32>());
+  if (K <= insider::NARROW_MAX_K) return f(Group<8, 16>(), Group<4, 32>());
+  return insider::by_wide_slots(K, [&](auto c16, auto c32) {
+    using Shared = Group<decltype(c32)::value, 32>;
+    using Global = Group<decltype(c16)::value, 16, true>;
+    if constexpr (decltype(c16)::value <= 12) return f(Shared());
+    else return f(Global(), Shared());
+  });
+}
+
+// Whether insider_cd_streamed runs the block solve (fss_wide.cuh) at K with
+// this lanes argument.
+bool block_solve(int K, int lanes) {
+  return K > insider::CD_GROUP_MAX_K ||
+         (K > insider::NARROW_MAX_K && lanes == insider::WIDE_THREADS);
 }
 
 int fss_streamed(const float* xtx, const float* xty, const float* beta0,
@@ -272,10 +390,21 @@ INSIDER_API long insider_fss_streamed_scratch(int M, int K) {
   return wide_scratch_floats<false, false>(M, K);
 }
 
-// Floats of device scratch that insider_cd_streamed needs: 0 at K <= 128,
-// the wide solve's above (fss_wide.cuh).
-INSIDER_API long insider_cd_streamed_scratch(int M, int K) {
-  return wide_scratch_floats<false, true>(M, K);
+// Floats of device scratch that insider_cd_streamed needs with this lanes
+// argument: the block solve's (fss_wide.cuh) where it runs, the grams'
+// copies of an instance that reads them through L2, else 0.
+INSIDER_API long insider_cd_streamed_scratch(int M, int K, int lanes) {
+  if (M < 1 || K < 1) return 0;
+  if (block_solve(K, lanes)) return wide_scratch_floats<false, true>(M, K);
+  long n = 0;
+  cd_instances(K, [&](auto... gs) {
+    return insider::launch_width(lanes, [&](auto g) {
+      using G = decltype(g);
+      if constexpr (G::GLOBAL) n = global_scratch_floats<G::C, G::L>(M, K);
+      return cudaSuccess;
+    }, gs...);
+  });
+  return n;
 }
 
 // out (K, M) = the FSS + polish solution of every column.  xtx (K, K, M),
@@ -296,13 +425,13 @@ INSIDER_API int insider_fss_streamed(const float* xtx, const float* xty,
 }
 
 // out (K, M) = the cold strong-rule CD solution of every column, at most
-// max_sweeps sweeps.  xtx (K, K, M), xty and beta0 (K, M): row-major f32;
-// next: one int of device scratch (the column counter); scratch:
-// insider_cd_streamed_scratch(M, K) floats of device scratch (none at K <=
-// 128).  lam, alpha as f32; tol: one f32 on the device; K >= 1.  lanes:
+// max_sweeps sweeps.  xtx (K, K, M), symmetric grams, xty and beta0 (K,
+// M): row-major f32; next: one int of device scratch (the column counter);
+// scratch: insider_cd_streamed_scratch(M, K, lanes) floats of device
+// scratch.  lam, alpha as f32; tol: one f32 on the device; K >= 1.  lanes:
 // the group width L, 0 for the instance the kernel runs at this K
-// (header), else that of an instance covering K
-// (insider_cd_streamed_widths; cudaErrorInvalidValue where none does).
+// (header), else that of an instance covering K (insider_cd_streamed_widths;
+// 128 past K = 128 the block solve; cudaErrorInvalidValue where none does).
 INSIDER_API int insider_cd_streamed(const float* xtx, const float* xty,
                                     const float* beta0, float* out, int* next,
                                     float* scratch, long scratch_len,
@@ -311,60 +440,63 @@ INSIDER_API int insider_cd_streamed(const float* xtx, const float* xty,
                                     cudaStream_t stream) {
   if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
   const Solver<true> solver{lam, alpha, tol, max_sweeps};
-  if (K > insider::NARROW_MAX_K) {                   // fss_wide.cuh
+  if (block_solve(K, lanes)) {                       // fss_wide.cuh
     if (lanes != 0 && lanes != insider::WIDE_THREADS)
       return (int)cudaErrorInvalidValue;
     return (int)launch_wide<false, true>(xtx, xty, beta0, out, next, scratch,
                                          scratch_len, M, K, solver, stream);
   }
   return (int)cd_instances(K, [&](auto... gs) {
-    cudaError_t err = cudaErrorInvalidValue;
-    bool found = false;
-    (
-        [&](auto g) {
-          using G = decltype(g);
-          if (found || (lanes != 0 && lanes != G::L)) return;
-          found = true;
-          err = launch<32, G::C, G::L, true>(xtx, xty, beta0, out, next, M,
-                                             K, solver, stream);
-        }(gs),
-        ...);
-    return err;
+    return insider::launch_width(lanes, [&](auto g) {
+      using G = decltype(g);
+      if constexpr (G::GLOBAL)
+        return launch_global<G::C, G::L>(xtx, xty, beta0, out, next, scratch,
+                                         scratch_len, M, K, solver, stream);
+      else
+        return launch<32, G::C, G::L, true>(xtx, xty, beta0, out, next, M, K,
+                                            solver, stream);
+    }, gs...);
   });
 }
 
 // The CD instances of insider_cd_streamed that cover K, the one it runs
-// first: *n of them (at most 2), their group widths L into widths[] (128
-// at K > 128: one column a block of 128 threads, fss_wide.cuh), and where
-// `columns` is given, the columns an SM of the current device holds of
-// each into columns[].
+// first: *n of them (at most 3), their group widths L into widths[] (past
+// K = 128: 32 on a gram in shared memory, 16 on grams read through L2, 128
+// one column a block of 128 threads, fss_wide.cuh), and where `columns` is
+// given, the columns an SM of the current device holds of each into
+// columns[].
 INSIDER_API int insider_cd_streamed_widths(int K, int* n, int* widths,
                                            int* columns) {
   if (K < 1) return (int)cudaErrorInvalidValue;
   *n = 0;
-  if (K > insider::NARROW_MAX_K) {        // the wide solve: a block a column
-    int per_sm = 0;
-    const cudaError_t err = wide_columns<false, true>(K, per_sm);
-    if (err != cudaSuccess) return (int)err;
-    if (columns != nullptr) columns[0] = per_sm;
-    widths[(*n)++] = insider::WIDE_THREADS;
-    return (int)cudaSuccess;
-  }
-  return (int)cd_instances(K, [&](auto... gs) {
-    cudaError_t err = cudaSuccess;
-    (
-        [&](auto g) {
-          using G = decltype(g);
-          if (err != cudaSuccess) return;
-          Residency res;
-          if (columns != nullptr &&
-              (err = residency<streamed_kernel<32, G::C, G::L, true>>(
-                   32, sizeof(float) * slice_floats<G::C, G::L, true>(K),
-                   res)) == cudaSuccess)
-            columns[*n] = res.per_sm * (32 / G::L);
-          widths[(*n)++] = G::L;
-        }(gs),
-        ...);
-    return err;
-  });
+  cudaError_t err = cudaSuccess;
+  if (K <= insider::CD_GROUP_MAX_K)
+    err = cd_instances(K, [&](auto... gs) {
+      cudaError_t e = cudaSuccess;
+      (
+          [&](auto g) {
+            using G = decltype(g);
+            if (e != cudaSuccess) return;
+            Residency res;
+            if (columns != nullptr) {
+              if constexpr (G::GLOBAL)
+                e = residency<streamed_global_kernel<G::C, G::L>>(32, 0, res);
+              else
+                e = residency<streamed_kernel<32, G::C, G::L, true>>(
+                    32, sizeof(float) * slice_floats<G::C, G::L, true>(K),
+                    res);
+              if (e == cudaSuccess) columns[*n] = res.per_sm * (32 / G::L);
+            }
+            widths[(*n)++] = G::L;
+          }(gs),
+          ...);
+      return e;
+    });
+  if (err != cudaSuccess || K <= insider::NARROW_MAX_K) return (int)err;
+  int per_sm = 0;                          // the block solve
+  if ((err = wide_columns<false, true>(K, per_sm)) != cudaSuccess)
+    return (int)err;
+  if (columns != nullptr) columns[*n] = per_sm;
+  widths[(*n)++] = insider::WIDE_THREADS;
+  return (int)cudaSuccess;
 }

@@ -1,8 +1,10 @@
-// The wide column solves: feature_sign and cd_streamed (fss_streamed.cu),
-// feature_sign_shared and cd_shared (fss_shared.cu) above 128 coordinates,
-// where a warp's register slots (four coordinates a lane; CD: eight at L =
-// 16) and its K x (K + 1) gram plus workspace in shared memory (past 227
-// KB at K ~ 170) no longer reach.
+// The block solves: feature_sign (fss_streamed.cu) and feature_sign_shared
+// (fss_shared.cu) above 128 coordinates, where a warp's register slots
+// (four coordinates a lane) and its K x (K + 1) gram plus workspace in
+// shared memory (past 227 KB at K ~ 170) no longer reach; and the cold-CD
+// block instance of cd_streamed and cd_shared: past K = 320, where
+// cd_group_columns' instances stop, and at every K > 128 as the width 128
+// of their lanes hook, bit for bit the grouped loop there (fss_core.cuh).
 //
 // FSS computes fss_column's iteration (fss_core.cuh; the TPU kernel's
 // fss_pallas.py:_fss_compute) for any K: forward elimination without
@@ -22,9 +24,11 @@
 // flags all active.
 //
 // Bound on the H100: the serial solve of each column, latency-bound (a
-// barrier a pivot and a barrier a sweep's coordinate), as the narrow
-// kernels' (fss_streamed.cu, fss_shared.cu); the streamed grams' K^2 M f32
-// read comes second.
+// barrier a pivot and a barrier a sweep's coordinate); the streamed grams'
+// K^2 M f32 read comes second.  The CD block took 2.6-27 times the
+// grouped loop's time with every column at the 200-sweep cap at K =
+// 160-320 (chip_ab.py --wide-cd, NVIDIA H100 80GB HBM3 at 700 W), so it
+// runs by default only past K = 320.
 //
 // Design: one block of WIDE_THREADS threads solves one column; the blocks
 // are persistent, as many as the card holds at once, and take their columns

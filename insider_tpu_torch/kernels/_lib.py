@@ -65,15 +65,18 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _P]),
     "insider_cd_fused_widths": (_I, [_I, ctypes.POINTER(_I),
                                      ctypes.POINTER(_I), ctypes.POINTER(_I)]),
-    "insider_cd_streamed_scratch": (_L, [_I, _I]),
+    "insider_cd_streamed_scratch": (_L, [_I, _I, _I]),
     "insider_cd_streamed": (_I, [_P, _P, _P, _P, _P, _P, _L, _F, _F, _P,
                                  _I, _I, _I, _I, _P]),
     "insider_cd_streamed_widths": (_I, [_I, ctypes.POINTER(_I),
                                         ctypes.POINTER(_I),
                                         ctypes.POINTER(_I)]),
-    "insider_cd_shared_scratch": (_L, [_I, _I]),
+    "insider_cd_shared_scratch": (_L, [_I, _I, _I]),
     "insider_cd_shared": (_I, [_P, _P, _P, _P, _P, _P, _L, _F, _F, _P,
-                               _I, _I, _I, _P]),
+                               _I, _I, _I, _I, _P]),
+    "insider_cd_shared_widths": (_I, [_I, ctypes.POINTER(_I),
+                                      ctypes.POINTER(_I),
+                                      ctypes.POINTER(_I)]),
     "insider_ctns_cd": (_I, [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P]),
     "insider_masked_eval_scratch": (_L, [_I, _I, _I]),
     "insider_masked_eval": (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _L,
@@ -184,13 +187,15 @@ def column_counter(t: torch.Tensor) -> torch.Tensor:
 
 
 def launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
-                    f1: float, f2: float, tol, *ints) -> torch.Tensor:
+                    f1: float, f2: float, tol, *ints,
+                    scratch_ints=()) -> torch.Tensor:
     """Check the operands of a gram-input column kernel (kernels/fss.py's
     and cd.py's: xtx of gram_shape, xty and beta0 (K, M)) and launch its C
     entry with a column counter and the scratch its `<c_entry>_scratch`
-    asks for (the wide solves', none at K <= 128); f1, f2: its two f32
-    scalars; tol: a float or one f32 on the card (tol_on_device); ints: its
-    trailing int arguments.  Returns the (K, M) f32 output."""
+    asks for at (M, K, *scratch_ints) (the wide solves', none at K <= 128);
+    f1, f2: its two f32 scalars; tol: a float or one f32 on the card
+    (tol_on_device); ints: its trailing int arguments.  Returns the (K, M)
+    f32 output."""
     require_cuda(what, xtx, xty, beta0)
     K, M = xty.shape
     if xtx.shape != gram_shape or beta0.shape != (K, M):
@@ -199,7 +204,8 @@ def launch_on_grams(what: str, c_entry: str, xtx, gram_shape, xty, beta0,
     out = torch.empty((K, M), dtype=torch.float32, device=xty.device)
     counter = column_counter(xty)
     with torch.cuda.device(xty.device):
-        n = getattr(lib(), c_entry + "_scratch")(M, K)
+        n = getattr(lib(), c_entry + "_scratch")(
+            M, K, *(int(i) for i in scratch_ints))
         scratch = torch.empty(n, dtype=torch.float32, device=xty.device)
         err = getattr(lib(), c_entry)(
             xtx.data_ptr(), xty.data_ptr(), beta0.data_ptr(), out.data_ptr(),

@@ -33,8 +33,14 @@ and must agree with itself bit for bit.  Past K = 128 (WIDE_RANKS: 129,
 160, 256 and 300, where the wide FSS and cold-CD solves read their gram
 from device memory) the widened kernels are held to the same gates, with
 both mask dtypes where the kernel takes both; ctns_cd is its plain
-version bit for bit, sweep counts included, at every K.
+version bit for bit, sweep counts included, at every K.  The cold-CD
+kernels past 128 also run at K = 320 and 321 (the grouped CD loop's last
+K and the first where the block solve runs alone), and every width of
+cd_streamed_widths and cd_shared_widths gives the block solve's bits
+(lanes=128) there.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -647,13 +653,34 @@ def test_cd_shared(cuda, N, K, M):
     _check_cd(got, cd.cd_shared_plain(XtX, b, beta0, **kw),
               XtX[:, :, None].expand(K, K, M), b, kw["lam"])
     assert torch.equal(got, cd.cd_shared(XtX, b, beta0, **kw))
+    # one instance at K <= 128 (L = 8, 16 or 32 by K); every other width
+    # raises
+    widths = dict(cd.cd_shared_widths(K))
+    assert list(widths) == [8 if K <= 32 else 16 if K <= 64 else 32]
+    for lanes in (8, 16, 32, 128):
+        if lanes in widths:
+            assert widths[lanes] >= 32 // lanes
+            assert torch.equal(got, cd.cd_shared(XtX, b, beta0, **kw,
+                                                 lanes=lanes)), lanes
+        else:
+            with pytest.raises(RuntimeError):
+                cd.cd_shared(XtX, b, beta0, **kw, lanes=lanes)
 
 
-# past the narrow kernels' 128 (WIDE_RANKS), the wide cold-CD solve: lam 11
-# screens nothing here, lam 30 screens part of every column (the skipped
-# coordinates, the KKT reactivation)
+# The grouped CD loop's last K (320) and the next, where the block solve
+# takes over
+GROUP_MAX_K = 320
+CD_WIDE_RANKS = WIDE_RANKS + (GROUP_MAX_K, GROUP_MAX_K + 1)
+
+
+# past the narrow kernels' 128 (CD_WIDE_RANKS): the grouped loop's
+# instances to K = 320 (L = 32 on a gram in shared memory; cd_streamed past
+# K = 192 also L = 16 on grams read through L2), listed before the block
+# solve (128), and past 320 the block solve alone; lam 11 screens nothing
+# here, lam 30 screens part of every column (the skipped coordinates, the
+# KKT reactivation)
 @pytest.mark.parametrize("lam", [11.0, 30.0])
-@pytest.mark.parametrize("K", WIDE_RANKS)
+@pytest.mark.parametrize("K", CD_WIDE_RANKS)
 @pytest.mark.parametrize("name", ["cd_streamed", "cd_shared"])
 def test_cd_wide(cuda, name, K, lam):
     N, M = K + 50, 67
@@ -663,9 +690,11 @@ def test_cd_wide(cuda, name, K, lam):
     if name == "cd_streamed":
         G, b = gram.col_gram_xty_plain(mask, data, R)
         args, Gc = (G, b, beta0), G
+        assert torch.equal(G, G.transpose(0, 1))             # symmetric
     else:
         G, b = (R.T @ R).contiguous(), (R.T @ data).contiguous()
         args, Gc = (G, b, beta0), G[:, :, None].expand(K, K, M)
+        assert torch.equal(G, G.T)
     fn, plain = getattr(cd, name), getattr(cd, name + "_plain")
     n0 = fn.launches
     got = fn(*args, **kw)
@@ -674,22 +703,32 @@ def test_cd_wide(cuda, name, K, lam):
     assert torch.equal(got, fn(*args, **kw))                 # bit for bit
     thr = kw["alpha"] * (2 * lam - b.abs().max(0).values)
     assert bool((b.abs() < thr).any()) == (lam > 20)         # screened
-    if name == "cd_streamed":
-        # one instance, a column a block of 128 threads; other widths raise
-        widths = dict(cd.cd_streamed_widths(K))
-        assert list(widths) == [128] and widths[128] >= 1
-        assert torch.equal(got, fn(*args, **kw, lanes=128))
-        with pytest.raises(RuntimeError):
-            fn(*args, **kw, lanes=16)
+    # every width gives the block solve's bits; a width with no instance
+    # at this K raises
+    widths = dict(getattr(cd, name + "_widths")(K))
+    grouped = ([] if K > GROUP_MAX_K else
+               [16, 32] if name == "cd_streamed" and K > 192 else [32])
+    assert sorted(widths) == sorted(grouped + [128])
+    assert next(iter(widths)) != 128 or not grouped          # listed first
+    block = fn(*args, **kw, lanes=128)
+    assert torch.equal(got, block)
+    for lanes in (8, 16, 32):
+        if lanes in widths:
+            assert widths[lanes] >= 32 // lanes
+            assert torch.equal(fn(*args, **kw, lanes=lanes), block), lanes
+        else:
+            with pytest.raises(RuntimeError):
+                fn(*args, **kw, lanes=lanes)
 
 
-@pytest.mark.parametrize("K", WIDE_RANKS)
+@pytest.mark.parametrize("K", CD_WIDE_RANKS)
 @pytest.mark.parametrize("name", ["cd_streamed", "cd_shared"])
 def test_cd_wide_columns_are_independent(cuda, name, K):
-    """The wide cold-CD solve: each column of one batched call equals, bit
-    for bit, the kernel's output on that column alone, where neighbouring
-    columns stop at very different sweeps (every even one after a sweep,
-    the odd ones at the cap).  M = 37."""
+    """Past K = 128, at every width (the grouped loop's instances and the
+    block solve): each column of one batched call equals, bit for bit, the
+    kernel's output on that column alone, where neighbouring columns stop
+    at very different sweeps (every even one after a sweep, the odd ones at
+    the cap), and every width gives the same bits.  M = 37."""
     M = 37
     G, b, beta0 = _staggered(K, M, K, cuda)
     if name == "cd_shared":
@@ -701,11 +740,13 @@ def test_cd_wide_columns_are_independent(cuda, name, K):
     assert float(got[:, ::2].abs().max()) == 0.0
     assert not any(torch.equal(got[:, j], fewer[:, j])
                    for j in range(1, M, 2))          # at the cap
-    for j in range(M):
-        Gj = G if name == "cd_shared" else G[:, :, j:j + 1].contiguous()
-        alone = fn(Gj, b[:, j:j + 1].contiguous(),
-                   beta0[:, j:j + 1].contiguous(), **kw)
-        assert torch.equal(alone[:, 0], got[:, j]), j
+    for lanes, _ in getattr(cd, name + "_widths")(K):
+        assert torch.equal(got, fn(G, b, beta0, **kw, lanes=lanes)), lanes
+        for j in range(M):
+            Gj = G if name == "cd_shared" else G[:, :, j:j + 1].contiguous()
+            alone = fn(Gj, b[:, j:j + 1].contiguous(),
+                       beta0[:, j:j + 1].contiguous(), **kw, lanes=lanes)
+            assert torch.equal(alone[:, 0], got[:, j]), (lanes, j)
 
 
 def test_masked_problem_past_65536_rows(cuda):
@@ -1288,7 +1329,9 @@ NONFINITE_CASES = [(name, k) for k in (6, 24, 50)
                    + (("feature_sign_fused", "cd_fused") if k <= 32 else ())
                    ] + [(name, 160) for name in ("col_gram_xty", "feature_sign",
                                                  "feature_sign_shared",
-                                                 "cd_streamed", "cd_shared")]
+                                                 "cd_streamed", "cd_shared")
+                        ] + [(name, k) for k in (300, 321)
+                             for name in ("cd_streamed", "cd_shared")]
 
 
 @pytest.mark.parametrize("name,K", NONFINITE_CASES)
@@ -1348,3 +1391,11 @@ def test_nonfinite_inputs_give_the_plain_versions_columns(cuda, name, K):
     assert not got[:, kept].any()
     if name != "col_gram_xty":
         assert torch.isnan(got[:, bad]).all()
+    if name in ("cd_streamed", "cd_shared") and K > 128:
+        # every width past 128 (the grouped loop's instances and the block
+        # solve) gives these bits, NaNs in the same places
+        for lanes, _ in getattr(cd, name + "_widths")(K):
+            other = run(functools.partial(kernel, lanes=lanes), data, beta0)
+            assert torch.equal(torch.nan_to_num(other, 7.0),
+                               torch.nan_to_num(got, 7.0)), lanes
+            assert torch.equal(torch.isnan(other), torch.isnan(got)), lanes
