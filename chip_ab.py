@@ -2,7 +2,8 @@
 """Time the port's main-path kernels, its FSS kernels and its six fits, for
 one package tree, on one NVIDIA GPU.
 
-    python3 chip_ab.py ROOT [--out FILE] [--shared-only | --wide-cd]
+    python3 chip_ab.py ROOT [--out FILE] [--shared-only | --wide-cd |
+                                           --wide-fss]
     python3 chip_ab.py --share FILE.npz FILE.npz
 
 ROOT is a directory that holds an insider_tpu_torch package: this checkout,
@@ -63,6 +64,18 @@ output held to the block solve's (lanes=128) bit for bit at 10 and 200
 sweeps, and on columns that all run to the cap (tol 0, lambda 0.05, M =
 2048) at K = 160, 192, 224, 256 and 320: the times the kernels' order of
 widths rests on.
+With --wide-fss only the FSS kernels past K = 128: the K = 160 masked and
+dense FSS fits of chip_smoke.py phase 18 (10 iterations each, their
+ms/iter), and on the first 2048 columns of each fit's first column update
+(iteration 0) and of one eager update from its end state, fss_counts'
+statistics (outer steps, active sets, polish sweeps, fss_flops and the
+bound) and the kernel at every width it has (feature_sign_widths,
+feature_sign_shared_widths; 128 the block solve), also with
+polish_sweeps=0 and with max_outer=0, polish_sweeps=0 (the set-up alone);
+then chip_smoke's phase-6 FSS problem (300 rows, lambda 1, alpha 0.5) at
+K = 129, 160, 192, 224, 256, 288, 300, 320 and 321 (M = 2048, 1024 at
+288, 256 from 300) at every width, each width's output held to the block
+solve's (lanes=128) bit for bit, with a checksum.
 Prints one JSON line (and writes it to FILE).  Exits non-zero without
 CUDA.
 """
@@ -315,6 +328,161 @@ def wide_cd_kernels(torch, cs, gram, cd):
     return out
 
 
+WIDE_FSS_SLICE = 2048   # columns of a fit's FSS call replayed and timed
+
+
+def fit_fss_calls(torch, cs, itt, als, wrappers):
+    """The inputs of the K = 160 fits' first and last FSS column updates
+    (chip_smoke.py phase 18's masked and dense FSS fits, 10 iterations):
+    the first is the fit's eager iteration 0, the last one eager iteration
+    from the fit's end state (as profile_fit runs it), each cut to its
+    first WIDE_FSS_SLICE columns and copied as the wrapper is called.
+    Also the fits' ms/iter.  Returns ({label: (kernel, args, kw)}, {fit:
+    ms/iter})."""
+    from insider_tpu_torch.config import FitConfig
+    from insider_tpu_torch.ops import col_update
+
+    m = WIDE_FSS_SLICE
+    calls, fits = {}, {}
+
+    def spy(kernel, label_first, label_last):
+        orig = getattr(col_update, kernel)
+
+        def call(*args, **kw):
+            if not torch.cuda.is_current_stream_capturing():
+                xtx, xty, beta0 = args[:3]
+                cut = (xtx if xtx.dim() == 2 else xtx[:, :, :m]).contiguous()
+                rec = (kernel, (cut, xty[:, :m].contiguous(),
+                                beta0[:, :m].contiguous(), *args[3:]),
+                       {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                        for k, v in kw.items()})
+                calls.setdefault(label_first, rec)
+                calls[label_last] = rec
+            return orig(*args, **kw)
+        return orig, call
+
+    obj = cs.wide_object(itt)
+    for label, partition, kernel in (("masked", 1, "feature_sign"),
+                                     ("dense", 0, "feature_sign_shared")):
+        orig, call = spy(kernel, f"{label} first", f"{label} fit end")
+        setattr(col_update, kernel, call)
+        try:
+            name = f"K={cs.WIDE_K} FSS {label} fit"
+            _, _, fits[name] = cs.run_fit(
+                torch, obj, wrappers, {}, name, min_iters=10, max_iter=10,
+                partition=partition, **cs.WIDE_FIT)
+            # the last update: one eager iteration from the end state
+            calls.pop(f"{label} fit end")
+            cfg = FitConfig(latent_dim=cs.WIDE_K, lambda1=cs.LAM,
+                            lambda2=cs.LAM, alpha=cs.ALPHA,
+                            masked=partition == 1,
+                            global_tol=obj.params["global_tol"],
+                            sub_tol=obj.params["sub_tol"], max_iter=0,
+                            seed=obj.seed)
+            problem = als.build_problem(
+                obj.data, obj.confounder,
+                obj.train_indicator + obj.test_indicator, obj.na_indicator,
+                obj.ctns_confounder, masked=partition == 1, device="cuda")
+            als.optimize(problem, cfg, state=obj.fit_result.state,
+                         verbose=False)
+            torch.cuda.synchronize()
+            calls[f"{label} last"] = calls.pop(f"{label} fit end")
+            del problem
+        finally:
+            setattr(col_update, kernel, orig)
+    del obj
+    return calls, fits
+
+
+def wide_fss_kernels(torch, cs, itt, als, gram, fss, wrappers):
+    """{"<label>": record} of the FSS kernels past K = 128 (module
+    docstring, --wide-fss): on each K = 160 fit's first and last FSS call
+    (WIDE_FSS_SLICE columns) fss_counts' statistics and the kernel at
+    every width, each also with polish_sweeps=0 and with max_outer=0 and
+    polish_sweeps=0 (its gram copy and set-up alone), each width held to
+    lanes=128 bit for bit; then chip_smoke.py phase 6's FSS problems (300
+    rows, lambda 1, alpha 0.5) at K = 129-321 at every width, held alike,
+    with a checksum.  fails where a width differs from the block solve."""
+    out = {}
+
+    def widths(name, k):
+        if hasattr(fss, name + "_widths"):
+            return getattr(fss, name + "_widths")(k)
+        return [(128, 1)]
+
+    def run_widths(label, name, args, kw, reps):
+        fn = getattr(fss, name)
+        ws = widths(name, args[1].shape[0])
+        has_lanes = hasattr(fss, name + "_widths")
+        block = fn(*args, **kw, **({"lanes": 128} if has_lanes else {}))
+        for lanes, cols in ws:
+            lkw = dict(kw, lanes=lanes) if has_lanes else kw
+            got = fn(*args, **lkw)
+            if not torch.equal(got, block):
+                cs.fail(f"{label} {name} L={lanes} differs from the block "
+                        "solve (lanes=128)")
+            key = f"{label} {name} L={lanes}"
+            out[key] = dict(ms=cs.timed_ms(torch, lambda: fn(*args, **lkw),
+                                           reps),
+                            checksum=checksum(got), columns_per_sm=cols,
+                            M=args[1].shape[1])
+            print(f"chip_ab: {key} M={args[1].shape[1]}: "
+                  f"{out[key]['ms']:.4f} ms, {cols} columns an SM, "
+                  f"checksum {out[key]['checksum']}")
+        return block
+
+    calls, out["fits_ms_per_iter"] = fit_fss_calls(torch, cs, itt, als,
+                                                   wrappers)
+    print(f"chip_ab: K={cs.WIDE_K} FSS fits ms/iter "
+          f"{out['fits_ms_per_iter']}")
+    for label, (name, args, kw) in calls.items():
+        xtx, xty, beta0, lam, alpha = args[:5]
+        k, m = xty.shape
+        G = xtx if xtx.dim() == 3 else xtx[:, :, None].expand(k, k, m)
+        sym = bool(torch.equal(xtx, xtx.transpose(0, 1)))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        c = cs.fss_counts(torch, G, xty, beta0, lam, alpha,
+                          kw.get("max_outer", 48),
+                          kw.get("polish_sweeps", 32), kw.get("tol", 0.0))
+        torch.cuda.synchronize()
+        replay_s = time.time() - t0
+        summary = cs.count_summary(torch, f"K={k} {label} {name}", k, c)
+        flops = cs.fss_flops(k, c)
+        bnd = cs.gram_input_bound(k, m, shared=xtx.dim() == 2, fss=c)
+        block = run_widths(f"{label}", name, args, kw, 3)
+        plain_equal = bool(torch.equal(block, c["beta"]))
+        for part, pkw in (("no polish", dict(kw, polish_sweeps=0)),
+                          ("set-up alone", dict(kw, max_outer=0,
+                                                polish_sweeps=0))):
+            run_widths(f"{label} {part}", name, args, pkw, 3)
+        out[f"{label} counts"] = dict(
+            summary, kernel=name, fss_flops=flops, bound_ms=bnd[0],
+            bound_by=bnd[1], bit_symmetric=sym, replay_s=replay_s,
+            block_equals_plain=plain_equal,
+            polish_sweeps_mean=float(c["polish_sweeps"].double().mean()))
+        print(f"chip_ab: {label} {name} K={k} M={m}: fss_flops {flops:.4e}, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}); gram bit-symmetric {sym}; "
+              f"block equal to the plain replay bit for bit {plain_equal}; "
+              f"replay {replay_s:.1f} s")
+        del G, c
+    calls.clear()
+
+    for k, m in ((129, 2048), (160, 2048), (192, 2048), (224, 2048),
+                 (256, 2048), (288, 1024), (300, 256), (320, 256),
+                 (321, 256)):
+        R, mask, data, beta0 = cs.problem(torch, 300, k, m, k)
+        G, b = gram.col_gram_xty(mask, data, R)
+        XtX, Xty = (R.T @ R).contiguous(), (R.T @ data).contiguous()
+        kw = dict(max_outer=48, polish_sweeps=32, tol=cs.SUB_TOL)
+        for name, args in (("feature_sign", (G, b, beta0, 1.0, 0.5)),
+                           ("feature_sign_shared", (XtX, Xty, beta0, 1.0,
+                                                    0.5))):
+            run_widths(f"K={k}", name, args, kw, 1)
+        del G, b, XtX, Xty
+    return out
+
+
 def col_gram_times(torch, cs, gram):
     """{name: record} of col_gram_xty alone on chip_smoke's phase-4 (K=50)
     and phase-6 (K=96, 128) inputs: kernel time, library_ms, bound and
@@ -377,6 +545,9 @@ def main():
     ap.add_argument("--wide-cd", action="store_true",
                     help="only the cold-CD kernels past K = 128, at every "
                          "group width")
+    ap.add_argument("--wide-fss", action="store_true",
+                    help="only the FSS kernels past K = 128: the K = 160 "
+                         "fits' calls, and every width")
     a = ap.parse_args()
     if a.share:
         return share_equal(*a.share)
@@ -420,6 +591,10 @@ def main():
                 "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
                 "cd_shared": cd.cd_shared}
     saved = {}
+    if a.wide_fss:
+        res["wide_fss"] = wide_fss_kernels(torch, cs, itt, als, gram, fss,
+                                           wrappers)
+        return finish(a, res, saved)
     if a.wide_cd:
         res["wide_cd"] = wide_cd_kernels(torch, cs, gram, cd)
         return finish(a, res, saved)

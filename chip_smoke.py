@@ -1401,6 +1401,28 @@ CD_CAP = 200                      # the CD kernels' sweep cap (a fit's)
 WIDE_LEVELS = (12, 25)
 
 
+def fss_width_times(torch, name, fn, widths, got, args, kw, bnd):
+    """Every width of a gram-input FSS kernel (widths: feature_sign_widths
+    or feature_sign_shared_widths; 128 the block solve) run once, timed
+    (CUDA events), and its output held to the block solve's (lanes=128)
+    and to `got` bit for bit.  Returns {lanes: ms}, the one the kernel runs
+    first first."""
+    outs, times = {}, {}
+    for lanes, _ in widths:
+        outs[lanes], times[lanes] = timed_once(
+            torch, lambda: fn(*args, **kw, lanes=lanes))
+    for lanes, out in outs.items():
+        if not (torch.equal(out, outs[128]) and torch.equal(out, got)):
+            fail(f"{name} L={lanes} differs from the block solve (lanes=128)"
+                 " or from the output gated above")
+    print(f"{name}: widths equal the block solve (lanes=128) bit for bit; "
+          "each (L, columns an SM, ms, times its bound): "
+          + "; ".join(f"L={lanes} {cols} {times[lanes]:.4f} ms "
+                      f"{times[lanes] / bnd[0]:.1f}x"
+                      for lanes, cols in widths))
+    return times
+
+
 def timed_once(torch, fn):
     """(fn(), its ms): one call timed by CUDA events, for plain versions
     that take seconds a call (the FSS iteration at K >= 160)."""
@@ -1468,25 +1490,32 @@ def phase_kernels_wider(torch, gram, fss, cd, ctns, row, ev):
                 ("feature_sign", (G, b, beta0, lam, alpha), G, b),
                 ("feature_sign_shared", (XtX, Xty, beta0, lam, alpha), Gd,
                  Xty)):
-            fn, plain = getattr(fss, name), getattr(fss, name + "_plain")
+            fn = getattr(fss, name)
+            if not torch.equal(args[0], args[0].transpose(0, 1)):
+                fail(f"{name} K={k}: the gram is not symmetric bit for bit")
             got = fn(*args, **kw)
             again, ms = timed_once(torch, lambda: fn(*args, **kw))
             if not torch.equal(got, again):
                 fail(f"{name} K={k} differs from itself")
-            ref_, plain_ms = timed_once(torch, lambda: plain(*args, **kw))
-            bnd = (gram_input_bound(k, m, shared=True, fss=fss_counts(
+            # the plain output from fss_counts' replay of the plain loop
+            # (its solution the plain version's), timed in its place
+            c, plain_ms = timed_once(torch, lambda: fss_counts(
                 torch, GG, bb, beta0, lam, alpha, **kw))
-                   if name == "feature_sign_shared"
-                   else gram_input_bound(k, m, shared=False))
+            ref_ = c["beta"]
+            bnd = gram_input_bound(k, m, shared=name == "feature_sign_shared",
+                                   fss=c)
             share, excess = fss_checks(torch, f"{name} K={k}", got, ref_, GG,
                                        bb, lam, alpha)
+            widths = fss_width_times(torch, f"{name} K={k}", fn,
+                                     getattr(fss, name + "_widths")(k), got,
+                                     args, kw, bnd)
             out[f"{name} K={k}"] = dict(
                 max_abs_err=float((got - ref_).abs().max()),
                 match_share=share, max_objective_excess=excess,
                 ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-                N=n, M=m)
-        out[f"feature_sign_shared K={k}"]["lanes"] = \
-            fss.feature_sign_shared_widths(k)[0][0]
+                N=n, M=m, lanes=next(iter(widths)), width_ms=widths,
+                steps_mean=float(c["steps"].double().mean()))
+            del c
 
         # cold CD past 128: cd_streamed on col_gram_xty's grams, cd_shared
         # on R^T R, of a problem of its own with 2K rows (at N =
@@ -1787,8 +1816,10 @@ KERNEL_NAMES = {"level_gram": ("level_gram",), "row_xty": ("row_xty",),
                 "feature_sign_fused": ("fused_kernel<",),
                 "masked_eval": ("masked_eval",),
                 "col_gram_xty": ("col_gram_xty",),
-                "feature_sign": ("streamed_kernel<", "wide_kernel<"),
-                "feature_sign_shared": ("shared_kernel", "wide_kernel<"),
+                "feature_sign": ("streamed_kernel<", "steps_kernel<",
+                                 "wide_kernel<"),
+                "feature_sign_shared": ("shared_kernel", "steps_kernel<",
+                                        "wide_kernel<"),
                 "cd_fused": ("fused_kernel<",),
                 "cd_streamed": ("streamed_kernel<", "streamed_global_kernel<",
                                 "wide_kernel<"),
@@ -2793,8 +2824,11 @@ def infit_checks(torch, als, name, run, kernels, rows=0, segment=False,
     plain version (the fit's inputs nearly cancel, as row_xty_gate's do);
     masked_eval's SSEs within 1e-5 relative, counts exact
     (masked_eval_check); col_gram_xty within COL_GRAM_RTOL of the f64 sums
-    both ways (col_gram_gate); the FSS kernels' per-column objective at
-    most 1e-6 relative above the plain version's (fss_checks); cd_fused
+    both ways (col_gram_gate); the gram-input FSS and CD kernels' grams
+    symmetric bit for bit; the FSS kernels' per-column objective at
+    most 1e-6 relative above the plain version's (fss_checks; past K = 128
+    fss_wide_infit, on a slice of the columns, and every width bit for bit
+    the block solve); cd_fused
     against its plain version and a witness (cd_infit); cd_streamed and
     cd_shared (given their grams, as the plain version is) with phase 5's
     gates (cd_checks: the element-wise one at one sweep, the objective at
@@ -2877,6 +2911,13 @@ def infit_checks(torch, als, name, run, kernels, rows=0, segment=False,
         if k not in calls:
             continue
         args, kw = calls.pop(k)
+        if k != "feature_sign_fused" and not torch.equal(
+                args[0], args[0].transpose(0, 1)):
+            fail(f"{name}, in-fit {k}: the gram is not symmetric bit for bit")
+        if k != "feature_sign_fused" and args[1].shape[0] > 128:
+            notes.setdefault(k, {})["bound"] = fss_wide_infit(
+                torch, fss, f"{name}, in-fit {k}", k, args, kw)
+            continue
         lam, alpha = args[-2:]
         got = getattr(fss, k)(*args, **kw)
         ref = getattr(fss, k + "_plain")(*args, **kw)
@@ -2905,6 +2946,8 @@ def infit_checks(torch, als, name, run, kernels, rows=0, segment=False,
             continue
         (G, b, beta0, lam, alpha, tol, sweeps), _ = calls.pop(k)
         kk, m = b.shape
+        if not torch.equal(G, G.transpose(0, 1)):
+            fail(f"{name}, in-fit {k}: the gram is not symmetric bit for bit")
         Gc = G if k == "cd_streamed" else G[:, :, None].expand(kk, kk, m)
         label = f"{name}, in-fit {k} (K={kk}, M={m})"
         if k == "cd_streamed":
@@ -2938,6 +2981,55 @@ def infit_checks(torch, als, name, run, kernels, rows=0, segment=False,
         notes.setdefault("ctns_cd", {})["bound"] = (rec["bound_ms"],
                                                     rec["bound_by"])
     return out["result"]
+
+
+WIDE_INFIT_SLICE = 2048   # columns of a K > 128 in-fit FSS call replayed
+
+
+def fss_wide_infit(torch, fss, name, k, args, kw):
+    """A gram-input FSS kernel's in-fit call past K = 128 (feature_sign or
+    feature_sign_shared, args its captured inputs, whose gram infit_checks
+    holds symmetric bit for bit): its output at every width of
+    feature_sign_widths /
+    feature_sign_shared_widths equal to the block solve's (lanes=128) bit
+    for bit; and on the first WIDE_INFIT_SLICE columns (the plain FSS at
+    this width would take minutes at the fit's M) fss_checks against
+    fss_counts' replay of the plain loop, whose statistics give the call's
+    bound: the bytes of the whole call beside fss_flops of the slice scaled
+    to the call's M.  Returns the bound (ms, by)."""
+    xtx, xty, beta0, lam, alpha = args[:5]
+    kk, m = xty.shape
+    shared = xtx.dim() == 2
+    fn = getattr(fss, k)
+    got = fn(*args, **kw)
+    widths = getattr(fss, k + "_widths")(kk)
+    outs = {lanes: fn(*args, **kw, lanes=lanes) for lanes, _ in widths}
+    for lanes, out in outs.items():
+        if not (torch.equal(out, outs[128]) and torch.equal(out, got)):
+            fail(f"{name} (K={kk}, M={m}) L={lanes} differs from the block "
+                 "solve (lanes=128)")
+    del outs
+    print(f"{name} (K={kk}, M={m}): widths "
+          f"{[lanes for lanes, _ in widths]} equal the block solve "
+          "(lanes=128) bit for bit")
+    s = min(m, WIDE_INFIT_SLICE)
+    G = (xtx[:, :, None].expand(kk, kk, s) if shared
+         else xtx[:, :, :s].contiguous())
+    b, b0 = xty[:, :s].contiguous(), beta0[:, :s].contiguous()
+    c = fss_counts(torch, G, b, b0, lam, alpha, **kw)
+    share, excess = fss_checks(torch, f"{name}, first {s} columns",
+                               got[:, :s], c["beta"], G, b, lam, alpha)
+    count_summary(torch, f"{name}, first {s} columns", kk, c)
+    by_bytes = gram_input_bound(kk, m, shared)
+    flops = fss_flops(kk, c) * m / s
+    bnd = bound(4 * ((kk * kk if shared else kk * kk * m) + 3 * kk * m),
+                f32_flop=flops)
+    print(f"{name}, first {s} columns: columns matching the plain version "
+          f"{share:.6f}, max objective excess {excess:.3e} (limit 1e-6); "
+          f"in-fit bound {bnd[0]:.4f} ms ({bnd[1]}; bytes alone "
+          f"{by_bytes[0]:.4f} ms, fss_flops scaled to M {flops:.4e})")
+    del G, c
+    return bnd
 
 
 def cd_witness(torch, cd, kind, beta0, lam, alpha, tol, mask, data, R,
@@ -4701,16 +4793,18 @@ def phase_wide_rank(torch, itt, als, wrappers, smi):
     and the fit's peak beyond them printed (measured_fit); the last in-fit
     calls held against their plain versions (infit_checks): of the FSS
     masked fit level_gram, masked_eval and row_xty (one for each of the
-    four confounders; col_gram_xty and the FSS kernels at K = 160 are held
-    to theirs in phase 6, whose plain FSS iteration at this width would
-    take minutes at M = 44477), of the cold-CD fits cd_streamed and
-    cd_shared (phase 5's gates, the element-wise one at one sweep, and the
-    in-fit bound from cd_counts' replay of that call), of the covariate fit ctns_cd (bit for bit, equal
-    sweeps).  Then torch.profiler over WIDE_PROFILE_ITERS iterations of
-    each fit from its end state (profile_fit): each wrapper's in-fit ms a
-    launch, beside its in-fit bound (the FSS kernels' by bytes, their
-    solves' operations not counted).  Returns {kernel: launches} of the
-    fits."""
+    four confounders; col_gram_xty at K = 160 is held to its plain version
+    in phase 6), of the FSS fits feature_sign and feature_sign_shared
+    (fss_wide_infit: the gram symmetric bit for bit, every width equal to
+    the block solve bit for bit, fss_checks on a slice of the columns
+    against fss_counts' replay, whose statistics give the in-fit bound), of
+    the cold-CD fits cd_streamed and cd_shared (the gram symmetric bit for
+    bit; phase 5's gates, the element-wise one at one sweep, and the in-fit
+    bound from cd_counts' replay of that call), of the covariate fit
+    ctns_cd (bit for bit, equal sweeps).  Then torch.profiler over
+    WIDE_PROFILE_ITERS iterations of each fit from its end state
+    (profile_fit): each wrapper's in-fit ms a launch, beside its in-fit
+    bound.  Returns {kernel: launches} of the fits."""
     # (label, fit settings, covariates, launches, in-fit kernels, row_xty
     # calls); the fits of one problem share its object (the masked and the
     # dense problem are one Insider)
@@ -4718,10 +4812,10 @@ def phase_wide_rank(torch, itt, als, wrappers, smi):
         ("FSS masked", dict(partition=1), 0,
          dict(dict.fromkeys(MASKED_WIDE, 1), feature_sign_fused=0,
               feature_sign_shared=0, **NO_CD),
-         ["level_gram", "masked_eval"], 4),
+         ["level_gram", "masked_eval", "feature_sign"], 4),
         ("FSS dense", dict(partition=0), 0,
          dict(feature_sign_shared=1, col_gram_xty=0, feature_sign=0,
-              feature_sign_fused=0, **NO_CD), [], 0),
+              feature_sign_fused=0, **NO_CD), ["feature_sign_shared"], 0),
         ("cold CD masked", dict(partition=1, **COLD), 0,
          dict(dict.fromkeys(WIDE_COLD_MASKED, 1), cd_fused=0, cd_shared=0,
               ctns_cd=0, **NO_FSS), ["cd_streamed"], 0),
@@ -4731,7 +4825,7 @@ def phase_wide_rank(torch, itt, als, wrappers, smi):
         ("FSS masked P=3", dict(partition=1), 3,
          dict(dict.fromkeys(MASKED_WIDE, 1), feature_sign_fused=0,
               feature_sign_shared=0, ctns_cd=1, cd_fused=0, cd_streamed=0,
-              cd_shared=0), ["ctns_cd"], 0))
+              cd_shared=0), ["ctns_cd", "feature_sign"], 0))
     out, table, objs = {}, [], {}
     for label, kw, n_ctns, expect, infit, rows in fits:
         name = f"K={WIDE_K} {label} fit"
@@ -5111,16 +5205,11 @@ def main():
                # no Pallas kernel: the XLA while_loop of _ctns_cd
                "ctns_cd": ("ctns_cd.cu", "insider_tpu/ops/continuous.py:101")}
     # the uint8-mask instances of the kernels that read the mask, and the
-    # K=160 instances (the wide FSS solve in fss_wide.cuh; the others'
-    # K > 128 kernels, the cold-CD ones the grouped CD loop's, in their own
-    # sources)
-    for name in lean:
-        sources[name] = sources[name.split()[0]]
+    # K=160 instances (the FSS kernels' grouped solve on the steps of
+    # fss_wide.cuh and the grouped CD loop; each kernel in its own source)
     wide = [name for name in kern if name.endswith(f" K={WIDE_K}")]
-    for name in wide:
-        src, tpu_def = sources[name.split()[0]]
-        sources[name] = ("fss_wide.cuh" if name.split()[0] in (
-            "feature_sign", "feature_sign_shared") else src, tpu_def)
+    for name in list(lean) + wide:
+        sources[name] = sources[name.split()[0]]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "insider_tpu_torch/csrc/" + sources[name][0],

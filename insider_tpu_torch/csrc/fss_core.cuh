@@ -64,8 +64,12 @@
 // fss_column's.  fss_column keeps its own polish, cd_sweeps: run through
 // polish_sweep at L = 32 it gave the same bits and cost the streamed
 // kernel about 3% at K=128 (chip_ab.py, NVIDIA H100 80GB HBM3 at 700 W).
-// The fused and streamed kernels could move onto the grouped FSS loops as
-// the CD kernels did onto cd_group_columns; they have not.
+// At K <= 128 the fused and streamed kernels could move onto the grouped
+// FSS loops as the CD kernels did onto cd_group_columns; they have not.
+// Past K = 128 feature_sign and feature_sign_shared polish on
+// cd_group_columns itself (polish: every coordinate active, nothing
+// screened), bit for bit fss_wide.cuh's wide_cd_sweeps; their steps run a
+// block a column (fss_wide.cuh: steps_kernel).
 #pragma once
 
 #include <mutex>
@@ -909,17 +913,25 @@ __device__ __forceinline__ int group_take(int* counter, unsigned mask) {
 // For grams in device memory (cd_streamed's copies past 128 coordinates,
 // read through L2): a sweep issues each coordinate's row one coordinate
 // ahead, so its loads are in flight while the chain before it runs.
+//
+// polish: the FSS polish past 128 coordinates (feature_sign and
+// feature_sign_shared run the CD kernels' grouped instances on their FSS
+// result): lam and alpha are the solver's l1 and l2, every coordinate is
+// active and no warm start is screened, so a column converges when a
+// sweep's decrease is <= tol: the sweeps of fss_wide.cuh's wide_cd_sweeps
+// with every flag set, bit for bit.
 template <int C, int L, bool ROW_MAJOR = false, class Feed>
 __device__ __forceinline__ void cd_group_columns(Feed& feed,
                                                  const int* __restrict__ R,
                                                  int K, float lam,
                                                  float alpha, float tol,
-                                                 int max_sweeps) {
+                                                 int max_sweeps,
+                                                 bool polish = false) {
   static_assert(L == 8 || L == 16 || L == 32, "L: 8, 16 or 32");
   const int r = threadIdx.x & (L - 1);
   const unsigned group = (FULL >> (32 - L)) << (threadIdx.x & 31 & ~(L - 1));
-  const float l1 = lam * alpha;
-  const float l2 = __fmul_rn(lam, __fsub_rn(1.f, alpha));
+  const float l1 = polish ? lam : lam * alpha;
+  const float l2 = polish ? alpha : __fmul_rn(lam, __fsub_rn(1.f, alpha));
   const float inv_l1 = 1.f / fmaxf(l1, 1e-30f);
   bool ok[C];
   int below[C];                            // R[i] - i: G[i][c] for c >= i
@@ -982,13 +994,21 @@ __device__ __forceinline__ void cd_group_columns(Feed& feed,
       beta[q] = ok[q] ? feed.beta0(c, i) : 0.f;
       xmax = fmaxf(xmax, fabsf(xty[q]));
     }
-    const float thr =
-        __fmul_rn(alpha, __fsub_rn(2.f * lam, group_max<L>(xmax, got)));
+    if (polish) {
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
-      act[q] = ok[q] && fabsf(xty[q]) >= thr;
-      beta[q] = beta[q] * (act[q] ? 1.f : 0.f);
-      s[q] = 0.f;
+      for (int q = 0; q < C; ++q) {
+        act[q] = ok[q];
+        s[q] = 0.f;
+      }
+    } else {
+      const float thr =
+          __fmul_rn(alpha, __fsub_rn(2.f * lam, group_max<L>(xmax, got)));
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        act[q] = ok[q] && fabsf(xty[q]) >= thr;
+        beta[q] = beta[q] * (act[q] ? 1.f : 0.f);
+        s[q] = 0.f;
+      }
     }
 #pragma unroll
     for (int qc = 0; qc < C; ++qc) {

@@ -57,9 +57,16 @@
 // against 14.89-15.01 ms at K=96 and 40.39-40.55 against 66.59-67.18 at
 // K=128 (M=2048).
 //
-// FSS at K > 128: the block solve, one column a block of 128 threads on
-// the gram in shared memory where it fits (K <= 235), else in device
-// memory (fss_wide.cuh).
+// FSS past K = 128, to 320, the grouped solve, two launches: the steps
+// (fss_wide.cuh: steps_kernel), a block a column, the gram read in place
+// through L2, two blocks of 8 warps an SM where two active systems of K
+// fit in its shared memory (K <= 160), else one of 16; then the polish of
+// the steps' output on the CD instance below with polish on (L = 32 on the
+// packed gram, refilled at sweep boundaries).  In the K = 160 dense fit
+// (chip_smoke.py phase 18, NVIDIA H100 80GB HBM3 at 700 W) 43.6 ms a launch
+// against the block solve's 337.4, the fit 271.9 ms/iter against 2307.7
+// (PERF.md).  Past 320, or with lanes = 128, the block solve, one column a
+// block of 128 threads (fss_wide.cuh), bit for bit the same.
 //
 // CD runs the cold-CD loop (fss_core.cuh: cd_group_columns) on the gram
 // packed to its upper triangle (packed_rows; 33 KB at K=128), 8 warps at K
@@ -215,12 +222,13 @@ shared_kernel_wide(const float* __restrict__ xtx,
 
 // CD: WARPS warps a block, `cols` columns a block; shared memory the
 // packed gram's row starts (K ints, padded to 16 bytes), then the packed
-// gram.
+// gram.  polish: the FSS polish (cd_group_columns), solver holding l1 and
+// l2 for lam and alpha.
 template <int C, int L, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
 shared_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
               const float* __restrict__ beta0, float* __restrict__ out, int M,
-              int K, int cols, Solver<true> solver, Rows rows) {
+              int K, int cols, Solver<true> solver, Rows rows, bool polish) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int next;                     // the solve's column counter
   const int tid = threadIdx.x;
@@ -236,7 +244,7 @@ shared_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
   SharedColumns<L> feed{&next, Gs, xty, beta0, out, M,
                         (int)blockIdx.x * cols, cols};
   cd_group_columns<C, L>(feed, R, K, solver.lam, solver.alpha, *solver.tol,
-                         solver.max_sweeps);
+                         solver.max_sweeps, polish);
 }
 
 // Launches `kernel` on no more blocks than the card runs at once, each
@@ -299,51 +307,6 @@ cudaError_t wide_warps(int K, int& warps) {
   return warps < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
-int fss_shared(const float* xtx, const float* xty, const float* beta0,
-               float* out, int* next, float* scratch, long scratch_len, int M,
-               int K, Solver<false> solver, int lanes, cudaStream_t stream) {
-  if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  if (K > insider::NARROW_MAX_K) {                   // fss_wide.cuh
-    if (lanes != 0 && lanes != insider::WIDE_THREADS)
-      return (int)cudaErrorInvalidValue;
-    return (int)launch_wide<true, false>(xtx, xty, beta0, out, next, scratch,
-                                         scratch_len, M, K, solver, stream);
-  }
-  if (K > 32) {
-    if (lanes != 0 && lanes != 32) return (int)cudaErrorInvalidValue;
-    return (int)by_lane_count(K, [&](auto c) {
-      constexpr int C = decltype(c)::value;
-      int warps = 0;
-      cudaError_t err = wide_warps<C>(K, warps);
-      if (err != cudaSuccess) return err;
-      const size_t smem =
-          sizeof(float) *
-          (gram_floats(K) +
-           (size_t)warps * Solver<false>::workspace_floats(C, K));
-      return launch_shared<shared_kernel_wide<C>>(warps * 32, smem, warps,
-                                                  xtx, xty, beta0, out, M, K,
-                                                  solver, stream);
-    });
-  }
-  return (int)fss_instances(K, [&](auto amax, auto... ls) {
-    constexpr int AMAX = decltype(amax)::value;
-    cudaError_t err = cudaErrorInvalidValue;
-    bool found = false;
-    (
-        [&](auto l) {
-          constexpr int L = decltype(l)::value;
-          using G = Grouped<AMAX, L>;
-          if (found || (lanes != 0 && lanes != L)) return;
-          found = true;
-          err = launch_shared<shared_kernel_groups<AMAX, L>>(
-              G::THREADS, G::smem(K), G::UNITS, xtx, xty, beta0, out, M, K,
-              solver, stream);
-        }(ls),
-        ...);
-    return err;
-  });
-}
-
 // Warps a block of a CD instance: 8 at K <= 128; past it as many as the
 // registers of an SM hold at an estimate of 10 a slot and 40 more a lane,
 // at most 16 (__launch_bounds__ then holds the compiler to them), so that a
@@ -383,6 +346,95 @@ struct CdLaunch {
   }
 };
 
+// Launches CD instance G at K: CPW columns a group; past 128 fewer where
+// the card's blocks would otherwise not all hold columns (at least one a
+// block).  polish: the FSS polish of feature_sign_shared.
+template <class G>
+cudaError_t launch_cd(const float* xtx, const float* xty, const float* beta0,
+                      float* out, int M, int K, Solver<true> solver,
+                      bool polish, cudaStream_t stream) {
+  using Lc = CdLaunch<G>;
+  const auto kernel = Lc::kernel;
+  const size_t smem = Lc::smem(K);
+  int cols = Lc::W * CPW * (32 / G::L);
+  cudaError_t err;
+  if (K > insider::NARROW_MAX_K) {
+    Residency res;                         // (sets the shared memory's max)
+    if ((err = residency<Lc::kernel>(Lc::W * 32, smem, res)) != cudaSuccess)
+      return err;
+    if (res.per_sm < 1) return cudaErrorInvalidConfiguration;
+    const int fill = ceil_div(M, (long)res.per_sm * res.sms);
+    cols = fill < cols ? fill : cols;
+  } else if ((err = cudaFuncSetAttribute(
+                  kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                  (int)smem)) != cudaSuccess) {
+    return err;
+  }
+  Rows rows{};                             // the packed gram's rows
+  packed_rows<G::L>(K, rows.start);
+  kernel<<<ceil_div(M, cols), Lc::W * 32, smem, stream>>>(
+      xtx, xty, beta0, out, M, K, cols, solver, rows, polish);
+  return cudaGetLastError();
+}
+
+int fss_shared(const float* xtx, const float* xty, const float* beta0,
+               float* out, int* next, float* scratch, long scratch_len, int M,
+               int K, Solver<false> solver, int lanes, cudaStream_t stream) {
+  if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (K > insider::CD_GROUP_MAX_K ||
+      (K > insider::NARROW_MAX_K && lanes == insider::WIDE_THREADS)) {
+    if (lanes != 0 && lanes != insider::WIDE_THREADS)
+      return (int)cudaErrorInvalidValue;    // the block solve, fss_wide.cuh
+    return (int)launch_wide<true, false>(xtx, xty, beta0, out, next, scratch,
+                                         scratch_len, M, K, solver, stream);
+  }
+  if (K > insider::NARROW_MAX_K) {           // the grouped solve
+    if (lanes != 0 && lanes != 32) return (int)cudaErrorInvalidValue;
+    cudaError_t err = launch_steps<true>(xtx, xty, beta0, out, next, scratch,
+                                         scratch_len, M, K, solver, stream);
+    if (err != cudaSuccess || solver.polish_sweeps <= 0) return (int)err;
+    const Solver<true> polish{solver.l1, solver.l2, solver.tol,
+                              solver.polish_sweeps};
+    return (int)cd_instances(K, [&](auto g) {
+      return launch_cd<decltype(g)>(xtx, xty, out, out, M, K, polish, true,
+                                    stream);
+    });
+  }
+  if (K > 32) {
+    if (lanes != 0 && lanes != 32) return (int)cudaErrorInvalidValue;
+    return (int)by_lane_count(K, [&](auto c) {
+      constexpr int C = decltype(c)::value;
+      int warps = 0;
+      cudaError_t err = wide_warps<C>(K, warps);
+      if (err != cudaSuccess) return err;
+      const size_t smem =
+          sizeof(float) *
+          (gram_floats(K) +
+           (size_t)warps * Solver<false>::workspace_floats(C, K));
+      return launch_shared<shared_kernel_wide<C>>(warps * 32, smem, warps,
+                                                  xtx, xty, beta0, out, M, K,
+                                                  solver, stream);
+    });
+  }
+  return (int)fss_instances(K, [&](auto amax, auto... ls) {
+    constexpr int AMAX = decltype(amax)::value;
+    cudaError_t err = cudaErrorInvalidValue;
+    bool found = false;
+    (
+        [&](auto l) {
+          constexpr int L = decltype(l)::value;
+          using G = Grouped<AMAX, L>;
+          if (found || (lanes != 0 && lanes != L)) return;
+          found = true;
+          err = launch_shared<shared_kernel_groups<AMAX, L>>(
+              G::THREADS, G::smem(K), G::UNITS, xtx, xty, beta0, out, M, K,
+              solver, stream);
+        }(ls),
+        ...);
+    return err;
+  });
+}
+
 int cd_shared(const float* xtx, const float* xty, const float* beta0,
               float* out, int* next, float* scratch, long scratch_len, int M,
               int K, Solver<true> solver, int lanes, cudaStream_t stream) {
@@ -396,42 +448,23 @@ int cd_shared(const float* xtx, const float* xty, const float* beta0,
   }
   return (int)cd_instances(K, [&](auto... gs) {
     return insider::launch_width(lanes, [&](auto g) {
-      using G = decltype(g);
-      using Lc = CdLaunch<G>;
-      const auto kernel = Lc::kernel;
-      const size_t smem = Lc::smem(K);
-      // CPW columns a group; past 128 fewer where the card's blocks would
-      // otherwise not all hold columns (at least one a block)
-      int cols = Lc::W * CPW * (32 / G::L);
-      cudaError_t err;
-      if (K > insider::NARROW_MAX_K) {
-        Residency res;                     // (sets the shared memory's max)
-        if ((err = residency<Lc::kernel>(Lc::W * 32, smem, res)) !=
-            cudaSuccess)
-          return err;
-        if (res.per_sm < 1) return cudaErrorInvalidConfiguration;
-        const int fill = ceil_div(M, (long)res.per_sm * res.sms);
-        cols = fill < cols ? fill : cols;
-      } else if ((err = cudaFuncSetAttribute(
-                      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                      (int)smem)) != cudaSuccess) {
-        return err;
-      }
-      Rows rows{};                         // the packed gram's rows
-      packed_rows<G::L>(K, rows.start);
-      kernel<<<ceil_div(M, cols), Lc::W * 32, smem, stream>>>(
-          xtx, xty, beta0, out, M, K, cols, solver, rows);
-      return cudaGetLastError();
+      return launch_cd<decltype(g)>(xtx, xty, beta0, out, M, K, solver,
+                                    false, stream);
     }, gs...);
   });
 }
 
 }  // namespace
 
-// Floats of device scratch that insider_fss_shared needs: 0 at K <= 128,
-// the wide solve's above (fss_wide.cuh).
-INSIDER_API long insider_fss_shared_scratch(int M, int K) {
-  return wide_scratch_floats<true, false>(M, K);
+// Floats of device scratch that insider_fss_shared needs with this lanes
+// argument: 0 at K <= 128; past it the block solve's where it runs
+// (fss_wide.cuh), else the grouped solve's (its active systems past shared
+// memory).
+INSIDER_API long insider_fss_shared_scratch(int M, int K, int lanes) {
+  if (M < 1 || K <= insider::NARROW_MAX_K) return 0;
+  if (K > insider::CD_GROUP_MAX_K || lanes == insider::WIDE_THREADS)
+    return wide_scratch_floats<true, false>(M, K);
+  return steps_scratch_floats<true>(M, K);
 }
 
 // Floats of device scratch that insider_cd_shared needs: 0 up to K = 320
@@ -473,11 +506,19 @@ INSIDER_API int insider_fss_shared_widths(int K, int* n, int* widths,
   if (K < 1) return (int)cudaErrorInvalidValue;
   *n = 0;
   Residency res;
-  if (K > insider::NARROW_MAX_K) {        // the wide solve: a block a column
-    int per_sm = 0;
-    const cudaError_t err = wide_columns<true, false>(K, per_sm);
+  if (K > insider::NARROW_MAX_K) {
+    cudaError_t err = cudaSuccess;
+    if (K <= insider::CD_GROUP_MAX_K) {    // the grouped solve
+      int per_sm = 0;
+      err = steps_columns<true>(K, per_sm);
+      if (columns != nullptr) columns[*n] = per_sm;
+      widths[(*n)++] = 32;
+    }
     if (err != cudaSuccess) return (int)err;
-    if (columns != nullptr) columns[0] = per_sm;
+    int per_sm = 0;                        // the block solve: a block a column
+    if ((err = wide_columns<true, false>(K, per_sm)) != cudaSuccess)
+      return (int)err;
+    if (columns != nullptr) columns[*n] = per_sm;
     widths[(*n)++] = insider::WIDE_THREADS;
     return (int)cudaSuccess;
   }

@@ -14,9 +14,9 @@
 // (insider_tpu/ops/col_update.py:378-390, :463-478), which the port takes
 // for K > 32, where the fused kernel's one coordinate per lane does not
 // reach.  For CD the caller permutes the problem to set the sweep order.
-// Above K = 128 FSS runs the block solve, one column a block
-// (fss_wide.cuh); CD the grouped loop to K = 320 (below), then that block's
-// CD instance.
+// Above K = 128, to K = 320, FSS runs the grouped solve (below) and CD the
+// grouped loop; past 320 both run the block solve, one column a block
+// (fss_wide.cuh).
 //
 // Bound on the H100: the (K, K, M) gram read, K^2 M f32 (445 MB at K=50,
 // M=44477), and the serial solve of each column, latency-bound: FSS
@@ -90,6 +90,19 @@
 // column sets the time) L = 32 is the faster by 3-28% at K = 224 and
 // 288-320.  Every width gives the block solve's bits (lanes = 128, which
 // selects it).
+//
+// FSS past K = 128, to 320, the grouped solve, two launches: the steps
+// (fss_wide.cuh: steps_kernel), a block a column, each column's gram
+// copied K x K into the block's slice of scratch and read through L2, two
+// blocks of 8 warps an SM where two active systems of K fit in its shared
+// memory (K <= 160), else one of 16; then the polish on the CD instance
+// above with polish on (cd_group_columns: every coordinate active),
+// reading the steps' output as its warm start, L = 32 at every K
+// (polish_width).  Its width is named by the polish's L; it gives the
+// block solve's bits (lanes = 128).  In the K = 160 masked fit
+// (chip_smoke.py phase 18, NVIDIA H100 80GB HBM3 at 700 W) 63.1 ms a launch
+// against the block's 387.6, the fit 325.9 ms/iter against 2472.2
+// (PERF.md).
 //
 // The groups of a warp sweep in lockstep, so a column that converges early
 // waits for the other of its warp; handing it a new column in mid-flight
@@ -168,7 +181,7 @@ __global__ void __launch_bounds__(32)
 streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
                 const float* __restrict__ beta0, float* __restrict__ out,
                 int* __restrict__ next, int M, int K, Solver<CD> solver,
-                Rows rows) {
+                Rows rows, bool polish) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x;
   if constexpr (!CD) {
@@ -220,7 +233,7 @@ streamed_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
       __syncwarp();
       StreamedColumns<L> cols{grams, xty, beta0, out, S, M, j0, false};
       cd_group_columns<C, L>(cols, R, K, solver.lam, solver.alpha,
-                             *solver.tol, solver.max_sweeps);
+                             *solver.tol, solver.max_sweeps, polish);
       __syncwarp();                                  // the grams are read
     }                                                // no more
   }
@@ -315,11 +328,12 @@ cudaError_t launch_global(const float* xtx, const float* xty,
 }
 
 // Launches as many one-warp blocks as the card holds at once (no more than
-// there are groups of P = 32 / L columns).
+// there are groups of P = 32 / L columns); CD with polish: the FSS polish
+// (cd_group_columns), solver holding l1 and l2 for lam and alpha.
 template <int AMAX, int C, int L, bool CD>
 cudaError_t launch(const float* xtx, const float* xty, const float* beta0,
                    float* out, int* next, int M, int K, Solver<CD> solver,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, bool polish = false) {
   Residency res;
   cudaError_t err = residency<streamed_kernel<AMAX, C, L, CD>>(
       32, sizeof(float) * slice_floats<C, L, CD>(K), res);
@@ -336,7 +350,7 @@ cudaError_t launch(const float* xtx, const float* xty, const float* beta0,
   streamed_kernel<AMAX, C, L, CD>
       <<<groups < blocks ? groups : blocks, 32,
          sizeof(float) * slice_floats<C, L, CD>(K), stream>>>(
-          xtx, xty, beta0, out, next, M, K, solver, rows);
+          xtx, xty, beta0, out, next, M, K, solver, rows, polish);
   return cudaGetLastError();
 }
 
@@ -360,34 +374,70 @@ cudaError_t cd_instances(int K, F&& f) {
   });
 }
 
-// Whether insider_cd_streamed runs the block solve (fss_wide.cuh) at K with
-// this lanes argument.
+// Whether insider_cd_streamed and insider_fss_streamed run the block solve
+// (fss_wide.cuh) at K with this lanes argument.
 bool block_solve(int K, int lanes) {
   return K > insider::CD_GROUP_MAX_K ||
          (K > insider::NARROW_MAX_K && lanes == insider::WIDE_THREADS);
 }
 
+// Runs launch(g) for the CD instance g that polishes the steps' output at
+// K: L = 32, a packed gram in shared memory, at every K (lanes 0
+// or 32, else cudaErrorInvalidValue).  On phase 6's problems the L = 16
+// instance on grams read through L2 was as fast or up to 7% slower (K =
+// 224-320, M = 256-2048; chip_ab.py --wide-fss, NVIDIA H100 80GB HBM3 at
+// 700 W), where cold CD, every coordinate swept to the cap, takes it past
+// K = 192; so the polish runs at L = 32 alone.
+template <class Launch>
+cudaError_t polish_width(int K, int lanes, Launch&& launch) {
+  if (lanes != 0 && lanes != 32) return cudaErrorInvalidValue;
+  return insider::by_wide_slots(K, [&](auto, auto c32) {
+    return launch(insider::Group<decltype(c32)::value, 32>());
+  });
+}
+
 int fss_streamed(const float* xtx, const float* xty, const float* beta0,
                  float* out, int* next, float* scratch, long scratch_len,
-                 int M, int K, Solver<false> solver, cudaStream_t stream) {
+                 int M, int K, Solver<false> solver, int lanes,
+                 cudaStream_t stream) {
   if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  if (K > insider::NARROW_MAX_K)                     // fss_wide.cuh
+  if (block_solve(K, lanes)) {                       // fss_wide.cuh
+    if (lanes != 0 && lanes != insider::WIDE_THREADS)
+      return (int)cudaErrorInvalidValue;
     return (int)launch_wide<false, false>(xtx, xty, beta0, out, next,
                                           scratch, scratch_len, M, K, solver,
                                           stream);
-  return (int)by_width(K, [&](auto c, auto amax) {
-    constexpr int AMAX = decltype(amax)::value, C = decltype(c)::value;
-    return launch<AMAX, C, 32, false>(xtx, xty, beta0, out, next, M, K,
-                                      solver, stream);
+  }
+  if (K <= insider::NARROW_MAX_K) {
+    if (lanes != 0 && lanes != 32) return (int)cudaErrorInvalidValue;
+    return (int)by_width(K, [&](auto c, auto amax) {
+      constexpr int AMAX = decltype(amax)::value, C = decltype(c)::value;
+      return launch<AMAX, C, 32, false>(xtx, xty, beta0, out, next, M, K,
+                                        solver, stream);
+    });
+  }
+  // the steps, then the polish on the grouped CD loop
+  return (int)polish_width(K, lanes, [&](auto g) {
+    using G = decltype(g);
+    cudaError_t err = launch_steps<false>(xtx, xty, beta0, out, next, scratch,
+                                          scratch_len, M, K, solver, stream);
+    if (err != cudaSuccess || solver.polish_sweeps <= 0) return err;
+    const Solver<true> polish{solver.l1, solver.l2, solver.tol,
+                              solver.polish_sweeps};
+    return launch<32, G::C, G::L, true>(xtx, xty, out, out, next, M, K,
+                                        polish, stream, true);
   });
 }
 
 }  // namespace
 
-// Floats of device scratch that insider_fss_streamed needs: 0 at K <= 128,
-// the wide solve's above (fss_wide.cuh).
-INSIDER_API long insider_fss_streamed_scratch(int M, int K) {
-  return wide_scratch_floats<false, false>(M, K);
+// Floats of device scratch that insider_fss_streamed needs with this lanes
+// argument: 0 at K <= 128; past it the block solve's where it runs
+// (fss_wide.cuh), else the steps' (their polish takes none).
+INSIDER_API long insider_fss_streamed_scratch(int M, int K, int lanes) {
+  if (M < 1 || K <= insider::NARROW_MAX_K) return 0;
+  if (block_solve(K, lanes)) return wide_scratch_floats<false, false>(M, K);
+  return steps_scratch_floats<false>(M, K);
 }
 
 // Floats of device scratch that insider_cd_streamed needs with this lanes
@@ -408,20 +458,65 @@ INSIDER_API long insider_cd_streamed_scratch(int M, int K, int lanes) {
 }
 
 // out (K, M) = the FSS + polish solution of every column.  xtx (K, K, M),
-// xty and beta0 (K, M): row-major f32; next: one int of device scratch (the
-// column counter); scratch: insider_fss_streamed_scratch(M, K) floats of
-// device scratch (none at K <= 128).  l1 = lam*alpha and l2 = lam*(1-alpha)
-// as f32; tol: one f32 on the device (the polish's stop); K >= 1.
+// symmetric grams, xty and beta0 (K, M): row-major f32; next: one int of
+// device scratch (the column counter); scratch:
+// insider_fss_streamed_scratch(M, K, lanes) floats of device scratch (none
+// at K <= 128).  l1 = lam*alpha and l2 = lam*(1-alpha) as f32; tol: one
+// f32 on the device (the polish's stop); K >= 1.  lanes: 0 for the
+// instance the kernel runs at this K (header), else that of an instance
+// covering K (insider_fss_streamed_widths: 32 at K <= 128; past it the
+// polish's group width L, or 128 the block solve; cudaErrorInvalidValue
+// where none does).
 INSIDER_API int insider_fss_streamed(const float* xtx, const float* xty,
                                      const float* beta0, float* out,
                                      int* next, float* scratch,
                                      long scratch_len, float l1, float l2,
                                      const float* tol, int M, int K,
-                                     int max_outer,
-                                     int polish_sweeps, cudaStream_t stream) {
+                                     int max_outer, int polish_sweeps,
+                                     int lanes, cudaStream_t stream) {
   return fss_streamed(xtx, xty, beta0, out, next, scratch, scratch_len, M, K,
                       Solver<false>{l1, l2, tol, max_outer, polish_sweeps},
-                      stream);
+                      lanes, stream);
+}
+
+// The FSS instances of insider_fss_streamed that cover K, the one it runs
+// first: *n of them (at most 3), their widths into widths[] (32 at K <=
+// 128, one column a warp; past it the grouped solve's, named by its
+// polish's group width L, and 128 the block solve, fss_wide.cuh), and where
+// `columns` is given, the columns an SM of the current device holds at
+// once into columns[] (the grouped solve's: in its steps, a block a
+// column).
+INSIDER_API int insider_fss_streamed_widths(int K, int* n, int* widths,
+                                            int* columns) {
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  *n = 0;
+  cudaError_t err = cudaSuccess;
+  if (K <= insider::NARROW_MAX_K) {
+    if (columns != nullptr)
+      err = by_width(K, [&](auto c, auto amax) {
+        constexpr int AMAX = decltype(amax)::value, C = decltype(c)::value;
+        Residency res;
+        const cudaError_t e = residency<streamed_kernel<AMAX, C, 32, false>>(
+            32, sizeof(float) * slice_floats<C, 32, false>(K), res);
+        columns[0] = res.per_sm;
+        return e;
+      });
+    widths[(*n)++] = 32;
+    return (int)err;
+  }
+  if (K <= insider::CD_GROUP_MAX_K) {      // the polish's group width
+    int per_sm = 0;
+    if ((err = steps_columns<false>(K, per_sm)) != cudaSuccess)
+      return (int)err;
+    if (columns != nullptr) columns[*n] = per_sm;
+    widths[(*n)++] = 32;
+  }
+  int per_sm = 0;                          // the block solve
+  if ((err = wide_columns<false, false>(K, per_sm)) != cudaSuccess)
+    return (int)err;
+  if (columns != nullptr) columns[*n] = per_sm;
+  widths[(*n)++] = insider::WIDE_THREADS;
+  return (int)cudaSuccess;
 }
 
 // out (K, M) = the cold strong-rule CD solution of every column, at most

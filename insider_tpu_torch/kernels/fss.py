@@ -14,10 +14,19 @@ A column whose Xty or warm start holds a NaN or an Inf comes out all NaN,
 as it does from the plain version and the TPU kernel, so a fit's
 finiteness checks see it.
 
-The gram-input kernels take any K: above 128 coordinates (four a lane of
-a warp) they run the wide solve, one column a block (csrc/fss_wide.cuh),
-on a column counter and the scratch whose size their C entry reports,
-which the wrapper allocates beside the output.
+The gram-input kernels take any K.  Above 128 coordinates (four a lane of
+a warp) and up to 320 they run the grouped solve: each column's FSS steps
+by a block of threads, its active system eliminated in panels of pivots
+(csrc/fss_wide.cuh: steps_column), then the polish on the grouped CD loop
+of the CD kernels (csrc/fss_core.cuh: cd_group_columns), a warp a column;
+past 320, and at every K > 128 as the width 128 of their `lanes` hook,
+the block solve, one column a block of 128 threads (fss_wide.cuh), bit for
+bit the same on the symmetric grams every caller gives.  They take a
+column counter and the scratch whose size their C entry reports, which the
+wrapper allocates beside the output.  feature_sign_widths(K) and
+feature_sign_shared_widths(K) list the instances at a K, the one each
+kernel runs first; their `lanes` argument forces one, a hook for tests and
+timings.
 """
 
 from __future__ import annotations
@@ -118,11 +127,18 @@ def feature_sign_plain(xtx, xty, beta0, lam, alpha, max_outer: int = 48,
 
 def feature_sign(xtx: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
                  lam, alpha, max_outer: int = 48, polish_sweeps: int = 0,
-                 tol: float = 0.0) -> torch.Tensor:
+                 tol: float = 0.0, lanes: int = 0) -> torch.Tensor:
     """Per-gene elastic net by FSS (+ plain-CD polish) on streamed grams.
 
-    xtx (K, K, M) per-gene grams, gene axis last (kernels/gram.col_gram_xty);
-    xty, beta0 (K, M); all f32; any K.  Returns beta (K, M).
+    xtx (K, K, M) per-gene grams, gene axis last, symmetric
+    (kernels/gram.col_gram_xty); xty, beta0 (K, M); all f32; any K.
+    Returns beta (K, M).  lanes: the kernel's width (32 up to K = 128, one
+    column a warp; past it 32, the grouped solve, named by its polish's
+    group width, or 128, the block solve), 0 for the one it runs at this K,
+    else
+    one of feature_sign_widths(K) (it raises where not): a hook for tests
+    and timings, as every width gives the same bits.  The plain version has
+    no lanes.
     """
     if _lib.on_cpu("feature_sign", xtx, xty, beta0):
         return feature_sign_plain(xtx, xty, beta0, lam, alpha, max_outer,
@@ -130,12 +146,20 @@ def feature_sign(xtx: torch.Tensor, xty: torch.Tensor, beta0: torch.Tensor,
     K, M = xty.shape
     out = _lib.launch_on_grams("feature_sign", "insider_fss_streamed", xtx,
                                (K, K, M), xty, beta0, *penalties(lam, alpha),
-                               tol, max_outer, polish_sweeps)
+                               tol, max_outer, polish_sweeps, lanes,
+                               scratch_ints=(lanes,))
     feature_sign.launches += 1
     return out
 
 
 feature_sign.launches = 0
+
+
+def feature_sign_widths(K: int, device=None) -> list:
+    """[(L, columns an SM solves at once)] of feature_sign's instances at
+    this K on the CUDA device (the current one by default), the one it runs
+    first."""
+    return _lib.widths("insider_fss_streamed_widths", K, device)
 
 
 def feature_sign_shared_plain(xtx, xty, beta0, lam, alpha,
@@ -156,13 +180,13 @@ def feature_sign_shared(xtx: torch.Tensor, xty: torch.Tensor,
     """Per-gene elastic net by FSS (+ plain-CD polish) against ONE (K, K)
     gram shared by every column: the dense column update.
 
-    xtx (K, K); xty, beta0 (K, M); all f32; any K.  Returns beta (K, M).
-    lanes: the kernel's group width L (K <= 32: P = 32 / L columns a warp;
-    up to 128, 32, one column a warp; above, 128, one column a block), 0
-    for the one it runs at this K, else one of
-    feature_sign_shared_widths(K) (it raises where not): a hook for tests
-    and timings, as every width gives the same bits.  The plain version has
-    no lanes.
+    xtx (K, K), symmetric; xty, beta0 (K, M); all f32; any K.  Returns
+    beta (K, M).  lanes: the kernel's group width L (K <= 32: P = 32 / L
+    columns a warp; up to 128, 32, one column a warp; up to 320, 32, the
+    grouped solve; above 128 also 128, the block solve), 0 for the one it
+    runs at this K, else one of feature_sign_shared_widths(K) (it raises
+    where not): a hook for tests and timings, as every width gives the same
+    bits.  The plain version has no lanes.
     """
     if _lib.on_cpu("feature_sign_shared", xtx, xty, beta0):
         return feature_sign_shared_plain(xtx, xty, beta0, lam, alpha,
@@ -171,7 +195,7 @@ def feature_sign_shared(xtx: torch.Tensor, xty: torch.Tensor,
     out = _lib.launch_on_grams("feature_sign_shared", "insider_fss_shared",
                                xtx, (K, K), xty, beta0,
                                *penalties(lam, alpha), tol, max_outer,
-                               polish_sweeps, lanes)
+                               polish_sweeps, lanes, scratch_ints=(lanes,))
     feature_sign_shared.launches += 1
     return out
 

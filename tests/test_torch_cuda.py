@@ -33,11 +33,13 @@ and must agree with itself bit for bit.  Past K = 128 (WIDE_RANKS: 129,
 160, 256 and 300, where the wide FSS and cold-CD solves read their gram
 from device memory) the widened kernels are held to the same gates, with
 both mask dtypes where the kernel takes both; ctns_cd is its plain
-version bit for bit, sweep counts included, at every K.  The cold-CD
-kernels past 128 also run at K = 320 and 321 (the grouped CD loop's last
-K and the first where the block solve runs alone), and every width of
-cd_streamed_widths and cd_shared_widths gives the block solve's bits
-(lanes=128) there.
+version bit for bit, sweep counts included, at every K.  The FSS and
+cold-CD kernels past 128 also run at K = 320 and 321 (the grouped solves'
+last K and the first where the block solve runs alone), and every width
+of feature_sign_widths, feature_sign_shared_widths, cd_streamed_widths
+and cd_shared_widths gives the block solve's bits (lanes=128) there, on
+grams that are symmetric bit for bit, with each column's bits independent
+of the columns beside it.
 """
 
 import functools
@@ -396,7 +398,8 @@ def test_col_gram_xty_views_off_a_chunk(cuda, u8):
                                    (120, 64, 257), (130, 65, 200),
                                    (150, 96, 130), (200, 128, 70),
                                    (260, 129, 64), (320, 160, 64),
-                                   (500, 256, 40), (600, 300, 40)])
+                                   (500, 256, 40), (600, 300, 40),
+                                   (640, 320, 40), (642, 321, 40)])
 def test_feature_sign(cuda, N, K, M, warm):
     R, mask, data, _ = _masked_inputs(N, K, M, seed=30 + K)
     beta0, kw = _warm(np.random.default_rng(K), K, M, warm)
@@ -409,6 +412,8 @@ def test_feature_sign(cuda, N, K, M, warm):
     _check_fss(got, fss.feature_sign_plain(G, b, beta0, lam, alpha, **kw), G,
                b, lam, alpha)
     assert torch.equal(got, fss.feature_sign(G, b, beta0, lam, alpha, **kw))
+    assert torch.equal(G, G.transpose(0, 1))             # symmetric
+    _check_fss_widths("feature_sign", got, (G, b, beta0, lam, alpha), kw, K)
     if K <= fss.FUSED_MAX_K and warm == "nonzero":
         # the streamed route against the fused kernel on the same problem
         fused = fss.feature_sign_fused(mask, data, R, beta0, lam, alpha, **kw)
@@ -423,7 +428,8 @@ def test_feature_sign(cuda, N, K, M, warm):
                                    (300, 50, 700), (300, 96, 130),
                                    (300, 128, 70), (300, 129, 64),
                                    (300, 160, 64), (300, 256, 40),
-                                   (350, 300, 40)])
+                                   (350, 300, 40), (370, 320, 40),
+                                   (371, 321, 40)])
 def test_feature_sign_shared(cuda, N, K, M):
     R, _, data, beta0 = _masked_inputs(N, K, M, seed=40 + K)
     R, data, beta0 = (_t(x, cuda) for x in (R, data, beta0))
@@ -444,6 +450,70 @@ def test_feature_sign_shared(cuda, N, K, M):
             XtX, b, beta0, lam, alpha, **kw, lanes=lanes)), lanes
     with pytest.raises(RuntimeError):
         fss.feature_sign_shared(XtX, b, beta0, lam, alpha, **kw, lanes=2)
+    assert torch.equal(XtX, XtX.T)                       # symmetric
+    _check_fss_widths("feature_sign_shared", got,
+                      (XtX, b, beta0, lam, alpha), kw, K)
+
+
+# The grouped solves' last K (320) and the next, where the block solve
+# takes over
+GROUP_MAX_K = 320
+
+
+def _check_fss_widths(name, got, args, kw, K):
+    """Past K = 128 the widths of feature_sign_widths /
+    feature_sign_shared_widths: the grouped solve's to K = 320 (named by
+    its polish's group width, 32), listed before the block solve (128),
+    and past 320 the block solve alone; each gives the block solve's bits
+    (lanes=128), and a width with no instance at this K raises."""
+    if K <= 128:
+        return
+    fn = getattr(fss, name)
+    widths = dict(getattr(fss, name + "_widths")(K))
+    grouped = [] if K > GROUP_MAX_K else [32]
+    assert sorted(widths) == sorted(grouped + [128])
+    assert next(iter(widths)) != 128 or not grouped          # listed first
+    block = fn(*args, **kw, lanes=128)
+    assert torch.equal(got, block)
+    for lanes in (8, 16, 32):
+        if lanes in widths:
+            assert widths[lanes] >= 1
+            assert torch.equal(fn(*args, **kw, lanes=lanes), block), lanes
+        else:
+            with pytest.raises(RuntimeError):
+                fn(*args, **kw, lanes=lanes)
+
+
+@pytest.mark.parametrize("K", [129, 160, 256, 300, 320, 321])
+@pytest.mark.parametrize("name", ["feature_sign", "feature_sign_shared"])
+def test_fss_wide_columns_are_independent(cuda, name, K):
+    """Past K = 128, at every width (the grouped solve's and the block
+    solve): each column of one batched call equals, bit for bit, the
+    kernel's output on that column alone, where neighbouring columns stop
+    at very different steps and sweeps (every even column has Xty = 0 and
+    a zero warm start: it converges at its first step and its first polish
+    sweep; the odd ones run to the step and polish caps), and every width
+    gives the same bits.  M = 37."""
+    M = 37
+    G, b, beta0 = _staggered(K, M, 200 + K, cuda)
+    beta0[:, ::2] = 0.0
+    if name == "feature_sign_shared":
+        G = G[:, :, 0].contiguous()
+    kw = dict(lam=0.05, alpha=0.5, max_outer=4, polish_sweeps=8, tol=0.0)
+    fn = getattr(fss, name)
+    got = fn(G, b, beta0, **kw)
+    fewer = fn(G, b, beta0, **dict(kw, max_outer=3))
+    assert float(got[:, ::2].abs().max()) == 0.0
+    assert not all(torch.equal(got[:, j], fewer[:, j])
+                   for j in range(1, M, 2))          # some at the cap
+    for lanes, _ in getattr(fss, name + "_widths")(K):
+        assert torch.equal(got, fn(G, b, beta0, **kw, lanes=lanes)), lanes
+        for j in range(M):
+            Gj = (G if name == "feature_sign_shared"
+                  else G[:, :, j:j + 1].contiguous())
+            alone = fn(Gj, b[:, j:j + 1].contiguous(),
+                       beta0[:, j:j + 1].contiguous(), **kw, lanes=lanes)
+            assert torch.equal(alone[:, 0], got[:, j]), (lanes, j)
 
 
 @pytest.mark.parametrize("K", [3, 5, 17, 24, 32, 50])
@@ -667,9 +737,6 @@ def test_cd_shared(cuda, N, K, M):
                 cd.cd_shared(XtX, b, beta0, **kw, lanes=lanes)
 
 
-# The grouped CD loop's last K (320) and the next, where the block solve
-# takes over
-GROUP_MAX_K = 320
 CD_WIDE_RANKS = WIDE_RANKS + (GROUP_MAX_K, GROUP_MAX_K + 1)
 
 
@@ -1331,7 +1398,9 @@ NONFINITE_CASES = [(name, k) for k in (6, 24, 50)
                                                  "feature_sign_shared",
                                                  "cd_streamed", "cd_shared")
                         ] + [(name, k) for k in (300, 321)
-                             for name in ("cd_streamed", "cd_shared")]
+                             for name in ("feature_sign",
+                                          "feature_sign_shared",
+                                          "cd_streamed", "cd_shared")]
 
 
 @pytest.mark.parametrize("name,K", NONFINITE_CASES)
@@ -1391,10 +1460,11 @@ def test_nonfinite_inputs_give_the_plain_versions_columns(cuda, name, K):
     assert not got[:, kept].any()
     if name != "col_gram_xty":
         assert torch.isnan(got[:, bad]).all()
-    if name in ("cd_streamed", "cd_shared") and K > 128:
-        # every width past 128 (the grouped loop's instances and the block
+    if name not in ("col_gram_xty", "feature_sign_fused", "cd_fused") \
+            and K > 128:
+        # every width past 128 (the grouped solves' instances and the block
         # solve) gives these bits, NaNs in the same places
-        for lanes, _ in getattr(cd, name + "_widths")(K):
+        for lanes, _ in getattr(module, name + "_widths")(K):
             other = run(functools.partial(kernel, lanes=lanes), data, beta0)
             assert torch.equal(torch.nan_to_num(other, 7.0),
                                torch.nan_to_num(got, 7.0)), lanes

@@ -3,7 +3,7 @@ versions against the JAX package, on the same numpy inputs.
 
 On the card these are the widened kernels (row_xty and masked_eval in tiles
 of 128 coordinates, col_gram_xty's Xty blocks of 128, level_gram's wider F
-ring, the wide FSS solve for feature_sign and feature_sign_shared, the
+ring, the grouped FSS solve for feature_sign and feature_sign_shared, the
 grouped cold-CD loop's instances past 128 for cd_streamed and cd_shared,
 ctns_cd's block of 128 threads); here, on CPU
 tensors, their wrappers run the plain versions, which tests/
@@ -255,6 +255,36 @@ def test_cd_wrappers_take_every_card_width_on_cpu(shared, lanes):
                                    for x in (mask, data, R)))
         got = cd.cd_streamed(G, b, beta0, *args, lanes=lanes)
         want = cd.cd_streamed_plain(G, b, beta0, *args)
+    assert torch.equal(got, want)
+    assert int((got == 0).sum()) > 0 and int((got != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("lanes", [0, 16, 32, 128])
+@pytest.mark.parametrize("shared", [False, True])
+def test_fss_wrappers_take_every_card_width_on_cpu(shared, lanes):
+    """feature_sign and feature_sign_shared on CPU tensors run their plain
+    version, bit for bit, whatever width `lanes` asks for: each width the
+    card has past 128 coordinates (0 its first, 32 the grouped solve, 128
+    the block solve; 16, which it lacks, raises there) is a hook of the
+    kernel alone."""
+    from insider_tpu_torch.kernels import fss
+
+    _, R, mask, data, _ = _masked(60, 12, seed=40 + shared)
+    M = data.shape[1]
+    beta0 = torch.from_numpy((0.01 * np.random.default_rng(41)
+                              .standard_normal((K, M))).astype(np.float32))
+    args = (6.0, 0.4)
+    kw = dict(max_outer=6, polish_sweeps=2, tol=1e-8)
+    if shared:
+        G = torch.from_numpy(R.T @ R)
+        b = torch.from_numpy(R.T @ data)
+        got = fss.feature_sign_shared(G, b, beta0, *args, **kw, lanes=lanes)
+        want = fss.feature_sign_shared_plain(G, b, beta0, *args, **kw)
+    else:
+        G, b = gram.col_gram_xty(*(torch.from_numpy(x)
+                                   for x in (mask, data, R)))
+        got = fss.feature_sign(G, b, beta0, *args, **kw, lanes=lanes)
+        want = fss.feature_sign_plain(G, b, beta0, *args, **kw)
     assert torch.equal(got, want)
     assert int((got == 0).sum()) > 0 and int((got != 0).sum()) > 0
 
