@@ -3,7 +3,8 @@
 one package tree, on one NVIDIA GPU.
 
     python3 chip_ab.py ROOT [--out FILE] [--shared-only | --wide-cd |
-                                           --wide-fss]
+                                           --wide-fss | --wide-gram
+                                           [--force-wide]]
     python3 chip_ab.py --share FILE.npz FILE.npz
 
 ROOT is a directory that holds an insider_tpu_torch package: this checkout,
@@ -76,6 +77,21 @@ then chip_smoke's phase-6 FSS problem (300 rows, lambda 1, alpha 0.5) at
 K = 129, 160, 192, 224, 256, 288, 300, 320 and 321 (M = 2048, 1024 at
 288, 256 from 300) at every width, each width's output held to the block
 solve's (lanes=128) bit for bit, with a checksum.
+With --wide-gram only the gram builds, col_gram_xty and level_gram, at
+K = 24, 50, 96, 128 (the narrow instances) and 129, 160, 192, 224, 256,
+288, 300 and 320 on inputs shaped as chip_smoke.py phase 6's (col_gram_xty:
+chip_smoke's problem, N = 300; level_gram: 37 levels of counts below 40;
+M = 2048, 256 from K = 300), both again at K = 50 and M = 44477 (the K=50
+fit's width), and level_gram with the flagship's 133 levels at M = 44477
+at K = 24 and at the K = 160 fit's rank: each kernel's ms beside
+library_ms (one cuBLAS f32 GEMM on the prebuilt table) and its bound,
+with a checksum of its output (col_gram_xty: of the grams and of Xty),
+which two trees whose arithmetic is the same agree on.  With --force-wide
+as well, the cases up to K = 128 alone, on a copy of ROOT's package in a
+temporary directory whose two gram builds take their wide instances at
+every K (NARROW_K set to 0 in csrc/col_gram_xty.cu, csrc/level_gram.cu and
+kernels/row.py): the figures by which a wide instance could replace its
+narrow one.
 Prints one JSON line (and writes it to FILE).  Exits non-zero without
 CUDA.
 """
@@ -483,6 +499,93 @@ def wide_fss_kernels(torch, cs, itt, als, gram, fss, wrappers):
     return out
 
 
+WIDE_GRAM_CASES = ((24, 2048), (50, 2048), (96, 2048), (128, 2048),
+                   (129, 2048), (160, 2048), (192, 2048), (224, 2048),
+                   (256, 2048), (288, 2048), (300, 256), (320, 256),
+                   (50, 44477))
+
+# The files of a package tree whose NARROW_K decides where the gram builds'
+# wide instances begin (--force-wide).
+NARROW_K_FILES = ("csrc/col_gram_xty.cu", "csrc/level_gram.cu",
+                  "kernels/row.py")
+
+
+def force_wide_copy(root, into):
+    """Copies ROOT's insider_tpu_torch (without its builds) into INTO with
+    NARROW_K = 128 read as NARROW_K = 0 in NARROW_K_FILES, so that both
+    gram builds take their wide instances at every K; fails unless each
+    file says it once."""
+    import re
+    import shutil
+    pkg = os.path.join(into, "insider_tpu_torch")
+    shutil.copytree(os.path.join(root, "insider_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for rel in NARROW_K_FILES:
+        path = os.path.join(pkg, rel)
+        with open(path) as f:
+            text, n = re.subn(r"\bNARROW_K = 128\b", "NARROW_K = 0", f.read())
+        if n != 1:
+            raise SystemExit(f"chip_ab: {rel}: NARROW_K = 128 found {n} times")
+        with open(path, "w") as f:
+            f.write(text)
+    return into
+
+
+def wide_gram_kernels(torch, cs, gram, row, narrow_only=False):
+    """{"<kernel> K=<k>[ M=<m>][ flagship]": {"ms", "library_ms",
+    "bound_ms", "bound_by", "checksum", ...}} of col_gram_xty and
+    level_gram at WIDE_GRAM_CASES and level_gram at the flagship's levels
+    (module docstring, --wide-gram); with narrow_only the cases up to
+    K = 128 alone."""
+    out = {}
+
+    def level(key, mw, F, reps):
+        r = out[key] = dict(cs.level_gram_times(torch, row, mw, F, reps),
+                            checksum=checksum(row.level_gram(mw, F)),
+                            M=F.shape[1])
+        print(f"chip_ab: {key} L={mw.shape[0]} M={F.shape[1]}: kernel "
+              f"{r['ms']:.4f} ms library {r['library_ms']:.4f} ms bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); checksum "
+              f"{r['checksum']}")
+
+    for k, m in WIDE_GRAM_CASES:
+        if narrow_only and k > 128:
+            continue
+        n = 300
+        at = f" M={m}" if m == cs.M else ""
+        R, mask, data, _ = cs.problem(torch, n, k, m, k)
+        G, b = gram.col_gram_xty(mask, data, R)
+        bnd = cs.col_gram_bound(n, k, m)
+        key = f"col_gram_xty K={k}{at}"
+        r = out[key] = dict(
+            ms=cs.timed_ms(torch, lambda: gram.col_gram_xty(mask, data, R),
+                           10),
+            library_ms=cs.col_gram_library_ms(torch, R, mask),
+            bound_ms=bnd[0], bound_by=bnd[1], checksum=checksum(G),
+            xty_checksum=checksum(b), M=m)
+        print(f"chip_ab: {key} M={m}: kernel {r['ms']:.4f} ms library "
+              f"{r['library_ms']:.4f} ms bound {bnd[0]:.4f} ms; checksums "
+              f"{r['checksum']} {r['xty_checksum']}")
+        del G, b, R, mask, data
+        rng = np.random.default_rng(k)
+        mw = torch.from_numpy(rng.integers(0, 40, (37, m)).astype(
+            np.float32)).to("cuda")
+        F = (0.3 * torch.from_numpy(rng.standard_normal((k, m)))).float().to(
+            "cuda")
+        level(f"level_gram K={k}{at}", mw, F, 10)
+    x = cs.flagship_inputs(torch)
+    mw = x["mw_cat"]
+    level(f"level_gram K={cs.K} flagship", mw, x["F"], 10)
+    del x
+    if narrow_only:
+        return out
+    rng = np.random.default_rng(cs.WIDE_K)
+    F = (0.3 * torch.from_numpy(rng.standard_normal(
+        (cs.WIDE_K, mw.shape[1])))).float().to("cuda")
+    level(f"level_gram K={cs.WIDE_K} flagship", mw, F, 5)
+    return out
+
+
 def col_gram_times(torch, cs, gram):
     """{name: record} of col_gram_xty alone on chip_smoke's phase-4 (K=50)
     and phase-6 (K=96, 128) inputs: kernel time, library_ms, bound and
@@ -548,12 +651,25 @@ def main():
     ap.add_argument("--wide-fss", action="store_true",
                     help="only the FSS kernels past K = 128: the K = 160 "
                          "fits' calls, and every width")
+    ap.add_argument("--wide-gram", action="store_true",
+                    help="only col_gram_xty and level_gram, narrow and "
+                         "past K = 128")
+    ap.add_argument("--force-wide", action="store_true",
+                    help="with --wide-gram: the cases up to K = 128 on a "
+                         "copy of ROOT whose gram builds take their wide "
+                         "instances at every K")
     a = ap.parse_args()
     if a.share:
         return share_equal(*a.share)
     if a.root is None:
         ap.error("ROOT is required")
+    if a.force_wide and not a.wide_gram:
+        ap.error("--force-wide needs --wide-gram")
     root = os.path.abspath(a.root)
+    if a.force_wide:
+        import tempfile
+        copy = tempfile.TemporaryDirectory(prefix="chip_ab_wide_")
+        root = force_wide_copy(root, copy.name)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location(
@@ -591,6 +707,11 @@ def main():
                 "cd_fused": cd.cd_fused, "cd_streamed": cd.cd_streamed,
                 "cd_shared": cd.cd_shared}
     saved = {}
+    if a.wide_gram:
+        res["force_wide"] = a.force_wide
+        res["wide_gram"] = wide_gram_kernels(torch, cs, gram, row,
+                                             narrow_only=a.force_wide)
+        return finish(a, res, saved)
     if a.wide_fss:
         res["wide_fss"] = wide_fss_kernels(torch, cs, itt, als, gram, fss,
                                            wrappers)

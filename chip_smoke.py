@@ -68,7 +68,12 @@ Phases, each fatal on failure:
      case's shape, both stop criteria, bit for bit with equal sweeps),
      row_xty (the f64 gate on near-cancelling inputs at the flagship's
      377 x 44477 and levels; timed on two confounders of 12 and 25
-     levels), level_gram and masked_eval;
+     levels), level_gram and masked_eval; then the gram builds past the
+     shared-memory ceilings their narrow tiling had (PAST_CEILINGS):
+     col_gram_xty at K = 700 (N=300, M=64, f32 and uint8 masks) and
+     level_gram at K = 520 with three count planes (L=37, M=256), each held
+     to its f64 gate and one-plane control, its grams symmetric bit for
+     bit (col_gram_xty), twice bit for bit, and timed;
   7. small fits: the same fit on the card (kernels) and on the CPU (plain
      versions) from one numpy initial state, per-boundary losses agree to
      rtol 1e-5: masked K=8, dense K=8, masked K=40, masked alpha=0 at K=8
@@ -1399,6 +1404,12 @@ WIDE_CASES = ((160, 300, 2048), (256, 300, 2048), (300, 300, 256))
 CD_CAP = 200                      # the CD kernels' sweep cap (a fit's)
 # the levels of the row kernels' inputs there (the K=50 shape's)
 WIDE_LEVELS = (12, 25)
+# the gram builds past the shared-memory ceilings of their narrow tiling
+# (col_gram_xty K > 664 with f32 masks, level_gram K > ~517 with three
+# count planes): (K, N, M) of col_gram_xty, (K, L, M, largest count) of
+# level_gram
+PAST_CEILINGS = dict(col_gram_xty=(700, 300, 64),
+                     level_gram=(520, 37, 256, 70000))
 
 
 def fss_width_times(torch, name, fn, widths, got, args, kw, bnd):
@@ -1666,6 +1677,53 @@ def phase_kernels_wider(torch, gram, fss, cd, ctns, row, ev):
         out[f"masked_eval K={k}"] = dict(
             masked_eval_times(torch, ev, data, mask, test, Rm, F, reps=5),
             max_abs_err=err, N=n, M=m)
+    out.update(past_ceilings(torch, gram, row))
+    return out
+
+
+def past_ceilings(torch, gram, row):
+    """col_gram_xty and level_gram at PAST_CEILINGS' shapes, where their
+    narrow tiling's shared memory refused the launch: each against its
+    plain version, its f64 gate (which rejects one bf16 plane of the
+    table), run twice bit for bit and timed; col_gram_xty's grams symmetric
+    bit for bit (in col_gram_gate) and its uint8 mask bit for bit its f32
+    mask's; level_gram's counts spread over [0, largest], so that all
+    three count planes are in use, and its output bit for bit with the
+    largest count given as a fit gives it.  Returns {"<name> K=<k>":
+    record}."""
+    out = {}
+    k, n, m = PAST_CEILINGS["col_gram_xty"]
+    R, mask, data, _ = problem(torch, n, k, m, k)
+    got, rec = col_gram_record(torch, gram, mask, data, R)
+    for what, x in (("a repeat", gram.col_gram_xty(mask, data, R)),
+                    ("the uint8 mask", gram.col_gram_xty(
+                        mask.to(torch.uint8), data, R))):
+        if not all(torch.equal(a, b) for a, b in zip(x, got)):
+            fail(f"col_gram_xty K={k}: {what} differs bit for bit")
+    out[f"col_gram_xty K={k}"] = dict(rec, N=n, M=m)
+    del got, R, mask, data
+
+    k, L, m, largest = PAST_CEILINGS["level_gram"]
+    rng = np.random.default_rng(k)
+    mw = torch.from_numpy(rng.integers(0, largest + 1, (L, m)).astype(
+        np.float32)).to("cuda")
+    F = (0.3 * torch.from_numpy(rng.standard_normal((k, m)))).float().to(
+        "cuda")
+    if not float(mw.max()) >= row.TWO_PLANE_COUNT:
+        fail(f"level_gram K={k}: no count reaches the third count plane")
+    got = row.level_gram(mw, F)
+    print(f"level_gram K={k}, L={L}, M={m}, largest count "
+          f"{float(mw.max()):.0f} (three count planes):")
+    level_gram_gate(torch, row, mw, F, got)
+    for what, x in (("a repeat", row.level_gram(mw, F)),
+                    ("the largest count given", row.level_gram(
+                        mw, F, float(mw.max())))):
+        if not torch.equal(x, got):
+            fail(f"level_gram K={k}: {what} differs bit for bit")
+    out[f"level_gram K={k}"] = dict(
+        level_gram_times(torch, row, mw, F, reps=5),
+        max_abs_err=float((got - row.level_gram_plain(mw, F)).abs().max()),
+        L=L, M=m, largest_count=float(mw.max()))
     return out
 
 
@@ -4804,7 +4862,8 @@ def phase_wide_rank(torch, itt, als, wrappers, smi):
     ctns_cd (bit for bit, equal sweeps).  Then torch.profiler over
     WIDE_PROFILE_ITERS iterations of each fit from its end state
     (profile_fit): each wrapper's in-fit ms a launch, beside its in-fit
-    bound.  Returns {kernel: launches} of the fits."""
+    bound (the gram builds': gram_build_infit_bound).  Returns {kernel:
+    launches} of the fits."""
     # (label, fit settings, covariates, launches, in-fit kernels, row_xty
     # calls); the fits of one problem share its object (the masked and the
     # dense problem are one Insider)
@@ -4860,12 +4919,15 @@ def phase_wide_rank(torch, itt, als, wrappers, smi):
         prof = profile_fit(torch, obj, wrappers, obj.fit_result.state,
                            WIDE_K, LAM, ALPHA, iters=WIDE_PROFILE_ITERS,
                            masked=kw["partition"] == 1, **solver)
-        for k in ("feature_sign", "feature_sign_shared", "cd_streamed",
-                  "cd_shared", "ctns_cd"):
+        for k in ("level_gram", "col_gram_xty", "feature_sign",
+                  "feature_sign_shared", "cd_streamed", "cd_shared",
+                  "ctns_cd"):
             if k not in prof["in_fit"]:
                 continue
-            bnd = notes.get(k, {}).get("bound") or gram_input_bound(
-                WIDE_K, M, shared=k == "feature_sign_shared")
+            bnd = (gram_build_infit_bound(k, WIDE_K) if k in (
+                "level_gram", "col_gram_xty") else notes.get(k, {}).get(
+                    "bound") or gram_input_bound(
+                        WIDE_K, M, shared=k == "feature_sign_shared"))
             rec = prof["in_fit"][k]
             table.append((name, k, rec["ms_per_launch"],
                           rec["launches"] / WIDE_PROFILE_ITERS, bnd))
@@ -4876,6 +4938,18 @@ def phase_wide_rank(torch, itt, als, wrappers, smi):
               f"launch, {per_iter:g} launches/iter; in-fit bound "
               f"{bnd[0]:.6f} ms ({bnd[1]}) ({smi})")
     return out
+
+
+def gram_build_infit_bound(name, k):
+    """(bound_ms, bound_by) of a gram build's call in a masked fit of the
+    flagship problem at rank k: level_gram on the 133 levels' mask counts
+    (below 65536, two count planes), as level_gram_times counts it, or
+    col_gram_xty on N x M, as col_gram_bound counts it."""
+    if name == "col_gram_xty":
+        return col_gram_bound(N, k, M)
+    L = sum(LEVELS)
+    return bound(4 * (L * M + k * M + L * k * k),
+                 bf16_flop=2 * 3 * 2 * L * pairs(k) * M)
 
 
 def kernel_wrappers():
@@ -4990,7 +5064,9 @@ def main():
     # 6, past K = 128: the widened kernels at K = 160, 256 and 300
     wide = phase_kernels_wider(torch, gram, fss, cd, ctns, row, ev)
     for name, rec in wide.items():
-        print(f"kernel {name} N={rec['N']} M={rec['M']}: max_abs_err "
+        shape = " ".join(f"{d}={rec[d]}" for d in ("N", "L", "M")
+                         if d in rec)
+        print(f"kernel {name} {shape}: max_abs_err "
               f"{rec['max_abs_err']:.3e} kernel {rec['ms']:.4f} ms plain "
               f"{rec['plain_ms']:.4f} ms"
               + (f" library {rec['library_ms']:.4f} ms"

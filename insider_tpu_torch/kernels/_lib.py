@@ -51,7 +51,9 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _P]),
     "insider_fss_fused": (_I, [_P, _I, _P, _P, _P, _P, _F, _F, _P,
                                _I, _I, _I, _I, _I, _P]),
-    "insider_col_gram_xty": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "insider_col_gram_xty_scratch": (_L, [_I, _I]),
+    "insider_col_gram_xty": (_I, [_P, _I, _P, _P, _P, _L, _P, _P, _I, _I,
+                                  _I, _P]),
     "insider_fss_streamed_scratch": (_L, [_I, _I, _I]),
     "insider_fss_streamed": (_I, [_P, _P, _P, _P, _P, _P, _L, _F, _F, _P,
                                   _I, _I, _I, _I, _I, _P]),

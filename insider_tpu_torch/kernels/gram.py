@@ -7,12 +7,14 @@ planes_col_gram_xty writes out) on CUDA tensors and its plain version on CPU
 tensors; a CUDA tensor never reaches the plain version.
 `col_gram_xty.launches` counts the kernel's launches.
 
-Any K on the card: the kernel's Xty blocks take 128 coordinates each and
-its pair blocks the K (K + 1) / 2 pairs; it stages all K rows of R a
-k-step, so past K = 664 (f32 masks) a block's shared memory refuses the
-launch (RuntimeError).  The output holds K^2 M f32: at M = 44477, 4.55 GB
-at K = 160 and 11.66 GB at K = 256, as the JAX package's streamed route
-holds them whole (insider_tpu/ops/col_update.py:378-390).
+Any K below 32768 on the card: the kernel's Xty blocks take 128
+coordinates each and its pair blocks 128 pairs each.  Up to K = 128 a pair
+block stages all K rows of R a k-step; past it a pair block owns a 16 x 8
+tile of the triangle and stages only those 24 rows, from a (K, N) copy of
+R^T that the kernel writes into scratch the wrapper allocates, so no shared
+memory grows with K.  What bounds K is the output: K^2 M f32, at M =
+44477 4.55 GB at K = 160 and 11.66 GB at K = 256, as the JAX package's
+streamed route holds them whole (insider_tpu/ops/col_update.py:378-390).
 """
 
 from __future__ import annotations
@@ -60,11 +62,13 @@ def col_gram_xty(mask: torch.Tensor, data: torch.Tensor, R: torch.Tensor):
     lib = _lib.lib()
     gram = torch.empty((K, K, M), dtype=torch.float32, device=R.device)
     xty = torch.empty((K, M), dtype=torch.float32, device=R.device)
+    scratch = torch.empty(lib.insider_col_gram_xty_scratch(N, K),
+                          dtype=torch.float32, device=R.device)
     with torch.cuda.device(R.device):
         err = lib.insider_col_gram_xty(
             mask.data_ptr(), mask_is_u8, data.data_ptr(),
-            R.data_ptr(), gram.data_ptr(), xty.data_ptr(), N, M, K,
-            _lib.stream(R))
+            R.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            gram.data_ptr(), xty.data_ptr(), N, M, K, _lib.stream(R))
     _lib.check(err, "col_gram_xty")
     col_gram_xty.launches += 1
     return gram, xty

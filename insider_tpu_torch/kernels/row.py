@@ -26,6 +26,7 @@ def level_gram_plain(mw: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
 # integer range), and the one below which two count planes do.
 MAX_COUNT = 1 << 24
 TWO_PLANE_COUNT = 1 << 16
+NARROW_K = 128      # the kernel's narrow instance takes K up to this
 
 
 def level_gram(mw: torch.Tensor, F: torch.Tensor,
@@ -39,9 +40,12 @@ def level_gram(mw: torch.Tensor, F: torch.Tensor,
     in Mw, which a fit computes once per problem (train/als.build_problem);
     taken from Mw (a device-to-host read) when not given.  A max_count
     outside [0, 2**24) raises ValueError; one below Mw's largest count
-    gives wrong grams.  Any K: the kernel's ring of F (2 K x 32 f32) grows
-    with K, and past about K = 517 (3 count planes, 144 levels a block) a
-    block's shared memory refuses the launch (RuntimeError)."""
+    gives wrong grams.  Any K below 32768 on the card: up to K = 128 a
+    block of the kernel owns 64 consecutive pairs (k1, k2) and stages all K
+    rows of F a step; past it a block owns an 8 x 8 tile of the triangle
+    and stages only those 16 rows, so no shared memory grows with K.  What
+    bounds K is the bytes: the output, L K^2 f32, and the kernel's partial
+    sums, L K (K + 1) / 2 f32 for each of its column ranges."""
     if _lib.on_cpu("level_gram", mw, F):
         return level_gram_plain(mw, F)
     _lib.require_cuda("level_gram", mw, F)
@@ -56,6 +60,11 @@ def level_gram(mw: torch.Tensor, F: torch.Tensor,
         raise ValueError(f"level_gram: counts must lie in [0, {MAX_COUNT}), "
                          f"got a largest count of {max_count}")
     planes = 2 if max_count < TWO_PLANE_COUNT else 3
+    # the wide instance copies rows of F as the 16-byte aligned chunks that
+    # cover them; a view that starts off a chunk is copied first (the narrow
+    # instance copies 4 bytes at a time)
+    if K > NARROW_K and F.data_ptr() % 16:
+        F = F.clone()
     lib = _lib.lib()
     out = torch.empty((L, K, K), dtype=torch.float32, device=mw.device)
     scratch = torch.empty(lib.insider_level_gram_scratch(L, M, K, planes),

@@ -32,7 +32,9 @@ are symmetric bit for bit.  Every kernel is run twice
 and must agree with itself bit for bit.  Past K = 128 (WIDE_RANKS: 129,
 160, 256 and 300, where the wide FSS and cold-CD solves read their gram
 from device memory) the widened kernels are held to the same gates, with
-both mask dtypes where the kernel takes both; ctns_cd is its plain
+both mask dtypes where the kernel takes both, and the gram builds also
+past the shared-memory ceilings of their narrow tiling (col_gram_xty at K
+= 700, level_gram at K = 520 with three count planes); ctns_cd is its plain
 version bit for bit, sweep counts included, at every K.  The FSS and
 cold-CD kernels past 128 also run at K = 320 and 321 (the grouped solves'
 last K and the first where the block solve runs alone), and every width
@@ -95,7 +97,8 @@ def _max_err_ok(got, ref, rtol):
                                         (37, 129, 517, 1000),
                                         (37, 160, 517, 70000),
                                         (9, 256, 301, 1000),
-                                        (9, 300, 301, 1000)])
+                                        (9, 300, 301, 1000),
+                                        (37, 520, 256, 70000)])
 def test_level_gram(cuda, L, K, M, cmax):
     rng = np.random.default_rng(0)
     mw = _t(rng.integers(0, cmax + 1, (L, M)).astype(np.float32), cuda)
@@ -113,6 +116,18 @@ def test_level_gram(cuda, L, K, M, cmax):
     assert torch.equal(got, row.level_gram(mw, F))        # bit for bit
     # the largest count given, as a fit gives it: the same planes
     assert torch.equal(got, row.level_gram(mw, F, float(mw.max())))
+
+
+@pytest.mark.parametrize("K", [24, 160])
+def test_level_gram_view_off_a_chunk(cuda, K):
+    """An F view that starts off a 16-byte chunk (copied by the wrapper)
+    gives the grams of the same F in its own allocation."""
+    rng = np.random.default_rng(K)
+    mw = _t(rng.integers(0, 1000, (9, 333)).astype(np.float32), cuda)
+    big = _t(rng.standard_normal((K + 1, 333)).astype(np.float32), cuda)
+    F = big[1:]
+    assert F.data_ptr() % 16 and F.is_contiguous()
+    assert torch.equal(row.level_gram(mw, F), row.level_gram(mw, F.clone()))
 
 
 def test_level_gram_rejects_counts_past_2_24(cuda):
@@ -332,7 +347,8 @@ LONG_SUM_RTOL = 1e-5
                                       (140, 128, 257, True),
                                       (70001, 8, 37, False)]
                          + [(70, k, 131, u8) for k in WIDE_RANKS
-                            for u8 in (False, True)])
+                            for u8 in (False, True)]
+                         + [(300, 700, 64, u8) for u8 in (False, True)])
 def test_col_gram_xty(cuda, N, K, M, u8):
     R, mask, data, _ = _masked_inputs(N, K, M, seed=20 + K)
     R, data = _t(R, cuda), _t(data, cuda)

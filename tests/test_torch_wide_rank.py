@@ -2,19 +2,29 @@
 versions against the JAX package, on the same numpy inputs.
 
 On the card these are the widened kernels (row_xty and masked_eval in tiles
-of 128 coordinates, col_gram_xty's Xty blocks of 128, level_gram's wider F
-ring, the grouped FSS solve for feature_sign and feature_sign_shared, the
+of 128 coordinates, col_gram_xty's Xty blocks of 128 and its and
+level_gram's pair tiles, the grouped FSS solve for feature_sign and feature_sign_shared, the
 grouped cold-CD loop's instances past 128 for cd_streamed and cd_shared,
 ctns_cd's block of 128 threads); here, on CPU
 tensors, their wrappers run the plain versions, which tests/
 test_torch_cuda.py holds the kernels to on the card.
+
+Past the shared-memory ceilings the gram builds' narrow tiling had on the
+card (col_gram_xty K > 664, level_gram K > ~517 with three count planes),
+their plain versions and ops/planes' forms of the kernels' arithmetic run
+at K = 700 and K = 520 against the JAX package.
 
 Tolerances:
   * col_gram_xty, row_xty, level_gram, masked_eval against their Pallas
     kernels in interpret mode, as tests/test_torch_gram.py, test_torch_row.py
     and test_torch_eval.py hold them at narrow K: atol 3e-5 (col_gram_xty,
     row_xty) or 2e-5 (level_gram, also rtol) of the output's largest
-    magnitude; the SSEs 1e-5 relative and the counts exact;
+    magnitude; the SSEs 1e-5 relative and the counts exact.  At K = 520
+    level_gram_pallas refuses the shape (its (K^2, 128) table block is past
+    its VMEM budget from K = 160), so level_gram there is held, at the same
+    tolerance, to the JAX package's XLA form, insider_tpu/ops/row_update.
+    level_gram_masked (HIGHEST), which its fit takes where the Pallas
+    kernel is infeasible;
   * feature_sign and feature_sign_shared (no polish) against the JAX
     package's FSS iteration, insider_tpu/ops/fss.feature_sign_batched (the
     Pallas FSS kernel takes ~50 s in interpret mode at this K): the same
@@ -64,6 +74,7 @@ from insider_tpu.kernels.gram_pallas import col_gram_xty_pallas
 from insider_tpu.kernels.row_pallas import level_gram_pallas, row_xty_pallas
 from insider_tpu.model.state import init_state as jax_init_state
 from insider_tpu.ops import col_update as jax_col_update
+from insider_tpu.ops import row_update as jax_row_update
 from insider_tpu.ops.fss import feature_sign_batched
 from insider_tpu.train import als as jax_als
 from insider_tpu_torch.config import FitConfig
@@ -71,6 +82,8 @@ from insider_tpu_torch.kernels import eval as ev
 from insider_tpu_torch.kernels import ctns, fss, gram, row
 from insider_tpu_torch.model.state import state_from_numpy
 from insider_tpu_torch.ops.fss import elastic_net_cd
+from insider_tpu_torch.ops.planes import (planes_col_gram_xty,
+                                          planes_level_gram)
 from insider_tpu_torch.train import als
 
 K = 136
@@ -129,6 +142,54 @@ def test_level_gram_plain_matches_pallas():
     want = level_gram_pallas(jnp.asarray(Mw), jnp.asarray(F), interpret=True)
     got = row.level_gram(torch.from_numpy(Mw), torch.from_numpy(F))
     assert got.shape == (7, K, K)
+    _close(got, want, 2e-5, 2e-5)
+
+
+# past the old ceilings: (K, N, M) of col_gram_xty, (K, L, M) of level_gram
+CEILING_COL_GRAM = (700, 8, 16)
+CEILING_LEVEL_GRAM = (520, 3, 40)
+
+
+@pytest.fixture(scope="module")
+def col_gram_past_ceiling():
+    """Inputs at CEILING_COL_GRAM and col_gram_xty_pallas's output on them
+    in interpret mode (~5 s, once for both forms)."""
+    K, N, M = CEILING_COL_GRAM
+    rng = np.random.default_rng(11)
+    R = (0.3 * rng.standard_normal((N, K))).astype(np.float32)
+    mask = (rng.random((N, M)) > 0.1).astype(np.float32)
+    data = rng.standard_normal((N, M)).astype(np.float32)
+    want = col_gram_xty_pallas(jnp.asarray(mask), jnp.asarray(data),
+                               jnp.asarray(R), interpret=True)
+    return (mask, data, R), [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("form", ["plain", "planes"])
+def test_col_gram_xty_past_the_old_ceiling_matches_pallas(
+        col_gram_past_ceiling, form):
+    (mask, data, R), want = col_gram_past_ceiling
+    K, _, M = CEILING_COL_GRAM
+    fn = gram.col_gram_xty if form == "plain" else planes_col_gram_xty
+    got = fn(*(torch.from_numpy(x) for x in (mask, data, R)))
+    assert got[0].shape == (K, K, M) and got[1].shape == (K, M)
+    for g, w in zip(got, want):
+        _close(g, w, 0.0, 3e-5)
+    assert torch.equal(got[0], got[0].transpose(0, 1))
+
+
+@pytest.mark.parametrize("form", ["plain", "planes"])
+def test_level_gram_past_the_old_ceiling_matches_jax(form):
+    """Counts up to 70000, so that the planes form takes three count
+    planes, as the kernel does there."""
+    K, L, M = CEILING_LEVEL_GRAM
+    rng = np.random.default_rng(12)
+    Mw = rng.integers(0, 70001, (L, M)).astype(np.float32)
+    Mw[0, 0] = 70000.0
+    F = rng.standard_normal((K, M)).astype(np.float32)
+    want = jax_row_update.level_gram_masked(jnp.asarray(Mw), jnp.asarray(F))
+    fn = row.level_gram if form == "plain" else planes_level_gram
+    got = fn(torch.from_numpy(Mw), torch.from_numpy(F))
+    assert got.shape == (L, K, K)
     _close(got, want, 2e-5, 2e-5)
 
 
