@@ -3,8 +3,9 @@
 one package tree, on one NVIDIA GPU.
 
     python3 chip_ab.py ROOT [--out FILE] [--shared-only | --wide-cd |
-                                           --wide-fss | --wide-gram
-                                           [--force-wide]]
+                                           --wide-fss |
+                                           --wide-row [--force-large] |
+                                           --wide-gram [--force-wide]]
     python3 chip_ab.py --share FILE.npz FILE.npz
 
 ROOT is a directory that holds an insider_tpu_torch package: this checkout,
@@ -92,6 +93,27 @@ temporary directory whose two gram builds take their wide instances at
 every K (NARROW_K set to 0 in csrc/col_gram_xty.cu, csrc/level_gram.cu and
 kernels/row.py): the figures by which a wide instance could replace its
 narrow one.
+With --wide-row only row_xty and masked_eval: at K = 24, 50, 96, 128 (the
+narrow instances) and 129, 160, 192, 224, 256, 288, 300 and 320 on inputs
+shaped as chip_smoke.py phase 6's (N = 300, levels 12 and 25, the two
+confounders' row_xty calls timed together, masked_eval on the second's
+R_minus; M = 2048, 256 from K = 300), and at the K = 160 fit's shapes (377
+x 44477, levels 2, 16, 8, 107; row_xty also each confounder's call alone),
+each with f32 and with uint8 masks (bit for bit the f32 ones), kernel and
+plain ms beside the bound, the grid's blocks per SM where the tree reports
+them, and a checksum of the outputs, which two trees whose arithmetic is
+the same agree on; the errors of row_xty, of its f32 plain version and of
+the f32 control D F^T - T F^T against the f64 result on the card tests'
+near-cancel cases past K = 128 (tests/test_torch_cuda.py test_row_xty,
+layout "cancel": the same inputs from the same seeds; the tests' limit is
+1e-4 of the f64 result's largest magnitude); then torch.profiler over one
+iteration of the K = 160 masked FSS fit (chip_smoke.py phase 18's problem)
+after one iteration of it: both kernels' in-fit ms per launch.  With
+--force-large as well, the cases past K = 128 at phase 6's shapes alone,
+on a copy of ROOT's package in a temporary directory whose row kernels
+take the large prediction tile (64 x 128) at every shape
+(csrc/predict_tile.cuh, large_tile): the figures by which the large tile
+could serve the shapes that take the small one.
 Prints one JSON line (and writes it to FILE).  Exits non-zero without
 CUDA.
 """
@@ -102,6 +124,7 @@ import hashlib
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -510,25 +533,46 @@ NARROW_K_FILES = ("csrc/col_gram_xty.cu", "csrc/level_gram.cu",
                   "kernels/row.py")
 
 
-def force_wide_copy(root, into):
+# The test by which the wide row kernels take their large prediction tile
+# (--force-large).
+LARGE_TILE_FILE = "csrc/predict_tile.cuh"
+LARGE_TILE_TEST = (r"return \(long\)ceil_div\(N, LargeTile::TR\) \* "
+                   r"ceil_div\(M, LargeTile::TC\) >= 132;")
+
+
+def patched_copy(root, into, patches):
     """Copies ROOT's insider_tpu_torch (without its builds) into INTO with
-    NARROW_K = 128 read as NARROW_K = 0 in NARROW_K_FILES, so that both
-    gram builds take their wide instances at every K; fails unless each
-    file says it once."""
-    import re
+    each (file, pattern, replacement) of `patches` applied; fails unless
+    each pattern is found once."""
     import shutil
     pkg = os.path.join(into, "insider_tpu_torch")
     shutil.copytree(os.path.join(root, "insider_tpu_torch"), pkg,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for rel in NARROW_K_FILES:
+    for rel, pattern, repl in patches:
         path = os.path.join(pkg, rel)
         with open(path) as f:
-            text, n = re.subn(r"\bNARROW_K = 128\b", "NARROW_K = 0", f.read())
+            text, n = re.subn(pattern, repl, f.read())
         if n != 1:
-            raise SystemExit(f"chip_ab: {rel}: NARROW_K = 128 found {n} times")
+            raise SystemExit(f"chip_ab: {rel}: {pattern} found {n} times")
         with open(path, "w") as f:
             f.write(text)
     return into
+
+
+def force_wide_copy(root, into):
+    """patched_copy with NARROW_K = 128 read as NARROW_K = 0 in
+    NARROW_K_FILES, so that both gram builds take their wide instances at
+    every K."""
+    return patched_copy(root, into, [(rel, r"\bNARROW_K = 128\b",
+                                      "NARROW_K = 0")
+                                     for rel in NARROW_K_FILES])
+
+
+def force_large_copy(root, into):
+    """patched_copy whose wide row kernels take the large prediction tile
+    at every shape."""
+    return patched_copy(root, into, [(LARGE_TILE_FILE, LARGE_TILE_TEST,
+                                      "return true;")])
 
 
 def wide_gram_kernels(torch, cs, gram, row, narrow_only=False):
@@ -583,6 +627,176 @@ def wide_gram_kernels(torch, cs, gram, row, narrow_only=False):
     F = (0.3 * torch.from_numpy(rng.standard_normal(
         (cs.WIDE_K, mw.shape[1])))).float().to("cuda")
     level(f"level_gram K={cs.WIDE_K} flagship", mw, F, 5)
+    return out
+
+
+WIDE_ROW_CASES = WIDE_GRAM_CASES[:-1]
+
+
+def row_inputs(torch, n, k, m, levels, seed):
+    """Inputs of row_xty and masked_eval at n x m, rank k: a 0/1 mask (f32)
+    and a test mask, data, F, and for each level count L of `levels` the
+    codes, R_minus and D = E^T (mask .* data), on the card."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to("cuda")
+    mask = t(rng.random((n, m)) > 0.1)
+    test = (1.0 - mask) * t(rng.random((n, m)) > 0.5)
+    data = t(rng.standard_normal((n, m)))
+    F = t(0.3 * rng.standard_normal((k, m)))
+    cases = []
+    for L in levels:
+        codes = torch.from_numpy(rng.integers(0, L, n).astype(
+            np.int32)).to("cuda")
+        Rm = t(0.5 * rng.standard_normal((n, k)))
+        E_t = torch.nn.functional.one_hot(codes.long(), L).float().T
+        cases.append((codes, Rm, (E_t @ (mask * data)).contiguous()))
+    return mask, test.contiguous(), data, F, cases
+
+
+def wide_row_record(torch, cs, row, ev, key, mask, test, data, F, cases,
+                    reps, out):
+    """Times row_xty (the cases in one call) and masked_eval (on the last
+    case's R_minus) with f32 and uint8 masks beside their plain versions
+    and bounds, with checksums, the uint8 outputs held to the f32 ones bit
+    for bit; into out["row_xty <key>"], out["masked_eval <key>"] (uint8:
+    " uint8" appended)."""
+    n, m = mask.shape
+    k = F.shape[0]
+    R = cases[-1][1]
+    orders = [cs.row_order(row, c, D.shape[0]) for c, _, D in cases]
+    for dt in (torch.float32, torch.uint8):
+        msk, tst = mask.to(dt), test.to(dt)
+        tag = "" if dt == torch.float32 else " uint8"
+        got = torch.cat([row.row_xty(c, r, msk, D, F, **o)
+                         for (c, r, D), o in zip(cases, orders)])
+        sums = torch.stack(list(ev.masked_eval(data, msk, tst, R, F)))
+        if dt == torch.uint8 and not (
+                torch.equal(got, rx) and torch.equal(sums, es)):
+            cs.fail(f"{key}: uint8 masks differ from f32 bit for bit")
+        rx, es = got, sums
+        r = out[f"row_xty {key}{tag}"] = dict(
+            cs.row_xty_times(torch, row, cases, msk, F, reps=reps),
+            checksum=checksum(got), N=n, M=m, K=k,
+            levels=[D.shape[0] for _, _, D in cases],
+            blocks_per_sm=cs.blocks_per_sm(
+                torch, "insider_row_xty_blocks", n, m, k))
+        e = out[f"masked_eval {key}{tag}"] = dict(
+            cs.masked_eval_times(torch, ev, data, msk, tst, R, F, reps=reps),
+            checksum=checksum(sums), N=n, M=m, K=k,
+            blocks_per_sm=cs.blocks_per_sm(
+                torch, "insider_masked_eval_blocks", n, m, k))
+        for name, x in (("row_xty", r), ("masked_eval", e)):
+            print(f"chip_ab: {name} {key}{tag}: kernel {x['ms']:.4f} ms "
+                  f"plain {x['plain_ms']:.4f} ms bound {x['bound_ms']:.4f} "
+                  f"ms ({x['bound_by']}); blocks/SM {x['blocks_per_sm']}; "
+                  f"checksum {x['checksum']}")
+
+
+# The card tests' near-cancel cases past K = 128 (N, L, K, M; module
+# docstring, --wide-row).
+NEAR_CANCEL_CASES = ((200, 8, 160, 8191), (300, 8, 161, 8191),
+                     (377, 8, 300, 8191))
+
+
+def near_cancel_errors(torch, row):
+    """{"near-cancel N=<n> L=<l> K=<k> M=<m>": {"kernel", "plain f32",
+    "f32 control"}}: each one's max error against the f64 result as a
+    fraction of its largest magnitude, on NEAR_CANCEL_CASES built as
+    tests/test_torch_cuda.py _row_xty_case builds them (layout "cancel",
+    seed N + L + K)."""
+    out = {}
+    for n, l, k, m in NEAR_CANCEL_CASES:
+        rng = np.random.default_rng(n + l + k)
+        codes = rng.integers(0, l, n).astype(np.int32)
+        R = (0.5 * rng.standard_normal((n, k))).astype(np.float32)
+        mask = (rng.random((n, m)) > 0.1).astype(np.float32)
+        F = (0.3 * rng.standard_normal((k, m))).astype(np.float32)
+        data = R.astype(np.float64) @ F + 0.005 * rng.standard_normal((n, m))
+        D = (np.eye(l)[codes].T @ (mask * data)).astype(np.float32)
+        codes, R, mask, D, F = (torch.from_numpy(x).to("cuda")
+                                for x in (codes, R, mask, D, F))
+        exact = row.row_xty_plain(codes, R.double(), mask.double(),
+                                  D.double(), F.double())
+        E_t = torch.nn.functional.one_hot(codes.long(), l).float().T
+        scale = float(exact.abs().max())
+        key = f"near-cancel N={n} L={l} K={k} M={m}"
+        rec = out[key] = {
+            name: float((got.double() - exact).abs().max()) / scale
+            for name, got in (
+                ("kernel", row.row_xty(codes, R, mask, D, F)),
+                ("plain f32", row.row_xty_plain(codes, R, mask, D, F)),
+                ("f32 control",
+                 D @ F.T - (E_t @ (mask * (R @ F))) @ F.T))}
+        print(f"chip_ab: {key}: max err of the f64 result's max |ref|: "
+              + "; ".join(f"{name} {v:.4e}" for name, v in rec.items())
+              + " (the tests' limit 1e-4)")
+    return out
+
+
+def row_kernel_ms(torch, cs, call, reps):
+    """{device kernel: ms a launch} of row_xty's kernels (each launched once
+    a call) over `reps` calls of `call` under torch.profiler, a launch over
+    the launches recorded (CUPTI can drop a window's first kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for name, (us, n) in cs.device_kernel_times(torch, prof).items():
+        m = re.search(r"row_xty_\w+", name)
+        if m:
+            out[m.group(0)] = us / 1e3 / n
+    return out
+
+
+def wide_row_kernels(torch, cs, itt, row, ev, wrappers, wide_only=False):
+    """{"<kernel> K=<k>[ M=<m>][ uint8]" or "<kernel> K=160 fit...":
+    record} of row_xty and masked_eval at WIDE_ROW_CASES (phase 6's
+    shapes), at the K = 160 fit's shapes, on the near-cancel cases and in
+    the fit's profile (module docstring, --wide-row); with wide_only the
+    cases of WIDE_ROW_CASES past K = 128 alone."""
+    out = {}
+    for k, m in WIDE_ROW_CASES:
+        if wide_only and k <= 128:
+            continue
+        mask, test, data, F, cases = row_inputs(torch, 300, k, m,
+                                                cs.WIDE_LEVELS, 3000 + k)
+        wide_row_record(torch, cs, row, ev, f"K={k} M={m}", mask, test,
+                        data, F, cases, 10, out)
+        del mask, test, data, F, cases
+    if wide_only:
+        return out
+    out.update(near_cancel_errors(torch, row))
+    k = cs.WIDE_K
+    mask, test, data, F, cases = row_inputs(torch, cs.N, k, cs.M, cs.LEVELS,
+                                            4000)
+    wide_row_record(torch, cs, row, ev, f"K={k} fit shape", mask, test, data,
+                    F, cases, 5, out)
+    for (c, r, D) in cases:
+        o = cs.row_order(row, c, D.shape[0])
+        b = cs.bound(4 * (cs.N * cs.M + D.shape[0] * cs.M + k * cs.M),
+                     f32_flop=2 * (cs.N + D.shape[0]) * k * cs.M)
+        rec = out[f"row_xty K={k} fit shape L={D.shape[0]}"] = dict(
+            ms=cs.timed_ms(torch, lambda: row.row_xty(c, r, mask, D, F, **o),
+                           5), bound_ms=b[0], bound_by=b[1],
+            device_ms=row_kernel_ms(
+                torch, cs, lambda: row.row_xty(c, r, mask, D, F, **o), 5))
+        print(f"chip_ab: row_xty K={k} fit shape L={D.shape[0]}: kernel "
+              f"{rec['ms']:.4f} ms bound {b[0]:.4f} ms ({b[1]}); device ms "
+              "a call: " + "; ".join(f"{name} {v:.4f}" for name, v in
+                                     rec["device_ms"].items()))
+    del mask, test, data, F, cases
+    obj = cs.wide_object(itt)
+    obj.fit(verbose=False, partition=1, max_iter=1, **cs.WIDE_FIT)
+    print(f"chip_ab: profile of the K={k} masked FSS fit, one iteration:")
+    prof = cs.profile_fit(torch, obj, wrappers, obj.fit_result.state, k,
+                          cs.LAM, cs.ALPHA, iters=1)
+    for name in ("row_xty", "masked_eval"):
+        out[f"{name} K={k} in fit"] = prof["in_fit"][name]
     return out
 
 
@@ -654,10 +868,17 @@ def main():
     ap.add_argument("--wide-gram", action="store_true",
                     help="only col_gram_xty and level_gram, narrow and "
                          "past K = 128")
+    ap.add_argument("--wide-row", action="store_true",
+                    help="only row_xty and masked_eval, narrow and past "
+                         "K = 128, and at the K = 160 fit's shapes")
     ap.add_argument("--force-wide", action="store_true",
                     help="with --wide-gram: the cases up to K = 128 on a "
                          "copy of ROOT whose gram builds take their wide "
                          "instances at every K")
+    ap.add_argument("--force-large", action="store_true",
+                    help="with --wide-row: the cases past K = 128 at phase "
+                         "6's shapes on a copy of ROOT whose row kernels "
+                         "take the large prediction tile at every shape")
     a = ap.parse_args()
     if a.share:
         return share_equal(*a.share)
@@ -665,11 +886,14 @@ def main():
         ap.error("ROOT is required")
     if a.force_wide and not a.wide_gram:
         ap.error("--force-wide needs --wide-gram")
+    if a.force_large and not a.wide_row:
+        ap.error("--force-large needs --wide-row")
     root = os.path.abspath(a.root)
-    if a.force_wide:
+    if a.force_wide or a.force_large:
         import tempfile
         copy = tempfile.TemporaryDirectory(prefix="chip_ab_wide_")
-        root = force_wide_copy(root, copy.name)
+        root = (force_wide_copy if a.force_wide else force_large_copy)(
+            root, copy.name)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location(
@@ -711,6 +935,11 @@ def main():
         res["force_wide"] = a.force_wide
         res["wide_gram"] = wide_gram_kernels(torch, cs, gram, row,
                                              narrow_only=a.force_wide)
+        return finish(a, res, saved)
+    if a.wide_row:
+        res["force_large"] = a.force_large
+        res["wide_row"] = wide_row_kernels(torch, cs, itt, row, ev, wrappers,
+                                           wide_only=a.force_large)
         return finish(a, res, saved)
     if a.wide_fss:
         res["wide_fss"] = wide_fss_kernels(torch, cs, itt, als, gram, fss,

@@ -487,6 +487,20 @@ def row_xty_times(torch, row, cases, mask, F, reps=20):
         bound_ms=b[0], bound_by=b[1])
 
 
+def blocks_per_sm(torch, entry, *args):
+    """The grid's blocks over the card's SMs of a launch whose C library
+    reports its blocks (`entry`: insider_row_xty_blocks or
+    insider_masked_eval_blocks; None where the library lacks it, as an
+    older package tree's does)."""
+    from insider_tpu_torch.kernels import _lib
+
+    fn = getattr(_lib.lib(), entry, None)
+    if fn is None or not fn.argtypes:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return fn(*args) / sms
+
+
 def masked_eval_times(torch, ev, data, train, test, R, F, reps=20):
     """masked_eval's kernel and plain times beside its bound: data and the
     two masks (N, M; f32 or uint8), R and F read once; the prediction's
@@ -1654,7 +1668,9 @@ def phase_kernels_wider(torch, gram, fss, cd, ctns, row, ev):
             cases.append((codes, Rm, D))
         out[f"row_xty K={k}"] = dict(
             row_xty_times(torch, row, cases, mask, F, reps=5),
-            max_abs_err=worst["kernel"], N=n, M=m)
+            max_abs_err=worst["kernel"], N=n, M=m,
+            blocks_per_sm=blocks_per_sm(torch, "insider_row_xty_blocks", n,
+                                        m, k))
         mw = torch.from_numpy(rng.integers(0, 40, (sum(WIDE_LEVELS), m))
                               .astype(np.float32)).to("cuda")
         got = row.level_gram(mw, F)
@@ -1676,7 +1692,9 @@ def phase_kernels_wider(torch, gram, fss, cd, ctns, row, ev):
             fail(f"masked_eval K={k}: uint8 masks differ from f32")
         out[f"masked_eval K={k}"] = dict(
             masked_eval_times(torch, ev, data, mask, test, Rm, F, reps=5),
-            max_abs_err=err, N=n, M=m)
+            max_abs_err=err, N=n, M=m,
+            blocks_per_sm=blocks_per_sm(torch, "insider_masked_eval_blocks",
+                                        n, m, k))
     out.update(past_ceilings(torch, gram, row))
     return out
 
@@ -1897,7 +1915,11 @@ def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
     Prints each device kernel's ms per iteration and per launch and the
     device busy share (device kernel time over the host's window, which
     ends in a synchronize); fails if a kernel that launched shows no
-    device time.  Returns {"busy_share", "kernels": {name: record}, ...}."""
+    device time.  CUPTI can drop a window's first kernels (a K = 160 fit's
+    first masked_eval call: neither of its two kernels recorded, whichever
+    throwaway launches went first), so a wrapper whose kernels show fewer
+    launches than it made is timed a launch over the launches recorded.
+    Returns {"busy_share", "kernels": {name: record}, ...}."""
     from torch.profiler import ProfilerActivity, profile
 
     from insider_tpu_torch.config import FitConfig
@@ -1939,14 +1961,18 @@ def profile_fit(torch, obj, wrappers, state, latent_dimension, lambda_,
         parts = KERNEL_NAMES.get(wname)
         if not (n and parts):
             continue
-        us = sum(t for k, (t, _) in times.items()
-                 if any(part in k for part in parts))
+        mine = [(t, m) for k, (t, m) in times.items()
+                if any(part in k for part in parts)]
+        us = sum(t for t, _ in mine)
         if not us:
             fail(f"profile: {wname} launched {n} times, no device time")
-        in_fit[wname] = dict(ms_per_launch=us / 1e3 / n,
-                             ms_per_iter=us / 1e3 / iters, launches=n)
-        print(f"  in fit: {wname} {us / 1e3 / n:.4f} ms per launch "
-              f"(its kernels together), {n / iters:g} launches/iter")
+        seen = min(n, max(m for _, m in mine))
+        in_fit[wname] = dict(ms_per_launch=us / 1e3 / seen,
+                             ms_per_iter=us / 1e3 / seen * n / iters,
+                             launches=n, recorded=seen)
+        print(f"  in fit: {wname} {us / 1e3 / seen:.4f} ms per launch "
+              f"(its kernels together), {n / iters:g} launches/iter"
+              + (f" ({seen} of {n} recorded)" if seen < n else ""))
     return dict(busy_share=busy, wall_ms=wall_us / 1e3, kernels=kernels,
                 launches=launches, in_fit=in_fit)
 
@@ -4919,15 +4945,16 @@ def phase_wide_rank(torch, itt, als, wrappers, smi):
         prof = profile_fit(torch, obj, wrappers, obj.fit_result.state,
                            WIDE_K, LAM, ALPHA, iters=WIDE_PROFILE_ITERS,
                            masked=kw["partition"] == 1, **solver)
-        for k in ("level_gram", "col_gram_xty", "feature_sign",
-                  "feature_sign_shared", "cd_streamed", "cd_shared",
-                  "ctns_cd"):
+        for k in ("level_gram", "col_gram_xty", "row_xty", "masked_eval",
+                  "feature_sign", "feature_sign_shared", "cd_streamed",
+                  "cd_shared", "ctns_cd"):
             if k not in prof["in_fit"]:
                 continue
             bnd = (gram_build_infit_bound(k, WIDE_K) if k in (
-                "level_gram", "col_gram_xty") else notes.get(k, {}).get(
-                    "bound") or gram_input_bound(
-                        WIDE_K, M, shared=k == "feature_sign_shared"))
+                "level_gram", "col_gram_xty") else row_infit_bound(
+                    k, WIDE_K) if k in ("row_xty", "masked_eval")
+                   else notes.get(k, {}).get("bound") or gram_input_bound(
+                       WIDE_K, M, shared=k == "feature_sign_shared"))
             rec = prof["in_fit"][k]
             table.append((name, k, rec["ms_per_launch"],
                           rec["launches"] / WIDE_PROFILE_ITERS, bnd))
@@ -4950,6 +4977,21 @@ def gram_build_infit_bound(name, k):
     L = sum(LEVELS)
     return bound(4 * (L * M + k * M + L * k * k),
                  bf16_flop=2 * 3 * 2 * L * pairs(k) * M)
+
+
+def row_infit_bound(name, k):
+    """(bound_ms, bound_by) of a launch of a row kernel in a masked fit of
+    the flagship problem at rank k, f32 masks: row_xty's, the mean of its
+    four confounders' calls (the mask, D and F read, 2 N M K flops for the
+    prediction and 2 L M K for the contraction, as row_xty_times counts
+    them); masked_eval's, data and both masks read and 2 N M K flops."""
+    if name == "masked_eval":
+        return bound(4 * (3 * N * M + N * k + k * M), f32_flop=2 * N * M * k)
+    calls = [bound(4 * (N * M + L * M + k * M + N * k + L * k),
+                   f32_flop=2 * (N + L) * k * M) for L in LEVELS]
+    return (sum(b for b, _ in calls) / len(calls),
+            "bytes" if all(by == "bytes" for _, by in calls)
+            else "operations")
 
 
 def kernel_wrappers():

@@ -37,12 +37,21 @@
 // pattern alone reads the three arrays below the card's rate, and the
 // arithmetic alone (FMAs, the shared loads of R, the f32 -> f64
 // conversions of the squares) takes about as long as the reads.
-// Above K = 128 (masked_eval_wide) F no longer fits a thread's registers:
-// one column a thread, and the prediction's dot product over K in tiles of
-// 128 coordinates, each tile's F in registers and its rows of R staged in
-// shared memory, the tiles' sums accumulated in f32 in a shared (rows,
-// columns) tile; the squares and counts then as above.
+// Above K = 128 (masked_eval_wide) F no longer fits a thread's registers.
+// The first wide version (one column a thread, K in zero-padded tiles of
+// 128, each tile's sums added into a shared (rows, columns) tile, then the
+// three arrays read with no load in flight, 80 blocks at 300 x 2048) was
+// bound by its shared loads, a broadcast 16-byte load of R for 4 FMAs.  Now
+// the prediction is the register tile of predict_tile.cuh, shared with
+// row_xty (8 x 8 elements a lane, 64 x 128 a block; 16 x 32 where those
+// would leave SMs idle), K summed whole in k-chunks of 16, each chunk from
+// zero, and the residuals, squares and counts come straight from its
+// accumulators.  What bounds it now (PERF.md §6, row 4): the prediction's
+// FMAs at two blocks an SM, then the three arrays' reads after the k-loop
+// (their 64 values a thread cannot stay in registers beside the 2 x 64
+// accumulators; the split not measured).
 #include "common.cuh"
+#include "predict_tile.cuh"
 
 namespace {
 
@@ -59,10 +68,11 @@ __host__ __device__ constexpr int cols_per_thread(int KP) {
 }
 
 // The block's four f64 sums (one set a thread) added by a fixed
-// xor-shuffle tree in each warp, then across the warps in order, into the
-// block's partial.
+// xor-shuffle tree in each of its W warps, then across the warps in order,
+// into the block's partial.
+template <int W = CT / 32>
 __device__ __forceinline__ void write_partial(double (&s)[4],
-                                              double (&red)[CT / 32][4],
+                                              double (&red)[W][4],
                                               double* __restrict__ partial) {
   const int tid = threadIdx.x;
 #pragma unroll
@@ -75,7 +85,7 @@ __device__ __forceinline__ void write_partial(double (&s)[4],
   __syncthreads();
   if (tid < 4) {
     double t = 0.0;
-    for (int w = 0; w < CT / 32; ++w) t += red[w][tid];
+    for (int w = 0; w < W; ++w) t += red[w][tid];
     partial[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 4 + tid] = t;
   }
 }
@@ -166,56 +176,44 @@ masked_eval_partial(const float* __restrict__ data,
   write_partial(s, red, partial);
 }
 
-// K > 128: one column a thread; for each tile of KT coordinates, its F in
-// registers and its rows of R in shared memory, the predictions of the
-// block's (rows, columns) added into the shared tile Ps in f32 (tile by
-// tile, from zero); then the residuals, squares and counts as above.
+// K > 128: the shared prediction tile (predict_tile.cuh), a block a row
+// tile x column tile.  After the k-loop each thread reads its elements'
+// data and masks (clamped to the arrays, so that every load issues at
+// once) and forms the residuals, squares and counts straight from the
+// accumulators: no shared round trip of the prediction.
 constexpr int KT = 128;
 
-template <typename MaskT>
-__global__ void __launch_bounds__(CT)
+template <class Tile, typename MaskT>
+__global__ void __launch_bounds__(Tile::NT, Tile::MIN_BLOCKS)
 masked_eval_wide(const float* __restrict__ data,
                  const MaskT* __restrict__ train,
                  const MaskT* __restrict__ test, const float* __restrict__ R,
                  const float* __restrict__ F, double* __restrict__ partial,
                  int N, int M, int K) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Rs = reinterpret_cast<float*>(smem_raw);             // (RB, KT)
-  float* Ps = Rs + RB * KT;                                    // (RB, CT)
-  __shared__ double red[CT / 32][4];
-
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * CT + tid;
-  const bool valid = j0 < M;
-  const int jc = min(j0, M - 1);               // in-bounds loads
-  const int i0 = blockIdx.y * RB;
-  const int rows = min(RB, N - i0);
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    const int kn = min(KT, K - k0);
-    float f[1][KT];
-    insider::load_columns<KT, 1, CT>(F + (size_t)k0 * M, M, kn, j0, f);
-    __syncthreads();                           // the last tile's Rs is read
-    for (int e = tid; e < rows * KT; e += CT) {
-      const int r = e / KT, k = e - r * KT;
-      Rs[e] = k < kn ? R[(size_t)(i0 + r) * K + k0 + k] : 0.f;
-    }
-    __syncthreads();
-    for (int u = 0; u < rows; ++u) {
-      float p[1];
-      insider::dot_row<KT, 1>(Rs + u * KT, f, p);
-      Ps[u * CT + tid] = k0 == 0 ? p[0] : Ps[u * CT + tid] + p[0];
-    }
-  }
+  extern __shared__ __align__(16) float smem_f[];
+  __shared__ double red[Tile::WARPS][4];
+  const int j0 = blockIdx.x * Tile::TC, i0 = blockIdx.y * Tile::TR;
+  const int rows = min(Tile::TR, N - i0);
+  const Tile tile(smem_f);
+  float acc[Tile::LR][Tile::LC];
+  tile.predict(R, F, K, M, j0, rows, [&](int r) { return i0 + r; }, acc);
+  // the thread's counts (at most LR LC mask values, exact in f32 for 0/1
+  // masks) added in f32, then once into their f64 sums
   double s[4] = {0.0, 0.0, 0.0, 0.0};     // train_sse, test_sse, n_tr, n_te
-  for (int u0 = 0; u0 < rows; u0 += U) {
-    float n_tr = 0.f, n_te = 0.f;
+  float n_tr = 0.f, n_te = 0.f;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (valid && u0 + u < rows) {
-        const size_t at = (size_t)(i0 + u0 + u) * M + jc;
-        const float a = static_cast<float>(train[at]);
-        const float b = static_cast<float>(test[at]);
-        const float res = data[at] - Ps[(u0 + u) * CT + tid];
+  for (int i = 0; i < Tile::LR; ++i) {
+    const int r = Tile::row(i);
+    const size_t at = (size_t)(i0 + min(r, rows - 1)) * M;
+#pragma unroll
+    for (int q = 0; q < Tile::LC; ++q) {
+      const int j = j0 + Tile::col(q);
+      const size_t e = at + min(j, M - 1);
+      const float x = data[e];
+      const float a = static_cast<float>(train[e]);
+      const float b = static_cast<float>(test[e]);
+      if (r < rows && j < M) {
+        const float res = x - acc[i][q];
         const double rt = (double)(res * a);
         const double re = (double)(res * b);
         s[0] += rt * rt;
@@ -224,10 +222,10 @@ masked_eval_wide(const float* __restrict__ data,
         n_te += b;
       }
     }
-    s[2] += (double)n_tr;
-    s[3] += (double)n_te;
   }
-  write_partial(s, red, partial);
+  s[2] = (double)n_tr;
+  s[3] = (double)n_te;
+  write_partial<Tile::WARPS>(s, red, partial);
 }
 
 __global__ void __launch_bounds__(insider::SPLIT_THREADS)
@@ -236,23 +234,30 @@ masked_eval_reduce(const double* __restrict__ part, double* __restrict__ out,
   insider::reduce_split<double>(part, out, n_parts, 4, 4);
 }
 
+// The grid of one launch: column tiles x row blocks (past K = 128 the
+// prediction tile's).
 dim3 grid_for(int N, int M, int K) {
-  const int C = K > KT ? 1 : cols_per_thread(insider::padded_rank(K));
+  if (K > KT)
+    return insider::with_tile(N, M, [&](auto tile) {
+      using Tile = typename decltype(tile)::type;
+      return dim3(ceil_div(M, Tile::TC), ceil_div(N, Tile::TR));
+    });
+  const int C = cols_per_thread(insider::padded_rank(K));
   return dim3(ceil_div(M, CT * C), ceil_div(N, RB));
 }
 
-template <typename MaskT>
+template <class Tile, typename MaskT>
 cudaError_t launch_wide(const float* data, const MaskT* train,
                         const MaskT* test, const float* R, const float* F,
                         double* scratch, int N, int M, int K,
                         cudaStream_t stream) {
-  const size_t smem = sizeof(float) * RB * (KT + CT);
+  constexpr size_t smem = sizeof(float) * Tile::floats;
+  auto kernel = masked_eval_wide<Tile, MaskT>;
   cudaError_t err = cudaFuncSetAttribute(
-      masked_eval_wide<MaskT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  masked_eval_wide<MaskT><<<grid_for(N, M, K), CT, smem, stream>>>(
-      data, train, test, R, F, scratch, N, M, K);
+  kernel<<<grid_for(N, M, K), Tile::NT, smem, stream>>>(data, train, test, R,
+                                                        F, scratch, N, M, K);
   return cudaGetLastError();
 }
 
@@ -290,6 +295,12 @@ INSIDER_API long insider_masked_eval_scratch(int N, int M, int K) {
   return 4L * g.x * g.y;
 }
 
+// Blocks of insider_masked_eval's main kernel.
+INSIDER_API long insider_masked_eval_blocks(int N, int M, int K) {
+  const dim3 g = grid_for(N, M, K);
+  return (long)g.x * g.y;
+}
+
 // out[0..3] = (train_sse, test_sse, n_train, n_test) as f64.  data (N, M),
 // R (N, K), F (K, M): row-major f32; train, test (N, M) row-major, both f32
 // or both uint8 (mask_is_u8 != 0).  K >= 1.
@@ -307,8 +318,11 @@ INSIDER_API int insider_masked_eval(const float* data, const void* train,
   cudaError_t err;
   if (K > KT) {
     err = insider::with_mask(train, mask_is_u8, [&](auto tr) {
-      return launch_wide(data, tr, static_cast<decltype(tr)>(test), R, F,
-                         scratch, N, M, K, stream);
+      return insider::with_tile(N, M, [&](auto tile) {
+        return launch_wide<typename decltype(tile)::type>(
+            data, tr, static_cast<decltype(tr)>(test), R, F, scratch, N, M,
+            K, stream);
+      });
     });
   } else switch (KP) {
 #define INSIDER_EVAL_CASE(P)                                                \

@@ -55,15 +55,30 @@
 // about as long as a block's serial chain of staging, batch and contraction
 // steps, at two blocks (8 warps) an SM, which the register columns of F and
 // the shared tiles set.
-// Above K = 128 (row_xty_wide) F no longer fits a thread's registers: the
-// prediction's dot product runs over K in tiles of 128 coordinates, one
-// column a thread.  T is linear in the tiles, so a batch's rows are walked
-// once a tile, each tile's T of a level subtracted from S at the level's
-// last row (S = D - T_0 - T_1 - ..., every partial complete in its block,
-// so the cancellation fix holds), and S is contracted with F a tile of 128
-// coordinates at a time.  The mask is read once a tile.
+// Above K = 128 F no longer fits a thread's registers.  The first wide
+// version (one column a thread, K in zero-padded tiles of 128, the mask read
+// again for each tile, 48 blocks at 300 x 2048) was bound by its shared
+// loads: a broadcast 16-byte load of R for every 4 FMAs.  Now two kernels:
+// row_xty_wide builds the prediction in the register tiles of
+// predict_tile.cuh (8 x 8 elements a lane, 64 x 128 a block; 16 x 32 where
+// those would leave SMs idle), K summed whole in k-chunks of 16, each chunk
+// from zero (one f32 chain over K failed the near-cancel gate at K = 300),
+// so the mask is read once a call and K = 160 runs 160 coordinates, not
+// 256; its blocks
+// are row tiles, not groups of whole levels, so that a long level's rows
+// spread over the card (two levels of ~190 rows at N = 377 gave 696 blocks
+// of three row tiles each, a third of them left for a second wave), and
+// each writes its levels' sums over its rows; row_xty_contract adds each
+// level's sums in row-tile order, then S = D - T from the complete T (the
+// cancellation fix), and contracts S with F by the narrow kernel's
+// contract, a staged k-chunk of F at a time.  What bounds it now (PERF.md
+// §6, row 1): the prediction's FMAs at two blocks an SM (the chunk sums'
+// second set of accumulators), then the contraction at many levels (its
+// prologue, each level's D and segments, and its staging of F not told
+// apart from its FMAs, PERF.md §7).
 #include "common.cuh"
 #include "mma.cuh"
+#include "predict_tile.cuh"
 
 namespace {
 
@@ -114,18 +129,21 @@ __device__ void group_levels(const int* __restrict__ offsets, int L, int NG,
   __syncthreads();
 }
 
-// out[l * K + k] = sum_c Ss[l][c] Fs[k][c] over the TW columns, for l < nl,
-// k < kn (<= K: a tile of F's rows where out points at its first).  Tiles of 4 levels x 4 coordinates; tpt adjacent lanes (a power of
-// two) share a tile, each adding every tpt-th float4 of the columns, then
-// an xor-shuffle tree adds their sums (both lanes of a pair add the same two
-// values, so the result does not depend on the lane).  Every thread runs the
-// same number of rounds, so the shuffles see full warps.
-template <int KP>
+// out[l * K + k] = sum_c Ss[l][c] Fs[k][c] over the TW columns (shared rows
+// of FST f32), for l < nl and k < kn <= NK, Fs holding NK rows of F: all KP
+// of the narrow kernel's (kn = K), or a staged k-chunk of row_xty_contract's
+// (out at its first coordinate).  Tiles of 4 levels x 4 coordinates; tpt
+// adjacent lanes (a power of two, at most TPT) share a tile, each adding
+// every tpt-th float4 of the columns, then an xor-shuffle tree adds their
+// sums (both lanes of a pair add the same two values, so the result does
+// not depend on the lane).  Every thread runs the same number of rounds, so
+// the shuffles see full warps.
+template <int NK, int TW, int FST, int TPT = 32>
 __device__ void contract(const float* Ss, const float* Fs, int nl,
                          float* __restrict__ out, int K, int kn) {
-  constexpr int NKT = KP / 4, TW = Shape<KP>::TW, FST = Shape<KP>::FST;
+  constexpr int NKT = NK / 4;
   const int tiles = ((nl + 3) / 4) * NKT;
-  int tpt = 32;
+  int tpt = TPT;
   while (tpt > 1 && tpt * tiles > CT) tpt >>= 1;
   const int q = threadIdx.x % tpt;
   const int slots = CT / tpt;
@@ -303,8 +321,9 @@ row_xty_partial(const int* __restrict__ order, const int* __restrict__ offsets,
     const int lb_next = lb + nl, nl_next = min(LB, l_hi - lb_next);
     if (lb_next < l_hi && offsets[lb_next] < offsets[lb_next + nl_next])
       fetch(offsets[lb_next], offsets[lb_next + nl_next], lb_next);
-    contract<KP>(Ss, Fs, nl, partial + ((size_t)blockIdx.x * L + lb) * K, K,
-                 K);
+    contract<KP, S::TW, FST>(Ss, Fs, nl,
+                             partial + ((size_t)blockIdx.x * L + lb) * K, K,
+                             K);
     __syncthreads();                      // Ss is rewritten by the next batch
     if (lb_next < l_hi) load_d(lb_next, nl_next);
     lb = lb_next;
@@ -312,85 +331,210 @@ row_xty_partial(const int* __restrict__ order, const int* __restrict__ offsets,
   }
 }
 
-// K > 128: tiles of KT coordinates, one column a thread (Shape<KT>: C =
-// 1, a tile of CT columns), the batches of whole levels as above.  For each
-// batch, S = D is set, then for each tile the rows are walked with that
-// tile's F in registers and its T subtracted at every level's end; then S
-// is contracted with F a tile at a time (Fs holds one tile).
-constexpr int KT = 128;
+// K > 128: two kernels on the shared prediction tile (predict_tile.cuh).
+// row_xty_wide: a block a row tile (TR of the rows sorted by level) x
+// column tile; its mask rows land in shared memory during the k-loop, the
+// epilogue forms m P from the accumulators, sums it over each lane's runs
+// of four rows, and one thread a column walks the runs in row order,
+// writing each level's sum over its rows in the tile (the level's segment
+// in tile t) into row l + t of Tpart (rows sorted by level make l + t
+// distinct for distinct segments).  row_xty_contract: a block a column
+// range x batch of levels adds each level's segments in tile order -- its
+// complete T --, forms S = D - T (the cancellation fix), and contracts S
+// with F a staged k-chunk at a time by the narrow kernel's contract (at
+// most 8 lanes a tile: few levels leave most tiles' lanes idle otherwise).
+// row_xty_reduce adds the column ranges' partials.
+constexpr int KT = 128;        // the narrow instances' largest rank
+constexpr int CLB = 64;        // levels of a contraction block
+constexpr int CKC = 32;        // its k-chunk: CLB / 4 x CKC / 4 = CT tiles
+constexpr int CTPT = 8;        // its most lanes a tile
+constexpr int CNS = 2;         // stages of its ring
+constexpr int CFST = CT + 4;   // f32 stride of its shared rows
 
-template <typename MaskT>
-__global__ void __launch_bounds__(CT)
+// The level of sorted position p: the last l with offsets[l] <= p.
+__device__ int level_of(const int* __restrict__ offsets, int L, int p) {
+  int lo = 0, hi = L;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (offsets[mid] <= p)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The w-th of the 16-byte aligned chunks that cover the bytes [src, src +
+// n) into dst (16-byte aligned) by cp.async: from the chunk that holds src
+// on, zero past src + n, nothing read where the chunk lies past it (n = 0:
+// all zero).  The bytes before src in its chunk lie in the same 16-byte
+// aligned block of the allocation.
+__device__ __forceinline__ void copy_cover(void* dst, const void* src, int n,
+                                           int w) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t at = (a & ~(uintptr_t)15) + 16 * (uintptr_t)w;
+  const uintptr_t end = a + n;
+  int len = 0;
+  const void* from = reinterpret_cast<const void*>(a & ~(uintptr_t)15);
+  if (n > 0 && at < end) {
+    len = end - at < 16 ? (int)(end - at) : 16;
+    from = reinterpret_cast<const void*>(at);
+  }
+  insider::cp_async16(dst, from, len);
+}
+
+// Bytes of a staged mask row of a tile TC wide: the 16-byte chunks that
+// cover TC values from any offset.
+template <class Tile, typename MaskT>
+__host__ __device__ constexpr int mask_row_bytes() {
+  return 16 * (Tile::TC * (int)sizeof(MaskT) / 16 + 1);
+}
+
+// Shared bytes of row_xty_wide: the tile's stages (Ps lies over them once
+// the k-loop is done), then the row tile's mask rows.
+template <class Tile, typename MaskT>
+constexpr size_t wide_smem() {
+  return sizeof(float) * Tile::floats +
+         (size_t)Tile::TR * mask_row_bytes<Tile, MaskT>();
+}
+
+template <class Tile, typename MaskT>
+__global__ void __launch_bounds__(Tile::NT, Tile::MIN_BLOCKS)
 row_xty_wide(const int* __restrict__ order, const int* __restrict__ offsets,
              const int* __restrict__ level_end, const float* __restrict__ R,
-             const MaskT* __restrict__ mask, const float* __restrict__ D,
-             const float* __restrict__ F, float* __restrict__ partial, int M,
-             int L, int K, int NG) {
-  using S = Shape<KT>;
-  static_assert(S::C == 1 && S::TW == CT, "one column a thread");
-  constexpr int FST = S::FST, LB = S::LB, RCH = S::RCH;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Fs = reinterpret_cast<float*>(smem_raw);      // (KT, FST)
-  float* Ss = Fs + KT * FST;                           // (LB, FST)
-  float* Rs = Ss + LB * FST;                           // (RCH, KT)
-  int* rid = reinterpret_cast<int*>(Rs + RCH * KT);    // (RCH,) row index
-  int* ends = rid + RCH;         // (RCH,) the batch level ending at the row
+             const MaskT* __restrict__ mask, const float* __restrict__ F,
+             float* __restrict__ Tpart, int N, int M, int L, int K) {
+  constexpr int TR = Tile::TR, TC = Tile::TC, PST = TC + 4;
+  constexpr int LR = Tile::LR, LC = Tile::LC;
+  constexpr int MB = mask_row_bytes<Tile, MaskT>(), CH = MB / 16;
+  static_assert(Tile::NT == TC && TR * PST <= Tile::floats, "walker");
+  extern __shared__ __align__(16) float smem_f[];
+  float* Ps = smem_f;          // (TR, PST) m P, over the stages
+  unsigned char* Ms =          // (TR, MB) the mask rows, each at moff[r]
+      reinterpret_cast<unsigned char*>(smem_f + Tile::floats);
+  __shared__ int rid[TR], ends[TR], moff[TR], last;
 
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * CT + tid;
-  const int jc = min(j0, M - 1);             // in-bounds loads
-  __shared__ int range[2];
-  group_levels(offsets, L, NG, blockIdx.y, range);
-  const int l_lo = range[0], l_hi = range[1];
-  for (int lb = l_lo; lb < l_hi; lb += LB) {
-    const int nl = min(LB, l_hi - lb);
-    const int r_begin = offsets[lb], r_end = offsets[lb + nl];
-    for (int l = 0; l < nl; ++l)             // each thread its own column
-      Ss[l * FST + tid] = j0 < M ? D[(size_t)(lb + l) * M + j0] : 0.f;
-    for (int k0 = 0; k0 < K; k0 += KT) {
-      const int kn = min(KT, K - k0);
-      float f[1][KT];
-      insider::load_columns<KT, 1, CT>(F + (size_t)k0 * M, M, kn, j0, f);
-      float T = 0.f;
-      for (int r0 = r_begin; r0 < r_end; r0 += RCH) {
-        const int rows = min(RCH, r_end - r0);
-        __syncthreads();                    // the previous chunk is consumed
-        for (int e = tid; e < rows * KT; e += CT) {
-          const int r = e / KT, k = e - r * KT;
-          Rs[e] = k < kn ? R[(size_t)order[r0 + r] * K + k0 + k] : 0.f;
-        }
-        if (tid < rows) {
-          rid[tid] = order[r0 + tid];
-          const int e = level_end[r0 + tid];
-          ends[tid] = e >= 0 ? e - lb : -1;
-        }
-        __syncthreads();
-        for (int u = 0; u < rows; ++u) {
-          const float m = static_cast<float>(mask[(size_t)rid[u] * M + jc]);
-          float p[1];
-          insider::dot_row<KT, 1>(Rs + u * KT, f, p);
-          T = fmaf(m, p[0], T);
-          const int e = ends[u];
-          if (e >= 0) {
-            // S = D - T_0 - T_1 - ...: each tile's complete T of the level
-            Ss[e * FST + tid] -= T;
-            T = 0.f;
+  const int tid = threadIdx.x, t = blockIdx.y, p0 = t * TR;
+  const int rows = min(TR, N - p0), j0 = blockIdx.x * TC;
+  const int jn = min(TC, M - j0);
+  for (int r = tid; r < rows; r += Tile::NT) {
+    const int i = order[p0 + r];
+    rid[r] = i;
+    ends[r] = level_end[p0 + r];
+    moff[r] = (int)(reinterpret_cast<uintptr_t>(mask + (size_t)i * M + j0) &
+                    15) / (int)sizeof(MaskT);
+  }
+  if (tid == 0) last = level_of(offsets, L, p0 + rows - 1);
+  __syncthreads();
+  const Tile tile(smem_f);
+  float acc[LR][LC];
+  // the mask rows land with the second k-chunk, in flight while the
+  // first computes
+  tile.predict(R, F, K, M, j0, rows, [&](int r) { return rid[r]; }, acc,
+               [&](int c) {
+                 if (c == 1)
+                   for (int e = tid; e < rows * CH; e += Tile::NT) {
+                     const int r = e / CH;
+                     copy_cover(Ms + r * MB + 16 * (e - r * CH),
+                                mask + (size_t)rid[r] * M + j0,
+                                (int)sizeof(MaskT) * jn, e - r * CH);
+                   }
+               });
+  __syncthreads();             // the stages under Ps are read
+  // Each run of four rows of the thread (rows 4 u .. 4 u + 3): m P summed
+  // in registers, in row order, written to Ps at each level's last row and
+  // at the run's last row (or the tile's).
+#pragma unroll
+  for (int q = 0; q < LC; ++q) {
+    const int c = Tile::col(q);
+#pragma unroll
+    for (int h = 0; h < LR / 4; ++h) {
+      float run = 0.f;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int r = Tile::row(4 * h + x);
+        if (r < rows) {
+          const float m = static_cast<float>(reinterpret_cast<const MaskT*>(
+              Ms + r * MB)[moff[r] + c]);
+          run = fmaf(m, acc[4 * h + x][q], run);
+          if (ends[r] >= 0 || x == 3 || r == rows - 1) {
+            Ps[r * PST + c] = run;
+            run = 0.f;
           }
         }
       }
     }
-    for (int k0 = 0; k0 < K; k0 += KT) {
-      const int kn = min(KT, K - k0);
-      __syncthreads();              // Ss is complete; Fs is read no more
-      for (int k = 0; k < KT; ++k)
-        Fs[k * FST + tid] =
-            k < kn && j0 < M ? F[(size_t)(k0 + k) * M + j0] : 0.f;
-      __syncthreads();
-      contract<KT>(Ss, Fs, nl, partial + ((size_t)blockIdx.x * L + lb) * K +
-                                   k0, K, kn);
-    }
-    __syncthreads();                // Ss is rewritten by the next batch
   }
+  __syncthreads();
+  // One thread a column walks the runs' sums in row order: T of each
+  // level's segment in the tile.  Columns past M hold zeros (F's are 0).
+  const int j = j0 + tid;
+  if (j < M) {
+    float T = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const int e = ends[r];
+      if (e >= 0 || r % 4 == 3 || r == rows - 1) {
+        T += Ps[r * PST + tid];
+        if (e >= 0) {                // level e's last row
+          Tpart[(size_t)(e + t) * M + j] = T;
+          T = 0.f;
+        }
+      }
+    }
+    if (ends[rows - 1] < 0) Tpart[(size_t)(last + t) * M + j] = T;
+  }
+}
+
+__global__ void __launch_bounds__(CT, 3)
+row_xty_contract(const int* __restrict__ offsets, const float* __restrict__ D,
+                 const float* __restrict__ F, const float* __restrict__ Tpart,
+                 float* __restrict__ partial, int M, int L, int K, int TR) {
+  extern __shared__ __align__(16) float smem_f[];
+  float* Ss = smem_f;                  // (CLB, CFST) S
+  float* Fs = Ss + CLB * CFST;         // CNS stages of (CKC, CFST) F
+  __shared__ int offs[CLB + 1];        // the batch's level offsets
+  const int tid = threadIdx.x, j0 = blockIdx.x * CT, j = j0 + tid;
+  const int jc = min(j, M - 1);        // in-bounds loads
+  const int lb = blockIdx.y * CLB, nl = min(CLB, L - lb);
+  for (int l = tid; l <= nl; l += CT) offs[l] = offsets[lb + l];
+  __syncthreads();
+  // LG levels at a time: their D and first segments loaded at once, then
+  // the rest of each level's segments (a level longer than a row tile) in
+  // tile order
+  constexpr int LG = 16;
+  for (int l0 = 0; l0 < nl; l0 += LG) {
+    float d[LG], T[LG];
+#pragma unroll
+    for (int u = 0; u < LG; ++u) {
+      const int l = l0 + u;
+      const int a = offs[min(l, nl)], b = offs[min(l + 1, nl)];
+      d[u] = l < nl ? D[(size_t)(lb + l) * M + jc] : 0.f;
+      T[u] = l < nl && a < b ? Tpart[(size_t)(lb + l + a / TR) * M + jc]
+                             : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < LG; ++u) {
+      const int l = l0 + u;
+      if (l < nl) {
+        const int a = offs[l], b = offs[l + 1];
+        for (int t = a / TR + 1; t <= (b - 1) / TR; ++t)
+          T[u] += Tpart[(size_t)(lb + l + t) * M + jc];
+        // S = D - T from the complete T (the cancellation fix)
+        Ss[l * CFST + tid] = j < M ? d[u] - T[u] : 0.f;
+      }
+    }
+  }
+  float* out = partial + ((size_t)blockIdx.x * L + lb) * K;
+  insider::stage_ring<CNS>(
+      (K + CKC - 1) / CKC,
+      [&](int c, int s) {
+        insider::stage_f_rows<CT, CFST, CT, CKC>(Fs + s * CKC * CFST, F, K,
+                                                 M, j0, c);
+      },
+      [&](int c, int s) {
+        contract<CKC, CT, CFST, CTPT>(Ss, Fs + s * CKC * CFST, nl,
+                                      out + c * CKC, K, min(CKC, K - c * CKC));
+      });
 }
 
 __global__ void __launch_bounds__(insider::SPLIT_THREADS)
@@ -427,39 +571,69 @@ cudaError_t launch(const int* order, const int* offsets, const int* level_end,
   });
 }
 
-// Column tiles of one launch at rank K (a block's tile: CT threads of C
-// columns each; one each above K = 128).
+// Column tiles of the partials at rank K (a block's tile: CT threads of C
+// columns each; above K = 128 the contraction's CT columns).
 int column_tiles(int M, int K) {
   return ceil_div(M, K > KT ? CT
                             : CT * cols_per_thread(insider::padded_rank(K)));
 }
 
-template <typename MaskT>
+// The grid of row_xty_wide: column tiles x row tiles.
+template <class Tile>
+dim3 wide_grid(int N, int M) {
+  return dim3(ceil_div(M, Tile::TC), ceil_div(N, Tile::TR));
+}
+
+// f32 of Tpart past K = 128: a row of M for each level and each row tile
+// after the first (l + t < L + row tiles - 1); 0 up to K = 128.
+long segments(int N, int M, int L, int K) {
+  if (K <= KT) return 0;
+  return insider::with_tile(N, M, [&](auto tile) {
+    using Tile = typename decltype(tile)::type;
+    return (long)(L + wide_grid<Tile>(N, M).y - 1) * M;
+  });
+}
+
+template <class Tile, typename MaskT>
 cudaError_t launch_wide(const int* order, const int* offsets,
                         const int* level_end, const float* R,
                         const MaskT* mask, const float* D, const float* F,
-                        float* scratch, int N, int M, int L, int K,
-                        cudaStream_t stream) {
-  using S = Shape<KT>;
-  const size_t smem =
-      sizeof(float) * ((size_t)KT * S::FST + (size_t)S::LB * S::FST +
-                       (size_t)S::RCH * KT) +
-      sizeof(int) * 2 * S::RCH;
+                        float* Tpart, float* partial, int N, int M, int L,
+                        int K, cudaStream_t stream) {
+  constexpr size_t smem = wide_smem<Tile, MaskT>();
+  auto kernel = row_xty_wide<Tile, MaskT>;
   cudaError_t err = cudaFuncSetAttribute(
-      row_xty_wide<MaskT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int NG = ceil_div(N, G);
-  row_xty_wide<MaskT><<<dim3(ceil_div(M, CT), NG), CT, smem, stream>>>(
-      order, offsets, level_end, R, mask, D, F, scratch, M, L, K, NG);
+  kernel<<<wide_grid<Tile>(N, M), Tile::NT, smem, stream>>>(
+      order, offsets, level_end, R, mask, F, Tpart, N, M, L, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr size_t csmem = sizeof(float) * (CLB + CNS * CKC) * CFST;
+  err = cudaFuncSetAttribute(row_xty_contract,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)csmem);
+  if (err != cudaSuccess) return err;
+  row_xty_contract<<<dim3(ceil_div(M, CT), ceil_div(L, CLB)), CT, csmem,
+                     stream>>>(offsets, D, F, Tpart, partial, M, L, K,
+                               Tile::TR);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Elements of f32 scratch that insider_row_xty needs.
-INSIDER_API long insider_row_xty_scratch(int M, int L, int K) {
-  return (long)column_tiles(M, K) * L * K;
+INSIDER_API long insider_row_xty_scratch(int N, int M, int L, int K) {
+  return segments(N, M, L, K) + (long)column_tiles(M, K) * L * K;
+}
+
+// Blocks of insider_row_xty's main kernel (past K = 128 row_xty_wide).
+INSIDER_API long insider_row_xty_blocks(int N, int M, int K) {
+  if (K <= KT) return (long)column_tiles(M, K) * ceil_div(N, G);
+  return insider::with_tile(N, M, [&](auto tile) {
+    const dim3 g = wide_grid<typename decltype(tile)::type>(N, M);
+    return (long)g.x * g.y;
+  });
 }
 
 // out (L, K) = (D - E^T (mask .* (R_minus F))) F^T.  order (N,) int32: the
@@ -478,18 +652,24 @@ INSIDER_API int insider_row_xty(const int* order, const int* offsets,
   const int KP = K > KT ? KT : insider::padded_rank(K);
   if (KP == 0 || N < 1 || M < 1 || L < 1) return (int)cudaErrorInvalidValue;
   const int tiles = column_tiles(M, K);
-  if (scratch_len < (long)tiles * L * K) return (int)cudaErrorInvalidValue;
+  const long seg = segments(N, M, L, K);
+  if (scratch_len < seg + (long)tiles * L * K)
+    return (int)cudaErrorInvalidValue;
+  float* partial = scratch + seg;
   cudaError_t err;
   if (K > KT) {
     err = insider::with_mask(mask, mask_is_u8, [&](auto m) {
-      return launch_wide(order, offsets, level_end, R, m, D, F, scratch, N,
-                         M, L, K, stream);
+      return insider::with_tile(N, M, [&](auto tile) {
+        return launch_wide<typename decltype(tile)::type>(
+            order, offsets, level_end, R, m, D, F, scratch, partial, N, M, L,
+            K, stream);
+      });
     });
   } else switch (KP) {
 #define INSIDER_ROW_XTY_CASE(P)                                            \
   case P:                                                                  \
     err = launch<P>(order, offsets, level_end, R, mask, mask_is_u8, D, F,  \
-                    scratch, N, M, L, K, stream);                          \
+                    partial, N, M, L, K, stream);                          \
     break;
     INSIDER_ROW_XTY_CASE(8) INSIDER_ROW_XTY_CASE(16) INSIDER_ROW_XTY_CASE(24)
     INSIDER_ROW_XTY_CASE(32) INSIDER_ROW_XTY_CASE(40) INSIDER_ROW_XTY_CASE(48)
@@ -504,6 +684,6 @@ INSIDER_API int insider_row_xty(const int* order, const int* offsets,
   if (err != cudaSuccess) return (int)err;
   const int n = L * K, ob = insider::split_outputs(n);
   row_xty_reduce<<<ceil_div(n, ob), insider::SPLIT_THREADS, 0, stream>>>(
-      scratch, out, tiles, n, ob);
+      partial, out, tiles, n, ob);
   return (int)cudaGetLastError();
 }

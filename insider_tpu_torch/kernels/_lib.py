@@ -46,7 +46,8 @@ _SIGNATURES = {
     "insider_error_string": (ctypes.c_char_p, [_I]),
     "insider_level_gram_scratch": (_L, [_I, _I, _I, _I]),
     "insider_level_gram": (_I, [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
-    "insider_row_xty_scratch": (_L, [_I, _I, _I]),
+    "insider_row_xty_scratch": (_L, [_I, _I, _I, _I]),
+    "insider_row_xty_blocks": (_L, [_I, _I, _I]),
     "insider_row_xty": (_I, [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L,
                              _I, _I, _I, _I, _P]),
     "insider_fss_fused": (_I, [_P, _I, _P, _P, _P, _P, _F, _F, _P,
@@ -84,6 +85,7 @@ _SIGNATURES = {
                                       ctypes.POINTER(_I)]),
     "insider_ctns_cd": (_I, [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P]),
     "insider_masked_eval_scratch": (_L, [_I, _I, _I]),
+    "insider_masked_eval_blocks": (_L, [_I, _I, _I]),
     "insider_masked_eval": (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _L,
                                  _I, _I, _I, _P]),
 }

@@ -28,8 +28,8 @@ def masked_eval(data: torch.Tensor, train_mask: torch.Tensor,
     scalar tensors on the operands' device.  data (N, M), R (N, K),
     F (K, M), f32; the masks (N, M) 0/1, both f32 or both uint8 (the kernel
     widens each value as it reads it, so both give the same bits);
-    any K (above 128 the kernel takes the prediction's dot product in
-    tiles of 128 coordinates).  The kernel's counts are exact
+    any K (above 128 the kernel builds the prediction in register tiles
+    of rows x columns, csrc/predict_tile.cuh).  The kernel's counts are exact
     for 0/1 masks, as the fit's train and test indicators are (it adds a
     few mask values in f32 before their f64 sum); the plain version adds
     every value in f64."""

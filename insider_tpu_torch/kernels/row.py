@@ -115,8 +115,10 @@ def row_xty(codes: torch.Tensor, R_minus: torch.Tensor, mask: torch.Tensor,
     row-chunked variant).  codes: (N,) int32 level codes in [0, L), L =
     D.shape[0]; R_minus (N, K), D (L, M), F (K, M), f32; mask (N, M) 0/1,
     f32 or uint8 (the kernel widens each value as it reads it, so both
-    give the same bits); any L and any K (above 128 the kernel takes the
-    prediction's dot product in tiles of 128 coordinates).  levels:
+    give the same bits); any L and any K (above 128 the prediction is
+    built in register tiles of rows x columns, csrc/predict_tile.cuh, each
+    level's sums over a tile of the sorted rows go to scratch, and a
+    second kernel adds them before it forms D - T).  levels:
     the rows sorted by level, level_order(codes, L), which the kernel
     reads in place of the codes; a fit computes them once per problem
     (train/als.build_problem), and they are derived here when not given.
@@ -140,7 +142,7 @@ def row_xty(codes: torch.Tensor, R_minus: torch.Tensor, mask: torch.Tensor,
         raise ValueError("row_xty: levels must be (N,), (L + 1,), (N,)")
     lib = _lib.lib()
     out = torch.empty((L, K), dtype=torch.float32, device=D.device)
-    scratch = torch.empty(lib.insider_row_xty_scratch(M, L, K),
+    scratch = torch.empty(lib.insider_row_xty_scratch(N, M, L, K),
                           dtype=torch.float32, device=D.device)
     with torch.cuda.device(D.device):
         err = lib.insider_row_xty(

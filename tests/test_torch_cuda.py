@@ -62,6 +62,8 @@ LEVEL_GRAM_RTOL = 1e-6          # of the f64 sum's max magnitude
 COL_GRAM_RTOL = 1e-6            # of the f64 sums' max magnitude, and of
                                 # each entry's sum of |terms|
 WIDE_RANKS = (129, 160, 256, 300)   # past the narrow kernels' 128
+# the edges of the row kernels' k-chunks of 16 past 128
+ROW_EDGE_RANKS = (161, 191, 192, 193, 320, 321)
 
 
 @pytest.fixture()
@@ -180,7 +182,13 @@ def _row_xty_errors(codes, R, mask, D, F, got):
 # at K = 24); one level larger than a level group; K = 8, 24, 50, 96, 128
 # and odd ranks; M ragged and not a multiple of 4; N = 1; D and T nearly
 # cancelling, where the f64 gate must reject the f32 form D F^T - T F^T;
-# N = 65535
+# N = 65535.  Past 128, at the wide tile's edges (csrc/predict_tile.cuh:
+# 16 x 32 tiles, 64 x 128 where those give every SM a block, N x M from
+# 300 x 3457): K at the k-chunks' edges; M ragged and below one column
+# tile; N below one row tile; a level longer than a row group ("big") and
+# empty levels, on both tiles; near-cancelling inputs on the 64 x 128
+# tile at K = 161 and 300, where one f32 chain over K for each prediction
+# left the error at 0.95 and 2.2 times the f64 gate's limit.
 @pytest.mark.parametrize("N,L,K,M,layout", [
     (37, 3, 6, 1031, "random"), (150, 107, 24, 2000, "empty"),
     (40, 1, 8, 257, "random"), (300, 2000, 24, 513, "random"),
@@ -190,7 +198,13 @@ def _row_xty_errors(codes, R, mask, D, F, got):
     (1, 4, 8, 65, "random"), (65535, 3, 8, 37, "random"),
     (200, 8, 24, 8191, "cancel"), (150, 12, 129, 301, "empty"),
     (200, 8, 160, 8191, "cancel"), (120, 25, 256, 301, "random"),
-    (90, 9, 300, 130, "big")])
+    (90, 9, 300, 130, "big")]
+    + [(150, 12, k, 301, "empty") for k in ROW_EDGE_RANKS]
+    + [(37, 3, 161, 31, "random"), (300, 25, 193, 29, "big"),
+       (11, 4, 191, 333, "random"), (1, 1, 321, 45, "random"),
+       (300, 107, 161, 3457, "empty"), (300, 2, 193, 3501, "big"),
+       (377, 16, 320, 3459, "random"), (300, 8, 161, 8191, "cancel"),
+       (377, 8, 300, 8191, "cancel")])
 def test_row_xty(cuda, N, L, K, M, layout):
     codes, R, mask, D, F = (_t(x, cuda) for x in _row_xty_case(
         N, L, K, M, layout, seed=N + L + K))
@@ -202,17 +216,26 @@ def test_row_xty(cuda, N, L, K, M, layout):
         assert _max_err_ok(got, row.row_xty_plain(codes, R, mask, D, F), 3e-5)
     # the same without the row order (derived), bit for bit
     assert torch.equal(got, row.row_xty(codes, R, mask, D, F))
+    # a uint8 mask gives the f32 mask's bits
+    assert torch.equal(got, row.row_xty(codes, R, mask.to(torch.uint8), D, F,
+                                        levels))
     err, control = _row_xty_errors(codes, R, mask, D, F, got)
     assert err <= ROW_XTY_RTOL
     if layout == "cancel":
         assert control > ROW_XTY_RTOL
 
 
+# past 128 also the wide tile's edges, as test_row_xty's: K at the
+# k-chunks' edges, M and N below one tile, and the 64 x 128 tile
 @pytest.mark.parametrize("N,M,K,no_test", [
     (64, 256, 8, False), (377, 1111, 24, False), (300, 777, 50, False),
     (120, 301, 96, True), (90, 130, 128, False), (1, 33, 24, True),
     (150, 301, 129, False), (120, 130, 160, True), (90, 131, 256, False),
-    (65, 67, 300, False)])
+    (65, 67, 300, False)]
+    + [(150, 301, k, False) for k in ROW_EDGE_RANKS]
+    + [(37, 31, 161, False), (11, 333, 191, True), (1, 45, 321, False),
+       (300, 3457, 161, False), (377, 3459, 320, True),
+       (301, 3501, 193, False)])
 def test_masked_eval(cuda, N, M, K, no_test):
     rng = np.random.default_rng(2)
     data = _t(rng.standard_normal((N, M)).astype(np.float32), cuda)
@@ -233,6 +256,9 @@ def test_masked_eval(cuda, N, M, K, no_test):
         assert got[1] == 0.0 and got[3] == 0.0
     again = [float(x) for x in ev.masked_eval(data, train, test, R, F)]
     assert again == got
+    # uint8 masks give the f32 masks' bits
+    assert [float(x) for x in ev.masked_eval(
+        data, train.to(torch.uint8), test.to(torch.uint8), R, F)] == got
 
 
 # Warm starts of the FSS kernels: every coordinate zero (the active sets
@@ -1002,7 +1028,9 @@ def _u8_case(rng, N, K, M, dev, offset=0):
 
 @pytest.mark.parametrize("N,K,M", [(37, 8, 1031), (377, 24, 2001),
                                    (130, 50, 777), (90, 128, 131)]
-                         + [(90, k, 131) for k in WIDE_RANKS])
+                         + [(90, k, 131) for k in WIDE_RANKS]
+                         + [(90, k, 131) for k in ROW_EDGE_RANKS]
+                         + [(7, 161, 29), (300, 193, 3457)])
 def test_row_xty_uint8_mask(cuda, N, K, M):
     rng = np.random.default_rng(N + K)
     L = 7
@@ -1018,7 +1046,9 @@ def test_row_xty_uint8_mask(cuda, N, K, M):
 
 @pytest.mark.parametrize("N,M,K", [(64, 257, 8), (377, 2001, 24),
                                    (300, 777, 50), (90, 131, 128)]
-                         + [(90, 131, k) for k in WIDE_RANKS])
+                         + [(90, 131, k) for k in WIDE_RANKS]
+                         + [(90, 131, k) for k in ROW_EDGE_RANKS]
+                         + [(7, 29, 161), (300, 3457, 193)])
 def test_masked_eval_uint8_masks(cuda, N, M, K):
     rng = np.random.default_rng(N + M)
     data = _t(rng.standard_normal((N, M)).astype(np.float32), cuda)

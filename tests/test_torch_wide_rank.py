@@ -103,13 +103,17 @@ def _close(got, want, rtol, atol_frac):
                                atol=atol_frac * float(np.abs(want).max()))
 
 
-def _masked(N, M, seed):
+def _masked(N, M, seed, k=K):
     rng = np.random.default_rng(seed)
-    R = (0.3 * rng.standard_normal((N, K))).astype(np.float32)
+    R = (0.3 * rng.standard_normal((N, k))).astype(np.float32)
     mask = (rng.random((N, M)) > 0.1).astype(np.float32)
     data = rng.standard_normal((N, M)).astype(np.float32)
-    F = (0.3 * rng.standard_normal((K, M))).astype(np.float32)
+    F = (0.3 * rng.standard_normal((k, M))).astype(np.float32)
     return rng, R, mask, data, F
+
+
+# the module's rank, and one past a multiple of the card kernels' k-chunk
+ROW_RANKS = (K, 161)
 
 
 def test_col_gram_xty_plain_matches_pallas():
@@ -122,8 +126,9 @@ def test_col_gram_xty_plain_matches_pallas():
         _close(g, w, 0.0, 3e-5)
 
 
-def test_row_xty_plain_matches_pallas():
-    rng, R, mask, data, F = _masked(48, 300, seed=2)
+@pytest.mark.parametrize("k", ROW_RANKS)
+def test_row_xty_plain_matches_pallas(k):
+    rng, R, mask, data, F = _masked(48, 300, seed=2, k=k)
     L = 5
     codes = rng.integers(0, L, 48).astype(np.int32)
     E = np.eye(L, dtype=np.float32)[codes]
@@ -131,7 +136,7 @@ def test_row_xty_plain_matches_pallas():
     want = row_xty_pallas(jnp.asarray(E), jnp.asarray(R), jnp.asarray(mask),
                           jnp.asarray(D), jnp.asarray(F), interpret=True)
     got = row.row_xty(*(torch.from_numpy(x) for x in (codes, R, mask, D, F)))
-    assert got.shape == (L, K)
+    assert got.shape == (L, k)
     _close(got, want, 3e-5, 3e-5)
 
 
@@ -193,8 +198,9 @@ def test_level_gram_past_the_old_ceiling_matches_jax(form):
     _close(got, want, 2e-5, 2e-5)
 
 
-def test_masked_eval_plain_matches_pallas():
-    rng, R, train, data, F = _masked(64, 300, seed=4)
+@pytest.mark.parametrize("k", ROW_RANKS)
+def test_masked_eval_plain_matches_pallas(k):
+    rng, R, train, data, F = _masked(64, 300, seed=4, k=k)
     test = ((rng.random(train.shape) < 0.5) * (1 - train)).astype(np.float32)
     tr, te, nt, ne = masked_eval_pallas(
         jnp.asarray(data), jnp.asarray(train), jnp.asarray(test),
